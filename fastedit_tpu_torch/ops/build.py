@@ -1,0 +1,119 @@
+"""Build and load the hand-written CUDA kernels under ``csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+into ``build/kernels/lib<name>-<hash>.so`` at the repository root, then
+loaded with ``ctypes``.  No PyTorch headers are included, so a build takes
+seconds.  The hash covers the source and the flags, so an edited kernel is
+rebuilt and a stale library is never loaded.  Nothing is built at import:
+the first launch of a kernel builds it, or :func:`build_all` builds every
+kernel at once (one ``nvcc`` per source, all started together).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The C functions of each library and their argument types; every one
+# returns a CUDA error code (int).  Set once, when the library is loaded.
+KERNELS = {
+    "conv3x3": {"conv3x3_bf16": [_P] * 4 + [_I] * 6 + [_P]},
+    "flash_attention": {
+        "flash_attention_bf16": [_P] * 4 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _P],
+    },
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels are built on a machine with "
+            "the CUDA toolkit (on PATH or under /usr/local/cuda)"
+        )
+    return found
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one kernel; returns (target, process) or (target, None)
+    when the library is already built."""
+    target = _target(name)
+    if target.exists():
+        return target, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return target, (proc, tmp)
+
+
+def _finish(name: str, target: Path, started) -> str:
+    """Wait for nvcc; returns its log, kept beside the library."""
+    log_path = target.with_suffix(".log")
+    if started is None:
+        return log_path.read_text() if log_path.exists() else ""
+    proc, tmp = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, target)
+    return log
+
+
+def build_all() -> dict[str, str]:
+    """Build every kernel in parallel; returns nvcc's log (``-Xptxas -v``:
+    registers, shared memory and spills per kernel) by kernel name, also
+    for a library built earlier."""
+    started = {name: _start(name) for name in KERNELS}
+    logs = {}
+    errors = []
+    for name, (target, st) in started.items():
+        try:
+            logs[name] = _finish(name, target, st)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, built first if needed, with the
+    signatures of its C functions set."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            target, st = _start(name)
+            _finish(name, target, st)
+            lib = ctypes.CDLL(str(target))
+            for symbol, argtypes in KERNELS[name].items():
+                fn = getattr(lib, symbol)
+                fn.restype, fn.argtypes = ctypes.c_int, argtypes
+            _libs[name] = lib
+        return _libs[name]

@@ -1,0 +1,155 @@
+"""Pipeline stages: prompt encode / prepare / VAE sample / denoise / decode.
+
+The edit path is Canny prepare -> VAE encode -> LCM denoise loop
+(ControlNet + UNet on a pair-interleaved CFG batch) -> VAE decode to
+uint8, as in the JAX package's ``pipeline/stages.py``.  PyTorch runs
+eagerly, so each stage is a plain function of its modules and inputs.
+Every stage that needs random numbers takes them as explicit tensors: the
+editor draws them from a ``torch.Generator``, and the parity tests pass the
+JAX package's own ``jax.random`` draws.
+
+Semantics mirrored from the JAX package:
+  * context = concat(penultimate states of both towers), pooled = tower 2's
+    projected pooled embedding;
+  * CFG batch pair-interleaved (u0, c0, u1, c1, ...); CFG skipped when
+    guidance <= 1;
+  * the ControlNet conditioning tower runs once per edit at batch B;
+  * initial noise added in fp32; LCM step in fp32;
+  * decode ``(clip(x/2 + 0.5) * 255 + 0.5)`` to uint8, one image at a time.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from fastedit_tpu_torch.models.clip import CLIPTextModel
+from fastedit_tpu_torch.models.controlnet import ControlNetModel
+from fastedit_tpu_torch.models.unet import UNet2DConditionModel
+from fastedit_tpu_torch.models.vae import AutoencoderKL
+from fastedit_tpu_torch.ops.canny import canny
+from fastedit_tpu_torch.sched.lcm import LCMSchedule, add_noise, lcm_step
+
+
+@dataclasses.dataclass
+class PipelineModules:
+    """The models of one editor instance (weights live in the modules)."""
+
+    unet: UNet2DConditionModel
+    controlnet: ControlNetModel
+    vae: AutoencoderKL
+    text_encoder: CLIPTextModel
+    text_encoder_2: CLIPTextModel
+    vae_scaling_factor: float
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.unet.conv_in.weight.dtype
+
+
+@torch.no_grad()
+def encode_prompt(mod: PipelineModules, ids_1: torch.Tensor, ids_2: torch.Tensor):
+    """[B, 77] token ids x2 -> (context [B, 77, D1+D2], pooled [B, P])."""
+    out1 = mod.text_encoder(ids_1)
+    out2 = mod.text_encoder_2(ids_2)
+    context = torch.cat(
+        [out1.penultimate_hidden_state, out2.penultimate_hidden_state], dim=-1
+    )
+    return context, out2.pooled_output
+
+
+@torch.no_grad()
+def prepare(mod: PipelineModules, img_u8: torch.Tensor, low, high, control_res: int):
+    """uint8 [B, H, W, 3] -> (canny control [B, r, r, 3] in [0, 1], VAE input
+    [B, H, W, 3] in [-1, 1]), both in the model dtype."""
+    f = img_u8.float()
+    edges = canny(img_u8, low, high)  # [B, H, W] uint8
+    control = edges[..., None].expand(*edges.shape, 3).float() / 255.0
+    if control_res != control.shape[1]:
+        control = F.interpolate(
+            control.permute(0, 3, 1, 2), size=(control_res, control_res),
+            mode="nearest-exact",
+        ).permute(0, 2, 3, 1)
+    vae_in = f / 127.5 - 1.0
+    return control.to(mod.dtype).contiguous(), vae_in.to(mod.dtype)
+
+
+@torch.no_grad()
+def vae_sample(mod: PipelineModules, image: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] image -> scaled posterior-sampled latents.  ``eps`` is a
+    standard normal draw of the latent shape, or of batch 1 to give every
+    image the same noise."""
+    mean, logvar = mod.vae.encode_moments(image)
+    return AutoencoderKL.sample(mean, logvar, eps) * mod.vae_scaling_factor
+
+
+@torch.no_grad()
+def vae_decode(mod: PipelineModules, latents: torch.Tensor) -> torch.Tensor:
+    """Scaled latents [B, h, w, 4] -> uint8 images [B, H, W, 3], decoding
+    one image at a time (peak memory stays that of one image)."""
+    out = []
+    for i in range(latents.shape[0]):
+        img = mod.vae.decode(latents[i : i + 1] / mod.vae_scaling_factor)
+        img01 = (img.float() / 2 + 0.5).clamp(0.0, 1.0)
+        out.append((img01 * 255.0 + 0.5).to(torch.uint8))
+    return torch.cat(out)
+
+
+@torch.no_grad()
+def denoise(
+    mod: PipelineModules,
+    latents: torch.Tensor,  # [B, h, w, 4] clean scaled latents
+    context: torch.Tensor,  # [B, 77, D]; CFG: [2B] pair-interleaved
+    pooled: torch.Tensor,  # [B or 2B, P]
+    time_ids: torch.Tensor,  # [B or 2B, 6]
+    control_image: torch.Tensor,  # [B, H, W, 3] in [0, 1]
+    schedule: LCMSchedule,
+    guidance_scale: float,
+    controlnet_scale: float,
+    noise_init: torch.Tensor,  # fp32, latents' shape (or batch 1)
+    step_noise: Sequence[torch.Tensor],  # one fp32 draw per step
+    do_cfg: bool,
+) -> torch.Tensor:
+    """The LCM loop: ControlNet + UNet under CFG, one LCM step per
+    timestep.  Returns the final latents."""
+    b = latents.shape[0]
+    if do_cfg and context.shape[0] != 2 * b:
+        raise ValueError("CFG expects a pair-interleaved [2B] context")
+    if len(step_noise) != schedule.num_steps:
+        raise ValueError(f"need {schedule.num_steps} step noises, got {len(step_noise)}")
+    cn = mod.controlnet
+    cond_feat = cn.controlnet_cond_embedding(control_image.to(mod.dtype))
+    cond_in = cond_feat.repeat_interleave(2, dim=0) if do_cfg else cond_feat
+    lat = add_noise(schedule, latents.float(), noise_init).to(latents.dtype)
+    for i in range(schedule.num_steps):
+        lat_in = lat.repeat_interleave(2, dim=0) if do_cfg else lat
+        t_in = torch.full(
+            (lat_in.shape[0],), int(schedule.timesteps[i]), device=lat.device
+        )
+        down_res, mid_res = cn(
+            lat_in, t_in, context, pooled, time_ids, cond_in, controlnet_scale,
+            cond_pre_embedded=True,
+        )
+        eps = mod.unet(
+            lat_in, t_in, context, pooled, time_ids,
+            down_block_additional_residuals=down_res,
+            mid_block_additional_residual=mid_res,
+        )
+        if do_cfg:
+            e = eps.reshape(b, 2, *eps.shape[1:])
+            eps_u, eps_c = e[:, 0], e[:, 1]
+            # the scale is rounded to the eps dtype, as the JAX package does
+            gs = float(torch.tensor(guidance_scale).to(eps.dtype))
+            eps = eps_u + gs * (eps_c - eps_u)
+        lat = lcm_step(schedule, i, lat, eps, step_noise[i].expand_as(lat))
+    return lat
+
+
+def make_sdxl_time_ids(batch: int, size: int, device=None) -> torch.Tensor:
+    """SDXL micro-conditioning ids (orig_h, orig_w, crop_t, crop_l, tgt_h,
+    tgt_w): the img2img pipeline passes the model resolution for both."""
+    ids = torch.tensor([[size, size, 0, 0, size, size]], dtype=torch.float32)
+    return ids.repeat(batch, 1).to(device)
