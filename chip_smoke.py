@@ -12,20 +12,28 @@ order; a failed phase raises and the script exits non-zero:
 1. Build the CUDA kernels of ``fastedit_tpu_torch/csrc/`` (one ``nvcc`` per
    source, all started together) and print the card's name and power limit.
 2. Hold every kernel against its plain PyTorch version at every distinct
-   shape the SSD-1B edit path at 1024² gives it (shapes from the model
+   shape the SSD-1B edit path at 1024² gives it, in the default kernel
+   configuration and in the opt-in one (shapes and counts from the model
    configs, ``tools/inventory.py``), on seeded random bf16 inputs, and time
-   the kernel, the plain version and one PyTorch library call for the same
-   function with CUDA events.  Each attention shape also reads a planted
-   fault (the last KV tile skipped), which the tolerance must reject.
-3. The main path: ``FastEditor("ssd-1b", random_weights=True)`` at 1024²,
-   a warm-up, three ``edit()`` calls and one ``edit_batch`` of two images.
-   Seconds per edit and per stage, peak memory, and each kernel's launches,
-   which must equal the counts derived from the configs.
-4. Kernels against plain versions end to end: the same editor with seeded
-   fan-in-scaled weights, one edit with the kernels and one with
-   ``flags.override`` selecting the plain versions; final latents and
-   images compared.  Two plain edits with a planted fault (attention, conv)
-   are read against the plain edit beside the limits.
+   the kernel, the plain version and the nearest PyTorch library call with
+   CUDA events.  Each kernel also reads a planted fault in its plain version
+   (attention: the last KV tile skipped; fused conv: the padding ring not
+   re-zeroed; up2: one phase's tap rows swapped; down2: the other padding;
+   GroupNorm: a one-pass variance on an input with |mean| >> std), which the
+   tolerance must reject.
+3. The main path in the default configuration:
+   ``FastEditor("ssd-1b", random_weights=True)`` at 1024², a warm-up, three
+   ``edit()`` calls and one ``edit_batch`` of two images.  Seconds per edit
+   and per stage, peak memory, and each kernel's launches, which must equal
+   the inventory's counts.
+4. Kernels against plain versions end to end, with seeded fan-in-scaled
+   weights, in two arms: the default configuration, and the opt-in one
+   (``use_cuda_conv=True``: the encoder on the conv, fused resnet and
+   asymmetric stride-2 kernels; ``use_cuda_groupnorm=True``: the GroupNorm
+   kernel).  Each arm: one edit with the kernels, whose launches must equal
+   the inventory's, and one with ``flags.override(plain_versions=True)``;
+   final latents and images compared.  Two plain edits with a planted fault
+   (attention, conv) are read against the plain edit beside the limits.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Per-shape kernel figures and the main-path timings are also
@@ -53,11 +61,15 @@ PEAK_HBM_BYTES_PER_S = 3.35e12
 RESOLUTION = 1024
 EDIT_KW = dict(strength=0.8, num_inference_steps=4, guidance_scale=1.5)
 TIMING_REPS = 10
+# The opt-in kernel configuration of phase 4 (the path of the GroupNorm
+# kernel and of the encoder's fused and stride-2 kernels).
+OPT_IN = dict(use_cuda_conv=True, use_cuda_groupnorm=True)
 
 # Kernel vs plain version, per element, in bf16.  Both accumulate in fp32
 # and round once to bf16, so they differ by the final rounding (one bf16
 # ulp, at most 2^-7 of the value) plus fp32 summation-order differences,
-# which matter only for outputs near zero: the absolute term.
+# which matter only for outputs near zero: the absolute term.  It holds for
+# every conv form and for the GroupNorm kernel.
 CONV_REL, CONV_ABS_OF_MAX = 2.0**-7, 2.0**-10
 # Attention: the same relative term; the absolute term scales with the
 # RMS of the output, which shrinks as 1/sqrt(Skv) for a flat softmax.  It
@@ -66,6 +78,10 @@ CONV_REL, CONV_ABS_OF_MAX = 2.0**-7, 2.0**-10
 # the card in every run (phase 2).
 ATTN_REL, ATTN_ABS_OF_RMS = 2.0**-7, 2.0**-3
 KV_TILE = {64: 64, 512: 32}  # keys per KV tile in csrc/flash_attention.cu
+# GroupNorm's |mean| >> std input: bf16 values 384 and 386 (one in 512 is
+# 386): std ~0.09, far below what fp32 resolves of E[x^2] ~ 147456 (ulp
+# 2^-6), so a one-pass variance is noise while the two-pass one is exact.
+GN_OFFSET, GN_SPIKE, GN_SPIKE_RATE = 384.0, 2.0, 1.0 / 512
 # End to end (phase 4): the paths agree per op within the bounds above, and
 # bf16 rounding differences (2^-9 relative) at some 200 sequential layers
 # per step over 3 steps leave a few percent at most in the final latents.
@@ -112,12 +128,17 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def n_outside(out, ref, rel: float, abs_tol: float) -> int:
+    """Elements with |out - ref| > rel * |ref| + abs_tol, or not finite."""
+    d = (out.float() - ref.float()).abs()
+    return int((~(d <= rel * ref.float().abs() + abs_tol)).sum())
+
+
 def check_close(what: str, out, ref, rel: float, abs_tol: float) -> tuple[float, float]:
     """Raise unless |out - ref| <= rel * |ref| + abs_tol everywhere; return
     (max abs error, max abs error / max |ref|)."""
     d = (out.float() - ref.float()).abs()
-    lim = rel * ref.float().abs() + abs_tol
-    n_bad = int((d > lim).sum())
+    n_bad = n_outside(out, ref, rel, abs_tol)
     err, scale = float(d.max()), float(ref.float().abs().max())
     if n_bad or not bool(out.float().isfinite().all()):
         raise AssertionError(
@@ -125,6 +146,10 @@ def check_close(what: str, out, ref, rel: float, abs_tol: float) -> tuple[float,
             f"max |ref| {scale})"
         )
     return err, err / max(scale, 1e-30)
+
+
+def conv_tol(ref) -> float:
+    return CONV_ABS_OF_MAX * float(ref.float().abs().max())
 
 
 def err_over_rms(out, ref, rel: float) -> float:
@@ -138,69 +163,261 @@ def err_over_rms(out, ref, rel: float) -> float:
 
 
 def kernel_shapes():
-    """Per-edit call counts of the SSD-1B edit path at 1024² (one ``edit``
-    and one ``edit_batch`` of two), from the configs."""
+    """Kernel calls per edit of the SSD-1B edit path at 1024², keyed by
+    (kernel, shape): the default configuration for one ``edit`` and one
+    ``edit_batch`` of two, and the opt-in configuration for one ``edit``."""
     from fastedit_tpu_torch.models import configs as C
+    from fastedit_tpu_torch.ops import flags
     from fastedit_tpu_torch.tools import inventory
 
     args = (C.SSD1B_UNET, C.SDXL_CONTROLNET_SMALL, C.SDXL_VAE, RESOLUTION)
-    return {b: inventory.edit_calls(*args, batch=b, steps=3) for b in (1, 2)}
+    sites = {b: inventory.edit_sites(*args, batch=b, steps=3) for b in (1, 2)}
+    calls = {f"default_b{b}": inventory.kernel_calls(sites[b]) for b in (1, 2)}
+    with flags.override(**OPT_IN):
+        calls["optin_b1"] = inventory.kernel_calls(sites[1])
+    return calls
 
 
-def compare_conv(shapes: dict, gen) -> list[dict]:
+def keys_of(calls: dict, kernel: str) -> list:
+    return sorted({key for c in calls.values() for (k, key) in c if k == kernel}, key=str)
+
+
+def hold(calls, kernel, key, kern, plain, library, flops, nbytes, fault=None,
+         extra=None) -> dict:
+    """Check ``kern()`` against ``plain()`` with the conv tolerance (and the
+    planted ``fault()`` against it, which must fail), then time the kernel,
+    the plain version and the library call.  One row of the per-shape
+    table."""
     import torch
+
+    out, ref = kern(), plain()
+    torch.cuda.synchronize()
+    err, rel = check_close(f"{kernel} {key}", out, ref, CONV_REL, conv_tol(ref))
+    row = dict(kernel=kernel, shape=list(key), max_abs_err=err, max_rel_err=rel)
+    if fault is not None:
+        bad = n_outside(fault(), ref, CONV_REL, conv_tol(ref))
+        row["fault_elements_outside"] = bad
+        if bad == 0:
+            raise AssertionError(f"{kernel} {key}: the tolerance passes the planted fault")
+    del out, ref
+    b_ms, b_by = bound_ms(flops, nbytes)
+    row.update(extra or {})
+    row.update(
+        calls_edit=calls["default_b1"].get((kernel, key), 0),
+        calls_edit_batch2=calls["default_b2"].get((kernel, key), 0),
+        calls_edit_optin=calls["optin_b1"].get((kernel, key), 0),
+        ms=time_ms(kern), plain_ms=time_ms(plain), library_ms=time_ms(library),
+        bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+    )
+    log(kernel, list(key), {k: row[k] for k in (
+        "max_abs_err", "max_rel_err", "ms", "plain_ms", "library_ms", "bound_ms")},
+        {"fault_elements_outside": row["fault_elements_outside"]} if fault else "")
+    return row
+
+
+def _conv_operands(gen, n, h, w, cin, cout):
+    import torch
+
+    x = torch.randn((n, h, w, cin), generator=gen, device="cuda").bfloat16()
+    wt = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") * (9 * cin) ** -0.5
+    wt = wt.bfloat16().contiguous(memory_format=torch.channels_last)
+    bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+    return x, wt, bias
+
+
+def compare_conv(calls: dict, gen) -> list[dict]:
     import torch.nn.functional as F
 
     from fastedit_tpu_torch.ops import conv3x3 as k
 
     rows = []
-    keys = sorted({s for b in shapes for s in shapes[b][0]})
-    for n, h, w, cin, cout in keys:
-        if not k.supports((n, h, w, cin), (cout, cin, 3, 3)):
-            continue
-        dev = "cuda"
-        x = torch.randn((n, h, w, cin), generator=gen, device=dev).bfloat16()
-        wt = (torch.randn((cout, cin, 3, 3), generator=gen, device=dev) * (9 * cin) ** -0.5)
-        wt = wt.bfloat16().contiguous(memory_format=torch.channels_last)
-        bias = torch.randn(cout, generator=gen, device=dev) * 0.1
-        out = k.conv3x3(x, wt, bias)
-        ref = k.conv3x3_plain(x, wt, bias)
-        torch.cuda.synchronize()
-        err, rel = check_close(
-            f"conv3x3 {(n, h, w, cin, cout)}", out, ref, CONV_REL,
-            CONV_ABS_OF_MAX * float(ref.float().abs().max()),
-        )
-        del ref, out
+    for key in keys_of(calls, "conv3x3"):
+        n, h, w, cin, cout = key
+        x, wt, bias = _conv_operands(gen, n, h, w, cin, cout)
         x_nchw, bias_bf = x.permute(0, 3, 1, 2), bias.bfloat16()
-        flops = 2.0 * n * h * w * cout * 9 * cin
-        nbytes = 2.0 * (n * h * w * cin + 9 * cin * cout + n * h * w * cout) + 4.0 * cout
-        b_ms, b_by = bound_ms(flops, nbytes)
-        rows.append(dict(
-            kernel="conv3x3", shape=[n, h, w, cin, cout],
-            calls_edit=shapes[1][0].get((n, h, w, cin, cout), 0),
-            calls_edit_batch2=shapes[2][0].get((n, h, w, cin, cout), 0),
-            max_abs_err=err, max_rel_err=rel,
-            ms=time_ms(lambda: k.conv3x3(x, wt, bias)),
-            plain_ms=time_ms(lambda: k.conv3x3_plain(x, wt, bias)),
-            library_ms=time_ms(lambda: F.conv2d(x_nchw, wt, bias_bf, padding=1)),
-            bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+        rows.append(hold(
+            calls, "conv3x3", key,
+            lambda: k.conv3x3(x, wt, bias), lambda: k.conv3x3_plain(x, wt, bias),
+            lambda: F.conv2d(x_nchw, wt, bias_bf, padding=1),
+            flops=2.0 * n * h * w * cout * 9 * cin,
+            nbytes=2.0 * (n * h * w * cin + 9 * cin * cout + n * h * w * cout) + 4.0 * cout,
         ))
-        log("conv3x3", rows[-1]["shape"], {key: rows[-1][key] for key in
-            ("max_abs_err", "max_rel_err", "ms", "plain_ms", "library_ms", "bound_ms")})
     return rows
 
 
-def compare_attention(shapes: dict, gen) -> list[dict]:
+def compare_fused(calls: dict, gen) -> list[dict]:
+    """The fused resnet conv with its prologue, per-batch or shared bias
+    and skip as the key says.  Fault: the prologue applied to the padded
+    input, so the ring holds silu(shift) instead of zero.  Library: the
+    bare conv (``F.conv2d``), without the prologue and epilogue."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastedit_tpu_torch.ops import conv_fused as cf
+
+    rows = []
+    for key in keys_of(calls, "conv3x3_fused"):
+        n, h, w, cin, cout, per_batch_bias, has_skip = key
+        x, wt, bias = _conv_operands(gen, n, h, w, cin, cout)
+        if per_batch_bias:
+            bias = torch.randn((n, cout), generator=gen, device="cuda") * 0.1
+        scale = torch.rand((n, cin), generator=gen, device="cuda") + 0.5
+        shift = torch.randn((n, cin), generator=gen, device="cuda") * 0.5
+        skip = (torch.randn((n, h, w, cout), generator=gen, device="cuda").bfloat16()
+                if has_skip else None)
+        pre = (scale, shift)
+
+        def ring_not_zeroed():
+            xp = F.pad(x, (0, 0, 1, 1, 1, 1))  # NHWC, zero ring
+            xr = cf.prologue_plain(xp, scale, shift)
+            out = F.conv2d(xr.permute(0, 3, 1, 2).float(), wt.float()).permute(0, 2, 3, 1)
+            out = out + (bias[:, None, None, :] if bias.dim() == 2 else bias)
+            return (out if skip is None else out + skip.float()).bfloat16()
+
+        x_nchw, bias_bf = x.permute(0, 3, 1, 2), bias.reshape(-1, cout)[0].bfloat16()
+        nbytes = (2.0 * (n * h * w * cin + 9 * cin * cout + n * h * w * cout * (2 if skip is not None else 1))
+                  + 4.0 * (bias.numel() + 2 * n * cin))
+        rows.append(hold(
+            calls, "conv3x3_fused", key,
+            lambda: cf.conv3x3_fused(x, wt, bias, pre, skip=skip),
+            lambda: cf.conv3x3_fused_plain(x, wt, bias, pre, skip=skip),
+            lambda: F.conv2d(x_nchw, wt, bias_bf, padding=1),
+            flops=2.0 * n * h * w * cout * 9 * cin, nbytes=nbytes, fault=ring_not_zeroed,
+        ))
+    return rows
+
+
+def compare_up2(calls: dict, gen) -> list[dict]:
+    """Fault: phase (1, 1) with its two tap rows swapped.  Library: the
+    materialised upsample and the conv, two calls (``repeat_interleave``
+    + ``F.conv2d``)."""
+    import torch.nn.functional as F
+
+    from fastedit_tpu_torch.ops import conv_fused as cf
+
+    rows = []
+    for key in keys_of(calls, "conv3x3_up2"):
+        n, h, w, cin, cout = key
+        x, wt, bias = _conv_operands(gen, n, h, w, cin, cout)
+        phases = cf.make_phase_kernels(wt)
+        swapped = phases.clone()
+        swapped[1, 1] = phases[1, 1].flip(0)
+        x_nchw, bias_bf = x.permute(0, 3, 1, 2), bias.bfloat16()
+
+        def library():
+            up = x_nchw.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+            return F.conv2d(up, wt, bias_bf, padding=1)
+
+        rows.append(hold(
+            calls, "conv3x3_up2", key,
+            lambda: cf.conv3x3_up2(x, wt, bias), lambda: cf.conv3x3_up2_plain(x, wt, bias),
+            library, flops=32.0 * n * h * w * cin * cout,
+            nbytes=2.0 * (n * h * w * cin + 9 * cin * cout + 4 * n * h * w * cout) + 4.0 * cout,
+            fault=lambda: cf.up2_phases_plain(x, swapped, bias),
+        ))
+    return rows
+
+
+def compare_down2(calls: dict, gen) -> list[dict]:
+    """Fault: the other padding ((1, 1) where (0, 1) is asked, and the
+    reverse).  Library: ``F.conv2d(stride=2)`` (after ``F.pad`` for the
+    asymmetric padding)."""
+    import torch.nn.functional as F
+
+    from fastedit_tpu_torch.ops import conv_fused as cf
+
+    rows = []
+    for key in keys_of(calls, "conv3x3_down2"):
+        n, h, w, cin, cout, asym = key
+        x, wt, bias = _conv_operands(gen, n, h, w, cin, cout)
+        x_nchw, bias_bf = x.permute(0, 3, 1, 2), bias.bfloat16()
+
+        def library():
+            if asym:
+                return F.conv2d(F.pad(x_nchw, (0, 1, 0, 1)), wt, bias_bf, stride=2)
+            return F.conv2d(x_nchw, wt, bias_bf, stride=2, padding=1)
+
+        ho, wo = h // 2, w // 2
+        rows.append(hold(
+            calls, "conv3x3_down2", key,
+            lambda: cf.conv3x3_down2(x, wt, bias, asymmetric=asym),
+            lambda: cf.conv3x3_down2_plain(x, wt, bias, asymmetric=asym),
+            library, flops=2.0 * n * ho * wo * cout * 9 * cin,
+            nbytes=2.0 * (n * h * w * cin + 9 * cin * cout + n * ho * wo * cout) + 4.0 * cout,
+            fault=lambda: cf.conv3x3_down2_plain(x, wt, bias, asymmetric=not asym),
+        ))
+    return rows
+
+
+def compare_group_norm(calls: dict, gen) -> list[dict]:
+    """Two inputs per shape: normal values, held and timed; and the |mean|
+    >> std input, held too, with the planted fault (a one-pass variance)
+    read on it.  Library: ``F.group_norm`` (+ ``F.silu``) on channels_last
+    NCHW."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastedit_tpu_torch.ops import fused_groupnorm as fg
+    from fastedit_tpu_torch.ops.groupnorm import group_norm_plain
+
+    def one_pass(x, gamma, beta, groups, act):
+        b, h, w, c = x.shape
+        xf = x.float().reshape(b, h * w, groups, c // groups)
+        mean = xf.mean(dim=(1, 3), keepdim=True)
+        var = xf.square().mean(dim=(1, 3), keepdim=True) - mean.square()
+        out = ((xf - mean) * torch.rsqrt(var + 1e-5)).reshape(b, h, w, c) * gamma + beta
+        return (F.silu(out) if act == "silu" else out).bfloat16()
+
+    rows = []
+    for key in keys_of(calls, "group_norm"):
+        n, h, w, c, groups, act = key
+        gamma = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1.0
+        beta = torch.randn(c, generator=gen, device="cuda") * 0.2
+        spikes = torch.rand((n, h, w, c), generator=gen, device="cuda") < GN_SPIKE_RATE
+        offset = (GN_OFFSET + GN_SPIKE * spikes.float()).bfloat16()
+        del spikes
+        out = fg.fused_group_norm(offset, gamma, beta, groups, 1e-5, act)
+        ref = group_norm_plain(offset, gamma, beta, groups, 1e-5, act)
+        torch.cuda.synchronize()
+        off_err, _ = check_close(f"group_norm {key}, |mean| >> std", out, ref, CONV_REL,
+                                 conv_tol(ref))
+        fault_bad = n_outside(one_pass(offset, gamma, beta, groups, act), ref, CONV_REL,
+                              conv_tol(ref))
+        del out, ref, offset
+        if fault_bad == 0:
+            raise AssertionError(f"group_norm {key}: the tolerance passes a one-pass variance")
+
+        x = (torch.randn((n, h, w, c), generator=gen, device="cuda") * 2.0 + 0.5).bfloat16()
+        x_nchw = x.permute(0, 3, 1, 2)
+        g_bf, b_bf = gamma.bfloat16(), beta.bfloat16()
+
+        def library():
+            y = F.group_norm(x_nchw, groups, g_bf, b_bf, 1e-5)
+            return F.silu(y) if act == "silu" else y
+
+        elems = n * h * w * c
+        rows.append(hold(
+            calls, "group_norm", key,
+            lambda: fg.fused_group_norm(x, gamma, beta, groups, 1e-5, act),
+            lambda: group_norm_plain(x, gamma, beta, groups, 1e-5, act),
+            library, flops=8.0 * elems, nbytes=4.0 * elems + 8.0 * c,
+            extra=dict(offset_max_abs_err=off_err, fault_elements_outside=fault_bad),
+        ))
+    return rows
+
+
+def compare_attention(calls: dict, gen) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
     from fastedit_tpu_torch.ops import flash_attention as fa
 
     rows, weak = [], []
-    keys = sorted({s for b in shapes for s in shapes[b][1]})
-    for b, sq, skv, h, d in keys:
-        if not fa.supports((b, sq, h, d), skv):
-            continue
+    keys = sorted({key for c in calls.values() for (k, key) in c
+                   if k.startswith("flash_attention")})
+    for key in keys:
+        b, sq, skv, h, d = key
+        name = f"flash_attention_d{d}"
         q = torch.randn((b, sq, h, d), generator=gen, device="cuda").bfloat16()
         kk = torch.randn((b, skv, h, d), generator=gen, device="cuda").bfloat16()
         v = torch.randn((b, skv, h, d), generator=gen, device="cuda").bfloat16()
@@ -210,13 +427,13 @@ def compare_attention(shapes: dict, gen) -> list[dict]:
         faulty = fa.attention_plain(q, kk[:, :-tile], v[:, :-tile])
         torch.cuda.synchronize()
         sound_c, fault_c = err_over_rms(out, ref, ATTN_REL), err_over_rms(faulty, ref, ATTN_REL)
-        log("attention", [b, sq, skv, h, d], f"err/rms kernel {sound_c:.5f}, "
+        log("attention", list(key), f"err/rms kernel {sound_c:.5f}, "
             f"last KV tile skipped {fault_c:.5f}, limit {ATTN_ABS_OF_RMS}")
         if fault_c <= ATTN_ABS_OF_RMS:
-            weak.append(f"flash_attention {(b, sq, skv, h, d)}: the tolerance passes "
+            weak.append(f"flash_attention {key}: the tolerance passes "
                         f"a skipped KV tile ({fault_c} <= {ATTN_ABS_OF_RMS})")
         err, rel = check_close(
-            f"flash_attention {(b, sq, skv, h, d)}", out, ref, ATTN_REL,
+            f"flash_attention {key}", out, ref, ATTN_REL,
             ATTN_ABS_OF_RMS * float(ref.float().square().mean().sqrt()),
         )
         del ref, out, faulty
@@ -225,9 +442,10 @@ def compare_attention(shapes: dict, gen) -> list[dict]:
         nbytes = 2.0 * b * h * d * (2 * sq + 2 * skv)
         b_ms, b_by = bound_ms(flops, nbytes)
         rows.append(dict(
-            kernel=f"flash_attention_d{d}", shape=[b, sq, skv, h, d],
-            calls_edit=shapes[1][1].get((b, sq, skv, h, d), 0),
-            calls_edit_batch2=shapes[2][1].get((b, sq, skv, h, d), 0),
+            kernel=name, shape=list(key),
+            calls_edit=calls["default_b1"].get((name, key), 0),
+            calls_edit_batch2=calls["default_b2"].get((name, key), 0),
+            calls_edit_optin=calls["optin_b1"].get((name, key), 0),
             max_abs_err=err, max_rel_err=rel, err_over_rms=sound_c,
             fault_err_over_rms=fault_c,
             ms=time_ms(lambda: fa.flash_attention(q, kk, v)),
@@ -235,7 +453,7 @@ def compare_attention(shapes: dict, gen) -> list[dict]:
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
             bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
         ))
-        log("attention", rows[-1]["shape"], {key: rows[-1][key] for key in
+        log("attention", rows[-1]["shape"], {k: rows[-1][k] for k in
             ("max_abs_err", "max_rel_err", "ms", "plain_ms", "library_ms", "bound_ms")})
     if weak:
         raise AssertionError("\n".join(weak))
@@ -262,80 +480,32 @@ def test_image(seed: int, n: int = RESOLUTION):
     return Image.fromarray(np.clip(img, 0, 255).astype(np.uint8), "RGB")
 
 
-class StageTimer:
-    """Wraps the pipeline's stage functions with CUDA events, so each
-    edit's device time per stage can be read after it returns."""
-
-    STAGES = ("encode_prompt", "prepare", "vae_sample", "denoise", "vae_decode")
-
-    def __init__(self):
-        from fastedit_tpu_torch.pipeline import stages
-
-        self.stages = stages
-        self.events = []
-        self.last_latents = None
-        self._orig = {name: getattr(stages, name) for name in self.STAGES}
-        for name, fn in self._orig.items():
-            setattr(stages, name, self._wrap(name, fn))
-
-    def _wrap(self, name, fn):
-        import torch
-
-        def timed(*args, **kwargs):
-            if name == "vae_decode":
-                self.last_latents = args[1].float().clone()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            self.events.append((name, start, end))
-            return out
-
-        return timed
-
-    def take(self) -> dict:
-        """Device ms per stage since the last call (the edit has returned,
-        so its events have completed)."""
-        ms = {}
-        for name, start, end in self.events:
-            end.synchronize()
-            ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
-        self.events = []
-        return ms
-
-    def remove(self):
-        for name, fn in self._orig.items():
-            setattr(self.stages, name, fn)
-
-
 def launch_counts() -> dict:
-    from fastedit_tpu_torch.ops import conv3x3, flash_attention
+    from fastedit_tpu_torch.ops import conv3x3, conv_fused, flash_attention, fused_groupnorm
 
-    return {"conv3x3": conv3x3.launches,
+    return {"conv3x3": conv3x3.launches, **conv_fused.launches,
+            "group_norm": fused_groupnorm.launches,
             **{f"flash_attention_d{d}": n for d, n in flash_attention.launches.items()}}
 
 
 def reset_launch_counts() -> None:
-    from fastedit_tpu_torch.ops import conv3x3, flash_attention
+    from fastedit_tpu_torch.ops import conv3x3, conv_fused, flash_attention, fused_groupnorm
 
     conv3x3.launches = 0
-    for d in flash_attention.launches:
-        flash_attention.launches[d] = 0
+    fused_groupnorm.launches = 0
+    for counts in (conv_fused.launches, flash_attention.launches):
+        for k in counts:
+            counts[k] = 0
 
 
-def expected_launches(conv_calls, attn_calls) -> dict:
-    """Kernel launches the configs predict for the given call Counters."""
-    from fastedit_tpu_torch.ops import conv3x3, flash_attention
-
-    exp = {"conv3x3": sum(
-        c for (n, h, w, cin, cout), c in conv_calls.items()
-        if conv3x3.supports((n, h, w, cin), (cout, cin, 3, 3)))}
-    for d in flash_attention.HEAD_DIMS:
-        exp[f"flash_attention_d{d}"] = sum(
-            c for (b, sq, skv, h, dd), c in attn_calls.items()
-            if dd == d and flash_attention.supports((b, sq, h, dd), skv))
-    return exp
+def check_launches(what: str, launches: dict, expected: dict) -> None:
+    """Every kernel's launches equal the inventory's, and every kernel the
+    inventory expects was launched."""
+    log(f"launches ({what}):", launches, "expected:", expected)
+    for name, n in expected.items():
+        if launches.get(name) != n:
+            raise AssertionError(f"{what}: {name} launched {launches.get(name)} times, "
+                                 f"expected {n}")
 
 
 def check_image(img) -> None:
@@ -346,10 +516,12 @@ def check_image(img) -> None:
         raise AssertionError(f"edit returned {arr.dtype} {arr.shape}")
 
 
-def main_path(shapes: dict):
+def main_path(calls: dict):
     import torch
 
     from fastedit_tpu_torch import FastEditor
+    from fastedit_tpu_torch.tools.inventory import launches_by_kernel
+    from fastedit_tpu_torch.tools.profile_edit import StageTimer
 
     t0 = time.perf_counter()
     editor = FastEditor("ssd-1b", random_weights=True)
@@ -378,14 +550,10 @@ def main_path(shapes: dict):
     launches = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 1024**3
 
-    per_edit = expected_launches(*shapes[1])
-    per_batch2 = expected_launches(*shapes[2])
+    per_edit = launches_by_kernel(calls["default_b1"])
+    per_batch2 = launches_by_kernel(calls["default_b2"])
     expected = {k: 3 * per_edit[k] + per_batch2[k] for k in per_edit}
-    log("launches (3 edits + a batch of 2):", launches, "expected:", expected,
-        "per edit:", per_edit)
-    for name, n in launches.items():
-        if n <= 0 or n != expected[name]:
-            raise AssertionError(f"{name}: {n} launches, expected {expected[name]}")
+    check_launches("3 edits + a batch of 2, default configuration", launches, expected)
     log(f"peak device memory {peak_gib:.3f} GiB")
     return editor, timer, dict(
         editor_build_s=build_s, warmup_s=warm_s, edits=edits, edit_batch2=batch,
@@ -444,11 +612,12 @@ def planted_fault(kind: str):
         setattr(module, name, orig)
 
 
-def kernels_vs_plain(editor, timer) -> dict:
+def kernels_vs_plain(editor, timer, calls: dict) -> dict:
     import numpy as np
     import torch
 
     from fastedit_tpu_torch.ops import flags
+    from fastedit_tpu_torch.tools.inventory import launches_by_kernel
 
     seeded_weights_(editor, seed=20261016)
     img, prompt = test_image(5), "an oil painting of a lighthouse"
@@ -461,75 +630,105 @@ def kernels_vs_plain(editor, timer) -> dict:
             t = time.perf_counter()
             out = np.asarray(editor.edit(img, prompt, seed=11, **EDIT_KW), np.int32)
             sec = time.perf_counter() - t
-        timer.take()
+        stage_ms = timer.take()
         if not bool(timer.last_latents.isfinite().all()):
             raise AssertionError("non-finite final latents")
-        return out, timer.last_latents, sec
+        return out, timer.last_latents, sec, stage_ms
 
     def differ(a, b) -> dict:
         diff = np.abs(a[0] - b[0])
         return dict(latent_rel_l2=float((a[1] - b[1]).norm() / b[1].norm()),
                     image_mean_abs_lsb=float(diff.mean()), image_max_abs_lsb=int(diff.max()))
 
-    kern = run()
-    before = launch_counts()
-    plain = run(use_cuda_conv=False, use_cuda_attention=False)
-    faults = {kind: differ(run(kind, use_cuda_conv=False, use_cuda_attention=False), plain)
-              for kind in ("attention", "conv")}
-    if launch_counts() != before:
-        raise AssertionError("a plain-version edit launched a kernel")
-    res = dict(
-        differ(kern, plain), image_std=float(plain[0].std()),
-        latent_std=float(plain[1].std()), seconds_kernels=kern[2], seconds_plain=plain[2],
-        planted_faults=faults,
-    )
-    log("kernels vs plain end to end:", res)
-    if (res["latent_rel_l2"] > E2E_LATENT_REL_L2
-            or res["image_mean_abs_lsb"] > E2E_IMAGE_MEAN_LSB):
-        raise AssertionError(
-            f"kernel edit differs from plain edit beyond tolerance "
-            f"(latents rel L2 <= {E2E_LATENT_REL_L2}, image mean <= "
-            f"{E2E_IMAGE_MEAN_LSB} LSB): {res}"
-        )
-    if res["latent_std"] == 0.0:
-        raise AssertionError("seeded-weight edit gave constant latents")
-    conv_fault = faults["conv"]
-    if (conv_fault["latent_rel_l2"] <= E2E_LATENT_REL_L2
-            or conv_fault["image_mean_abs_lsb"] <= E2E_IMAGE_MEAN_LSB):
-        raise AssertionError(f"the end-to-end tolerance passes a planted conv fault: {conv_fault}")
+    def within_limits(what, res):
+        if (res["latent_rel_l2"] > E2E_LATENT_REL_L2
+                or res["image_mean_abs_lsb"] > E2E_IMAGE_MEAN_LSB):
+            raise AssertionError(
+                f"{what}: kernel edit differs from plain edit beyond tolerance "
+                f"(latents rel L2 <= {E2E_LATENT_REL_L2}, image mean <= "
+                f"{E2E_IMAGE_MEAN_LSB} LSB): {res}"
+            )
+
+    arms = {}
+    for arm, override, key in (("default", {}, "default_b1"), ("opt_in", OPT_IN, "optin_b1")):
+        reset_launch_counts()
+        kern = run(**override)
+        launches = launch_counts()
+        check_launches(f"one edit, {arm} configuration", launches,
+                       launches_by_kernel(calls[key]))
+        plain = run(plain_versions=True, **override)
+        if launch_counts() != launches:
+            raise AssertionError("a plain-version edit launched a kernel")
+        res = dict(differ(kern, plain), image_std=float(plain[0].std()),
+                   latent_std=float(plain[1].std()), seconds_kernels=kern[2],
+                   seconds_plain=plain[2], stage_ms_kernels=kern[3], launches=launches)
+        log(f"kernels vs plain end to end, {arm} configuration:", res)
+        within_limits(arm, res)
+        if res["latent_std"] == 0.0:
+            raise AssertionError("seeded-weight edit gave constant latents")
+        arms[arm] = res
+        if arm == "default":
+            before = launch_counts()
+            arms["planted_faults"] = faults = {
+                kind: differ(run(kind, plain_versions=True), plain)
+                for kind in ("attention", "conv")}
+            if launch_counts() != before:
+                raise AssertionError("a plain-version edit launched a kernel")
+            log("planted faults, plain edits against the plain edit:", faults)
+            conv_fault = faults["conv"]
+            if (conv_fault["latent_rel_l2"] <= E2E_LATENT_REL_L2
+                    or conv_fault["image_mean_abs_lsb"] <= E2E_IMAGE_MEAN_LSB):
+                raise AssertionError(
+                    f"the end-to-end tolerance passes a planted conv fault: {conv_fault}")
     torch.cuda.synchronize()
-    return res
+    return arms
 
 
 # --------------------------------------------------------------------- main
 
 
-KERNELS = {
+KERNELS = {  # name: (source, TPU kernel it replaces: file:line of pallas_call)
     "conv3x3": ("fastedit_tpu_torch/csrc/conv3x3.cu", "fastedit_tpu/ops/conv3x3.py:169"),
     "flash_attention_d64": ("fastedit_tpu_torch/csrc/flash_attention.cu",
                             "fastedit_tpu/ops/flash_attention.py:253"),
     "flash_attention_d512": ("fastedit_tpu_torch/csrc/flash_attention.cu",
                              "fastedit_tpu/ops/flash_attention.py:97"),
+    "conv3x3_up2": ("fastedit_tpu_torch/csrc/conv3x3.cu", "fastedit_tpu/ops/conv_fused.py:433"),
+    "conv3x3_down2": ("fastedit_tpu_torch/csrc/conv3x3.cu",
+                      "fastedit_tpu/ops/conv_fused.py:610"),
+    "conv3x3_fused": ("fastedit_tpu_torch/csrc/conv3x3.cu",
+                      "fastedit_tpu/ops/conv_fused.py:221"),
+    "group_norm": ("fastedit_tpu_torch/csrc/group_norm.cu",
+                   "fastedit_tpu/ops/fused_groupnorm.py:105"),
 }
+# Kernels off in the default configuration: their per-edit figures and
+# launches come from the opt-in configuration's edit (phase 4).
+OPT_IN_ONLY = ("group_norm",)
 
 
-def kernel_summary(rows: list, launches: dict) -> list:
+def kernel_summary(rows: list, main: dict, e2e: dict) -> list:
     """One entry per kernel.  Times and bounds are for one edit's calls of
-    that kernel: the sum over its shapes of calls per edit x per-call time."""
+    that kernel: the sum over its shapes of calls per edit x per-call time,
+    in the default configuration (the opt-in one for ``OPT_IN_ONLY``).
+    Launches are those of the main path's run (3 edits and a batch of 2),
+    or of the opt-in edit for ``OPT_IN_ONLY``."""
     out = []
     for name, (source, replaces) in KERNELS.items():
+        opt_in = name in OPT_IN_ONLY
+        calls_key = "calls_edit_optin" if opt_in else "calls_edit"
         mine = [r for r in rows if r["kernel"] == name]
         if not mine:
             raise AssertionError(f"no main-path shape reached {name}")
 
-        def per_edit(key, mine=mine):
-            return sum(r["calls_edit"] * r[key] for r in mine)
+        def per_edit(key, mine=mine, calls_key=calls_key):
+            return sum(r[calls_key] * r[key] for r in mine)
 
         ops_ms = 1e3 * per_edit("flops") / PEAK_BF16_FLOPS
         bytes_ms = 1e3 * per_edit("bytes") / PEAK_HBM_BYTES_PER_S
+        launches = (e2e["opt_in"]["launches"] if opt_in else main["launches"])[name]
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=max(r["max_abs_err"] for r in mine),
+            launches=launches, max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=per_edit("ms"), plain_ms=per_edit("plain_ms"), bound_ms=per_edit("bound_ms"),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
             library_ms=per_edit("library_ms"),
@@ -566,25 +765,30 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     log("[2] kernels vs plain versions at the main path's shapes")
-    shapes = kernel_shapes()
+    t = time.perf_counter()
+    calls = kernel_shapes()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = compare_conv(shapes, gen) + compare_attention(shapes, gen)
-    torch.cuda.empty_cache()
+    rows = []
+    for compare in (compare_conv, compare_fused, compare_up2, compare_down2,
+                    compare_group_norm, compare_attention):
+        rows += compare(calls, gen)
+        torch.cuda.empty_cache()
+    phase2_s = time.perf_counter() - t
 
     log("[3] main path: FastEditor('ssd-1b', random_weights=True) at 1024²")
-    editor, timer, main = main_path(shapes)
+    editor, timer, main = main_path(calls)
 
     log("[4] kernels vs plain versions end to end, seeded weights")
-    e2e = kernels_vs_plain(editor, timer)
+    e2e = kernels_vs_plain(editor, timer, calls)
     timer.remove()
 
-    kernels = kernel_summary(rows, main["launches"])
+    kernels = kernel_summary(rows, main, e2e)
     OUT_FILE.parent.mkdir(parents=True, exist_ok=True)
     OUT_FILE.write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda, kernels=kernels,
-        shapes=rows, main_path=main, kernels_vs_plain=e2e,
+        shapes=rows, main_path=main, kernels_vs_plain=e2e, phase2_s=phase2_s,
         seconds_total=time.perf_counter() - t_start,
-    ), indent=1))
+    ), indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s; details in {OUT_FILE.relative_to(ROOT)}")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -19,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fastedit_tpu_torch import ops
+from fastedit_tpu_torch.ops.groupnorm import group_norm_scale_shift
 
 
 def timestep_embedding(
@@ -71,7 +72,18 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, scale_shift: bool = False):
+        """GroupNorm(x) (+ act); with ``scale_shift``, the fp32 ``(scale,
+        shift)`` [B, C] that fold the statistics with the affine, for the
+        fused resnet conv's prologue, which applies SiLU unconditionally."""
+        if scale_shift:
+            assert self.act == "silu", (
+                "scale_shift prologue consumers hardcode SiLU; "
+                f"this GroupNorm has act={self.act!r}"
+            )
+            return group_norm_scale_shift(
+                x, self.weight, self.bias, num_groups=self.num_groups, eps=self.eps
+            )
         return ops.group_norm(
             x, self.weight, self.bias, num_groups=self.num_groups, eps=self.eps,
             act=self.act,

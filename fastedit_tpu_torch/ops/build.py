@@ -29,9 +29,17 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The C functions of each library and their argument types; every one
 # returns a CUDA error code (int).  Set once, when the library is loaded.
 KERNELS = {
-    "conv3x3": {"conv3x3_bf16": [_P] * 4 + [_I] * 6 + [_P]},
+    "conv3x3": {
+        "conv3x3_bf16": [_P] * 4 + [_I] * 6 + [_P],
+        "conv3x3_fused_bf16": [_P] * 7 + [_I] * 7 + [_P],
+        "conv3x3_up2_bf16": [_P] * 5 + [_I] * 6 + [_P],
+        "conv3x3_down2_bf16": [_P] * 4 + [_I] * 7 + [_P],
+    },
     "flash_attention": {
         "flash_attention_bf16": [_P] * 4 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _P],
+    },
+    "group_norm": {
+        "group_norm_bf16": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _I, _P],
     },
 }
 

@@ -1,12 +1,14 @@
 """Dispatching 3x3 SAME stride-1 conv (NHWC).
 
-Calls inside the kernel's gate (``conv3x3.supports``: Cin >= 64) go to the
-conv3x3 wrapper, which launches the CUDA kernel on a card and runs the
-plain version on the CPU.  Calls outside the gate (``conv_in`` with 4
-channels, the ControlNet conditioning stem) run as PyTorch ops on any
-device, as the JAX package sends them to XLA.  ``flags.override(
-use_cuda_conv=False)`` selects the kernel's plain version explicitly, for
-comparisons.
+Where the context's conv flag is on (``flags.use_cuda_conv``: the denoise
+loop and the VAE decoder by default), calls inside the kernel's gate
+(``conv3x3.supports``: Cin >= 64) go to the conv3x3 wrapper, which launches
+the CUDA kernel on a card and runs the plain version on the CPU.  Calls
+outside the gate (``conv_in`` with 4 channels, the ControlNet conditioning
+stem) and every call where the flag is off (the VAE encoder by default) run
+PyTorch's conv (cuDNN on the card), as the JAX package sends them to XLA.
+``flags.override(plain_versions=True)`` selects the kernel's plain version
+in the kernel's place, for comparisons.
 """
 
 from __future__ import annotations
@@ -27,10 +29,8 @@ def conv3x3_same(
     act: Optional[str] = None,
 ) -> torch.Tensor:
     """NHWC x [B,H,W,Cin] * OIHW weight [Cout,Cin,3,3] + bias (+ SiLU)."""
-    if k.supports(tuple(x.shape), tuple(weight.shape)):
-        if flags.use_cuda_conv():
-            return k.conv3x3(x, weight, bias=bias, act=act)
-        return k.conv3x3_plain(x, weight, bias=bias, act=act)
+    if flags.use_cuda_conv() and k.supports(tuple(x.shape), tuple(weight.shape)):
+        return flags.kernel_or_plain(k.conv3x3, k.conv3x3_plain)(x, weight, bias=bias, act=act)
 
     out = F.conv2d(x.permute(0, 3, 1, 2), weight, padding=1).permute(0, 2, 3, 1)
     if bias is not None:

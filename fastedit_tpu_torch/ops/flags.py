@@ -1,50 +1,164 @@
-"""Kernel-dispatch flags.
+"""Kernel-dispatch flags, resolved per context as in the JAX package.
 
 Every hot op has a hand-written CUDA kernel and a plain PyTorch version of
-the same function.  The dispatchers (``ops/conv.py``, ``ops/attention.py``)
-send a call inside a kernel's gate to the kernel's wrapper, which launches
-the kernel for a CUDA tensor and runs the plain version for a CPU tensor.
-A CUDA tensor never falls back silently: the wrapper launches or raises.
+the same function.  The dispatchers (``ops/conv.py``, ``ops/attention.py``,
+``ops/groupnorm.py`` and the conv modules of ``models/resnet.py``) send a
+call inside a kernel's gate to the kernel's wrapper when the flags below
+turn the kernel on, and to PyTorch's own op (cuDNN's conv, the plain
+GroupNorm) when they turn it off, as the JAX package sends it to XLA.  A
+wrapper launches its kernel for a CUDA tensor or raises; it runs the plain
+version only for a CPU tensor.
 
-The flags below only exist to select the plain versions explicitly, on any
-device, for comparisons (``chip_smoke.py``'s kernels-vs-plain edit and the
-tests).  Nothing on the main path sets them.
+The fields mirror ``fastedit_tpu/ops/flags.py`` (``use_pallas_*`` becomes
+``use_cuda_*``); ``None`` means the context's default, and the defaults
+are the JAX package's values on its accelerator:
 
-This slice's configuration is the JAX package's "bare Pallas convs" arm:
-the conv kernel on in every context (denoise loop, VAE decoder, VAE
-encoder), flash attention on, and no fused kernels (the fused resnet, up2
-and down2 convs and the GroupNorm kernel are later slices).  The JAX
-package's per-context conv switches come with the slice that first gives
-the contexts different values.  PyTorch runs eagerly, so a flag is read
-when the op runs, not when a program is traced.
+  * denoise loop (UNet, ControlNet and its conditioning tower): conv
+    kernel on, up2 (K3) on, down2 (K4) on, whole-resnet fusion (K5) off;
+  * VAE decoder: conv kernel on, K5 on, K3 on;
+  * VAE encoder and any module run outside a stage: no conv kernel.
+  * GroupNorm kernel (K7): off (opt-in); flash attention: on.
+
+The stage functions enter their context with :func:`stage`.  PyTorch runs
+eagerly, so a flag is read when the op runs, not when a program is traced.
+
+``plain_versions`` is the counterpart of the JAX package's
+``pallas_interpret``: with it, every call that would launch a kernel runs
+the kernel's plain version instead, on any device, so an edit can be held
+against the same edit without kernels (``chip_smoke.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass
 class KernelFlags:
-    use_cuda_conv: bool = True
-    use_cuda_attention: bool = True
+    use_cuda_attention: Optional[bool] = None  # None = on
+    use_cuda_groupnorm: Optional[bool] = None  # None = off (opt-in)
+    use_cuda_conv: Optional[bool] = None  # None = the context's default
+    use_fused_resnet: Optional[bool] = None  # None = the context's default
+    use_fused_up2: Optional[bool] = None  # None = the context's default
+    use_fused_down2: Optional[bool] = None  # None = the context's default
+    plain_versions: bool = False  # kernels' plain versions in their place
 
 
 FLAGS = KernelFlags()
 
 
-def use_cuda_conv() -> bool:
-    return FLAGS.use_cuda_conv
+def _or(value: Optional[bool], default: bool) -> bool:
+    return default if value is None else value
 
 
 def use_cuda_attention() -> bool:
-    return FLAGS.use_cuda_attention
+    return _or(FLAGS.use_cuda_attention, True)
+
+
+def use_cuda_groupnorm() -> bool:
+    return _or(FLAGS.use_cuda_groupnorm, False)
+
+
+def kernel_or_plain(kernel, plain):
+    """``kernel`` (a wrapper), or its plain version where
+    ``plain_versions`` selects it."""
+    return plain if FLAGS.plain_versions else kernel
+
+
+def use_cuda_conv() -> bool:
+    """The conv kernel in the current context.  Outside a stage (and in
+    the VAE encoder) it is off unless set: the JAX package measured XLA's
+    conv faster there on its accelerator and kept it."""
+    return _or(FLAGS.use_cuda_conv, False)
+
+
+def use_cuda_conv_denoise() -> bool:
+    return _or(FLAGS.use_cuda_conv, True)
+
+
+def use_cuda_conv_decode() -> bool:
+    return _or(FLAGS.use_cuda_conv, True)
+
+
+def use_cuda_conv_encode() -> bool:
+    return _or(FLAGS.use_cuda_conv, False)
+
+
+def use_fused_resnet() -> bool:
+    """Whole-resnet-block fusion (``ops/conv_fused.conv3x3_fused``)."""
+    return _or(FLAGS.use_fused_resnet, use_cuda_conv())
+
+
+def use_fused_up2() -> bool:
+    """Nearest-2x upsample + conv in one kernel (``conv3x3_up2``)."""
+    return _or(FLAGS.use_fused_up2, use_cuda_conv())
+
+
+def use_fused_down2() -> bool:
+    """Stride-2 conv kernel (``conv3x3_down2``)."""
+    return _or(FLAGS.use_fused_down2, use_cuda_conv())
+
+
+def resolve_fused_encode() -> tuple[bool, bool]:
+    """(use_fused_resnet, use_fused_down2) in the VAE encoder; the encode
+    context's conv flag gates both."""
+    on = use_cuda_conv_encode()
+    return _or(FLAGS.use_fused_resnet, on) and on, _or(FLAGS.use_fused_down2, on) and on
+
+
+def resolve_fused_denoise() -> tuple[bool, bool]:
+    """(use_fused_resnet, use_fused_up2) in the denoise loop: resnet fusion
+    off unless set, up2 following the context's conv flag, both gated by
+    it (the fusions live inside the conv kernel)."""
+    on = use_cuda_conv_denoise()
+    return _or(FLAGS.use_fused_resnet, False) and on, _or(FLAGS.use_fused_up2, on) and on
+
+
+def resolve_fused_down2_denoise() -> bool:
+    """conv3x3_down2 for the downsamplers of the denoise loop."""
+    on = use_cuda_conv_denoise()
+    return _or(FLAGS.use_fused_down2, on) and on
+
+
+def resolve_fused_decode() -> tuple[bool, bool]:
+    """(use_fused_resnet, use_fused_up2) in the VAE decoder."""
+    on = use_cuda_conv_decode()
+    return _or(FLAGS.use_fused_resnet, on) and on, _or(FLAGS.use_fused_up2, on) and on
+
+
+STAGES = ("encode", "denoise", "decode")
+
+
+def stage_overrides(name: str) -> dict:
+    """The flag values a stage runs under, as the JAX package's stages set
+    them around their bodies."""
+    if name == "denoise":
+        resnet, up2 = resolve_fused_denoise()
+        return dict(use_cuda_conv=use_cuda_conv_denoise(), use_fused_resnet=resnet,
+                    use_fused_up2=up2, use_fused_down2=resolve_fused_down2_denoise())
+    if name == "decode":
+        resnet, up2 = resolve_fused_decode()
+        return dict(use_cuda_conv=use_cuda_conv_decode(), use_fused_resnet=resnet,
+                    use_fused_up2=up2)
+    if name == "encode":
+        resnet, down2 = resolve_fused_encode()
+        return dict(use_cuda_conv=use_cuda_conv_encode(), use_fused_resnet=resnet,
+                    use_fused_down2=down2)
+    raise ValueError(f"unknown stage {name!r}; one of {STAGES}")
+
+
+@contextlib.contextmanager
+def stage(name: str):
+    """Run the body in stage ``name``'s kernel context."""
+    with override(**stage_overrides(name)):
+        yield
 
 
 @contextlib.contextmanager
 def override(**kwargs):
-    """Temporarily override kernel flags (comparisons and tests)."""
+    """Temporarily override kernel flags; an unknown name raises."""
     old = dataclasses.replace(FLAGS)
     try:
         for k, v in kwargs.items():

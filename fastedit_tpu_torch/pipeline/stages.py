@@ -15,7 +15,12 @@ Semantics mirrored from the JAX package:
     guidance <= 1;
   * the ControlNet conditioning tower runs once per edit at batch B;
   * initial noise added in fp32; LCM step in fp32;
-  * decode ``(clip(x/2 + 0.5) * 255 + 0.5)`` to uint8, one image at a time.
+  * decode ``(clip(x/2 + 0.5) * 255 + 0.5)`` to uint8, one image at a time;
+  * each of VAE encode, denoise (the conditioning tower included) and VAE
+    decode runs in its own kernel context (``flags.stage``): by default the
+    conv kernels with up2 and down2 in the loop, the conv kernels with
+    whole-resnet fusion and up2 in the decoder, PyTorch's convs in the
+    encoder.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from fastedit_tpu_torch.models.clip import CLIPTextModel
 from fastedit_tpu_torch.models.controlnet import ControlNetModel
 from fastedit_tpu_torch.models.unet import UNet2DConditionModel
 from fastedit_tpu_torch.models.vae import AutoencoderKL
+from fastedit_tpu_torch.ops import flags
 from fastedit_tpu_torch.ops.canny import canny
 from fastedit_tpu_torch.sched.lcm import LCMSchedule, add_noise, lcm_step
 
@@ -82,7 +88,8 @@ def vae_sample(mod: PipelineModules, image: torch.Tensor, eps: torch.Tensor) -> 
     """[-1, 1] image -> scaled posterior-sampled latents.  ``eps`` is a
     standard normal draw of the latent shape, or of batch 1 to give every
     image the same noise."""
-    mean, logvar = mod.vae.encode_moments(image)
+    with flags.stage("encode"):
+        mean, logvar = mod.vae.encode_moments(image)
     return AutoencoderKL.sample(mean, logvar, eps) * mod.vae_scaling_factor
 
 
@@ -91,10 +98,11 @@ def vae_decode(mod: PipelineModules, latents: torch.Tensor) -> torch.Tensor:
     """Scaled latents [B, h, w, 4] -> uint8 images [B, H, W, 3], decoding
     one image at a time (peak memory stays that of one image)."""
     out = []
-    for i in range(latents.shape[0]):
-        img = mod.vae.decode(latents[i : i + 1] / mod.vae_scaling_factor)
-        img01 = (img.float() / 2 + 0.5).clamp(0.0, 1.0)
-        out.append((img01 * 255.0 + 0.5).to(torch.uint8))
+    with flags.stage("decode"):
+        for i in range(latents.shape[0]):
+            img = mod.vae.decode(latents[i : i + 1] / mod.vae_scaling_factor)
+            img01 = (img.float() / 2 + 0.5).clamp(0.0, 1.0)
+            out.append((img01 * 255.0 + 0.5).to(torch.uint8))
     return torch.cat(out)
 
 
@@ -120,6 +128,15 @@ def denoise(
         raise ValueError("CFG expects a pair-interleaved [2B] context")
     if len(step_noise) != schedule.num_steps:
         raise ValueError(f"need {schedule.num_steps} step noises, got {len(step_noise)}")
+    with flags.stage("denoise"):
+        return _denoise_body(
+            mod, latents, context, pooled, time_ids, control_image, schedule,
+            guidance_scale, controlnet_scale, noise_init, step_noise, do_cfg, b,
+        )
+
+
+def _denoise_body(mod, latents, context, pooled, time_ids, control_image, schedule,
+                  guidance_scale, controlnet_scale, noise_init, step_noise, do_cfg, b):
     cn = mod.controlnet
     cond_feat = cn.controlnet_cond_embedding(control_image.to(mod.dtype))
     cond_in = cond_feat.repeat_interleave(2, dim=0) if do_cfg else cond_feat

@@ -8,9 +8,12 @@ marker and skip without a card.  On a machine with one:
 Shapes are small but cover what the main path's shapes exercise: ragged
 Cin (72, 320) and Cout (3, 4, 8), several output tiles, the SiLU epilogue,
 no bias, attention read through strides (q, k, v as slices of one fused
-projection), Sq != Skv, and both head dims.  Tolerances are those of
-``chip_smoke.py`` (both sides accumulate in fp32 and round once to bf16;
-the attention's absolute term scales with the output's RMS).
+projection), Sq != Skv, and both head dims; for the fused resnet, up2 and
+down2 convs, the prologue, per-batch bias and skip, both down2 paddings and
+odd-sized inputs; for the GroupNorm kernel, a large mean offset and more
+than 2048 channels.  Tolerances are those of ``chip_smoke.py`` (both sides
+accumulate in fp32 and round once to bf16; the attention's absolute term
+scales with the output's RMS).
 """
 
 import pytest
@@ -18,7 +21,10 @@ import torch
 
 from chip_smoke import ATTN_ABS_OF_RMS, ATTN_REL, CONV_ABS_OF_MAX, CONV_REL
 from fastedit_tpu_torch.ops import conv3x3 as k
+from fastedit_tpu_torch.ops import conv_fused as cf
 from fastedit_tpu_torch.ops import flash_attention as fa
+from fastedit_tpu_torch.ops import fused_groupnorm as fg
+from fastedit_tpu_torch.ops.groupnorm import group_norm_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -78,6 +84,91 @@ def test_flash_attention_kernel_matches_plain(gen, b, sq, skv, h, d):
     _assert_close(out, ref, ATTN_REL, ATTN_ABS_OF_RMS * rms)
 
 
+def _conv_operands(gen, n, h, w, cin, cout):
+    x = torch.randn((n, h, w, cin), generator=gen, device="cuda").bfloat16()
+    wt = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") * (9 * cin) ** -0.5
+    return x, wt.bfloat16().contiguous(memory_format=torch.channels_last)
+
+
+def _conv_close(out, ref):
+    _assert_close(out, ref, CONV_REL, CONV_ABS_OF_MAX * float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize(
+    "n,h,w,cin,cout,per_batch_bias,skip,act",
+    [
+        (2, 16, 16, 64, 128, True, False, None),  # time-embedding bias, two batch items
+        (1, 24, 20, 320, 320, False, True, None),  # ragged Cin and Cout, skip
+        (2, 8, 8, 72, 8, True, True, "silu"),  # Cin 72, Cout 8, everything at once
+        (1, 16, 16, 128, 3, False, False, None),  # Cout 3
+    ],
+)
+def test_conv3x3_fused_kernel_matches_plain(gen, n, h, w, cin, cout, per_batch_bias, skip, act):
+    x, wt = _conv_operands(gen, n, h, w, cin, cout)
+    bias = torch.randn((n, cout) if per_batch_bias else (cout,), generator=gen, device="cuda")
+    pre = (torch.rand((n, cin), generator=gen, device="cuda") + 0.5,
+           torch.randn((n, cin), generator=gen, device="cuda"))
+    sk = torch.randn((n, h, w, cout), generator=gen, device="cuda").bfloat16() if skip else None
+    before = cf.launches["conv3x3_fused"]
+    out = cf.conv3x3_fused(x, wt, bias, pre, act, sk)
+    ref = cf.conv3x3_fused_plain(x, wt, bias, pre, act, sk)
+    torch.cuda.synchronize()
+    assert cf.launches["conv3x3_fused"] == before + 1
+    _conv_close(out, ref)
+
+
+@pytest.mark.parametrize(
+    "n,h,w,cin,cout,act",
+    [(2, 8, 8, 64, 128, None), (1, 12, 10, 72, 8, "silu"), (1, 16, 16, 320, 3, None)],
+)
+def test_conv3x3_up2_kernel_matches_plain(gen, n, h, w, cin, cout, act):
+    x, wt = _conv_operands(gen, n, h, w, cin, cout)
+    bias = torch.randn(cout, generator=gen, device="cuda")
+    before = cf.launches["conv3x3_up2"]
+    out = cf.conv3x3_up2(x, wt, bias, act)
+    ref = cf.conv3x3_up2_plain(x, wt, bias, act)
+    torch.cuda.synchronize()
+    assert cf.launches["conv3x3_up2"] == before + 1
+    assert out.shape == (n, 2 * h, 2 * w, cout)
+    _conv_close(out, ref)
+
+
+@pytest.mark.parametrize("asymmetric", [False, True])
+@pytest.mark.parametrize(
+    "n,h,w,cin,cout", [(2, 16, 16, 64, 128), (1, 18, 10, 72, 8), (1, 32, 32, 96, 3)]
+)
+def test_conv3x3_down2_kernel_matches_plain(gen, n, h, w, cin, cout, asymmetric):
+    x, wt = _conv_operands(gen, n, h, w, cin, cout)
+    bias = torch.randn(cout, generator=gen, device="cuda")
+    before = cf.launches["conv3x3_down2"]
+    out = cf.conv3x3_down2(x, wt, bias, asymmetric=asymmetric)
+    ref = cf.conv3x3_down2_plain(x, wt, bias, asymmetric=asymmetric)
+    torch.cuda.synchronize()
+    assert cf.launches["conv3x3_down2"] == before + 1
+    _conv_close(out, ref)
+
+
+@pytest.mark.parametrize(
+    "shape,groups,act,offset",
+    [
+        ((2, 16, 16, 320), 32, "silu", 0.0),
+        ((1, 24, 24, 128), 32, None, 384.0),  # |mean| >> std
+        ((2, 8, 8, 2560), 32, "silu", 0.0),  # two vectors per thread
+        ((1, 7, 9, 64), 8, None, 50.0),  # odd pixel count, 8 groups
+    ],
+)
+def test_group_norm_kernel_matches_plain(gen, shape, groups, act, offset):
+    x = (torch.randn(shape, generator=gen, device="cuda") * 0.5 + offset).bfloat16()
+    gamma = torch.randn(shape[-1], generator=gen, device="cuda") * 0.5 + 1.0
+    beta = torch.randn(shape[-1], generator=gen, device="cuda")
+    before = fg.launches
+    out = fg.fused_group_norm(x, gamma, beta, groups, 1e-5, act)
+    ref = group_norm_plain(x, gamma, beta, groups, 1e-5, act)
+    torch.cuda.synchronize()
+    assert fg.launches == before + 1
+    _conv_close(out, ref)
+
+
 def test_wrappers_raise_outside_their_contract(gen):
     x = torch.randn((1, 8, 8, 64), generator=gen, device="cuda")
     w = torch.randn((64, 64, 3, 3), generator=gen, device="cuda")
@@ -89,4 +180,11 @@ def test_wrappers_raise_outside_their_contract(gen):
     q = torch.randn((1, 128, 1, 96), generator=gen, device="cuda").bfloat16()
     with pytest.raises(ValueError):  # a head dim the kernel is not built for
         fa.flash_attention(q, q, q)
+    xb, wb = x.bfloat16(), w.bfloat16().contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError):  # odd height for the stride-2 kernel
+        cf.conv3x3_down2(xb[:, :7], wb)
+    with pytest.raises(ValueError):  # a scale of the wrong batch
+        cf.conv3x3_fused(xb, wb, prenorm=(torch.ones(2, 64, device="cuda"),) * 2)
+    with pytest.raises(ValueError):  # channels not divisible by the groups
+        fg.fused_group_norm(xb, torch.ones(64, device="cuda"), torch.zeros(64, device="cuda"), 48)
     assert (k.launches, fa.launches) == before

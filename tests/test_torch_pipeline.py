@@ -48,9 +48,9 @@ def _jax_noise(seed, shape, num_steps):
     return t[0], t[1], t[2:]
 
 
-@pytest.fixture(scope="module")
-def editors(tiny_editor_f32):
-    jed = tiny_editor_f32
+def carried_editors(jed):
+    """The JAX tiny editor ``jed`` and a port tiny editor holding its
+    weights and drawing its noise."""
     m = jed.modules
     ted = FastEditor("tiny", device="cpu", dtype=torch.float32)
     tm = ted.modules
@@ -65,6 +65,11 @@ def editors(tiny_editor_f32):
         from_jax.clip_text_state_dict(host(m.text_encoder_2_params), TC.TINY_TEXT_ENCODER_2))
     ted._noise = _jax_noise
     return jed, ted
+
+
+@pytest.fixture(scope="module")
+def editors(tiny_editor_f32):
+    return carried_editors(tiny_editor_f32)
 
 
 def _assert_within_1_lsb(a, b):
@@ -100,20 +105,24 @@ def test_preprocess_image_matches_jax_editor(editors):
 
 
 def test_call_inventory_matches_the_calls_an_edit_makes(editors, monkeypatch):
+    """Every 3x3 stride-1 conv module call (an upsampler's at its 2x size,
+    whether the up2 kernel serves it or not) and every attention call."""
     _, ted = editors
     conv, attn = Counter(), Counter()
-    real_conv, real_attn = tresnet.conv3x3_same, tops.attention
+    real_conv, real_attn = tresnet.Conv3x3.forward, tops.attention
 
-    def rec_conv(x, w, bias=None, act=None):
-        conv[(*x.shape, w.shape[0])] += 1
-        return real_conv(x, w, bias=bias, act=act)
+    def rec_conv(self, x, *args, up2=False, **kwargs):
+        n, h, w, _ = x.shape
+        key = (n, 2 * h, 2 * w) if up2 else (n, h, w)
+        conv[(*key, self.in_channels, self.out_channels)] += 1
+        return real_conv(self, x, *args, up2=up2, **kwargs)
 
     def rec_attn(q, k, v, scale=None):
         b, sq, h, d = q.shape
         attn[(b, sq, k.shape[1], h, d)] += 1
         return real_attn(q, k, v, scale=scale)
 
-    monkeypatch.setattr(tresnet, "conv3x3_same", rec_conv)
+    monkeypatch.setattr(tresnet.Conv3x3, "forward", rec_conv)
     monkeypatch.setattr(tops, "attention", rec_attn)
     ted.edit(_img(5), "a boat", seed=1)
     exp_conv, exp_attn = inventory.edit_calls(
