@@ -18,9 +18,13 @@ order; a failed phase raises and the script exits non-zero:
    the kernel, the plain version and the nearest PyTorch library call with
    CUDA events.  Each kernel also reads a planted fault in its plain version
    (attention: the last KV tile skipped; fused conv: the padding ring not
-   re-zeroed; up2: one phase's tap rows swapped; down2: the other padding;
+   re-zeroed; both stride-1 convs at batch 2: the halo row above an image
+   read from the neighbouring image, as a tile that straddles two images
+   would; up2: one phase's tap rows swapped; down2: the other padding;
    GroupNorm: a one-pass variance on an input with |mean| >> std), which the
-   tolerance must reject.
+   tolerance must reject.  The stride-1 convs' rows also carry their plan
+   (tile rectangle, channel tile, grid, shared memory) and the achieved
+   TFLOP/s, and the host's microseconds per conv launch are printed.
 3. The main path in the default configuration:
    ``FastEditor("ssd-1b", random_weights=True)`` at 1024², a warm-up, three
    ``edit()`` calls and one ``edit_batch`` of two images.  Seconds per edit
@@ -89,6 +93,12 @@ GN_OFFSET, GN_SPIKE, GN_SPIKE_RATE = 384.0, 2.0, 1.0 / 512
 # kernel that skips its last Cin step must fail these limits.  A skipped
 # attention KV tile moves the latents no more than bf16 rounding does, so
 # it is recorded only; phase 2 catches it.
+# Host microseconds per conv3x3 launch of the mma.sync kernel that the wgmma
+# one replaced (no tensor maps to encode), at the same shape, read beside the
+# new kernel's (24.55-24.73 and 24.67-24.85) in one run of tools/conv_bench.py
+# on both trees on an H100 80GB HBM3 at 700 W; its device time per call
+# (82 us) exceeded its enqueue time.
+HOST_US_BEFORE = "22.95-23.13 to enqueue, 82.31-82.33 with the synchronise"
 E2E_LATENT_REL_L2 = 5e-2
 E2E_IMAGE_MEAN_LSB = 4.0
 
@@ -104,6 +114,27 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+def count_hgmma(library_path: Path) -> dict:
+    """Warpgroup MMA instructions (SASS ``HGMMA``, what ``wgmma.mma_async``
+    compiles to) per kernel of a built library, from ``cuobjdump -sass``;
+    empty where the toolkit has no ``cuobjdump``."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    sass = subprocess.run([tool, "-sass", str(library_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and "HGMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def time_ms(fn, reps: int = TIMING_REPS) -> float:
@@ -182,23 +213,23 @@ def keys_of(calls: dict, kernel: str) -> list:
     return sorted({key for c in calls.values() for (k, key) in c if k == kernel}, key=str)
 
 
-def hold(calls, kernel, key, kern, plain, library, flops, nbytes, fault=None,
+def hold(calls, kernel, key, kern, plain, library, flops, nbytes, faults=None,
          extra=None) -> dict:
-    """Check ``kern()`` against ``plain()`` with the conv tolerance (and the
-    planted ``fault()`` against it, which must fail), then time the kernel,
-    the plain version and the library call.  One row of the per-shape
-    table."""
+    """Check ``kern()`` against ``plain()`` with the conv tolerance (and every
+    planted fault of ``faults``, by name, against it, which must fail), then
+    time the kernel, the plain version and the library call.  One row of the
+    per-shape table."""
     import torch
 
     out, ref = kern(), plain()
     torch.cuda.synchronize()
     err, rel = check_close(f"{kernel} {key}", out, ref, CONV_REL, conv_tol(ref))
     row = dict(kernel=kernel, shape=list(key), max_abs_err=err, max_rel_err=rel)
-    if fault is not None:
-        bad = n_outside(fault(), ref, CONV_REL, conv_tol(ref))
-        row["fault_elements_outside"] = bad
+    for name, make in (faults or {}).items():
+        bad = n_outside(make(), ref, CONV_REL, conv_tol(ref))
+        row[f"{name}_elements_outside"] = bad
         if bad == 0:
-            raise AssertionError(f"{kernel} {key}: the tolerance passes the planted fault")
+            raise AssertionError(f"{kernel} {key}: the tolerance passes the planted {name}")
     del out, ref
     b_ms, b_by = bound_ms(flops, nbytes)
     row.update(extra or {})
@@ -209,9 +240,11 @@ def hold(calls, kernel, key, kern, plain, library, flops, nbytes, fault=None,
         ms=time_ms(kern), plain_ms=time_ms(plain), library_ms=time_ms(library),
         bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
     )
+    row["tflops"] = flops / row["ms"] / 1e9
     log(kernel, list(key), {k: row[k] for k in (
-        "max_abs_err", "max_rel_err", "ms", "plain_ms", "library_ms", "bound_ms")},
-        {"fault_elements_outside": row["fault_elements_outside"]} if fault else "")
+        "max_abs_err", "max_rel_err", "ms", "plain_ms", "library_ms", "bound_ms", "tflops")},
+        {k: v for k, v in row.items() if k.endswith("_elements_outside")},
+        {k: row[k] for k in ("plan", "prologue_exps") if k in row})
     return row
 
 
@@ -225,7 +258,30 @@ def _conv_operands(gen, n, h, w, cin, cout):
     return x, wt, bias
 
 
+def plan_of(x, cout: int) -> dict:
+    """The stride-1 conv kernel's schedule for this call, as a row records
+    it."""
+    from fastedit_tpu_torch.ops.conv3x3 import plan_for
+
+    pl = plan_for(x, cout)
+    return dict(rect=list(pl.rect), bn=pl.bn, tiles=pl.tiles, grid=pl.grid,
+                smem_bytes=pl.smem_bytes)
+
+
+def neighbour_halo(xin, wt):
+    """The fp32 conv of NHWC ``xin`` whose padding row above each image holds
+    the last row of the image before it in the batch instead of zeros: what a
+    tile that straddles two images computes along an image's top edge."""
+    import torch.nn.functional as F
+
+    xp = F.pad(xin.float(), (0, 0, 1, 1, 1, 1))
+    xp[:, 0, 1:-1] = xin.float().roll(1, dims=0)[:, -1]
+    return F.conv2d(xp.permute(0, 3, 1, 2), wt.float()).permute(0, 2, 3, 1)
+
+
 def compare_conv(calls: dict, gen) -> list[dict]:
+    """Fault, at batch 2: the halo row above an image taken from the
+    neighbouring image.  Library: ``F.conv2d`` in bf16."""
     import torch.nn.functional as F
 
     from fastedit_tpu_torch.ops import conv3x3 as k
@@ -235,14 +291,47 @@ def compare_conv(calls: dict, gen) -> list[dict]:
         n, h, w, cin, cout = key
         x, wt, bias = _conv_operands(gen, n, h, w, cin, cout)
         x_nchw, bias_bf = x.permute(0, 3, 1, 2), bias.bfloat16()
+        faults = {}
+        if n > 1:
+            faults["neighbour_halo"] = lambda: (neighbour_halo(x, wt) + bias).bfloat16()
         rows.append(hold(
             calls, "conv3x3", key,
             lambda: k.conv3x3(x, wt, bias), lambda: k.conv3x3_plain(x, wt, bias),
             lambda: F.conv2d(x_nchw, wt, bias_bf, padding=1),
             flops=2.0 * n * h * w * cout * 9 * cin,
             nbytes=2.0 * (n * h * w * cin + 9 * cin * cout + n * h * w * cout) + 4.0 * cout,
+            faults=faults, extra=dict(plan=plan_of(x, cout)),
         ))
     return rows
+
+
+def host_us_per_launch(calls: dict, gen, launches: int = 200, trials: int = 5) -> dict:
+    """Host microseconds per ``conv3x3`` call at the main path's smallest
+    shape: the wall time of ``launches`` calls up to the last call's return
+    (the enqueue alone: the wrapper's checks, the plan, two tensor-map
+    encodings, the launch) and up to one synchronise after it; the least of
+    ``trials`` runs, since the host is shared and its clock spreads."""
+    import torch
+
+    from fastedit_tpu_torch.ops import conv3x3 as k
+
+    key = min(keys_of(calls, "conv3x3"), key=lambda s: s[0] * s[1] * s[2] * s[3] * s[4])
+    x, wt, bias = _conv_operands(gen, *key)
+    for _ in range(10):
+        k.conv3x3(x, wt, bias)
+    enqueue_us = us = float("inf")
+    for _ in range(trials):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(launches):
+            k.conv3x3(x, wt, bias)
+        enqueue_us = min(enqueue_us, 1e6 * (time.perf_counter() - t) / launches)
+        torch.cuda.synchronize()
+        us = min(us, 1e6 * (time.perf_counter() - t) / launches)
+    log(f"host us per conv3x3 launch at {list(key)}: {enqueue_us:.2f} to enqueue, {us:.2f} "
+        f"with one synchronise at the end (the mma.sync kernel before it: {HOST_US_BEFORE})")
+    return dict(shape=list(key), launches=launches, trials=trials,
+                host_enqueue_us_per_launch=enqueue_us, host_us_per_launch=us)
 
 
 def compare_fused(calls: dict, gen) -> list[dict]:
@@ -254,6 +343,8 @@ def compare_fused(calls: dict, gen) -> list[dict]:
     import torch.nn.functional as F
 
     from fastedit_tpu_torch.ops import conv_fused as cf
+
+    from fastedit_tpu_torch.ops.conv3x3 import plan_for
 
     rows = []
     for key in keys_of(calls, "conv3x3_fused"):
@@ -267,12 +358,20 @@ def compare_fused(calls: dict, gen) -> list[dict]:
                 if has_skip else None)
         pre = (scale, shift)
 
+        def finish(out):
+            out = out + (bias[:, None, None, :] if bias.dim() == 2 else bias)
+            return (out if skip is None else out + skip.float()).bfloat16()
+
         def ring_not_zeroed():
             xp = F.pad(x, (0, 0, 1, 1, 1, 1))  # NHWC, zero ring
             xr = cf.prologue_plain(xp, scale, shift)
-            out = F.conv2d(xr.permute(0, 3, 1, 2).float(), wt.float()).permute(0, 2, 3, 1)
-            out = out + (bias[:, None, None, :] if bias.dim() == 2 else bias)
-            return (out if skip is None else out + skip.float()).bfloat16()
+            return finish(F.conv2d(xr.permute(0, 3, 1, 2).float(),
+                                   wt.float()).permute(0, 2, 3, 1))
+
+        faults = {"fault": ring_not_zeroed}
+        if n > 1:
+            faults["neighbour_halo"] = lambda: finish(
+                neighbour_halo(cf.prologue_plain(x, scale, shift), wt))
 
         x_nchw, bias_bf = x.permute(0, 3, 1, 2), bias.reshape(-1, cout)[0].bfloat16()
         nbytes = (2.0 * (n * h * w * cin + 9 * cin * cout + n * h * w * cout * (2 if skip is not None else 1))
@@ -282,7 +381,10 @@ def compare_fused(calls: dict, gen) -> list[dict]:
             lambda: cf.conv3x3_fused(x, wt, bias, pre, skip=skip),
             lambda: cf.conv3x3_fused_plain(x, wt, bias, pre, skip=skip),
             lambda: F.conv2d(x_nchw, wt, bias_bf, padding=1),
-            flops=2.0 * n * h * w * cout * 9 * cin, nbytes=nbytes, fault=ring_not_zeroed,
+            flops=2.0 * n * h * w * cout * 9 * cin, nbytes=nbytes,
+            faults=faults, extra=dict(
+                plan=plan_of(x, cout),
+                prologue_exps=plan_for(x, cout).prologue_exps(n, h, w, cin)),
         ))
     return rows
 
@@ -313,7 +415,7 @@ def compare_up2(calls: dict, gen) -> list[dict]:
             lambda: cf.conv3x3_up2(x, wt, bias), lambda: cf.conv3x3_up2_plain(x, wt, bias),
             library, flops=32.0 * n * h * w * cin * cout,
             nbytes=2.0 * (n * h * w * cin + 9 * cin * cout + 4 * n * h * w * cout) + 4.0 * cout,
-            fault=lambda: cf.up2_phases_plain(x, swapped, bias),
+            faults={"fault": lambda: cf.up2_phases_plain(x, swapped, bias)},
         ))
     return rows
 
@@ -344,7 +446,7 @@ def compare_down2(calls: dict, gen) -> list[dict]:
             lambda: cf.conv3x3_down2_plain(x, wt, bias, asymmetric=asym),
             library, flops=2.0 * n * ho * wo * cout * 9 * cin,
             nbytes=2.0 * (n * h * w * cin + 9 * cin * cout + n * ho * wo * cout) + 4.0 * cout,
-            fault=lambda: cf.conv3x3_down2_plain(x, wt, bias, asymmetric=not asym),
+            faults={"fault": lambda: cf.conv3x3_down2_plain(x, wt, bias, asymmetric=not asym)},
         ))
     return rows
 
@@ -758,11 +860,23 @@ def main() -> int:
     log("torch", torch.__version__, "cuda", torch.version.cuda, torch.cuda.get_device_name(0))
     t = time.perf_counter()
     nvcc_logs = build.build_all()
-    log(f"[1] kernels built in {time.perf_counter() - t:.2f} s")
+    build_s = time.perf_counter() - t
+    log(f"[1] kernels built in {build_s:.2f} s")
     for name, text in nvcc_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if ("registers" in line or "spill" in line or "Compiling entry" in line
+                    or "Performance Loss" in line):
                 log(f"  {name}: {line.strip()}")
+
+    hgmma = count_hgmma(build.library_path("conv3x3"))
+    for name, n in hgmma.items():
+        stride1 = "conv3x3_kernel" in name or "conv3x3_fused_kernel" in name
+        log(f"  conv3x3: {n} HGMMA in {name}")
+        if stride1 != (n > 0):
+            raise AssertionError(f"{name}: {n} HGMMA instructions; the stride-1 conv kernels, "
+                                 "and only they, are built on wgmma")
+    if not hgmma:
+        log("  conv3x3: no cuobjdump, HGMMA not counted")
 
     log("[2] kernels vs plain versions at the main path's shapes")
     t = time.perf_counter()
@@ -773,6 +887,7 @@ def main() -> int:
                     compare_group_norm, compare_attention):
         rows += compare(calls, gen)
         torch.cuda.empty_cache()
+    host = host_us_per_launch(calls, gen)
     phase2_s = time.perf_counter() - t
 
     log("[3] main path: FastEditor('ssd-1b', random_weights=True) at 1024²")
@@ -786,7 +901,8 @@ def main() -> int:
     OUT_FILE.parent.mkdir(parents=True, exist_ok=True)
     OUT_FILE.write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda, kernels=kernels,
-        shapes=rows, main_path=main, kernels_vs_plain=e2e, phase2_s=phase2_s,
+        shapes=rows, conv_host=host, main_path=main, kernels_vs_plain=e2e,
+        phase2_s=phase2_s, build_s=build_s, hgmma=hgmma,
         seconds_total=time.perf_counter() - t_start,
     ), indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s; details in {OUT_FILE.relative_to(ROOT)}")

@@ -1,13 +1,14 @@
-// 3x3 convolutions, NHWC bf16, as implicit GEMMs on the tensor cores
-// (mma.sync m16n8k16, fp32 accumulation).  One kernel body, four forms:
+// 3x3 convolutions, NHWC bf16, as implicit GEMMs on the tensor cores with
+// fp32 accumulation.  Two kernel bodies, four forms:
 //
-//   conv3x3_kernel        3x3 SAME stride 1; replaces fastedit_tpu/ops/conv3x3.py
-//                         (`conv3x3` -> `_conv3x3_call` / `_conv_kernel`).
-//   conv3x3_fused_kernel  the same conv with the resnet block's ops folded in;
-//                         replaces fastedit_tpu/ops/conv_fused.py `conv3x3_fused`
-//                         (`_fused_call` / `_fused_kernel`): a prologue
-//                         silu(x * scale[b, c] + shift[b, c]) on the input tile
-//                         (GroupNorm + SiLU with the statistics computed
+//   conv3x3_kernel<BN>   3x3 SAME stride 1; replaces
+//                         fastedit_tpu/ops/conv3x3.py (`conv3x3` ->
+//                         `_conv3x3_call` / `_conv_kernel`).
+//   conv3x3_fused_kernel<BN>   the same conv with the resnet block's ops
+//                         folded in; replaces fastedit_tpu/ops/conv_fused.py
+//                         `conv3x3_fused` (`_fused_call` / `_fused_kernel`): a
+//                         prologue silu(x * scale[b, c] + shift[b, c]) on the
+//                         input (GroupNorm + SiLU with the statistics computed
 //                         outside), a per-batch bias [B, Cout] (the time
 //                         embedding folded in) and a skip-add epilogue.
 //   conv3x3_up2_kernel    nearest-2x upsample + 3x3 SAME conv without the 4x
@@ -40,39 +41,580 @@
 // What bounds them on an H100: operations.  The main path's convs do
 // 2*M*Cout*taps*Cin FLOPs on M output pixels; at these shapes that is 150-300
 // FLOPs per byte moved, at or above the card's bf16 ridge point (~295
-// FLOP/byte), so the tensor cores, not HBM, are the limit.
+// FLOP/byte), so the tensor cores, not HBM, are the limit.  (The Cout 3 and 4
+// tails are bound by the bytes of their input.  Inside the card the weights'
+// traffic from L2 is the nearer limit: every tile of 128 pixels reads its
+// BN x 9 x Cin weights again.)
 //
-// Design: GEMM view  out[m, n] = sum_k A[m, k] * Wt[n, k]  with
+// GEMM view of all forms:  out[m, n] = sum_k A[m, k] * Wt[n, k]  with
 //   m = output pixel (b, y, x), n = output channel, k = (tap, cin).
-// A is never materialised: each K step (one tap, 64 input channels) loads the
-// shifted input rows straight from the NHWC tensor with 16-byte cp.async
-// copies; pixels that fall into the zero padding ring, channels past Cin and
-// rows past M are zero-filled by the copy itself (src-size 0), so ragged Cin
-// and the image border need no padded copy in HBM.  The weight is read in
-// OHWI order (torch's OIHW in channels_last memory; the up2 phase weights as
-// [phase, tap, Cout, Cin]) so both operands are K-contiguous, the layout
-// mma.sync's row.col form wants.  Tiles are 128 pixels x 128 output channels
-// x 64 k in a 3-stage cp.async ring in dynamic shared memory (two tiles in
-// flight while one is multiplied); 8 warps each own a 64x32 sub-tile and read
-// their fragments with ldmatrix.  The k loop walks (tap, channel chunk)
-// incrementally, so a stage's copies cost no integer division.
+// A is never materialised, and the weight is read in OHWI order (torch's OIHW
+// in channels_last memory; the up2 phase weights as [phase, tap, Cout, Cin]),
+// so both operands are K-contiguous.
 //
-// The fused prologue: once a stage's tile has landed, each thread maps the
-// 16-byte vectors it copied itself through silu(x * scale + shift) in fp32
-// and rounds them to bf16, before the barrier that hands the tile to the
-// MMAs.  Vectors that were zero-filled (padding ring, channels past Cin, rows
-// past M) are left alone: silu(0 * s + t) is not 0, and SAME semantics need
-// the ring to stay zero after the normalisation.
+// The stride-1 forms (conv_tiles), written for Hopper:
+//   * wgmma.mma_async m64nBNk16 with fp32 accumulators in registers; both
+//     operands are read from shared memory through descriptors, in the
+//     128-byte swizzle that a row of 64 bf16 fills exactly.
+//   * One output tile is a rectangle of 8 x 16 pixels of one image times BN
+//     output channels.  Per 64-channel chunk of Cin the tile's 10 x 18 halo
+//     rectangle is staged ONCE, by one TMA load over [B, H, W, Cin] at the
+//     possibly negative coordinate (x0 - 1, y0 - 1): the hardware zero-fills
+//     the padding ring, channels past Cin and pixels past the image, so no
+//     copy is predicated, and the batch is a tensor-map dimension of box 1,
+//     so a rectangle never straddles two images.  All nine taps are read
+//     from that halo.  A consumer warpgroup owns 8 rows x 8 columns; the 8
+//     wgmma rows of one group are 8 neighbouring halo pixels (128 bytes
+//     apart) and the next group lies one halo row (18 pixels) on, so a tap's
+//     A operand is a descriptor whose start address carries the tap's shift
+//     and whose group stride is the halo row.  The swizzle is a function of
+//     the shared-memory address, which is how TMA wrote the stage, so the
+//     start address need not lie on a 1024-byte boundary.  (A from
+//     registers, one ldmatrix row address per lane, measured 8-12% slower:
+//     ptxas serialises wgmmas whose A registers are written while another
+//     group is in flight, warning C7513.)
+//   * One weight stage is one tap: BN channels x 64 Cin, one TMA load over
+//     [Cout, 9, Cin] that zero-fills past Cout and past Cin.
+//   * The block is warp-specialised and persistent.  Warp 0 is the producer:
+//     one thread keeps a ring of 3 halo stages and a ring of 6 weight stages
+//     full, completion reported to "full" mbarriers.  Two consumer
+//     warpgroups wait on them, multiply, and arrive on the "empty" mbarriers
+//     once the wgmma group that read a stage has retired; no __syncthreads()
+//     after set-up.  Each block walks tiles blockIdx.x, + gridDim.x, ...
+//     (channel tile fastest, so neighbouring blocks share a halo in L2);
+//     barrier phases carry over from tile to tile, so the next tile's loads
+//     run under this tile's epilogue.  The producer asks for halo i + 1
+//     before the nine taps of chunk i, so a halo has a whole chunk's
+//     multiplies to land (and be transformed) in.  Nobody needs more
+//     registers than the launch gives every thread (ptxas: at most 115 used,
+//     no spills), so there is no setmaxnreg.
+//   * The fused prologue is done once per staged element, not once per tap,
+//     and off the consumers' path: seven more warps (a fourth warpgroup and
+//     the producer's three idle neighbours) transform a landed halo stage in
+//     place behind its own "ready" barrier while the consumers multiply the
+//     previous one.  Pixels outside the image and channels past Cin are left
+//     as the zeros TMA wrote: silu(0 * s + t) is not 0, and SAME semantics
+//     need the ring to stay zero after the normalisation.
+//   * BN is 160 where it divides Cout (the UNet's 320, 640, 1280: no wasted
+//     column and a grid that fills 132 SMs), 8 for Cout <= 8 (the Cout 3 and
+//     4 tails), else 128.  The host-side plan (ops/conv3x3.py `plan`) picks
+//     it and the grid; both arrive here as ints.
+//   * The epilogue works on the accumulator registers directly and masks
+//     ragged Cout and the pixels of a rectangle that fall outside the image.
 //
-// The epilogue works on the accumulator registers directly and masks ragged
-// Cout (320, 8, 4, 3) per element.  wgmma/TMA would go further; that is
-// later work.
+// The up2 and down2 forms keep the mma.sync body (conv_body): tiles of 128
+// pixels x 128 output channels x 64 k in a 3-stage cp.async ring, 8 warps with
+// 64x32 sub-tiles read with ldmatrix; pixels in the padding ring, channels
+// past Cin and rows past M are zero-filled by the copy itself (src-size 0).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace {
+
+// x * sigmoid(x).  __fdividef: the IEEE division's slow path (taken for a
+// zero numerator, for one) made the prologue 1.8x slower on all-zero data.
+__device__ __forceinline__ float silu_f(float t) { return __fdividef(t, 1.f + __expf(-t)); }
+
+// ---------------------------------------------------------------- stride 1
+
+constexpr int RECT_H = 8;    // output pixels per tile: 8 rows x 16 columns
+constexpr int RECT_W = 16;
+constexpr int HALO_H = RECT_H + 2;
+constexpr int HALO_W = RECT_W + 2;
+constexpr int HALO_PIX = HALO_H * HALO_W;
+constexpr int KC = 64;       // input channels per chunk: one 128-byte swizzle row
+constexpr int A_BYTES = HALO_PIX * KC * 2;               // one TMA load of a halo
+constexpr int A_STAGE = (A_BYTES + 1023) / 1024 * 1024;  // stages stay 1024-byte aligned
+constexpr int SA = 3;        // halo stages
+constexpr int SB = 6;        // weight stages (one tap x 64 Cin x BN each)
+constexpr int TILE_THREADS = 384;   // warp 0 producer (1-3 idle), 2 consumer warpgroups
+constexpr int FUSED_THREADS = 512;  // fused: warps 1-3 and a fourth warpgroup do the prologue
+constexpr int N_XFORM = FUSED_THREADS - TILE_THREADS + 96;  // prologue threads (a multiple of 8)
+
+constexpr int tiles_smem_bytes(int bn) {
+  return 1024 + SA * A_STAGE + SB * bn * KC * 2 + 8 * (3 * SA + 2 * SB);
+}
+
+struct TileArgs {
+  const float* bias;          // [bias_rows, Cout] or null
+  const float* scale;         // fused: [B, Cin], or null for no prologue
+  const float* shift;         // fused: [B, Cin]
+  const __nv_bfloat16* skip;  // fused: [B, H, W, Cout] or null
+  __nv_bfloat16* out;         // [B, H, W, Cout]
+  int B, H, W, Cin, Cout;
+  int silu, bias_rows;
+  int tiles_x, tiles_y, tiles_n, tiles;  // rectangles per row, per column; channel tiles; all
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Wait until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Shared-memory descriptor of a K-major tile whose rows are 128 bytes in the
+// 128-byte swizzle: start address / 16, leading offset 1 (unused for a
+// swizzled K-major tile), 1024 bytes from one group of 8 rows to the next.
+// A k step of 16 bf16 inside the row adds 32 bytes: 2 to the descriptor.
+__device__ __forceinline__ uint64_t b_desc(uint32_t smem_addr) {
+  return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// d[64 x BN] += a[64 x 16] * b[BN x 16]^T, both operands through their
+// descriptors, d in registers (thread t of warp w: rows 16w + t/4 and + 8,
+// columns 8j + 2(t%4), + 1 in d[4j .. 4j+3]).
+__device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[80], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "%80, %81, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// Descriptor of the A rows of one tap: 8 halo pixels (one rectangle row of 8
+// columns) per group of 8 rows, one halo row (HALO_W pixels) between groups.
+__device__ __forceinline__ uint64_t a_desc(uint32_t smem_addr) {
+  return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(HALO_W * 128 / 16) << 32) | (1ull << 62);
+}
+
+// Tile t of the persistent walk: channel tile fastest, then the rectangle's
+// column, its row, the image.
+struct Tile {
+  int b, y0, x0, n0;
+};
+template <int BN>
+__device__ __forceinline__ Tile tile_at(const TileArgs& p, int t) {
+  Tile r;
+  const int m = t / p.tiles_n;
+  r.n0 = (t - m * p.tiles_n) * BN;
+  const int row = m / p.tiles_x;
+  r.x0 = (m - row * p.tiles_x) * RECT_W;
+  r.b = row / p.tiles_y;
+  r.y0 = (row - r.b * p.tiles_y) * RECT_H;
+  return r;
+}
+
+template <int BN, bool FUSED>
+__device__ __forceinline__ void conv_tiles(const CUtensorMap& map_x, const CUtensorMap& map_w,
+                                           const TileArgs& p) {
+  constexpr int B_STAGE = BN * KC * 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t a_smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t b_smem = a_smem + SA * A_STAGE;
+  const uint32_t bars = b_smem + SB * B_STAGE;
+  auto full_a = [&](int s) { return bars + 8 * s; };
+  auto ready_a = [&](int s) { return bars + 8 * (SA + s); };
+  auto empty_a = [&](int s) { return bars + 8 * (2 * SA + s); };
+  auto full_b = [&](int s) { return bars + 8 * (3 * SA + s); };
+  auto empty_b = [&](int s) { return bars + 8 * (3 * SA + SB + s); };
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
+  const int ck = (Cin + KC - 1) / KC;  // channel chunks
+  const bool prenorm = FUSED && p.scale != nullptr;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SA; ++s) {
+      mbar_init(full_a(s), 1);         // the producer's expect_tx
+      mbar_init(ready_a(s), N_XFORM);  // every prologue thread
+      mbar_init(empty_a(s), 8);        // lane 0 of every consumer warp
+    }
+    for (int s = 0; s < SB; ++s) {
+      mbar_init(full_b(s), 1);
+      mbar_init(empty_b(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    if (lane != 0) return;
+    // Producer: the next free stage of each ring, in the consumers' order.
+    // The halo runs one chunk ahead of the weights (halo i + 1 is asked for
+    // before the nine taps of chunk i), so that a halo has a whole chunk's
+    // multiplies to land and be transformed in.  Its stage was freed when
+    // the consumers began chunk i - 1, whose weights are already on their
+    // way, so the order cannot deadlock.
+    int sa = 0, pa = 0, sb = 0, pb = 0;
+    int at = blockIdx.x, ac = 0;  // (tile, chunk) of the next halo
+    auto load_halo = [&]() {
+      if (at >= p.tiles) return;
+      const Tile tl = tile_at<BN>(p, at);
+      mbar_wait(empty_a(sa), pa ^ 1);
+      mbar_expect_tx(full_a(sa), A_BYTES);
+      tma_load_4d(a_smem + sa * A_STAGE, &map_x, full_a(sa), ac * KC, tl.x0 - 1, tl.y0 - 1, tl.b);
+      if (++sa == SA) sa = 0, pa ^= 1;
+      if (++ac == ck) ac = 0, at += gridDim.x;
+    };
+    load_halo();
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      const Tile tl = tile_at<BN>(p, t);
+      for (int c = 0; c < ck; ++c) {
+        load_halo();
+        for (int tap = 0; tap < 9; ++tap) {
+          mbar_wait(empty_b(sb), pb ^ 1);
+          mbar_expect_tx(full_b(sb), B_STAGE);
+          tma_load_3d(b_smem + sb * B_STAGE, &map_w, full_b(sb), c * KC, tap, tl.n0);
+          if (++sb == SB) sb = 0, pb ^= 1;
+        }
+      }
+    }
+  } else if (warp >= 4 && warp < 12) {
+    // Consumers: warpgroup wg owns rectangle columns 8wg .. 8wg+7 of all 8
+    // rows; its wgmma row m is the pixel of row m / 8, column 8wg + m % 8.
+    // The 8 rows of one group are 8 neighbouring halo pixels, 128 bytes
+    // apart, and the next group lies one halo row on: a descriptor.
+    const int wg = (warp >> 2) - 1, w = warp & 3;
+    float acc[BN / 2];
+    int sa = 0, pa = 0, sb = 0, pb = 0;
+    // Stages whose last wgmma group has not been waited for yet.
+    int sa_prev = -1, sb_prev = -1;
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      const Tile tl = tile_at<BN>(p, t);
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+      for (int c = 0; c < ck; ++c) {
+        if (FUSED && p.skip != nullptr && c == ck - 1) {
+          // The epilogue's skip rows, asked for one chunk ahead: the 4 lanes
+          // that share a pixel take one 128-byte line each.
+          const int x = tl.x0 + 8 * wg + (lane >> 2);
+          const int n = tl.n0 + (lane & 3) * 64;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int y = tl.y0 + 2 * w + h;
+            if (y < H && x < W && n < Cout && n < tl.n0 + BN)
+              asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+                  p.skip + (((long long)tl.b * H + y) * W + x) * Cout + n));
+          }
+        }
+        mbar_wait(prenorm ? ready_a(sa) : full_a(sa), pa);
+        const uint32_t stage = a_smem + sa * A_STAGE;
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          mbar_wait(full_b(sb), pb);
+          const uint64_t da = a_desc(stage + ((tap / 3) * HALO_W + tap % 3 + 8 * wg) * 128);
+          const uint64_t db = b_desc(b_smem + sb * B_STAGE);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks) wgmma_ss(acc, da + 2 * ks, db + 2 * ks);
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous tap's group is done: its operands are free
+          if (lane == 0) {
+            if (sb_prev >= 0) mbar_arrive(empty_b(sb_prev));
+            if (tap == 0 && sa_prev >= 0) mbar_arrive(empty_a(sa_prev));
+          }
+          sb_prev = sb;
+          if (++sb == SB) sb = 0, pb ^= 1;
+        }
+        sa_prev = sa;
+        if (++sa == SA) sa = 0, pa ^= 1;
+      }
+      wgmma_wait<0>();
+      if (lane == 0) {
+        mbar_arrive(empty_b(sb_prev));
+        mbar_arrive(empty_a(sa_prev));
+      }
+      sa_prev = sb_prev = -1;
+
+      // Epilogue from the accumulators: d[4j + 2h], d[4j + 2h + 1] sit at
+      // wgmma row 16w + lane / 4 + 8h, channels n0 + 8j + 2(lane % 4), + 1.
+      // Channel pairs go as one access where every pair is aligned.
+      const bool pair_store = (Cout & 1) == 0 && (reinterpret_cast<uintptr_t>(p.bias) & 7) == 0 &&
+                              (!FUSED || (reinterpret_cast<uintptr_t>(p.skip) & 3) == 0);
+      const int x = tl.x0 + 8 * wg + (lane >> 2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int y = tl.y0 + 2 * w + h;
+        if (y >= H || x >= W) continue;
+        const long long pix = ((long long)tl.b * H + y) * W + x;
+        __nv_bfloat16* orow = p.out + pix * Cout;
+        const float* brow = p.bias;
+        if (FUSED && brow != nullptr && p.bias_rows > 1) brow += (long long)tl.b * Cout;
+        const __nv_bfloat16* srow = FUSED && p.skip != nullptr ? p.skip + pix * Cout : nullptr;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int n = tl.n0 + j * 8 + (lane & 3) * 2;
+          if (n >= Cout) continue;
+          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if (pair_store) {  // n is even, so n + 1 < Cout too, and the pairs are aligned
+            if (brow != nullptr) {
+              const float2 bb = *reinterpret_cast<const float2*>(brow + n);
+              v0 += bb.x, v1 += bb.y;
+            }
+            if (p.silu) v0 = silu_f(v0), v1 = silu_f(v1);
+            if (FUSED && srow != nullptr) {
+              const float2 sk =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(srow + n));
+              v0 += sk.x, v1 += sk.y;
+            }
+            *reinterpret_cast<__nv_bfloat162*>(orow + n) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            float v[2] = {v0, v1};
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              if (n + e >= Cout) continue;
+              if (brow != nullptr) v[e] += brow[n + e];
+              if (p.silu) v[e] = silu_f(v[e]);
+              if (FUSED && srow != nullptr) v[e] += __bfloat162float(srow[n + e]);
+              orow[n + e] = __float2bfloat16(v[e]);
+            }
+          }
+        }
+      }
+    }
+  } else if (prenorm) {
+    // Prologue warps (1-3 and 12-15): silu(x * scale + shift) on a landed
+    // halo stage, in place.  Thread tt owns the 16-byte vector (tt & 7) of
+    // pixels tt / 8, tt / 8 + 28, ...: its 8 channels are fixed in a chunk.
+    const int tt = threadIdx.x - (warp < 4 ? 32 : TILE_THREADS - 96);
+    const int kc = tt & 7;
+    int sa = 0, pa = 0;
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      const Tile tl = tile_at<BN>(p, t);
+      for (int c = 0; c < ck; ++c) {
+        const int ch = c * KC + kc * 8;
+        float s[8], sh[8];
+        if (ch < Cin) {
+          const float4* sp = reinterpret_cast<const float4*>(p.scale + (long long)tl.b * Cin + ch);
+          const float4* tp = reinterpret_cast<const float4*>(p.shift + (long long)tl.b * Cin + ch);
+          const float4 s0 = sp[0], s1 = sp[1], t0 = tp[0], t1 = tp[1];
+          s[0] = s0.x, s[1] = s0.y, s[2] = s0.z, s[3] = s0.w;
+          s[4] = s1.x, s[5] = s1.y, s[6] = s1.z, s[7] = s1.w;
+          sh[0] = t0.x, sh[1] = t0.y, sh[2] = t0.z, sh[3] = t0.w;
+          sh[4] = t1.x, sh[5] = t1.y, sh[6] = t1.z, sh[7] = t1.w;
+        }
+        mbar_wait(full_a(sa), pa);
+        if (ch < Cin) {
+          const uint32_t stage = a_smem + sa * A_STAGE;
+          for (int v = tt; v < HALO_PIX * 8; v += N_XFORM) {
+            const int pix = v >> 3;
+            const int hy = pix / HALO_W, hx = pix - hy * HALO_W;
+            const int gy = tl.y0 - 1 + hy, gx = tl.x0 - 1 + hx;
+            if (gy < 0 || gy >= H || gx < 0 || gx >= W) continue;  // the ring stays zero
+            const uint32_t addr = stage + pix * 128 + ((kc ^ (pix & 7)) << 4);
+            uint32_t r[4];
+            asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+                         : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                         : "r"(addr)
+                         : "memory");
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&r[e]));
+              const __nv_bfloat162 h =
+                  __floats2bfloat162_rn(silu_f(f.x * s[2 * e] + sh[2 * e]),
+                                        silu_f(f.y * s[2 * e + 1] + sh[2 * e + 1]));
+              r[e] = *reinterpret_cast<const uint32_t*>(&h);
+            }
+            asm volatile("st.shared.v4.u32 [%0], {%1,%2,%3,%4};\n" ::"r"(addr), "r"(r[0]),
+                         "r"(r[1]), "r"(r[2]), "r"(r[3])
+                         : "memory");
+          }
+        }
+        // wgmma reads the stage, and TMA overwrites it, through the async proxy.
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(ready_a(sa));
+        if (++sa == SA) sa = 0, pa ^= 1;
+      }
+    }
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+conv3x3_kernel(const __grid_constant__ CUtensorMap map_x,
+               const __grid_constant__ CUtensorMap map_w, const TileArgs p) {
+  conv_tiles<BN, false>(map_x, map_w, p);
+}
+template <int BN>
+__global__ void __launch_bounds__(FUSED_THREADS, 1)
+conv3x3_fused_kernel(const __grid_constant__ CUtensorMap map_x,
+                     const __grid_constant__ CUtensorMap map_w, const TileArgs p) {
+  conv_tiles<BN, true>(map_x, map_w, p);
+}
+
+// libcuda's tensor-map encoder, looked up in the library the CUDA runtime has
+// already loaded, so that this library needs no link against libcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+constexpr int kEncodeFailed = 10000;  // + the encoder's CUresult
+
+// bf16 tensor map, 128-byte swizzle, zero fill outside the tensor.  dims and
+// box innermost first; strides in bytes for dims 1.. .
+int encode_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+               const cuuint64_t* strides, const cuuint32_t* box) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return kEncodeFailed;
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+                            dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
+}
+
+template <int BN, bool FUSED>
+int launch_tiles(const void* x, const void* w, TileArgs a, int grid, void* stream) {
+  static unsigned long long configured = 0;  // one bit per device
+  constexpr int smem = tiles_smem_bytes(BN);
+  auto kernel = FUSED ? conv3x3_fused_kernel<BN> : conv3x3_kernel<BN>;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!(configured >> (device & 63) & 1)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured |= 1ull << (device & 63);
+  }
+  a.tiles_x = (a.W + RECT_W - 1) / RECT_W;
+  a.tiles_y = (a.H + RECT_H - 1) / RECT_H;
+  a.tiles_n = (a.Cout + BN - 1) / BN;
+  a.tiles = a.B * a.tiles_y * a.tiles_x * a.tiles_n;
+  if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_x, map_w;
+  const cuuint64_t cin = a.Cin, wd = a.W, ht = a.H;
+  const cuuint64_t x_dims[4] = {cin, wd, ht, (cuuint64_t)a.B};
+  const cuuint64_t x_strides[3] = {cin * 2, wd * cin * 2, ht * wd * cin * 2};
+  const cuuint32_t x_box[4] = {KC, HALO_W, HALO_H, 1};
+  const cuuint64_t w_dims[3] = {cin, 9, (cuuint64_t)a.Cout};
+  const cuuint64_t w_strides[2] = {cin * 2, 9 * cin * 2};
+  const cuuint32_t w_box[3] = {KC, 1, BN};
+  int err = encode_map(&map_x, x, 4, x_dims, x_strides, x_box);
+  if (err == 0) err = encode_map(&map_w, w, 3, w_dims, w_strides, w_box);
+  if (err != 0) return err;
+  kernel<<<grid, FUSED ? FUSED_THREADS : TILE_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      map_x, map_w, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instance for channel tile bn (ops/conv3x3.py `plan` picks it).
+template <bool FUSED>
+int launch_tiles_bn(int bn, const void* x, const void* w, const TileArgs& a, int grid,
+                    void* stream) {
+  switch (bn) {
+    case 8: return launch_tiles<8, FUSED>(x, w, a, grid, stream);
+    case 128: return launch_tiles<128, FUSED>(x, w, a, grid, stream);
+    case 160: return launch_tiles<160, FUSED>(x, w, a, grid, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ------------------------------------------------------- up2 and down2
 
 constexpr int BM = 128;        // output pixels per block
 constexpr int BN = 128;        // output channels per block
@@ -89,19 +631,16 @@ constexpr int NT = WN / 8;     // n8 tiles per warp
 constexpr int STAGE_ELEMS = (BM + BN) * LDS;
 constexpr size_t SMEM_BYTES = sizeof(__nv_bfloat16) * STAGES * STAGE_ELEMS;
 
-enum Mode : int { kPlain = 0, kFused = 1, kUp2 = 2, kDown2 = 3 };
+enum Mode : int { kUp2 = 2, kDown2 = 3 };
 
 struct ConvArgs {
   const __nv_bfloat16* x;     // [B, H, W, Cin]
   const __nv_bfloat16* w;     // kUp2: [4 phases, 4 taps, Cout, Cin]; else [Cout, 9, Cin]
-  const float* bias;          // [bias_rows, Cout] or null
-  const float* scale;         // kFused: [B, Cin], or null for no prologue
-  const float* shift;         // kFused: [B, Cin]
-  const __nv_bfloat16* skip;  // kFused: [B, Ho, Wo, Cout] or null
+  const float* bias;          // [Cout] or null
   __nv_bfloat16* out;         // kUp2: [B, 2H, 2W, Cout]; else [B, Ho, Wo, Cout]
   int B, H, W, Cin, Cout;
   int Ho, Wo;                 // the GEMM's pixel grid (kUp2: one phase's)
-  int silu, bias_rows, pad;
+  int silu, pad;
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
@@ -121,47 +660,13 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Four 8x8 bf16 matrices; lane l supplies the address of row (l & 7) of
-// matrix (l >> 3) and receives its share of each in r[0..3].
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const __nv_bfloat16* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+// Four 8x8 bf16 matrices from shared memory; lane l supplies the address of
+// row (l & 7) of matrix (l >> 3) and receives its share of each in r[0..3].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t smem_addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// x * sigmoid(x).  __fdividef: the IEEE division's slow path (taken for a
-// zero numerator, for one) made the prologue 1.8x slower on all-zero data.
-__device__ __forceinline__ float silu_f(float t) { return __fdividef(t, 1.f + __expf(-t)); }
-
-// The prologue's scale and shift of 8 channels (c .. c+7) of batch item b.
-struct Pre8 {
-  float4 s[2], t[2];
-};
-__device__ __forceinline__ Pre8 load_pre8(const float* scale, const float* shift, long long off) {
-  Pre8 r;
-  r.s[0] = reinterpret_cast<const float4*>(scale + off)[0];
-  r.s[1] = reinterpret_cast<const float4*>(scale + off)[1];
-  r.t[0] = reinterpret_cast<const float4*>(shift + off)[0];
-  r.t[1] = reinterpret_cast<const float4*>(shift + off)[1];
-  return r;
-}
-
-// silu(x * s + t) on one 16-byte vector of 8 bf16 channels, in place.
-__device__ __forceinline__ void prologue8(__nv_bfloat16* v, const Pre8& pre) {
-  uint4 raw = *reinterpret_cast<const uint4*>(v);
-  const float s[8] = {pre.s[0].x, pre.s[0].y, pre.s[0].z, pre.s[0].w,
-                      pre.s[1].x, pre.s[1].y, pre.s[1].z, pre.s[1].w};
-  const float t[8] = {pre.t[0].x, pre.t[0].y, pre.t[0].z, pre.t[0].w,
-                      pre.t[1].x, pre.t[1].y, pre.t[1].z, pre.t[1].w};
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 f = __bfloat1622float2(h[e]);
-    h[e] = __floats2bfloat162_rn(silu_f(f.x * s[2 * e] + t[2 * e]),
-                                 silu_f(f.y * s[2 * e + 1] + t[2 * e + 1]));
-  }
-  *reinterpret_cast<uint4*>(v) = raw;
+               : "r"(smem_addr)
+               : "memory");
 }
 
 template <int MODE>
@@ -193,11 +698,11 @@ __device__ __forceinline__ void conv_body(const ConvArgs& p) {
   // Each thread copies RPT 16-byte vectors of A and of B per stage: rows
   // (tid / VPR) + (256 / VPR) * i, vector (tid % VPR) of the 64-wide k.
   // ay, ax: input pixel read by tap (0, 0); apix: pixel index of (b, 0, 0)
-  // in the input, -1 past M; ab: batch index.
+  // in the input, -1 past M.
   const int vec = tid % VPR;
   const int row0 = tid / VPR;
   constexpr int ROW_STEP = NTHREADS / VPR;
-  int ay[RPT], ax[RPT], apix[RPT], ab[RPT];
+  int ay[RPT], ax[RPT], apix[RPT];
   for (int i = 0; i < RPT; ++i) {
     const long long m = m0 + row0 + ROW_STEP * i;
     const long long mm = m < M ? m : 0;
@@ -207,15 +712,11 @@ __device__ __forceinline__ void conv_body(const ConvArgs& p) {
     if (MODE == kDown2) {
       ay[i] = 2 * oy - p.pad;
       ax[i] = 2 * ox - p.pad;
-    } else if (MODE == kUp2) {
+    } else {
       ay[i] = oy + (phase >> 1) - 1;
       ax[i] = ox + (phase & 1) - 1;
-    } else {
-      ay[i] = oy - 1;
-      ax[i] = ox - 1;
     }
     apix[i] = m < M ? b * H * W : -1;
-    ab[i] = b;
   }
   auto a_ok = [&](int i, int tap, int c, int& yy, int& xx) {
     yy = ay[i] + tap / KW;
@@ -271,39 +772,9 @@ __device__ __forceinline__ void conv_body(const ConvArgs& p) {
   // ((lane >> 4) * 8 + (lane & 7)), k half ((lane >> 3) & 1).
   const int a_row = lane & 15, a_k = (lane >> 4) * 8;
   const int b_row = (lane >> 4) * 8 + (lane & 7), b_k = ((lane >> 3) & 1) * 8;
-  const bool prenorm = MODE == kFused && p.scale != nullptr;
-  int pr_tap = 0, pr_c = 0;  // (tap, first channel) of tile kt, for the prologue
-  // Scale and shift of this thread's channels in the next tile to transform,
-  // for batch item ab[0], loaded a tile ahead so that their latency hides
-  // behind the MMAs; a row of another batch item loads its own.
-  Pre8 pre{};
-  if (prenorm && vec * 8 < Cin) pre = load_pre8(p.scale, p.shift, (long long)ab[0] * Cin + vec * 8);
 
   for (int kt = 0; kt < KT; ++kt) {
     cp_async_wait<STAGES - 2>();
-    if (prenorm) {  // this thread's own copies of tile kt have landed
-      const int c = pr_c + vec * 8;
-      __nv_bfloat16* as = a_tile(kt % STAGES);
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        int yy, xx;
-        if (a_ok(i, pr_tap, c, yy, xx)) {
-          __nv_bfloat16* v = as + (row0 + ROW_STEP * i) * LDS + vec * 8;
-          if (ab[i] == ab[0])
-            prologue8(v, pre);
-          else
-            prologue8(v, load_pre8(p.scale, p.shift, (long long)ab[i] * Cin + c));
-        }
-      }
-      pr_c += BK;
-      if (pr_c >= Cin) {
-        pr_c = 0;
-        ++pr_tap;
-      }
-      const int cn = pr_c + vec * 8;
-      if (kt + 1 < KT && cn < Cin)
-        pre = load_pre8(p.scale, p.shift, (long long)ab[0] * Cin + cn);
-    }
     __syncthreads();  // tile kt visible to all; stage (kt - 1) free to refill
     const int nk = kt + STAGES - 1;
     if (nk < KT) load_stage(nk % STAGES);
@@ -316,11 +787,11 @@ __device__ __forceinline__ void conv_body(const ConvArgs& p) {
       uint32_t af[MT][4], bf[NT][2];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(af[i], as + (wm * WM + i * 16 + a_row) * LDS + ks + a_k);
+        ldmatrix_x4(af[i], smem_u32(as + (wm * WM + i * 16 + a_row) * LDS + ks + a_k));
 #pragma unroll
       for (int jp = 0; jp < NT / 2; ++jp) {
         uint32_t r[4];
-        ldmatrix_x4(r, bs + (wn * WN + jp * 16 + b_row) * LDS + ks + b_k);
+        ldmatrix_x4(r, smem_u32(bs + (wn * WN + jp * 16 + b_row) * LDS + ks + b_k));
         bf[2 * jp][0] = r[0];
         bf[2 * jp][1] = r[1];
         bf[2 * jp + 1][0] = r[2];
@@ -345,16 +816,11 @@ __device__ __forceinline__ void conv_body(const ConvArgs& p) {
       if (m >= M) continue;
       long long opix = m;
       const float* brow = p.bias;
-      const __nv_bfloat16* srow = nullptr;
       if (MODE == kUp2) {
         const long long b = m / HWo;
         const int r = (int)(m - b * HWo);
         const int oy = r / p.Wo, ox = r - (r / p.Wo) * p.Wo;
         opix = (b * 2 * p.Ho + 2 * oy + (phase >> 1)) * (2LL * p.Wo) + 2 * ox + (phase & 1);
-      }
-      if (MODE == kFused) {
-        if (brow != nullptr && p.bias_rows > 1) brow += (m / HWo) * Cout;
-        if (p.skip != nullptr) srow = p.skip + m * Cout;
       }
       __nv_bfloat16* orow = p.out + opix * Cout;
 #pragma unroll
@@ -365,8 +831,6 @@ __device__ __forceinline__ void conv_body(const ConvArgs& p) {
           float t = acc[i][j][half * 2 + e];
           if (brow != nullptr && n + e < Cout) t += brow[n + e];
           if (p.silu) t = silu_f(t);
-          if (MODE == kFused && srow != nullptr && n + e < Cout)
-            t += __bfloat162float(srow[n + e]);
           v[e] = t;
         }
         if (pair_store && n + 1 < Cout) {
@@ -383,12 +847,6 @@ __device__ __forceinline__ void conv_body(const ConvArgs& p) {
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS, 2) conv3x3_kernel(const ConvArgs p) {
-  conv_body<kPlain>(p);
-}
-__global__ void __launch_bounds__(NTHREADS, 2) conv3x3_fused_kernel(const ConvArgs p) {
-  conv_body<kFused>(p);
-}
 __global__ void __launch_bounds__(NTHREADS, 2) conv3x3_up2_kernel(const ConvArgs p) {
   conv_body<kUp2>(p);
 }
@@ -449,19 +907,28 @@ ConvArgs args(const void* x, const void* w, const void* bias, void* out, int B, 
   a.bias = static_cast<const float*>(bias);
   a.out = static_cast<__nv_bfloat16*>(out);
   a.B = B, a.H = H, a.W = W, a.Cin = Cin, a.Cout = Cout;
-  a.Ho = H, a.Wo = W, a.silu = silu, a.bias_rows = 1;
+  a.Ho = H, a.Wo = W, a.silu = silu;
   return a;
 }
 
 }  // namespace
 
-// x [B, H, W, Cin], w [Cout, 3, 3, Cin], bias [Cout] fp32 or null -> out [B, H, W, Cout].
+// Dynamic shared memory of the stride-1 instance with channel tile bn (the
+// host-side plan mirrors it), or -1 where there is no such instance.
+extern "C" int conv3x3_smem_bytes(int bn) {
+  return bn == 8 || bn == 128 || bn == 160 ? tiles_smem_bytes(bn) : -1;
+}
+
+// x [B, H, W, Cin], w [Cout, 3, 3, Cin], bias [Cout] fp32 or null -> out
+// [B, H, W, Cout]; bn and grid from the plan (ops/conv3x3.py).
 extern "C" int conv3x3_bf16(const void* x, const void* w, const void* bias, void* out,
-                            int B, int H, int W, int Cin, int Cout, int silu,
+                            int B, int H, int W, int Cin, int Cout, int silu, int bn, int grid,
                             void* stream) {
-  static bool configured = false;
-  return launch(conv3x3_kernel, configured, args(x, w, bias, out, B, H, W, Cin, Cout, silu), 1,
-                stream);
+  TileArgs a{};
+  a.bias = static_cast<const float*>(bias);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.B = B, a.H = H, a.W = W, a.Cin = Cin, a.Cout = Cout, a.silu = silu, a.bias_rows = 1;
+  return launch_tiles_bn<false>(bn, x, w, a, grid, stream);
 }
 
 // As conv3x3_bf16, plus: bias [bias_rows, Cout] fp32 (bias_rows 1 or B);
@@ -470,14 +937,15 @@ extern "C" int conv3x3_bf16(const void* x, const void* w, const void* bias, void
 extern "C" int conv3x3_fused_bf16(const void* x, const void* w, const void* bias,
                                   const void* scale, const void* shift, const void* skip,
                                   void* out, int B, int H, int W, int Cin, int Cout, int silu,
-                                  int bias_rows, void* stream) {
-  static bool configured = false;
-  ConvArgs a = args(x, w, bias, out, B, H, W, Cin, Cout, silu);
+                                  int bias_rows, int bn, int grid, void* stream) {
+  TileArgs a{};
+  a.bias = static_cast<const float*>(bias);
   a.scale = static_cast<const float*>(scale);
   a.shift = static_cast<const float*>(shift);
   a.skip = static_cast<const __nv_bfloat16*>(skip);
-  a.bias_rows = bias_rows;
-  return launch(conv3x3_fused_kernel, configured, a, 1, stream);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.B = B, a.H = H, a.W = W, a.Cin = Cin, a.Cout = Cout, a.silu = silu, a.bias_rows = bias_rows;
+  return launch_tiles_bn<true>(bn, x, w, a, grid, stream);
 }
 
 // x [B, H, W, Cin], w [Cout, 3, 3, Cin] -> out [B, 2H, 2W, Cout]; wp4

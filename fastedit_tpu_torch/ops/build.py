@@ -23,15 +23,16 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl",
 )
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The C functions of each library and their argument types; every one
 # returns a CUDA error code (int).  Set once, when the library is loaded.
 KERNELS = {
     "conv3x3": {
-        "conv3x3_bf16": [_P] * 4 + [_I] * 6 + [_P],
-        "conv3x3_fused_bf16": [_P] * 7 + [_I] * 7 + [_P],
+        "conv3x3_smem_bytes": [_I],  # returns bytes, not an error code
+        "conv3x3_bf16": [_P] * 4 + [_I] * 8 + [_P],
+        "conv3x3_fused_bf16": [_P] * 7 + [_I] * 9 + [_P],
         "conv3x3_up2_bf16": [_P] * 5 + [_I] * 6 + [_P],
         "conv3x3_down2_bf16": [_P] * 4 + [_I] * 7 + [_P],
     },
@@ -107,6 +108,11 @@ def build_all() -> dict[str, str]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return logs
+
+
+def library_path(name: str) -> Path:
+    """Where kernel library ``name`` is (or will be) built."""
+    return _target(name)
 
 
 def library(name: str) -> ctypes.CDLL:

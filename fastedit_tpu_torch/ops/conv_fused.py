@@ -4,9 +4,10 @@ CUDA kernel wrappers and their plain versions.
 The kernels live in ``csrc/conv3x3.cu`` beside the 3x3 conv they extend and
 replace the three TPU kernels of ``fastedit_tpu/ops/conv_fused.py``:
 
-* ``conv3x3_fused`` (``_fused_call``): 3x3 SAME conv whose input tile is
-  mapped through ``silu(x * scale[b, c] + shift[b, c])`` first (GroupNorm +
-  SiLU, statistics from ``ops/groupnorm.group_norm_scale_shift``), with a
+* ``conv3x3_fused`` (``_fused_call``): 3x3 SAME conv whose input is mapped
+  through ``silu(x * scale[b, c] + shift[b, c])`` first (GroupNorm + SiLU,
+  statistics from ``ops/groupnorm.group_norm_scale_shift``; the kernel does
+  it once per staged halo element, on the schedule of ``conv3x3.plan``), with a
   per-batch bias [B, Cout] (the time-embedding add folded in), an optional
   SiLU and a skip-add epilogue: a resnet block's activations make one trip
   through HBM per conv.
@@ -29,6 +30,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from fastedit_tpu_torch.ops.conv3x3 import plan_for
 from fastedit_tpu_torch.ops.conv3x3 import supports as _supports_conv3x3
 
 # Launches of each CUDA kernel since the last reset (chip_smoke.py resets them).
@@ -215,12 +217,13 @@ def conv3x3_fused(
                              or not skip.is_contiguous() or skip.device != x.device):
         raise ValueError(f"conv3x3_fused: skip must be a contiguous {x.dtype} "
                          f"{(b, h, w, cout)} tensor on {x.device}")
+    pl = plan_for(x, cout)
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     return _launch(
         "conv3x3_fused_bf16", "conv3x3_fused", out,
         x.data_ptr(), weight.data_ptr(), _ptr(bias), _ptr(scale), _ptr(shift), _ptr(skip),
         out.data_ptr(), b, h, w, cin, cout, int(act == "silu"),
-        1 if bias is None else bias.shape[0],
+        1 if bias is None else bias.shape[0], pl.bn, pl.grid,
     )
 
 

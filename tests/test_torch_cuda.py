@@ -6,7 +6,9 @@ marker and skip without a card.  On a machine with one:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 Shapes are small but cover what the main path's shapes exercise: ragged
-Cin (72, 320) and Cout (3, 4, 8), several output tiles, the SiLU epilogue,
+Cin (72, 96, 320) and Cout (3, 4, 8, 200), the stride-1 kernel's geometry (two
+images of several 8 x 16 rectangles, images smaller than one, H and W that
+are no multiples of it, all three channel tiles), the SiLU epilogue,
 no bias, attention read through strides (q, k, v as slices of one fused
 projection), Sq != Skv, and both head dims; for the fused resnet, up2 and
 down2 convs, the prologue, per-batch bias and skip, both down2 paddings and
@@ -52,6 +54,11 @@ def _assert_close(out, ref, rel, abs_tol):
         (1, 32, 32, 128, 3, None, True),  # VAE conv_out tail
         (2, 16, 16, 320, 4, None, False),  # UNet conv_out tail, no bias
         (1, 8, 8, 72, 8, "silu", True),  # Cin not a multiple of 32, SiLU
+        (2, 32, 32, 640, 1280, None, True),  # two images of 8 rectangles, 160-wide tiles
+        (2, 13, 37, 96, 320, "silu", True),  # H, W not multiples of the rectangle, Cin 96
+        (2, 5, 7, 64, 3, None, True),  # two images smaller than one rectangle, Cout 3
+        (3, 8, 16, 128, 4, None, False),  # exactly one rectangle each, Cout 4
+        (1, 40, 48, 64, 200, None, True),  # ragged Cout on the 128-wide tile
     ],
 )
 def test_conv3x3_kernel_matches_plain(gen, n, h, w, cin, cout, act, bias):
@@ -101,6 +108,10 @@ def _conv_close(out, ref):
         (1, 24, 20, 320, 320, False, True, None),  # ragged Cin and Cout, skip
         (2, 8, 8, 72, 8, True, True, "silu"),  # Cin 72, Cout 8, everything at once
         (1, 16, 16, 128, 3, False, False, None),  # Cout 3
+        (2, 32, 32, 256, 1280, True, True, None),  # two images of 8 rectangles, 160-wide tiles
+        (2, 13, 37, 96, 320, True, True, "silu"),  # H, W not multiples of the rectangle, Cin 96
+        (2, 5, 7, 64, 4, False, True, None),  # two images smaller than one rectangle, Cout 4
+        (1, 40, 48, 192, 200, False, False, None),  # three Cin chunks, ragged Cout
     ],
 )
 def test_conv3x3_fused_kernel_matches_plain(gen, n, h, w, cin, cout, per_batch_bias, skip, act):
@@ -115,6 +126,35 @@ def test_conv3x3_fused_kernel_matches_plain(gen, n, h, w, cin, cout, per_batch_b
     torch.cuda.synchronize()
     assert cf.launches["conv3x3_fused"] == before + 1
     _conv_close(out, ref)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_stride1_kernels_give_the_same_bits_twice(gen, fused):
+    """No atomics and no split sums: the schedule fixes the order of every
+    sum, so two launches on the same inputs agree bit for bit (many tiles
+    per block, so the blocks walk their tiles in different interleavings)."""
+    n, h, w, cin, cout = 2, 96, 80, 320, 320
+    x, wt = _conv_operands(gen, n, h, w, cin, cout)
+    bias = torch.randn((n, cout) if fused else (cout,), generator=gen, device="cuda")
+    if fused:
+        pre = (torch.rand((n, cin), generator=gen, device="cuda") + 0.5,
+               torch.randn((n, cin), generator=gen, device="cuda"))
+        sk = torch.randn((n, h, w, cout), generator=gen, device="cuda").bfloat16()
+        run = lambda: cf.conv3x3_fused(x, wt, bias, pre, "silu", sk)  # noqa: E731
+    else:
+        run = lambda: k.conv3x3(x, wt, bias)  # noqa: E731
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_plan_mirrors_the_kernels_shared_memory(gen):
+    from fastedit_tpu_torch.ops.build import library
+
+    lib = library("conv3x3")
+    for bn in k.BN_INSTANCES:
+        assert lib.conv3x3_smem_bytes(bn) == k.smem_bytes(bn) <= k.SMEM_LIMIT
+    assert lib.conv3x3_smem_bytes(64) == -1
 
 
 @pytest.mark.parametrize(
