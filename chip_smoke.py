@@ -16,15 +16,20 @@ order; a failed phase raises and the script exits non-zero:
    configuration and in the opt-in one (shapes and counts from the model
    configs, ``tools/inventory.py``), on seeded random bf16 inputs, and time
    the kernel, the plain version and the nearest PyTorch library call with
-   CUDA events.  Each kernel also reads a planted fault in its plain version
-   (attention: the last KV tile skipped; fused conv: the padding ring not
-   re-zeroed; both stride-1 convs at batch 2: the halo row above an image
-   read from the neighbouring image, as a tile that straddles two images
-   would; up2: one phase's tap rows swapped; down2: the other padding;
+   CUDA events: the kernel and the library call from a CUDA graph of 20 calls
+   (``ms``, ``library_ms``: the device alone) and eagerly (``eager_ms``: 10
+   back-to-back calls, which read the host where a call takes the device
+   less than the host takes to enqueue it), the plain version eagerly.
+   Each kernel also reads a planted fault in its plain version (attention:
+   the last KV tile of the kernel's plan skipped; fused conv: the padding
+   ring not re-zeroed; both stride-1 convs at batch 2: the halo row above an
+   image read from the neighbouring image, as a tile that straddles two
+   images would; up2: one phase's tap rows swapped; down2: the other padding;
    GroupNorm: a one-pass variance on an input with |mean| >> std), which the
-   tolerance must reject.  The stride-1 convs' rows also carry their plan
-   (tile rectangle, channel tile, grid, shared memory) and the achieved
-   TFLOP/s, and the host's microseconds per conv launch are printed.
+   tolerance must reject.  The rows of the stride-1 and stride-2 convs and of
+   attention also carry their plan (tiles, grid, shared memory) and the
+   achieved TFLOP/s, and the host's microseconds per launch of the stride-1
+   conv, the stride-2 conv and attention are printed.
 3. The main path in the default configuration:
    ``FastEditor("ssd-1b", random_weights=True)`` at 1024², a warm-up, three
    ``edit()`` calls and one ``edit_batch`` of two images.  Seconds per edit
@@ -64,7 +69,6 @@ PEAK_HBM_BYTES_PER_S = 3.35e12
 
 RESOLUTION = 1024
 EDIT_KW = dict(strength=0.8, num_inference_steps=4, guidance_scale=1.5)
-TIMING_REPS = 10
 # The opt-in kernel configuration of phase 4 (the path of the GroupNorm
 # kernel and of the encoder's fused and stride-2 kernels).
 OPT_IN = dict(use_cuda_conv=True, use_cuda_groupnorm=True)
@@ -81,7 +85,6 @@ CONV_REL, CONV_ABS_OF_MAX = 2.0**-7, 2.0**-10
 # (the plain version with the kernel's last KV tile skipped), both read on
 # the card in every run (phase 2).
 ATTN_REL, ATTN_ABS_OF_RMS = 2.0**-7, 2.0**-3
-KV_TILE = {64: 64, 512: 32}  # keys per KV tile in csrc/flash_attention.cu
 # GroupNorm's |mean| >> std input: bf16 values 384 and 386 (one in 512 is
 # 386): std ~0.09, far below what fp32 resolves of E[x^2] ~ 147456 (ulp
 # 2^-6), so a one-pass variance is noise while the two-pass one is exact.
@@ -93,12 +96,6 @@ GN_OFFSET, GN_SPIKE, GN_SPIKE_RATE = 384.0, 2.0, 1.0 / 512
 # kernel that skips its last Cin step must fail these limits.  A skipped
 # attention KV tile moves the latents no more than bf16 rounding does, so
 # it is recorded only; phase 2 catches it.
-# Host microseconds per conv3x3 launch of the mma.sync kernel that the wgmma
-# one replaced (no tensor maps to encode), at the same shape, read beside the
-# new kernel's (24.55-24.73 and 24.67-24.85) in one run of tools/conv_bench.py
-# on both trees on an H100 80GB HBM3 at 700 W; its device time per call
-# (82 us) exceeded its enqueue time.
-HOST_US_BEFORE = "22.95-23.13 to enqueue, 82.31-82.33 with the synchronise"
 E2E_LATENT_REL_L2 = 5e-2
 E2E_IMAGE_MEAN_LSB = 4.0
 
@@ -135,23 +132,6 @@ def count_hgmma(library_path: Path) -> dict:
         elif name is not None and "HGMMA" in line:
             counts[name] += 1
     return counts
-
-
-def time_ms(fn, reps: int = TIMING_REPS) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` back-to-back calls
-    (after one warm-up call), from CUDA events."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -221,6 +201,8 @@ def hold(calls, kernel, key, kern, plain, library, flops, nbytes, faults=None,
     per-shape table."""
     import torch
 
+    from fastedit_tpu_torch.tools.timing import graph_ms, time_ms
+
     out, ref = kern(), plain()
     torch.cuda.synchronize()
     err, rel = check_close(f"{kernel} {key}", out, ref, CONV_REL, conv_tol(ref))
@@ -237,12 +219,14 @@ def hold(calls, kernel, key, kern, plain, library, flops, nbytes, faults=None,
         calls_edit=calls["default_b1"].get((kernel, key), 0),
         calls_edit_batch2=calls["default_b2"].get((kernel, key), 0),
         calls_edit_optin=calls["optin_b1"].get((kernel, key), 0),
-        ms=time_ms(kern), plain_ms=time_ms(plain), library_ms=time_ms(library),
+        ms=graph_ms(kern), library_ms=graph_ms(library), plain_ms=time_ms(plain),
+        eager_ms=time_ms(kern), library_eager_ms=time_ms(library),
         bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
     )
     row["tflops"] = flops / row["ms"] / 1e9
     log(kernel, list(key), {k: row[k] for k in (
-        "max_abs_err", "max_rel_err", "ms", "plain_ms", "library_ms", "bound_ms", "tflops")},
+        "max_abs_err", "max_rel_err", "ms", "library_ms", "plain_ms", "eager_ms",
+        "library_eager_ms", "bound_ms", "tflops")},
         {k: v for k, v in row.items() if k.endswith("_elements_outside")},
         {k: row[k] for k in ("plan", "prologue_exps") if k in row})
     return row
@@ -258,12 +242,13 @@ def _conv_operands(gen, n, h, w, cin, cout):
     return x, wt, bias
 
 
-def plan_of(x, cout: int) -> dict:
-    """The stride-1 conv kernel's schedule for this call, as a row records
-    it."""
-    from fastedit_tpu_torch.ops.conv3x3 import plan_for
+def plan_of(x, cout: int, down2_asymmetric=None) -> dict:
+    """The conv kernel's schedule for this call (stride 1, or stride 2 where
+    ``down2_asymmetric`` says which padding), as a row records it."""
+    from fastedit_tpu_torch.ops.conv3x3 import plan_down2_for, plan_for
 
-    pl = plan_for(x, cout)
+    pl = (plan_for(x, cout) if down2_asymmetric is None
+          else plan_down2_for(x, cout, down2_asymmetric))
     return dict(rect=list(pl.rect), bn=pl.bn, tiles=pl.tiles, grid=pl.grid,
                 smem_bytes=pl.smem_bytes)
 
@@ -305,33 +290,42 @@ def compare_conv(calls: dict, gen) -> list[dict]:
     return rows
 
 
-def host_us_per_launch(calls: dict, gen, launches: int = 200, trials: int = 5) -> dict:
-    """Host microseconds per ``conv3x3`` call at the main path's smallest
-    shape: the wall time of ``launches`` calls up to the last call's return
-    (the enqueue alone: the wrapper's checks, the plan, two tensor-map
-    encodings, the launch) and up to one synchronise after it; the least of
-    ``trials`` runs, since the host is shared and its clock spreads."""
+def host_us_per_launch(calls: dict, gen, launches: int = 200, trials: int = 5) -> list[dict]:
+    """Host microseconds per call of ``conv3x3``, ``conv3x3_down2`` and
+    ``flash_attention`` (D = 64), each at the main path's smallest shape
+    (``tools/timing.host_us``: to enqueue, and with one synchronise at the
+    end; the least of ``trials`` runs of ``launches`` calls)."""
+    import math
+
     import torch
 
     from fastedit_tpu_torch.ops import conv3x3 as k
+    from fastedit_tpu_torch.ops import conv_fused as cf
+    from fastedit_tpu_torch.ops import flash_attention as fa
+    from fastedit_tpu_torch.tools.timing import host_us
 
-    key = min(keys_of(calls, "conv3x3"), key=lambda s: s[0] * s[1] * s[2] * s[3] * s[4])
-    x, wt, bias = _conv_operands(gen, *key)
-    for _ in range(10):
-        k.conv3x3(x, wt, bias)
-    enqueue_us = us = float("inf")
-    for _ in range(trials):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(launches):
-            k.conv3x3(x, wt, bias)
-        enqueue_us = min(enqueue_us, 1e6 * (time.perf_counter() - t) / launches)
-        torch.cuda.synchronize()
-        us = min(us, 1e6 * (time.perf_counter() - t) / launches)
-    log(f"host us per conv3x3 launch at {list(key)}: {enqueue_us:.2f} to enqueue, {us:.2f} "
-        f"with one synchronise at the end (the mma.sync kernel before it: {HOST_US_BEFORE})")
-    return dict(shape=list(key), launches=launches, trials=trials,
-                host_enqueue_us_per_launch=enqueue_us, host_us_per_launch=us)
+    def smallest(kernel):
+        return min(keys_of(calls, kernel), key=lambda s: math.prod(int(v) or 1 for v in s))
+
+    conv_key, down_key, attn_key = (smallest(n) for n in (
+        "conv3x3", "conv3x3_down2", "flash_attention_d64"))
+    x, wt, bias = _conv_operands(gen, *conv_key)
+    xd, wd, bd = _conv_operands(gen, *down_key[:5])
+    b, sq, skv, h, d = attn_key
+    q, kk, v = (torch.randn((b, s_, h, d), generator=gen, device="cuda").bfloat16()
+                for s_ in (sq, skv, skv))
+    rows = []
+    for name, key, fn in (
+            ("conv3x3", conv_key, lambda: k.conv3x3(x, wt, bias)),
+            ("conv3x3_down2", down_key,
+             lambda: cf.conv3x3_down2(xd, wd, bd, asymmetric=down_key[5])),
+            ("flash_attention_d64", attn_key, lambda: fa.flash_attention(q, kk, v))):
+        enqueue_us, us = host_us(fn, launches, trials)
+        log(f"host us per {name} launch at {list(key)}: {enqueue_us:.2f} to enqueue, {us:.2f} "
+            "with one synchronise at the end")
+        rows.append(dict(kernel=name, shape=list(key), launches=launches, trials=trials,
+                         host_enqueue_us_per_launch=enqueue_us, host_us_per_launch=us))
+    return rows
 
 
 def compare_fused(calls: dict, gen) -> list[dict]:
@@ -447,6 +441,7 @@ def compare_down2(calls: dict, gen) -> list[dict]:
             library, flops=2.0 * n * ho * wo * cout * 9 * cin,
             nbytes=2.0 * (n * h * w * cin + 9 * cin * cout + n * ho * wo * cout) + 4.0 * cout,
             faults={"fault": lambda: cf.conv3x3_down2_plain(x, wt, bias, asymmetric=not asym)},
+            extra=dict(plan=plan_of(x, cout, down2_asymmetric=asym)),
         ))
     return rows
 
@@ -513,6 +508,7 @@ def compare_attention(calls: dict, gen) -> list[dict]:
     import torch.nn.functional as F
 
     from fastedit_tpu_torch.ops import flash_attention as fa
+    from fastedit_tpu_torch.tools.timing import graph_ms, time_ms
 
     rows, weak = [], []
     keys = sorted({key for c in calls.values() for (k, key) in c
@@ -525,7 +521,8 @@ def compare_attention(calls: dict, gen) -> list[dict]:
         v = torch.randn((b, skv, h, d), generator=gen, device="cuda").bfloat16()
         out = fa.flash_attention(q, kk, v)
         ref = fa.attention_plain(q, kk, v)
-        tile = KV_TILE[d]
+        pl = fa.plan_for(q, skv)
+        tile = pl.bkv  # one KV tile of the kernel that runs
         faulty = fa.attention_plain(q, kk[:, :-tile], v[:, :-tile])
         torch.cuda.synchronize()
         sound_c, fault_c = err_over_rms(out, ref, ATTN_REL), err_over_rms(faulty, ref, ATTN_REL)
@@ -550,13 +547,19 @@ def compare_attention(calls: dict, gen) -> list[dict]:
             calls_edit_optin=calls["optin_b1"].get((name, key), 0),
             max_abs_err=err, max_rel_err=rel, err_over_rms=sound_c,
             fault_err_over_rms=fault_c,
-            ms=time_ms(lambda: fa.flash_attention(q, kk, v)),
+            ms=graph_ms(lambda: fa.flash_attention(q, kk, v)),
+            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
             plain_ms=time_ms(lambda: fa.attention_plain(q, kk, v)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+            eager_ms=time_ms(lambda: fa.flash_attention(q, kk, v)),
+            library_eager_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
             bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+            plan=dict(bq=pl.bq, bkv=pl.bkv, stages=pl.stages, tiles=pl.tiles, grid=pl.grid,
+                      smem_bytes=pl.smem_bytes),
         ))
+        rows[-1]["tflops"] = flops / rows[-1]["ms"] / 1e9
         log("attention", rows[-1]["shape"], {k: rows[-1][k] for k in
-            ("max_abs_err", "max_rel_err", "ms", "plain_ms", "library_ms", "bound_ms")})
+            ("max_abs_err", "max_rel_err", "ms", "library_ms", "plain_ms", "eager_ms",
+             "library_eager_ms", "bound_ms", "tflops", "plan")})
     if weak:
         raise AssertionError("\n".join(weak))
     return rows
@@ -684,8 +687,8 @@ def seeded_weights_(editor, seed: int) -> None:
 @contextlib.contextmanager
 def planted_fault(kind: str):
     """Plant a kernel-sized fault in the plain versions, inside the kernel's
-    gate: ``attention`` skips the last KV tile, as a kernel whose loop stops
-    one tile short; ``conv`` skips the last Cin step (64 channels) of the
+    gate: ``attention`` skips the last KV tile of the kernel's plan, as a
+    kernel whose loop stops one tile short; ``conv`` skips the last Cin step (64 channels) of the
     last tap, as a kernel whose K loop stops one step short."""
     from fastedit_tpu_torch.ops import conv3x3, flash_attention
 
@@ -696,7 +699,8 @@ def planted_fault(kind: str):
 
         def faulty(q, k, v, scale=None):
             if flash_attention.supports(tuple(q.shape), k.shape[1]):
-                tile = KV_TILE[q.shape[-1]]
+                b, sq, h, d = q.shape
+                tile = flash_attention.plan(b, sq, k.shape[1], h, d).bkv
                 k, v = k[:, :-tile], v[:, :-tile]
             return orig(q, k, v, scale)
     else:
@@ -803,6 +807,10 @@ KERNELS = {  # name: (source, TPU kernel it replaces: file:line of pallas_call)
     "group_norm": ("fastedit_tpu_torch/csrc/group_norm.cu",
                    "fastedit_tpu/ops/fused_groupnorm.py:105"),
 }
+# Kernels built on wgmma (SASS HGMMA), by a part of their mangled name; the
+# others (up2, attention at D = 512, the phase-weight fold) must hold none.
+WGMMA_KERNELS = ("conv3x3_kernel", "conv3x3_fused_kernel", "conv3x3_down2_kernel",
+                 "flash_d64_kernel")
 # Kernels off in the default configuration: their per-edit figures and
 # launches come from the opt-in configuration's edit (phase 4).
 OPT_IN_ONLY = ("group_norm",)
@@ -812,6 +820,10 @@ def kernel_summary(rows: list, main: dict, e2e: dict) -> list:
     """One entry per kernel.  Times and bounds are for one edit's calls of
     that kernel: the sum over its shapes of calls per edit x per-call time,
     in the default configuration (the opt-in one for ``OPT_IN_ONLY``).
+    ``ms`` and ``library_ms`` are the device's own times, from CUDA graphs;
+    ``eager_ms`` and ``library_eager_ms`` are the same from back-to-back eager
+    calls, which read the host where a call is short; ``plain_ms`` is eager
+    (the plain versions take milliseconds).
     Launches are those of the main path's run (3 edits and a batch of 2),
     or of the opt-in edit for ``OPT_IN_ONLY``."""
     out = []
@@ -833,7 +845,8 @@ def kernel_summary(rows: list, main: dict, e2e: dict) -> list:
             launches=launches, max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=per_edit("ms"), plain_ms=per_edit("plain_ms"), bound_ms=per_edit("bound_ms"),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-            library_ms=per_edit("library_ms"),
+            library_ms=per_edit("library_ms"), eager_ms=per_edit("eager_ms"),
+            library_eager_ms=per_edit("library_eager_ms"),
         ))
     return out
 
@@ -868,15 +881,18 @@ def main() -> int:
                     or "Performance Loss" in line):
                 log(f"  {name}: {line.strip()}")
 
-    hgmma = count_hgmma(build.library_path("conv3x3"))
-    for name, n in hgmma.items():
-        stride1 = "conv3x3_kernel" in name or "conv3x3_fused_kernel" in name
-        log(f"  conv3x3: {n} HGMMA in {name}")
-        if stride1 != (n > 0):
-            raise AssertionError(f"{name}: {n} HGMMA instructions; the stride-1 conv kernels, "
-                                 "and only they, are built on wgmma")
-    if not hgmma:
-        log("  conv3x3: no cuobjdump, HGMMA not counted")
+    hgmma = {}
+    for lib in ("conv3x3", "flash_attention"):
+        counts = count_hgmma(build.library_path(lib))
+        hgmma.update(counts)
+        for name, n in counts.items():
+            on_wgmma = any(k in name for k in WGMMA_KERNELS)
+            log(f"  {lib}: {n} HGMMA in {name}")
+            if on_wgmma != (n > 0):
+                raise AssertionError(f"{name}: {n} HGMMA instructions; {WGMMA_KERNELS}, and "
+                                     "only they, are built on wgmma")
+        if not counts:
+            log(f"  {lib}: no cuobjdump, HGMMA not counted")
 
     log("[2] kernels vs plain versions at the main path's shapes")
     t = time.perf_counter()
@@ -901,7 +917,7 @@ def main() -> int:
     OUT_FILE.parent.mkdir(parents=True, exist_ok=True)
     OUT_FILE.write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda, kernels=kernels,
-        shapes=rows, conv_host=host, main_path=main, kernels_vs_plain=e2e,
+        shapes=rows, host=host, main_path=main, kernels_vs_plain=e2e,
         phase2_s=phase2_s, build_s=build_s, hgmma=hgmma,
         seconds_total=time.perf_counter() - t_start,
     ), indent=1, default=str))

@@ -22,13 +22,14 @@
 //                         conv's FLOPs.  up2_phase_weights_kernel folds the
 //                         phase weights from the 3x3 ones, one thread per
 //                         (Cout, Cin) pair, in the same call.
-//   conv3x3_down2_kernel  stride-2 3x3 conv with padding (1, 1) or the VAE
-//                         encoder's (0, 1); replaces `conv3x3_down2`
-//                         (`_down2_call` / `_down2_kernel`).  The TPU kernel's
-//                         parity-plane reshape exists to give it contiguous
-//                         VMEM slices; a per-pixel 16-byte gather needs none, so
-//                         the A row of output (oy, ox) and tap (dy, dx) is read
-//                         at input (2oy + dy - pad, 2ox + dx - pad).
+//   conv3x3_down2_kernel<BN>  stride-2 3x3 conv with padding (1, 1) or the
+//                         VAE encoder's (0, 1); replaces `conv3x3_down2`
+//                         (`_down2_call` / `_down2_kernel`).  Output (oy, ox),
+//                         tap (ky, kx) reads input (2oy + ky - pad, 2ox + kx -
+//                         pad): per parity plane of the input (odd or even
+//                         rows x odd or even columns) a tap is a rectangle
+//                         shift again, as in the TPU kernel's parity-plane
+//                         reshape, so it runs on the stride-1 kernel's core.
 //
 // Every form: bias add in fp32, optional SiLU in fp32, then (fused form) the
 // skip add in fp32, one rounding to bf16 at the end -- the order of the TPU
@@ -102,18 +103,34 @@
 //   * The epilogue works on the accumulator registers directly and masks
 //     ragged Cout and the pixels of a rectangle that fall outside the image.
 //
-// The up2 and down2 forms keep the mma.sync body (conv_body): tiles of 128
-// pixels x 128 output channels x 64 k in a 3-stage cp.async ring, 8 warps with
-// 64x32 sub-tiles read with ldmatrix; pixels in the padding ring, channels
-// past Cin and rows past M are zero-filled by the copy itself (src-size 0).
+// The stride-2 form on the same core (conv_tiles<BN, false, true>):
+//   * The plane (py, px) of the input is a strided view of it (twice the row
+//     and column strides from pixel (py, px)), so it gets a tensor map of its
+//     own over [B, H/2, W/2, Cin] and its window lands by one TMA load,
+//     zero-filled outside the plane and past Cin like a halo.  With padding
+//     p, tap k of an axis reads the plane of parity (k + p) & 1 at output
+//     coordinate + floor((k - p) / 2): the plane of parity p serves taps 0
+//     and 2 at shifts 0 and 1 of a window that starts at (tile start - p) and
+//     is one pixel longer than the tile; the other plane serves tap 1.  Both
+//     paddings therefore differ only in which plane is which and where a
+//     window starts.  A stage is the four windows of an 8 x 16 output tile,
+//     (9 + 8) x (17 + 16) pixels x 64 channels = 70 KB: two stages, and four
+//     weight stages.
+//   * Channel tiles of 160, 128, 80 and 64: the main path's calls are small
+//     (2 x 32 x 32 outputs x 640 channels is 64 tiles at BN 160 for 132 SMs),
+//     so the plan halves the channel tile where that fills the card.
+//   * No sum is split between blocks: two launches give the same bits.
+//
+// The up2 form keeps the mma.sync body (up2_body): tiles of 128 pixels x 128
+// output channels x 64 k in a 3-stage cp.async ring, 8 warps with 64x32
+// sub-tiles read with ldmatrix; pixels in the padding ring, channels past Cin
+// and rows past M are zero-filled by the copy itself (src-size 0).
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 // x * sigmoid(x).  __fdividef: the IEEE division's slow path (taken for a
 // zero numerator, for one) made the prologue 1.8x slower on all-zero data.
@@ -128,15 +145,36 @@ constexpr int HALO_W = RECT_W + 2;
 constexpr int HALO_PIX = HALO_H * HALO_W;
 constexpr int KC = 64;       // input channels per chunk: one 128-byte swizzle row
 constexpr int A_BYTES = HALO_PIX * KC * 2;               // one TMA load of a halo
-constexpr int A_STAGE = (A_BYTES + 1023) / 1024 * 1024;  // stages stay 1024-byte aligned
-constexpr int SA = 3;        // halo stages
-constexpr int SB = 6;        // weight stages (one tap x 64 Cin x BN each)
+constexpr int S1_A_STAGE = (A_BYTES + 1023) / 1024 * 1024;  // stages stay 1024-byte aligned
+constexpr int S1_SA = 3;     // halo stages
+constexpr int S1_SB = 6;     // weight stages (one tap x 64 Cin x BN each)
 constexpr int TILE_THREADS = 384;   // warp 0 producer (1-3 idle), 2 consumer warpgroups
 constexpr int FUSED_THREADS = 512;  // fused: warps 1-3 and a fourth warpgroup do the prologue
 constexpr int N_XFORM = FUSED_THREADS - TILE_THREADS + 96;  // prologue threads (a multiple of 8)
 
-constexpr int tiles_smem_bytes(int bn) {
-  return 1024 + SA * A_STAGE + SB * bn * KC * 2 + 8 * (3 * SA + 2 * SB);
+
+// Stride 2: a stage holds the tile's window of the four parity planes of the
+// input (row parity x column parity).  A plane whose parity equals the
+// padding serves taps 0 and 2 of its axis and is one pixel larger along it
+// ("big"); the other serves tap 1.  Planes in the order big/big, big/small,
+// small/big, small/small (rows/columns), each on a 1024-byte boundary.
+constexpr int PLANE_H = RECT_H + 1;
+constexpr int PLANE_W = RECT_W + 1;
+__host__ __device__ constexpr int round_1024(int n) { return (n + 1023) / 1024 * 1024; }
+__host__ __device__ constexpr int plane_h(int pl) { return pl < 2 ? PLANE_H : RECT_H; }
+__host__ __device__ constexpr int plane_w(int pl) { return pl % 2 == 0 ? PLANE_W : RECT_W; }
+__host__ __device__ constexpr int plane_offset(int pl) {
+  return pl == 0 ? 0
+                 : plane_offset(pl - 1) + round_1024(plane_h(pl - 1) * plane_w(pl - 1) * KC * 2);
+}
+constexpr int D2_A_STAGE = plane_offset(3) + round_1024(plane_h(3) * plane_w(3) * KC * 2);
+constexpr int D2_A_BYTES = (PLANE_H + RECT_H) * (PLANE_W + RECT_W) * KC * 2;  // four TMA loads
+constexpr int D2_SA = 2;     // stages of four planes
+constexpr int D2_SB = 4;     // weight stages
+
+constexpr int tiles_smem_bytes(int bn, bool down2 = false) {
+  return down2 ? 1024 + D2_SA * D2_A_STAGE + D2_SB * bn * KC * 2 + 8 * (3 * D2_SA + 2 * D2_SB)
+               : 1024 + S1_SA * S1_A_STAGE + S1_SB * bn * KC * 2 + 8 * (3 * S1_SA + 2 * S1_SB);
 }
 
 struct TileArgs {
@@ -145,141 +183,17 @@ struct TileArgs {
   const float* shift;         // fused: [B, Cin]
   const __nv_bfloat16* skip;  // fused: [B, H, W, Cout] or null
   __nv_bfloat16* out;         // [B, H, W, Cout]
-  int B, H, W, Cin, Cout;
+  int B, H, W, Cin, Cout;     // H, W: the output's (stride 2: half the input's)
   int silu, bias_rows;
+  int pad;                    // stride 2: padding before the first row and column, 1 or 0
   int tiles_x, tiles_y, tiles_n, tiles;  // rectangles per row, per column; channel tiles; all
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// Wait until the barrier's phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Shared-memory descriptor of a K-major tile whose rows are 128 bytes in the
-// 128-byte swizzle: start address / 16, leading offset 1 (unused for a
-// swizzled K-major tile), 1024 bytes from one group of 8 rows to the next.
-// A k step of 16 bf16 inside the row adds 32 bytes: 2 to the descriptor.
-__device__ __forceinline__ uint64_t b_desc(uint32_t smem_addr) {
-  return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-// d[64 x BN] += a[64 x 16] * b[BN x 16]^T, both operands through their
-// descriptors, d in registers (thread t of warp w: rows 16w + t/4 and + 8,
-// columns 8j + 2(t%4), + 1 in d[4j .. 4j+3]).
-__device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, "
-      "%4, %5, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[80], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
-      "%80, %81, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-// Descriptor of the A rows of one tap: 8 halo pixels (one rectangle row of 8
-// columns) per group of 8 rows, one halo row (HALO_W pixels) between groups.
-__device__ __forceinline__ uint64_t a_desc(uint32_t smem_addr) {
-  return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(HALO_W * 128 / 16) << 32) | (1ull << 62);
-}
+// The x tensor maps of a kernel: one for stride 1; for stride 2 one per
+// parity plane, index 2 * (row parity) + column parity.
+struct XMaps {
+  CUtensorMap m[4];
+};
 
 // Tile t of the persistent walk: channel tile fastest, then the rectangle's
 // column, its row, the image.
@@ -298,10 +212,13 @@ __device__ __forceinline__ Tile tile_at(const TileArgs& p, int t) {
   return r;
 }
 
-template <int BN, bool FUSED>
-__device__ __forceinline__ void conv_tiles(const CUtensorMap& map_x, const CUtensorMap& map_w,
+template <int BN, bool FUSED, bool DOWN2 = false>
+__device__ __forceinline__ void conv_tiles(const CUtensorMap* maps_x, const CUtensorMap& map_w,
                                            const TileArgs& p) {
+  static_assert(!(FUSED && DOWN2), "the fused form is stride 1");
   constexpr int B_STAGE = BN * KC * 2;
+  constexpr int SA = DOWN2 ? D2_SA : S1_SA, SB = DOWN2 ? D2_SB : S1_SB;
+  constexpr int A_STAGE = DOWN2 ? D2_A_STAGE : S1_A_STAGE;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t a_smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t b_smem = a_smem + SA * A_STAGE;
@@ -339,15 +256,30 @@ __device__ __forceinline__ void conv_tiles(const CUtensorMap& map_x, const CUten
     // before the nine taps of chunk i), so that a halo has a whole chunk's
     // multiplies to land and be transformed in.  Its stage was freed when
     // the consumers began chunk i - 1, whose weights are already on their
-    // way, so the order cannot deadlock.
+    // way, so the order cannot deadlock.  Stride 2 has two stages only: halo
+    // i + 1 takes the stage of chunk i - 1, which the consumers free at tap 0
+    // of chunk i, so it is asked for after that tap's weights.
     int sa = 0, pa = 0, sb = 0, pb = 0;
     int at = blockIdx.x, ac = 0;  // (tile, chunk) of the next halo
     auto load_halo = [&]() {
       if (at >= p.tiles) return;
       const Tile tl = tile_at<BN>(p, at);
       mbar_wait(empty_a(sa), pa ^ 1);
-      mbar_expect_tx(full_a(sa), A_BYTES);
-      tma_load_4d(a_smem + sa * A_STAGE, &map_x, full_a(sa), ac * KC, tl.x0 - 1, tl.y0 - 1, tl.b);
+      const uint32_t stage = a_smem + sa * A_STAGE;
+      if (DOWN2) {
+        mbar_expect_tx(full_a(sa), D2_A_BYTES);
+#pragma unroll
+        for (int pl = 0; pl < 4; ++pl) {
+          // Output (oy, ox), tap (ky, kx) reads input (2 oy + ky - pad, ...):
+          // the plane of parity (ky - pad) & 1 at oy + floor((ky - pad) / 2).
+          const int py = pl < 2 ? p.pad : 1 - p.pad, px = pl % 2 == 0 ? p.pad : 1 - p.pad;
+          tma_load_4d(stage + plane_offset(pl), &maps_x[2 * py + px], full_a(sa), ac * KC,
+                      tl.x0 - (pl % 2 == 0 ? p.pad : 0), tl.y0 - (pl < 2 ? p.pad : 0), tl.b);
+        }
+      } else {
+        mbar_expect_tx(full_a(sa), A_BYTES);
+        tma_load_4d(stage, maps_x, full_a(sa), ac * KC, tl.x0 - 1, tl.y0 - 1, tl.b);
+      }
       if (++sa == SA) sa = 0, pa ^= 1;
       if (++ac == ck) ac = 0, at += gridDim.x;
     };
@@ -355,8 +287,8 @@ __device__ __forceinline__ void conv_tiles(const CUtensorMap& map_x, const CUten
     for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
       const Tile tl = tile_at<BN>(p, t);
       for (int c = 0; c < ck; ++c) {
-        load_halo();
         for (int tap = 0; tap < 9; ++tap) {
+          if (tap == (DOWN2 ? 1 : 0)) load_halo();
           mbar_wait(empty_b(sb), pb ^ 1);
           mbar_expect_tx(full_b(sb), B_STAGE);
           tma_load_3d(b_smem + sb * B_STAGE, &map_w, full_b(sb), c * KC, tap, tl.n0);
@@ -368,7 +300,10 @@ __device__ __forceinline__ void conv_tiles(const CUtensorMap& map_x, const CUten
     // Consumers: warpgroup wg owns rectangle columns 8wg .. 8wg+7 of all 8
     // rows; its wgmma row m is the pixel of row m / 8, column 8wg + m % 8.
     // The 8 rows of one group are 8 neighbouring halo pixels, 128 bytes
-    // apart, and the next group lies one halo row on: a descriptor.
+    // apart, and the next group lies one halo row on: a descriptor.  Stride
+    // 2: the same inside the tap's parity plane, where the pixels a tap
+    // reads for neighbouring outputs are neighbours; taps 0 and 1 of an axis
+    // start at the plane window's first row or column, tap 2 one further.
     const int wg = (warp >> 2) - 1, w = warp & 3;
     float acc[BN / 2];
     int sa = 0, pa = 0, sb = 0, pb = 0;
@@ -397,8 +332,13 @@ __device__ __forceinline__ void conv_tiles(const CUtensorMap& map_x, const CUten
 #pragma unroll
         for (int tap = 0; tap < 9; ++tap) {
           mbar_wait(full_b(sb), pb);
-          const uint64_t da = a_desc(stage + ((tap / 3) * HALO_W + tap % 3 + 8 * wg) * 128);
-          const uint64_t db = b_desc(b_smem + sb * B_STAGE);
+          const int ky = tap / 3, kx = tap % 3;
+          const int pl = (ky == 1 ? 2 : 0) + (kx == 1 ? 1 : 0);
+          const int row_pixels = DOWN2 ? plane_w(pl) : HALO_W;
+          const int first = DOWN2 ? plane_offset(pl) + ((ky == 2) * row_pixels + (kx == 2)) * 128
+                                  : (ky * HALO_W + kx) * 128;
+          const uint64_t da = smem_desc(stage + first + 8 * wg * 128, row_pixels * 128);
+          const uint64_t db = smem_desc(b_smem + sb * B_STAGE);
           wgmma_fence();
 #pragma unroll
           for (int ks = 0; ks < 4; ++ks) wgmma_ss(acc, da + 2 * ks, db + 2 * ks);
@@ -528,44 +468,19 @@ template <int BN>
 __global__ void __launch_bounds__(TILE_THREADS, 1)
 conv3x3_kernel(const __grid_constant__ CUtensorMap map_x,
                const __grid_constant__ CUtensorMap map_w, const TileArgs p) {
-  conv_tiles<BN, false>(map_x, map_w, p);
+  conv_tiles<BN, false>(&map_x, map_w, p);
 }
 template <int BN>
 __global__ void __launch_bounds__(FUSED_THREADS, 1)
 conv3x3_fused_kernel(const __grid_constant__ CUtensorMap map_x,
                      const __grid_constant__ CUtensorMap map_w, const TileArgs p) {
-  conv_tiles<BN, true>(map_x, map_w, p);
+  conv_tiles<BN, true>(&map_x, map_w, p);
 }
-
-// libcuda's tensor-map encoder, looked up in the library the CUDA runtime has
-// already loaded, so that this library needs no link against libcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr
-                          : reinterpret_cast<EncodeTiledFn>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-constexpr int kEncodeFailed = 10000;  // + the encoder's CUresult
-
-// bf16 tensor map, 128-byte swizzle, zero fill outside the tensor.  dims and
-// box innermost first; strides in bytes for dims 1.. .
-int encode_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-               const cuuint64_t* strides, const cuuint32_t* box) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return kEncodeFailed;
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                            dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
+template <int BN>
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+conv3x3_down2_kernel(const __grid_constant__ XMaps maps_x,
+                     const __grid_constant__ CUtensorMap map_w, const TileArgs p) {
+  conv_tiles<BN, false, true>(maps_x.m, map_w, p);
 }
 
 template <int BN, bool FUSED>
@@ -602,6 +517,51 @@ int launch_tiles(const void* x, const void* w, TileArgs a, int grid, void* strea
   return static_cast<int>(cudaGetLastError());
 }
 
+// Stride 2: a.H and a.W are the input's on entry.  One tensor map per parity
+// plane: the plane (py, px) is the input read at twice the strides from pixel
+// (py, px), so its pixels are stride-1 neighbours and its edges zero-fill.
+template <int BN>
+int launch_down2(const void* x, const void* w, TileArgs a, int grid, void* stream) {
+  static unsigned long long configured = 0;  // one bit per device
+  constexpr int smem = tiles_smem_bytes(BN, true);
+  auto kernel = conv3x3_down2_kernel<BN>;
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!(configured >> (device & 63) & 1)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured |= 1ull << (device & 63);
+  }
+  const cuuint64_t cin = a.Cin, wd = a.W, ht = a.H;
+  a.H /= 2, a.W /= 2;
+  a.tiles_x = (a.W + RECT_W - 1) / RECT_W;
+  a.tiles_y = (a.H + RECT_H - 1) / RECT_H;
+  a.tiles_n = (a.Cout + BN - 1) / BN;
+  a.tiles = a.B * a.tiles_y * a.tiles_x * a.tiles_n;
+  if (grid < 1 || (a.pad != 0 && a.pad != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  XMaps maps_x;
+  CUtensorMap map_w;
+  const cuuint64_t x_dims[4] = {cin, wd / 2, ht / 2, (cuuint64_t)a.B};
+  const cuuint64_t x_strides[3] = {2 * cin * 2, 2 * wd * cin * 2, ht * wd * cin * 2};
+  int err = 0;
+  for (int py = 0; py < 2 && err == 0; ++py)
+    for (int px = 0; px < 2 && err == 0; ++px) {
+      const cuuint32_t box[4] = {KC, (cuuint32_t)(px == a.pad ? PLANE_W : RECT_W),
+                                 (cuuint32_t)(py == a.pad ? PLANE_H : RECT_H), 1};
+      err = encode_map(&maps_x.m[2 * py + px],
+                       static_cast<const __nv_bfloat16*>(x) + (py * wd + px) * cin, 4, x_dims,
+                       x_strides, box);
+    }
+  const cuuint64_t w_dims[3] = {cin, 9, (cuuint64_t)a.Cout};
+  const cuuint64_t w_strides[2] = {cin * 2, 9 * cin * 2};
+  const cuuint32_t w_box[3] = {KC, 1, BN};
+  if (err == 0) err = encode_map(&map_w, w, 3, w_dims, w_strides, w_box);
+  if (err != 0) return err;
+  kernel<<<grid, TILE_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(maps_x, map_w, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The instance for channel tile bn (ops/conv3x3.py `plan` picks it).
 template <bool FUSED>
 int launch_tiles_bn(int bn, const void* x, const void* w, const TileArgs& a, int grid,
@@ -614,7 +574,7 @@ int launch_tiles_bn(int bn, const void* x, const void* w, const TileArgs& a, int
   }
 }
 
-// ------------------------------------------------------- up2 and down2
+// ------------------------------------------------------------------- up2
 
 constexpr int BM = 128;        // output pixels per block
 constexpr int BN = 128;        // output channels per block
@@ -631,16 +591,14 @@ constexpr int NT = WN / 8;     // n8 tiles per warp
 constexpr int STAGE_ELEMS = (BM + BN) * LDS;
 constexpr size_t SMEM_BYTES = sizeof(__nv_bfloat16) * STAGES * STAGE_ELEMS;
 
-enum Mode : int { kUp2 = 2, kDown2 = 3 };
-
 struct ConvArgs {
   const __nv_bfloat16* x;     // [B, H, W, Cin]
-  const __nv_bfloat16* w;     // kUp2: [4 phases, 4 taps, Cout, Cin]; else [Cout, 9, Cin]
+  const __nv_bfloat16* w;     // [4 phases, 4 taps, Cout, Cin]
   const float* bias;          // [Cout] or null
-  __nv_bfloat16* out;         // kUp2: [B, 2H, 2W, Cout]; else [B, Ho, Wo, Cout]
+  __nv_bfloat16* out;         // [B, 2H, 2W, Cout]
   int B, H, W, Cin, Cout;
-  int Ho, Wo;                 // the GEMM's pixel grid (kUp2: one phase's)
-  int silu, pad;
+  int Ho, Wo;                 // the GEMM's pixel grid: one phase's
+  int silu;
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
@@ -669,9 +627,8 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t smem_addr
                : "memory");
 }
 
-template <int MODE>
-__device__ __forceinline__ void conv_body(const ConvArgs& p) {
-  constexpr int KW = MODE == kUp2 ? 2 : 3;  // taps per row
+__device__ __forceinline__ void up2_body(const ConvArgs& p) {
+  constexpr int KW = 2;  // taps per row
   constexpr int NTAP = KW * KW;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -692,8 +649,8 @@ __device__ __forceinline__ void conv_body(const ConvArgs& p) {
   const long long M = (long long)p.B * HWo;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int phase = MODE == kUp2 ? (int)blockIdx.z : 0;  // 2p + q
-  const __nv_bfloat16* w = p.w + (MODE == kUp2 ? (long long)phase * NTAP * Cout * Cin : 0);
+  const int phase = (int)blockIdx.z;  // 2p + q
+  const __nv_bfloat16* w = p.w + (long long)phase * NTAP * Cout * Cin;
 
   // Each thread copies RPT 16-byte vectors of A and of B per stage: rows
   // (tid / VPR) + (256 / VPR) * i, vector (tid % VPR) of the 64-wide k.
@@ -709,13 +666,8 @@ __device__ __forceinline__ void conv_body(const ConvArgs& p) {
     const int b = (int)(mm / HWo);
     const int r = (int)(mm - (long long)b * HWo);
     const int oy = r / p.Wo, ox = r - (r / p.Wo) * p.Wo;
-    if (MODE == kDown2) {
-      ay[i] = 2 * oy - p.pad;
-      ax[i] = 2 * ox - p.pad;
-    } else {
-      ay[i] = oy + (phase >> 1) - 1;
-      ax[i] = ox + (phase & 1) - 1;
-    }
+    ay[i] = oy + (phase >> 1) - 1;
+    ax[i] = ox + (phase & 1) - 1;
     apix[i] = m < M ? b * H * W : -1;
   }
   auto a_ok = [&](int i, int tap, int c, int& yy, int& xx) {
@@ -746,8 +698,7 @@ __device__ __forceinline__ void conv_body(const ConvArgs& p) {
     for (int i = 0; i < RPT; ++i) {
       const int n = n0 + row0 + ROW_STEP * i;
       const bool ok = n < Cout && cin_ok;
-      const long long off = MODE == kUp2 ? ((long long)ld_tap * Cout + n) * Cin + c
-                                         : ((long long)n * 9 + ld_tap) * Cin + c;
+      const long long off = ((long long)ld_tap * Cout + n) * Cin + c;
       cp_async16(bs + (row0 + ROW_STEP * i) * LDS + vec * 8, ok ? w + off : w, ok);
     }
     ld_c += BK;
@@ -814,14 +765,12 @@ __device__ __forceinline__ void conv_body(const ConvArgs& p) {
     for (int half = 0; half < 2; ++half) {
       const long long m = m0 + wm * WM + i * 16 + g + half * 8;
       if (m >= M) continue;
-      long long opix = m;
       const float* brow = p.bias;
-      if (MODE == kUp2) {
-        const long long b = m / HWo;
-        const int r = (int)(m - b * HWo);
-        const int oy = r / p.Wo, ox = r - (r / p.Wo) * p.Wo;
-        opix = (b * 2 * p.Ho + 2 * oy + (phase >> 1)) * (2LL * p.Wo) + 2 * ox + (phase & 1);
-      }
+      const long long b = m / HWo;
+      const int r = (int)(m - b * HWo);
+      const int oy = r / p.Wo, ox = r - (r / p.Wo) * p.Wo;
+      const long long opix =
+          (b * 2 * p.Ho + 2 * oy + (phase >> 1)) * (2LL * p.Wo) + 2 * ox + (phase & 1);
       __nv_bfloat16* orow = p.out + opix * Cout;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -848,10 +797,7 @@ __device__ __forceinline__ void conv_body(const ConvArgs& p) {
 }
 
 __global__ void __launch_bounds__(NTHREADS, 2) conv3x3_up2_kernel(const ConvArgs p) {
-  conv_body<kUp2>(p);
-}
-__global__ void __launch_bounds__(NTHREADS, 2) conv3x3_down2_kernel(const ConvArgs p) {
-  conv_body<kDown2>(p);
+  up2_body(p);
 }
 
 // Phase weights [4 phases (2p + q), 4 taps (2a + b), Cout, Cin] from OHWI w
@@ -884,7 +830,7 @@ __global__ void up2_phase_weights_kernel(const __nv_bfloat16* __restrict__ w,
 }
 
 // Raise the kernel's dynamic shared memory limit once, then launch over the
-// GEMM's (pixel tile, channel tile[, phase]) grid.
+// GEMM's (pixel tile, channel tile, phase) grid.
 int launch(void (*kernel)(const ConvArgs), bool& configured, const ConvArgs& a, int phases,
            void* stream) {
   if (!configured) {
@@ -917,6 +863,10 @@ ConvArgs args(const void* x, const void* w, const void* bias, void* out, int B, 
 // host-side plan mirrors it), or -1 where there is no such instance.
 extern "C" int conv3x3_smem_bytes(int bn) {
   return bn == 8 || bn == 128 || bn == 160 ? tiles_smem_bytes(bn) : -1;
+}
+// The same for the stride-2 instances.
+extern "C" int conv3x3_down2_smem_bytes(int bn) {
+  return bn == 64 || bn == 80 || bn == 128 || bn == 160 ? tiles_smem_bytes(bn, true) : -1;
 }
 
 // x [B, H, W, Cin], w [Cout, 3, 3, Cin], bias [Cout] fp32 or null -> out
@@ -963,12 +913,22 @@ extern "C" int conv3x3_up2_bf16(const void* x, const void* w, void* wp4, const v
 }
 
 // x [B, H, W, Cin] (H, W even), w [Cout, 3, 3, Cin]; pad 1: padding (1, 1),
-// pad 0: (0, 1) -> out [B, H/2, W/2, Cout].
+// pad 0: (0, 1) -> out [B, H/2, W/2, Cout]; bn and grid from the plan
+// (ops/conv_fused.py `plan_down2`).
 extern "C" int conv3x3_down2_bf16(const void* x, const void* w, const void* bias, void* out,
                                   int B, int H, int W, int Cin, int Cout, int silu, int pad,
-                                  void* stream) {
-  static bool configured = false;
-  ConvArgs a = args(x, w, bias, out, B, H, W, Cin, Cout, silu);
-  a.Ho = H / 2, a.Wo = W / 2, a.pad = pad;
-  return launch(conv3x3_down2_kernel, configured, a, 1, stream);
+                                  int bn, int grid, void* stream) {
+  if (H % 2 || W % 2) return static_cast<int>(cudaErrorInvalidValue);
+  TileArgs a{};
+  a.bias = static_cast<const float*>(bias);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.B = B, a.H = H, a.W = W, a.Cin = Cin, a.Cout = Cout, a.silu = silu, a.bias_rows = 1;
+  a.pad = pad;
+  switch (bn) {
+    case 64: return launch_down2<64>(x, w, a, grid, stream);
+    case 80: return launch_down2<80>(x, w, a, grid, stream);
+    case 128: return launch_down2<128>(x, w, a, grid, stream);
+    case 160: return launch_down2<160>(x, w, a, grid, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

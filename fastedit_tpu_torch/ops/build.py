@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into ``build/kernels/lib<name>-<hash>.so`` at the repository root, then
 loaded with ``ctypes``.  No PyTorch headers are included, so a build takes
-seconds.  The hash covers the source and the flags, so an edited kernel is
-rebuilt and a stale library is never loaded.  Nothing is built at import:
+seconds.  The hash covers the source, every header of ``csrc/`` it includes
+(``#include "..."``, followed through) and the flags, so an edited kernel or
+header is rebuilt and a stale library is never loaded.  Nothing is built at import:
 the first launch of a kernel builds it, or :func:`build_all` builds every
 kernel at once (one ``nvcc`` per source, all started together).
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -34,10 +36,13 @@ KERNELS = {
         "conv3x3_bf16": [_P] * 4 + [_I] * 8 + [_P],
         "conv3x3_fused_bf16": [_P] * 7 + [_I] * 9 + [_P],
         "conv3x3_up2_bf16": [_P] * 5 + [_I] * 6 + [_P],
-        "conv3x3_down2_bf16": [_P] * 4 + [_I] * 7 + [_P],
+        "conv3x3_down2_smem_bytes": [_I],  # returns bytes
+        "conv3x3_down2_bf16": [_P] * 4 + [_I] * 9 + [_P],
     },
     "flash_attention": {
-        "flash_attention_bf16": [_P] * 4 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _P],
+        "flash_attention_geometry": [_I, _I, _I],  # returns a tile size or bytes
+        "flash_attention_bf16": (
+            [_P] * 4 + [_I] * 5 + [_L] * 6 + [ctypes.c_float] + [_I] * 3 + [_P]),
     },
     "group_norm": {
         "group_norm_bf16": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _I, _P],
@@ -58,10 +63,28 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every file of ``csrc/`` it includes with
+    ``#include "..."``, directly or through another such file."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        todo += [path.parent / m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in sorted(sources(name)):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

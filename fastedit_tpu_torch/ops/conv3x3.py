@@ -8,7 +8,9 @@ rounding to bf16).  Its schedule is decided here, by :func:`plan`: an output
 tile is a rectangle of 8 x 16 pixels of one image times ``bn`` output
 channels, its 10 x 18 halo is staged once per 64 input channels and all nine
 taps are read from it.  :func:`conv3x3_tiled_plain` walks the same schedule
-in plain PyTorch, for the tests.
+in plain PyTorch, for the tests.  :func:`plan_down2` is the schedule of the
+stride-2 form of the same kernel (``ops/conv_fused.conv3x3_down2``), whose
+tiles stage windows of the input's four parity planes instead of one halo.
 
 Layouts: ``x`` is NHWC ``[B, H, W, Cin]``; ``weight`` is PyTorch's OIHW
 ``[Cout, Cin, 3, 3]`` and the kernel reads it in channels_last memory
@@ -110,18 +112,102 @@ def plan(b: int, h: int, w: int, cin: int, cout: int, sms: int = H100_SMS) -> Co
     )
 
 
+# The stride-2 form: channel tiles it is instantiated for, its rings.
+DOWN2_BN_INSTANCES = (64, 80, 128, 160)
+DOWN2_PLANE_STAGES, DOWN2_WEIGHT_STAGES = 2, 4
+
+
+@dataclass(frozen=True)
+class Down2Plan:
+    """The schedule of one stride-2 conv call.  ``rect``, ``tiles_*`` and
+    ``grid`` as in :class:`ConvPlan`, over the output's pixels."""
+
+    rect: tuple[int, int]
+    bn: int
+    tiles_y: int
+    tiles_x: int
+    tiles_n: int
+    tiles: int
+    grid: int
+    smem_bytes: int
+    pad: int  # padding before the first row and column: 1, or 0 for (0, 1)
+    # The four staged windows, in shared-memory order: (row parity, column
+    # parity) of the plane, the window's (rows, columns), and how far before
+    # the tile's first output row and column it starts.
+    planes: tuple[tuple[int, int, int, int, int, int], ...]
+    box_w: tuple[int, int, int]
+
+    def rectangles(self, ho: int, wo: int):
+        """(y0, x0) of every rectangle of one output image."""
+        return [(ty * self.rect[0], tx * self.rect[1])
+                for ty in range(self.tiles_y) for tx in range(self.tiles_x)]
+
+    def tap(self, k: int) -> tuple[int, int]:
+        """(plane parity, shift inside the plane's window) of tap ``k`` (0, 1
+        or 2) of either axis: output o reads input 2 o + k - pad, the plane
+        of that parity at o + floor((k - pad) / 2)."""
+        return (k + self.pad) & 1, int(k == 2)
+
+
+def smem_bytes_down2(bn: int) -> int:
+    """Dynamic shared memory of the stride-2 instance with channel tile
+    ``bn``: alignment slack, two stages of four plane windows (each rounded
+    up to 1024 bytes), the weight ring and the mbarriers."""
+    windows = [(RECT_H + 1, RECT_W + 1), (RECT_H + 1, RECT_W), (RECT_H, RECT_W + 1),
+               (RECT_H, RECT_W)]
+    stage = sum(-(-(r * c * CHUNK * 2) // 1024) * 1024 for r, c in windows)
+    return (1024 + DOWN2_PLANE_STAGES * stage + DOWN2_WEIGHT_STAGES * bn * CHUNK * 2
+            + 8 * (3 * DOWN2_PLANE_STAGES + 2 * DOWN2_WEIGHT_STAGES))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_down2(b: int, h: int, w: int, cin: int, cout: int, asymmetric: bool = False,
+               sms: int = H100_SMS) -> Down2Plan:
+    """The stride-2 kernel's schedule for input [b, h, w, cin] (h, w even).
+    Output tiles of 8 x 16 pixels; channel tile 160 where it divides Cout,
+    else 128, halved (80, 64) where the full one would leave half the SMs
+    without a tile: the main path's calls are small (2 x 32 x 32 outputs x 640
+    channels is 64 tiles of 160 channels)."""
+    if min(b, h, w, cin, cout) < 1 or h % 2 or w % 2:
+        raise ValueError(f"conv3x3_down2 plan: {(b, h, w, cin, cout)} is empty or odd-sized")
+    ho, wo, pad = h // 2, w // 2, 0 if asymmetric else 1
+    tiles_y, tiles_x = -(-ho // RECT_H), -(-wo // RECT_W)
+    bn = 160 if cout % 160 == 0 else 128
+    if 2 * b * tiles_y * tiles_x * -(-cout // bn) <= sms:
+        bn //= 2
+    tiles_n = -(-cout // bn)
+    tiles = b * tiles_y * tiles_x * tiles_n
+    planes = tuple(
+        (py, px, RECT_H + (py == pad), RECT_W + (px == pad), pad * (py == pad), pad * (px == pad))
+        for py in (pad, 1 - pad) for px in (pad, 1 - pad))
+    return Down2Plan(
+        rect=(RECT_H, RECT_W), bn=bn, tiles_y=tiles_y, tiles_x=tiles_x, tiles_n=tiles_n,
+        tiles=tiles, grid=min(tiles, sms), smem_bytes=smem_bytes_down2(bn), pad=pad,
+        planes=planes, box_w=(CHUNK, 1, bn),
+    )
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def sm_count_of(t: torch.Tensor) -> int:
+    """The SM count of the card that holds ``t``, for a plan's grid."""
+    if t.device.type != "cuda":
+        raise ValueError(f"a kernel's plan needs a tensor on a CUDA card; got {t.device}")
+    index = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    return _sm_count(index)
+
+
 def plan_for(x: torch.Tensor, cout: int) -> ConvPlan:
-    """The plan of a call on the card that holds ``x``."""
-    if x.device.type != "cuda":
-        raise ValueError(f"the conv kernel takes a tensor on a CUDA card; got {x.device}")
-    b, h, w, cin = x.shape
-    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    return plan(b, h, w, cin, cout, _sm_count(index))
+    """The stride-1 plan of a call on the card that holds ``x``."""
+    return plan(*x.shape, cout, sm_count_of(x))
+
+
+def plan_down2_for(x: torch.Tensor, cout: int, asymmetric: bool) -> Down2Plan:
+    """The stride-2 plan of a call on the card that holds ``x``."""
+    return plan_down2(*x.shape, cout, bool(asymmetric), sm_count_of(x))
 
 
 def supports(x_shape, w_shape) -> bool:

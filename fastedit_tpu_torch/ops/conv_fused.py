@@ -16,7 +16,10 @@ replace the three TPU kernels of ``fastedit_tpu/ops/conv_fused.py``:
   16/36 of the FLOPs; the kernel folds the phase weights
   (:func:`make_phase_kernels`) itself, in the same call.
 * ``conv3x3_down2`` (``_down2_call``): stride-2 3x3 conv with padding (1, 1)
-  (UNet/ControlNet downsamplers) or (0, 1) (the VAE encoder's).
+  (UNet/ControlNet downsamplers) or (0, 1) (the VAE encoder's), on the
+  stride-1 kernel's core: per parity plane of the input a tap is a rectangle
+  shift (``conv3x3.plan_down2``; :func:`conv3x3_down2_tiled_plain` walks that
+  schedule in plain PyTorch, for the tests).
 
 Layouts as in ``ops/conv3x3.py``: ``x`` NHWC, ``weight`` PyTorch's OIHW in
 channels_last memory.  A CPU tensor takes the plain version; a CUDA tensor
@@ -30,7 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from fastedit_tpu_torch.ops.conv3x3 import plan_for
+from fastedit_tpu_torch.ops.conv3x3 import CHUNK, plan_down2, plan_down2_for, plan_for
 from fastedit_tpu_torch.ops.conv3x3 import supports as _supports_conv3x3
 
 # Launches of each CUDA kernel since the last reset (chip_smoke.py resets them).
@@ -140,6 +143,51 @@ def conv3x3_down2_plain(x, weight, bias=None, act=None, asymmetric: bool = False
     """Stride-2 3x3 conv, fp32, padding (0, 1) or (1, 1), one rounding."""
     pad = (0, 1, 0, 1) if asymmetric else (1, 1, 1, 1)
     out = F.conv2d(F.pad(_nchw_f32(x), pad), weight.float(), stride=2).permute(0, 2, 3, 1)
+    return _finish(out, bias, act).to(x.dtype).contiguous()
+
+
+def conv3x3_down2_tiled_plain(x, weight, bias=None, act=None, asymmetric: bool = False,
+                              poison_past_cin: bool = False):
+    """The stride-2 kernel's schedule in plain PyTorch, for tests only: per
+    output rectangle of ``plan_down2`` and per 64-channel chunk, the windows
+    of the input's four parity planes gathered with zero fill, then nine taps,
+    each a shifted rectangle of its plane's window, accumulated in fp32; then
+    bias, SiLU and one rounding.  It differs from ``conv3x3_down2_plain`` only
+    in the order of the sums.  ``poison_past_cin`` plants a fault: a chunk
+    that runs past Cin reads NaN there instead of zeros, as a view that packs
+    both column parities into its innermost dimension would read the
+    neighbouring pixel."""
+    b, h, w, cin = x.shape
+    cout = weight.shape[0]
+    pl = plan_down2(b, h, w, cin, cout, asymmetric)
+    rh, rw = pl.rect
+    ho, wo = h // 2, w // 2
+    wf = weight.float()
+    out = torch.zeros((b, ho, wo, cout), dtype=torch.float32, device=x.device)
+    for bi in range(b):
+        for y0, x0 in pl.rectangles(ho, wo):
+            acc = torch.zeros((rh, rw, cout), dtype=torch.float32, device=x.device)
+            for c0 in range(0, cin, CHUNK):
+                c1 = min(cin, c0 + CHUNK)
+                windows = {}
+                for py, px, rows, cols, dy, dx in pl.planes:
+                    plane = x[bi, py::2, px::2, c0:c1].float()  # [ho, wo, chunk]
+                    ys, xs = y0 - dy, x0 - dx
+                    ya, xa = max(0, ys), max(0, xs)
+                    yb, xb = min(ho, ys + rows), min(wo, xs + cols)
+                    win = torch.zeros((rows, cols, CHUNK), dtype=torch.float32, device=x.device)
+                    if poison_past_cin:
+                        win[:, :, c1 - c0:] = float("nan")
+                    win[ya - ys:yb - ys, xa - xs:xb - xs, :c1 - c0] = plane[ya:yb, xa:xb]
+                    windows[py, px] = win
+                wchunk = torch.zeros((cout, CHUNK, 3, 3), dtype=torch.float32, device=x.device)
+                wchunk[:, :c1 - c0] = wf[:, c0:c1]
+                for ky in range(3):
+                    for kx in range(3):
+                        (py, ro), (px, co) = pl.tap(ky), pl.tap(kx)
+                        a = windows[py, px][ro:ro + rh, co:co + rw]
+                        acc += a @ wchunk[:, :, ky, kx].T
+            out[bi, y0:y0 + rh, x0:x0 + rw] = acc[:ho - y0, :wo - x0]
     return _finish(out, bias, act).to(x.dtype).contiguous()
 
 
@@ -276,9 +324,10 @@ def conv3x3_down2(
     b, h, w, cin = x.shape
     cout = weight.shape[0]
     bias = _f32(bias, (cout,), "conv3x3_down2: bias", x.device)
+    pl = plan_down2_for(x, cout, asymmetric)
     out = torch.empty((b, h // 2, w // 2, cout), dtype=x.dtype, device=x.device)
     return _launch(
         "conv3x3_down2_bf16", "conv3x3_down2", out,
         x.data_ptr(), weight.data_ptr(), _ptr(bias), out.data_ptr(),
-        b, h, w, cin, cout, int(act == "silu"), 0 if asymmetric else 1,
+        b, h, w, cin, cout, int(act == "silu"), pl.pad, pl.bn, pl.grid,
     )

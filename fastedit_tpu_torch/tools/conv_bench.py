@@ -8,8 +8,10 @@ in turns: unpack the other tree with ``git archive`` and pass its directory.
 For every shape the SSD-1B edit path at 1024² (batch 1, default kernel
 configuration, ``tools/inventory.py`` of that tree) gives ``conv3x3``,
 ``conv3x3_fused``, ``conv3x3_up2`` and ``conv3x3_down2``, it prints the mean
-device milliseconds of 10 back-to-back calls (CUDA events) and the achieved
-TFLOP/s, then each kernel's sum over one edit's calls, and the host's
+device milliseconds of 10 back-to-back calls (CUDA events), the same from a
+CUDA graph of 20 calls (``graph_ms``: the device alone, where a call is
+shorter than the host takes to enqueue it) and the achieved TFLOP/s of the
+latter, then each kernel's sums over one edit's calls, and the host's
 microseconds per ``conv3x3`` call at the smallest shape: the wall time of
 200 calls up to the last call's return (what the host spends enqueueing:
 checks, plan, tensor maps, launch) and up to one synchronise after it (the
@@ -25,26 +27,7 @@ import argparse
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
-
-REPS = 10
-HOST_LAUNCHES = 200
-HOST_TRIALS = 7
-
-
-def time_ms(fn) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(REPS):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / REPS
 
 
 def main() -> int:
@@ -57,6 +40,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("conv_bench: no CUDA device", file=sys.stderr)
         return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from timing import graph_ms, host_us, time_ms  # this tree's, whichever tree --root names
+
     sys.path.insert(0, str(Path(args.root).resolve()))
     from fastedit_tpu_torch.models import configs as C
     from fastedit_tpu_torch.ops import conv3x3 as k
@@ -100,12 +86,13 @@ def main() -> int:
         else:
             flops /= 4
             fn = lambda: cf.conv3x3_down2(x, wt, bias, asymmetric=key[5])  # noqa: E731
-        ms = time_ms(fn)
-        rows.append(dict(kernel=kernel, shape=list(key), calls_edit=count, ms=ms,
-                         tflops=flops / ms / 1e9))
+        ms, gms = time_ms(fn), graph_ms(fn)
+        rows.append(dict(kernel=kernel, shape=list(key), calls_edit=count, ms=ms, graph_ms=gms,
+                         tflops=flops / gms / 1e9))
         per_edit[kernel] = per_edit.get(kernel, 0.0) + count * ms
-        print(kernel, list(key), count, f"{ms:.4f} ms", f"{flops / ms / 1e9:.1f} TFLOP/s",
-              flush=True)
+        per_edit[kernel + "_graph"] = per_edit.get(kernel + "_graph", 0.0) + count * gms
+        print(kernel, list(key), count, f"{ms:.4f} ms", f"graph {gms:.4f} ms",
+              f"{flops / gms / 1e9:.1f} TFLOP/s", flush=True)
         del x, wt, fn
 
     small = min((key for (kernel, key) in calls if kernel == "conv3x3"),
@@ -121,22 +108,6 @@ def main() -> int:
     def c_call():
         c_fn(x.data_ptr(), wt.data_ptr(), bias.data_ptr(), out.data_ptr(), *small, 0, *extra,
              stream)
-
-    def host_us(fn):
-        """(enqueue, with one synchronise) microseconds per call: the least
-        of HOST_TRIALS runs of HOST_LAUNCHES calls each, since the host is
-        shared and its clock spreads."""
-        best = [float("inf")] * 2
-        for _ in range(HOST_TRIALS):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(HOST_LAUNCHES):
-                fn()
-            enqueue = time.perf_counter() - t
-            torch.cuda.synchronize()
-            total = time.perf_counter() - t
-            best = [min(best[0], enqueue), min(best[1], total)]
-        return [1e6 * v / HOST_LAUNCHES for v in best]
 
     enqueue_us, synced_us = host_us(lambda: k.conv3x3(x, wt, bias))
     c_enqueue_us, _ = host_us(c_call)

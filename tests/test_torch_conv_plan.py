@@ -1,4 +1,4 @@
-"""The stride-1 conv kernel's schedule, held on the CPU.
+"""The wgmma conv kernel's schedules (stride 1 and stride 2), held on the CPU.
 
 ``ops/conv3x3.plan`` decides, from a call's shape alone, what
 ``csrc/conv3x3.cu`` runs for ``conv3x3`` and ``conv3x3_fused``: the tile
@@ -10,7 +10,10 @@ opt-in configurations) and on the tiny model's.  The second half holds
 gathered with zero fill, prologue on in-image elements only, nine shifted
 taps per 64-channel chunk, epilogue), against the port's plain versions and
 against the JAX package's kernels in interpret mode, on numpy-seeded inputs
-in fp32.
+in fp32.  The last part does the same for the stride-2 form:
+``ops/conv3x3.plan_down2`` (output rectangle, channel tile, the windows of the
+input's four parity planes a tile stages, both paddings) at every inventory
+shape, and ``conv3x3_down2_tiled_plain``, its walk.
 """
 
 import jax.numpy as jnp
@@ -213,4 +216,148 @@ def test_tiled_walk_matches_jax_conv3x3_fused(shape):
                                 tuple(map(jnp.asarray, pre)), None, jnp.asarray(sk))
     t = torch.from_numpy
     out = k.conv3x3_tiled_plain(t(x), t(wt), t(bias), tuple(map(t, pre)), None, t(sk))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+# ------------------------------------------------------------- stride 2
+
+
+def _down2_shapes():
+    """(B, H, W, Cin, Cout, asymmetric) of every conv3x3_down2 call the
+    inventory routes to the kernel, default and opt-in configurations."""
+    shapes = set()
+    for unet in (TC.SSD1B_UNET, TC.SDXL_UNET):
+        for cn in (TC.SDXL_CONTROLNET_SMALL, TC.SDXL_CONTROLNET_FULL):
+            for batch in (1, 2):
+                sites = inventory.edit_sites(unet, cn, TC.SDXL_VAE, 1024, batch=batch, steps=3)
+                for override in ({}, dict(use_cuda_conv=True)):
+                    with tflags.override(**override):
+                        calls = inventory.kernel_calls(sites)
+                    shapes.update(key for (kernel, key) in calls if kernel == "conv3x3_down2")
+    return sorted(shapes)
+
+
+DOWN2_SHAPES = _down2_shapes()
+
+
+def test_inventory_reaches_the_down2_plan():
+    assert (1, 256, 256, 96, 256, False) in DOWN2_SHAPES  # the conditioning tower: Cin 96
+    assert (2, 128, 128, 320, 320, False) in DOWN2_SHAPES
+    assert (2, 64, 64, 640, 640, False) in DOWN2_SHAPES
+    assert {s[5] for s in DOWN2_SHAPES} == {False, True}  # the VAE encoder's (0, 1) padding
+    assert len(DOWN2_SHAPES) >= 8
+
+
+@pytest.mark.parametrize("shape", DOWN2_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_down2_plan_covers_the_call(shape):
+    b, h, w, cin, cout, asym = shape
+    assert cf.supports_down2((b, h, w, cin), (cout, cin, 3, 3))
+    pl = k.plan_down2(b, h, w, cin, cout, asym)
+    ho, wo = h // 2, w // 2
+    rh, rw = pl.rect
+    assert pl.bn in k.DOWN2_BN_INSTANCES and rh * rw == 128
+    assert pl.tiles_n * pl.bn >= cout > (pl.tiles_n - 1) * pl.bn
+    assert pl.bn not in (160, 80) or cout % pl.bn == 0  # no wasted column
+    # the tile walk over the output: every tile in one image, none twice, all covered
+    t = np.arange(pl.tiles)
+    tb, y0, x0, n0 = k.tile_at(pl, t)
+    assert tb.min() >= 0 and tb.max() == b - 1
+    assert y0.max() < ho and x0.max() < wo and n0.max() < cout
+    assert len({*zip(tb.tolist(), y0.tolist(), x0.tolist(), n0.tolist())}) == pl.tiles
+    cover = np.zeros((ho, wo), np.int32)
+    for ry, rx in pl.rectangles(ho, wo):
+        cover[ry:ry + rh, rx:rx + rw] += 1
+    assert (cover == 1).all()
+    # a halved channel tile only where the full one leaves half the SMs idle
+    full = 160 if cout % 160 == 0 else 128
+    assert pl.bn == full or 2 * b * pl.tiles_y * pl.tiles_x * -(-cout // full) <= k.H100_SMS
+    # resources
+    assert 1 <= pl.grid <= min(pl.tiles, k.H100_SMS)
+    assert pl.smem_bytes == k.smem_bytes_down2(pl.bn) <= k.SMEM_LIMIT
+    assert pl.box_w == (64, 1, pl.bn)
+    # the four windows: each parity once; together the tile's (2 rh + 1) x (2 rw + 1) input
+    # window; the plane whose parity equals the padding is the larger one and starts earlier
+    assert pl.pad == (0 if asym else 1)
+    assert sorted(p[:2] for p in pl.planes) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert sum(p[2] * p[3] for p in pl.planes) == (2 * rh + 1) * (2 * rw + 1)
+    for py, px, rows, cols, dy, dx in pl.planes:
+        assert (rows, dy) == ((rh + 1, pl.pad) if py == pl.pad else (rh, 0))
+        assert (cols, dx) == ((rw + 1, pl.pad) if px == pl.pad else (rw, 0))
+        assert max(rows, cols) <= 256
+    # every tap reads inside its plane's window: input 2 o + k - pad, per axis
+    for kk in range(3):
+        parity, shift = pl.tap(kk)
+        assert parity == (kk - pl.pad) % 2
+        for o0 in (0, 8):
+            first = 2 * o0 + kk - pl.pad  # input coordinate read by the tile's first output
+            start = o0 - (pl.pad if parity == pl.pad else 0)  # the window's first plane row
+            assert first == 2 * (start + shift) + parity
+
+
+def test_down2_plan_choices_on_the_main_path():
+    """The SSD-1B path's three stride-2 shapes fill the card."""
+    assert (k.plan_down2(2, 128, 128, 320, 320).bn, k.plan_down2(2, 128, 128, 320, 320).tiles) \
+        == (160, 128)
+    # 2 x 32 x 32 outputs x 640 channels: 64 tiles of 160 channels, so 128 of 80
+    assert (k.plan_down2(2, 64, 64, 640, 640).bn, k.plan_down2(2, 64, 64, 640, 640).tiles) \
+        == (80, 128)
+    assert k.plan_down2(4, 64, 64, 640, 640).bn == 160  # an edit_batch of two fills it at 160
+    assert (k.plan_down2(1, 256, 256, 96, 256).bn, k.plan_down2(1, 256, 256, 96, 256).tiles) \
+        == (128, 256)
+    assert k.plan_down2(1, 16, 16, 64, 8, True).bn == 64
+    assert k.plan_down2(1, 64, 64, 64, 64, sms=4).grid == 4
+    assert [k.smem_bytes_down2(bn) for bn in k.DOWN2_BN_INSTANCES] == \
+        [179_312, 187_504, 212_080, 228_464]
+    for bad in ((1, 7, 8, 64, 64), (1, 8, 0, 64, 64)):
+        with pytest.raises(ValueError):
+            k.plan_down2(*bad)
+
+
+DOWN2_SMALL = [
+    (2, 18, 34, 96, 72),  # Cin 96 (a chunk runs past Cin), outputs past one rectangle both ways
+    (1, 16, 16, 64, 8),  # one image smaller than a tile, Cout 8
+    (1, 20, 36, 72, 200),  # Cin 72, ragged Cout on the 64-wide tile
+    (3, 16, 32, 128, 3),  # exactly one rectangle each, two Cin chunks, Cout 3
+]
+
+
+@pytest.mark.parametrize("shape", DOWN2_SMALL, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("asymmetric", [False, True])
+def test_down2_walk_equals_conv3x3_down2_plain(shape, asymmetric):
+    x, wt, bias, _, _ = _operands(25, *shape)
+    t = torch.from_numpy
+    out = cf.conv3x3_down2_tiled_plain(t(x), t(wt), t(bias), "silu", asymmetric)
+    ref = cf.conv3x3_down2_plain(t(x), t(wt), t(bias), "silu", asymmetric)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **ORDER_TOL)
+    # the other padding, chip_smoke.py's planted fault, is far outside the order of the sums
+    other = cf.conv3x3_down2_tiled_plain(t(x), t(wt), t(bias), "silu", not asymmetric)
+    assert float((other - ref).abs().max()) > 0.1
+
+
+def test_down2_walk_reads_zeros_past_cin():
+    """A 64-channel chunk that runs past Cin (Cin 96) must read zeros there:
+    the weights' zero fill would hide anything finite, so the planted fault is
+    a NaN, as a view whose innermost dimension packs both column parities
+    would let the neighbouring pixel's channels in."""
+    x, wt, bias, _, _ = _operands(26, 1, 16, 16, 96, 64)
+    t = torch.from_numpy
+    assert bool(cf.conv3x3_down2_tiled_plain(t(x), t(wt), t(bias)).isfinite().all())
+    assert not bool(cf.conv3x3_down2_tiled_plain(
+        t(x), t(wt), t(bias), poison_past_cin=True).isfinite().any())
+    x64 = _operands(26, 1, 16, 16, 64, 64)
+    assert bool(cf.conv3x3_down2_tiled_plain(
+        t(x64[0]), t(x64[1]), t(x64[2]), poison_past_cin=True).isfinite().all())
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64, 200), (1, 16, 48, 96, 320)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("asymmetric", [False, True])
+def test_down2_walk_matches_jax_conv3x3_down2(shape, asymmetric):
+    x, wt, bias, _, _ = _operands(27, *shape)
+    assert jcf.supports_down2(x.shape, _hwio(wt).shape, 4)
+    with jflags.override(pallas_interpret=True):
+        ref = jcf.conv3x3_down2(jnp.asarray(x), jnp.asarray(_hwio(wt)), jnp.asarray(bias),
+                                None, asymmetric)
+    t = torch.from_numpy
+    out = cf.conv3x3_down2_tiled_plain(t(x), t(wt), t(bias), None, asymmetric)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)

@@ -10,9 +10,10 @@ Cin (72, 96, 320) and Cout (3, 4, 8, 200), the stride-1 kernel's geometry (two
 images of several 8 x 16 rectangles, images smaller than one, H and W that
 are no multiples of it, all three channel tiles), the SiLU epilogue,
 no bias, attention read through strides (q, k, v as slices of one fused
-projection), Sq != Skv, and both head dims; for the fused resnet, up2 and
-down2 convs, the prologue, per-batch bias and skip, both down2 paddings and
-odd-sized inputs; for the GroupNorm kernel, a large mean offset and more
+projection), Sq != Skv, a scale that is no power of two, the main path's two
+D = 64 shapes and batch 4, and both head dims; for the fused resnet, up2 and
+down2 convs, the prologue, per-batch bias and skip, both down2 paddings,
+Cin 96, all four stride-2 channel tiles and odd-sized inputs; for the GroupNorm kernel, a large mean offset and more
 than 2048 channels.  Tolerances are those of ``chip_smoke.py`` (both sides
 accumulate in fp32 and round once to bf16; the attention's absolute term
 scales with the output's RMS).
@@ -91,6 +92,47 @@ def test_flash_attention_kernel_matches_plain(gen, b, sq, skv, h, d):
     _assert_close(out, ref, ATTN_REL, ATTN_ABS_OF_RMS * rms)
 
 
+@pytest.mark.parametrize(
+    "b,s,h,scale",
+    [
+        (2, 1024, 20, None),  # the UNet's inner self-attention: 320 tiles, 8 KV tiles each
+        (2, 4096, 10, None),  # the outer one: 640 tiles of 32 KV tiles
+        (4, 1024, 20, None),  # an edit_batch of two
+        (1, 512, 3, 0.3),  # a scale that bf16 rounds: q * bf16(scale) in the kernel
+        (4, 4096, 10, None),  # 880 tiles of 192 rows; a head's last tile reaches past Sq
+    ],
+)
+def test_flash_attention_d64_at_the_main_paths_shapes(gen, b, s, h, scale):
+    qkv = torch.randn((b, s, 3, h, 64), generator=gen, device="cuda").bfloat16()
+    q, kk, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # strided views of one projection
+    before = fa.launches[64]
+    out = fa.flash_attention(q, kk, v, scale)
+    torch.cuda.synchronize()
+    assert fa.launches[64] == before + 1
+    assert out.is_contiguous() and out.shape == (b, s, h, 64)
+    ref = fa.attention_plain(q, kk, v, scale)
+    rms = float(ref.float().square().mean().sqrt())
+    _assert_close(out, ref, ATTN_REL, ATTN_ABS_OF_RMS * rms)
+    # one KV tile of the plan skipped must not pass
+    tile = fa.plan_for(q, s).bkv
+    short = fa.attention_plain(q, kk[:, :-tile], v[:, :-tile], scale)
+    d = (short.float() - ref.float()).abs()
+    assert not bool((d <= ATTN_REL * ref.float().abs() + ATTN_ABS_OF_RMS * rms).all())
+
+
+@pytest.mark.parametrize("d", [64, 512])
+def test_flash_attention_gives_the_same_bits_twice(gen, d):
+    """No split sums between blocks and no atomics: persistent blocks walk
+    their tiles in whatever interleaving, and two launches agree bit for
+    bit."""
+    b, s, h = (2, 1024, 5) if d == 64 else (1, 256, 1)
+    q, kk, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
+                for _ in range(3))
+    first, second = fa.flash_attention(q, kk, v), fa.flash_attention(q, kk, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def _conv_operands(gen, n, h, w, cin, cout):
     x = torch.randn((n, h, w, cin), generator=gen, device="cuda").bfloat16()
     wt = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") * (9 * cin) ** -0.5
@@ -155,6 +197,23 @@ def test_plan_mirrors_the_kernels_shared_memory(gen):
     for bn in k.BN_INSTANCES:
         assert lib.conv3x3_smem_bytes(bn) == k.smem_bytes(bn) <= k.SMEM_LIMIT
     assert lib.conv3x3_smem_bytes(64) == -1
+    for bn in k.DOWN2_BN_INSTANCES:
+        assert lib.conv3x3_down2_smem_bytes(bn) == k.smem_bytes_down2(bn) <= k.SMEM_LIMIT
+    assert lib.conv3x3_down2_smem_bytes(8) == -1
+
+
+def test_attention_plan_mirrors_the_kernels_geometry(gen):
+    from fastedit_tpu_torch.ops.build import library
+
+    lib = library("flash_attention")
+    for d in fa.HEAD_DIMS:
+        bkv, stages = fa.GEOMETRY[d][:2]
+        for bq in fa.Q_TILES[d]:
+            assert [lib.flash_attention_geometry(d, bq, i) for i in (1, 2, 3)] == \
+                [bkv, stages, fa.smem_bytes(d, bq)]
+            assert fa.smem_bytes(d, bq) <= k.SMEM_LIMIT
+    assert lib.flash_attention_geometry(96, 128, 1) == -1
+    assert lib.flash_attention_geometry(64, 256, 1) == -1
 
 
 @pytest.mark.parametrize(
@@ -175,7 +234,15 @@ def test_conv3x3_up2_kernel_matches_plain(gen, n, h, w, cin, cout, act):
 
 @pytest.mark.parametrize("asymmetric", [False, True])
 @pytest.mark.parametrize(
-    "n,h,w,cin,cout", [(2, 16, 16, 64, 128), (1, 18, 10, 72, 8), (1, 32, 32, 96, 3)]
+    "n,h,w,cin,cout",
+    [
+        (2, 16, 16, 64, 128),
+        (1, 18, 10, 72, 8),
+        (1, 32, 32, 96, 3),  # Cin 96: the second chunk runs past Cin
+        (2, 36, 40, 96, 200),  # outputs past a rectangle both ways, ragged Cout, BN 64 and 128
+        (2, 64, 64, 640, 640),  # a main-path shape: 128 tiles of 80 channels
+        (1, 128, 128, 320, 320),  # BN 160
+    ],
 )
 def test_conv3x3_down2_kernel_matches_plain(gen, n, h, w, cin, cout, asymmetric):
     x, wt = _conv_operands(gen, n, h, w, cin, cout)
@@ -186,6 +253,33 @@ def test_conv3x3_down2_kernel_matches_plain(gen, n, h, w, cin, cout, asymmetric)
     torch.cuda.synchronize()
     assert cf.launches["conv3x3_down2"] == before + 1
     _conv_close(out, ref)
+
+
+@pytest.mark.parametrize("asymmetric", [False, True])
+def test_conv3x3_down2_gives_the_same_bits_twice(gen, asymmetric):
+    """No sum is split between blocks, so two launches agree bit for bit
+    (several tiles per block)."""
+    x, wt = _conv_operands(gen, 2, 192, 160, 320, 320)
+    bias = torch.randn(320, generator=gen, device="cuda")
+    first = cf.conv3x3_down2(x, wt, bias, asymmetric=asymmetric)
+    second = cf.conv3x3_down2(x, wt, bias, asymmetric=asymmetric)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("asymmetric", [False, True])
+def test_conv3x3_down2_keeps_the_images_apart_at_cin_96(gen, asymmetric):
+    """Two images, the second all NaN, Cin 96: the first image's result must
+    be that of the image alone.  A window of a parity plane that ran past the
+    image's last row, or a chunk that ran past Cin at the image's last pixel,
+    would read the second image instead of TMA's zero fill."""
+    x, wt = _conv_operands(gen, 2, 32, 32, 96, 64)
+    x[1] = float("nan")
+    out = cf.conv3x3_down2(x, wt, asymmetric=asymmetric)
+    ref = cf.conv3x3_down2_plain(x[:1], wt, asymmetric=asymmetric)
+    torch.cuda.synchronize()
+    _conv_close(out[:1], ref)
+    assert bool(out[1].isnan().all())
 
 
 @pytest.mark.parametrize(
@@ -223,6 +317,11 @@ def test_wrappers_raise_outside_their_contract(gen):
     xb, wb = x.bfloat16(), w.bfloat16().contiguous(memory_format=torch.channels_last)
     with pytest.raises(ValueError):  # odd height for the stride-2 kernel
         cf.conv3x3_down2(xb[:, :7], wb)
+    with pytest.raises(ValueError):  # attention rows that are no multiple of the tile
+        fa.flash_attention(*(torch.zeros((1, 192, 1, 64), device="cuda").bfloat16(),) * 3)
+    with pytest.raises(ValueError):  # heads that are not contiguous
+        qh = torch.zeros((1, 2, 128, 64), device="cuda").bfloat16().transpose(1, 2)
+        fa.flash_attention(qh, qh, qh)
     with pytest.raises(ValueError):  # a scale of the wrong batch
         cf.conv3x3_fused(xb, wb, prenorm=(torch.ones(2, 64, device="cuda"),) * 2)
     with pytest.raises(ValueError):  # channels not divisible by the groups
