@@ -1,5 +1,5 @@
 // 3x3 convolutions, NHWC bf16, as implicit GEMMs on the tensor cores with
-// fp32 accumulation.  Two kernel bodies, four forms:
+// fp32 accumulation.  One kernel body (conv_tiles), four forms:
 //
 //   conv3x3_kernel<BN>   3x3 SAME stride 1; replaces
 //                         fastedit_tpu/ops/conv3x3.py (`conv3x3` ->
@@ -11,17 +11,18 @@
 //                         input (GroupNorm + SiLU with the statistics computed
 //                         outside), a per-batch bias [B, Cout] (the time
 //                         embedding folded in) and a skip-add epilogue.
-//   conv3x3_up2_kernel    nearest-2x upsample + 3x3 SAME conv without the 4x
-//                         tensor; replaces `conv3x3_up2` (`_up2_call` /
+//   conv3x3_up2_kernel<BN>  nearest-2x upsample + 3x3 SAME conv without the
+//                         4x tensor; replaces `conv3x3_up2` (`_up2_call` /
 //                         `_up2_kernel`).  Output pixel (2i+p, 2j+q) is a 2x2
 //                         conv of the low-res input with phase weights
 //                         K[p, q] (3x3 taps summed in fp32 and rounded once to
-//                         bf16): tap rows {i-1, i} for p = 0 and
-//                         {i, i+1} for p = 1, the same for columns.
-//                         blockIdx.z = 2p + q; 16/36 of the materialised
-//                         conv's FLOPs.  up2_phase_weights_kernel folds the
-//                         phase weights from the 3x3 ones, one thread per
-//                         (Cout, Cin) pair, in the same call.
+//                         bf16): tap (a, b) of phase (p, q) reads low-res
+//                         pixel (i - 1 + a + p, j - 1 + b + q); 16/36 of the
+//                         materialised conv's FLOPs.  A phase is a tile
+//                         coordinate of the stride-1 kernel's core.
+//                         up2_phase_weights_kernel folds the phase weights
+//                         from the 3x3 ones, one thread per output channel
+//                         and 8 input channels, in the same call.
 //   conv3x3_down2_kernel<BN>  stride-2 3x3 conv with padding (1, 1) or the
 //                         VAE encoder's (0, 1); replaces `conv3x3_down2`
 //                         (`_down2_call` / `_down2_kernel`).  Output (oy, ox),
@@ -50,7 +51,7 @@
 // GEMM view of all forms:  out[m, n] = sum_k A[m, k] * Wt[n, k]  with
 //   m = output pixel (b, y, x), n = output channel, k = (tap, cin).
 // A is never materialised, and the weight is read in OHWI order (torch's OIHW
-// in channels_last memory; the up2 phase weights as [phase, tap, Cout, Cin]),
+// in channels_last memory; the up2 phase weights as [Cout, phase, tap, Cin]),
 // so both operands are K-contiguous.
 //
 // The stride-1 forms (conv_tiles), written for Hopper:
@@ -102,6 +103,10 @@
 //     it and the grid; both arrive here as ints.
 //   * The epilogue works on the accumulator registers directly and masks
 //     ragged Cout and the pixels of a rectangle that fall outside the image.
+//     It reads the bias and the skip rows ahead of its stores, eight channel
+//     pairs at a time (fewer in the fused form, which has 128 registers), as
+//     read-only data: read one by one between the stores, each load waited
+//     for the store before it, and a tile paid ~4.7 us for 32 of them.
 //
 // The stride-2 form on the same core (conv_tiles<BN, false, true>):
 //   * The plane (py, px) of the input is a strided view of it (twice the row
@@ -121,10 +126,20 @@
 //     so the plan halves the channel tile where that fills the card.
 //   * No sum is split between blocks: two launches give the same bits.
 //
-// The up2 form keeps the mma.sync body (up2_body): tiles of 128 pixels x 128
-// output channels x 64 k in a 3-stage cp.async ring, 8 warps with 64x32
-// sub-tiles read with ldmatrix; pixels in the padding ring, channels past Cin
-// and rows past M are zero-filled by the copy itself (src-size 0).
+// The up2 form on the same core (conv_tiles<BN, false, false, true>):
+//   * A tile is a rectangle of 8 x 16 LOW-RES pixels, a channel tile and a
+//     phase (p, q).  The stride-1 halo of that rectangle, staged by the same
+//     TMA load at (x0 - 1, y0 - 1), holds every pixel any tap of any phase
+//     reads: tap (a, b) of phase (p, q) is the halo at shift (a + p, b + q),
+//     one of the stride-1 kernel's nine descriptor shifts.  A phase is then a
+//     conv of 4 taps, K = 4 Cin.  The phase is the fastest coordinate of the
+//     walk, so the four tiles that share a halo run on neighbouring blocks at
+//     the same time and find it in L2.
+//   * The folded weights are written as [Cout, 16, Cin] (16 = 4 phases x 4
+//     taps), so the weight tensor map is the stride-1 one with 16 "taps" and a
+//     weight stage is (phase, tap) 4(2p + q) + 2a + b.
+//   * The epilogue writes output pixel (2y + p, 2x + q): rows of BN channels,
+//     every other pixel of every other row.
 
 #include "hopper.cuh"
 
@@ -187,6 +202,7 @@ struct TileArgs {
   int silu, bias_rows;
   int pad;                    // stride 2: padding before the first row and column, 1 or 0
   int tiles_x, tiles_y, tiles_n, tiles;  // rectangles per row, per column; channel tiles; all
+  int phases;                 // up2: 4 (H, W the low-res input's), else 1
 };
 
 // The x tensor maps of a kernel: one for stride 1; for stride 2 one per
@@ -195,16 +211,19 @@ struct XMaps {
   CUtensorMap m[4];
 };
 
-// Tile t of the persistent walk: channel tile fastest, then the rectangle's
-// column, its row, the image.
+// Tile t of the persistent walk: (up2: the phase fastest, then) the channel
+// tile, then the rectangle's column, its row, the image.
 struct Tile {
   int b, y0, x0, n0;
+  int py, px;  // up2: the phase
 };
 template <int BN>
 __device__ __forceinline__ Tile tile_at(const TileArgs& p, int t) {
   Tile r;
-  const int m = t / p.tiles_n;
-  r.n0 = (t - m * p.tiles_n) * BN;
+  const int u = t / p.phases, ph = t - u * p.phases;
+  r.py = ph >> 1, r.px = ph & 1;
+  const int m = u / p.tiles_n;
+  r.n0 = (u - m * p.tiles_n) * BN;
   const int row = m / p.tiles_x;
   r.x0 = (m - row * p.tiles_x) * RECT_W;
   r.b = row / p.tiles_y;
@@ -212,10 +231,11 @@ __device__ __forceinline__ Tile tile_at(const TileArgs& p, int t) {
   return r;
 }
 
-template <int BN, bool FUSED, bool DOWN2 = false>
+template <int BN, bool FUSED, bool DOWN2 = false, bool UP2 = false>
 __device__ __forceinline__ void conv_tiles(const CUtensorMap* maps_x, const CUtensorMap& map_w,
                                            const TileArgs& p) {
-  static_assert(!(FUSED && DOWN2), "the fused form is stride 1");
+  static_assert(!(FUSED && DOWN2) && !(UP2 && (FUSED || DOWN2)), "one form at a time");
+  constexpr int TAPS = UP2 ? 4 : 9;  // weight stages per chunk
   constexpr int B_STAGE = BN * KC * 2;
   constexpr int SA = DOWN2 ? D2_SA : S1_SA, SB = DOWN2 ? D2_SB : S1_SB;
   constexpr int A_STAGE = DOWN2 ? D2_A_STAGE : S1_A_STAGE;
@@ -287,11 +307,12 @@ __device__ __forceinline__ void conv_tiles(const CUtensorMap* maps_x, const CUte
     for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
       const Tile tl = tile_at<BN>(p, t);
       for (int c = 0; c < ck; ++c) {
-        for (int tap = 0; tap < 9; ++tap) {
+        for (int tap = 0; tap < TAPS; ++tap) {
           if (tap == (DOWN2 ? 1 : 0)) load_halo();
           mbar_wait(empty_b(sb), pb ^ 1);
           mbar_expect_tx(full_b(sb), B_STAGE);
-          tma_load_3d(b_smem + sb * B_STAGE, &map_w, full_b(sb), c * KC, tap, tl.n0);
+          tma_load_3d(b_smem + sb * B_STAGE, &map_w, full_b(sb), c * KC,
+                      UP2 ? 4 * (2 * tl.py + tl.px) + tap : tap, tl.n0);
           if (++sb == SB) sb = 0, pb ^= 1;
         }
       }
@@ -330,9 +351,11 @@ __device__ __forceinline__ void conv_tiles(const CUtensorMap* maps_x, const CUte
         mbar_wait(prenorm ? ready_a(sa) : full_a(sa), pa);
         const uint32_t stage = a_smem + sa * A_STAGE;
 #pragma unroll
-        for (int tap = 0; tap < 9; ++tap) {
+        for (int tap = 0; tap < TAPS; ++tap) {
           mbar_wait(full_b(sb), pb);
-          const int ky = tap / 3, kx = tap % 3;
+          // up2: tap (a, b) of phase (p, q) is the halo at shift (a + p, b + q)
+          const int ky = UP2 ? (tap >> 1) + tl.py : tap / 3;
+          const int kx = UP2 ? (tap & 1) + tl.px : tap % 3;
           const int pl = (ky == 1 ? 2 : 0) + (kx == 1 ? 1 : 0);
           const int row_pixels = DOWN2 ? plane_w(pl) : HALO_W;
           const int first = DOWN2 ? plane_offset(pl) + ((ky == 2) * row_pixels + (kx == 2)) * 128
@@ -363,45 +386,71 @@ __device__ __forceinline__ void conv_tiles(const CUtensorMap* maps_x, const CUte
 
       // Epilogue from the accumulators: d[4j + 2h], d[4j + 2h + 1] sit at
       // wgmma row 16w + lane / 4 + 8h, channels n0 + 8j + 2(lane % 4), + 1.
-      // Channel pairs go as one access where every pair is aligned.
+      // Channel pairs go as one access where every pair is aligned.  The bias
+      // and the skip rows are read ahead of the stores, eight channel pairs
+      // at a time, as read-only data: a load written after a store waits for
+      // it (the two might alias), and a tile then paid one memory latency
+      // per channel pair.
       const bool pair_store = (Cout & 1) == 0 && (reinterpret_cast<uintptr_t>(p.bias) & 7) == 0 &&
                               (!FUSED || (reinterpret_cast<uintptr_t>(p.skip) & 3) == 0);
       const int x = tl.x0 + 8 * wg + (lane >> 2);
+      const float* brow = p.bias;
+      if (FUSED && brow != nullptr && p.bias_rows > 1) brow += (long long)tl.b * Cout;
+      // channel pairs read ahead; fewer where the fused form's 512 threads leave 128 registers
+      constexpr int GROUP = !FUSED ? 8 : BN > 128 ? 2 : 4;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int y = tl.y0 + 2 * w + h;
-        if (y >= H || x >= W) continue;
-        const long long pix = ((long long)tl.b * H + y) * W + x;
-        __nv_bfloat16* orow = p.out + pix * Cout;
-        const float* brow = p.bias;
-        if (FUSED && brow != nullptr && p.bias_rows > 1) brow += (long long)tl.b * Cout;
-        const __nv_bfloat16* srow = FUSED && p.skip != nullptr ? p.skip + pix * Cout : nullptr;
+      for (int j0 = 0; j0 < BN / 8; j0 += GROUP) {
+        float2 bv[GROUP];
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const int n = tl.n0 + j * 8 + (lane & 3) * 2;
-          if (n >= Cout) continue;
-          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-          if (pair_store) {  // n is even, so n + 1 < Cout too, and the pairs are aligned
-            if (brow != nullptr) {
-              const float2 bb = *reinterpret_cast<const float2*>(brow + n);
-              v0 += bb.x, v1 += bb.y;
-            }
-            if (p.silu) v0 = silu_f(v0), v1 = silu_f(v1);
-            if (FUSED && srow != nullptr) {
-              const float2 sk =
-                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(srow + n));
-              v0 += sk.x, v1 += sk.y;
-            }
-            *reinterpret_cast<__nv_bfloat162*>(orow + n) = __floats2bfloat162_rn(v0, v1);
+        for (int jj = 0; jj < GROUP; ++jj) {
+          const int n = tl.n0 + (j0 + jj) * 8 + (lane & 3) * 2;
+          bv[jj] = make_float2(0.f, 0.f);
+          if (j0 + jj >= BN / 8 || brow == nullptr || n >= Cout) continue;
+          if (pair_store) {
+            bv[jj] = __ldg(reinterpret_cast<const float2*>(brow + n));
           } else {
-            float v[2] = {v0, v1};
+            bv[jj].x = __ldg(brow + n);
+            if (n + 1 < Cout) bv[jj].y = __ldg(brow + n + 1);
+          }
+        }
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              if (n + e >= Cout) continue;
-              if (brow != nullptr) v[e] += brow[n + e];
-              if (p.silu) v[e] = silu_f(v[e]);
-              if (FUSED && srow != nullptr) v[e] += __bfloat162float(srow[n + e]);
-              orow[n + e] = __float2bfloat16(v[e]);
+        for (int h = 0; h < 2; ++h) {
+          const int y = tl.y0 + 2 * w + h;
+          if (y >= H || x >= W) continue;
+          const long long pix =
+              UP2 ? ((long long)tl.b * 2 * H + 2 * y + tl.py) * (2 * W) + 2 * x + tl.px
+                  : ((long long)tl.b * H + y) * W + x;
+          __nv_bfloat16* orow = p.out + pix * Cout;
+          const __nv_bfloat16* srow = FUSED && p.skip != nullptr ? p.skip + pix * Cout : nullptr;
+          float2 sk[GROUP];
+          if (FUSED) {
+#pragma unroll
+            for (int jj = 0; jj < GROUP; ++jj) {
+              const int n = tl.n0 + (j0 + jj) * 8 + (lane & 3) * 2;
+              sk[jj] = make_float2(0.f, 0.f);
+              if (j0 + jj >= BN / 8 || srow == nullptr || n >= Cout) continue;
+              if (pair_store) {
+                const unsigned raw = __ldg(reinterpret_cast<const unsigned*>(srow + n));
+                sk[jj] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+              } else {
+                sk[jj].x = __bfloat162float(srow[n]);
+                if (n + 1 < Cout) sk[jj].y = __bfloat162float(srow[n + 1]);
+              }
+            }
+          }
+#pragma unroll
+          for (int jj = 0; jj < GROUP; ++jj) {
+            const int j = j0 + jj;
+            const int n = tl.n0 + j * 8 + (lane & 3) * 2;
+            if (j >= BN / 8 || n >= Cout) continue;
+            float v0 = acc[4 * j + 2 * h] + bv[jj].x, v1 = acc[4 * j + 2 * h + 1] + bv[jj].y;
+            if (p.silu) v0 = silu_f(v0), v1 = silu_f(v1);
+            if (FUSED) v0 += sk[jj].x, v1 += sk[jj].y;
+            if (pair_store) {  // n is even, so n + 1 < Cout too, and the pairs are aligned
+              *reinterpret_cast<__nv_bfloat162*>(orow + n) = __floats2bfloat162_rn(v0, v1);
+            } else {
+              orow[n] = __float2bfloat16(v0);
+              if (n + 1 < Cout) orow[n + 1] = __float2bfloat16(v1);
             }
           }
         }
@@ -483,11 +532,24 @@ conv3x3_down2_kernel(const __grid_constant__ XMaps maps_x,
   conv_tiles<BN, false, true>(maps_x.m, map_w, p);
 }
 
-template <int BN, bool FUSED>
+template <int BN>
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+conv3x3_up2_kernel(const __grid_constant__ CUtensorMap map_x,
+                   const __grid_constant__ CUtensorMap map_w, const TileArgs p) {
+  conv_tiles<BN, false, false, true>(&map_x, map_w, p);
+}
+
+// Stride 1 (plain, fused) and, with UP2, the up2 form: a.H and a.W are the
+// input's, w the weights as [Cout, taps, Cin] with 9 taps, or up2's 16.
+template <int BN, bool FUSED, bool UP2 = false>
 int launch_tiles(const void* x, const void* w, TileArgs a, int grid, void* stream) {
   static unsigned long long configured = 0;  // one bit per device
   constexpr int smem = tiles_smem_bytes(BN);
-  auto kernel = FUSED ? conv3x3_fused_kernel<BN> : conv3x3_kernel<BN>;
+  constexpr int taps = UP2 ? 16 : 9;
+  auto kernel = [] {
+    if constexpr (UP2) return conv3x3_up2_kernel<BN>;
+    else return FUSED ? conv3x3_fused_kernel<BN> : conv3x3_kernel<BN>;
+  }();
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -499,15 +561,16 @@ int launch_tiles(const void* x, const void* w, TileArgs a, int grid, void* strea
   a.tiles_x = (a.W + RECT_W - 1) / RECT_W;
   a.tiles_y = (a.H + RECT_H - 1) / RECT_H;
   a.tiles_n = (a.Cout + BN - 1) / BN;
-  a.tiles = a.B * a.tiles_y * a.tiles_x * a.tiles_n;
+  a.phases = UP2 ? 4 : 1;
+  a.tiles = a.B * a.tiles_y * a.tiles_x * a.tiles_n * a.phases;
   if (grid < 1) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_x, map_w;
   const cuuint64_t cin = a.Cin, wd = a.W, ht = a.H;
   const cuuint64_t x_dims[4] = {cin, wd, ht, (cuuint64_t)a.B};
   const cuuint64_t x_strides[3] = {cin * 2, wd * cin * 2, ht * wd * cin * 2};
   const cuuint32_t x_box[4] = {KC, HALO_W, HALO_H, 1};
-  const cuuint64_t w_dims[3] = {cin, 9, (cuuint64_t)a.Cout};
-  const cuuint64_t w_strides[2] = {cin * 2, 9 * cin * 2};
+  const cuuint64_t w_dims[3] = {cin, taps, (cuuint64_t)a.Cout};
+  const cuuint64_t w_strides[2] = {cin * 2, taps * cin * 2};
   const cuuint32_t w_box[3] = {KC, 1, BN};
   int err = encode_map(&map_x, x, 4, x_dims, x_strides, x_box);
   if (err == 0) err = encode_map(&map_w, w, 3, w_dims, w_strides, w_box);
@@ -538,6 +601,7 @@ int launch_down2(const void* x, const void* w, TileArgs a, int grid, void* strea
   a.tiles_x = (a.W + RECT_W - 1) / RECT_W;
   a.tiles_y = (a.H + RECT_H - 1) / RECT_H;
   a.tiles_n = (a.Cout + BN - 1) / BN;
+  a.phases = 1;
   a.tiles = a.B * a.tiles_y * a.tiles_x * a.tiles_n;
   if (grid < 1 || (a.pad != 0 && a.pad != 1)) return static_cast<int>(cudaErrorInvalidValue);
   XMaps maps_x;
@@ -576,285 +640,50 @@ int launch_tiles_bn(int bn, const void* x, const void* w, const TileArgs& a, int
 
 // ------------------------------------------------------------------- up2
 
-constexpr int BM = 128;        // output pixels per block
-constexpr int BN = 128;        // output channels per block
-constexpr int BK = 64;         // k (input channels of one tap) per stage
-constexpr int STAGES = 3;      // cp.async ring depth
-constexpr int LDS = BK + 8;    // smem row stride in bf16 (144 B: ldmatrix conflict-free)
-constexpr int VPR = BK / 8;    // 16-byte vectors per tile row
-constexpr int RPT = BM * VPR / 256;  // tile rows each thread copies per operand
-constexpr int NTHREADS = 256;  // 8 warps: 2 along M x 4 along N
-constexpr int WM = 64;         // warp tile rows
-constexpr int WN = 32;         // warp tile cols
-constexpr int MT = WM / 16;    // m16 tiles per warp
-constexpr int NT = WN / 8;     // n8 tiles per warp
-constexpr int STAGE_ELEMS = (BM + BN) * LDS;
-constexpr size_t SMEM_BYTES = sizeof(__nv_bfloat16) * STAGES * STAGE_ELEMS;
-
-struct ConvArgs {
-  const __nv_bfloat16* x;     // [B, H, W, Cin]
-  const __nv_bfloat16* w;     // [4 phases, 4 taps, Cout, Cin]
-  const float* bias;          // [Cout] or null
-  __nv_bfloat16* out;         // [B, 2H, 2W, Cout]
-  int B, H, W, Cin, Cout;
-  int Ho, Wo;                 // the GEMM's pixel grid: one phase's
-  int silu;
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l supplies the address of
-// row (l & 7) of matrix (l >> 3) and receives its share of each in r[0..3].
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t smem_addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void up2_body(const ConvArgs& p) {
-  constexpr int KW = 2;  // taps per row
-  constexpr int NTAP = KW * KW;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  // Stage s holds A (BM rows) then B (BN rows), each row LDS wide.
-  auto a_tile = [&](int s) { return smem + s * STAGE_ELEMS; };
-  auto b_tile = [&](int s) { return smem + s * STAGE_ELEMS + BM * LDS; };
-
-  const int H = p.H, W = p.W, Cin = p.Cin, Cout = p.Cout;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;  // 0..1
-  const int wn = warp & 3;   // 0..3
-  const int g = lane >> 2;   // mma group id
-  const int tg = lane & 3;   // thread in group
-
-  const long long HWo = (long long)p.Ho * p.Wo;
-  const long long M = (long long)p.B * HWo;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int phase = (int)blockIdx.z;  // 2p + q
-  const __nv_bfloat16* w = p.w + (long long)phase * NTAP * Cout * Cin;
-
-  // Each thread copies RPT 16-byte vectors of A and of B per stage: rows
-  // (tid / VPR) + (256 / VPR) * i, vector (tid % VPR) of the 64-wide k.
-  // ay, ax: input pixel read by tap (0, 0); apix: pixel index of (b, 0, 0)
-  // in the input, -1 past M.
-  const int vec = tid % VPR;
-  const int row0 = tid / VPR;
-  constexpr int ROW_STEP = NTHREADS / VPR;
-  int ay[RPT], ax[RPT], apix[RPT];
-  for (int i = 0; i < RPT; ++i) {
-    const long long m = m0 + row0 + ROW_STEP * i;
-    const long long mm = m < M ? m : 0;
-    const int b = (int)(mm / HWo);
-    const int r = (int)(mm - (long long)b * HWo);
-    const int oy = r / p.Wo, ox = r - (r / p.Wo) * p.Wo;
-    ay[i] = oy + (phase >> 1) - 1;
-    ax[i] = ox + (phase & 1) - 1;
-    apix[i] = m < M ? b * H * W : -1;
-  }
-  auto a_ok = [&](int i, int tap, int c, int& yy, int& xx) {
-    yy = ay[i] + tap / KW;
-    xx = ax[i] + tap % KW;
-    return apix[i] >= 0 && c < Cin && yy >= 0 && yy < H && xx >= 0 && xx < W;
-  };
-
-  const int ck = (Cin + BK - 1) / BK;  // k chunks per tap
-  const int KT = NTAP * ck;
-
-  // The next k tile to copy, as (tap, first channel); copies run in k order.
-  int ld_tap = 0, ld_c = 0;
-  auto load_stage = [&](int stage) {
-    const int c = ld_c + vec * 8;
-    const bool cin_ok = c < Cin;
-    __nv_bfloat16* as = a_tile(stage);
-    __nv_bfloat16* bs = b_tile(stage);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      int yy, xx;
-      const bool ok = a_ok(i, ld_tap, c, yy, xx);
-      const __nv_bfloat16* src =
-          ok ? p.x + (((long long)apix[i] + yy * W + xx) * Cin + c) : p.x;
-      cp_async16(as + (row0 + ROW_STEP * i) * LDS + vec * 8, src, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int n = n0 + row0 + ROW_STEP * i;
-      const bool ok = n < Cout && cin_ok;
-      const long long off = ((long long)ld_tap * Cout + n) * Cin + c;
-      cp_async16(bs + (row0 + ROW_STEP * i) * LDS + vec * 8, ok ? w + off : w, ok);
-    }
-    ld_c += BK;
-    if (ld_c >= Cin) {
-      ld_c = 0;
-      ++ld_tap;
-    }
-  };
-
-  float acc[MT][NT][4];
-  for (int i = 0; i < MT; ++i)
-    for (int j = 0; j < NT; ++j)
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
-
-  // Prologue: STAGES-1 tiles in flight.  Every iteration commits one group
-  // (empty past the end), so "at most STAGES-2 pending" means tile kt landed.
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s);
-    cp_async_commit();
-  }
-  // ldmatrix lane offsets: A rows (lane & 15), k half (lane >> 4); B rows
-  // ((lane >> 4) * 8 + (lane & 7)), k half ((lane >> 3) & 1).
-  const int a_row = lane & 15, a_k = (lane >> 4) * 8;
-  const int b_row = (lane >> 4) * 8 + (lane & 7), b_k = ((lane >> 3) & 1) * 8;
-
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // tile kt visible to all; stage (kt - 1) free to refill
-    const int nk = kt + STAGES - 1;
-    if (nk < KT) load_stage(nk % STAGES);
-    cp_async_commit();
-
-    const __nv_bfloat16* as = a_tile(kt % STAGES);
-    const __nv_bfloat16* bs = b_tile(kt % STAGES);
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t af[MT][4], bf[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(af[i], smem_u32(as + (wm * WM + i * 16 + a_row) * LDS + ks + a_k));
-#pragma unroll
-      for (int jp = 0; jp < NT / 2; ++jp) {
-        uint32_t r[4];
-        ldmatrix_x4(r, smem_u32(bs + (wn * WN + jp * 16 + b_row) * LDS + ks + b_k));
-        bf[2 * jp][0] = r[0];
-        bf[2 * jp][1] = r[1];
-        bf[2 * jp + 1][0] = r[2];
-        bf[2 * jp + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], af[i], bf[j]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // Epilogue straight from the accumulators: c0,c1 sit at row g, cols
-  // 2*tg, 2*tg+1 of each m16n8 tile; c2,c3 at row g+8.
-  const bool pair_store = (Cout & 1) == 0;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long long m = m0 + wm * WM + i * 16 + g + half * 8;
-      if (m >= M) continue;
-      const float* brow = p.bias;
-      const long long b = m / HWo;
-      const int r = (int)(m - b * HWo);
-      const int oy = r / p.Wo, ox = r - (r / p.Wo) * p.Wo;
-      const long long opix =
-          (b * 2 * p.Ho + 2 * oy + (phase >> 1)) * (2LL * p.Wo) + 2 * ox + (phase & 1);
-      __nv_bfloat16* orow = p.out + opix * Cout;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = n0 + wn * WN + j * 8 + tg * 2;
-        float v[2];
-        for (int e = 0; e < 2; ++e) {
-          float t = acc[i][j][half * 2 + e];
-          if (brow != nullptr && n + e < Cout) t += brow[n + e];
-          if (p.silu) t = silu_f(t);
-          v[e] = t;
-        }
-        if (pair_store && n + 1 < Cout) {
-          __nv_bfloat162 pr;
-          pr.x = __float2bfloat16(v[0]);
-          pr.y = __float2bfloat16(v[1]);
-          *reinterpret_cast<__nv_bfloat162*>(orow + n) = pr;
-        } else {
-          if (n < Cout) orow[n] = __float2bfloat16(v[0]);
-          if (n + 1 < Cout) orow[n + 1] = __float2bfloat16(v[1]);
-        }
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(NTHREADS, 2) conv3x3_up2_kernel(const ConvArgs p) {
-  up2_body(p);
-}
-
-// Phase weights [4 phases (2p + q), 4 taps (2a + b), Cout, Cin] from OHWI w
+// Phase weights [Cout, 4 phases (2p + q), 4 taps (2a + b), Cin] from OHWI w
 // [Cout, 3, 3, Cin]: tap a of phase p sums the 3x3 rows ROWS[p][a] (a bit
 // mask), tap b of phase q the columns ROWS[q][b]; fp32 sums of the bf16
-// taps, rounded to bf16 once (make_phase_kernels in ops/conv_fused.py).
+// taps in the order of the 3x3 rows, then columns, rounded to bf16 once
+// (make_phase_kernels in ops/conv_fused.py).
 __global__ void up2_phase_weights_kernel(const __nv_bfloat16* __restrict__ w,
                                          __nv_bfloat16* __restrict__ wp, int Cout, int Cin) {
   constexpr int ROWS[2][2] = {{0b001, 0b110}, {0b011, 0b100}};
+  // One thread per (Cout, 8 input channels): 16-byte loads and stores.
+  const int vecs = Cin / 8;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long n = (long long)Cout * Cin;
-  if (idx >= n) return;
-  const long long o = idx / Cin, i = idx - o * Cin;
-  float t[9];
+  if (idx >= (long long)Cout * vecs) return;
+  const long long o = idx / vecs;
+  const int i = (int)(idx - o * vecs) * 8;
+  float t[9][8];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) t[k] = __bfloat162float(w[(o * 9 + k) * Cin + i]);
+  for (int k = 0; k < 9; ++k) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(w + (o * 9 + k) * Cin + i);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      t[k][2 * e] = f.x, t[k][2 * e + 1] = f.y;
+    }
+  }
 #pragma unroll
   for (int ph = 0; ph < 4; ++ph)
 #pragma unroll
     for (int tap = 0; tap < 4; ++tap) {
       const int rows = ROWS[ph >> 1][tap >> 1], cols = ROWS[ph & 1][tap & 1];
-      float s = 0.f;
+      uint4 out;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&out);
 #pragma unroll
-      for (int d = 0; d < 3; ++d)
+      for (int e = 0; e < 4; ++e) {
+        float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-        for (int e = 0; e < 3; ++e)
-          if ((rows >> d & 1) && (cols >> e & 1)) s += t[d * 3 + e];
-      wp[(ph * 4 + tap) * n + idx] = __float2bfloat16(s);
+        for (int d = 0; d < 3; ++d)
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            if ((rows >> d & 1) && (cols >> c & 1)) s0 += t[d * 3 + c][2 * e], s1 += t[d * 3 + c][2 * e + 1];
+        h[e] = __floats2bfloat162_rn(s0, s1);
+      }
+      *reinterpret_cast<uint4*>(wp + (o * 16 + ph * 4 + tap) * Cin + i) = out;
     }
-}
-
-// Raise the kernel's dynamic shared memory limit once, then launch over the
-// GEMM's (pixel tile, channel tile, phase) grid.
-int launch(void (*kernel)(const ConvArgs), bool& configured, const ConvArgs& a, int phases,
-           void* stream) {
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
-  const long long M = (long long)a.B * a.Ho * a.Wo;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((a.Cout + BN - 1) / BN), phases);
-  kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-ConvArgs args(const void* x, const void* w, const void* bias, void* out, int B, int H, int W,
-              int Cin, int Cout, int silu) {
-  ConvArgs a{};
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.w = static_cast<const __nv_bfloat16*>(w);
-  a.bias = static_cast<const float*>(bias);
-  a.out = static_cast<__nv_bfloat16*>(out);
-  a.B = B, a.H = H, a.W = W, a.Cin = Cin, a.Cout = Cout;
-  a.Ho = H, a.Wo = W, a.silu = silu;
-  return a;
 }
 
 }  // namespace
@@ -863,6 +692,10 @@ ConvArgs args(const void* x, const void* w, const void* bias, void* out, int B, 
 // host-side plan mirrors it), or -1 where there is no such instance.
 extern "C" int conv3x3_smem_bytes(int bn) {
   return bn == 8 || bn == 128 || bn == 160 ? tiles_smem_bytes(bn) : -1;
+}
+// The same for the up2 instances.
+extern "C" int conv3x3_up2_smem_bytes(int bn) {
+  return bn == 128 || bn == 160 ? tiles_smem_bytes(bn) : -1;
 }
 // The same for the stride-2 instances.
 extern "C" int conv3x3_down2_smem_bytes(int bn) {
@@ -898,18 +731,24 @@ extern "C" int conv3x3_fused_bf16(const void* x, const void* w, const void* bias
   return launch_tiles_bn<true>(bn, x, w, a, grid, stream);
 }
 
-// x [B, H, W, Cin], w [Cout, 3, 3, Cin] -> out [B, 2H, 2W, Cout]; wp4
-// receives the phase weights [2, 2, 2, 2, Cout, Cin] (p, q, a, b).
-extern "C" int conv3x3_up2_bf16(const void* x, const void* w, void* wp4, const void* bias,
+// x [B, H, W, Cin], w [Cout, 3, 3, Cin] -> out [B, 2H, 2W, Cout]; wp
+// receives the phase weights [Cout, 2, 2, 2, 2, Cin] (p, q, a, b); bn and grid
+// from the plan (ops/conv3x3.py `plan_up2`).
+extern "C" int conv3x3_up2_bf16(const void* x, const void* w, void* wp, const void* bias,
                                 void* out, int B, int H, int W, int Cin, int Cout, int silu,
-                                void* stream) {
-  static bool configured = false;
-  const long long n = (long long)Cout * Cin;
+                                int bn, int grid, void* stream) {
+  if (bn != 128 && bn != 160) return static_cast<int>(cudaErrorInvalidValue);
+  if (Cin % 8) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = (long long)Cout * (Cin / 8);
   up2_phase_weights_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(wp4), Cout, Cin);
-  return launch(conv3x3_up2_kernel, configured,
-                args(x, wp4, bias, out, B, H, W, Cin, Cout, silu), 4, stream);
+      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(wp), Cout, Cin);
+  TileArgs a{};
+  a.bias = static_cast<const float*>(bias);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.B = B, a.H = H, a.W = W, a.Cin = Cin, a.Cout = Cout, a.silu = silu, a.bias_rows = 1;
+  return bn == 160 ? launch_tiles<160, false, true>(x, wp, a, grid, stream)
+                   : launch_tiles<128, false, true>(x, wp, a, grid, stream);
 }
 
 // x [B, H, W, Cin] (H, W even), w [Cout, 3, 3, Cin]; pad 1: padding (1, 1),

@@ -62,50 +62,72 @@
 //     a head's K and V in L2 (heads fastest measured the same: the K and V of
 //     a whole call fit the card's L2).
 //
-// D = 512, `flash_kernel` (two calls per edit), mma.sync m16n8k16, one block
-// per (batch*head, q tile): a warp's O slice for 16 rows would need 256
-// registers a thread, so the warps split D instead.
-// Per kv tile: (1) S = Q K^T, written to shared memory in fp32; (2) an
-// online-softmax pass over S rows, writing P in bf16 and the per-row
-// rescale factor; (3) O = alpha*O + P V, each warp owning a column slice
-// of D for all q rows, V read transposed by ldmatrix.trans.  32-row q tiles
-// need ~107 KB of shared memory, so the kernel uses dynamic shared memory
-// and raises its limit with cudaFuncSetAttribute.
+// D = 512, `flash_d512_kernel` (the VAE mid block's single head over a 128 x
+// 128 latent: two calls per edit, Sq = Skv = 16384), written for Hopper on the
+// same parts (tensor maps read through the strides, mbarrier rings,
+// persistent blocks, q tile fastest); schedule again from `plan`:
+//   * O does not fit one warpgroup: 64 rows x 512 columns in fp32 are 256
+//     registers a thread.  So D is split: two "PV" warpgroups own 256 columns
+//     of O each (128 accumulator registers; m64n256k16, V the MN-major B
+//     operand over four column panels, the descriptor's leading offset from
+//     panel to panel) for the same 64 q rows, and S is computed once, by a
+//     third, the "softmax" warpgroup: S = Q K^T for a KV tile of 64 keys
+//     (m64n64k16, 32 k steps across D), the online softmax in its registers,
+//     then P (bf16, in the swizzled K-major layout wgmma reads as A) and the
+//     rows' rescale factors through shared memory to the other two, two
+//     buffers deep, "full" and "empty" mbarriers either way; the row sums go
+//     the same way at the end of a tile, as 1 / l.  The softmax is 1/8 of
+//     D = 64's per FLOP (one exp per 2048 FLOPs), so one warpgroup keeps up
+//     with it while the other two multiply.
+//   * Twelve warps and no producer warp.  ptxas budgets the whole kernel by
+//     its launch bounds, whatever setmaxnreg says later: m64n256k16 with 128
+//     accumulators needs 154 registers to compile, twelve warps may have 168
+//     and a thirteenth leaves 128.  So every warpgroup loads what it
+//     consumes: the softmax warpgroup Q and K, a PV warpgroup its columns of
+//     V.  All its threads wait for the stage to be free and one issues the
+//     TMA load under a predicate, a ring's depth ahead.
+//   * Every wgmma group has its own wgmma.fence right before it, after the
+//     wait for its operands.  With one fence for a whole KV tile ptxas put
+//     its own behind each wait's loop and then serialised every wgmma of the
+//     kernel (C7520: a wait after each HGMMA, 293 instead of 400 TFLOP/s).
+//   * D = 512 is eight 128-byte swizzle rows, so every tile is eight column
+//     panels of 64 elements.  A 5-D tensor map (column within a panel, row,
+//     panel, head, batch) lands a box panel by panel, rows 128 bytes apart,
+//     in one load: Q (64 rows x 8 panels, 64 KB, one stage), K in a ring of
+//     six panels of 64 keys x 64 columns (8 KB; the contraction of Q K^T walks
+//     the panels in order and hands each back when the wgmma group that read
+//     it has retired, so K streams through 48 KB), V per PV warpgroup in a
+//     ring of six slabs of 16 keys x its 256 columns (8 KB: one k step, handed
+//     back when its wgmma has retired; 1.25 KV tiles are on their way ahead of
+//     it).  Q 64 + K 48 + V 96 + P 16 KB: 231,248 bytes with the barriers, of
+//     the 232,448 a block may have.  (Stages twice as large and half as many
+//     measured 20% slower; eight of K and five of V, or ten and four, the
+//     same.)  The k steps of S alternate over two accumulators.
+//   * O / l is rounded once, staged over Q's panels (swizzled) and written by
+//     four TMA stores a PV warpgroup; the Q stage is released when both have
+//     read it out.
+//   * What bounds it: the block itself, not what blocks share (half as many
+//     blocks take twice as long).  clock64() in an instrumented copy: a KV
+//     tile takes ~4700 clocks where its multiplies need 2048 at the tensor
+//     cores' peak.  The softmax warpgroup spends 3800-4000 of them in S (32
+//     wgmmas of N = 64, ~120 clocks each where 32 would do), ~470 in the
+//     softmax and ~220 handing P over; a PV warpgroup waits 1800-2100 for P,
+//     rescales for 320 and multiplies for 1850-2000.  S is not held by its
+//     accumulator (two or four alternating accumulators: 3-4%; two stay), not
+//     by the loads (without any TMA load: 16%), and not by the tensor cores
+//     standing idle under the softmax (the first half of S(j + 1) issued
+//     before softmax(j): no gain): wgmmas of N = 64 with both operands from
+//     shared memory, which they read at the rate it can give, share it and
+//     the tensor cores with the PV warpgroups' wgmmas of N = 256.  A KV tile
+//     of 128 keys (N = 128 for S) needs 32 KB more than a block has.  A q
+//     tile of 128 rows would halve the L2 traffic (a 64-row tile rereads all
+//     of K and V: 8.6 GB a call) but its O would fill the whole register file.
 
 #include "hopper.cuh"
 
 namespace {
 
 using namespace hopper;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two 8x8 bf16 matrices, transposed: the B fragment of an m16n8k16 MMA
-// whose B (k x n) is stored k-major, n contiguous.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r, const __nv_bfloat16* p) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(s));
-}
 
 // Two fp32 values as one bf16x2 register, the lower column in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -138,7 +160,7 @@ __host__ __device__ constexpr int smem_bytes(int nwg) {
 }
 }  // namespace d64
 
-struct D64Args {
+struct WalkArgs {
   int H, Skv;
   int q_tiles, tiles;  // q tiles per head; all tiles: B * H * q_tiles
   float scale;
@@ -149,7 +171,7 @@ __global__ void __launch_bounds__(d64::threads(NWG), 1)
 flash_d64_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
-                 const __grid_constant__ CUtensorMap map_o, const D64Args p) {
+                 const __grid_constant__ CUtensorMap map_o, const WalkArgs p) {
   using namespace d64;
   constexpr int BQ = NWG * SLICE, Q_BYTES = q_bytes(NWG);
   // Registers a thread: 65536 / threads at launch; the producer warpgroup
@@ -403,224 +425,424 @@ flash_d64_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int D, int BQ, int BKV, int NWARPS>
-struct Cfg {
-  static constexpr int NTHREADS = NWARPS * 32;
-  static constexpr int LDQ = D + 8;     // bf16 row stride of Q, K, V tiles
-  static constexpr int LDS = BKV + 4;   // fp32 row stride of S
-  static constexpr int LDP = BKV + 8;   // bf16 row stride of P
-  static constexpr int MT = BQ / 16;    // m16 tiles over q rows
-  static constexpr int ST = BKV / 8;    // n8 tiles over kv columns of S
-  static constexpr int OT = D / 8;      // n8 tiles over D of O
-  static constexpr int OT_W = OT / NWARPS;  // O column tiles per warp
-  static constexpr int TPR = NTHREADS / BQ;  // softmax threads per q row
-  static constexpr int CPT = BKV / TPR;      // S columns per softmax thread
-  static constexpr size_t SMEM =
-      sizeof(__nv_bfloat16) * (size_t)(BQ + 2 * BKV) * LDQ + sizeof(float) * (size_t)BQ * LDS +
-      sizeof(__nv_bfloat16) * (size_t)BQ * LDP + sizeof(float) * 3 * BQ;
-  static_assert(OT % NWARPS == 0, "D/8 must split evenly over the warps");
-  static_assert(NTHREADS % BQ == 0 && TPR <= 32 && (TPR & (TPR - 1)) == 0, "softmax split");
-  static_assert(BKV % TPR == 0, "softmax columns");
-};
+namespace d512 {
+constexpr int D = 512, BQ = 64, BKV = 64;
+constexpr int PANELS = D / 64;                     // column panels: one 128-byte swizzle row each
+constexpr int Q_PANEL_BYTES = BQ * 128;
+constexpr int Q_BYTES = PANELS * Q_PANEL_BYTES;    // 64 KB, one stage
+constexpr int K_STAGES = 6;                        // ring of K panels: 64 keys x 64 columns
+constexpr int K_STAGE_BYTES = BKV * 128;
+constexpr int PV_GROUPS = 2;                       // PV warpgroups: D / 2 columns of O each
+constexpr int COLS = D / PV_GROUPS;
+constexpr int V_ROWS = 16, V_STAGES = 6;           // per PV warpgroup a ring of V slabs: 16 keys
+constexpr int V_PANEL_BYTES = V_ROWS * 128;        //   x its 256 columns, panel by panel
+constexpr int V_STAGE_BYTES = (COLS / 64) * V_PANEL_BYTES;
+constexpr int S_CHAINS = 2;                        // accumulators the k steps of S alternate over
+constexpr int P_STAGES = 2;                        // P (bf16, one swizzle panel) and a row statistic
+constexpr int P_BYTES = BQ * BKV * 2;
+constexpr int STAT_BYTES = BQ * 4;
+constexpr int THREADS = 128 * (1 + PV_GROUPS);     // the softmax warpgroup and the PV warpgroups
+constexpr int N_BARS = 2 + 2 * K_STAGES + 2 * PV_GROUPS * V_STAGES + 2 * P_STAGES;
+constexpr int SMEM_BYTES = 1024 + Q_BYTES + K_STAGES * K_STAGE_BYTES +
+                           PV_GROUPS * V_STAGES * V_STAGE_BYTES +
+                           P_STAGES * (P_BYTES + STAT_BYTES) + 8 * N_BARS;
+static_assert(BKV * 2 == 128, "P is one swizzle panel: a row of 64 keys is 128 bytes");
+static_assert(COLS == 256, "a PV warpgroup's product is m64n256k16");
+}  // namespace d512
 
-template <int D, int BQ, int BKV, int NWARPS>
-__global__ void __launch_bounds__(NWARPS * 32)
-flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int H,
-             int Sq, int Skv, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-             long long v_sb, long long v_ss, float scale) {
-  using C = Cfg<D, BQ, BKV, NWARPS>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * C::LDQ;
-  __nv_bfloat16* Vs = Ks + BKV * C::LDQ;
-  float* Ss = reinterpret_cast<float*>(Vs + BKV * C::LDQ);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(Ss + BQ * C::LDS);
-  float* m_s = reinterpret_cast<float*>(Ps + BQ * C::LDP);
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
+__global__ void __launch_bounds__(d512::THREADS, 1)
+flash_d512_kernel(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v,
+                  const __grid_constant__ CUtensorMap map_o, const WalkArgs p) {
+  using namespace d512;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_smem = q_smem + Q_BYTES;
+  const uint32_t v_smem = k_smem + K_STAGES * K_STAGE_BYTES;
+  const uint32_t p_smem = v_smem + PV_GROUPS * V_STAGES * V_STAGE_BYTES;
+  const uint32_t stat_smem = p_smem + P_STAGES * P_BYTES;
+  const uint32_t bars = stat_smem + P_STAGES * STAT_BYTES;
+  const uint32_t full_q = bars, empty_q = bars + 8;
+  auto full_k = [&](int s) { return bars + 8 * (2 + s); };
+  auto empty_k = [&](int s) { return bars + 8 * (2 + K_STAGES + s); };
+  // s: stage of PV warpgroup g's ring, g * V_STAGES + stage
+  auto full_v = [&](int s) { return bars + 8 * (2 + 2 * K_STAGES + s); };
+  auto empty_v = [&](int s) { return bars + 8 * (2 + 2 * K_STAGES + PV_GROUPS * V_STAGES + s); };
+  auto full_p = [&](int s) { return bars + 8 * (2 + 2 * K_STAGES + 2 * PV_GROUPS * V_STAGES + s); };
+  auto empty_p = [&](int s) {
+    return bars + 8 * (2 + 2 * K_STAGES + 2 * PV_GROUPS * V_STAGES + P_STAGES + s);
+  };
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int tg = lane & 3;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tid = threadIdx.x & 127;
+  const int loader = tid == 0;  // the thread of a warpgroup that issues its loads
+  const int kv_tiles = p.Skv / BKV;
+  // Thread (w, lane) of a warpgroup holds rows 16w + lane / 4 and + 8 of a
+  // wgmma result, columns 8g + 2(lane % 4), + 1 of them in d[4g .. 4g + 3].
+  const int row = 16 * (warp & 3) + (lane >> 2), quad = lane & 3;
 
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh - (bh / H) * H;
-  const int q0 = blockIdx.x * BQ;
-  const __nv_bfloat16* qg = q + b * q_sb + (long long)h * D;
-  const __nv_bfloat16* kg = k + b * k_sb + (long long)h * D;
-  const __nv_bfloat16* vg = v + b * v_sb + (long long)h * D;
-
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-
-  // Q tile, scaled in bf16 exactly as the TPU kernel does (q * bf16(scale)).
-  const __nv_bfloat16 scale_bf = __float2bfloat16(scale);
-  for (int i = tid; i < BQ * VPR; i += C::NTHREADS) {
-    const int r = i / VPR, c = (i - r * VPR) * 8;
-    uint4 raw = *reinterpret_cast<const uint4*>(qg + (long long)(q0 + r) * q_ss + c);
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) e[j] = __hmul(e[j], scale_bf);
-    *reinterpret_cast<uint4*>(Qs + r * C::LDQ + c) = raw;
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);           // the loader's expect_tx
+    mbar_init(empty_q, PV_GROUPS);  // the thread of each PV warpgroup that stores O
+    for (int s = 0; s < K_STAGES; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(empty_k(s), 4);  // lane 0 of every softmax warp
+    }
+    for (int s = 0; s < PV_GROUPS * V_STAGES; ++s) {
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_v(s), 4);  // lane 0 of every warp of the ring's warpgroup
+    }
+    for (int s = 0; s < P_STAGES; ++s) {
+      mbar_init(full_p(s), 128);             // every softmax thread, after its own writes
+      mbar_init(empty_p(s), 4 * PV_GROUPS);  // lane 0 of every PV warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int r = tid; r < BQ; r += C::NTHREADS) {
-    m_s[r] = -1e30f;
-    l_s[r] = 0.f;
-  }
+  __syncthreads();
 
-  float o[C::MT][C::OT_W][4];
-#pragma unroll
-  for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < C::OT_W; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) o[i][j][r] = 0.f;
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += BKV) {
-    for (int i = tid; i < BKV * VPR; i += C::NTHREADS) {
-      const int r = i / VPR, c = (i - r * VPR) * 8;
-      cp_async16(Ks + r * C::LDQ + c, kg + (long long)(kv0 + r) * k_ss + c);
+  // Tile t of the persistent walk -> (batch, head, first q row), q tile fastest.
+  auto tile_at = [&](int t, int& b, int& h, int& q0) {
+    const int bh = t / p.q_tiles;
+    q0 = (t - bh * p.q_tiles) * BQ;
+    b = bh / p.H;
+    h = bh - b * p.H;
+  };
+  // Where a warpgroup's loads stand in its ring: the stage and the phase to
+  // load next, and the (tile, row, panel) that goes there.  Every thread of
+  // the warpgroup keeps it (the values do not depend on the thread).  It runs
+  // on from tile to tile, so the next tile's first loads are under way while
+  // this one ends.
+  int ld_s = 0, ld_ph = 0, ld_t = blockIdx.x, ld_row = 0, ld_pn = 0, ld_b = 0, ld_h = 0, ld_q0 = 0;
+  if (ld_t < p.tiles) tile_at(ld_t, ld_b, ld_h, ld_q0);
+  auto ld_next_rows = [&](int rows) {
+    ld_row += rows;
+    if (ld_row == p.Skv) {
+      ld_row = 0;
+      ld_t += gridDim.x;
+      if (ld_t < p.tiles) tile_at(ld_t, ld_b, ld_h, ld_q0);
     }
-    cp_async_commit();
-    for (int i = tid; i < BKV * VPR; i += C::NTHREADS) {
-      const int r = i / VPR, c = (i - r * VPR) * 8;
-      cp_async16(Vs + r * C::LDQ + c, vg + (long long)(kv0 + r) * v_ss + c);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // K has landed; V may still be in flight
-    __syncthreads();
+  };
 
-    // (1) S = Q K^T, one m16n8 tile at a time, tiles dealt round-robin.
-    for (int t = warp; t < C::MT * C::ST; t += NWARPS) {
-      const int mi = t / C::ST, nj = t - (t / C::ST) * C::ST;
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-      const __nv_bfloat16* qa = Qs + (mi * 16 + g) * C::LDQ + tg * 2;
-      const __nv_bfloat16* kb = Ks + (nj * 8 + g) * C::LDQ + tg * 2;
-#pragma unroll 8
-      for (int ks = 0; ks < D; ks += 16) {
-        uint32_t a[4], bb[2];
-        a[0] = lds32(qa + ks);
-        a[1] = lds32(qa + 8 * C::LDQ + ks);
-        a[2] = lds32(qa + ks + 8);
-        a[3] = lds32(qa + 8 * C::LDQ + ks + 8);
-        bb[0] = lds32(kb + ks);
-        bb[1] = lds32(kb + ks + 8);
-        mma_bf16(s, a, bb);
+  if (warp < 4) {
+    // The softmax warpgroup: S = Q K^T of a KV tile, the online softmax, then
+    // P and the rows' rescale factors to the PV warpgroups.  It loads Q and
+    // the K panels.
+    auto load_k = [&]() {  // the next panel of K, into the stage its turn has come to
+      if (ld_t >= p.tiles) return;
+      mbar_wait(empty_k(ld_s), ld_ph ^ 1);
+      mbar_expect_tx_if(loader, full_k(ld_s), K_STAGE_BYTES);
+      tma_load_5d_if(loader, k_smem + ld_s * K_STAGE_BYTES, &map_k, full_k(ld_s), 0, ld_row,
+                     ld_pn, ld_h, ld_b);
+      if (++ld_s == K_STAGES) ld_s = 0, ld_ph ^= 1;
+      if (++ld_pn == PANELS) ld_pn = 0, ld_next_rows(BKV);
+    };
+    for (int i = 0; i < K_STAGES - 1; ++i) load_k();
+
+    const __nv_bfloat162 scale2 = __float2bfloat162_rn(p.scale);
+    int qp = 0, ks = 0, kp = 0;
+    unsigned msg = 0;  // messages sent: buffer msg & 1, its phase (msg >> 1) & 1
+    // S, then the unrounded P, in s[0].  The k steps of Q K^T alternate over
+    // S_CHAINS accumulators, summed at the end (3-4% over one chain, in turns
+    // in one run).
+    float s[S_CHAINS][BKV / 2];
+    // Wait until the PV warpgroups have read the buffer's previous message.
+    auto claim = [&]() {
+      mbar_wait(empty_p(msg & 1), ((msg >> 1) & 1) ^ 1);
+      return static_cast<int>(msg & 1);
+    };
+    auto send = [&](int buf, float stat0, float stat1) {
+      if (quad == 0) {
+        const uint32_t addr = stat_smem + buf * STAT_BYTES + row * 4;
+        asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(stat0) : "memory");
+        asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr + 32), "f"(stat1) : "memory");
       }
-      float* sp = Ss + (mi * 16 + g) * C::LDS + nj * 8 + tg * 2;
-      sp[0] = s[0];
-      sp[1] = s[1];
-      sp[8 * C::LDS] = s[2];
-      sp[8 * C::LDS + 1] = s[3];
-    }
-    __syncthreads();
-
-    // (2) online softmax: TPR consecutive threads share one q row.
-    {
-      const int r = tid / C::TPR;
-      const int part = tid - r * C::TPR;
-      const float* srow = Ss + r * C::LDS + part * C::CPT;
-      float mx = -1e30f;
+      fence_async_shared();  // wgmma reads P through the async proxy
+      mbar_arrive(full_p(buf));
+      ++msg;
+    };
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      int b, h, q0;
+      tile_at(t, b, h, q0);
+      mbar_wait(empty_q, qp ^ 1);  // both PV warpgroups have stored the last tile's O
+      mbar_expect_tx_if(loader, full_q, Q_BYTES);
+      tma_load_5d_if(loader, q_smem, &map_q, full_q, 0, q0, 0, h, b);
+      mbar_wait(full_q, qp);
+      qp ^= 1;
+      // q * bf16(scale) in place, 16 bytes a thread and pass.
+#pragma unroll 4
+      for (int i = 0; i < Q_BYTES / (128 * 16); ++i) {
+        const uint32_t addr = q_smem + (i * 128 + tid) * 16;
+        uint32_t r[4];
+        asm volatile("ld.shared.v4.u32 {%0,%1,%2,%3}, [%4];\n"
+                     : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                     : "r"(addr)
+                     : "memory");
 #pragma unroll
-      for (int c = 0; c < C::CPT; ++c) mx = fmaxf(mx, srow[c]);
-#pragma unroll
-      for (int off = C::TPR / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      __nv_bfloat16* prow = Ps + r * C::LDP + part * C::CPT;
-#pragma unroll
-      for (int c = 0; c < C::CPT; ++c) {
-        const float p = __expf(srow[c] - m_new);
-        sum += p;
-        prow[c] = __float2bfloat16(p);
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat162 v = __hmul2(*reinterpret_cast<__nv_bfloat162*>(&r[e]), scale2);
+          r[e] = *reinterpret_cast<const uint32_t*>(&v);
+        }
+        asm volatile("st.shared.v4.u32 [%0], {%1,%2,%3,%4};\n" ::"r"(addr), "r"(r[0]), "r"(r[1]),
+                     "r"(r[2]), "r"(r[3])
+                     : "memory");
       }
+      fence_async_shared();
+      named_barrier(1, 128);
+
+      float m_run[2] = {-1e30f, -1e30f}, l_part[2] = {0.f, 0.f};
+      for (int j = 0; j < kv_tiles; ++j) {
+        // S = Q K(j)^T: one wgmma group per panel.  A panel is handed back
+        // when the group after it has been issued and its own has retired;
+        // the panel five further on is then loaded into the stage that was
+        // handed back a step earlier.
+        int prev = 0;
 #pragma unroll
-      for (int off = C::TPR / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        for (int pn = 0; pn < PANELS; ++pn) {
+          mbar_wait(full_k(ks), kp);
+          const uint64_t dq = smem_desc(q_smem + pn * Q_PANEL_BYTES);
+          const uint64_t dk = smem_desc(k_smem + ks * K_STAGE_BYTES);
+          // After the wait's loop, before the group: without its own fence
+          // here ptxas puts one in and serialises every wgmma (C7520).
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss(s[kk % S_CHAINS], dq + 2 * kk, dk + 2 * kk, 4 * pn + kk >= S_CHAINS);
+          wgmma_commit();
+          if (pn > 0) {
+            wgmma_wait<1>();
+            if (lane == 0) mbar_arrive(empty_k(prev));
+            load_k();
+          }
+          prev = ks;
+          if (++ks == K_STAGES) ks = 0, kp ^= 1;
+        }
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(empty_k(prev));
+        load_k();
+
+        // Online softmax in place: s[0] becomes the unrounded P.
+#pragma unroll
+        for (int c = 1; c < S_CHAINS; ++c)
+#pragma unroll
+          for (int i = 0; i < BKV / 2; ++i) s[0][i] += s[c][i];
+        float mx[2] = {m_run[0], m_run[1]}, alpha[2], neg[2];
+#pragma unroll
+        for (int g = 0; g < BKV / 8; ++g) {
+          mx[0] = fmaxf(mx[0], fmaxf(s[0][4 * g], s[0][4 * g + 1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[0][4 * g + 2], s[0][4 * g + 3]));
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          alpha[r] = ex2((m_run[r] - mx[r]) * d64::LOG2E);
+          m_run[r] = mx[r];
+          neg[r] = -mx[r] * d64::LOG2E;
+          l_part[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int g = 0; g < BKV / 8; ++g) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float pe = ex2(fmaf(s[0][4 * g + e], d64::LOG2E, neg[e >> 1]));
+            l_part[e >> 1] += pe;
+            s[0][4 * g + e] = pe;
+          }
+        }
+        // P in bf16, K-major in the 128-byte swizzle: row r, keys 8g + 2 quad,
+        // + 1 in the 16-byte chunk g ^ (r & 7) of the row.
+        const int buf = claim();
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const uint32_t prow = p_smem + buf * P_BYTES + (row + 8 * half) * 128 + quad * 4;
+#pragma unroll
+          for (int g = 0; g < BKV / 8; ++g) {
+            const uint32_t v = pack_bf16(s[0][4 * g + 2 * half], s[0][4 * g + 2 * half + 1]);
+            asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(prow + ((g ^ (row & 7)) << 4)), "r"(v)
+                         : "memory");
+          }
+        }
+        send(buf, alpha[0], alpha[1]);
+      }
+      // The tile's last message: 1 / l.
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l_part[r] += __shfl_xor_sync(0xffffffffu, l_part[r], 1);
+        l_part[r] += __shfl_xor_sync(0xffffffffu, l_part[r], 2);
+      }
+      send(claim(), 1.f / l_part[0], 1.f / l_part[1]);
+    }
+  } else {
+    // The PV warpgroups: warpgroup wg owns columns 256wg .. 256wg + 255 of O
+    // for all 64 rows, and loads those columns of V.
+    const int wg = (warp >> 2) - 1;
+    const uint32_t v_ring = v_smem + wg * V_STAGES * V_STAGE_BYTES;
+    auto load_v = [&]() {  // the next slab of V: V_ROWS keys, this warpgroup's four panels
+      if (ld_t >= p.tiles) return;
+      const uint32_t full = full_v(wg * V_STAGES + ld_s);
+      mbar_wait(empty_v(wg * V_STAGES + ld_s), ld_ph ^ 1);
+      mbar_expect_tx_if(loader, full, V_STAGE_BYTES);
+      tma_load_5d_if(loader, v_ring + ld_s * V_STAGE_BYTES, &map_v, full, 0, ld_row,
+                     wg * (COLS / 64), ld_h, ld_b);
+      if (++ld_s == V_STAGES) ld_s = 0, ld_ph ^= 1;
+      ld_next_rows(V_ROWS);
+    };
+    for (int i = 0; i < V_STAGES - 1; ++i) load_v();
+
+    int vs = 0, vp = 0;
+    unsigned msg = 0;
+    float o[COLS / 2];
+    // The next message: wait for it, read this thread's two row statistics.
+    auto receive = [&](float& stat0, float& stat1) {
+      const int buf = msg & 1;
+      mbar_wait(full_p(buf), (msg >> 1) & 1);
+      const uint32_t addr = stat_smem + buf * STAT_BYTES + row * 4;
+      asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(stat0) : "r"(addr) : "memory");
+      asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(stat1) : "r"(addr + 32) : "memory");
+      ++msg;
+      return buf;
+    };
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      int b, h, q0;
+      tile_at(t, b, h, q0);
+#pragma unroll
+      for (int i = 0; i < COLS / 2; ++i) o[i] = 0.f;
+      for (int j = 0; j < kv_tiles; ++j) {
+        float a0, a1;
+        const int buf = receive(a0, a1);
+#pragma unroll
+        for (int g = 0; g < COLS / 8; ++g) {
+          o[4 * g] *= a0;
+          o[4 * g + 1] *= a0;
+          o[4 * g + 2] *= a1;
+          o[4 * g + 3] *= a1;
+        }
+        // O += P V(j): a slab of 16 keys is one k step, one wgmma group; it is
+        // handed back when that has retired, and the slab five further on is
+        // then loaded into the stage handed back a step earlier.
+        const uint64_t dp = smem_desc(p_smem + buf * P_BYTES);
+        int prev = 0;
+#pragma unroll
+        for (int sl = 0; sl < BKV / V_ROWS; ++sl) {
+          mbar_wait(full_v(wg * V_STAGES + vs), vp);
+          const uint64_t dv = smem_desc(v_ring + vs * V_STAGE_BYTES, 1024, V_PANEL_BYTES);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < V_ROWS / 16; ++kk)
+            wgmma_ss_tb(o, dp + 2 * (sl * (V_ROWS / 16) + kk), dv + 128 * kk);
+          wgmma_commit();
+          if (sl > 0) {
+            wgmma_wait<1>();
+            if (lane == 0) mbar_arrive(empty_v(wg * V_STAGES + prev));
+            load_v();
+          }
+          prev = vs;
+          if (++vs == V_STAGES) vs = 0, vp ^= 1;
+        }
+        wgmma_wait<0>();
+        if (lane == 0) {
+          mbar_arrive(empty_v(wg * V_STAGES + prev));
+          mbar_arrive(empty_p(buf));
+        }
+        load_v();
+      }
+      float inv0, inv1;
+      const int buf = receive(inv0, inv1);
       __syncwarp();
-      if (part == 0) {
-        const float alpha = __expf(m_old - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
+      if (lane == 0) mbar_arrive(empty_p(buf));
 
-    // (3) O = alpha * O + P V on this warp's column slice of D.
+      // O / l, one rounding, over this warpgroup's four panels of the Q stage
+      // (its last reader, S of the last KV tile, retired before the last P was
+      // sent), then four TMA stores.
+      const uint32_t o_smem = q_smem + wg * (COLS / 64) * Q_PANEL_BYTES;
 #pragma unroll
-    for (int mi = 0; mi < C::MT; ++mi) {
-      const float a0 = a_s[mi * 16 + g], a1 = a_s[mi * 16 + g + 8];
+      for (int half = 0; half < 2; ++half) {
+        const float inv = half ? inv1 : inv0;
+        const uint32_t orow = o_smem + (row + 8 * half) * 128 + quad * 4;
 #pragma unroll
-      for (int j = 0; j < C::OT_W; ++j) {
-        o[mi][j][0] *= a0;
-        o[mi][j][1] *= a0;
-        o[mi][j][2] *= a1;
-        o[mi][j][3] *= a1;
-      }
-      const __nv_bfloat16* pa = Ps + (mi * 16 + g) * C::LDP + tg * 2;
-#pragma unroll
-      for (int ks = 0; ks < BKV; ks += 16) {
-        uint32_t a[4];
-        a[0] = lds32(pa + ks);
-        a[1] = lds32(pa + 8 * C::LDP + ks);
-        a[2] = lds32(pa + ks + 8);
-        a[3] = lds32(pa + 8 * C::LDP + ks + 8);
-#pragma unroll
-        for (int j = 0; j < C::OT_W; ++j) {
-          const int d0 = (warp * C::OT_W + j) * 8;
-          uint32_t bb[2];
-          ldmatrix_x2_trans(bb, Vs + (ks + (lane & 15)) * C::LDQ + d0);
-          mma_bf16(o[mi][j], a, bb);
+        for (int g = 0; g < COLS / 8; ++g) {
+          const uint32_t v = pack_bf16(o[4 * g + 2 * half] * inv, o[4 * g + 2 * half + 1] * inv);
+          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(orow + (g >> 3) * Q_PANEL_BYTES +
+                                                         (((g & 7) ^ (row & 7)) << 4)),
+                       "r"(v)
+                       : "memory");
         }
       }
-    }
-    __syncthreads();  // K, V, S, P are rewritten by the next kv tile
-  }
-
-  // Finalise: O / l, one rounding to bf16, BSHD contiguous output.
-#pragma unroll
-  for (int mi = 0; mi < C::MT; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = mi * 16 + g + half * 8;
-      const float inv = 1.f / l_s[r];
-      __nv_bfloat16* orow = out + (((long long)b * Sq + q0 + r) * H + h) * D;
-#pragma unroll
-      for (int j = 0; j < C::OT_W; ++j) {
-        const int d = (warp * C::OT_W + j) * 8 + tg * 2;
-        __nv_bfloat162 pr;
-        pr.x = __float2bfloat16(o[mi][j][half * 2] * inv);
-        pr.y = __float2bfloat16(o[mi][j][half * 2 + 1] * inv);
-        *reinterpret_cast<__nv_bfloat162*>(orow + d) = pr;
+      fence_async_shared();
+      named_barrier(2 + wg, 128);
+      if (tid == 0) {
+        for (int pn = 0; pn < COLS / 64; ++pn)
+          tma_store_4d(&map_o, o_smem + pn * Q_PANEL_BYTES, COLS * wg + 64 * pn, h, q0, b);
+        tma_store_wait_read();
+        mbar_arrive(empty_q);
       }
     }
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 }
 
-template <int D, int BQ, int BKV, int NWARPS>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int H, int Sq,
-           int Skv, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-           long long v_sb, long long v_ss, float scale, cudaStream_t stream) {
-  using C = Cfg<D, BQ, BKV, NWARPS>;
-  auto kern = flash_kernel<D, BQ, BKV, NWARPS>;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)C::SMEM);
+// Tensor map over a BSHD tensor as (d, head, row, batch), read through its
+// strides (in elements), with a box of 64 columns x `rows` rows of one head.
+int encode_bshd(CUtensorMap* map, const void* base, int B, int S, int H, int D, long long sb,
+                long long ss, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return encode_map(map, base, 4, dims, strides, box);
+}
+
+// The same tensor, D = 64 * panels columns wide, as (d within a panel, row,
+// panel, head, batch): a box of `panels` panels x `rows` rows lands panel by
+// panel, each panel's rows 128 bytes apart, which is what wgmma's descriptors
+// address.
+int encode_bshd_panels(CUtensorMap* map, const void* base, int B, int S, int H, int D,
+                       long long sb, long long ss, int rows, int panels) {
+  const cuuint64_t dims[5] = {64, (cuuint64_t)S, (cuuint64_t)D / 64, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[4] = {(cuuint64_t)ss * 2, 128, (cuuint64_t)D * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[5] = {64, (cuuint32_t)rows, (cuuint32_t)panels, 1, 1};
+  return encode_map(map, base, 5, dims, strides, box);
+}
+
+// Raise the kernel's dynamic shared memory limit, once per device.
+template <typename Kernel>
+int configure(Kernel kernel, int smem, unsigned long long& configured) {
+  int device = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (!(configured >> (device & 63) & 1)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
+    configured |= 1ull << (device & 63);
   }
-  dim3 grid(Sq / BQ, B * H);
-  kern<<<grid, C::NTHREADS, C::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), H, Sq, Skv, q_sb,
-      q_ss, k_sb, k_ss, v_sb, v_ss, scale);
+  return 0;
+}
+
+// The D = 512 launch: q, k and v through 5-D maps that land a tile panel by
+// panel, the output through a 4-D one, a panel a store.
+int launch_d512(const void* q, const void* k, const void* v, void* out, int B, int H, int Sq,
+                int Skv, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                long long v_sb, long long v_ss, float scale, int grid, cudaStream_t stream) {
+  using namespace d512;
+  static unsigned long long configured = 0;
+  int err = configure(flash_d512_kernel, SMEM_BYTES, configured);
+  if (err != 0) return err;
+  if (grid < 1 || Sq % BQ || Skv % BKV) return static_cast<int>(cudaErrorInvalidValue);
+  WalkArgs a{};
+  a.H = H, a.Skv = Skv, a.scale = scale;
+  a.q_tiles = Sq / BQ;
+  a.tiles = B * H * a.q_tiles;
+  CUtensorMap map_q, map_k, map_v, map_o;
+  err = encode_bshd_panels(&map_q, q, B, Sq, H, D, q_sb, q_ss, BQ, PANELS);
+  if (err == 0) err = encode_bshd_panels(&map_k, k, B, Skv, H, D, k_sb, k_ss, BKV, 1);
+  if (err == 0)
+    err = encode_bshd_panels(&map_v, v, B, Skv, H, D, v_sb, v_ss, V_ROWS, COLS / 64);
+  if (err == 0) err = encode_bshd(&map_o, out, B, Sq, H, D, (long long)Sq * H * D,
+                                  (long long)H * D, BQ);
+  if (err != 0) return err;
+  flash_d512_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(map_q, map_k, map_v, map_o, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -632,33 +854,20 @@ int launch_d64(const void* q, const void* k, const void* v, void* out, int B, in
                long long v_sb, long long v_ss, float scale, int grid, cudaStream_t stream) {
   using namespace d64;
   constexpr int BQ = NWG * SLICE, SMEM_BYTES = smem_bytes(NWG);
-  static unsigned long long configured = 0;  // one bit per device
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (!(configured >> (device & 63) & 1)) {
-    e = cudaFuncSetAttribute(flash_d64_kernel<NWG>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured |= 1ull << (device & 63);
-  }
-  D64Args a{};
+  static unsigned long long configured = 0;
+  int err = configure(flash_d64_kernel<NWG>, SMEM_BYTES, configured);
+  if (err != 0) return err;
+  WalkArgs a{};
   a.H = H, a.Skv = Skv, a.scale = scale;
   a.q_tiles = (Sq + BQ - 1) / BQ;
   a.tiles = B * H * a.q_tiles;
   if (grid < 1 || Sq % SLICE || Skv % BKV) return static_cast<int>(cudaErrorInvalidValue);
-  auto encode = [&](CUtensorMap* map, const void* base, int S, long long sb, long long ss,
-                    int rows) {
-    const cuuint64_t dims[4] = {D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-    const cuuint64_t strides[3] = {D * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
-    const cuuint32_t box[4] = {D, 1, (cuuint32_t)rows, 1};
-    return encode_map(map, base, 4, dims, strides, box);
-  };
   CUtensorMap map_q, map_k, map_v, map_o;
-  int err = encode(&map_q, q, Sq, q_sb, q_ss, BQ);
-  if (err == 0) err = encode(&map_k, k, Skv, k_sb, k_ss, BKV);
-  if (err == 0) err = encode(&map_v, v, Skv, v_sb, v_ss, BKV);
-  if (err == 0) err = encode(&map_o, out, Sq, (long long)Sq * H * D, (long long)H * D, SLICE);
+  err = encode_bshd(&map_q, q, B, Sq, H, D, q_sb, q_ss, BQ);
+  if (err == 0) err = encode_bshd(&map_k, k, B, Skv, H, D, k_sb, k_ss, BKV);
+  if (err == 0) err = encode_bshd(&map_v, v, B, Skv, H, D, v_sb, v_ss, BKV);
+  if (err == 0) err = encode_bshd(&map_o, out, B, Sq, H, D, (long long)Sq * H * D,
+                                  (long long)H * D, SLICE);
   if (err != 0) return err;
   flash_d64_kernel<NWG><<<grid, threads(NWG), SMEM_BYTES, stream>>>(map_q, map_k, map_v, map_o, a);
   return static_cast<int>(cudaGetLastError());
@@ -667,16 +876,20 @@ int launch_d64(const void* q, const void* k, const void* v, void* out, int B, in
 }  // namespace
 
 // What the host-side plan (ops/flash_attention.py `plan`) mirrors, for head
-// dim d and q tile bq: which = 1 the kv tile, 2 the kv stages, 3 the dynamic
-// shared memory in bytes; -1 where this library has no such instance.
+// dim d and q tile bq: which = 1 the kv tile, 2 the K ring's stages (D = 64:
+// KV tiles, and V's ring is as deep; D = 512: panels of 64 columns), 3 the
+// dynamic shared memory in bytes, 4 the V ring's stages (D = 512: per PV
+// warpgroup, slabs of `which = 5` keys); -1 where this library has no such
+// instance.
 extern "C" int flash_attention_geometry(int d, int bq, int which) {
-  using C512 = Cfg<512, 32, 32, 8>;
-  const bool d64 = d == 64 && (bq == 128 || bq == 192);
-  if (!d64 && !(d == 512 && bq == 32)) return -1;
+  const bool is64 = d == 64 && (bq == 128 || bq == 192);
+  if (!is64 && !(d == 512 && bq == d512::BQ)) return -1;
   switch (which) {
-    case 1: return d64 ? d64::BKV : 32;
-    case 2: return d64 ? d64::KV_STAGES : 1;
-    case 3: return d64 ? d64::smem_bytes(bq / d64::SLICE) : (int)C512::SMEM;
+    case 1: return is64 ? d64::BKV : d512::BKV;
+    case 2: return is64 ? d64::KV_STAGES : d512::K_STAGES;
+    case 3: return is64 ? d64::smem_bytes(bq / d64::SLICE) : d512::SMEM_BYTES;
+    case 4: return is64 ? d64::KV_STAGES : d512::V_STAGES;
+    case 5: return is64 ? d64::BKV : d512::V_ROWS;
     default: return -1;
   }
 }
@@ -684,10 +897,11 @@ extern "C" int flash_attention_geometry(int d, int bq, int which) {
 // Sq and Skv must be multiples of 128 (the dispatcher's gate); D is 64 or
 // 512.  Strides are in elements: q[b, s, h, d] = q + b*q_sb + s*q_ss + h*D + d.
 // bq, bkv and grid come from the plan; bq picks the instance
-// (D = 64: 128 or 192 rows, two or three consumer warpgroups) and bkv must be
-// the tile this library was built with.  Returns the CUDA error code of the
-// launch (0 on success), 10000 + a CUresult where a tensor map could not be
-// encoded, or -1 for a D this library was not built for.
+// (D = 64: 128 or 192 rows, two or three consumer warpgroups; D = 512: 64
+// rows) and bkv must be the tile this library was built with.  Returns the
+// CUDA error code of the launch (0 on success), 10000 + a CUresult where a
+// tensor map could not be encoded, or -1 for a D this library was not built
+// for.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                     int B, int H, int Sq, int Skv, int D, long long q_sb,
                                     long long q_ss, long long k_sb, long long k_ss,
@@ -695,13 +909,14 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     int bkv, int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D != 64 && D != 512) return -1;
-  if (bkv != flash_attention_geometry(D, bq, 1)) return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 64 && bq == 128)
+  const int built = flash_attention_geometry(D, bq, 1);
+  if (built < 0 || bkv != built) return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 512)
+    return launch_d512(q, k, v, out, B, H, Sq, Skv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                       grid, s);
+  if (bq == 128)
     return launch_d64<2>(q, k, v, out, B, H, Sq, Skv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
                          grid, s);
-  if (D == 64)
-    return launch_d64<3>(q, k, v, out, B, H, Sq, Skv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
-                         grid, s);
-  return launch<512, 32, 32, 8>(q, k, v, out, B, H, Sq, Skv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
-                                scale, s);
+  return launch_d64<3>(q, k, v, out, B, H, Sq, Skv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
+                       grid, s);
 }

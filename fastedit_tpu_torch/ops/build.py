@@ -35,7 +35,8 @@ KERNELS = {
         "conv3x3_smem_bytes": [_I],  # returns bytes, not an error code
         "conv3x3_bf16": [_P] * 4 + [_I] * 8 + [_P],
         "conv3x3_fused_bf16": [_P] * 7 + [_I] * 9 + [_P],
-        "conv3x3_up2_bf16": [_P] * 5 + [_I] * 6 + [_P],
+        "conv3x3_up2_smem_bytes": [_I],  # returns bytes
+        "conv3x3_up2_bf16": [_P] * 5 + [_I] * 8 + [_P],
         "conv3x3_down2_smem_bytes": [_I],  # returns bytes
         "conv3x3_down2_bf16": [_P] * 4 + [_I] * 9 + [_P],
     },

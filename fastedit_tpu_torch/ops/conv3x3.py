@@ -10,7 +10,9 @@ channels, its 10 x 18 halo is staged once per 64 input channels and all nine
 taps are read from it.  :func:`conv3x3_tiled_plain` walks the same schedule
 in plain PyTorch, for the tests.  :func:`plan_down2` is the schedule of the
 stride-2 form of the same kernel (``ops/conv_fused.conv3x3_down2``), whose
-tiles stage windows of the input's four parity planes instead of one halo.
+tiles stage windows of the input's four parity planes instead of one halo, and
+:func:`plan_up2` that of the upsample form (``ops/conv_fused.conv3x3_up2``),
+whose tiles are rectangles of the low-res input times one of four phases.
 
 Layouts: ``x`` is NHWC ``[B, H, W, Cin]``; ``weight`` is PyTorch's OIHW
 ``[Cout, Cin, 3, 3]`` and the kernel reads it in channels_last memory
@@ -187,6 +189,75 @@ def plan_down2(b: int, h: int, w: int, cin: int, cout: int, asymmetric: bool = F
     )
 
 
+# The upsample form: channel tiles it is instantiated for; its rings are the
+# stride-1 kernel's.
+UP2_BN_INSTANCES = (128, 160)
+
+
+@dataclass(frozen=True)
+class Up2Plan:
+    """The schedule of one upsample-conv call.  ``rect``, ``tiles_y`` and
+    ``tiles_x`` as in :class:`ConvPlan`, over the LOW-RES input's pixels; a
+    tile is a rectangle, a channel tile and one of the four phases."""
+
+    rect: tuple[int, int]
+    bn: int
+    tiles_y: int
+    tiles_x: int
+    tiles_n: int
+    phases: int  # 4: output pixel (2i + p, 2j + q) belongs to phase 2p + q
+    tiles: int  # all tiles: B * tiles_y * tiles_x * tiles_n * phases
+    grid: int
+    smem_bytes: int
+    box_x: tuple[int, int, int, int]  # the stride-1 halo of the low-res rectangle
+    box_w: tuple[int, int, int]  # TMA box over the folded weights [Cin, 16, Cout]
+    # (phase 2p + q, tap 2a + b) -> the halo shift (rows, columns) the tap reads
+    shifts: tuple[tuple[tuple[int, int], ...], ...]
+
+    def rectangles(self, h: int, w: int):
+        """(y0, x0) of every rectangle of one low-res image."""
+        return [(ty * self.rect[0], tx * self.rect[1])
+                for ty in range(self.tiles_y) for tx in range(self.tiles_x)]
+
+    def weight_stage(self, phase: int, tap: int) -> int:
+        """The index of (phase, tap) in the folded weights' middle dimension."""
+        return 4 * phase + tap
+
+    def tile_at(self, t):
+        """(image, y0, x0, first channel, phase) of tile ``t`` of the kernel's
+        walk: the phase fastest, then the channel tile, the rectangle's
+        column, its row, the image.  ``t`` may be an integer array."""
+        u, phase = t // self.phases, t % self.phases
+        m, n = u // self.tiles_n, u % self.tiles_n
+        row, tx = m // self.tiles_x, m % self.tiles_x
+        return (row // self.tiles_y, (row % self.tiles_y) * self.rect[0], tx * self.rect[1],
+                n * self.bn, phase)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_up2(b: int, h: int, w: int, cin: int, cout: int, sms: int = H100_SMS) -> Up2Plan:
+    """The upsample kernel's schedule for input [b, h, w, cin].  Output pixel
+    (2i + p, 2j + q) is a 2 x 2 conv of the low-res input: tap (a, b) of phase
+    (p, q) reads x[i - 1 + a + p, j - 1 + b + q], which is shift (a + p, b + q)
+    of the stride-1 halo of a low-res rectangle, so one staged halo serves
+    every tap of every phase.  Tiles of 8 x 16 low-res pixels x ``bn`` channels
+    x one phase (4 taps, K = 4 Cin); channel tile 160 where it divides Cout,
+    else 128.  Every main-path call is at least 512 tiles, 3.9 rounds of 132
+    SMs, so no halved channel tile is needed."""
+    if min(b, h, w, cin, cout) < 1:
+        raise ValueError(f"conv3x3_up2 plan: empty call {(b, h, w, cin, cout)}")
+    bn = 160 if cout % 160 == 0 else 128
+    tiles_y, tiles_x, tiles_n = -(-h // RECT_H), -(-w // RECT_W), -(-cout // bn)
+    tiles = b * tiles_y * tiles_x * tiles_n * 4
+    shifts = tuple(tuple((a + p, c + q) for a in (0, 1) for c in (0, 1))
+                   for p in (0, 1) for q in (0, 1))
+    return Up2Plan(
+        rect=(RECT_H, RECT_W), bn=bn, tiles_y=tiles_y, tiles_x=tiles_x, tiles_n=tiles_n,
+        phases=4, tiles=tiles, grid=min(tiles, sms), smem_bytes=smem_bytes(bn),
+        box_x=(CHUNK, RECT_W + 2, RECT_H + 2, 1), box_w=(CHUNK, 1, bn), shifts=shifts,
+    )
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -208,6 +279,11 @@ def plan_for(x: torch.Tensor, cout: int) -> ConvPlan:
 def plan_down2_for(x: torch.Tensor, cout: int, asymmetric: bool) -> Down2Plan:
     """The stride-2 plan of a call on the card that holds ``x``."""
     return plan_down2(*x.shape, cout, bool(asymmetric), sm_count_of(x))
+
+
+def plan_up2_for(x: torch.Tensor, cout: int) -> Up2Plan:
+    """The upsample plan of a call on the card that holds ``x``."""
+    return plan_up2(*x.shape, cout, sm_count_of(x))
 
 
 def supports(x_shape, w_shape) -> bool:

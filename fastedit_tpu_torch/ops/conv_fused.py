@@ -13,8 +13,11 @@ replace the three TPU kernels of ``fastedit_tpu/ops/conv_fused.py``:
   through HBM per conv.
 * ``conv3x3_up2`` (``_up2_call``): nearest-2x upsample + 3x3 SAME conv as
   four 2x2 phase convs on the low-res input, without the 4x tensor and at
-  16/36 of the FLOPs; the kernel folds the phase weights
-  (:func:`make_phase_kernels`) itself, in the same call.
+  16/36 of the FLOPs, on the stride-1 kernel's core: the halo of a low-res
+  rectangle holds every tap of every phase (``conv3x3.plan_up2``;
+  :func:`conv3x3_up2_tiled_plain` walks that schedule in plain PyTorch, for
+  the tests); the call folds the phase weights (:func:`make_phase_kernels`)
+  itself.
 * ``conv3x3_down2`` (``_down2_call``): stride-2 3x3 conv with padding (1, 1)
   (UNet/ControlNet downsamplers) or (0, 1) (the VAE encoder's), on the
   stride-1 kernel's core: per parity plane of the input a tap is a rectangle
@@ -33,7 +36,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from fastedit_tpu_torch.ops.conv3x3 import CHUNK, plan_down2, plan_down2_for, plan_for
+from fastedit_tpu_torch.ops.conv3x3 import (
+    CHUNK, plan_down2, plan_down2_for, plan_for, plan_up2, plan_up2_for)
 from fastedit_tpu_torch.ops.conv3x3 import supports as _supports_conv3x3
 
 # Launches of each CUDA kernel since the last reset (chip_smoke.py resets them).
@@ -137,6 +141,43 @@ def up2_phases_plain(
 def conv3x3_up2_plain(x, weight, bias=None, act=None) -> torch.Tensor:
     """Nearest-2x upsample then 3x3 SAME conv, as the kernel computes it."""
     return up2_phases_plain(x, make_phase_kernels(weight), bias, act)
+
+
+def conv3x3_up2_tiled_plain(x, weight, bias=None, act=None) -> torch.Tensor:
+    """The upsample kernel's schedule in plain PyTorch, for tests only: the
+    phase weights folded as the call folds them, laid out [Cout, 16, Cin];
+    then per low-res rectangle of ``plan_up2``, per phase and per 64-channel
+    chunk, the rectangle's stride-1 halo gathered with zero fill and four
+    taps, each the halo at the plan's shift times weight stage 4 phase + tap,
+    accumulated in fp32; the phase's outputs go to every other pixel of every
+    other row; then bias, SiLU and one rounding.  It differs from
+    ``conv3x3_up2_plain`` only in the order of the sums."""
+    b, h, w, cin = x.shape
+    cout = weight.shape[0]
+    pl = plan_up2(b, h, w, cin, cout)
+    rh, rw = pl.rect
+    # [p, q, a, b, Cout, Cin] -> [Cout, 16, Cin], as the kernel's fold writes it
+    folded = make_phase_kernels(weight).permute(4, 0, 1, 2, 3, 5).reshape(cout, 16, cin).float()
+    out = torch.zeros((b, 2 * h, 2 * w, cout), dtype=torch.float32, device=x.device)
+    for bi in range(b):
+        for y0, x0 in pl.rectangles(h, w):
+            ys, xs = max(0, y0 - 1), max(0, x0 - 1)
+            ye, xe = min(h, y0 + rh + 1), min(w, x0 + rw + 1)
+            for phase in range(pl.phases):
+                acc = torch.zeros((rh, rw, cout), dtype=torch.float32, device=x.device)
+                for c0 in range(0, cin, CHUNK):
+                    c1 = min(cin, c0 + CHUNK)
+                    halo = torch.zeros((rh + 2, rw + 2, c1 - c0), dtype=torch.float32,
+                                       device=x.device)
+                    halo[ys - y0 + 1:ye - y0 + 1, xs - x0 + 1:xe - x0 + 1] = \
+                        x[bi, ys:ye, xs:xe, c0:c1].float()
+                    for tap, (dy, dx) in enumerate(pl.shifts[phase]):
+                        wt = folded[:, pl.weight_stage(phase, tap), c0:c1]
+                        acc += halo[dy:dy + rh, dx:dx + rw] @ wt.T
+                py, px = phase >> 1, phase & 1
+                out[bi, 2 * y0 + py:2 * (y0 + rh):2, 2 * x0 + px:2 * (x0 + rw):2] = \
+                    acc[:h - y0, :w - x0]
+    return _finish(out, bias, act).to(x.dtype).contiguous()
 
 
 def conv3x3_down2_plain(x, weight, bias=None, act=None, asymmetric: bool = False):
@@ -294,12 +335,13 @@ def conv3x3_up2(
     b, h, w, cin = x.shape
     cout = weight.shape[0]
     bias = _f32(bias, (cout,), "conv3x3_up2: bias", x.device)
-    phases = torch.empty((2, 2, 2, 2, cout, cin), dtype=x.dtype, device=x.device)
+    pl = plan_up2_for(x, cout)
+    phases = torch.empty((cout, 2, 2, 2, 2, cin), dtype=x.dtype, device=x.device)
     out = torch.empty((b, 2 * h, 2 * w, cout), dtype=x.dtype, device=x.device)
     return _launch(
         "conv3x3_up2_bf16", "conv3x3_up2", out,
         x.data_ptr(), weight.data_ptr(), phases.data_ptr(), _ptr(bias), out.data_ptr(),
-        b, h, w, cin, cout, int(act == "silu"),
+        b, h, w, cin, cout, int(act == "silu"), pl.bn, pl.grid,
     )
 
 

@@ -6,10 +6,13 @@ heads packed into 128 lanes, a TPU-only device) and ``_flash_bhsd`` (one
 head per grid row, the VAE's single 512-dim head).  They compute one
 function, so one C function serves both, with a kernel for D = 64 (``wgmma``,
 TMA, a producer warp and two or three consumer warpgroups, persistent blocks)
-and one for D = 512 (``mma.sync``, one block per tile).  The schedule is decided here,
-by :func:`plan`: the q and KV tiles, the ring depth, the grid, the shared
-memory and (``tile_at``) the order of the tiles.  :func:`attention_tiled_plain` walks the
-same schedule in plain PyTorch, for the tests.
+and one for D = 512 on the same parts, where O is too wide for one
+warpgroup: one warpgroup computes S and the softmax of a 64-row q tile and
+hands P through shared memory to two that own 256 columns of O each.  The
+schedule is decided here, by :func:`plan`: the q and KV tiles, the ring
+depths, the grid, the shared memory and (``tile_at``) the order of the tiles.
+:func:`attention_tiled_plain` walks the same schedule in plain PyTorch, for
+the tests.
 """
 
 from __future__ import annotations
@@ -28,8 +31,18 @@ HEAD_DIMS = (64, 512)
 launches = {d: 0 for d in HEAD_DIMS}
 
 # The kernels' geometry (csrc/flash_attention.cu holds the same constants):
-# head dim -> (KV tile, KV stages, Q stages, persistent blocks).
-GEOMETRY = {64: (128, 4, 2, True), 512: (32, 1, 1, False)}
+# head dim -> (KV tile, K ring stages, Q stages); the blocks are persistent.  At D = 64
+# a ring stage is a KV tile and V's ring is as deep as K's.  At D = 512 a row
+# is eight 128-byte swizzle rows, so a tile is eight column panels of 64
+# elements (a 5-D tensor map lands a box panel by panel): a K stage is one
+# panel of a KV tile (64 keys x 64 columns, 8 KB) and a V stage (V_RING) a slab
+# of 16 keys x 512 columns (16 KB), half of it in the ring of each of the two
+# warpgroups that multiply by V.
+GEOMETRY = {64: (128, 4, 2), 512: (64, 6, 1)}
+PANEL = 64  # columns of one TMA box: 128 bytes, one swizzle row
+V_RING = {64: (4, 128), 512: (6, 16)}  # head dim -> (V ring stages, keys per stage)
+P_STAGES = 2  # D = 512: P tiles in flight between the softmax and the PV warpgroups
+PV_GROUPS = 2  # D = 512: warpgroups that own D / 2 columns of O each, with a V ring each
 # q tiles.  At D = 64 a consumer warpgroup owns a slice of 64 q rows and the
 # library has instances with two and three of them: tiles of 128 and 192 rows.
 # A row costs less in the larger tile (three warpgroups keep the tensor cores
@@ -37,8 +50,8 @@ GEOMETRY = {64: (128, 4, 2, True), 512: (32, 1, 1, False)}
 # (4, 4096, 10, 64) on an H100 at 700 W, ``tools/attention_bench.py``), so
 # :func:`plan` weighs the rounds of tiles a call needs by it.
 SLICE = 64
-Q_TILES = {64: (128, 192), 512: (32,)}
-ROW_COST = {32: 1.0, 128: 1.0, 192: 0.93}
+Q_TILES = {64: (128, 192), 512: (64,)}
+ROW_COST = {64: 1.0, 128: 1.0, 192: 0.93}
 
 
 @dataclass(frozen=True)
@@ -47,14 +60,18 @@ class AttentionPlan:
 
     bq: int  # q rows per tile
     bkv: int  # keys per KV tile
-    stages: int  # K and V tiles in flight, each
+    stages: int  # the K ring: KV tiles (D = 64) or 64-column panels of one (D = 512)
+    v_stages: int  # the V ring: stages of ``v_box`` keys (all columns)
     q_tiles: int  # q tiles per (batch, head)
     kv_tiles: int  # KV tiles each q tile walks
     tiles: int  # all tiles: B * H * q_tiles
-    grid: int  # blocks; persistent: block i walks tiles i, i + grid, ...
-    persistent: bool
+    grid: int  # persistent blocks; block i walks tiles i, i + grid, ...
     smem_bytes: int  # dynamic shared memory
-    box: tuple[int, int, int, int]  # TMA box over q / k / v (d, head, row, batch)
+    # TMA boxes over q, k and v.  D = 64: (d, head, row, batch).  D = 512: (d
+    # within a panel, row, panel, head, batch), which lands panel by panel.
+    box: tuple[int, ...]
+    k_box: tuple[int, ...]
+    v_box: tuple[int, ...]
     heads: int
 
     def tile_at(self, t):
@@ -69,15 +86,19 @@ def smem_bytes(d: int, bq: Optional[int] = None) -> int:
     """Dynamic shared memory of the kernel for head dim ``d`` (and q tile
     ``bq``, where it has more than one instance).  D = 64: 1024 bytes of
     alignment slack, the Q ring, the K and V rings (rows of 128 bytes) and the
-    mbarriers.  D = 512: the Q, K and V tiles (rows padded by 8), S in fp32
-    (rows padded by 4), P in bf16 (rows padded by 8) and three fp32 vectors of
-    the q tile's length."""
-    bkv, stages, q_stages, _ = GEOMETRY[d]
+    mbarriers.  D = 512: the slack, Q (one stage), the K ring of panels, the V
+    ring of slabs, two P tiles in bf16 with a row statistic in fp32 each, and
+    the mbarriers (a full and an empty one per stage of Q, K, V and P)."""
+    bkv, stages, q_stages = GEOMETRY[d]
+    v_stages, v_rows = V_RING[d]
     bq = Q_TILES[d][-1] if bq is None else bq
     if d == 64:
         return (1024 + (q_stages * bq + 2 * stages * bkv) * d * 2
                 + 8 * (2 * q_stages + 4 * stages))
-    return 2 * (bq + 2 * bkv) * (d + 8) + 4 * bq * (bkv + 4) + 2 * bq * (bkv + 8) + 4 * 3 * bq
+    return (1024 + q_stages * bq * d * 2 + stages * bkv * PANEL * 2
+            + v_stages * v_rows * d * 2
+            + P_STAGES * (bq * bkv * 2 + bq * 4)
+            + 8 * 2 * (q_stages + stages + PV_GROUPS * v_stages + P_STAGES))
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,14 +114,18 @@ def plan(b: int, sq: int, skv: int, h: int, d: int, sms: int = H100_SMS) -> Atte
     flight, one persistent block per SM at most; the tiles are walked q tile
     fastest, so the blocks that run together are the q tiles of a few heads
     and find those heads' K and V in L2 (heads fastest measured the same on an
-    H100: K and V of a whole call fit its L2).  D = 512: one block per tile of 32 q rows, KV tiles of 32."""
+    H100: K and V of a whole call fit its L2).  D = 512: tiles of 64 q rows
+    (their O, 64 x 512 in fp32, is half of an SM's registers, so no larger
+    tile fits; 16384 rows are 256 tiles, two rounds of 132 blocks), KV tiles of
+    64 keys, K streamed through a ring of six 64-column panels and V through
+    six slabs of 16 keys, persistent blocks, q tile fastest."""
     if d not in GEOMETRY:
         raise ValueError(f"flash attention plan: no kernel for head dim {d}")
-    bkv, stages, _, persistent = GEOMETRY[d]
-    row_unit = SLICE if d == 64 else Q_TILES[d][0]
-    if min(b, h) < 1 or sq < row_unit or skv < bkv or sq % row_unit or skv % bkv:
+    bkv, stages, _ = GEOMETRY[d]
+    v_stages, v_rows = V_RING[d]
+    if min(b, h) < 1 or sq < SLICE or skv < bkv or sq % SLICE or skv % bkv:
         raise ValueError(f"flash attention plan: q rows {sq} and keys {skv} must be "
-                         f"multiples of {row_unit} and {bkv}, batch {b} and heads {h} positive")
+                         f"multiples of {SLICE} and {bkv}, batch {b} and heads {h} positive")
 
     def cost(bq):  # rounds of tiles x rows a tile x what a row costs in it
         return -(-(b * h * -(-sq // bq)) // sms) * bq * ROW_COST[bq]
@@ -109,9 +134,13 @@ def plan(b: int, sq: int, skv: int, h: int, d: int, sms: int = H100_SMS) -> Atte
     q_tiles = -(-sq // bq)
     tiles = b * h * q_tiles
     return AttentionPlan(
-        bq=bq, bkv=bkv, stages=stages, q_tiles=q_tiles, kv_tiles=skv // bkv, tiles=tiles,
-        grid=min(tiles, sms) if persistent else tiles, persistent=persistent,
-        smem_bytes=smem_bytes(d, bq), box=(d, 1, bq, 1), heads=h,
+        bq=bq, bkv=bkv, stages=stages, v_stages=v_stages, q_tiles=q_tiles,
+        kv_tiles=skv // bkv, tiles=tiles, grid=min(tiles, sms),
+        smem_bytes=smem_bytes(d, bq), heads=h,
+        **(dict(box=(PANEL, 1, bq, 1), k_box=(PANEL, 1, bkv, 1), v_box=(PANEL, 1, v_rows, 1))
+           if d == PANEL else
+           dict(box=(PANEL, bq, d // PANEL, 1, 1), k_box=(PANEL, bkv, 1, 1, 1),
+                v_box=(PANEL, v_rows, d // PANEL // PV_GROUPS, 1, 1))),
     )
 
 

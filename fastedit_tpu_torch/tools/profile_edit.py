@@ -34,11 +34,12 @@ from PIL import Image
 CATEGORIES = (  # first match wins
     ("conv3x3 kernel (csrc/conv3x3.cu)", ("conv3x3_kernel",)),
     ("fused resnet conv kernel (csrc/conv3x3.cu)", ("conv3x3_fused_kernel",)),
-    ("up2 conv kernel (csrc/conv3x3.cu)", ("conv3x3_up2_kernel",)),
+    ("up2 conv kernel (csrc/conv3x3.cu)", ("conv3x3_up2_kernel", "up2_phase_weights_kernel")),
     ("down2 conv kernel (csrc/conv3x3.cu)", ("conv3x3_down2_kernel",)),
     ("GroupNorm kernel (csrc/group_norm.cu)", ("gn_partial_kernel", "gn_finalize_kernel",
                                                "gn_apply_kernel")),
-    ("flash attention kernel (csrc/flash_attention.cu)", ("flash_kernel", "flash_d64_kernel")),
+    ("flash attention kernel (csrc/flash_attention.cu)", ("flash_d64_kernel",
+                                                          "flash_d512_kernel")),
     ("cuDNN conv", ("conv", "fprop", "cudnn", "implicit_gemm")),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas", "matmul", "nvjet")),
     ("softmax", ("softmax",)),

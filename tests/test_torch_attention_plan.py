@@ -2,9 +2,10 @@
 
 ``ops/flash_attention.plan`` decides, from a call's shape alone, what
 ``csrc/flash_attention.cu`` runs: the q tile (at D = 64 128 or 192 rows: two
-or three consumer warpgroups of 64 rows each) and the KV tile, the K and V
-tiles in flight, the grid, the shared memory, the TMA box and the order in
-which a persistent block walks its tiles.  The first half holds the plan at every
+or three consumer warpgroups of 64 rows each; at D = 512 64 rows, whose 512
+columns of O two warpgroups share) and the KV tile, the K and V rings, the
+grid, the shared memory, the TMA boxes and the order in which a persistent
+block walks its tiles.  The first half holds the plan at every
 attention shape the gate admits on the SSD-1B and SDXL edit paths at 1024²
 (batch 1, 2 and 4).  The second half holds ``attention_tiled_plain``, a plain
 PyTorch walk of the same schedule (scale folded into q, online softmax per KV
@@ -89,17 +90,21 @@ def test_plan_covers_the_call(shape):
     assert all(cost(pl.bq) <= cost(other) for other in fa.Q_TILES[d])
     # resources
     assert pl.smem_bytes == fa.smem_bytes(d, pl.bq) <= k.SMEM_LIMIT
-    if pl.persistent:
-        assert 1 <= pl.grid == min(pl.tiles, k.H100_SMS)
-        # blocks that run together share heads: the first grid's tiles span few of them
-        heads_in_flight = len({*zip(tb[:pl.grid].tolist(), th[:pl.grid].tolist())})
-        assert heads_in_flight <= -(-pl.grid // pl.q_tiles) + 1
-    else:
-        assert pl.grid == pl.tiles
+    assert 1 <= pl.grid == min(pl.tiles, k.H100_SMS)  # persistent blocks at both head dims
+    # blocks that run together share heads: the first grid's tiles span few of them
+    heads_in_flight = len({*zip(tb[:pl.grid].tolist(), th[:pl.grid].tolist())})
+    assert heads_in_flight <= -(-pl.grid // pl.q_tiles) + 1
     if d == 64:
-        assert (pl.bkv, pl.stages) == (128, 4)
+        assert (pl.bkv, pl.stages, pl.v_stages) == (128, 4, 4)
         assert pl.box == (64, 1, pl.bq, 1)  # one head, one image: rows of 128 bytes
-        assert pl.box[0] * 2 == 128 and max(pl.box) <= 256
+        assert pl.k_box == pl.v_box == (64, 1, 128, 1)
+    else:
+        # eight 64-column panels a row; K a panel a stage, V 16 keys of a PV warpgroup's half
+        assert (pl.bq, pl.bkv, pl.stages, pl.v_stages) == (64, 64, 6, 6)
+        assert pl.box == (64, 64, 8, 1, 1)  # (d in panel, row, panel, head, batch)
+        assert pl.k_box == (64, 64, 1, 1, 1) and pl.v_box == (64, 16, 8 // fa.PV_GROUPS, 1, 1)
+    for box in (pl.box, pl.k_box, pl.v_box):
+        assert box[0] * 2 == 128 and max(box) <= 256  # 128-byte inner box: one swizzle row
 
 
 def test_plan_choices():
@@ -119,13 +124,33 @@ def test_plan_choices():
     # 1024 rows are five tiles of 192 and one of 64: the last tile is partial
     assert choice(1, 1024, 128, 20, 64) == (192, 120, 120)
     pl = fa.plan(1, 16384, 16384, 1, 512)
-    assert (pl.bq, pl.bkv, pl.grid, pl.persistent) == (32, 32, 512, False)
-    assert pl.smem_bytes == 107_392
+    assert (pl.bq, pl.bkv, pl.grid, pl.tiles) == (64, 64, 132, 256)
+    assert pl.smem_bytes == 231_248
     assert (fa.smem_bytes(64, 128), fa.smem_bytes(64, 192)) == (165_024, 181_408)
     for bad in ((1, 160, 128, 1, 64), (1, 128, 64, 1, 64), (0, 128, 128, 1, 64),
-                (1, 128, 128, 1, 96)):
+                (1, 128, 128, 1, 96), (1, 96, 128, 1, 512), (1, 128, 96, 1, 512)):
         with pytest.raises(ValueError):
             fa.plan(*bad)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_d512_plan_at_the_vae_mid_block(batch):
+    """The VAE mid block's single head over a 128 x 128 latent, one image and
+    an ``edit_batch`` of two: 64-row tiles (O's 64 x 512 fp32 is half of an
+    SM's registers), two and four rounds of 132 persistent blocks, everything
+    a block may have of shared memory but 1,200 bytes."""
+    pl = fa.plan(batch, 16384, 16384, 1, 512)
+    assert (pl.bq, pl.bkv, pl.q_tiles, pl.kv_tiles) == (64, 64, 256, 256)
+    assert (pl.tiles, pl.grid) == (256 * batch, k.H100_SMS)
+    assert -(-pl.tiles // pl.grid) == 2 * batch  # rounds: 1.94 and 3.88, paid whole
+    # Q, the K ring of panels, the two V rings, two P tiles with their row statistic, barriers
+    q, kr, vr = 64 * 512 * 2, 6 * 64 * 64 * 2, fa.PV_GROUPS * 6 * 16 * 256 * 2
+    p_and_stat, bars = 2 * (64 * 64 * 2 + 64 * 4), 8 * 2 * (1 + 6 + 2 * 6 + 2)
+    assert pl.smem_bytes == 1024 + q + kr + vr + p_and_stat + bars == 231_248 <= k.SMEM_LIMIT
+    # q tile fastest: the blocks that run together walk the same K and V
+    assert [pl.tile_at(t) for t in (0, 1, 255)] == [(0, 0, 0), (0, 0, 64), (0, 0, 16320)]
+    if batch == 2:
+        assert pl.tile_at(256) == (1, 0, 0)
 
 
 def test_tiles_are_walked_q_tile_fastest():
@@ -149,7 +174,8 @@ SMALL = [
     (2, 256, 384, 3, 64),  # two q tiles, three KV tiles, Sq != Skv
     (1, 1024, 128, 20, 64),  # tiles of 192 rows, the sixth of each head a partial one
     (1, 128, 512, 2, 64),  # four KV tiles: the running max and sum move
-    (1, 64, 96, 1, 512),  # the D = 512 kernel's 32-row tiles
+    (1, 128, 192, 1, 512),  # the D = 512 kernel's 64-row tiles, three KV tiles of 64 keys
+    (2, 64, 128, 1, 512),  # one q tile an image, Sq != Skv
 ]
 
 
@@ -201,14 +227,23 @@ def test_tiled_walk_matches_jax_flash_packed(shape):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
-def test_tiled_walk_matches_jax_flash_bhsd():
-    shape = (1, 128, 128, 1, 512)
+def _against_jax_flash_bhsd(shape):
+    b, sq, skv, h, d = shape
     q, kk, v = _qkv(34, *shape)
-    assert not jfa.supports_packed((1, 128, 1, 512), 128, 4) and jfa.supports((1, 128, 1, 512), 128)
+    assert fa.plan(*shape).bq == 64 and fa.plan(*shape).kv_tiles == skv // 64
+    assert not jfa.supports_packed((b, sq, h, d), skv, 4) and jfa.supports((b, sq, h, d), skv)
     with jflags.override(pallas_interpret=True):
         ref = jfa.flash_attention(*(jnp.asarray(t.numpy()) for t in (q, kk, v)))
     out = fa.attention_tiled_plain(q, kk, v)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+def test_tiled_walk_matches_jax_flash_bhsd():
+    _against_jax_flash_bhsd((1, 128, 128, 1, 512))
+
+
+def test_tiled_walk_matches_jax_flash_bhsd_with_more_keys_than_rows():
+    _against_jax_flash_bhsd((1, 128, 256, 1, 512))
 
 
 def test_wrapper_on_the_cpu_takes_the_plain_version():

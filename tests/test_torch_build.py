@@ -3,6 +3,8 @@ from: the source, the headers of ``csrc/`` it includes (followed through)
 and the flags.  Held on the CPU, without ``nvcc``: only the names are
 computed here."""
 
+from pathlib import Path
+
 import pytest
 
 from fastedit_tpu_torch.ops import build
@@ -66,3 +68,41 @@ def test_argument_counts_match_the_c_signatures(name):
         start = text.index(f'extern "C" int {symbol}(') + len(f'extern "C" int {symbol}(')
         params = text[start:text.index(")", start)]
         assert len([p for p in params.split(",") if p.strip()]) == len(argtypes), symbol
+
+
+def test_the_changed_c_functions_take_the_plans_ints():
+    """The upsample conv takes its channel tile and grid from the plan (eight
+    ints in all), the attention call its q tile, KV tile and grid; the
+    shared-memory mirrors take one int."""
+    conv, attn = build.KERNELS["conv3x3"], build.KERNELS["flash_attention"]
+    assert len(conv["conv3x3_up2_bf16"]) == 5 + 8 + 1  # x, w, folded w, bias, out; ints; stream
+    assert conv["conv3x3_up2_bf16"].count(build._I) == 8
+    assert conv["conv3x3_up2_smem_bytes"] == [build._I]
+    assert len(attn["flash_attention_bf16"]) == 4 + 5 + 6 + 1 + 3 + 1
+    assert attn["flash_attention_geometry"] == [build._I] * 3
+    for lib in ("conv3x3", "flash_attention"):  # the old kernels are gone from the sources
+        text = (build.CSRC / f"{lib}.cu").read_text()
+        assert "mma.sync" not in text and "ldmatrix_x" not in text  # the instruction, its helper
+
+
+def test_kernel_variants_replace_text_that_is_there():
+    """``tools/kernel_variants.py`` builds copies of a kernel source with parts
+    replaced.  A replacement whose text is gone from the source is an error,
+    and the spec that ships with it is in step with the source."""
+    from fastedit_tpu_torch.tools import kernel_variants as kv
+
+    assert kv.apply("a b a", [("a", "c"), ("b", "d")]) == "c d c"
+    with pytest.raises(ValueError):
+        kv.apply("a b", [("x", "y")])
+    spec: dict = {}
+    path = Path(kv.__file__).with_name("variants_flash_d512.py")
+    exec(compile(path.read_text(), str(path), "exec"), spec)
+    source = (build.CSRC / f"{spec['LIBRARY']}.cu").read_text()
+    assert spec["LIBRARY"] in build.KERNELS and spec["VARIANTS"]["as_built"] == []
+    for name, replacements in spec["VARIANTS"].items():
+        assert (kv.apply(source, replacements) != source) == bool(replacements), name
+    log = ("ptxas info    : Used 168 registers\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "    16 bytes stack frame, 32 bytes spill stores, 68 bytes spill loads\n"
+           "ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async ...\n")
+    assert len(kv.ptxas_notes(log)) == 2

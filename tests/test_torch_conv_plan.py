@@ -13,7 +13,9 @@ against the JAX package's kernels in interpret mode, on numpy-seeded inputs
 in fp32.  The last part does the same for the stride-2 form:
 ``ops/conv3x3.plan_down2`` (output rectangle, channel tile, the windows of the
 input's four parity planes a tile stages, both paddings) at every inventory
-shape, and ``conv3x3_down2_tiled_plain``, its walk.
+shape, and ``conv3x3_down2_tiled_plain``, its walk; and for the upsample form:
+``ops/conv3x3.plan_up2`` (low-res rectangle x channel tile x phase, the halo
+shift of every tap of every phase) and ``conv3x3_up2_tiled_plain``.
 """
 
 import jax.numpy as jnp
@@ -360,4 +362,144 @@ def test_down2_walk_matches_jax_conv3x3_down2(shape, asymmetric):
                                 None, asymmetric)
     t = torch.from_numpy
     out = cf.conv3x3_down2_tiled_plain(t(x), t(wt), t(bias), None, asymmetric)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
+# ------------------------------------------------------------- upsample
+
+
+def _up2_shapes():
+    """(B, H, W, Cin, Cout) of every conv3x3_up2 call the inventory routes to
+    the kernel: SSD-1B, SDXL and the tiny model, batch 1 and 2."""
+    shapes = set()
+    models = [(u, TC.SDXL_CONTROLNET_SMALL, TC.SDXL_VAE, 1024, None)
+              for u in (TC.SSD1B_UNET, TC.SDXL_UNET)]
+    models.append((TC.TINY_UNET, TC.TINY_CONTROLNET, TC.TINY_VAE, 64, 64))
+    for unet, cn, vae, res, control_res in models:
+        for batch in (1, 2):
+            sites = inventory.edit_sites(unet, cn, vae, res, batch=batch, steps=3,
+                                         control_res=control_res)
+            shapes.update(key for (kernel, key) in inventory.kernel_calls(sites)
+                          if kernel == "conv3x3_up2")
+    return sorted(shapes)
+
+
+UP2_SHAPES = _up2_shapes()
+# the SSD-1B edit at batch 1: shape -> (channel tile, tiles)
+UP2_MAIN_PATH = {
+    (2, 32, 32, 1280, 1280): (160, 512), (2, 64, 64, 640, 640): (160, 1024),
+    (1, 128, 128, 512, 512): (128, 2048), (1, 256, 256, 512, 512): (128, 8192),
+    (1, 512, 512, 256, 256): (128, 16384),
+}
+
+
+def test_inventory_reaches_the_up2_plan():
+    assert set(UP2_MAIN_PATH) <= set(UP2_SHAPES)
+    assert {s[0] for s in UP2_SHAPES} >= {1, 2, 4}  # guidance doubles the UNet's batch
+    assert len(UP2_SHAPES) >= 10
+
+
+@pytest.mark.parametrize("shape", UP2_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_up2_plan_covers_the_call(shape):
+    b, h, w, cin, cout = shape
+    pl = k.plan_up2(b, h, w, cin, cout)
+    rh, rw = pl.rect
+    assert pl.bn in k.UP2_BN_INSTANCES and rh * rw == 128 and pl.phases == 4
+    assert pl.tiles_n * pl.bn >= cout > (pl.tiles_n - 1) * pl.bn
+    assert pl.bn != 160 or cout % 160 == 0
+    assert pl.tiles == b * pl.tiles_y * pl.tiles_x * pl.tiles_n * 4
+    # the tile walk: the phase fastest, every (image, rectangle, channel tile, phase) once
+    t = np.arange(pl.tiles)
+    tb, y0, x0, n0, phase = pl.tile_at(t)
+    assert (phase[:8] == [0, 1, 2, 3, 0, 1, 2, 3]).all()
+    assert tb.min() == 0 and tb.max() == b - 1
+    assert y0.max() < h and x0.max() < w and n0.max() < cout
+    assert len({*zip(tb.tolist(), y0.tolist(), x0.tolist(), n0.tolist(),
+                     phase.tolist())}) == pl.tiles
+    # the four phases of the low-res rectangles cover every output pixel once
+    cover = np.zeros((2 * h, 2 * w), np.int32)
+    for ry, rx in pl.rectangles(h, w):
+        for ph in range(4):
+            cover[2 * ry + (ph >> 1):2 * min(h, ry + rh):2,
+                  2 * rx + (ph & 1):2 * min(w, rx + rw):2] += 1
+    assert (cover == 1).all()
+    # resources: the stride-1 kernel's, with 16 folded taps where it has 9
+    assert 1 <= pl.grid <= min(pl.tiles, k.H100_SMS)
+    assert pl.smem_bytes == k.smem_bytes(pl.bn) <= k.SMEM_LIMIT
+    assert pl.box_x == (64, rw + 2, rh + 2, 1) and pl.box_w == (64, 1, pl.bn)
+    assert sorted(pl.weight_stage(ph, tap) for ph in range(4) for tap in range(4)) \
+        == list(range(16))
+    if shape in UP2_MAIN_PATH:
+        assert (pl.bn, pl.tiles) == UP2_MAIN_PATH[shape]
+        assert pl.tiles / k.H100_SMS >= 3.8  # every call fills the card for rounds
+
+
+def test_up2_plan_choices():
+    assert k.plan_up2(1, 8, 16, 64, 200).bn == 128  # ragged Cout on the 128-wide tile
+    assert k.plan_up2(1, 8, 16, 64, 3).tiles == 4  # one rectangle, one channel tile, four phases
+    assert k.plan_up2(1, 64, 64, 64, 64, sms=4).grid == 4
+    with pytest.raises(ValueError):
+        k.plan_up2(1, 8, 0, 64, 64)
+
+
+def test_up2_shift_table_follows_the_phase_kernels():
+    """``make_phase_kernels`` gives K[p, q, a, b] for x[i - 1 + a + p, j - 1 + b
+    + q]: in the halo that starts at (y0 - 1, x0 - 1) that pixel is at shift
+    (a + p, b + q).  Held numerically too: the table's sum over the padded
+    input is the conv of the materialised upsample."""
+    pl = k.plan_up2(1, 5, 6, 64, 8)
+    for p in (0, 1):
+        for q in (0, 1):
+            for a in (0, 1):
+                for b in (0, 1):
+                    assert pl.shifts[2 * p + q][2 * a + b] == (a + p, b + q)
+    assert {s for phase in pl.shifts for s in phase} == {(dy, dx) for dy in range(3)
+                                                         for dx in range(3)}
+    x, wt, _, _, _ = _operands(28, 1, 5, 6, 64, 8)
+    t = torch.from_numpy
+    phases = cf.make_phase_kernels(t(wt))  # [p, q, a, b, Cout, Cin]
+    xp = torch.nn.functional.pad(t(x), (0, 0, 1, 1, 1, 1))[0]  # [H + 2, W + 2, Cin]
+    out = torch.zeros((10, 12, 8))
+    for ph in range(4):
+        for tap, (dy, dx) in enumerate(pl.shifts[ph]):
+            out[ph >> 1::2, ph & 1::2] += xp[dy:dy + 5, dx:dx + 6] @ phases[
+                ph >> 1, ph & 1, tap >> 1, tap & 1].T
+    up = t(x).permute(0, 3, 1, 2).repeat_interleave(2, 2).repeat_interleave(2, 3)
+    ref = torch.nn.functional.conv2d(up, t(wt), padding=1)[0].permute(1, 2, 0)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **ORDER_TOL)
+
+
+UP2_SMALL = [
+    (2, 5, 7, 96, 24),  # two images smaller than a rectangle, Cin 96 (a chunk runs past Cin)
+    (1, 9, 20, 96, 200),  # past one rectangle both ways, ragged Cout on the 128-wide tile
+    (1, 8, 16, 64, 320),  # exactly one rectangle, two 160-wide tiles
+    (3, 11, 33, 72, 8),  # Cin 72, one pixel past two rectangles
+]
+
+
+@pytest.mark.parametrize("shape", UP2_SMALL, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("act", [None, "silu"])
+def test_up2_walk_equals_conv3x3_up2_plain(shape, act):
+    x, wt, bias, _, _ = _operands(29, *shape)
+    t = torch.from_numpy
+    out = cf.conv3x3_up2_tiled_plain(t(x), t(wt), t(bias), act)
+    ref = cf.conv3x3_up2_plain(t(x), t(wt), t(bias), act)
+    assert out.shape == (shape[0], 2 * shape[1], 2 * shape[2], shape[4])
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), **ORDER_TOL)
+    # chip_smoke.py's planted fault, one phase's tap rows swapped, is far outside that
+    phases = cf.make_phase_kernels(t(wt))
+    phases[1, 1] = phases[1, 1].flip(0)
+    swapped = cf.up2_phases_plain(t(x), phases, t(bias), act)
+    assert float((swapped - ref).abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("shape", [(1, 10, 20, 96, 200), (2, 4, 6, 72, 16), (1, 8, 24, 128, 320)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_up2_walk_matches_jax_conv3x3_up2(shape):
+    x, wt, bias, _, _ = _operands(30, *shape)
+    assert jcf.supports_up2(x.shape, _hwio(wt).shape, 4)
+    with jflags.override(pallas_interpret=True):
+        ref = jcf.conv3x3_up2(jnp.asarray(x), jnp.asarray(_hwio(wt)), jnp.asarray(bias), "silu")
+    t = torch.from_numpy
+    out = cf.conv3x3_up2_tiled_plain(t(x), t(wt), t(bias), "silu")
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)

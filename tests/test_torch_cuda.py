@@ -11,8 +11,10 @@ images of several 8 x 16 rectangles, images smaller than one, H and W that
 are no multiples of it, all three channel tiles), the SiLU epilogue,
 no bias, attention read through strides (q, k, v as slices of one fused
 projection), Sq != Skv, a scale that is no power of two, the main path's two
-D = 64 shapes and batch 4, and both head dims; for the fused resnet, up2 and
-down2 convs, the prologue, per-batch bias and skip, both down2 paddings,
+D = 64 shapes and batch 4, and both head dims (D = 512 at the VAE mid block's
+shape for one image and two, through strides, with Sq != Skv and a scale of
+its own); for the fused resnet, up2 and down2 convs, the prologue, per-batch
+bias and skip, the upsample conv's five main-path shapes, both down2 paddings,
 Cin 96, all four stride-2 channel tiles and odd-sized inputs; for the GroupNorm kernel, a large mean offset and more
 than 2048 channels.  Tolerances are those of ``chip_smoke.py`` (both sides
 accumulate in fp32 and round once to bf16; the attention's absolute term
@@ -120,12 +122,43 @@ def test_flash_attention_d64_at_the_main_paths_shapes(gen, b, s, h, scale):
     assert not bool((d <= ATTN_REL * ref.float().abs() + ATTN_ABS_OF_RMS * rms).all())
 
 
+@pytest.mark.parametrize(
+    "b,sq,skv,scale",
+    [
+        (1, 16384, 16384, None),  # the VAE mid block: 256 tiles of 64 rows, 256 KV tiles each
+        (2, 16384, 16384, None),  # an edit_batch of two: 512 tiles, four rounds of the blocks
+        # Sq != Skv and a scale of its own, one that bf16 holds: the kernel folds bf16(scale)
+        # into q as the TPU kernel does, and a scale that bf16 rounds (0.07 -> 0.0698) moves a
+        # softmax this peaked by more than the tolerance's absolute term
+        (1, 4096, 1024, 0.09375),
+        (2, 128, 8192, None),  # one q tile an image, many KV tiles
+    ],
+)
+def test_flash_attention_d512_at_the_main_paths_shapes(gen, b, sq, skv, scale):
+    qkv = torch.randn((b, max(sq, skv), 3, 1, 512), generator=gen, device="cuda").bfloat16()
+    q, kk, v = qkv[:, :sq, 0], qkv[:, :skv, 1], qkv[:, :skv, 2]  # strided views
+    before = fa.launches[512]
+    out = fa.flash_attention(q, kk, v, scale)
+    torch.cuda.synchronize()
+    assert fa.launches[512] == before + 1
+    assert out.is_contiguous() and out.shape == (b, sq, 1, 512)
+    ref = fa.attention_plain(q, kk, v, scale)
+    rms = float(ref.float().square().mean().sqrt())
+    _assert_close(out, ref, ATTN_REL, ATTN_ABS_OF_RMS * rms)
+    # one KV tile of the plan (64 keys) skipped must not pass
+    tile = fa.plan_for(q, skv).bkv
+    assert tile == 64
+    short = fa.attention_plain(q, kk[:, :-tile], v[:, :-tile], scale)
+    d = (short.float() - ref.float()).abs()
+    assert not bool((d <= ATTN_REL * ref.float().abs() + ATTN_ABS_OF_RMS * rms).all())
+
+
 @pytest.mark.parametrize("d", [64, 512])
 def test_flash_attention_gives_the_same_bits_twice(gen, d):
     """No split sums between blocks and no atomics: persistent blocks walk
     their tiles in whatever interleaving, and two launches agree bit for
     bit."""
-    b, s, h = (2, 1024, 5) if d == 64 else (1, 256, 1)
+    b, s, h = (2, 1024, 5) if d == 64 else (2, 8192, 1)  # D = 512: 256 tiles for 132 blocks
     q, kk, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16()
                 for _ in range(3))
     first, second = fa.flash_attention(q, kk, v), fa.flash_attention(q, kk, v)
@@ -200,6 +233,9 @@ def test_plan_mirrors_the_kernels_shared_memory(gen):
     for bn in k.DOWN2_BN_INSTANCES:
         assert lib.conv3x3_down2_smem_bytes(bn) == k.smem_bytes_down2(bn) <= k.SMEM_LIMIT
     assert lib.conv3x3_down2_smem_bytes(8) == -1
+    for bn in k.UP2_BN_INSTANCES:  # the upsample form runs on the stride-1 rings
+        assert lib.conv3x3_up2_smem_bytes(bn) == k.smem_bytes(bn) <= k.SMEM_LIMIT
+    assert lib.conv3x3_up2_smem_bytes(8) == -1
 
 
 def test_attention_plan_mirrors_the_kernels_geometry(gen):
@@ -209,11 +245,12 @@ def test_attention_plan_mirrors_the_kernels_geometry(gen):
     for d in fa.HEAD_DIMS:
         bkv, stages = fa.GEOMETRY[d][:2]
         for bq in fa.Q_TILES[d]:
-            assert [lib.flash_attention_geometry(d, bq, i) for i in (1, 2, 3)] == \
-                [bkv, stages, fa.smem_bytes(d, bq)]
+            assert [lib.flash_attention_geometry(d, bq, i) for i in (1, 2, 3, 4, 5)] == \
+                [bkv, stages, fa.smem_bytes(d, bq), *fa.V_RING[d]]
             assert fa.smem_bytes(d, bq) <= k.SMEM_LIMIT
     assert lib.flash_attention_geometry(96, 128, 1) == -1
     assert lib.flash_attention_geometry(64, 256, 1) == -1
+    assert lib.flash_attention_geometry(512, 32, 1) == -1  # the 32-row kernel is gone
 
 
 @pytest.mark.parametrize(
@@ -230,6 +267,48 @@ def test_conv3x3_up2_kernel_matches_plain(gen, n, h, w, cin, cout, act):
     assert cf.launches["conv3x3_up2"] == before + 1
     assert out.shape == (n, 2 * h, 2 * w, cout)
     _conv_close(out, ref)
+
+
+@pytest.mark.parametrize(
+    "n,h,w,cin,cout,act,bias",
+    [
+        (2, 32, 32, 1280, 1280, None, True),  # the UNet's two: 512 and 1024 tiles of 160 channels
+        (2, 64, 64, 640, 640, None, True),
+        (1, 128, 128, 512, 512, None, True),  # the VAE decoder's three, 128-channel tiles
+        (1, 256, 256, 512, 512, "silu", True),
+        (1, 512, 512, 256, 256, None, False),
+        (2, 13, 37, 96, 200, "silu", True),  # ragged H, W, Cin 96 and Cout, SiLU
+        (3, 5, 7, 64, 24, None, False),  # images smaller than a rectangle, no bias
+    ],
+)
+def test_conv3x3_up2_at_the_main_paths_shapes(gen, n, h, w, cin, cout, act, bias):
+    x, wt = _conv_operands(gen, n, h, w, cin, cout)
+    b = torch.randn(cout, generator=gen, device="cuda") if bias else None
+    before = cf.launches["conv3x3_up2"]
+    out = cf.conv3x3_up2(x, wt, b, act)
+    torch.cuda.synchronize()
+    assert cf.launches["conv3x3_up2"] == before + 1
+    ref = cf.conv3x3_up2_plain(x, wt, b, act)
+    _conv_close(out, ref)
+    del out
+    # one phase's tap rows swapped must not pass
+    phases = cf.make_phase_kernels(wt)
+    phases[1, 1] = phases[1, 1].flip(0)
+    bad = cf.up2_phases_plain(x, phases, b, act)
+    d = (bad.float() - ref.float()).abs()
+    tol = CONV_REL * ref.float().abs() + CONV_ABS_OF_MAX * float(ref.float().abs().max())
+    assert not bool((d <= tol).all())
+
+
+def test_conv3x3_up2_gives_the_same_bits_twice(gen):
+    """A phase's sums are split between no blocks, and the fold of the phase
+    weights is a fixed sum: two launches agree bit for bit (31 tiles a
+    block)."""
+    x, wt = _conv_operands(gen, 2, 96, 80, 320, 320)
+    bias = torch.randn(320, generator=gen, device="cuda")
+    first, second = cf.conv3x3_up2(x, wt, bias, "silu"), cf.conv3x3_up2(x, wt, bias, "silu")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("asymmetric", [False, True])
