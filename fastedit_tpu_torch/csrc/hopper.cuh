@@ -1,8 +1,9 @@
 // What the Hopper kernels of this directory share: mbarriers, TMA loads and
-// stores, wgmma with its shared-memory descriptors, and the host's
-// tensor-map encoder.  Included by conv3x3.cu and flash_attention.cu, each a
-// library of its own; ops/build.py hashes this file with every source that
-// includes it, so an edit here rebuilds both.
+// stores (tiled, and 1-D bulk copies), wgmma with its shared-memory
+// descriptors, and the host's tensor-map encoder.  Included by conv3x3.cu,
+// flash_attention.cu and group_norm.cu, each a library of its own;
+// ops/build.py hashes this file with every source that includes it, so an
+// edit here rebuilds all three.
 
 #pragma once
 
@@ -83,6 +84,15 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// A 1-D bulk copy of `bytes` contiguous bytes from global to shared memory,
+// completing on `bar` (both addresses 16-byte aligned, `bytes` a multiple of
+// 16); no tensor map.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 // Shared to global; completion is tracked by the issuing thread's bulk group.

@@ -46,7 +46,9 @@ KERNELS = {
             [_P] * 4 + [_I] * 5 + [_L] * 6 + [ctypes.c_float] + [_I] * 3 + [_P]),
     },
     "group_norm": {
-        "group_norm_bf16": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _I, _P],
+        "group_norm_stats_bf16": [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P],
+        "group_norm_resident_bf16": [_P] * 6 + [_I] * 9 + [ctypes.c_float, _I, _P],
+        "group_norm_bf16": [_P] * 7 + [_I] * 11 + [ctypes.c_float, _I, _P],
     },
 }
 

@@ -4,9 +4,11 @@ Both functions use the two-pass variance, mean((x - mean)^2): the one-pass
 E[x^2] - E[x]^2 form cancels in fp32 when |mean| >> std, which happens in
 the late VAE decoder blocks.  :func:`group_norm` dispatches to the
 GroupNorm kernel (``ops/fused_groupnorm.py``) when ``flags.
-use_cuda_groupnorm()`` is on, as the JAX package's does; it is opt-in
-there and here.  :func:`group_norm_scale_shift` stays plain PyTorch, as it
-stays XLA in the JAX package: it feeds the fused resnet conv's prologue.
+use_cuda_groupnorm()`` is on, as the JAX package's does (on by default in
+the port, opt-in there).
+:func:`group_norm_scale_shift`, which feeds the fused resnet conv's
+prologue (XLA in the JAX package), dispatches under the same flag to the
+kernel's statistics launch.
 """
 
 from __future__ import annotations
@@ -70,10 +72,25 @@ def group_norm_scale_shift(
     num_groups: int = 32,
     eps: float = 1e-5,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """fp32 ``(scale, shift)`` [B, C] with GN(x) == x * scale + shift.
+    """fp32 ``(scale, shift)`` [B, C] with GN(x) == x * scale + shift: the
+    prologue half of the fused resnet conv (``ops/conv_fused.py``)."""
+    from fastedit_tpu_torch.ops import fused_groupnorm as k  # it imports this module
 
-    The prologue half of the fused resnet conv (``ops/conv_fused.py``),
-    with the same two-pass statistics as :func:`group_norm_plain`."""
+    fn = group_norm_scale_shift_plain
+    if flags.use_cuda_groupnorm() and k.supports(tuple(x.shape), num_groups):
+        fn = flags.kernel_or_plain(k.group_norm_scale_shift, group_norm_scale_shift_plain)
+    return fn(x, gamma, beta, num_groups=num_groups, eps=eps)
+
+
+def group_norm_scale_shift_plain(
+    x: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    num_groups: int = 32,
+    eps: float = 1e-5,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The statistics launch's plain version, and the op where the kernel is
+    off: the same two-pass statistics as :func:`group_norm_plain`."""
     b, h, w, c = x.shape
     g = num_groups
     if c % g:

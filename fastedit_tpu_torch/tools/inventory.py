@@ -6,7 +6,8 @@ model configs alone, and the kernel each one reaches.
 * ``("conv", (N, H, W, Cin, Cout))``: a plain 3x3 stride-1 conv (stems,
   ``conv_out``, the ControlNet conditioning tower);
 * ``("resnet", (N, H, W, Cin, Cout, groups, temb))``: a ResnetBlock2D, two
-  3x3 convs and two GroupNorm+SiLU, with a time embedding or not;
+  3x3 convs and two GroupNorm+SiLU (or, fused, the GroupNorm statistics of
+  each conv's prologue), with a time embedding or not;
 * ``("up2", (N, H, W, C, C))``: an upsampler, at its low-res input;
 * ``("down2", (N, H, W, C, Cout, asymmetric))``: a stride-2 conv;
 * ``("gn", (N, H, W, C, groups, act))``: any other GroupNorm (``conv_norm_out``,
@@ -36,7 +37,7 @@ from fastedit_tpu_torch.ops import fused_groupnorm
 TEXT_TOKENS = 77
 TRANSFORMER_GROUPS = 32
 KERNELS = ("conv3x3", "conv3x3_fused", "conv3x3_up2", "conv3x3_down2", "group_norm",
-           *(f"flash_attention_d{d}" for d in fa.HEAD_DIMS))
+           "group_norm_scale_shift", *(f"flash_attention_d{d}" for d in fa.HEAD_DIMS))
 
 
 def _transformer(s, n, hw, ch, heads, depth):
@@ -189,19 +190,20 @@ def _conv(key):
     return []
 
 
-def _gn(key):
-    n, h, w, c, groups, _ = key
+def _gn(key, kernel="group_norm"):
+    n, h, w, c, groups = key[:5]
     if flags.use_cuda_groupnorm() and fused_groupnorm.supports((n, h, w, c), groups):
-        return [("group_norm", key)]
+        return [(kernel, key)]
     return []
 
 
 def route(op: str, key: tuple) -> list:
     """The kernel calls one site makes under the current flags, as
     (kernel, shape key): ``conv3x3`` (N, H, W, Cin, Cout); ``conv3x3_fused``
-    (N, H, W, Cin, Cout, per-batch bias, skip); ``conv3x3_up2`` as the site;
-    ``conv3x3_down2`` as the site; ``group_norm`` as a "gn" site;
-    ``flash_attention_d<D>`` as the site."""
+    (N, H, W, Cin, Cout, per-batch bias, skip), each after the
+    ``group_norm_scale_shift`` (N, H, W, C, groups) of its prologue;
+    ``conv3x3_up2`` as the site; ``conv3x3_down2`` as the site;
+    ``group_norm`` as a "gn" site; ``flash_attention_d<D>`` as the site."""
     if op == "conv":
         return _conv(key)
     if op == "resnet":
@@ -209,8 +211,10 @@ def route(op: str, key: tuple) -> list:
         if (flags.use_fused_resnet()
                 and conv_fused.supports_fused((n, h, w, cin), (cout, cin, 3, 3))
                 and conv_fused.supports_fused((n, h, w, cout), (cout, cout, 3, 3))):
-            return [("conv3x3_fused", (n, h, w, cin, cout, temb, False)),
-                    ("conv3x3_fused", (n, h, w, cout, cout, False, True))]
+            return (_gn((n, h, w, cin, groups), "group_norm_scale_shift")
+                    + [("conv3x3_fused", (n, h, w, cin, cout, temb, False))]
+                    + _gn((n, h, w, cout, groups), "group_norm_scale_shift")
+                    + [("conv3x3_fused", (n, h, w, cout, cout, False, True))])
         return (_gn((n, h, w, cin, groups, "silu")) + _conv((n, h, w, cin, cout))
                 + _gn((n, h, w, cout, groups, "silu")) + _conv((n, h, w, cout, cout)))
     if op == "up2":

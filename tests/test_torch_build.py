@@ -44,13 +44,14 @@ def test_the_flags_are_part_of_the_name(csrc, monkeypatch):
 
 
 def test_the_ports_kernels_share_one_header():
-    """Both Hopper kernels include ``hopper.cuh``; GroupNorm includes nothing
-    of ``csrc/``.  Every C function the wrappers call is declared."""
+    """All three kernel libraries include ``hopper.cuh`` (GroupNorm for its
+    mbarriers and 1-D bulk copies).  Every C function the wrappers call is
+    declared."""
     by_name = {n: sorted(p.name for p in build.sources(n)) for n in build.KERNELS}
     assert by_name == {
         "conv3x3": ["conv3x3.cu", "hopper.cuh"],
         "flash_attention": ["flash_attention.cu", "hopper.cuh"],
-        "group_norm": ["group_norm.cu"],
+        "group_norm": ["group_norm.cu", "hopper.cuh"],
     }
     for name, symbols in build.KERNELS.items():
         text = (build.CSRC / f"{name}.cu").read_text()
@@ -106,3 +107,18 @@ def test_kernel_variants_replace_text_that_is_there():
            "    16 bytes stack frame, 32 bytes spill stores, 68 bytes spill loads\n"
            "ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async ...\n")
     assert len(kv.ptxas_notes(log)) == 2
+
+
+def test_the_group_norm_variants_spec_is_in_step():
+    """``tools/variants_group_norm.py`` (parts of the GroupNorm statistics
+    kernel taken out, ``%globaltimer`` stamps) replaces text that is in
+    ``csrc/group_norm.cu``."""
+    from fastedit_tpu_torch.tools import kernel_variants as kv
+
+    spec: dict = {}
+    path = Path(kv.__file__).with_name("variants_group_norm.py")
+    exec(compile(path.read_text(), str(path), "exec"), spec)
+    source = (build.CSRC / f"{spec['LIBRARY']}.cu").read_text()
+    assert spec["LIBRARY"] == "group_norm" and spec["VARIANTS"]["as_built"] == []
+    for name, replacements in spec["VARIANTS"].items():
+        assert (kv.apply(source, replacements) != source) == bool(replacements), name

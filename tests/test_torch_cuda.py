@@ -15,8 +15,10 @@ D = 64 shapes and batch 4, and both head dims (D = 512 at the VAE mid block's
 shape for one image and two, through strides, with Sq != Skv and a scale of
 its own); for the fused resnet, up2 and down2 convs, the prologue, per-batch
 bias and skip, the upsample conv's five main-path shapes, both down2 paddings,
-Cin 96, all four stride-2 channel tiles and odd-sized inputs; for the GroupNorm kernel, a large mean offset and more
-than 2048 channels.  Tolerances are those of ``chip_smoke.py`` (both sides
+Cin 96, all four stride-2 channel tiles and odd-sized inputs; for the GroupNorm kernel and its
+statistics launch alone, a large mean offset, 2560 channels (one pixel per block row), schedules
+for other SM counts (one chunk through the whole ring, more chunks than a warp merges at once),
+the same bits twice and under a CUDA graph's replays.  Tolerances are those of ``chip_smoke.py`` (both sides
 accumulate in fp32 and round once to bf16; the attention's absolute term
 scales with the output's RMS).
 """
@@ -29,7 +31,7 @@ from fastedit_tpu_torch.ops import conv3x3 as k
 from fastedit_tpu_torch.ops import conv_fused as cf
 from fastedit_tpu_torch.ops import flash_attention as fa
 from fastedit_tpu_torch.ops import fused_groupnorm as fg
-from fastedit_tpu_torch.ops.groupnorm import group_norm_plain
+from fastedit_tpu_torch.ops.groupnorm import group_norm_plain, group_norm_scale_shift_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -380,6 +382,108 @@ def test_group_norm_kernel_matches_plain(gen, shape, groups, act, offset):
     torch.cuda.synchronize()
     assert fg.launches == before + 1
     _conv_close(out, ref)
+
+
+def _gn_operands(gen, shape, offset):
+    x = (torch.randn(shape, generator=gen, device="cuda") * 0.5 + offset).bfloat16()
+    gamma = torch.randn(shape[-1], generator=gen, device="cuda") * 0.5 + 1.0
+    beta = torch.randn(shape[-1], generator=gen, device="cuda")
+    return x, gamma, beta
+
+
+@pytest.mark.parametrize(
+    "shape,groups,offset",
+    [
+        ((1, 16, 16, 256), 32, 0.0),
+        ((1, 24, 24, 128), 32, 384.0),  # |mean| >> std
+        ((2, 8, 8, 2560), 32, 0.0),  # one pixel per block row
+        ((1, 7, 9, 64), 8, 50.0),  # odd pixel count, 8 groups
+    ],
+)
+def test_group_norm_scale_shift_kernel_matches_plain(gen, shape, groups, offset):
+    """The statistics launch alone: fp32 (scale, shift) [B, C], one launch
+    count per call."""
+    x, gamma, beta = _gn_operands(gen, shape, offset)
+    before = (fg.launches, fg.scale_shift_launches)
+    scale, shift = fg.group_norm_scale_shift(x, gamma, beta, groups, 1e-5)
+    rs, rsh = group_norm_scale_shift_plain(x, gamma, beta, groups, 1e-5)
+    torch.cuda.synchronize()
+    assert (fg.launches, fg.scale_shift_launches) == (before[0], before[1] + 1)
+    assert scale.dtype == shift.dtype == torch.float32 and scale.shape == (shape[0], shape[-1])
+    _conv_close(scale, rs)
+    _conv_close(shift, rsh)
+
+
+@pytest.mark.parametrize("sms", [1, 7, 100])
+def test_group_norm_kernels_at_other_schedules(gen, monkeypatch, sms):
+    """Plans for other SM counts: one chunk of many stages through the whole
+    ring (1), a few chunks (7), both on two launches; and the resident route
+    with more chunks than a merge's lanes, merged in rounds (100)."""
+    monkeypatch.setattr(fg, "sm_count_of", lambda t: sms)
+    x, gamma, beta = _gn_operands(gen, (2, 40, 40, 320), 20.0)
+    p = fg.plan_for(x, 32)
+    assert (p.nchunk == 1 and p.tiles_per_chunk > p.stages) if sms == 1 else p.nchunk > 1
+    assert p.route == ("resident" if sms == 100 else "two_launch")
+    assert sms != 100 or p.nchunk > p.merge_lanes
+    out = fg.fused_group_norm(x, gamma, beta, 32, 1e-5, "silu")
+    scale, shift = fg.group_norm_scale_shift(x, gamma, beta, 32, 1e-5)
+    torch.cuda.synchronize()
+    _conv_close(out, group_norm_plain(x, gamma, beta, 32, 1e-5, "silu"))
+    rs, rsh = group_norm_scale_shift_plain(x, gamma, beta, 32, 1e-5)
+    _conv_close(scale, rs)
+    _conv_close(shift, rsh)
+    cs, csh = fg.scale_shift_chunked_plain(x.cpu(), gamma.cpu(), beta.cpu(), 32, 1e-5, sms)
+    _conv_close(scale.cpu(), cs)
+
+
+def test_group_norm_kernels_give_the_same_bits_twice(gen):
+    """Sums in a fixed order, no float atomics: the chunk merge does not
+    depend on which block finishes last."""
+    x, gamma, beta = _gn_operands(gen, (2, 64, 64, 640), 3.0)
+    a = fg.fused_group_norm(x, gamma, beta, 32, 1e-5, "silu")
+    b = fg.fused_group_norm(x, gamma, beta, 32, 1e-5, "silu")
+    sa = torch.stack(fg.group_norm_scale_shift(x, gamma, beta, 32, 1e-5))
+    sb = torch.stack(fg.group_norm_scale_shift(x, gamma, beta, 32, 1e-5))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(sa, sb)
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 32, 1280), (1, 256, 256, 512)],
+                         ids=["resident", "two_launch"])
+def test_group_norm_kernels_under_graph_replays(gen, shape):
+    """The kernels set their counters back to 0, so replays of a captured
+    call (a cooperative launch on the resident route) give the eager call's
+    bits, and each call runs two device kernels (GroupNorm; one on the
+    resident route) or one (the statistics)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, gamma, beta = _gn_operands(gen, shape, 1.0)
+    route = fg.plan_for(x, 32).route
+    assert route == ("resident" if shape[0] == 2 else "two_launch")
+    eager = fg.fused_group_norm(x, gamma, beta, 32, 1e-5, None)
+    eager_ss = torch.stack(fg.group_norm_scale_shift(x, gamma, beta, 32, 1e-5))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = fg.fused_group_norm(x, gamma, beta, 32, 1e-5, None)
+            ss = fg.group_norm_scale_shift(x, gamma, beta, 32, 1e-5)
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager) and torch.equal(torch.stack(ss), eager_ss)
+    for fn, kernels in ((lambda: fg.fused_group_norm(x, gamma, beta, 32, 1e-5, None),
+                         1 if route == "resident" else 2),
+                        (lambda: fg.group_norm_scale_shift(x, gamma, beta, 32, 1e-5), 1)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == kernels, names
 
 
 def test_wrappers_raise_outside_their_contract(gen):

@@ -114,9 +114,15 @@ def test_flags_resolve_as_jax_on_its_accelerator(values):
 
 @pytest.mark.parametrize("value", [None, True, False])
 def test_groupnorm_and_attention_flags_as_jax(value):
+    """Set, both flags follow the JAX package's.  Unset, the GroupNorm kernel
+    is on in the port, its one stated departure from the JAX defaults
+    (``ops/flags.py``), and off in the JAX package."""
     with _on_tpu(), jflags.override(use_pallas_groupnorm=value, use_pallas_attention=value), \
             tflags.override(use_cuda_groupnorm=value, use_cuda_attention=value):
-        assert tflags.use_cuda_groupnorm() == jflags.use_pallas_groupnorm()
+        if value is None:
+            assert tflags.use_cuda_groupnorm() and not jflags.use_pallas_groupnorm()
+        else:
+            assert tflags.use_cuda_groupnorm() == jflags.use_pallas_groupnorm()
         assert tflags.use_cuda_attention() == jflags.use_pallas_attention()
 
 
@@ -387,6 +393,7 @@ KERNEL_FUNCS = {  # the wrappers the dispatchers look up, by inventory name
     "conv3x3_up2": (tcf, "conv3x3_up2"),
     "conv3x3_down2": (tcf, "conv3x3_down2"),
     "group_norm": (tgn, "fused_group_norm"),
+    "group_norm_scale_shift": (tgn, "group_norm_scale_shift"),
     "flash_attention_d64": (tfa, "flash_attention"),
 }
 
@@ -396,8 +403,9 @@ KERNEL_FUNCS = {  # the wrappers the dispatchers look up, by inventory name
 def test_inventory_kernel_calls_equal_the_tiny_editors(editors, monkeypatch, config):
     """Each kernel wrapper is called as often as the inventory routes calls
     to it, in the default configuration and with the opt-in fusions (which
-    move the UNet's resnets to the fused conv and its norms to the
-    GroupNorm kernel)."""
+    move the UNet's resnets to the fused conv, their norms to the
+    GroupNorm kernel's statistics launch and the other norms to the GroupNorm
+    kernel)."""
     _, ted = editors
     calls = _count_calls(monkeypatch, KERNEL_FUNCS)
     with tflags.override(**config):
@@ -408,7 +416,8 @@ def test_inventory_kernel_calls_equal_the_tiny_editors(editors, monkeypatch, con
     assert {k: v for k, v in expected.items() if v} == dict(calls)
     assert calls["conv3x3"] and calls["conv3x3_up2"] and calls["conv3x3_down2"]
     if config:
-        assert calls["conv3x3_fused"] and calls["group_norm"]
+        assert (calls["conv3x3_fused"] and calls["group_norm"]
+                and calls["group_norm_scale_shift"])
 
 
 def _jax_conv_inventory():
