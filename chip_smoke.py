@@ -33,18 +33,31 @@ order; a failed phase raises and the script exits non-zero:
    launch of the stride-1 conv, the stride-2 conv and attention are printed.
 3. The main path in the default configuration:
    ``FastEditor("ssd-1b", random_weights=True)`` at 1024², a warm-up, three
-   ``edit()`` calls and one ``edit_batch`` of two images.  Seconds per edit
-   and per stage, peak memory, and each kernel's launches, which must equal
-   the inventory's counts.
+   ``edit()`` calls and one ``edit_batch`` of two images, on CUDA graphs
+   (``pipeline/graphs.py``).  Seconds per edit and device ms per stage (the
+   editor's CUDA events around prepare and each graph replay), peak memory,
+   and each kernel's launches: a replay makes no Python call, so the
+   wrappers count the two keys' first calls, each an eager warm-up and a
+   capture, which must come to twice the inventory's counts per key.
 4. Kernels against plain versions end to end, with seeded fan-in-scaled
    weights, in two arms: the default configuration, and the opt-in one
    (``use_cuda_conv=True``: the encoder on the conv, fused resnet and
    asymmetric stride-2 kernels; ``use_cuda_groupnorm=True``: the GroupNorm
    kernel and its statistics launch, which the default turns on too).  Each
-   arm: one edit with the kernels, whose launches must equal the
-   inventory's, and one with ``flags.override(plain_versions=True)``;
-   final latents and images compared.  Two plain edits with a planted fault
+   arm: one edit on graphs (a new key: warm-up and capture, twice the
+   inventory's launches), the same edit on the eager arm
+   (``flags.override(cuda_graphs=False)``: the inventory's launches), which
+   must give the same bits, and one with
+   ``flags.override(plain_versions=True)``; final latents and images of the
+   graphs against the plain edit.  Two plain edits with a planted fault
    (attention, conv) are read against the plain edit beside the limits.
+5. Graphs against the eager arm, bit for bit in the final latents and the
+   uint8 images, with the seeded weights: batch 1 with CFG, batch 1 without,
+   an ``edit_batch`` of two; a second replay of a key on new inputs (image,
+   prompt, seed, another schedule of three steps, other scales) against a
+   fresh eager edit of them; a flags override, which must capture a new key.
+   Then ``python -m fastedit_tpu_torch.bench --reps 3`` (``bench.main``) on
+   a new editor, whose JSON line is printed.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Per-shape kernel figures and the main-path timings are also
@@ -104,15 +117,6 @@ E2E_IMAGE_MEAN_LSB = 4.0
 
 def log(*args) -> None:
     print(*args, flush=True)
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0]
 
 
 def count_hgmma(library_path: Path) -> dict:
@@ -412,7 +416,8 @@ def compare_fused(calls: dict, gen) -> list[dict]:
 def compare_up2(calls: dict, gen) -> list[dict]:
     """Fault: phase (1, 1) with its two tap rows swapped.  Library: the
     materialised upsample and the conv, two calls (``repeat_interleave``
-    + ``F.conv2d``)."""
+    + ``F.conv2d``).  The kernel takes its phase weights folded once
+    (``fold_up2``), as on the main path."""
     import torch.nn.functional as F
 
     from fastedit_tpu_torch.ops import conv_fused as cf
@@ -424,6 +429,7 @@ def compare_up2(calls: dict, gen) -> list[dict]:
         phases = cf.make_phase_kernels(wt)
         swapped = phases.clone()
         swapped[1, 1] = phases[1, 1].flip(0)
+        folded = cf.fold_up2(wt)  # once, as the upsampler modules fold them
         x_nchw, bias_bf = x.permute(0, 3, 1, 2), bias.bfloat16()
 
         def library():
@@ -432,7 +438,8 @@ def compare_up2(calls: dict, gen) -> list[dict]:
 
         rows.append(hold(
             calls, "conv3x3_up2", key,
-            lambda: cf.conv3x3_up2(x, wt, bias), lambda: cf.conv3x3_up2_plain(x, wt, bias),
+            lambda: cf.conv3x3_up2(x, wt, bias, phases=folded),
+            lambda: cf.conv3x3_up2_plain(x, wt, bias),
             library, flops=32.0 * n * h * w * cin * cout,
             nbytes=2.0 * (n * h * w * cin + 9 * cin * cout + 4 * n * h * w * cout) + 4.0 * cout,
             faults={"fault": lambda: cf.up2_phases_plain(x, swapped, bias)},
@@ -476,9 +483,9 @@ def compare_down2(calls: dict, gen) -> list[dict]:
 def device_kernels(fn, calls: int = 3, tries: int = 3) -> list[str]:
     """The names of the device kernels one call of ``fn`` runs, by
     ``torch.profiler`` (CUDA activity) over ``calls`` calls, which must run
-    the same number each.  A profile that records no device activity at all
-    (a short one now and then comes back empty) is taken again, up to
-    ``tries`` in all."""
+    the same number each.  A profile that lost records (a short one now and
+    then comes back empty, or without its first kernel) is taken again, up
+    to ``tries`` in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -490,7 +497,7 @@ def device_kernels(fn, calls: int = 3, tries: int = 3) -> list[str]:
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if names:
+        if names and len(names) % calls == 0:
             break
     if len(names) % calls:
         raise AssertionError(f"{len(names)} device kernels in {calls} calls: {names}")
@@ -688,26 +695,6 @@ def test_image(seed: int, n: int = RESOLUTION):
     return Image.fromarray(np.clip(img, 0, 255).astype(np.uint8), "RGB")
 
 
-def launch_counts() -> dict:
-    from fastedit_tpu_torch.ops import conv3x3, conv_fused, flash_attention, fused_groupnorm
-
-    return {"conv3x3": conv3x3.launches, **conv_fused.launches,
-            "group_norm": fused_groupnorm.launches,
-            "group_norm_scale_shift": fused_groupnorm.scale_shift_launches,
-            **{f"flash_attention_d{d}": n for d, n in flash_attention.launches.items()}}
-
-
-def reset_launch_counts() -> None:
-    from fastedit_tpu_torch.ops import conv3x3, conv_fused, flash_attention, fused_groupnorm
-
-    conv3x3.launches = 0
-    fused_groupnorm.launches = 0
-    fused_groupnorm.scale_shift_launches = 0
-    for counts in (conv_fused.launches, flash_attention.launches):
-        for k in counts:
-            counts[k] = 0
-
-
 def check_launches(what: str, launches: dict, expected: dict) -> None:
     """Every kernel's launches equal the inventory's, and every kernel the
     inventory expects was launched."""
@@ -730,44 +717,54 @@ def main_path(calls: dict):
     import torch
 
     from fastedit_tpu_torch import FastEditor
-    from fastedit_tpu_torch.tools.inventory import launches_by_kernel
-    from fastedit_tpu_torch.tools.profile_edit import StageTimer
+    from fastedit_tpu_torch.pipeline.graphs import STAGES
+    from fastedit_tpu_torch.tools.inventory import (
+        launch_counts, launches_by_kernel, reset_launch_counts)
 
     t0 = time.perf_counter()
     editor = FastEditor("ssd-1b", random_weights=True)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    warm_s = editor.warmup(**EDIT_KW)
-    log(f"editor built in {build_s:.2f} s, warm-up edit {warm_s:.2f} s")
-
-    timer = StageTimer()
     images = [test_image(1), test_image(2)]
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    warm_s = editor.warmup(**EDIT_KW)
+    log(f"editor built in {build_s:.2f} s, warm-up edit (eager run and capture) {warm_s:.2f} s")
     edits = []
     for i in range(3):
         t = time.perf_counter()
         out = editor.edit(images[0], "a watercolor painting of a harbor", seed=i, **EDIT_KW)
-        edits.append(dict(seconds=time.perf_counter() - t, stage_ms=timer.take()))
+        edits.append(dict(seconds=time.perf_counter() - t, stage_ms=editor.stage_ms()))
         check_image(out)
         log(f"edit {i}: {edits[-1]['seconds']:.4f} s", edits[-1]["stage_ms"])
     t = time.perf_counter()
     outs = editor.edit_batch(images, ["a snowy street", "a city at night"], seed=3, **EDIT_KW)
-    batch = dict(seconds=time.perf_counter() - t, stage_ms=timer.take())
+    batch = dict(seconds=time.perf_counter() - t, stage_ms=editor.stage_ms())
     for out in outs:
         check_image(out)
-    log(f"edit_batch of 2: {batch['seconds']:.4f} s", batch["stage_ms"])
+    log(f"edit_batch of 2 (its first call: eager run and capture): {batch['seconds']:.4f} s",
+        batch["stage_ms"])
+    t = time.perf_counter()
+    outs = editor.edit_batch(images, ["a snowy street", "a city at night"], seed=4, **EDIT_KW)
+    batch_replay = dict(seconds=time.perf_counter() - t, stage_ms=editor.stage_ms())
+    log(f"edit_batch of 2, replayed: {batch_replay['seconds']:.4f} s", batch_replay["stage_ms"])
     launches = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 1024**3
+    keys = editor._graphs.captured
+    if len(keys) != 2 or any(tuple(c.graphs) != STAGES for c in keys.values()):
+        raise AssertionError(f"expected two keys of three graphs each, got {list(keys)}")
 
     per_edit = launches_by_kernel(calls["default_b1"])
     per_batch2 = launches_by_kernel(calls["default_b2"])
-    expected = {k: 3 * per_edit[k] + per_batch2[k] for k in per_edit}
-    check_launches("3 edits + a batch of 2, default configuration", launches, expected)
-    log(f"peak device memory {peak_gib:.3f} GiB")
-    return editor, timer, dict(
+    expected = {k: 2 * (per_edit[k] + per_batch2[k]) for k in per_edit}
+    check_launches("two keys' first calls (eager warm-up and capture each), then replays",
+                   launches, expected)
+    pools = {str(k[:5]): c.pool_bytes / 1024**3 for k, c in keys.items()}
+    log(f"peak device memory {peak_gib:.3f} GiB; graph pool GiB by key {pools}")
+    return editor, dict(
         editor_build_s=build_s, warmup_s=warm_s, edits=edits, edit_batch2=batch,
-        launches=launches, launches_per_edit=per_edit, peak_gib=peak_gib,
+        edit_batch2_replay=batch_replay, launches=launches, launches_per_edit=per_edit,
+        peak_gib=peak_gib, graph_pool_gib=pools,
     )
 
 
@@ -823,33 +820,52 @@ def planted_fault(kind: str):
         setattr(module, name, orig)
 
 
-def kernels_vs_plain(editor, timer, calls: dict) -> dict:
+def differ(a, b) -> dict:
+    """(uint8 images, final latents) pairs: their distance."""
     import numpy as np
+
+    diff = np.abs(a[0].astype(np.int32) - b[0].astype(np.int32))
+    return dict(latent_rel_l2=float((a[1].float() - b[1].float()).norm() / b[1].float().norm()),
+                image_mean_abs_lsb=float(diff.mean()), image_max_abs_lsb=int(diff.max()))
+
+
+def same_bits(what: str, a, b) -> None:
+    """Graphs against the eager arm: the same uint8 images and final latents."""
+    import numpy as np
+
+    if not (np.array_equal(a[0], b[0]) and bool((a[1] == b[1]).all())):
+        raise AssertionError(f"{what}: graphs and the eager arm differ: {differ(a, b)}")
+
+
+def edit_arrays(editor, images, prompts, **kw):
+    """One ``edit_batch``: (uint8 images [B, r, r, 3], final latents, host
+    seconds, device ms per stage)."""
+    import numpy as np
+
+    t = time.perf_counter()
+    outs = editor.edit_batch(images, prompts, **kw)
+    sec = time.perf_counter() - t
+    lat = editor.last_latents.clone()
+    if not bool(lat.isfinite().all()):
+        raise AssertionError("non-finite final latents")
+    return np.stack([np.asarray(o) for o in outs]), lat, sec, editor.stage_ms()
+
+
+def kernels_vs_plain(editor, calls: dict) -> dict:
     import torch
 
     from fastedit_tpu_torch.ops import flags
-    from fastedit_tpu_torch.tools.inventory import launches_by_kernel
+    from fastedit_tpu_torch.tools.inventory import (
+        launch_counts, launches_by_kernel, reset_launch_counts)
 
-    seeded_weights_(editor, seed=20261016)
+    seeded_weights_(editor, seed=20261016)  # drops the graphs: the weights changed
     img, prompt = test_image(5), "an oil painting of a lighthouse"
-    editor.edit(img, prompt, seed=11, **EDIT_KW)  # encodes the prompt
-    timer.take()
+    editor._encode_prompts([prompt, ""])
 
     def run(fault=None, **override):
         with flags.override(**override), (planted_fault(fault) if fault
                                           else contextlib.nullcontext()):
-            t = time.perf_counter()
-            out = np.asarray(editor.edit(img, prompt, seed=11, **EDIT_KW), np.int32)
-            sec = time.perf_counter() - t
-        stage_ms = timer.take()
-        if not bool(timer.last_latents.isfinite().all()):
-            raise AssertionError("non-finite final latents")
-        return out, timer.last_latents, sec, stage_ms
-
-    def differ(a, b) -> dict:
-        diff = np.abs(a[0] - b[0])
-        return dict(latent_rel_l2=float((a[1] - b[1]).norm() / b[1].norm()),
-                    image_mean_abs_lsb=float(diff.mean()), image_max_abs_lsb=int(diff.max()))
+            return edit_arrays(editor, [img], [prompt], seed=11, **EDIT_KW)
 
     def within_limits(what, res):
         if (res["latent_rel_l2"] > E2E_LATENT_REL_L2
@@ -862,17 +878,25 @@ def kernels_vs_plain(editor, timer, calls: dict) -> dict:
 
     arms = {}
     for arm, override, key in (("default", {}, "default_b1"), ("opt_in", OPT_IN, "optin_b1")):
+        inventory = launches_by_kernel(calls[key])
         reset_launch_counts()
-        kern = run(**override)
+        kern = run(**override)  # a new key: eager warm-up, capture, replay
         launches = launch_counts()
-        check_launches(f"one edit, {arm} configuration", launches,
-                       launches_by_kernel(calls[key]))
+        check_launches(f"one edit on graphs (a new key), {arm} configuration", launches,
+                       {k: 2 * n for k, n in inventory.items()})
+        reset_launch_counts()
+        eager = run(cuda_graphs=False, **override)
+        check_launches(f"one edit on the eager arm, {arm} configuration", launch_counts(),
+                       inventory)
+        same_bits(f"{arm} configuration", kern, eager)
+        before = launch_counts()
         plain = run(plain_versions=True, **override)
-        if launch_counts() != launches:
+        if launch_counts() != before:
             raise AssertionError("a plain-version edit launched a kernel")
         res = dict(differ(kern, plain), image_std=float(plain[0].std()),
-                   latent_std=float(plain[1].std()), seconds_kernels=kern[2],
-                   seconds_plain=plain[2], stage_ms_kernels=kern[3], launches=launches)
+                   latent_std=float(plain[1].float().std()), seconds_graphs_first_call=kern[2],
+                   seconds_eager=eager[2], seconds_plain=plain[2],
+                   stage_ms_graphs=kern[3], stage_ms_eager=eager[3], launches=launches)
         log(f"kernels vs plain end to end, {arm} configuration:", res)
         within_limits(arm, res)
         if res["latent_std"] == 0.0:
@@ -893,6 +917,48 @@ def kernels_vs_plain(editor, timer, calls: dict) -> dict:
                     f"the end-to-end tolerance passes a planted conv fault: {conv_fault}")
     torch.cuda.synchronize()
     return arms
+
+
+# ------------------------------------------------------------------ phase 5
+
+
+def graphs_vs_eager(editor) -> dict:
+    """Graphs against the eager arm, bit for bit, on the seeded weights of
+    phase 4."""
+    from fastedit_tpu_torch.ops import flags
+
+    images, prompts = [test_image(6), test_image(7)], ["a red barn", "a lake at dawn"]
+    captured = editor._graphs.captured
+    out = {}
+
+    def pair(what, imgs, prm, **kw):
+        graph = edit_arrays(editor, imgs, prm, **kw)
+        with flags.override(cuda_graphs=False):
+            eager = edit_arrays(editor, imgs, prm, **kw)
+        same_bits(what, graph, eager)
+        out[what] = dict(seconds_graphs=graph[2], seconds_eager=eager[2],
+                         stage_ms_graphs=graph[3], stage_ms_eager=eager[3],
+                         keys=len(captured), image_std=float(graph[0].std()))
+        log(f"graphs = eager, {what}:", out[what])
+
+    pair("batch 1, CFG", images[:1], prompts[:1], seed=21, **EDIT_KW)
+    pair("batch 1, no CFG", images[:1], prompts[:1], seed=22,
+         **{**EDIT_KW, "guidance_scale": 1.0})
+    pair("edit_batch of 2", images, prompts, seed=23, **EDIT_KW)
+    keys = len(captured)
+    # the batch-1 CFG key again: another image, prompt, seed, schedule (5 steps at
+    # strength 0.6 run 3, from t = 599) and scales
+    pair("batch 1, CFG, a second replay on new inputs", [test_image(8)], ["a desert road"],
+         seed=24, strength=0.6, num_inference_steps=5, guidance_scale=2.0,
+         controlnet_conditioning_scale=0.8)
+    if len(captured) != keys:
+        raise AssertionError("new inputs of a captured key captured another key")
+    with flags.override(use_fused_down2=False):
+        pair("flags override use_fused_down2=False", images[:1], prompts[:1], seed=25,
+             **EDIT_KW)
+    if len(captured) != keys + 1:
+        raise AssertionError("a flags override did not capture a new key")
+    return out
 
 
 # --------------------------------------------------------------------- main
@@ -973,6 +1039,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     from fastedit_tpu_torch.ops import build
+    from fastedit_tpu_torch.tools.timing import card_line
 
     card = card_line()
     log(card)
@@ -1018,18 +1085,28 @@ def main() -> int:
     host = host_us_per_launch(calls, gen)
     phase2_s = time.perf_counter() - t
 
-    log("[3] main path: FastEditor('ssd-1b', random_weights=True) at 1024²")
-    editor, timer, main = main_path(calls)
+    log("[3] main path: FastEditor('ssd-1b', random_weights=True) at 1024², on CUDA graphs")
+    editor, main = main_path(calls)
 
     log("[4] kernels vs plain versions end to end, seeded weights")
-    e2e = kernels_vs_plain(editor, timer, calls)
-    timer.remove()
+    e2e = kernels_vs_plain(editor, calls)
+
+    log("[5] graphs vs the eager arm, then the bench")
+    vs_eager = graphs_vs_eager(editor)
+    del editor
+    torch.cuda.empty_cache()
+    from fastedit_tpu_torch import bench
+
+    t = time.perf_counter()
+    bench_record = bench.main(["--reps", "3"])
+    bench_s = time.perf_counter() - t
 
     kernels = kernel_summary(rows, main)
     OUT_FILE.parent.mkdir(parents=True, exist_ok=True)
     OUT_FILE.write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda, kernels=kernels,
         shapes=rows, host=host, main_path=main, kernels_vs_plain=e2e,
+        graphs_vs_eager=vs_eager, bench=bench_record, bench_s=bench_s,
         phase2_s=phase2_s, build_s=build_s, hgmma=hgmma,
         seconds_total=time.perf_counter() - t_start,
     ), indent=1, default=str))

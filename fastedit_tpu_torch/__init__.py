@@ -13,10 +13,14 @@ Layer map:
     models/    nn.Modules with diffusers state-dict names (NHWC activations):
                UNet, ControlNet, VAE, CLIP text towers.
     sched/     LCM scheduler tables and step.
-    pipeline/  stage functions and the ``FastEditor`` facade.
+    pipeline/  stage functions, their CUDA graphs and the ``FastEditor``
+               facade.
     text/      CLIP BPE tokenizer (a copy of the JAX package's).
-    tools/     ``from_jax``: the JAX package's parameters as state dicts.
-    utils/     image helpers.
+    tools/     ``from_jax``: the JAX package's parameters as state dicts;
+               profiling and kernel benches.
+    utils/     image helpers, analytic FLOPs.
+    bench.py   ``python -m fastedit_tpu_torch.bench``: seconds per edit on
+               the card.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
 """ControlNet (Canny) for the SDXL family — UNet-encoder clone + zero convs.
 
 Produces one residual per UNet skip connection plus a mid residual, each
-scaled by ``conditioning_scale``.  The conditioning image (Canny edges in
+scaled by ``conditioning_scale`` (a number, or a 0-dim fp32 tensor on the
+model's device, which a CUDA graph reads at replay).  The conditioning image (Canny edges in
 [0, 1], pixel resolution) is folded in through a strided conv tower whose
 output is added to the latent stem; the denoise loop runs that tower once
 per edit and passes its output with ``cond_pre_embedded=True``.
@@ -85,7 +86,7 @@ class ControlNetModel(ConditioningEmbedder):
         text_embeds: torch.Tensor,
         time_ids: torch.Tensor,
         controlnet_cond: torch.Tensor,
-        conditioning_scale: float = 1.0,
+        conditioning_scale=1.0,
         cond_pre_embedded: bool = False,
     ):
         dtype = self.conv_in.weight.dtype
@@ -107,7 +108,8 @@ class ControlNetModel(ConditioningEmbedder):
         if self.mid_block is not None:
             x = self.mid_block(x, temb, context)
 
-        scale = float(conditioning_scale)
+        scale = (conditioning_scale if torch.is_tensor(conditioning_scale)
+                 else float(conditioning_scale))
         down_res = tuple(
             (conv(s).float() * scale).to(dtype)
             for conv, s in zip(self.controlnet_down_blocks, skips)

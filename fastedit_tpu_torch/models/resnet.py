@@ -7,7 +7,10 @@ up2 kernel, downsamplers through the stride-2 kernel, each where its flag
 is on and its gate admits the call, and op by op with the same math
 otherwise.  Convs subclass ``nn.Conv2d`` so their parameters keep
 PyTorch's names and OIHW shapes; their ``forward`` takes and returns NHWC
-tensors.
+tensors.  What the kernels take derived from the weights (the bias in fp32,
+the up2 kernel's folded phase weights) is made once per version of the
+weights (:func:`_prepared`), not at every call, so a CUDA graph of a stage
+holds none of it.
 """
 
 from __future__ import annotations
@@ -21,6 +24,23 @@ import torch.nn.functional as F
 from fastedit_tpu_torch.models.layers import GroupNorm
 from fastedit_tpu_torch.ops import conv_fused, flags
 from fastedit_tpu_torch.ops.conv import conv3x3_same
+
+
+def _prepared(conv: nn.Conv2d, name: str, make):
+    """``make()``, kept on ``conv`` and made again only when its weight or
+    bias changed (another tensor, or written in place: ``load_state_dict``,
+    a seeded init)."""
+    key = tuple((t.data_ptr(), t._version) for t in (conv.weight, conv.bias) if t is not None)
+    cache = conv.__dict__.setdefault("_prepared_cache", {})
+    hit = cache.get(name)
+    if hit is None or hit[0] != key:
+        hit = cache[name] = (key, make())
+    return hit[1]
+
+
+def _bias_f32(conv: nn.Conv2d) -> torch.Tensor:
+    """The bias in fp32, as the conv kernels read it."""
+    return _prepared(conv, "bias_f32", lambda: conv.bias.float().contiguous())
 
 
 class Conv3x3(nn.Conv2d):
@@ -56,20 +76,24 @@ class Conv3x3(nn.Conv2d):
         w = self.weight.contiguous(memory_format=torch.channels_last)
         shapes = (tuple(x.shape), tuple(w.shape))
 
+        bias = _bias_f32(self)
         if up2:
             assert prenorm is None and extra_bias is None and skip is None
             if flags.use_fused_up2() and conv_fused.supports_up2(*shapes):
-                fn = flags.kernel_or_plain(conv_fused.conv3x3_up2, conv_fused.conv3x3_up2_plain)
-                return fn(x, w, bias=self.bias)
+                if flags.FLAGS.plain_versions:
+                    return conv_fused.conv3x3_up2_plain(x, w, bias=bias)
+                phases = (_prepared(self, "up2_phases", lambda: conv_fused.fold_up2(w))
+                          if x.is_cuda else None)
+                return conv_fused.conv3x3_up2(x, w, bias=bias, phases=phases)
             x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-            return conv3x3_same(x, w, bias=self.bias)
+            return conv3x3_same(x, w, bias=bias)
 
         if prenorm is None and extra_bias is None and skip is None:
-            return conv3x3_same(x, w, bias=self.bias)
+            return conv3x3_same(x, w, bias=bias)
 
-        bias_eff = self.bias
+        bias_eff = bias
         if extra_bias is not None:  # [B, Cout], summed in fp32
-            bias_eff = self.bias.float()[None, :] + extra_bias.float()
+            bias_eff = bias[None, :] + extra_bias.float()
         if flags.use_fused_resnet() and conv_fused.supports_fused(*shapes):
             fn = flags.kernel_or_plain(conv_fused.conv3x3_fused, conv_fused.conv3x3_fused_plain)
             return fn(x, w, bias=bias_eff, prenorm=prenorm,
@@ -111,7 +135,7 @@ class StridedConv3x3(nn.Conv2d):
         w = self.weight.contiguous(memory_format=torch.channels_last)
         if flags.use_fused_down2() and conv_fused.supports_down2(tuple(x.shape), tuple(w.shape)):
             fn = flags.kernel_or_plain(conv_fused.conv3x3_down2, conv_fused.conv3x3_down2_plain)
-            return fn(x, w, bias=self.bias, asymmetric=self.asymmetric)
+            return fn(x, w, bias=_bias_f32(self), asymmetric=self.asymmetric)
         x = x.permute(0, 3, 1, 2)
         if self.asymmetric:
             x = F.pad(x, (0, 1, 0, 1))

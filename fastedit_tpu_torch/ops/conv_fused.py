@@ -16,8 +16,9 @@ replace the three TPU kernels of ``fastedit_tpu/ops/conv_fused.py``:
   16/36 of the FLOPs, on the stride-1 kernel's core: the halo of a low-res
   rectangle holds every tap of every phase (``conv3x3.plan_up2``;
   :func:`conv3x3_up2_tiled_plain` walks that schedule in plain PyTorch, for
-  the tests); the call folds the phase weights (:func:`make_phase_kernels`)
-  itself.
+  the tests); the phase weights (:func:`make_phase_kernels`) are folded by
+  a launch of their own (:func:`fold_up2`), which the upsampler modules make
+  once per weight and pass in (``models/resnet.py``), or the call makes.
 * ``conv3x3_down2`` (``_down2_call``): stride-2 3x3 conv with padding (1, 1)
   (UNet/ControlNet downsamplers) or (0, 1) (the VAE encoder's), on the
   stride-1 kernel's core: per parity plane of the input a tap is a rectangle
@@ -316,14 +317,37 @@ def conv3x3_fused(
     )
 
 
+def fold_up2(weight: torch.Tensor) -> torch.Tensor:
+    """The up2 kernel's phase weights [Cout, 2, 2, 2, 2, Cin] (p, q, a, b)
+    of a CUDA weight [Cout, Cin, 3, 3] (channels_last), from one launch:
+    :func:`make_phase_kernels`'s sums, laid out for the kernel."""
+    if weight.dtype != torch.bfloat16 or not weight.is_contiguous(
+            memory_format=torch.channels_last):
+        raise ValueError("fold_up2: weight must be bf16 in channels_last memory")
+    from fastedit_tpu_torch.ops.build import library
+
+    cout, cin = weight.shape[:2]
+    phases = torch.empty((cout, 2, 2, 2, 2, cin), dtype=weight.dtype, device=weight.device)
+    with torch.cuda.device(weight.device):
+        err = library("conv3x3").up2_phase_weights_bf16(
+            weight.data_ptr(), phases.data_ptr(), cin, cout,
+            torch.cuda.current_stream(weight.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"up2_phase_weights launch failed: CUDA error {err}")
+    return phases
+
+
 def conv3x3_up2(
     x: torch.Tensor,
     weight: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     act: Optional[str] = None,
+    phases: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Nearest-2x upsample then 3x3 SAME conv in one kernel: x [B, H, W,
-    Cin], weight [Cout, Cin, 3, 3] -> [B, 2H, 2W, Cout]."""
+    Cin], weight [Cout, Cin, 3, 3] -> [B, 2H, 2W, Cout].  ``phases``:
+    ``fold_up2(weight)``, folded earlier; without it the call folds them
+    (one more launch)."""
     if x.device.type == "cpu":
         return conv3x3_up2_plain(x, weight, bias, act)
     if act not in (None, "silu"):
@@ -336,12 +360,18 @@ def conv3x3_up2(
     cout = weight.shape[0]
     bias = _f32(bias, (cout,), "conv3x3_up2: bias", x.device)
     pl = plan_up2_for(x, cout)
-    phases = torch.empty((cout, 2, 2, 2, 2, cin), dtype=x.dtype, device=x.device)
+    fold = phases is None
+    if fold:
+        phases = torch.empty((cout, 2, 2, 2, 2, cin), dtype=x.dtype, device=x.device)
+    elif (tuple(phases.shape) != (cout, 2, 2, 2, 2, cin) or phases.dtype != x.dtype
+          or phases.device != x.device or not phases.is_contiguous()):
+        raise ValueError(f"conv3x3_up2: phases must be fold_up2's contiguous "
+                         f"{(cout, 2, 2, 2, 2, cin)} {x.dtype} on {x.device}")
     out = torch.empty((b, 2 * h, 2 * w, cout), dtype=x.dtype, device=x.device)
     return _launch(
         "conv3x3_up2_bf16", "conv3x3_up2", out,
-        x.data_ptr(), weight.data_ptr(), phases.data_ptr(), _ptr(bias), out.data_ptr(),
-        b, h, w, cin, cout, int(act == "silu"), pl.bn, pl.grid,
+        x.data_ptr(), weight.data_ptr() if fold else None, phases.data_ptr(), _ptr(bias),
+        out.data_ptr(), b, h, w, cin, cout, int(act == "silu"), pl.bn, pl.grid,
     )
 
 

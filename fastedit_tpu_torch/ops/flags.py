@@ -33,6 +33,13 @@ eagerly, so a flag is read when the op runs, not when a program is traced.
 ``pallas_interpret``: with it, every call that would launch a kernel runs
 the kernel's plain version instead, on any device, so an edit can be held
 against the same edit without kernels (``chip_smoke.py``).
+
+``cuda_graphs`` is the counterpart of ``jax.disable_jit`` (set to False):
+on, the editor replays its pixel path as CUDA graphs on the card
+(``pipeline/graphs.py``), as the JAX package runs it as jitted programs;
+off, it runs the same stages eagerly, op by op (the arm the graphs are held
+against).  A graph is captured under the flags in force and keyed by all
+of them (``graphs.graph_key``).  ``plain_versions`` runs eagerly too.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ class KernelFlags:
     use_fused_up2: Optional[bool] = None  # None = the context's default
     use_fused_down2: Optional[bool] = None  # None = the context's default
     plain_versions: bool = False  # kernels' plain versions in their place
+    cuda_graphs: bool = True  # the editor's pixel path as CUDA graphs on the card
 
 
 FLAGS = KernelFlags()
@@ -66,6 +74,12 @@ def use_cuda_attention() -> bool:
 
 def use_cuda_groupnorm() -> bool:
     return _or(FLAGS.use_cuda_groupnorm, True)
+
+
+def use_cuda_graphs() -> bool:
+    """Replay the pixel path as CUDA graphs (on a card; never with the
+    plain versions, which are for comparisons)."""
+    return FLAGS.cuda_graphs and not FLAGS.plain_versions
 
 
 def kernel_or_plain(kernel, plain):

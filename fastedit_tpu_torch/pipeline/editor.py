@@ -2,19 +2,24 @@
 
 The same constructor knobs, ``MODEL_CONFIGS`` keys and methods as the JAX
 package's ``FastEditor``: ``preprocess_image``, ``edit`` (with
-``strength``), ``edit_batch``, ``warmup``, ``clear_memory`` and
+``strength``), ``edit_batch`` (on PIL images, a pre-resized uint8 array or
+a batch already on the device), ``stage_inputs``, ``edit_batch_async``
+(a :class:`PendingEdit`), ``warmup``, ``clear_memory`` and
 ``get_memory_usage``.  It runs on the card unless the caller asks for
-``device="cpu"``.  ``random_weights=True`` builds the full architecture
-with zero weights (edit latency does not depend on the weights), and
-``"tiny"`` is a seeded random-weight smoke model with the real topology.
+``device="cpu"``; on the card the pixel path replays CUDA graphs
+(``pipeline/graphs.py``), the counterpart of the JAX package's one jitted
+program per edit, unless ``flags.override(cuda_graphs=False)`` asks for the
+eager arm.  ``random_weights=True`` builds the full architecture with zero
+weights (edit latency does not depend on the weights), and ``"tiny"`` is a
+seeded random-weight smoke model with the real topology.
 
 Not in this slice (see ROADMAP.md): loading converted checkpoints (P12),
-the fp32 quality mode on the card (P17), ``edit_batch_async`` /
-``stage_inputs`` and data parallelism (P10/P15).
+the fp32 quality mode on the card (P17), data parallelism (P15).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Optional
@@ -30,8 +35,9 @@ from fastedit_tpu_torch.models.controlnet import ControlNetModel
 from fastedit_tpu_torch.models.layers import GroupNorm, LayerNorm, cast_model
 from fastedit_tpu_torch.models.unet import UNet2DConditionModel
 from fastedit_tpu_torch.models.vae import AutoencoderKL
+from fastedit_tpu_torch.ops import flags
 from fastedit_tpu_torch.ops.canny import canny
-from fastedit_tpu_torch.pipeline import stages
+from fastedit_tpu_torch.pipeline import graphs, stages
 from fastedit_tpu_torch.sched.lcm import LCMSchedulerConfig, make_schedule
 from fastedit_tpu_torch.text.tokenizer import CLIPTokenizer
 from fastedit_tpu_torch.utils.image import resize
@@ -60,6 +66,8 @@ def _resolve_device(device: Optional[str]) -> torch.device:
             f"device {dev} requested but CUDA is not available; pass "
             "device='cpu' to run the plain versions on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -93,6 +101,36 @@ def _build(cls, cfg, device, dtype, generator: Optional[torch.Generator]):
         else:
             _seeded_init_(model, generator)
     return model.eval().requires_grad_(False)
+
+
+class PendingEdit:
+    """Handle to an edit in flight: its images' copy to the host enqueued
+    (into a fresh pinned buffer, behind the edit on the stream and so before
+    any later edit can overwrite the graph's output), nothing waited for.
+    ``result()`` waits for the copy and returns the PIL images, so a sweep
+    can dispatch chunk i + 1 while chunk i's images come back."""
+
+    def __init__(self, out: torch.Tensor):
+        self._event = None
+        if out.is_cuda:
+            self._host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            self._host.copy_(out, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = out
+
+    def result(self) -> list:
+        if self._event is not None:
+            self._event.synchronize()
+        arr = self._host.numpy()
+        return [Image.fromarray(arr[i]) for i in range(arr.shape[0])]
+
+    def local_result(self) -> list:
+        """``[(row, PIL image)]`` for the rows this process holds: all of
+        them (the JAX package's data-parallel editor may shard rows over
+        hosts)."""
+        return list(enumerate(self.result()))
 
 
 class FastEditor:
@@ -176,6 +214,11 @@ class FastEditor:
         self.scheduler_config = LCMSchedulerConfig()
         self._prompt_cache: dict = {}
         self._schedule_cache: dict = {}
+        self._const_cache: dict = {}
+        self._graphs = graphs.EditGraphs(self.modules) if self.device.type == "cuda" else None
+        self._stage_events: list = []
+        # the last edit's final latents (on the graphs, the capture's buffer)
+        self.last_latents: Optional[torch.Tensor] = None
 
     def _init_models(self, unet_cfg, cn_cfg, vae_cfg, te1_cfg, te2_cfg, generator):
         dev, dt = self.device, self.dtype
@@ -204,6 +247,29 @@ class FastEditor:
 
     # ------------------------------------------------------------------ edit
 
+    @contextlib.contextmanager
+    def _timed(self, name: str):
+        """CUDA events around the body, read by :meth:`stage_ms`."""
+        if self.device.type != "cuda":
+            yield
+            return
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        yield
+        end.record()
+        self._stage_events.append((name, start, end))
+
+    def stage_ms(self) -> dict:
+        """Device ms per stage of the last edit, after waiting for it: CUDA
+        events around prompt encoding (when a prompt was new), prepare, and
+        each of VAE encode, denoise and VAE decode (an eager stage, or its
+        graph's replay).  Empty on the CPU."""
+        ms = {}
+        for name, start, end in self._stage_events:
+            end.synchronize()
+            ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
+        return ms
+
     def _encode_prompts(self, prompts) -> None:
         """Encode every novel prompt in one text-encoder call and cache it."""
         novel = list(dict.fromkeys(p for p in prompts if p not in self._prompt_cache))
@@ -211,21 +277,41 @@ class FastEditor:
             return
         ids1 = torch.from_numpy(np.stack([self.tokenizer.encode(p) for p in novel]))
         ids2 = torch.from_numpy(np.stack([self.tokenizer_2.encode(p) for p in novel]))
-        ctx, pooled = stages.encode_prompt(
-            self.modules, ids1.long().to(self.device), ids2.long().to(self.device)
-        )
+        with self._timed("encode_prompt"):
+            ctx, pooled = stages.encode_prompt(
+                self.modules, ids1.long().to(self.device), ids2.long().to(self.device)
+            )
         for i, p in enumerate(novel):
             self._prompt_cache[p] = (ctx[i : i + 1], pooled[i : i + 1])
         while len(self._prompt_cache) > 4096:
             self._prompt_cache.pop(next(iter(self._prompt_cache)))
 
     def _schedule(self, num_inference_steps: int, strength: float):
+        """The schedule, its table on the device; at most 64 kept."""
         key = (num_inference_steps, float(strength))
         if key not in self._schedule_cache:
             self._schedule_cache[key] = make_schedule(
                 self.scheduler_config, num_inference_steps, strength=strength
-            )
+            ).to(self.device)
+            while len(self._schedule_cache) > 64:
+                self._schedule_cache.pop(next(iter(self._schedule_cache)))
         return self._schedule_cache[key]
+
+    def _const(self, kind: str, *args):
+        """Small device constants, made once (at most 256 kept): time ids by
+        batch, and the (guidance, ControlNet scale) tensors by value."""
+        key = (kind, *args)
+        if key not in self._const_cache:
+            if kind == "time_ids":
+                self._const_cache[key] = stages.make_sdxl_time_ids(
+                    args[0], self.resolution, self.device)
+            elif kind == "scalars":
+                self._const_cache[key] = stages.edit_scalars(self.modules, *args, self.device)
+            else:
+                raise KeyError(kind)
+            while len(self._const_cache) > 256:
+                self._const_cache.pop(next(iter(self._const_cache)))
+        return self._const_cache[key]
 
     def _noise(self, seed: int, shape, num_steps: int):
         """(posterior eps, initial noise, one noise per step), fp32 standard
@@ -237,18 +323,58 @@ class FastEditor:
         ]
         return draws[0], draws[1], draws[2:]
 
+    def stage_inputs(self, images) -> torch.Tensor:
+        """A pre-resized uint8 batch [B, r, r, 3] on the device, ahead of
+        the edit: from pinned memory with a non-blocking copy, so a sweep's
+        loader thread can stage chunk i + 1 while chunk i computes.  Pass
+        the tensor to ``edit_batch[_async]`` in place of the array."""
+        img_u8 = np.ascontiguousarray(images, dtype=np.uint8)
+        r = self.resolution
+        if img_u8.ndim != 4 or img_u8.shape[1:] != (r, r, 3):
+            raise ValueError(
+                f"staged batch must have shape (B, {r}, {r}, 3); got {img_u8.shape}"
+            )
+        if self.device.type != "cuda":
+            return torch.from_numpy(img_u8.copy())
+        host = torch.empty(img_u8.shape, dtype=torch.uint8, pin_memory=True)
+        host.numpy()[...] = img_u8
+        return host.to(self.device, non_blocking=True)
+
+    def _device_batch(self, images) -> torch.Tensor:
+        """uint8 [B, r, r, 3] on the device from a staged tensor, a
+        pre-resized uint8 array or a list of PIL images."""
+        r = self.resolution
+        if isinstance(images, torch.Tensor):
+            if (tuple(images.shape[1:]) != (r, r, 3) or images.dtype != torch.uint8
+                    or images.device != self.device):
+                raise ValueError(
+                    f"staged batch must be uint8 of shape (B, {r}, {r}, 3) on "
+                    f"{self.device}; got {images.dtype} {tuple(images.shape)} on "
+                    f"{images.device}"
+                )
+            return images
+        if isinstance(images, np.ndarray):
+            if images.shape[1:] != (r, r, 3) or images.dtype != np.uint8:
+                raise ValueError(
+                    f"pre-resized batch must be uint8 of shape (B, {r}, {r}, 3); "
+                    f"got {images.dtype} {images.shape}"
+                )
+            return self.stage_inputs(images)
+        return self.stage_inputs(np.stack(
+            [np.asarray(resize(im.convert("RGB"), r), dtype=np.uint8) for im in images]
+        ))
+
     def _run_edit(
         self, images, prompts, negative_prompt, strength, num_inference_steps,
         guidance_scale, controlnet_conditioning_scale, canny_low_threshold,
         canny_high_threshold, seed, tile_noise: bool,
-    ) -> np.ndarray:
-        """Shared single/batch path; returns uint8 [B, r, r, 3] on the host."""
-        b = len(images)
-        r = self.resolution
-        img_u8 = np.stack(
-            [np.asarray(resize(im.convert("RGB"), r), dtype=np.uint8) for im in images]
-        )
-        inputs = torch.from_numpy(img_u8).to(self.device)
+    ) -> torch.Tensor:
+        """Shared single/batch path; returns uint8 [B, r, r, 3] on the
+        device (on the card, a graph's output buffer: copy it before the
+        next edit)."""
+        self._stage_events = []
+        inputs = self._device_batch(images)
+        b, r = inputs.shape[0], self.resolution
 
         do_cfg = guidance_scale > 1.0
         self._encode_prompts(list(prompts) + ([negative_prompt] if do_cfg else []))
@@ -265,24 +391,32 @@ class FastEditor:
             )
         else:
             context, pooled = ctx_c, pooled_c
-        time_ids = stages.make_sdxl_time_ids(context.shape[0], r, self.device)
         schedule = self._schedule(num_inference_steps, strength)
 
         if seed is None:
             seed = int.from_bytes(os.urandom(4), "little")
+        # At batch 1 the tiled and untiled draws are the same: one graph key.
+        tile_noise = tile_noise and b > 1
         lat_shape = (1 if tile_noise else b, r // 8, r // 8, 4)
         eps_enc, noise_init, step_noise = self._noise(seed, lat_shape, schedule.num_steps)
+        guidance, cn_scale = self._const(
+            "scalars", float(guidance_scale), float(controlnet_conditioning_scale))
 
-        mod = self.modules
-        control, vae_in = stages.prepare(
-            mod, inputs, canny_low_threshold, canny_high_threshold, self._control_res
+        with self._timed("prepare"):
+            control, vae_in = stages.prepare(
+                self.modules, inputs, canny_low_threshold, canny_high_threshold,
+                self._control_res,
+            )
+        inp = graphs.EditInputs(
+            vae_in, control, eps_enc, noise_init, tuple(step_noise), context, pooled,
+            self._const("time_ids", context.shape[0]), schedule, guidance, cn_scale, do_cfg,
         )
-        latents = stages.vae_sample(mod, vae_in, eps_enc)
-        latents = stages.denoise(
-            mod, latents, context, pooled, time_ids, control, schedule,
-            guidance_scale, controlnet_conditioning_scale, noise_init, step_noise, do_cfg,
-        )
-        return stages.vae_decode(mod, latents).cpu().numpy()
+        if self._graphs is not None and flags.use_cuda_graphs():
+            key = graphs.graph_key(b, do_cfg, schedule.num_steps, tile_noise, r)
+            self.last_latents, out = self._graphs.run(key, inp, self._timed)
+        else:
+            self.last_latents, out = graphs.run_eager(self.modules, inp, self._timed)
+        return out
 
     def edit(
         self,
@@ -303,11 +437,19 @@ class FastEditor:
             guidance_scale, controlnet_conditioning_scale, canny_low_threshold,
             canny_high_threshold, seed, tile_noise=False,
         )
-        return Image.fromarray(out[0])
+        return PendingEdit(out).result()[0]
 
-    def edit_batch(
+    def edit_batch(self, images, prompts: list, **kw) -> list:
+        """Edit a batch in one pass: a list of PIL images, a pre-resized
+        uint8 array [B, r, r, 3] or ``stage_inputs``'s tensor, with one
+        prompt each; keywords as :meth:`edit`'s.  With a fixed ``seed``
+        every image gets the same noise stream, as with same-seeded
+        per-image generators."""
+        return self.edit_batch_async(images, prompts, **kw).result()
+
+    def edit_batch_async(
         self,
-        images: list,
+        images,
         prompts: list,
         negative_prompt: str = "",
         strength: float = 0.80,
@@ -317,24 +459,28 @@ class FastEditor:
         canny_low_threshold: int = 100,
         canny_high_threshold: int = 200,
         seed: Optional[int] = None,
-    ) -> list:
-        """Edit a batch in one pass.  With a fixed ``seed`` every image gets
-        the same noise stream, as with same-seeded per-image generators."""
-        if len(images) != len(prompts) or not images:
+    ) -> PendingEdit:
+        """Like ``edit_batch``, but returns a :class:`PendingEdit` without
+        waiting for the images."""
+        if len(images) != len(prompts) or len(images) == 0:
             raise ValueError("edit_batch needs as many prompts as images (>= 1)")
-        out = self._run_edit(
+        return PendingEdit(self._run_edit(
             images, prompts, negative_prompt, strength, num_inference_steps,
             guidance_scale, controlnet_conditioning_scale, canny_low_threshold,
-            canny_high_threshold, seed, tile_noise=seed is not None and len(images) > 1,
-        )
-        return [Image.fromarray(o) for o in out]
+            canny_high_threshold, seed, tile_noise=seed is not None,
+        ))
 
     # ----------------------------------------------------------------- misc
 
     def clear_memory(self):
-        """Drop cached prompt embeddings and schedules (weights stay)."""
+        """Drop cached prompt embeddings, schedules, constants and the CUDA
+        graphs with their memory pool (weights stay)."""
         self._prompt_cache.clear()
         self._schedule_cache.clear()
+        self._const_cache.clear()
+        if self._graphs is not None:
+            self._graphs.clear()
+        self.last_latents = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -350,7 +496,8 @@ class FastEditor:
         }
 
     def warmup(self, **edit_kwargs):
-        """One dummy edit (builds the kernels on first use); returns seconds."""
+        """One dummy edit (builds the kernels on first use and, on the card,
+        captures the edit's graphs); returns seconds."""
         dummy = Image.new("RGB", (self.resolution, self.resolution), (128, 128, 128))
         t0 = time.time()
         edit_kwargs.setdefault("seed", 0)

@@ -2,11 +2,14 @@
 
 The edit path is Canny prepare -> VAE encode -> LCM denoise loop
 (ControlNet + UNet on a pair-interleaved CFG batch) -> VAE decode to
-uint8, as in the JAX package's ``pipeline/stages.py``.  PyTorch runs
-eagerly, so each stage is a plain function of its modules and inputs.
-Every stage that needs random numbers takes them as explicit tensors: the
-editor draws them from a ``torch.Generator``, and the parity tests pass the
-JAX package's own ``jax.random`` draws.
+uint8, as in the JAX package's ``pipeline/stages.py``.  Each stage is a
+plain function of its modules and tensors, with no host synchronisation in
+VAE encode, denoise and VAE decode, so ``pipeline/graphs.py`` can capture
+each of them as a CUDA graph.  The schedule and both scales are device
+tensors (:func:`edit_scalars`), so one graph serves every strength and
+scale.  Every stage that needs random numbers takes them as explicit
+tensors: the editor draws them from a ``torch.Generator``, and the parity
+tests pass the JAX package's own ``jax.random`` draws.
 
 Semantics mirrored from the JAX package:
   * context = concat(penultimate states of both towers), pooled = tower 2's
@@ -106,6 +109,15 @@ def vae_decode(mod: PipelineModules, latents: torch.Tensor) -> torch.Tensor:
     return torch.cat(out)
 
 
+def edit_scalars(mod: PipelineModules, guidance_scale: float, controlnet_scale: float,
+                 device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(guidance, ControlNet scale) as 0-dim tensors on ``device``: the
+    guidance rounded to the model dtype (the dtype of eps), as the JAX
+    package rounds it, the ControlNet scale in fp32."""
+    gs = torch.tensor(guidance_scale, dtype=torch.float32).to(mod.dtype)
+    return gs.to(device), torch.tensor(controlnet_scale, dtype=torch.float32).to(device)
+
+
 @torch.no_grad()
 def denoise(
     mod: PipelineModules,
@@ -114,9 +126,9 @@ def denoise(
     pooled: torch.Tensor,  # [B or 2B, P]
     time_ids: torch.Tensor,  # [B or 2B, 6]
     control_image: torch.Tensor,  # [B, H, W, 3] in [0, 1]
-    schedule: LCMSchedule,
-    guidance_scale: float,
-    controlnet_scale: float,
+    schedule: LCMSchedule,  # its table on the latents' device
+    guidance_scale: torch.Tensor,  # 0-dim, model dtype (edit_scalars)
+    controlnet_scale: torch.Tensor,  # 0-dim fp32
     noise_init: torch.Tensor,  # fp32, latents' shape (or batch 1)
     step_noise: Sequence[torch.Tensor],  # one fp32 draw per step
     do_cfg: bool,
@@ -143,9 +155,7 @@ def _denoise_body(mod, latents, context, pooled, time_ids, control_image, schedu
     lat = add_noise(schedule, latents.float(), noise_init).to(latents.dtype)
     for i in range(schedule.num_steps):
         lat_in = lat.repeat_interleave(2, dim=0) if do_cfg else lat
-        t_in = torch.full(
-            (lat_in.shape[0],), int(schedule.timesteps[i]), device=lat.device
-        )
+        t_in = schedule.value("timesteps", i).expand(lat_in.shape[0])
         down_res, mid_res = cn(
             lat_in, t_in, context, pooled, time_ids, cond_in, controlnet_scale,
             cond_pre_embedded=True,
@@ -158,9 +168,7 @@ def _denoise_body(mod, latents, context, pooled, time_ids, control_image, schedu
         if do_cfg:
             e = eps.reshape(b, 2, *eps.shape[1:])
             eps_u, eps_c = e[:, 0], e[:, 1]
-            # the scale is rounded to the eps dtype, as the JAX package does
-            gs = float(torch.tensor(guidance_scale).to(eps.dtype))
-            eps = eps_u + gs * (eps_c - eps_u)
+            eps = eps_u + guidance_scale * (eps_c - eps_u)
         lat = lcm_step(schedule, i, lat, eps, step_noise[i].expand_as(lat))
     return lat
 

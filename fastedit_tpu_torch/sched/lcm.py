@@ -1,8 +1,13 @@
 """LCM (Latent Consistency Model) scheduler — host tables + two tensor ops.
 
 Every per-step quantity is precomputed on the host into small fp32 numpy
-tables (:class:`LCMSchedule`); the denoise loop reads row ``i`` as Python
-floats.  Semantics, as in the JAX package:
+tables (:class:`LCMSchedule`), and copied once into one fp32 tensor
+(``LCMSchedule.table``) on the device the denoise loop runs on, which reads
+step ``i``'s values from it as 0-dim tensors: the JAX package traces the
+schedule as arrays, so one program serves every strength with the same
+number of run steps, and so does one CUDA graph (``pipeline/graphs.py``).
+Only ``is_last`` stays on the host; it depends on the number of run steps
+alone.  Semantics, as in the JAX package:
 
   * scaled-linear beta schedule, 1000 train steps (SDXL scheduler config);
   * LCM timesteps from ``original_inference_steps`` (= 50) evenly spaced
@@ -96,10 +101,17 @@ def truncate_timesteps_for_img2img(
     return timesteps[t_start:], t_start
 
 
-@dataclasses.dataclass(frozen=True)
+# The rows of ``LCMSchedule.table``, in order.
+ROWS = ("timesteps", "sqrt_alpha", "sqrt_one_minus_alpha", "sqrt_alpha_prev",
+        "sqrt_one_minus_alpha_prev", "c_skip", "c_out")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class LCMSchedule:
     """Per-step tables for one denoising run; every array has leading dim
-    ``num_steps`` (the steps actually run after strength truncation)."""
+    ``num_steps`` (the steps actually run after strength truncation).
+    ``table`` [7, num_steps] fp32 holds :data:`ROWS` (the timesteps exactly,
+    as small integers) on one device."""
 
     timesteps: np.ndarray  # [S] int32, descending
     sqrt_alpha: np.ndarray  # [S] fp32 sqrt(alphas_cumprod[t])
@@ -110,6 +122,15 @@ class LCMSchedule:
     c_out: np.ndarray  # [S] fp32
     is_last: np.ndarray  # [S] bool — final step returns `denoised`
     num_steps: int
+    table: torch.Tensor  # [7, S] fp32, ROWS
+
+    def to(self, device) -> "LCMSchedule":
+        """This schedule with its table on ``device``."""
+        return dataclasses.replace(self, table=self.table.to(device))
+
+    def value(self, name: str, i: int) -> torch.Tensor:
+        """Row ``name`` at step ``i``: a 0-dim fp32 view of the table."""
+        return self.table[ROWS.index(name), i]
 
 
 def make_schedule(
@@ -154,7 +175,7 @@ def make_schedule(
         raise ValueError("truncation must preserve the tail of the sequence")
 
     f32 = lambda x: np.asarray(x, dtype=np.float32)  # noqa: E731
-    return LCMSchedule(
+    tables = dict(
         timesteps=run.astype(np.int32),
         sqrt_alpha=f32(np.sqrt(alpha_t)),
         sqrt_one_minus_alpha=f32(np.sqrt(1.0 - alpha_t)),
@@ -162,16 +183,16 @@ def make_schedule(
         sqrt_one_minus_alpha_prev=f32(np.sqrt(1.0 - alpha_prev)),
         c_skip=f32(c_skip),
         c_out=f32(c_out),
-        is_last=is_last,
-        num_steps=S,
     )
+    table = torch.from_numpy(np.stack([tables[r].astype(np.float32) for r in ROWS]))
+    return LCMSchedule(**tables, is_last=is_last, num_steps=S, table=table)
 
 
 def add_noise(schedule: LCMSchedule, x0: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     """sqrt(acp[t0]) * x0 + sqrt(1 - acp[t0]) * noise, in x0's dtype (the
     stages pass fp32)."""
-    a = float(schedule.sqrt_alpha[0])
-    b = float(schedule.sqrt_one_minus_alpha[0])
+    a = schedule.value("sqrt_alpha", 0)
+    b = schedule.value("sqrt_one_minus_alpha", 0)
     return a * x0 + b * noise.to(x0.dtype)
 
 
@@ -187,12 +208,10 @@ def lcm_step(
     the last step."""
     s = sample.float()
     e = eps.float()
-    pred_x0 = (s - float(schedule.sqrt_one_minus_alpha[i]) * e) / float(schedule.sqrt_alpha[i])
-    denoised = float(schedule.c_out[i]) * pred_x0 + float(schedule.c_skip[i]) * s
+    v = lambda name: schedule.value(name, i)  # noqa: E731
+    pred_x0 = (s - v("sqrt_one_minus_alpha") * e) / v("sqrt_alpha")
+    denoised = v("c_out") * pred_x0 + v("c_skip") * s
     if schedule.is_last[i]:
         return denoised.to(sample.dtype)
-    stepped = (
-        float(schedule.sqrt_alpha_prev[i]) * denoised
-        + float(schedule.sqrt_one_minus_alpha_prev[i]) * noise.float()
-    )
+    stepped = v("sqrt_alpha_prev") * denoised + v("sqrt_one_minus_alpha_prev") * noise.float()
     return stepped.to(sample.dtype)

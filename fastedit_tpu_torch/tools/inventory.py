@@ -255,3 +255,21 @@ def launches_by_kernel(calls: Counter) -> dict:
     for (kernel, _), c in calls.items():
         out[kernel] += c
     return out
+
+
+def launch_counts() -> dict:
+    """Kernel -> the launches its wrapper has counted since the last reset
+    (a graph's replay counts none: only eager calls and captures do)."""
+    return {"conv3x3": conv3x3.launches, **conv_fused.launches,
+            "group_norm": fused_groupnorm.launches,
+            "group_norm_scale_shift": fused_groupnorm.scale_shift_launches,
+            **{f"flash_attention_d{d}": n for d, n in fa.launches.items()}}
+
+
+def reset_launch_counts() -> None:
+    conv3x3.launches = 0
+    fused_groupnorm.launches = 0
+    fused_groupnorm.scale_shift_launches = 0
+    for counts in (conv_fused.launches, fa.launches):
+        for k in counts:
+            counts[k] = 0

@@ -4,13 +4,17 @@
         [--flags NAME=VALUE[,NAME=VALUE...]]... [--json PATH]
 
 Builds ``FastEditor(model, random_weights=True)`` on the card, runs one
-warm-up edit per arm, times ``--edits`` edits per arm on the host clock (and
-each stage with CUDA events), then runs as many again per arm, each under a
-profiler of its own (CUDA activity only).  An arm is a kernel configuration:
-each ``--flags`` gives one, as ``ops/flags.py`` field names with values 1, 0
-or none (``--flags use_cuda_groupnorm=0 --flags use_cuda_groupnorm=1`` is
-the GroupNorm kernel off against on); without ``--flags`` the one arm is the
-default configuration.  The arms take turns, edit by edit, in one process.
+warm-up edit per arm (which captures the arm's CUDA graphs), times
+``--edits`` edits per arm on the host clock (and each stage with the
+editor's CUDA events, ``FastEditor.stage_ms``), then runs as many again per
+arm, each under a profiler of its own (CUDA activity only), which sees the
+kernels a graph replays as it sees eager ones.  An arm is a kernel
+configuration: each ``--flags`` gives one, as ``ops/flags.py`` field names
+with values 1, 0 or none (``--flags use_cuda_groupnorm=0 --flags
+use_cuda_groupnorm=1`` is the GroupNorm kernel off against on; ``--flags
+cuda_graphs=0`` is the eager arm, the graphs' launches made one by one from
+the host); without ``--flags`` the one arm is the default configuration,
+graphs on.  The arms take turns, edit by edit, in one process.
 Per arm it prints seconds per edit and device ms per edit (median, min and
 max over the edits), kernel launches per edit, device ms per stage, the
 device's busy share (median profiled kernel time over median unprofiled wall
@@ -29,7 +33,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
 from collections import defaultdict
 
@@ -52,51 +55,6 @@ CATEGORIES = (  # first match wins
     ("copy / layout", ("copy", "memcpy", "memset", "cat", "index", "gather", "scatter")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
-
-
-class StageTimer:
-    """Wraps the pipeline's stage functions with CUDA events, so each
-    edit's device time per stage can be read after it returns."""
-
-    STAGES = ("encode_prompt", "prepare", "vae_sample", "denoise", "vae_decode")
-
-    def __init__(self):
-        from fastedit_tpu_torch.pipeline import stages
-
-        self.stages = stages
-        self.events = []
-        self.last_latents = None
-        self._orig = {name: getattr(stages, name) for name in self.STAGES}
-        for name, fn in self._orig.items():
-            setattr(stages, name, self._wrap(name, fn))
-
-    def _wrap(self, name, fn):
-        def timed(*args, **kwargs):
-            if name == "vae_decode":
-                self.last_latents = args[1].float().clone()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            self.events.append((name, start, end))
-            return out
-
-        return timed
-
-    def take(self) -> dict:
-        """Device ms per stage since the last call (the edit has returned,
-        so its events have completed)."""
-        ms = {}
-        for name, start, end in self.events:
-            end.synchronize()
-            ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
-        self.events = []
-        return ms
-
-    def remove(self):
-        for name, fn in self._orig.items():
-            setattr(self.stages, name, fn)
 
 
 def category(kernel_name: str) -> str:
@@ -138,6 +96,7 @@ def profile(model: str, edits: int, arms=None) -> dict:
 
     from fastedit_tpu_torch import FastEditor
     from fastedit_tpu_torch.ops import flags
+    from fastedit_tpu_torch.tools.timing import card_line
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_edit measures the card: no CUDA device")
@@ -147,11 +106,10 @@ def profile(model: str, edits: int, arms=None) -> dict:
     rng = np.random.default_rng(0)
     image = Image.fromarray(rng.integers(0, 256, (r, r, 3), dtype=np.uint8), "RGB")
     kw = dict(strength=0.8, num_inference_steps=4, guidance_scale=1.5)
-    for override in arms.values():  # warm-up: kernels built, prompts cached
+    for override in arms.values():  # warm-up: kernels built, graphs captured, prompts cached
         with flags.override(**override):
             editor.edit(image, "a prompt", seed=0, **kw)
     torch.cuda.synchronize()
-    timer = StageTimer()
     wall = {name: [] for name in arms}  # wall time without the profiler's overhead
     stage_ms = {name: defaultdict(float) for name in arms}
     for i in range(edits):
@@ -160,9 +118,8 @@ def profile(model: str, edits: int, arms=None) -> dict:
                 t0 = time.perf_counter()
                 editor.edit(image, "a prompt", seed=i, **kw)
                 wall[name].append(time.perf_counter() - t0)
-            for stage, ms in timer.take().items():
+            for stage, ms in editor.stage_ms().items():
                 stage_ms[name][stage] += ms / edits
-    timer.remove()
 
     device = {name: [] for name in arms}
     launches = {name: [] for name in arms}
@@ -182,10 +139,7 @@ def profile(model: str, edits: int, arms=None) -> dict:
                     n += evt.count
             device[name].append(ms)
             launches[name].append(n)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_line()
     results = {}
     for name in arms:
         by_cat = defaultdict(float)

@@ -1,12 +1,24 @@
 """Timing a callable on the card with CUDA events: eagerly, and from a CUDA
-graph, which leaves the host out; and the host's own cost per call.  Shared
-by ``chip_smoke.py`` and the bench scripts of this directory."""
+graph, which leaves the host out; the host's own cost per call; and the
+card's name and power limit, which every number is kept beside.  Shared by
+``chip_smoke.py``, ``bench.py`` and the scripts of this directory."""
 
 from __future__ import annotations
 
 REPS = 10
 GRAPH_CALLS = 20
 WARM_SECONDS = 0.02
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them."""
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def _warm(fn) -> None:

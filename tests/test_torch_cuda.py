@@ -18,7 +18,10 @@ bias and skip, the upsample conv's five main-path shapes, both down2 paddings,
 Cin 96, all four stride-2 channel tiles and odd-sized inputs; for the GroupNorm kernel and its
 statistics launch alone, a large mean offset, 2560 channels (one pixel per block row), schedules
 for other SM counts (one chunk through the whole ring, more chunks than a warp merges at once),
-the same bits twice and under a CUDA graph's replays.  Tolerances are those of ``chip_smoke.py`` (both sides
+the same bits twice and under a CUDA graph's replays; the upsample conv on weights folded once.  The
+tiny editor's CUDA graphs (``pipeline/graphs.py``) are held against its eager arm bit for bit: at
+batch 1 and 2 with and without CFG, replays on new inputs, two keys on one pool in turns, an
+asynchronous result past the next replay, and no replay under ``plain_versions``.  Tolerances are those of ``chip_smoke.py`` (both sides
 accumulate in fp32 and round once to bf16; the attention's absolute term
 scales with the output's RMS).
 """
@@ -510,3 +513,126 @@ def test_wrappers_raise_outside_their_contract(gen):
     with pytest.raises(ValueError):  # channels not divisible by the groups
         fg.fused_group_norm(xb, torch.ones(64, device="cuda"), torch.zeros(64, device="cuda"), 48)
     assert (k.launches, fa.launches) == before
+
+
+def test_conv3x3_up2_takes_weights_folded_once(gen):
+    """``fold_up2`` once, then calls that pass its phases: the bits of a call
+    that folds them itself, and the phases equal ``make_phase_kernels``."""
+    x = torch.randn((2, 16, 16, 128), generator=gen, device="cuda").bfloat16()
+    wt = (torch.randn((128, 128, 3, 3), generator=gen, device="cuda") / 34.0).bfloat16()
+    wt = wt.contiguous(memory_format=torch.channels_last)
+    bias = torch.randn(128, generator=gen, device="cuda")
+    phases = cf.fold_up2(wt)
+    ref = cf.make_phase_kernels(wt).permute(4, 0, 1, 2, 3, 5)
+    before = cf.launches["conv3x3_up2"]
+    a = cf.conv3x3_up2(x, wt, bias, phases=phases)
+    b = cf.conv3x3_up2(x, wt, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(phases, ref) and torch.equal(a, b)
+    assert cf.launches["conv3x3_up2"] == before + 2
+    with pytest.raises(ValueError):
+        cf.conv3x3_up2(x, wt, bias, phases=phases[:64])
+
+
+# ------------------------------------------------------ the editor's graphs
+
+
+@pytest.fixture(scope="module")
+def tiny_cuda():
+    """The tiny editor on the card (bf16), its graphs and its eager arm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run with -m cuda on a machine with one")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from fastedit_tpu_torch import FastEditor
+
+    return FastEditor("tiny")
+
+
+def _scene(seed, n=64):
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    img = rng.integers(60, 200, (n, n, 3)).astype(np.int32)
+    img[10:40, 12:30] += 50
+    return Image.fromarray(np.clip(img, 0, 255).astype(np.uint8), "RGB")
+
+
+def _edit(editor, images, prompts, graphs=True, **kw):
+    """(uint8 images, final latents) of one ``edit_batch``."""
+    import numpy as np
+
+    from fastedit_tpu_torch.ops import flags
+
+    with flags.override(cuda_graphs=graphs):
+        outs = editor.edit_batch(images, prompts, **kw)
+    return np.stack([np.asarray(o) for o in outs]), editor.last_latents.clone()
+
+
+def _assert_same(a, b):
+    import numpy as np
+
+    assert np.array_equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("batch,guidance", [(1, 1.5), (1, 1.0), (2, 1.5), (2, 1.0)])
+def test_editor_graphs_match_the_eager_arm(tiny_cuda, batch, guidance):
+    images = [_scene(s) for s in range(batch)]
+    prompts = [f"prompt {s}" for s in range(batch)]
+    kw = dict(seed=5, guidance_scale=guidance)
+    graph = _edit(tiny_cuda, images, prompts, **kw)  # the key's first call: warm-up, capture
+    again = _edit(tiny_cuda, images, prompts, **kw)  # a replay
+    eager = _edit(tiny_cuda, images, prompts, graphs=False, **kw)
+    _assert_same(graph, eager)
+    _assert_same(again, eager)
+    assert graph[1].abs().sum() > 0
+
+
+def test_editor_replay_on_new_inputs_equals_a_fresh_eager_edit(tiny_cuda):
+    """Another image, prompt, seed, schedule (5 steps at 0.6: three run, from
+    t = 599) and scales, on the key of 4 steps at 0.8."""
+    _edit(tiny_cuda, [_scene(0)], ["a"], seed=1)
+    keys = len(tiny_cuda._graphs.captured)
+    kw = dict(seed=9, strength=0.6, num_inference_steps=5, guidance_scale=2.5,
+              controlnet_conditioning_scale=0.8)
+    graph = _edit(tiny_cuda, [_scene(7)], ["a new prompt"], **kw)
+    assert len(tiny_cuda._graphs.captured) == keys
+    _assert_same(graph, _edit(tiny_cuda, [_scene(7)], ["a new prompt"], graphs=False, **kw))
+
+
+def test_editor_keys_sharing_one_pool_replay_after_each_other(tiny_cuda):
+    a_kw, b_kw = dict(seed=3), dict(seed=4, guidance_scale=1.0)
+    runs = []
+    for kw, seed in ((a_kw, 10), (b_kw, 11), (a_kw, 12), (b_kw, 13)):
+        kw = {**kw, "seed": seed}
+        runs.append((_edit(tiny_cuda, [_scene(seed)], ["p"], **kw),
+                     _edit(tiny_cuda, [_scene(seed)], ["p"], graphs=False, **kw)))
+    for graph, eager in runs:
+        _assert_same(graph, eager)
+    assert len(tiny_cuda._graphs.captured) >= 2 and tiny_cuda._graphs.pool is not None
+
+
+def test_edit_batch_async_survives_the_next_replay(tiny_cuda):
+    first = tiny_cuda.edit_batch_async([_scene(20)], ["x"], seed=20)
+    second = tiny_cuda.edit_batch_async([_scene(21)], ["y"], seed=21)
+    a, b = first.result(), second.local_result()
+    eager = _edit(tiny_cuda, [_scene(20)], ["x"], graphs=False, seed=20)
+    import numpy as np
+
+    assert np.array_equal(np.asarray(a[0]), eager[0][0]) and b[0][0] == 0
+    assert not np.array_equal(np.asarray(a[0]), np.asarray(b[0][1]))
+
+
+def test_plain_versions_never_replay_a_graph(tiny_cuda, monkeypatch):
+    from fastedit_tpu_torch.ops import flags
+    from fastedit_tpu_torch.pipeline import graphs
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a graph was replayed under plain_versions")
+
+    monkeypatch.setattr(graphs.EditGraphs, "run", refuse)
+    with flags.override(plain_versions=True):
+        tiny_cuda.edit(_scene(30), "plain", seed=30)
+    with pytest.raises(AssertionError):
+        tiny_cuda.edit(_scene(30), "graphs", seed=30)

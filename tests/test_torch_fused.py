@@ -140,6 +140,23 @@ def test_stage_scopes_and_restores_the_flags():
             pass
 
 
+def test_cuda_graphs_flag_is_on_unless_turned_off_or_plain():
+    """``cuda_graphs``, the counterpart of ``jax.disable_jit`` (off = eager):
+    on by default, off when set so or under ``plain_versions``, which no
+    stage context changes."""
+    assert tflags.FLAGS.cuda_graphs and tflags.use_cuda_graphs()
+    for stage in tflags.STAGES:
+        with tflags.stage(stage):
+            assert tflags.use_cuda_graphs()
+    with tflags.override(cuda_graphs=False):
+        assert not tflags.use_cuda_graphs()
+        with tflags.stage("denoise"):
+            assert not tflags.use_cuda_graphs()
+    with tflags.override(plain_versions=True):
+        assert not tflags.use_cuda_graphs()
+    assert tflags.FLAGS == tflags.KernelFlags()
+
+
 # ------------------------------------------------------------- conv ops
 
 

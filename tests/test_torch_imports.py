@@ -47,6 +47,9 @@ def test_importing_the_port_loads_no_jax():
     ).stdout
     loaded = json.loads(out.strip().splitlines()[-1])
     assert "fastedit_tpu_torch.pipeline.editor" in loaded and "chip_smoke" in loaded
+    for new in ("fastedit_tpu_torch.bench", "fastedit_tpu_torch.pipeline.graphs",
+                "fastedit_tpu_torch.utils.flops"):
+        assert new in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 

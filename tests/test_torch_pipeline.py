@@ -153,3 +153,48 @@ def test_editor_constructor_rules():
     assert FastEditor.MODEL_CONFIGS.keys() == {"sdxl", "ssd-1b", "tiny"}
     assert repr(FastEditor.MODEL_CONFIGS["ssd-1b"]["unet_config"]) == repr(JC.SSD1B_UNET)
     assert ed.get_memory_usage()["allocated_gb"] == 0.0
+
+
+def test_batch_entry_points_give_the_same_images(editors):
+    """One seed through ``edit_batch`` on PIL images, on a pre-resized uint8
+    array, on ``stage_inputs``'s tensor, and through ``edit_batch_async``'s
+    ``result()`` and ``local_result()``: the same uint8 images."""
+    _, ted = editors
+    imgs, prompts = [_img(1), _img(2)], ["a cat", "a small dog"]
+    arr = np.stack([np.asarray(im) for im in imgs])
+    kw = dict(seed=3, negative_prompt="blurry")
+    ref = np.stack([np.asarray(o) for o in ted.edit_batch(imgs, prompts, **kw)])
+    staged = ted.stage_inputs(arr)
+    assert staged.dtype == torch.uint8 and tuple(staged.shape) == arr.shape
+    pending = ted.edit_batch_async(staged, prompts, **kw)
+    rows = ted.edit_batch_async(arr, prompts, **kw).local_result()
+    for out in (ted.edit_batch(arr, prompts, **kw), ted.edit_batch(staged, prompts, **kw),
+                pending.result()):
+        np.testing.assert_array_equal(np.stack([np.asarray(o) for o in out]), ref)
+    assert [r for r, _ in rows] == [0, 1]
+    np.testing.assert_array_equal(np.stack([np.asarray(o) for _, o in rows]), ref)
+
+
+def test_batch_entry_points_reject_what_the_jax_editor_rejects(editors):
+    """Wrong shapes and dtypes raise ValueError in both editors, before any
+    work; unequal image and prompt counts raise in both."""
+    jed, ted = editors
+    good = np.zeros((2, 64, 64, 3), np.uint8)
+    bad = {
+        "float array": good.astype(np.float32),
+        "other size": np.zeros((2, 32, 32, 3), np.uint8),
+        "no channels": np.zeros((2, 64, 64), np.uint8),
+    }
+    for what, arr in bad.items():
+        for ed in (jed, ted):
+            with pytest.raises(ValueError):
+                ed.edit_batch(arr, ["a", "b"], seed=0)
+    for ed in (jed, ted):
+        with pytest.raises(ValueError):
+            ed.stage_inputs(np.zeros((2, 32, 32, 3), np.uint8))
+        with pytest.raises((ValueError, AssertionError)):
+            ed.edit_batch(good, ["a"], seed=0)
+    with pytest.raises(ValueError):  # a staged batch of another dtype
+        ted.edit_batch(torch.zeros((2, 64, 64, 3), dtype=torch.float32), ["a", "b"])
+    with pytest.raises(ValueError):
+        jed.edit_batch(jax.numpy.zeros((2, 64, 64, 3), jax.numpy.float32), ["a", "b"])
