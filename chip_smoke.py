@@ -38,7 +38,10 @@ order; a failed phase raises and the script exits non-zero:
    editor's CUDA events around prepare and each graph replay), peak memory,
    and each kernel's launches: a replay makes no Python call, so the
    wrappers count the two keys' first calls, each an eager warm-up and a
-   capture, which must come to twice the inventory's counts per key.
+   capture, which must come to twice the inventory's counts per key; and
+   the device kernels of one replayed edit and one replayed batch of two,
+   by name (``torch.profiler``), which must come to the inventory's counts
+   (the phase-weight fold: none, it runs once per weight).
 4. Kernels against plain versions end to end, with seeded fan-in-scaled
    weights, in two arms: the default configuration, and the opt-in one
    (``use_cuda_conv=True``: the encoder on the conv, fused resnet and
@@ -483,20 +486,29 @@ def compare_down2(calls: dict, gen) -> list[dict]:
 def device_kernels(fn, calls: int = 3, tries: int = 3) -> list[str]:
     """The names of the device kernels one call of ``fn`` runs, by
     ``torch.profiler`` (CUDA activity) over ``calls`` calls, which must run
-    the same number each.  A profile that lost records (a short one now and
-    then comes back empty, or without its first kernel) is taken again, up
-    to ``tries`` in all."""
+    the same number each.  A trace now and then loses its first kernels, so
+    three marker kernels (``torch.cuda._sleep``) run first and only the
+    kernels after the last marker are read; a profile that still lost
+    records (it comes back empty, or with a count that is no multiple of
+    ``calls``) is taken again, up to ``tries`` in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        marks = [i for i, name in enumerate(names) if "spin_kernel" in name]
+        names = names[marks[-1] + 1:] if marks else []
         if names and len(names) % calls == 0:
             break
     if len(names) % calls:
@@ -705,6 +717,30 @@ def check_launches(what: str, launches: dict, expected: dict) -> None:
                                  f"expected {n}")
 
 
+# A launch of each wrapper runs these device kernels (a part of their
+# demangled names): GroupNorm's two-launch route gn_stats_kernel<false> and
+# gn_apply_kernel, its resident route gn_stats_kernel<true> alone, the
+# statistics entry gn_stats_kernel<false> alone.
+WRAPPER_KERNELS = {
+    "conv3x3": "conv3x3_kernel", "conv3x3_fused": "conv3x3_fused_kernel",
+    "conv3x3_up2": "conv3x3_up2_kernel", "conv3x3_down2": "conv3x3_down2_kernel",
+    "flash_attention_d64": "flash_d64_kernel", "flash_attention_d512": "flash_d512_kernel",
+    "up2_phase_weights": "up2_phase_weights_kernel",
+}
+
+
+def wrapper_launches(names: list) -> dict:
+    """Wrapper -> its launches among the device kernels ``names``."""
+    def count(part):
+        return sum(part in name for name in names)
+
+    out = {wrapper: count(part) for wrapper, part in WRAPPER_KERNELS.items()}
+    apply = count("gn_apply_kernel")
+    out["group_norm"] = apply + count("gn_stats_kernel<true>")
+    out["group_norm_scale_shift"] = count("gn_stats_kernel<false>") - apply
+    return out
+
+
 def check_image(img) -> None:
     import numpy as np
 
@@ -761,10 +797,22 @@ def main_path(calls: dict):
                    launches, expected)
     pools = {str(k[:5]): c.pool_bytes / 1024**3 for k, c in keys.items()}
     log(f"peak device memory {peak_gib:.3f} GiB; graph pool GiB by key {pools}")
+    replays = {}
+    for what, edit, expected in (
+            ("edit", lambda: editor.edit(images[0], "a watercolor painting of a harbor",
+                                         seed=5, **EDIT_KW), per_edit),
+            ("edit_batch of 2", lambda: editor.edit_batch(
+                images, ["a snowy street", "a city at night"], seed=6, **EDIT_KW), per_batch2)):
+        # two replays per profile: a profile that lost a record is taken again
+        replays[what] = wrapper_launches(device_kernels(edit, calls=2))
+        check_launches(f"one replayed {what}, device kernels by the profiler",
+                       replays[what], {**expected, "up2_phase_weights": 0})
+    if len(keys) != 2:
+        raise AssertionError(f"the profiled replays captured another key: {list(keys)}")
     return editor, dict(
         editor_build_s=build_s, warmup_s=warm_s, edits=edits, edit_batch2=batch,
         edit_batch2_replay=batch_replay, launches=launches, launches_per_edit=per_edit,
-        peak_gib=peak_gib, graph_pool_gib=pools,
+        replay_launches=replays, peak_gib=peak_gib, graph_pool_gib=pools,
     )
 
 
@@ -995,9 +1043,11 @@ def kernel_summary(rows: list, main: dict) -> list:
     device's own times, from CUDA graphs; ``eager_ms`` and
     ``library_eager_ms`` are the same from back-to-back eager calls, which
     read the host where a call is short; ``plain_ms`` is eager (the plain
-    versions take milliseconds).  Launches are those of the main path's run
-    (3 edits and a batch of 2).  ``library_ms`` is null where no one PyTorch
-    call computes the same function."""
+    versions take milliseconds).  ``launches`` are the wrapper's counts over
+    the main path's run, which on graphs are its two keys' first calls (an
+    eager warm-up and a capture each); ``replay_launches`` are the device
+    kernels of one replayed edit, by the profiler.  ``library_ms`` is null
+    where no one PyTorch call computes the same function."""
     out = []
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
@@ -1012,7 +1062,8 @@ def kernel_summary(rows: list, main: dict) -> list:
         launches = main["launches"][name]
         out.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches, max_abs_err=max(r["max_abs_err"] for r in mine),
+            launches=launches, replay_launches=main["replay_launches"]["edit"][name],
+            max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=per_edit("ms"), plain_ms=per_edit("plain_ms"), bound_ms=per_edit("bound_ms"),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
             library_ms=None if mine[0]["library_ms"] is None else per_edit("library_ms"),

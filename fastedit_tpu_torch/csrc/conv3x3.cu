@@ -745,18 +745,13 @@ extern "C" int up2_phase_weights_bf16(const void* w, void* wp, int Cin, int Cout
 }
 
 // x [B, H, W, Cin] -> out [B, 2H, 2W, Cout] through the phase weights wp
-// [Cout, 2, 2, 2, 2, Cin]: with w [Cout, 3, 3, Cin], wp receives them first
-// (a launch of up2_phase_weights_bf16); with w null, wp holds them already.
-// bn and grid from the plan (ops/conv3x3.py `plan_up2`).
-extern "C" int conv3x3_up2_bf16(const void* x, const void* w, void* wp, const void* bias,
-                                void* out, int B, int H, int W, int Cin, int Cout, int silu,
-                                int bn, int grid, void* stream) {
+// [Cout, 2, 2, 2, 2, Cin] that up2_phase_weights_bf16 folded; bn and grid
+// from the plan (ops/conv3x3.py `plan_up2`).
+extern "C" int conv3x3_up2_bf16(const void* x, const void* wp, const void* bias, void* out,
+                                int B, int H, int W, int Cin, int Cout, int silu, int bn,
+                                int grid, void* stream) {
   if (bn != 128 && bn != 160) return static_cast<int>(cudaErrorInvalidValue);
   if (Cin % 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (w != nullptr) {
-    const int err = up2_phase_weights_bf16(w, wp, Cin, Cout, stream);
-    if (err != 0) return err;
-  }
   TileArgs a{};
   a.bias = static_cast<const float*>(bias);
   a.out = static_cast<__nv_bfloat16*>(out);

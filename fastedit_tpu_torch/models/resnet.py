@@ -63,6 +63,13 @@ class Conv3x3(nn.Conv2d):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(in_channels, out_channels, 3, padding=1)
 
+    def _up2(self, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        """The upsample conv kernel, on phase weights folded once per weight
+        version."""
+        phases = (_prepared(self, "up2_phases", lambda: conv_fused.fold_up2(w))
+                  if x.is_cuda else None)
+        return conv_fused.conv3x3_up2(x, w, bias=bias, phases=phases)
+
     def forward(
         self,
         x: torch.Tensor,
@@ -80,11 +87,8 @@ class Conv3x3(nn.Conv2d):
         if up2:
             assert prenorm is None and extra_bias is None and skip is None
             if flags.use_fused_up2() and conv_fused.supports_up2(*shapes):
-                if flags.FLAGS.plain_versions:
-                    return conv_fused.conv3x3_up2_plain(x, w, bias=bias)
-                phases = (_prepared(self, "up2_phases", lambda: conv_fused.fold_up2(w))
-                          if x.is_cuda else None)
-                return conv_fused.conv3x3_up2(x, w, bias=bias, phases=phases)
+                fn = flags.kernel_or_plain(self._up2, conv_fused.conv3x3_up2_plain)
+                return fn(x, w, bias=bias)
             x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
             return conv3x3_same(x, w, bias=bias)
 

@@ -36,7 +36,7 @@ KERNELS = {
         "conv3x3_bf16": [_P] * 4 + [_I] * 8 + [_P],
         "conv3x3_fused_bf16": [_P] * 7 + [_I] * 9 + [_P],
         "conv3x3_up2_smem_bytes": [_I],  # returns bytes
-        "conv3x3_up2_bf16": [_P] * 5 + [_I] * 8 + [_P],
+        "conv3x3_up2_bf16": [_P] * 4 + [_I] * 8 + [_P],
         "up2_phase_weights_bf16": [_P] * 2 + [_I] * 2 + [_P],
         "conv3x3_down2_smem_bytes": [_I],  # returns bytes
         "conv3x3_down2_bf16": [_P] * 4 + [_I] * 9 + [_P],

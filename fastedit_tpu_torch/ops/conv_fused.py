@@ -18,7 +18,8 @@ replace the three TPU kernels of ``fastedit_tpu/ops/conv_fused.py``:
   :func:`conv3x3_up2_tiled_plain` walks that schedule in plain PyTorch, for
   the tests); the phase weights (:func:`make_phase_kernels`) are folded by
   a launch of their own (:func:`fold_up2`), which the upsampler modules make
-  once per weight and pass in (``models/resnet.py``), or the call makes.
+  once per weight and pass in (``models/resnet.py``); a call given none
+  folds them first.
 * ``conv3x3_down2`` (``_down2_call``): stride-2 3x3 conv with padding (1, 1)
   (UNet/ControlNet downsamplers) or (0, 1) (the VAE encoder's), on the
   stride-1 kernel's core: per parity plane of the input a tap is a rectangle
@@ -347,7 +348,7 @@ def conv3x3_up2(
     """Nearest-2x upsample then 3x3 SAME conv in one kernel: x [B, H, W,
     Cin], weight [Cout, Cin, 3, 3] -> [B, 2H, 2W, Cout].  ``phases``:
     ``fold_up2(weight)``, folded earlier; without it the call folds them
-    (one more launch)."""
+    (one more launch of :func:`fold_up2`)."""
     if x.device.type == "cpu":
         return conv3x3_up2_plain(x, weight, bias, act)
     if act not in (None, "silu"):
@@ -360,9 +361,8 @@ def conv3x3_up2(
     cout = weight.shape[0]
     bias = _f32(bias, (cout,), "conv3x3_up2: bias", x.device)
     pl = plan_up2_for(x, cout)
-    fold = phases is None
-    if fold:
-        phases = torch.empty((cout, 2, 2, 2, 2, cin), dtype=x.dtype, device=x.device)
+    if phases is None:
+        phases = fold_up2(weight)
     elif (tuple(phases.shape) != (cout, 2, 2, 2, 2, cin) or phases.dtype != x.dtype
           or phases.device != x.device or not phases.is_contiguous()):
         raise ValueError(f"conv3x3_up2: phases must be fold_up2's contiguous "
@@ -370,8 +370,8 @@ def conv3x3_up2(
     out = torch.empty((b, 2 * h, 2 * w, cout), dtype=x.dtype, device=x.device)
     return _launch(
         "conv3x3_up2_bf16", "conv3x3_up2", out,
-        x.data_ptr(), weight.data_ptr() if fold else None, phases.data_ptr(), _ptr(bias),
-        out.data_ptr(), b, h, w, cin, cout, int(act == "silu"), pl.bn, pl.grid,
+        x.data_ptr(), phases.data_ptr(), _ptr(bias), out.data_ptr(),
+        b, h, w, cin, cout, int(act == "silu"), pl.bn, pl.grid,
     )
 
 

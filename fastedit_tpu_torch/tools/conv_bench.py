@@ -82,7 +82,8 @@ def main() -> int:
             fn = lambda: cf.conv3x3_fused(x, wt, pb, pre, skip=skip)  # noqa: E731
         elif kernel == "conv3x3_up2":
             flops = 32.0 * n * h * w * cin * cout
-            fn = lambda: cf.conv3x3_up2(x, wt, bias)  # noqa: E731
+            folded = cf.fold_up2(wt)  # once, as the upsampler modules fold them
+            fn = lambda: cf.conv3x3_up2(x, wt, bias, phases=folded)  # noqa: E731
         else:
             flops /= 4
             fn = lambda: cf.conv3x3_down2(x, wt, bias, asymmetric=key[5])  # noqa: E731

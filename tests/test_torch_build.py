@@ -76,7 +76,7 @@ def test_the_changed_c_functions_take_the_plans_ints():
     ints in all), the attention call its q tile, KV tile and grid; the
     shared-memory mirrors take one int."""
     conv, attn = build.KERNELS["conv3x3"], build.KERNELS["flash_attention"]
-    assert len(conv["conv3x3_up2_bf16"]) == 5 + 8 + 1  # x, w, folded w, bias, out; ints; stream
+    assert len(conv["conv3x3_up2_bf16"]) == 4 + 8 + 1  # x, folded w, bias, out; ints; stream
     assert conv["conv3x3_up2_bf16"].count(build._I) == 8
     assert conv["conv3x3_up2_smem_bytes"] == [build._I]
     assert len(attn["flash_attention_bf16"]) == 4 + 5 + 6 + 1 + 3 + 1
