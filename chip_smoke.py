@@ -59,8 +59,28 @@ order; a failed phase raises and the script exits non-zero:
    an ``edit_batch`` of two; a second replay of a key on new inputs (image,
    prompt, seed, another schedule of three steps, other scales) against a
    fresh eager edit of them; a flags override, which must capture a new key.
-   Then ``python -m fastedit_tpu_torch.bench --reps 3`` (``bench.main``) on
-   a new editor, whose JSON line is printed.
+6. A converted checkpoint, with the seeded weights of phases 4-5: the five
+   models written as an HF-style fp16 snapshot (``config.json`` from the
+   port's vendored public configs, diffusers / transformers names, the
+   port's safetensors writer) with a small BPE vocabulary, converted by
+   ``python -m fastedit_tpu_torch.tools.convert_checkpoint`` (all components
+   at once, ``--expect ssd-1b`` / ``controlnet-small`` / ``vae``), loaded by
+   ``FastEditor("ssd-1b", checkpoint_dir=...)``: an ``edit`` and an
+   ``edit_batch`` of two on graphs, bit for bit against the in-memory editor
+   after the same bf16 -> fp16 -> bf16 round trip, and the device kernels of
+   one replayed edit against the inventory.  The UNet converted again with a
+   seeded rank-64 kohya LoRA (with alpha) over its attention projections:
+   the fused tensors against W + alpha / rank * up @ down in fp32 on the
+   card (the conv tolerance; the unfused weights must fail it), and that
+   checkpoint's edit against an in-memory fuse within phase 4's limits.
+   Then ``MetricsCalculator(allow_random=True)`` at full width on four
+   (source, edited, prompt) triples: every value finite, the batch equal to
+   the per-pair calls, SSIM / PSNR / MSE of an image with itself 1 / inf / 0.
+   Temporary files live under ``build/chip_smoke_checkpoint`` and are
+   removed whatever happens.
+
+Last, ``python -m fastedit_tpu_torch.bench --reps 3`` (``bench.main``) on a
+new editor, whose JSON line is printed.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Per-shape kernel figures and the main-path timings are also
@@ -71,6 +91,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -483,21 +504,25 @@ def compare_down2(calls: dict, gen) -> list[dict]:
     return rows
 
 
-def device_kernels(fn, calls: int = 3, tries: int = 3) -> list[str]:
+def device_kernels(fn, calls: int = 3, tries: int = 5) -> list[str]:
     """The names of the device kernels one call of ``fn`` runs, by
     ``torch.profiler`` (CUDA activity) over ``calls`` calls, which must run
-    the same number each.  A trace now and then loses its first kernels, so
-    three marker kernels (``torch.cuda._sleep``) run first and only the
-    kernels after the last marker are read; a profile that still lost
-    records (it comes back empty, or with a count that is no multiple of
-    ``calls``) is taken again, up to ``tries`` in all."""
+    the same number each.  A trace now and then loses its first records (a
+    few kernels, or in one run every kernel of the first ones), so a spin of
+    ~50 ms and then eight short marker spins (``torch.cuda._sleep``) run
+    first and only the kernels after the last marker are read; a profile
+    that still lost records (no marker, nothing after it, or a count that is
+    no multiple of ``calls``) is taken again, up to ``tries`` in all, and
+    raises when every try lost them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    seen = []
     for _ in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
+            torch.cuda._sleep(100_000_000)
+            for _ in range(8):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             for _ in range(calls):
@@ -508,12 +533,12 @@ def device_kernels(fn, calls: int = 3, tries: int = 3) -> list[str]:
                         key=lambda e: e.time_range.start)
         names = [e.name for e in events]
         marks = [i for i, name in enumerate(names) if "spin_kernel" in name]
-        names = names[marks[-1] + 1:] if marks else []
-        if names and len(names) % calls == 0:
-            break
-    if len(names) % calls:
-        raise AssertionError(f"{len(names)} device kernels in {calls} calls: {names}")
-    return names[:len(names) // calls]
+        after = names[marks[-1] + 1:] if marks else []
+        seen.append((len(names), len(marks), len(after)))
+        if after and len(after) % calls == 0:
+            return after[:len(after) // calls]
+    raise AssertionError(f"the profiler lost records in all {tries} tries of {calls} calls "
+                         f"(device kernels, markers, kernels after the last marker: {seen})")
 
 
 def compare_group_norm(calls: dict, gen) -> list[dict]:
@@ -524,8 +549,9 @@ def compare_group_norm(calls: dict, gen) -> list[dict]:
     it.  Each call must run one or two device kernels (the profiler counts
     them): two for GroupNorm (one on the resident route), one for the
     statistics.  Library: ``F.group_norm`` (+ ``F.silu``) on channels_last
-    NCHW for GroupNorm; none for the statistics, which no one PyTorch call
-    computes."""
+    NCHW for GroupNorm; for the statistics ``torch.var_mean`` over each
+    group's pixels and channels, the reduction that dominates them (the
+    fold with the affine into scale and shift is a few hundred elements)."""
     import torch
     import torch.nn.functional as F
 
@@ -595,14 +621,17 @@ def compare_group_norm(calls: dict, gen) -> list[dict]:
             x_nchw = x.permute(0, 3, 1, 2)
             g_bf, b_bf = gamma.bfloat16(), beta.bfloat16()
 
+            x_groups = x.view(n, h * w, groups, c // groups)
+
             def library():
+                if kernel == "group_norm_scale_shift":
+                    return torch.var_mean(x_groups, dim=(1, 3), correction=0)
                 y = F.group_norm(x_nchw, groups, g_bf, b_bf, 1e-5)
                 return F.silu(y) if act == "silu" else y
 
             elems = n * h * w * c
             rows.append(hold(
-                calls, kernel, key, lambda: kern(x), lambda: plain(x),
-                library if kernel == "group_norm" else None,
+                calls, kernel, key, lambda: kern(x), lambda: plain(x), library,
                 flops=(8.0 if kernel == "group_norm" else 4.0) * elems,
                 # x read once, and the output written once (bf16) or (scale, shift) (fp32)
                 nbytes=2.0 * elems + 8.0 * c + (2.0 * elems if kernel == "group_norm"
@@ -611,7 +640,7 @@ def compare_group_norm(calls: dict, gen) -> list[dict]:
                            device_kernels_per_call=len(names), device_kernel_names=names,
                            plan=gn_plan_of(x, groups)),
             ))
-            del x, x_nchw
+            del x, x_nchw, x_groups
     return rows
 
 
@@ -1009,6 +1038,350 @@ def graphs_vs_eager(editor) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 6
+
+# SSD-1B's five models as a diffusers / transformers snapshot: component ->
+# (its file's name, the converter's --expect name or None).
+SNAPSHOT = {
+    "unet": ("diffusion_pytorch_model.fp16.safetensors", "ssd-1b"),
+    "controlnet": ("diffusion_pytorch_model.fp16.safetensors", "controlnet-small"),
+    "vae": ("diffusion_pytorch_model.fp16.safetensors", "vae"),
+    "text_encoder": ("model.fp16.safetensors", None),
+    "text_encoder_2": ("model.fp16.safetensors", None),
+}
+LORA_RANK, LORA_ALPHA = 64, 32.0
+LORA_PROJECTIONS = (".to_q", ".to_k", ".to_v", ".to_out.0")
+# calculate_all_metrics_batch against the per-pair calls (the JAX package's
+# own test of the batch: tests/test_metrics_batch.py)
+METRICS_BATCH_RTOL, METRICS_BATCH_ATOL = 2e-4, 2e-5
+
+
+def snapshot_configs() -> dict:
+    """The public ``config.json`` of each SSD-1B component (the port's
+    vendored copies)."""
+    from fastedit_tpu_torch.tools import hf_vendored as V
+
+    return {"unet": V.SSD1B_UNET_CONFIG, "controlnet": V.CONTROLNET_SMALL_CONFIG,
+            "vae": V.VAE_CONFIG, "text_encoder": V.CLIP_VIT_L_TEXT_CONFIG,
+            "text_encoder_2": V.CLIP_BIGG_TEXT_CONFIG}
+
+
+def write_hf_snapshot(mod, out: Path, configs: dict, dtype) -> int:
+    """Each model of ``mod`` (``PipelineModules``' five) as an HF snapshot
+    component under ``out``: ``config.json`` from ``configs`` and its state
+    dict (diffusers / transformers names) in ``dtype``, written by the port's
+    safetensors writer.  Returns the bytes written."""
+    from fastedit_tpu_torch.utils.safetensors_io import save_file
+
+    nbytes = 0
+    for name, (filename, _) in SNAPSHOT.items():
+        path = out / name
+        path.mkdir(parents=True)
+        (path / "config.json").write_text(json.dumps(configs[name], indent=2))
+        sd = {k: v.to(dtype) for k, v in getattr(mod, name).state_dict().items()}
+        save_file(sd, str(path / filename))
+        nbytes += (path / filename).stat().st_size
+    return nbytes
+
+
+def write_tokenizer(path: Path, vocab_size: int = 49408) -> None:
+    """A small CLIP BPE vocabulary: the byte-level alphabet, each symbol
+    also word-final, a few merges, and ``<|startoftext|>`` /
+    ``<|endoftext|>`` as the last two ids (49406 / 49407 at CLIP's size)."""
+    from fastedit_tpu_torch.text.tokenizer import bytes_to_unicode
+
+    chars = list(bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(chars)}
+    vocab.update({c + "</w>": len(chars) + i for i, c in enumerate(chars)})
+    merges = [("t", "h"), ("th", "e</w>"), ("a", "n"), ("an", "d</w>"), ("i", "n"),
+              ("o", "f</w>"), ("e", "r</w>"), ("a", "t</w>")]
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = vocab_size - 2, vocab_size - 1
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "vocab.json").write_text(json.dumps(vocab))
+    (path / "merges.txt").write_text(
+        "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+
+
+def kohya_lora(unet, seed: int, rank: int = LORA_RANK, alpha: float = LORA_ALPHA) -> dict:
+    """A seeded rank-``rank`` LoRA over every attention projection of
+    ``unet`` in the kohya dialect (``lora_unet_<module>.lora_down.weight``,
+    ``.lora_up.weight``, ``.alpha``), fp32 on the host; the fused update
+    alpha / rank * up @ down moves a weight by ~10% of its RMS."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, m in unet.named_modules():
+        if not name.endswith(LORA_PROJECTIONS):
+            continue
+        n_out, n_in = m.weight.shape
+        key = "lora_unet_" + name.replace(".", "_")
+        out[f"{key}.lora_down.weight"] = torch.randn((rank, n_in), generator=gen) * n_in**-0.5
+        out[f"{key}.lora_up.weight"] = torch.randn((n_out, rank), generator=gen) * (
+            0.1 * rank / alpha * rank**-0.5)
+        out[f"{key}.alpha"] = torch.tensor(alpha)
+    return out
+
+
+def fuse_lora_(unet, lora: dict) -> None:
+    """The LoRA fused into ``unet``'s weights in place, in fp32 on the
+    card: W = bf16(W + alpha / rank * up @ down)."""
+    import torch
+
+    with torch.no_grad():
+        for name, m in unet.named_modules():
+            if name.endswith(LORA_PROJECTIONS):
+                m.weight.copy_(lora_reference(m.weight, lora, name))
+
+
+def lora_reference(weight, lora: dict, module: str):
+    """W + alpha / rank * up @ down in fp32 on ``weight``'s device."""
+    key = "lora_unet_" + module.replace(".", "_")
+    down = lora[f"{key}.lora_down.weight"].to(weight.device)
+    up = lora[f"{key}.lora_up.weight"].to(weight.device)
+    return weight.float() + float(lora[f"{key}.alpha"]) / down.shape[0] * (up @ down)
+
+
+def convert_all(snap: Path, ckpt: Path, lora_file: Path, card: str) -> dict:
+    """``python -m fastedit_tpu_torch.tools.convert_checkpoint`` on every
+    component, the tokenizers, and the UNet again with the LoRA fused (into
+    ``ckpt / "lora"``), all started together; each snapshot component is
+    deleted once its conversions are done.  Returns seconds per conversion."""
+    import shutil
+
+    expect = {name: ["--expect", e] if e else [] for name, (_, e) in SNAPSHOT.items()}
+    jobs = {name: [name, "--src", str(snap / name), "--out", str(ckpt / name), *expect[name]]
+            for name in SNAPSHOT}
+    jobs["unet+lora"] = ["unet", "--src", str(snap / "unet"), "--out",
+                         str(ckpt / "lora" / "unet"), "--lora", str(lora_file), *expect["unet"]]
+    for tok in ("tokenizer", "tokenizer_2"):
+        jobs[tok] = ["tokenizer", "--src", str(snap / tok), "--out", str(ckpt / tok)]
+    # one thread each (torch's and BLAS's): the jobs share the machine's cores, and a
+    # job's copies and casts gain little from more threads than its own
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs, seconds, logs = {}, {}, {}
+    deadline = time.perf_counter() + 600
+    try:
+        for name, args in jobs.items():
+            logs[name] = ckpt.parent / f"convert_{name}.log"
+            with open(logs[name], "w") as out:
+                procs[name] = (time.perf_counter(), subprocess.Popen(
+                    [sys.executable, "-m", "fastedit_tpu_torch.tools.convert_checkpoint", *args],
+                    cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT))
+        while len(seconds) < len(procs):  # each job's own seconds, as it ends
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"conversions still running after 600 s: "
+                                     f"{sorted(set(procs) - set(seconds))}")
+            for name, (t0, proc) in procs.items():
+                if name in seconds or proc.poll() is None:
+                    continue
+                seconds[name] = time.perf_counter() - t0
+                if proc.returncode:
+                    raise AssertionError(f"converting {name} failed ({proc.returncode}):\n"
+                                         f"{logs[name].read_text()}")
+                if name in SNAPSHOT and name != "unet":
+                    shutil.rmtree(snap / name)
+            time.sleep(0.05)
+        shutil.rmtree(snap / "unet")
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, path in logs.items():
+        log(f"  convert {name}: {seconds[name]:.2f} s; {card};",
+            path.read_text().strip().splitlines()[-1])
+    return seconds
+
+
+def edit_one(editor, img, prompt: str, **kw):
+    """One ``edit``: (uint8 image [1, r, r, 3], final latents, host seconds,
+    device ms per stage)."""
+    import numpy as np
+
+    t = time.perf_counter()
+    out = editor.edit(img, prompt, **kw)
+    sec = time.perf_counter() - t
+    lat = editor.last_latents.clone()
+    if not bool(lat.isfinite().all()):
+        raise AssertionError("non-finite final latents")
+    return np.asarray(out)[None], lat, sec, editor.stage_ms()
+
+
+def fp16_round_trip_(editor) -> None:
+    """Every weight through bf16 -> fp16 -> bf16 (fp32 norms: fp32 -> fp16
+    -> bf16 -> fp32), what the fp16 snapshot and its bf16 conversion do to
+    it."""
+    import torch
+
+    mod = editor.modules
+    with torch.no_grad():
+        for name in SNAPSHOT:
+            for p in getattr(mod, name).parameters():
+                p.copy_(p.half().bfloat16())
+    editor.clear_memory()
+
+
+def checkpoint_and_metrics(editor, calls: dict, card: str) -> dict:
+    """Phase 6 on the seeded-weight SSD-1B editor of phases 4 and 5."""
+    import shutil
+
+    import torch
+
+    from fastedit_tpu_torch import FastEditor
+    from fastedit_tpu_torch.text.tokenizer import CLIPTokenizer
+    from fastedit_tpu_torch.tools import from_jax
+    from fastedit_tpu_torch.tools.inventory import (
+        launch_counts, launches_by_kernel, reset_launch_counts)
+    from fastedit_tpu_torch.utils import checkpoint as ckpt_io
+    from fastedit_tpu_torch.utils.safetensors_io import save_file
+
+    work = ROOT / "build" / "chip_smoke_checkpoint"
+    shutil.rmtree(work, ignore_errors=True)
+    snap, ckpt = work / "snapshot", work / "converted"
+    res: dict = {}
+    try:
+        t = time.perf_counter()
+        written = write_hf_snapshot(editor.modules, snap, snapshot_configs(), torch.float16)
+        for tok in ("tokenizer", "tokenizer_2"):
+            write_tokenizer(snap / tok)
+        lora = kohya_lora(editor.modules.unet, seed=6)
+        save_file(lora, str(work / "lora.safetensors"))
+        res["snapshot_write_s"] = time.perf_counter() - t
+        res["convert_s"] = convert_all(snap, ckpt, work / "lora.safetensors", card)
+        written += sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+        res["gib_written"] = written / 1024**3
+        for name in (*SNAPSHOT, "tokenizer", "tokenizer_2"):  # the LoRA checkpoint's others
+            if name != "unet":
+                (ckpt / "lora" / name).symlink_to(ckpt / name, target_is_directory=True)
+        log(f"snapshot written in {res['snapshot_write_s']:.2f} s; {res['gib_written']:.2f} "
+            f"GiB written in all (fp16 snapshot and bf16 conversions); {card}")
+
+        t = time.perf_counter()
+        loaded = FastEditor("ssd-1b", checkpoint_dir=str(ckpt))
+        torch.cuda.synchronize()
+        res["load_s"] = time.perf_counter() - t
+        log(f"FastEditor('ssd-1b', checkpoint_dir=...) loaded in {res['load_s']:.2f} s; {card}")
+
+        fp16_round_trip_(editor)  # nothing but I/O differs from the loaded editor now
+        editor.tokenizer = CLIPTokenizer.from_dir(str(ckpt / "tokenizer"))
+        editor.tokenizer_2 = CLIPTokenizer.from_dir(str(ckpt / "tokenizer_2"), pad_token_id=0)
+        img, prompt = test_image(9), "the harbor and the boats at dusk"
+        images, prompts = [test_image(10), test_image(11)], ["a street in the rain",
+                                                             "an orchard in autumn"]
+        runs = {"edit": lambda ed: edit_one(ed, img, prompt, seed=41, **EDIT_KW),
+                "edit_batch of 2": lambda ed: edit_arrays(ed, images, prompts, seed=42,
+                                                          **EDIT_KW)}
+        per_edit = launches_by_kernel(calls["default_b1"])
+        per_batch2 = launches_by_kernel(calls["default_b2"])
+        reset_launch_counts()
+        outs = {what: run(loaded) for what, run in runs.items()}
+        check_launches("the loaded editor's first edit and edit_batch of 2 (an eager warm-up "
+                       "and a capture each)", launch_counts(),
+                       {k: 2 * (per_edit[k] + per_batch2[k]) for k in per_edit})
+        for what, run in runs.items():
+            got, ref = outs[what], run(editor)
+            same_bits(f"loaded checkpoint against the in-memory editor, {what}", got, ref)
+            res[what] = dict(seconds_loaded=got[2], seconds_in_memory=ref[2],
+                             stage_ms_loaded=got[3], image_std=float(got[0].std()))
+            log(f"loaded = in-memory bit for bit, {what}:", res[what])
+        res["replay_launches"] = wrapper_launches(device_kernels(
+            lambda: loaded.edit(img, prompt, seed=43, **EDIT_KW), calls=2))
+        check_launches("one replayed edit of the loaded editor, device kernels by the profiler",
+                       res["replay_launches"], {**per_edit, "up2_phase_weights": 0})
+        del loaded
+        torch.cuda.empty_cache()
+
+        # LoRA: the fused tensors against W + alpha / rank * up @ down in fp32 on the card
+        unet = editor.modules.unet
+        fused_sd = from_jax.unet_state_dict(
+            ckpt_io.load_params(str(ckpt / "lora" / "unet")), unet.cfg)
+        worst, n_lora = 0.0, 0
+        for name, m in unet.named_modules():
+            if not name.endswith(LORA_PROJECTIONS):
+                continue
+            ref = lora_reference(m.weight, lora, name)
+            got = fused_sd[f"{name}.weight"].to(ref.device)
+            err, _ = check_close(f"LoRA-fused {name}", got, ref, CONV_REL, conv_tol(ref))
+            if n_outside(m.weight, ref, CONV_REL, conv_tol(ref)) == 0:
+                raise AssertionError(f"{name}: the tolerance passes the unfused weight")
+            worst, n_lora = max(worst, err), n_lora + 1
+        del fused_sd
+        res["lora"] = dict(modules=n_lora, rank=LORA_RANK, alpha=LORA_ALPHA,
+                           max_abs_err=worst)
+        lora_editor = FastEditor("ssd-1b", checkpoint_dir=str(ckpt / "lora"))
+        fuse_lora_(unet, lora)
+        editor.clear_memory()
+        got = edit_one(lora_editor, img, prompt, seed=44, **EDIT_KW)
+        ref = edit_one(editor, img, prompt, seed=44, **EDIT_KW)
+        res["lora"].update(differ(got, ref), against_unfused=differ(got, outs["edit"]))
+        log("LoRA-fused checkpoint against the in-memory fuse:", res["lora"])
+        if (res["lora"]["latent_rel_l2"] > E2E_LATENT_REL_L2
+                or res["lora"]["image_mean_abs_lsb"] > E2E_IMAGE_MEAN_LSB):
+            raise AssertionError(f"LoRA-fused checkpoint edit differs from the in-memory fuse "
+                                 f"beyond {E2E_LATENT_REL_L2} / {E2E_IMAGE_MEAN_LSB}: {res['lora']}")
+        lora_image = got[0][0]
+        del lora_editor
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    res["metrics"] = metrics_on_card(
+        [img] + images + [test_image(12)],
+        [outs["edit"][0][0], *outs["edit_batch of 2"][0], lora_image],
+        [prompt, *prompts, "a lighthouse"], card)
+    return res
+
+
+def metrics_on_card(sources: list, edited_arrays: list, prompts: list, card: str) -> dict:
+    """``MetricsCalculator(allow_random=True)`` at full width (CLIP ViT-B/16,
+    DINO ViT-B/8, LPIPS-Squeeze at 512²) on four (source, edited, prompt)
+    triples."""
+    import math
+
+    import torch
+    from PIL import Image
+
+    from fastedit_tpu_torch.metrics import MetricsCalculator
+
+    edited = [Image.fromarray(a) for a in edited_arrays]
+    t = time.perf_counter()
+    calc = MetricsCalculator(weights_dir=str(ROOT / "build" / "no_metrics_weights"),
+                             allow_random=True)
+    res = dict(init_s=time.perf_counter() - t)
+    if calc.device.type != "cuda" or calc.random_backbones != (
+            "lpips", "clip_vision", "clip_text", "dino"):
+        raise AssertionError(f"metrics on {calc.device}, random {calc.random_backbones}")
+    calc.calculate_all_metrics(sources[0], edited[0], prompts[0])  # random weights made here
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pairs = [calc.calculate_all_metrics(s, e, p) for s, e, p in zip(sources, edited, prompts)]
+    res["ms_per_pair"] = 1e3 * (time.perf_counter() - t) / len(pairs)
+    calc.calculate_all_metrics_batch(sources, edited, prompts)
+    t = time.perf_counter()
+    batch = calc.calculate_all_metrics_batch(sources, edited, prompts)
+    res["ms_per_batch_of_4"] = 1e3 * (time.perf_counter() - t)
+    for i, (one, many) in enumerate(zip(pairs, batch, strict=True)):
+        for k, v in one.items():
+            if not math.isfinite(v):
+                raise AssertionError(f"pair {i}: {k} = {v}")
+            if abs(many[k] - v) > METRICS_BATCH_ATOL + METRICS_BATCH_RTOL * abs(v):
+                raise AssertionError(f"pair {i}: {k} batched {many[k]} against {v}")
+    same = dict(ssim=calc.calculate_ssim(sources[0], sources[0]),
+                psnr=calc.calculate_psnr(sources[0], sources[0]),
+                mse=calc.calculate_mse(sources[0], sources[0]))
+    if same != dict(ssim=1.0, psnr=math.inf, mse=0.0):
+        raise AssertionError(f"an image against itself: {same}")
+    res.update(pairs=pairs, image_with_itself=same)
+    log(f"metrics (random backbones at full width): {res['ms_per_pair']:.2f} ms per pair, "
+        f"{res['ms_per_batch_of_4']:.2f} ms per batch of 4; {card}; first pair {pairs[0]}")
+    del calc
+    torch.cuda.empty_cache()
+    return res
+
+
 # --------------------------------------------------------------------- main
 
 
@@ -1142,10 +1515,19 @@ def main() -> int:
     log("[4] kernels vs plain versions end to end, seeded weights")
     e2e = kernels_vs_plain(editor, calls)
 
-    log("[5] graphs vs the eager arm, then the bench")
+    log("[5] graphs vs the eager arm")
     vs_eager = graphs_vs_eager(editor)
+
+    log("[6] a converted checkpoint: snapshot, converter, FastEditor(checkpoint_dir=...), LoRA, "
+        "metrics")
+    t = time.perf_counter()
+    phase6 = checkpoint_and_metrics(editor, calls, card)
+    phase6["seconds"] = time.perf_counter() - t
+    log(f"phase 6 took {phase6['seconds']:.1f} s; {card}")
     del editor
     torch.cuda.empty_cache()
+
+    log("[bench] python -m fastedit_tpu_torch.bench --reps 3")
     from fastedit_tpu_torch import bench
 
     t = time.perf_counter()
@@ -1157,7 +1539,8 @@ def main() -> int:
     OUT_FILE.write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda, kernels=kernels,
         shapes=rows, host=host, main_path=main, kernels_vs_plain=e2e,
-        graphs_vs_eager=vs_eager, bench=bench_record, bench_s=bench_s,
+        graphs_vs_eager=vs_eager, checkpoint_and_metrics=phase6, bench=bench_record,
+        bench_s=bench_s,
         phase2_s=phase2_s, build_s=build_s, hgmma=hgmma,
         seconds_total=time.perf_counter() - t_start,
     ), indent=1, default=str))

@@ -1,20 +1,22 @@
-"""CLIP text towers (transformers' CLIPTextModel[WithProjection] names).
+"""CLIP text towers and the CLIP vision tower (transformers' names).
 
 SDXL conditions on the concatenated penultimate hidden states of CLIP
 ViT-L/14 (768-d) and OpenCLIP ViT-bigG/14 (1280-d), plus bigG's projected
 pooled embedding.  77-token sequences are tiny: attention here is a plain
-fp32-softmax einsum with a causal mask.
+fp32-softmax einsum with a causal mask.  The vision tower (ViT-B/16) is the
+CLIP score's image encoder (``metrics/calculator.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fastedit_tpu_torch.models.configs import CLIPTextConfig
+from fastedit_tpu_torch.models.configs import CLIPTextConfig, CLIPVisionConfig
 from fastedit_tpu_torch.models.layers import LayerNorm
 
 
@@ -35,7 +37,7 @@ class CLIPAttention(nn.Module):
         self.v_proj = nn.Linear(hidden, hidden)
         self.out_proj = nn.Linear(hidden, hidden)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         b, s, c = x.shape
         d = c // self.heads
         shape = (b, s, self.heads, d)
@@ -43,7 +45,9 @@ class CLIPAttention(nn.Module):
         k = self.k_proj(x).view(shape)
         v = self.v_proj(x).view(shape)
         logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (d**-0.5)
-        probs = torch.softmax(logits + mask, dim=-1).to(v.dtype)
+        if mask is not None:
+            logits = logits + mask
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, c)
         return self.out_proj(out)
 
@@ -138,3 +142,47 @@ class CLIPTextModel(nn.Module):
         if cfg.projection_dim is not None:
             pooled = self.text_projection(pooled)
         return CLIPTextOutput(x, penultimate, pooled)
+
+
+class _VisionEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        n = (cfg.image_size // cfg.patch_size) ** 2 + 1
+        self.class_embedding = nn.Parameter(torch.zeros(cfg.hidden_size))
+        self.patch_embedding = nn.Conv2d(3, cfg.hidden_size, cfg.patch_size,
+                                         stride=cfg.patch_size, bias=False)
+        self.position_embedding = nn.Embedding(n, cfg.hidden_size)
+
+
+class _VisionTransformer(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.embeddings = _VisionEmbeddings(cfg)
+        self.pre_layrnorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+        self.encoder = _Encoder(cfg)
+        self.post_layernorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+
+
+class CLIPVisionModel(nn.Module):
+    """CLIP vision tower (ViT): patch conv, CLS token, pre and post
+    LayerNorm, no attention mask.  Input [B, H, W, 3], resized and
+    CLIP-normalised; returns the projected image embedding [B,
+    projection_dim], what the CLIP score reads."""
+
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.config = cfg
+        self.vision_model = _VisionTransformer(cfg)
+        self.visual_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        vm = self.vision_model
+        emb = vm.embeddings
+        x = emb.patch_embedding(pixels.permute(0, 3, 1, 2).to(emb.patch_embedding.weight.dtype))
+        x = x.flatten(2).transpose(1, 2)  # [B, patches, D], patches row-major
+        cls = emb.class_embedding.to(x.dtype).expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], dim=1) + emb.position_embedding.weight[None].to(x.dtype)
+        x = vm.pre_layrnorm(x)
+        for layer in vm.encoder.layers:
+            x = layer(x, None)
+        return self.visual_projection(vm.post_layernorm(x[:, 0]))

@@ -40,12 +40,19 @@ on, the editor replays its pixel path as CUDA graphs on the card
 off, it runs the same stages eagerly, op by op (the arm the graphs are held
 against).  A graph is captured under the flags in force and keyed by all
 of them (``graphs.graph_key``).  ``plain_versions`` runs eagerly too.
+
+The flags are per thread: every thread starts from the defaults below and
+sees only its own :func:`override`s, as the JAX package's flags are read
+at trace time by the one thread that traces.  A replica or a server's
+worker thread can run its own configuration without moving another
+thread's (nor another thread's graph key, which :func:`current` reads).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from typing import Optional
 
 
@@ -61,7 +68,21 @@ class KernelFlags:
     cuda_graphs: bool = True  # the editor's pixel path as CUDA graphs on the card
 
 
-FLAGS = KernelFlags()
+class _ThreadFlags(KernelFlags, threading.local):
+    """``KernelFlags`` with one copy per thread, each made from the
+    defaults on the thread's first read."""
+
+    def __eq__(self, other):
+        return isinstance(other, KernelFlags) and (
+            dataclasses.astuple(self) == dataclasses.astuple(other))
+
+
+FLAGS = _ThreadFlags()
+
+
+def current() -> KernelFlags:
+    """The calling thread's flags, as a plain (unshared) ``KernelFlags``."""
+    return KernelFlags(*dataclasses.astuple(FLAGS))
 
 
 def _or(value: Optional[bool], default: bool) -> bool:
@@ -179,11 +200,13 @@ def stage(name: str):
 
 @contextlib.contextmanager
 def override(**kwargs):
-    """Temporarily override kernel flags; an unknown name raises."""
-    old = dataclasses.replace(FLAGS)
+    """Temporarily override kernel flags in the calling thread; an unknown
+    name raises."""
+    old = current()
+    names = {f.name for f in dataclasses.fields(KernelFlags)}
     try:
         for k, v in kwargs.items():
-            if not hasattr(FLAGS, k):
+            if k not in names:
                 raise AttributeError(f"unknown kernel flag {k!r}")
             setattr(FLAGS, k, v)
         yield

@@ -9,12 +9,15 @@ a batch already on the device), ``stage_inputs``, ``edit_batch_async``
 ``device="cpu"``; on the card the pixel path replays CUDA graphs
 (``pipeline/graphs.py``), the counterpart of the JAX package's one jitted
 program per edit, unless ``flags.override(cuda_graphs=False)`` asks for the
-eager arm.  ``random_weights=True`` builds the full architecture with zero
-weights (edit latency does not depend on the weights), and ``"tiny"`` is a
-seeded random-weight smoke model with the real topology.
+eager arm.  By default the weights load from a converted checkpoint
+directory (``checkpoint_dir``, else ``checkpoints/<model_name>``), the layout
+``tools/convert_checkpoint.py`` writes and the JAX package reads;
+``random_weights=True`` builds the full architecture with zero weights (edit
+latency does not depend on the weights), and ``"tiny"`` is a seeded
+random-weight smoke model with the real topology.
 
-Not in this slice (see ROADMAP.md): loading converted checkpoints (P12),
-the fp32 quality mode on the card (P17), data parallelism (P15).
+Not in this slice (see ROADMAP.md): the fp32 quality mode on the card (P17),
+data parallelism (P15).
 """
 
 from __future__ import annotations
@@ -40,7 +43,12 @@ from fastedit_tpu_torch.ops.canny import canny
 from fastedit_tpu_torch.pipeline import graphs, stages
 from fastedit_tpu_torch.sched.lcm import LCMSchedulerConfig, make_schedule
 from fastedit_tpu_torch.text.tokenizer import CLIPTokenizer
+from fastedit_tpu_torch.tools import from_jax
+from fastedit_tpu_torch.utils import checkpoint as ckpt_io
 from fastedit_tpu_torch.utils.image import resize
+from fastedit_tpu_torch.utils.logging import get_logger
+
+log = get_logger("FastEditor")
 
 
 def _normalize_dtype(dtype) -> torch.dtype:
@@ -87,15 +95,19 @@ def _seeded_init_(model: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
 
 
-def _build(cls, cfg, device, dtype, generator: Optional[torch.Generator]):
+def _build(cls, cfg, device, dtype, generator: Optional[torch.Generator] = None,
+           state_dict: Optional[dict] = None):
     """Construct without initialising (meta), allocate on ``device`` and
-    fill: seeded random weights with a generator, zeros without."""
+    fill: ``state_dict`` (cast to the parameters' dtypes as it is copied
+    in), seeded random weights with a generator, zeros without either."""
     with torch.device("meta"):
         model = cls(cfg)
     cast_model(model, None, dtype)
     model.to_empty(device=device)
     with torch.no_grad():
-        if generator is None:
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        elif generator is None:
             for p in model.parameters():
                 p.zero_()
         else:
@@ -187,8 +199,15 @@ class FastEditor:
                 "slice (ROADMAP P17): this slice's CUDA kernels take bf16"
             )
         self.use_full_controlnet = use_full_controlnet
-        self.enable_cpu_offload = enable_cpu_offload  # accepted, not needed
+        self.enable_cpu_offload = enable_cpu_offload
         self.resolution = self.config["resolution"]
+        if enable_cpu_offload:
+            log.info(
+                "CPU offload requested but not needed: every weight stays in "
+                "the card's memory (SSD-1B and SDXL in bf16 fit one H100 by design)."
+            )
+        log.info("Initializing %s (%s)", model_name, self.config["description"])
+        log.info("Device: %s, dtype: %s", self.device, str(self.dtype).replace("torch.", ""))
 
         if model_name == "tiny":
             self._init_models(
@@ -206,11 +225,7 @@ class FastEditor:
             )
             self._control_res = self.resolution
         else:
-            raise NotImplementedError(
-                "loading converted checkpoints is a later slice (ROADMAP P12); "
-                "use random_weights=True or the 'tiny' model"
-                + (f" (checkpoint_dir={checkpoint_dir!r})" if checkpoint_dir else "")
-            )
+            self._load_checkpoint(checkpoint_dir or os.path.join("checkpoints", model_name))
         self.scheduler_config = LCMSchedulerConfig()
         self._prompt_cache: dict = {}
         self._schedule_cache: dict = {}
@@ -234,6 +249,58 @@ class FastEditor:
         self.tokenizer_2 = CLIPTokenizer.synthetic(
             vocab_size=te2_cfg.vocab_size, pad_token_id=0
         )
+
+    def _load_checkpoint(self, ckpt_dir: str) -> None:
+        """Build the five models from a converted checkpoint directory
+        (``utils/checkpoint.py``): each component's ``config.json`` and
+        flat-key weights, copied to the device as stored, taken to the
+        port's names and layouts there by ``tools/from_jax`` (the transposes
+        run on the card, not the host) and cast to the model dtype as they
+        are copied into the parameters; the tokenizers from ``tokenizer/``
+        and ``tokenizer_2/``."""
+        if not os.path.isdir(ckpt_dir):
+            raise FileNotFoundError(
+                f"Checkpoint directory not found: {ckpt_dir}. Convert the HF "
+                "weights offline with tools/convert_checkpoint.py (this "
+                "framework never downloads at runtime)."
+            )
+        cn_name = "controlnet_full" if self.use_full_controlnet else "controlnet"
+        if not os.path.isdir(os.path.join(ckpt_dir, cn_name)):
+            # No silent downgrade: a run asked to use the full ControlNet must
+            # not quietly produce small-variant results attributed to it.
+            raise FileNotFoundError(
+                f"use_full_controlnet=True but {ckpt_dir}/{cn_name} is not "
+                "converted. Convert it with tools/convert_checkpoint.py "
+                "controlnet --src .../controlnet-canny-sdxl-1.0, or drop "
+                "--full_controlnet to use the small variant."
+            )
+        dev, dt = self.device, self.dtype
+
+        def load(component, cfg_cls, cls, to_state_dict):
+            path = os.path.join(ckpt_dir, component)
+            cfg = ckpt_io.load_config(path, cfg_cls)
+            sd = to_state_dict(ckpt_io.load_params(path, device=dev), cfg)
+            return cfg, _build(cls, cfg, dev, dt, state_dict=sd)
+
+        t0 = time.perf_counter()
+        _, unet = load("unet", C.UNetConfig, UNet2DConditionModel, from_jax.unet_state_dict)
+        _, controlnet = load(cn_name, C.ControlNetConfig, ControlNetModel,
+                             from_jax.controlnet_state_dict)
+        vae_cfg, vae = load("vae", C.VAEConfig, AutoencoderKL, from_jax.vae_state_dict)
+        _, te1 = load("text_encoder", C.CLIPTextConfig, CLIPTextModel,
+                      from_jax.clip_text_state_dict)
+        _, te2 = load("text_encoder_2", C.CLIPTextConfig, CLIPTextModel,
+                      from_jax.clip_text_state_dict)
+        self.modules = stages.PipelineModules(
+            unet=unet, controlnet=controlnet, vae=vae, text_encoder=te1, text_encoder_2=te2,
+            vae_scaling_factor=vae_cfg.scaling_factor,
+        )
+        self.tokenizer = CLIPTokenizer.from_dir(os.path.join(ckpt_dir, "tokenizer"))
+        self.tokenizer_2 = CLIPTokenizer.from_dir(
+            os.path.join(ckpt_dir, "tokenizer_2"), pad_token_id=0
+        )
+        self._control_res = self.resolution
+        log.info("loaded %s in %.2f s", ckpt_dir, time.perf_counter() - t0)
 
     # ------------------------------------------------------------ preprocess
 

@@ -56,8 +56,9 @@ STAGES = ("vae_encode", "denoise", "vae_decode")
 
 def graph_key(batch: int, do_cfg: bool, steps: int, tile_noise: bool,
               resolution: int) -> tuple:
-    """What one capture serves: its shapes and every kernel flag in force."""
-    return (batch, do_cfg, steps, tile_noise, resolution, dataclasses.astuple(flags.FLAGS))
+    """What one capture serves: its shapes and every kernel flag in force
+    in the calling thread."""
+    return (batch, do_cfg, steps, tile_noise, resolution, dataclasses.astuple(flags.current()))
 
 
 @dataclasses.dataclass

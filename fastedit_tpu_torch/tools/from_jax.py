@@ -1,10 +1,12 @@
 """The JAX package's parameter trees as this package's state dicts.
 
-Input: a nested dict of numpy arrays with the JAX package's parameter
-names (Flax trees from ``init`` or from its checkpoint converter, moved to
-the host with ``np.asarray``).  Output: a flat ``{name: torch.Tensor}``
-state dict with diffusers names for ``load_state_dict``.  This is the
-inverse of the JAX package's ``tools/hf_mapping.convert_*``:
+Input: a nested dict with the JAX package's parameter names: numpy arrays
+(Flax trees from ``init``, moved to the host with ``np.asarray``; taken as
+fp32), or torch tensors in any dtype (a converted checkpoint read by
+``utils/checkpoint.load_params``; kept in their dtype).  Output: a flat
+``{name: torch.Tensor}`` state dict with diffusers (transformers, timm,
+torchvision) names for ``load_state_dict``.  This is the inverse of
+``tools/hf_mapping.convert_*``:
 
   * conv kernel HWIO [kh, kw, I, O] -> weight OIHW [O, I, kh, kw];
   * dense kernel [in, out] -> Linear weight [out, in];
@@ -12,7 +14,9 @@ inverse of the JAX package's ``tools/hf_mapping.convert_*``:
   * scanned layer stacks (``transformer_blocks/block``, ``layers/layer``)
     stacked on a leading axis -> one entry per layer.
 
-Pure numpy and torch: nothing here imports JAX.
+Pure numpy and torch: nothing here imports JAX.  State dicts: the edit's
+models (UNet, ControlNet, VAE, CLIP text towers) and the metrics' backbones
+(CLIP vision, DINO ViT, LPIPS-Squeeze).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 
 from fastedit_tpu_torch.models.configs import (
     CLIPTextConfig,
+    CLIPVisionConfig,
     ControlNetConfig,
     UNetConfig,
     VAEConfig,
@@ -32,20 +37,28 @@ from fastedit_tpu_torch.models.configs import (
 Tree = Dict[str, Any]
 
 
+def _tensor(x) -> torch.Tensor:
+    """A torch tensor as it is; a numpy array as an fp32 copy."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
 class _Out(dict):
     def put(self, key: str, arr) -> None:
         if key in self:
             raise KeyError(f"duplicate state-dict key {key}")
-        self[key] = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+        self[key] = _tensor(arr).contiguous()
 
 
 def _conv(out: _Out, p: Tree, key: str) -> None:
-    out.put(f"{key}.weight", np.transpose(p["kernel"], (3, 2, 0, 1)))
-    out.put(f"{key}.bias", p["bias"])
+    out.put(f"{key}.weight", _tensor(p["kernel"]).permute(3, 2, 0, 1))
+    if "bias" in p:
+        out.put(f"{key}.bias", p["bias"])
 
 
 def _dense(out: _Out, p: Tree, key: str) -> None:
-    out.put(f"{key}.weight", np.asarray(p["kernel"]).T)
+    out.put(f"{key}.weight", _tensor(p["kernel"]).t())
     if "bias" in p:
         out.put(f"{key}.bias", p["bias"])
 
@@ -57,9 +70,14 @@ def _norm(out: _Out, p: Tree, key: str) -> None:
 
 def _unstack(tree: Tree, n: int) -> list:
     """Split a stacked layer tree into ``n`` per-layer trees."""
+    def split(t):
+        return {k: split(v) if isinstance(v, dict) else _tensor(v).unbind(0)
+                for k, v in t.items()}
+
     def take(t, i):
-        return {k: take(v, i) if isinstance(v, dict) else np.asarray(v)[i] for k, v in t.items()}
-    return [take(tree, i) for i in range(n)]
+        return {k: take(v, i) if isinstance(v, dict) else v[i] for k, v in t.items()}
+    parts = split(tree)
+    return [take(parts, i) for i in range(n)]
 
 
 def _resnet(out: _Out, p: Tree, key: str) -> None:
@@ -200,20 +218,72 @@ def vae_state_dict(params: Tree, cfg: VAEConfig) -> Dict[str, torch.Tensor]:
     return dict(out)
 
 
+def _clip_layers(out: _Out, p: Tree, n: int, prefix: str) -> None:
+    for i, layer in enumerate(_unstack(p["layer"], n)):
+        key = f"{prefix}.encoder.layers.{i}"
+        _norm(out, layer["layer_norm1"], f"{key}.layer_norm1")
+        _norm(out, layer["layer_norm2"], f"{key}.layer_norm2")
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _dense(out, layer["self_attn"][name], f"{key}.self_attn.{name}")
+        _dense(out, layer["mlp_fc1"], f"{key}.mlp.fc1")
+        _dense(out, layer["mlp_fc2"], f"{key}.mlp.fc2")
+
+
 def clip_text_state_dict(params: Tree, cfg: CLIPTextConfig) -> Dict[str, torch.Tensor]:
     out = _Out()
     out.put("text_model.embeddings.token_embedding.weight",
             params["token_embedding"]["embedding"])
     out.put("text_model.embeddings.position_embedding.weight", params["position_embedding"])
     _norm(out, params["final_layer_norm"], "text_model.final_layer_norm")
-    for i, layer in enumerate(_unstack(params["layers"]["layer"], cfg.num_layers)):
-        key = f"text_model.encoder.layers.{i}"
-        _norm(out, layer["layer_norm1"], f"{key}.layer_norm1")
-        _norm(out, layer["layer_norm2"], f"{key}.layer_norm2")
-        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            _dense(out, layer["self_attn"][n], f"{key}.self_attn.{n}")
-        _dense(out, layer["mlp_fc1"], f"{key}.mlp.fc1")
-        _dense(out, layer["mlp_fc2"], f"{key}.mlp.fc2")
+    _clip_layers(out, params["layers"], cfg.num_layers, "text_model")
     if cfg.projection_dim is not None:
         _dense(out, params["text_projection"], "text_projection")
+    return dict(out)
+
+
+def clip_vision_state_dict(params: Tree, cfg: CLIPVisionConfig) -> Dict[str, torch.Tensor]:
+    out = _Out()
+    emb = "vision_model.embeddings"
+    _conv(out, params["patch_embedding"], f"{emb}.patch_embedding")
+    out.put(f"{emb}.class_embedding", params["class_embedding"])
+    out.put(f"{emb}.position_embedding.weight", params["position_embedding"])
+    _norm(out, params["pre_layrnorm"], "vision_model.pre_layrnorm")
+    _norm(out, params["post_layernorm"], "vision_model.post_layernorm")
+    _clip_layers(out, params["layers"], cfg.num_layers, "vision_model")
+    _dense(out, params["visual_projection"], "visual_projection")
+    return dict(out)
+
+
+def dino_state_dict(params: Tree, num_layers: int) -> Dict[str, torch.Tensor]:
+    """DINO ViT (timm names; the JAX model has no final norm)."""
+    out = _Out()
+    _conv(out, params["patch_embed"], "patch_embed.proj")
+    out.put("cls_token", params["cls_token"])
+    out.put("pos_embed", params["pos_embed"])
+    for i, b in enumerate(_unstack(params["blocks"]["block"], num_layers)):
+        _norm(out, b["norm1"], f"blocks.{i}.norm1")
+        _dense(out, b["qkv"], f"blocks.{i}.attn.qkv")
+        _dense(out, b["proj"], f"blocks.{i}.attn.proj")
+        _norm(out, b["norm2"], f"blocks.{i}.norm2")
+        _dense(out, b["fc1"], f"blocks.{i}.mlp.fc1")
+        _dense(out, b["fc2"], f"blocks.{i}.mlp.fc2")
+    return dict(out)
+
+
+# SqueezeNet 1.1 torchvision feature indices of the JAX module names.
+SQUEEZE_FIRES = {"fire3": 3, "fire4": 4, "fire6": 6, "fire7": 7, "fire9": 9, "fire10": 10,
+                 "fire11": 11, "fire12": 12}
+
+
+def lpips_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """LPIPS-Squeeze: torchvision ``squeezenet1_1`` feature names under
+    ``net.`` and the lpips package's heads ``lin{i}.model.1``."""
+    out = _Out()
+    net = params["net"]
+    _conv(out, net["conv1"], "net.features.0")
+    for name, idx in SQUEEZE_FIRES.items():
+        for part in ("squeeze", "expand1x1", "expand3x3"):
+            _conv(out, net[name][part], f"net.features.{idx}.{part}")
+    for i in range(7):
+        _conv(out, params[f"lin{i}"], f"lin{i}.model.1")
     return dict(out)

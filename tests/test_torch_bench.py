@@ -6,10 +6,13 @@ package's: its ``edit_flops`` must give the same number over the port's
 configs (exact: the same float arithmetic in the same order).  The graph
 key and the caches are pure Python: the key changes with every kernel flag,
 and the graph and schedule caches keep at most 64 entries, evicting the
-oldest, as the JAX package's caches do.
+oldest, as the JAX package's caches do.  The kernel flags are per thread:
+an override in one thread moves neither another thread's flags nor its
+graph key.
 """
 
 import dataclasses
+import threading
 import types
 
 import pytest
@@ -69,6 +72,52 @@ def test_graph_key_changes_with_every_flag(field):
     with flags.override(**{field: _other(getattr(flags.FLAGS, field))}):
         assert graphs.graph_key(1, True, 3, False, 1024) != key
     assert graphs.graph_key(1, True, 3, False, 1024) == key
+
+
+def test_flag_overrides_are_per_thread():
+    """A worker's override (``plain_versions``, as a comparison thread would
+    set it) is not seen by the main thread nor by its graph key; a thread
+    started inside the main thread's override sees the defaults."""
+    key = graphs.graph_key(1, True, 3, False, 1024)
+    entered, release, seen = threading.Event(), threading.Event(), {}
+
+    def worker():
+        with flags.override(plain_versions=True, use_cuda_conv=True):
+            seen["inside"] = flags.current()
+            seen["key"] = graphs.graph_key(1, True, 3, False, 1024)
+            entered.set()
+            release.wait(30)
+        seen["after"] = flags.current()
+
+    t = threading.Thread(target=worker)
+    t.start()
+    try:
+        assert entered.wait(30)
+        assert flags.current() == flags.KernelFlags() and flags.use_cuda_graphs()
+        assert graphs.graph_key(1, True, 3, False, 1024) == key
+        with flags.stage("decode"):
+            assert flags.use_cuda_conv()
+    finally:
+        release.set()
+        t.join(30)
+    assert not t.is_alive()
+    assert seen["inside"].plain_versions and seen["inside"].use_cuda_conv
+    assert seen["key"] != key and seen["after"] == flags.KernelFlags()
+
+    with flags.override(cuda_graphs=False, use_fused_down2=False):
+        t = threading.Thread(target=lambda: seen.update(fresh=flags.current()))
+        t.start()
+        t.join(30)
+        assert not flags.use_cuda_graphs()
+    assert not t.is_alive() and seen["fresh"] == flags.KernelFlags()
+    assert flags.FLAGS == flags.KernelFlags()
+
+
+def test_override_rejects_an_unknown_flag():
+    with pytest.raises(AttributeError):
+        with flags.override(current=False):
+            pass
+    assert flags.FLAGS == flags.KernelFlags()
 
 
 def test_graph_key_holds_the_shapes():

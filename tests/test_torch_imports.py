@@ -1,5 +1,7 @@
 """Import hygiene of the port: ``fastedit_tpu_torch`` and ``chip_smoke.py``
-import neither JAX, Flax nor the JAX package ``fastedit_tpu``.
+import neither JAX, Flax nor the JAX package ``fastedit_tpu``, and neither
+``safetensors`` nor ``ml_dtypes`` (the card's machine has neither: the port
+reads and writes checkpoints with ``utils/safetensors_io.py``).
 
 Checked twice: by importing every module of the port (and ``chip_smoke``) in
 a fresh interpreter and reading ``sys.modules``, and by parsing every
@@ -17,7 +19,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "fastedit_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "fastedit_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "fastedit_tpu", "safetensors", "ml_dtypes")
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -48,7 +50,9 @@ def test_importing_the_port_loads_no_jax():
     loaded = json.loads(out.strip().splitlines()[-1])
     assert "fastedit_tpu_torch.pipeline.editor" in loaded and "chip_smoke" in loaded
     for new in ("fastedit_tpu_torch.bench", "fastedit_tpu_torch.pipeline.graphs",
-                "fastedit_tpu_torch.utils.flops"):
+                "fastedit_tpu_torch.utils.flops", "fastedit_tpu_torch.metrics.calculator",
+                "fastedit_tpu_torch.tools.convert_checkpoint",
+                "fastedit_tpu_torch.utils.safetensors_io"):
         assert new in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -146,8 +146,8 @@ def test_editor_constructor_rules():
             FastEditor("tiny")  # device=None means the card
     with pytest.raises(ValueError):
         FastEditor("nope", device="cpu")
-    with pytest.raises(NotImplementedError):
-        FastEditor("ssd-1b", device="cpu")  # checkpoints: a later slice
+    with pytest.raises(FileNotFoundError, match="Checkpoint directory not found"):
+        FastEditor("ssd-1b", device="cpu", checkpoint_dir="no/such/checkpoint")
     ed = FastEditor("tiny", device="cpu", dtype="float16")
     assert ed.dtype == torch.bfloat16
     assert FastEditor.MODEL_CONFIGS.keys() == {"sdxl", "ssd-1b", "tiny"}
