@@ -77,7 +77,23 @@ order; a failed phase raises and the script exits non-zero:
    (source, edited, prompt) triples: every value finite, the batch equal to
    the per-pair calls, SSIM / PSNR / MSE of an image with itself 1 / inf / 0.
    Temporary files live under ``build/chip_smoke_checkpoint`` and are
-   removed whatever happens.
+   removed whatever happens, after phase 7.
+7. The CLIs at full width, on phase 6's converted checkpoint, through their
+   ``main(argv)`` in this process (files under ``build/chip_smoke_cli``,
+   removed whatever happens): ``tools.make_demo_data`` (six 512² images);
+   ``run_single_image --compute_metrics --profile`` (a 1024² JPEG, the six
+   metrics, a trace); ``run_batch`` sequentially (the wrappers' launches
+   over the sweep twice the inventory's for its graph key: one warm-up and
+   one capture), with ``--data_parallel`` (bit for bit the sequential
+   sweep's images and comparison figures) and again with
+   ``--skip_existing`` (six skipped); all three ``--save_comparisons``; two
+   ``run_batch`` processes joined over gloo on the one card, a placeholder
+   output planted (one skipped on each, 2 + 3 processed, the images bit for
+   bit the sequential sweep's); ``evaluate --allow_random_metrics`` (the
+   ``examples/tiny_results`` schemas, every value finite); and
+   ``run_benchmark ssd-1b`` on the demo set (SSIM, PSNR and MSE finite, the
+   learned metrics NaN without weights, the summary, three figures and the
+   archive).
 
 Last, ``python -m fastedit_tpu_torch.bench --reps 3`` (``bench.main``) on a
 new editor, whose JSON line is printed.
@@ -92,6 +108,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1224,10 +1241,10 @@ def fp16_round_trip_(editor) -> None:
     editor.clear_memory()
 
 
-def checkpoint_and_metrics(editor, calls: dict, card: str) -> dict:
-    """Phase 6 on the seeded-weight SSD-1B editor of phases 4 and 5."""
-    import shutil
-
+def checkpoint_and_metrics(editor, calls: dict, card: str, work: Path) -> dict:
+    """Phase 6 on the seeded-weight SSD-1B editor of phases 4 and 5; its
+    files under ``work`` (the converted checkpoint: ``work / "converted"``),
+    which the caller removes."""
     import torch
 
     from fastedit_tpu_torch import FastEditor
@@ -1238,95 +1255,90 @@ def checkpoint_and_metrics(editor, calls: dict, card: str) -> dict:
     from fastedit_tpu_torch.utils import checkpoint as ckpt_io
     from fastedit_tpu_torch.utils.safetensors_io import save_file
 
-    work = ROOT / "build" / "chip_smoke_checkpoint"
-    shutil.rmtree(work, ignore_errors=True)
     snap, ckpt = work / "snapshot", work / "converted"
     res: dict = {}
-    try:
-        t = time.perf_counter()
-        written = write_hf_snapshot(editor.modules, snap, snapshot_configs(), torch.float16)
-        for tok in ("tokenizer", "tokenizer_2"):
-            write_tokenizer(snap / tok)
-        lora = kohya_lora(editor.modules.unet, seed=6)
-        save_file(lora, str(work / "lora.safetensors"))
-        res["snapshot_write_s"] = time.perf_counter() - t
-        res["convert_s"] = convert_all(snap, ckpt, work / "lora.safetensors", card)
-        written += sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
-        res["gib_written"] = written / 1024**3
-        for name in (*SNAPSHOT, "tokenizer", "tokenizer_2"):  # the LoRA checkpoint's others
-            if name != "unet":
-                (ckpt / "lora" / name).symlink_to(ckpt / name, target_is_directory=True)
-        log(f"snapshot written in {res['snapshot_write_s']:.2f} s; {res['gib_written']:.2f} "
-            f"GiB written in all (fp16 snapshot and bf16 conversions); {card}")
+    t = time.perf_counter()
+    written = write_hf_snapshot(editor.modules, snap, snapshot_configs(), torch.float16)
+    for tok in ("tokenizer", "tokenizer_2"):
+        write_tokenizer(snap / tok)
+    lora = kohya_lora(editor.modules.unet, seed=6)
+    save_file(lora, str(work / "lora.safetensors"))
+    res["snapshot_write_s"] = time.perf_counter() - t
+    res["convert_s"] = convert_all(snap, ckpt, work / "lora.safetensors", card)
+    written += sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    res["gib_written"] = written / 1024**3
+    for name in (*SNAPSHOT, "tokenizer", "tokenizer_2"):  # the LoRA checkpoint's others
+        if name != "unet":
+            (ckpt / "lora" / name).symlink_to(ckpt / name, target_is_directory=True)
+    log(f"snapshot written in {res['snapshot_write_s']:.2f} s; {res['gib_written']:.2f} "
+        f"GiB written in all (fp16 snapshot and bf16 conversions); {card}")
 
-        t = time.perf_counter()
-        loaded = FastEditor("ssd-1b", checkpoint_dir=str(ckpt))
-        torch.cuda.synchronize()
-        res["load_s"] = time.perf_counter() - t
-        log(f"FastEditor('ssd-1b', checkpoint_dir=...) loaded in {res['load_s']:.2f} s; {card}")
+    t = time.perf_counter()
+    loaded = FastEditor("ssd-1b", checkpoint_dir=str(ckpt))
+    torch.cuda.synchronize()
+    res["load_s"] = time.perf_counter() - t
+    log(f"FastEditor('ssd-1b', checkpoint_dir=...) loaded in {res['load_s']:.2f} s; {card}")
 
-        fp16_round_trip_(editor)  # nothing but I/O differs from the loaded editor now
-        editor.tokenizer = CLIPTokenizer.from_dir(str(ckpt / "tokenizer"))
-        editor.tokenizer_2 = CLIPTokenizer.from_dir(str(ckpt / "tokenizer_2"), pad_token_id=0)
-        img, prompt = test_image(9), "the harbor and the boats at dusk"
-        images, prompts = [test_image(10), test_image(11)], ["a street in the rain",
-                                                             "an orchard in autumn"]
-        runs = {"edit": lambda ed: edit_one(ed, img, prompt, seed=41, **EDIT_KW),
-                "edit_batch of 2": lambda ed: edit_arrays(ed, images, prompts, seed=42,
-                                                          **EDIT_KW)}
-        per_edit = launches_by_kernel(calls["default_b1"])
-        per_batch2 = launches_by_kernel(calls["default_b2"])
-        reset_launch_counts()
-        outs = {what: run(loaded) for what, run in runs.items()}
-        check_launches("the loaded editor's first edit and edit_batch of 2 (an eager warm-up "
-                       "and a capture each)", launch_counts(),
-                       {k: 2 * (per_edit[k] + per_batch2[k]) for k in per_edit})
-        for what, run in runs.items():
-            got, ref = outs[what], run(editor)
-            same_bits(f"loaded checkpoint against the in-memory editor, {what}", got, ref)
-            res[what] = dict(seconds_loaded=got[2], seconds_in_memory=ref[2],
-                             stage_ms_loaded=got[3], image_std=float(got[0].std()))
-            log(f"loaded = in-memory bit for bit, {what}:", res[what])
-        res["replay_launches"] = wrapper_launches(device_kernels(
-            lambda: loaded.edit(img, prompt, seed=43, **EDIT_KW), calls=2))
-        check_launches("one replayed edit of the loaded editor, device kernels by the profiler",
-                       res["replay_launches"], {**per_edit, "up2_phase_weights": 0})
-        del loaded
-        torch.cuda.empty_cache()
+    fp16_round_trip_(editor)  # nothing but I/O differs from the loaded editor now
+    editor.tokenizer = CLIPTokenizer.from_dir(str(ckpt / "tokenizer"))
+    editor.tokenizer_2 = CLIPTokenizer.from_dir(str(ckpt / "tokenizer_2"), pad_token_id=0)
+    img, prompt = test_image(9), "the harbor and the boats at dusk"
+    images, prompts = [test_image(10), test_image(11)], ["a street in the rain",
+                                                         "an orchard in autumn"]
+    runs = {"edit": lambda ed: edit_one(ed, img, prompt, seed=41, **EDIT_KW),
+            "edit_batch of 2": lambda ed: edit_arrays(ed, images, prompts, seed=42,
+                                                      **EDIT_KW)}
+    per_edit = launches_by_kernel(calls["default_b1"])
+    per_batch2 = launches_by_kernel(calls["default_b2"])
+    reset_launch_counts()
+    outs = {what: run(loaded) for what, run in runs.items()}
+    check_launches("the loaded editor's first edit and edit_batch of 2 (an eager warm-up "
+                   "and a capture each)", launch_counts(),
+                   {k: 2 * (per_edit[k] + per_batch2[k]) for k in per_edit})
+    for what, run in runs.items():
+        got, ref = outs[what], run(editor)
+        same_bits(f"loaded checkpoint against the in-memory editor, {what}", got, ref)
+        res[what] = dict(seconds_loaded=got[2], seconds_in_memory=ref[2],
+                         stage_ms_loaded=got[3], image_std=float(got[0].std()))
+        log(f"loaded = in-memory bit for bit, {what}:", res[what])
+    res["replay_launches"] = wrapper_launches(device_kernels(
+        lambda: loaded.edit(img, prompt, seed=43, **EDIT_KW), calls=2))
+    check_launches("one replayed edit of the loaded editor, device kernels by the profiler",
+                   res["replay_launches"], {**per_edit, "up2_phase_weights": 0})
+    del loaded
+    torch.cuda.empty_cache()
 
-        # LoRA: the fused tensors against W + alpha / rank * up @ down in fp32 on the card
-        unet = editor.modules.unet
-        fused_sd = from_jax.unet_state_dict(
-            ckpt_io.load_params(str(ckpt / "lora" / "unet")), unet.cfg)
-        worst, n_lora = 0.0, 0
-        for name, m in unet.named_modules():
-            if not name.endswith(LORA_PROJECTIONS):
-                continue
-            ref = lora_reference(m.weight, lora, name)
-            got = fused_sd[f"{name}.weight"].to(ref.device)
-            err, _ = check_close(f"LoRA-fused {name}", got, ref, CONV_REL, conv_tol(ref))
-            if n_outside(m.weight, ref, CONV_REL, conv_tol(ref)) == 0:
-                raise AssertionError(f"{name}: the tolerance passes the unfused weight")
-            worst, n_lora = max(worst, err), n_lora + 1
-        del fused_sd
-        res["lora"] = dict(modules=n_lora, rank=LORA_RANK, alpha=LORA_ALPHA,
-                           max_abs_err=worst)
-        lora_editor = FastEditor("ssd-1b", checkpoint_dir=str(ckpt / "lora"))
-        fuse_lora_(unet, lora)
-        editor.clear_memory()
-        got = edit_one(lora_editor, img, prompt, seed=44, **EDIT_KW)
-        ref = edit_one(editor, img, prompt, seed=44, **EDIT_KW)
-        res["lora"].update(differ(got, ref), against_unfused=differ(got, outs["edit"]))
-        log("LoRA-fused checkpoint against the in-memory fuse:", res["lora"])
-        if (res["lora"]["latent_rel_l2"] > E2E_LATENT_REL_L2
-                or res["lora"]["image_mean_abs_lsb"] > E2E_IMAGE_MEAN_LSB):
-            raise AssertionError(f"LoRA-fused checkpoint edit differs from the in-memory fuse "
-                                 f"beyond {E2E_LATENT_REL_L2} / {E2E_IMAGE_MEAN_LSB}: {res['lora']}")
-        lora_image = got[0][0]
-        del lora_editor
-        torch.cuda.empty_cache()
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    # LoRA: the fused tensors against W + alpha / rank * up @ down in fp32 on the card
+    unet = editor.modules.unet
+    fused_sd = from_jax.unet_state_dict(
+        ckpt_io.load_params(str(ckpt / "lora" / "unet")), unet.cfg)
+    worst, n_lora = 0.0, 0
+    for name, m in unet.named_modules():
+        if not name.endswith(LORA_PROJECTIONS):
+            continue
+        ref = lora_reference(m.weight, lora, name)
+        got = fused_sd[f"{name}.weight"].to(ref.device)
+        err, _ = check_close(f"LoRA-fused {name}", got, ref, CONV_REL, conv_tol(ref))
+        if n_outside(m.weight, ref, CONV_REL, conv_tol(ref)) == 0:
+            raise AssertionError(f"{name}: the tolerance passes the unfused weight")
+        worst, n_lora = max(worst, err), n_lora + 1
+    del fused_sd
+    res["lora"] = dict(modules=n_lora, rank=LORA_RANK, alpha=LORA_ALPHA,
+                       max_abs_err=worst)
+    lora_editor = FastEditor("ssd-1b", checkpoint_dir=str(ckpt / "lora"))
+    fuse_lora_(unet, lora)
+    editor.clear_memory()
+    got = edit_one(lora_editor, img, prompt, seed=44, **EDIT_KW)
+    ref = edit_one(editor, img, prompt, seed=44, **EDIT_KW)
+    res["lora"].update(differ(got, ref), against_unfused=differ(got, outs["edit"]))
+    log("LoRA-fused checkpoint against the in-memory fuse:", res["lora"])
+    if (res["lora"]["latent_rel_l2"] > E2E_LATENT_REL_L2
+            or res["lora"]["image_mean_abs_lsb"] > E2E_IMAGE_MEAN_LSB):
+        raise AssertionError(f"LoRA-fused checkpoint edit differs from the in-memory fuse "
+                             f"beyond {E2E_LATENT_REL_L2} / {E2E_IMAGE_MEAN_LSB}: {res['lora']}")
+    lora_image = got[0][0]
+    del lora_editor
+    torch.cuda.empty_cache()
 
     res["metrics"] = metrics_on_card(
         [img] + images + [test_image(12)],
@@ -1379,6 +1391,311 @@ def metrics_on_card(sources: list, edited_arrays: list, prompts: list, card: str
         f"{res['ms_per_batch_of_4']:.2f} ms per batch of 4; {card}; first pair {pairs[0]}")
     del calc
     torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------------------------------ phase 7
+
+
+def cli(label: str, module, argv: list, echo: int = 12) -> tuple[int, str, float]:
+    """``module.main(argv)`` in this process: (exit code, its standard
+    output, wall seconds); the output's last ``echo`` lines are logged, all
+    of it written to ``chiprun_out/chip_smoke_cli/<label>.log``."""
+    import io
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = module.main([str(a) for a in argv])
+    finally:
+        sec = time.perf_counter() - t
+        out = buf.getvalue()
+        (OUT_FILE.parent / "chip_smoke_cli").mkdir(parents=True, exist_ok=True)
+        (OUT_FILE.parent / "chip_smoke_cli" / f"{label}.log").write_text(out)
+    for line in [x for x in out.splitlines() if x.strip()][-echo:]:
+        log(f"  | {line}")
+    return rc, out, sec
+
+
+def steady_s_per_image(out: str) -> float:
+    """Seconds per image after the sweep's second image, from run_batch's
+    progress lines (``..., 1.23 s``): the first edit's warm-up and capture
+    left out."""
+    times = [float(x.rsplit(", ", 1)[1].split()[0]) for x in out.splitlines()
+             if x.startswith("Editing ") and x.endswith(" s")]
+    return (times[-1] - times[1]) / (len(times) - 2)
+
+
+def summary_count(out: str, what: str) -> int:
+    """The count of a run_batch summary line (``Processed:  3 images``)."""
+    lines = [x for x in out.splitlines() if x.startswith(f"{what}:")]
+    if len(lines) != 1:
+        raise AssertionError(f"no single '{what}:' line in run_batch's output")
+    return int(lines[0].split()[1])
+
+
+def summary_seconds(out: str, prefix: str) -> float:
+    """The seconds a run_batch summary line starting with ``prefix`` gives."""
+    line = next(x for x in out.splitlines() if x.startswith(prefix))
+    return float(line.split(":")[-1].split("s")[0].split()[-1])
+
+
+def decoded_images(root: Path) -> dict:
+    """Every JPEG under ``root``, decoded: relative path -> uint8 array."""
+    import numpy as np
+    from PIL import Image
+
+    return {str(p.relative_to(root)): np.asarray(Image.open(p))
+            for p in sorted(root.rglob("*.jpg"))}
+
+
+def same_images(what: str, got: dict, ref: dict) -> None:
+    import numpy as np
+
+    for rel, img in got.items():
+        if rel not in ref or not np.array_equal(img, ref[rel]):
+            raise AssertionError(f"{what}: {rel} differs from the sequential sweep's")
+
+
+def same_figures(got: Path, ref: Path) -> None:
+    """The comparison PNGs under ``got`` decode to those under ``ref``."""
+    import numpy as np
+    from PIL import Image
+
+    names = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.png"))
+    if sorted(str(p.relative_to(got)) for p in got.rglob("*.png")) != names:
+        raise AssertionError(f"comparison figures: {got} holds other files than {ref}")
+    for rel in names:
+        if not np.array_equal(np.asarray(Image.open(got / rel)), np.asarray(Image.open(ref / rel))):
+            raise AssertionError(f"comparison figure {rel} differs from the sequential sweep's")
+
+
+def keys_of_tree(tree) -> object:
+    """A JSON tree's key structure: dicts of their keys' structures."""
+    return {k: keys_of_tree(v) for k, v in tree.items()} if isinstance(tree, dict) else None
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def clis_at_full_width(ckpt: Path, card: str) -> dict:
+    """Phase 7: the port's entry points on the converted SSD-1B checkpoint
+    at 1024², in this process but for the two-process sweep."""
+    import csv
+    import gc
+    import math
+
+    import torch
+    from PIL import Image
+
+    from fastedit_tpu_torch import evaluate, run_batch, run_benchmark, run_single_image
+    from fastedit_tpu_torch.models import configs as C
+    from fastedit_tpu_torch.tools import inventory, make_demo_data
+
+    work = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    res: dict = {}
+    t_phase = time.perf_counter()
+    try:
+        demo = work / "demo"
+        make_demo_data.main(["--out", str(demo), "--n", "6", "--size", "512"])
+        mapping = json.loads((demo / "mapping_file.json").read_text())
+        data = ["--mapping_file", demo / "mapping_file.json",
+                "--source_dir", demo / "annotation_images"]
+        model = ["--model", "ssd-1b", "--checkpoint_dir", ckpt]
+
+        # 7.2 one image, with the metrics and a trace
+        first = demo / "annotation_images" / next(iter(mapping.values()))["image_path"]
+        rc, out, sec = cli("run_single_image", run_single_image, [
+            "--image", first, "--prompt", "a red square", *model, "--seed", 42,
+            "--compute_metrics", "--profile", work / "trace", "--output_dir", work / "single"])
+        edited = list((work / "single" / "single" / "edited" / "ssd-1b_fp16").glob("*"))
+        jpgs = [p for p in edited if p.suffix == ".jpg"]
+        metrics = [p for p in edited if p.name.startswith("metrics_")]
+        traces = list((work / "trace").glob("*.json"))
+        if rc != 0 or len(jpgs) != 1 or len(metrics) != 1 or len(traces) != 1:
+            raise AssertionError(f"run_single_image: rc {rc}, files {edited}, traces {traces}")
+        if Image.open(jpgs[0]).size != (RESOLUTION, RESOLUTION):
+            raise AssertionError(f"run_single_image wrote a {Image.open(jpgs[0]).size} image")
+        keys = [line.split(":")[0] for line in metrics[0].read_text().splitlines()]
+        if keys[-6:] != ["ssim", "lpips", "psnr", "mse", "clip_score", "dino_distance"]:
+            raise AssertionError(f"run_single_image's metrics file: {keys}")
+        if traces[0].stat().st_size == 0:
+            raise AssertionError("run_single_image wrote an empty trace")
+        edit_s = float(next(line for line in metrics[0].read_text().splitlines()
+                            if line.startswith("edit_seconds:")).split()[1])
+        res["single"] = dict(cli_s=sec, traced_edit_s=edit_s,
+                             trace_mib=traces[0].stat().st_size / 2**20)
+        log(f"[7] run_single_image: {sec:.2f} s for the CLI (load, one edit, one traced edit, "
+            f"metrics), the traced edit {edit_s:.2f} s, trace "
+            f"{res['single']['trace_mib']:.1f} MiB; {card}")
+
+        # 7.3 the sweep three times: sequential, data-parallel, resumed
+        sweep = [*data, *model, "--steps", 4, "--guidance", 1.0, "--control_scale", 0.5,
+                 "--seed", 42]
+        per_edit = inventory.launches_by_kernel(inventory.kernel_calls(inventory.edit_sites(
+            C.SSD1B_UNET, C.SDXL_CONTROLNET_SMALL, C.SDXL_VAE, RESOLUTION, batch=1, steps=3,
+            cfg_guidance=False)))
+        gc.collect()
+        inventory.reset_launch_counts()
+        rc, out, sec = cli("run_batch_sequential", run_batch,
+                           [*sweep, "--save_comparisons", "--output_dir", work / "seq"])
+        launches = inventory.launch_counts()
+        if rc != 0 or summary_count(out, "Processed") != 6:
+            raise AssertionError(f"sequential run_batch: rc {rc}")
+        check_launches("run_batch's sequential sweep (one warm-up and one capture of its key)",
+                       launches, {k: 2 * n for k, n in per_edit.items()})
+        if not all(launches[k] for k in KERNELS):
+            raise AssertionError(f"a kernel of the sweep's path never launched: {launches}")
+        seq_root = work / "seq" / "batch" / "edited" / "ssd-1b_fp16"
+        seq = decoded_images(seq_root)
+        if len(seq) != 6 or any(a.shape != (RESOLUTION, RESOLUTION, 3) for a in seq.values()):
+            raise AssertionError(f"sequential sweep: {[a.shape for a in seq.values()]}")
+        if len(list((work / "seq" / "batch" / "comparisons").rglob("*.png"))) != 6:
+            raise AssertionError("sequential sweep: not six comparison figures")
+        res["sequential"] = dict(cli_s=sec, launches=launches,
+                                 s_per_image=summary_seconds(out, "Total time") / 6,
+                                 steady_s_per_image=steady_s_per_image(out))
+
+        gc.collect()
+        rc, out, sec = cli("run_batch_data_parallel", run_batch, [
+            *sweep, "--save_comparisons", "--data_parallel", "--output_dir", work / "dp"])
+        if rc != 0 or summary_count(out, "Processed") != 6:
+            raise AssertionError(f"run_batch --data_parallel: rc {rc}")
+        same_images("run_batch --data_parallel", decoded_images(
+            work / "dp" / "batch" / "edited" / "ssd-1b_fp16"), seq)
+        same_figures(work / "dp" / "batch" / "comparisons", work / "seq" / "batch" / "comparisons")
+        res["data_parallel"] = dict(cli_s=sec, s_per_image=summary_seconds(
+            out, "Sweep wall time") / 6, steady_s_per_image=steady_s_per_image(out))
+        gc.collect()
+        rc, out, sec = cli("run_batch_resumed", run_batch, [
+            *sweep, "--save_comparisons", "--data_parallel", "--skip_existing",
+            "--output_dir", work / "dp"])
+        if rc != 0 or "Skipped:    6 images" not in out or summary_count(out, "Processed"):
+            raise AssertionError("run_batch --data_parallel --skip_existing did not skip six")
+        res["resumed_cli_s"] = sec
+        seq_r, dp_r = res["sequential"], res["data_parallel"]
+        log(f"[7] run_batch at 1024² (guidance 1, 3 steps run), s per image over the six by "
+            f"the sweeps' own clocks (the first edit's warm-up and capture included): "
+            f"sequential {seq_r['s_per_image']:.3f}, data-parallel {dp_r['s_per_image']:.3f}, "
+            f"images per second {1 / seq_r['s_per_image']:.2f} and "
+            f"{1 / dp_r['s_per_image']:.2f}; after the second image "
+            f"{seq_r['steady_s_per_image']:.3f} and {dp_r['steady_s_per_image']:.3f} s per "
+            f"image; CLI wall s {seq_r['cli_s']:.2f}, {dp_r['cli_s']:.2f}, {sec:.2f} "
+            f"(resumed, nothing edited); {card}")
+
+        # 7.4 two processes on the one card, joined over gloo, one output planted
+        out_mh = work / "multihost"
+        planted = out_mh / "batch" / "edited" / "ssd-1b_fp16" / next(
+            iter(mapping.values()))["image_path"]
+        planted.parent.mkdir(parents=True, exist_ok=True)
+        planted.write_bytes(b"placeholder")
+        port = free_port()
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        t = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "fastedit_tpu_torch.run_batch",
+             *map(str, sweep), "--output_dir", str(out_mh), "--skip_existing",
+             "--data_parallel", "--num_processes", "2", "--process_id", str(rank),
+             "--coordinator_address", f"localhost:{port}"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rank in range(2)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        res["multihost_s"] = time.perf_counter() - t
+        for rank, (p, o) in enumerate(zip(procs, outs)):
+            for line in [x for x in o.splitlines() if x.strip()][-8:]:
+                log(f"  | rank {rank}: {line}")
+            if p.returncode != 0 or "Skipped:    1 images" not in o:
+                raise AssertionError(f"rank {rank} of the two-process sweep: rc {p.returncode}")
+        counts = sorted(summary_count(o, "Processed") for o in outs)
+        if counts != [2, 3]:
+            raise AssertionError(f"two-process sweep processed {counts}, expected [2, 3]")
+        if planted.read_bytes() != b"placeholder":
+            raise AssertionError("the two-process sweep wrote over the planted output")
+        planted.unlink()
+        got = decoded_images(out_mh / "batch" / "edited" / "ssd-1b_fp16")
+        if len(got) != 5:
+            raise AssertionError(f"two-process sweep saved {len(got)} images, expected 5")
+        same_images("the two-process sweep", got, seq)
+        log(f"[7] two run_batch processes on one card: {res['multihost_s']:.2f} s, processed "
+            f"{counts}, five images bit for bit the sequential sweep's; {card}")
+
+        # 7.5 evaluate the sequential sweep
+        gc.collect()
+        torch.cuda.empty_cache()
+        rc, out, sec = cli("evaluate", evaluate, [
+            *data, "--outputs_dir", seq_root, "--results_file", work / "eval" / "metrics.csv",
+            "--summary_file", work / "eval" / "summary.json",
+            "--metrics_weights", work / "no_metrics_weights", "--allow_random_metrics"])
+        tiny = ROOT / "examples" / "tiny_results"
+        with open(work / "eval" / "metrics.csv") as f:
+            rows = list(csv.DictReader(f))
+        with open(tiny / "metrics.csv") as f:
+            columns = next(csv.reader(f))
+        summary = json.loads((work / "eval" / "summary.json").read_text())
+        if rc != 0 or len(rows) != 6 or list(rows[0]) != columns:
+            raise AssertionError(f"evaluate: rc {rc}, {len(rows)} rows, columns {list(rows[0])}")
+        if keys_of_tree(summary) != keys_of_tree(json.loads((tiny / "summary.json").read_text())):
+            raise AssertionError("evaluate: summary.json's keys differ from the shipped example's")
+        for row in rows:
+            if not all(math.isfinite(float(row[m])) for m in columns[4:]):
+                raise AssertionError(f"evaluate: a value is not finite: {row}")
+        res["evaluate"] = dict(cli_s=sec, ms_per_pair=1e3 * sec / 6)
+        log(f"[7] evaluate --allow_random_metrics: {res['evaluate']['ms_per_pair']:.1f} ms per "
+            f"pair (the CLI's wall time over six pairs, the calculator's set-up included); "
+            f"{card}")
+
+        # 7.6 the whole chain on the demo set
+        gc.collect()
+        torch.cuda.empty_cache()
+        bench_dir = work / "bench"
+        bench_dir.mkdir()
+        saved_env = {k: os.environ.get(k) for k in
+                     ("PIEBENCH_DIR", "OUTPUT_DIR", "RESULTS_DIR", "FIGURES_DIR", "N_FIGURES")}
+        os.environ.update(PIEBENCH_DIR=str(demo), OUTPUT_DIR=str(bench_dir / "outputs"),
+                          RESULTS_DIR=str(bench_dir / "results"),
+                          FIGURES_DIR=str(bench_dir / "figures"))
+        os.environ.pop("N_FIGURES", None)
+        try:
+            os.chdir(bench_dir)  # the archive lands in the current directory
+            rc, out, sec = cli("run_benchmark", run_benchmark,
+                               ["ssd-1b", "--checkpoint_dir", ckpt])
+        finally:
+            os.chdir(ROOT)
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        with open(bench_dir / "results" / "ssd-1b_fp16" / "metrics.csv") as f:
+            rows = list(csv.DictReader(f))
+        figures = list((bench_dir / "figures").glob("comparison_*.png"))
+        if (rc != 0 or len(rows) != 6 or len(figures) != 3
+                or not (bench_dir / "results" / "ssd-1b_fp16" / "summary.json").is_file()
+                or not (bench_dir / "results_ssd-1b_fp16.tar.gz").is_file()):
+            raise AssertionError(f"run_benchmark: rc {rc}, {len(rows)} rows, {figures}")
+        for row in rows:
+            exact = [float(row[m]) for m in ("ssim", "psnr", "mse")]
+            learned = [float(row[m]) for m in ("lpips", "clip_score", "dino_distance")]
+            if not all(map(math.isfinite, exact)) or not all(map(math.isnan, learned)):
+                raise AssertionError(f"run_benchmark's metrics.csv: {row}")
+        res["run_benchmark_s"] = sec
+        log(f"[7] run_benchmark ssd-1b: {sec:.2f} s (sweep, evaluation, three figures, "
+            f"archive); {card}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[7] phase 7 took {res['seconds']:.1f} s; {card}")
     return res
 
 
@@ -1520,11 +1837,20 @@ def main() -> int:
 
     log("[6] a converted checkpoint: snapshot, converter, FastEditor(checkpoint_dir=...), LoRA, "
         "metrics")
-    t = time.perf_counter()
-    phase6 = checkpoint_and_metrics(editor, calls, card)
-    phase6["seconds"] = time.perf_counter() - t
-    log(f"phase 6 took {phase6['seconds']:.1f} s; {card}")
-    del editor
+    work = ROOT / "build" / "chip_smoke_checkpoint"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        t = time.perf_counter()
+        phase6 = checkpoint_and_metrics(editor, calls, card, work)
+        phase6["seconds"] = time.perf_counter() - t
+        log(f"phase 6 took {phase6['seconds']:.1f} s; {card}")
+        del editor
+        torch.cuda.empty_cache()
+
+        log("[7] the CLIs at full width on phase 6's checkpoint")
+        phase7 = clis_at_full_width(work / "converted", card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
     log("[bench] python -m fastedit_tpu_torch.bench --reps 3")
@@ -1539,7 +1865,8 @@ def main() -> int:
     OUT_FILE.write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda, kernels=kernels,
         shapes=rows, host=host, main_path=main, kernels_vs_plain=e2e,
-        graphs_vs_eager=vs_eager, checkpoint_and_metrics=phase6, bench=bench_record,
+        graphs_vs_eager=vs_eager, checkpoint_and_metrics=phase6, clis=phase7,
+        bench=bench_record,
         bench_s=bench_s,
         phase2_s=phase2_s, build_s=build_s, hgmma=hgmma,
         seconds_total=time.perf_counter() - t_start,

@@ -15,6 +15,8 @@ Layer map:
     sched/     LCM scheduler tables and step.
     pipeline/  stage functions, their CUDA graphs and the ``FastEditor``
                facade.
+    parallel/  data parallelism: one editor replica per device, processes
+               joined over gloo, the PIE-Bench sweep.
     metrics/   ``MetricsCalculator``: SSIM, PSNR, MSE, LPIPS, CLIP score and
                DINO distance.
     text/      CLIP BPE tokenizer (a copy of the JAX package's).
@@ -26,11 +28,17 @@ Layer map:
                image helpers, analytic FLOPs.
     bench.py   ``python -m fastedit_tpu_torch.bench``: seconds per edit on
                the card.
+    harness.py, run_single_image.py, run_batch.py, evaluate.py,
+    run_benchmark.py, plotting/compare_methods.py
+               the CLIs (``python -m fastedit_tpu_torch.<name>``) and the
+               PIE-Bench artifact chain: the JAX package's root scripts'
+               flags and artifacts, on the card unless
+               ``FASTEDIT_PLATFORM=cpu``.
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["FastEditor", "__version__"]
+__all__ = ["FastEditor", "MetricsCalculator", "__version__"]
 
 
 def __getattr__(name):  # lazy: importing a submodule stays light
@@ -38,4 +46,8 @@ def __getattr__(name):  # lazy: importing a submodule stays light
         from fastedit_tpu_torch.pipeline.editor import FastEditor
 
         return FastEditor
+    if name == "MetricsCalculator":
+        from fastedit_tpu_torch.metrics.calculator import MetricsCalculator
+
+        return MetricsCalculator
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

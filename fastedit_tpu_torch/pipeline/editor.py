@@ -16,13 +16,19 @@ directory (``checkpoint_dir``, else ``checkpoints/<model_name>``), the layout
 latency does not depend on the weights), and ``"tiny"`` is a seeded
 random-weight smoke model with the real topology.
 
-Not in this slice (see ROADMAP.md): the fp32 quality mode on the card (P17),
-data parallelism (P15).
+``enable_data_parallel`` splits later batches over one replica per device
+(``parallel/replicas.py``, the counterpart of the JAX package's device
+mesh), and over processes once ``parallel/multihost.initialize`` has run.
+
+Not ported yet (see ROADMAP.md): the fp32 quality mode on the card (P17),
+tensor parallelism (P15c).
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import os
 import time
 from typing import Optional
@@ -47,6 +53,7 @@ from fastedit_tpu_torch.tools import from_jax
 from fastedit_tpu_torch.utils import checkpoint as ckpt_io
 from fastedit_tpu_torch.utils.image import resize
 from fastedit_tpu_torch.utils.logging import get_logger
+from fastedit_tpu_torch.utils.profiling import nan_checks_enabled
 
 log = get_logger("FastEditor")
 
@@ -120,29 +127,53 @@ class PendingEdit:
     (into a fresh pinned buffer, behind the edit on the stream and so before
     any later edit can overwrite the graph's output), nothing waited for.
     ``result()`` waits for the copy and returns the PIL images, so a sweep
-    can dispatch chunk i + 1 while chunk i's images come back."""
+    can dispatch chunk i + 1 while chunk i's images come back.  Under data
+    parallelism one handle joins the replicas' parts of a batch
+    (:meth:`join`), each a run of rows from its ``first_row``."""
 
-    def __init__(self, out: torch.Tensor):
-        self._event = None
+    def __init__(self, out: torch.Tensor, first_row: int = 0):
+        event = None
         if out.is_cuda:
-            self._host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            self._host.copy_(out, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
+            with torch.cuda.device(out.device):
+                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
         else:
-            self._host = out
+            host = out
+        self._parts = [(first_row, host, event)]
+        self.batch = out.shape[0]
 
-    def result(self) -> list:
-        if self._event is not None:
-            self._event.synchronize()
-        arr = self._host.numpy()
-        return [Image.fromarray(arr[i]) for i in range(arr.shape[0])]
+    @classmethod
+    def join(cls, parts: list, batch: int) -> "PendingEdit":
+        """One handle for the rows of ``parts`` (handles of disjoint runs of
+        rows) out of a batch of ``batch``."""
+        joined = cls.__new__(cls)
+        joined._parts = sorted((p for part in parts for p in part._parts), key=lambda p: p[0])
+        joined.batch = batch
+        return joined
 
     def local_result(self) -> list:
-        """``[(row, PIL image)]`` for the rows this process holds: all of
-        them (the JAX package's data-parallel editor may shard rows over
-        hosts)."""
-        return list(enumerate(self.result()))
+        """``[(row, PIL image)]``, in row order, for the rows this process
+        edited: every row of the batch, but under a data-parallel group that
+        spans processes (``parallel/multihost.py``) only this process's."""
+        rows = []
+        for first, host, event in self._parts:
+            if event is not None:
+                event.synchronize()
+            arr = host.numpy()
+            rows += [(first + i, Image.fromarray(arr[i])) for i in range(arr.shape[0])]
+        return rows
+
+    def result(self) -> list:
+        """Every row's PIL image, in order; raises where another process
+        holds some of them (use :meth:`local_result` there)."""
+        rows = self.local_result()
+        if len(rows) != self.batch:
+            raise RuntimeError(
+                f"this process holds {len(rows)} of the batch's {self.batch} rows, the "
+                "others are another process's: use local_result()")
+        return [img for _, img in rows]
 
 
 class FastEditor:
@@ -227,11 +258,16 @@ class FastEditor:
         else:
             self._load_checkpoint(checkpoint_dir or os.path.join("checkpoints", model_name))
         self.scheduler_config = LCMSchedulerConfig()
+        self._init_runtime()
+
+    def _init_runtime(self) -> None:
+        """The caches, the CUDA graphs and the data-parallel group: empty."""
         self._prompt_cache: dict = {}
         self._schedule_cache: dict = {}
         self._const_cache: dict = {}
         self._graphs = graphs.EditGraphs(self.modules) if self.device.type == "cuda" else None
         self._stage_events: list = []
+        self._group = None
         # the last edit's final latents (on the graphs, the capture's buffer)
         self.last_latents: Optional[torch.Tensor] = None
 
@@ -301,6 +337,60 @@ class FastEditor:
         )
         self._control_res = self.resolution
         log.info("loaded %s in %.2f s", ckpt_dir, time.perf_counter() - t0)
+
+    # --------------------------------------------------------- data parallel
+
+    def enable_data_parallel(self, devices=None, model_parallel: int = 1):
+        """Split later ``edit_batch[_async]`` calls over one replica per
+        device, the counterpart of the JAX package's ICI data parallelism:
+        ``devices`` defaults to this process's cards (on the CPU, this
+        editor's device alone): every local card, or under
+        ``parallel/multihost.initialize`` this process's share of its
+        host's (``multihost.local_devices``, so the processes of a host
+        split its cards); a list may name a device more than once
+        (``["cpu", "cpu"]``).  This editor serves the first entry of its own
+        device; every other replica is a ``FastEditor`` of the same
+        configuration whose weights are copied from this editor's (not
+        loaded or converted again), with its own caches, CUDA graphs and
+        memory pool.  Where ``parallel/multihost.initialize`` has run, the
+        group spans the processes: ``shape["data"]`` is the chunk size, one
+        row per replica of every process, and each process edits only its
+        own rows (``multihost.local_rows``).  Returns the group
+        (``parallel/replicas.ReplicaGroup``).
+
+        ``model_parallel > 1`` (tensor parallelism) is not ported and
+        raises."""
+        if model_parallel > 1:
+            raise NotImplementedError(
+                "tensor parallelism (model_parallel > 1) is not ported to the PyTorch "
+                "package yet (ROADMAP P15c)")
+        from fastedit_tpu_torch.parallel import multihost
+        from fastedit_tpu_torch.parallel.replicas import ReplicaGroup
+
+        if devices is None:
+            devices = multihost.local_devices() if self.device.type == "cuda" else [self.device]
+        replicas = []
+        for device in map(_resolve_device, devices):
+            own = device == self.device and self not in replicas
+            replicas.append(self if own else self._replica(device))
+        self._group = ReplicaGroup(replicas, *multihost.rank_and_world())
+        log.info("Data parallelism enabled over %d replicas (%s), chunks of %d rows",
+                 len(replicas), ", ".join(map(str, self._group.devices)),
+                 self._group.shape["data"])
+        return self._group
+
+    def _replica(self, device: torch.device) -> "FastEditor":
+        """A ``FastEditor`` on ``device`` with this one's configuration,
+        tokenizers and a copy of its weights, and caches of its own."""
+        replica = copy.copy(self)
+        replica.device = device
+        replica.modules = dataclasses.replace(self.modules, **{
+            name: _build(type(m), m.config if hasattr(m, "config") else m.cfg, device,
+                         self.dtype, state_dict=m.state_dict())
+            for name in ("unet", "controlnet", "vae", "text_encoder", "text_encoder_2")
+            for m in [getattr(self.modules, name)]})
+        replica._init_runtime()
+        return replica
 
     # ------------------------------------------------------------ preprocess
 
@@ -390,11 +480,18 @@ class FastEditor:
         ]
         return draws[0], draws[1], draws[2:]
 
-    def stage_inputs(self, images) -> torch.Tensor:
+    def stage_inputs(self, images):
         """A pre-resized uint8 batch [B, r, r, 3] on the device, ahead of
         the edit: from pinned memory with a non-blocking copy, so a sweep's
         loader thread can stage chunk i + 1 while chunk i computes.  Pass
-        the tensor to ``edit_batch[_async]`` in place of the array."""
+        the tensor to ``edit_batch[_async]`` in place of the array.  Under
+        data parallelism each replica's rows go to its device (a
+        ``parallel/replicas.Staged``)."""
+        if self._group is not None:
+            return self._group.stage(images)
+        return self._stage_inputs(images)
+
+    def _stage_inputs(self, images) -> torch.Tensor:
         img_u8 = np.ascontiguousarray(images, dtype=np.uint8)
         r = self.resolution
         if img_u8.ndim != 4 or img_u8.shape[1:] != (r, r, 3):
@@ -426,8 +523,8 @@ class FastEditor:
                     f"pre-resized batch must be uint8 of shape (B, {r}, {r}, 3); "
                     f"got {images.dtype} {images.shape}"
                 )
-            return self.stage_inputs(images)
-        return self.stage_inputs(np.stack(
+            return self._stage_inputs(images)
+        return self._stage_inputs(np.stack(
             [np.asarray(resize(im.convert("RGB"), r), dtype=np.uint8) for im in images]
         ))
 
@@ -478,7 +575,7 @@ class FastEditor:
             vae_in, control, eps_enc, noise_init, tuple(step_noise), context, pooled,
             self._const("time_ids", context.shape[0]), schedule, guidance, cn_scale, do_cfg,
         )
-        if self._graphs is not None and flags.use_cuda_graphs():
+        if self._graphs is not None and flags.use_cuda_graphs() and not nan_checks_enabled():
             key = graphs.graph_key(b, do_cfg, schedule.num_steps, tile_noise, r)
             self.last_latents, out = self._graphs.run(key, inp, self._timed)
         else:
@@ -528,26 +625,41 @@ class FastEditor:
         seed: Optional[int] = None,
     ) -> PendingEdit:
         """Like ``edit_batch``, but returns a :class:`PendingEdit` without
-        waiting for the images."""
+        waiting for the images.  Under data parallelism the rows are split
+        over the replicas, each replica's dispatched without waiting for the
+        others."""
         if len(images) != len(prompts) or len(images) == 0:
             raise ValueError("edit_batch needs as many prompts as images (>= 1)")
-        return PendingEdit(self._run_edit(
-            images, prompts, negative_prompt, strength, num_inference_steps,
-            guidance_scale, controlnet_conditioning_scale, canny_low_threshold,
-            canny_high_threshold, seed, tile_noise=seed is not None,
-        ))
+        kw = dict(negative_prompt=negative_prompt, strength=strength,
+                  num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
+                  controlnet_conditioning_scale=controlnet_conditioning_scale,
+                  canny_low_threshold=canny_low_threshold,
+                  canny_high_threshold=canny_high_threshold, seed=seed)
+        if self._group is not None:
+            return self._group.edit_batch_async(images, prompts, kw)
+        return self._dispatch(images, prompts, kw)
+
+    def _dispatch(self, images, prompts, kw: dict, first_row: int = 0) -> PendingEdit:
+        """This editor's edit of ``images`` (rows ``first_row`` on of a
+        batch), not waited for."""
+        return PendingEdit(self._run_edit(images, prompts, **kw,
+                                          tile_noise=kw["seed"] is not None), first_row)
 
     # ----------------------------------------------------------------- misc
 
     def clear_memory(self):
         """Drop cached prompt embeddings, schedules, constants and the CUDA
-        graphs with their memory pool (weights stay)."""
+        graphs with their memory pool, this editor's and its replicas'
+        (weights stay)."""
         self._prompt_cache.clear()
         self._schedule_cache.clear()
         self._const_cache.clear()
         if self._graphs is not None:
             self._graphs.clear()
         self.last_latents = None
+        for replica in self._group.replicas if self._group is not None else ():
+            if replica is not self:
+                replica.clear_memory()
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 

@@ -23,7 +23,10 @@ Semantics mirrored from the JAX package:
     decode runs in its own kernel context (``flags.stage``): by default the
     conv kernels with up2 and down2 in the loop, the conv kernels with
     whole-resnet fusion and up2 in the decoder, PyTorch's convs in the
-    encoder.
+    encoder;
+  * with ``utils/profiling.enable_nan_checks`` on (the editor then runs
+    eagerly), each stage's output is checked for NaN and infinity
+    (``check_finite``: off, a Python test and no device work).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from fastedit_tpu_torch.models.vae import AutoencoderKL
 from fastedit_tpu_torch.ops import flags
 from fastedit_tpu_torch.ops.canny import canny
 from fastedit_tpu_torch.sched.lcm import LCMSchedule, add_noise, lcm_step
+from fastedit_tpu_torch.utils.profiling import check_finite
 
 
 @dataclasses.dataclass
@@ -67,6 +71,7 @@ def encode_prompt(mod: PipelineModules, ids_1: torch.Tensor, ids_2: torch.Tensor
     context = torch.cat(
         [out1.penultimate_hidden_state, out2.penultimate_hidden_state], dim=-1
     )
+    check_finite("encode_prompt", context, out2.pooled_output)
     return context, out2.pooled_output
 
 
@@ -83,7 +88,9 @@ def prepare(mod: PipelineModules, img_u8: torch.Tensor, low, high, control_res: 
             mode="nearest-exact",
         ).permute(0, 2, 3, 1)
     vae_in = f / 127.5 - 1.0
-    return control.to(mod.dtype).contiguous(), vae_in.to(mod.dtype)
+    control, vae_in = control.to(mod.dtype).contiguous(), vae_in.to(mod.dtype)
+    check_finite("prepare", control, vae_in)
+    return control, vae_in
 
 
 @torch.no_grad()
@@ -93,7 +100,9 @@ def vae_sample(mod: PipelineModules, image: torch.Tensor, eps: torch.Tensor) -> 
     image the same noise."""
     with flags.stage("encode"):
         mean, logvar = mod.vae.encode_moments(image)
-    return AutoencoderKL.sample(mean, logvar, eps) * mod.vae_scaling_factor
+    latents = AutoencoderKL.sample(mean, logvar, eps) * mod.vae_scaling_factor
+    check_finite("vae_encode", latents)
+    return latents
 
 
 @torch.no_grad()
@@ -104,6 +113,7 @@ def vae_decode(mod: PipelineModules, latents: torch.Tensor) -> torch.Tensor:
     with flags.stage("decode"):
         for i in range(latents.shape[0]):
             img = mod.vae.decode(latents[i : i + 1] / mod.vae_scaling_factor)
+            check_finite("vae_decode", img)
             img01 = (img.float() / 2 + 0.5).clamp(0.0, 1.0)
             out.append((img01 * 255.0 + 0.5).to(torch.uint8))
     return torch.cat(out)
@@ -170,6 +180,7 @@ def _denoise_body(mod, latents, context, pooled, time_ids, control_image, schedu
             eps_u, eps_c = e[:, 0], e[:, 1]
             eps = eps_u + guidance_scale * (eps_c - eps_u)
         lat = lcm_step(schedule, i, lat, eps, step_noise[i].expand_as(lat))
+        check_finite("denoise", lat, step=i)
     return lat
 
 
