@@ -31,6 +31,12 @@ order; a failed phase raises and the script exits non-zero:
    statistics call one (the profiler counts them).  The rows of the convs, attention and GroupNorm also carry
    their plan (tiles, grid, shared memory), and the host's microseconds per
    launch of the stride-1 conv, the stride-2 conv and attention are printed.
+   Then the same in fp32 for each kernel's fp32 instance (``<kernel>_f32``)
+   at every distinct shape of the fp32 path (an ``edit``, an ``edit_batch``
+   of two and a quality-mode edit), on seeded random fp32 inputs with TF32
+   off, with the same planted faults, the fp32 tolerance, the bound at the
+   fp32 rate outside the tensor cores (67 TFLOP/s) and fp32 library calls
+   (``F.conv2d``, SDPA); fewer repeats (a graph of 5 calls, 3 eager calls).
 3. The main path in the default configuration:
    ``FastEditor("ssd-1b", random_weights=True)`` at 1024², a warm-up, three
    ``edit()`` calls and one ``edit_batch`` of two images, on CUDA graphs
@@ -93,7 +99,21 @@ order; a failed phase raises and the script exits non-zero:
    ``examples/tiny_results`` schemas, every value finite); and
    ``run_benchmark ssd-1b`` on the demo set (SSIM, PSNR and MSE finite, the
    learned metrics NaN without weights, the summary, three figures and the
-   archive).
+   archive); ``run_single_image --full_precision`` (fp32, the kernels' fp32
+   instances) and ``--quality_mode``, which must fail only for the
+   checkpoint's missing ``controlnet_full``.
+8. The fp32 path: ``FastEditor("ssd-1b", random_weights=True,
+   use_full_precision=True)`` at 1024² on graphs, after the bf16 editors are
+   freed: a warm-up, two ``edit()`` calls and one ``edit_batch`` of two, with
+   seconds per edit, device ms per stage, peak memory, the wrappers' launches
+   (twice the fp32 inventory: every call on an fp32 kernel, no bf16 kernel)
+   and one replayed edit's device kernels by name.  With seeded weights: an
+   edit on graphs against the same edit eagerly (bit for bit) and with
+   ``plain_versions=True`` (within 1e-3 latent rel L2 and 0.5 LSB mean; a
+   plain edit whose convs skip their last 8 input channels, the fp32
+   kernel's Cin step, must fail those limits).  Last, one quality-mode edit
+   (``use_full_controlnet=True``) with its launches against the inventory of
+   the full ControlNet.
 
 Last, ``python -m fastedit_tpu_torch.bench --reps 3`` (``bench.main``) on a
 new editor, whose JSON line is printed.
@@ -122,6 +142,8 @@ OUT_FILE = ROOT / "chiprun_out" / "chip_smoke.json"
 # bytes / bandwidth.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
+# fp32 outside the tensor cores, the rate of the fp32 kernels (SIMT FFMAs)
+PEAK_F32_FLOPS = 67e12
 
 RESOLUTION = 1024
 EDIT_KW = dict(strength=0.8, num_inference_steps=4, guidance_scale=1.5)
@@ -154,16 +176,34 @@ GN_OFFSET, GN_SPIKE, GN_SPIKE_RATE = 384.0, 2.0, 1.0 / 512
 # it is recorded only; phase 2 catches it.
 E2E_LATENT_REL_L2 = 5e-2
 E2E_IMAGE_MEAN_LSB = 4.0
+# fp32 (phase 2's fp32 rows): kernel and plain version both sum in fp32 in
+# other orders; the relative term is the repo's golden 2e-4, the absolute term
+# 1e-4 of the largest |ref| covers GroupNorm on the |mean| >> std input,
+# where two fp32 means of values ~384 differ by ~2e-5 and the output
+# multiplies that by 1 / std ~ 11 (read 1.5e-3 of max |ref| ~60 on the card).
+F32_REL, F32_ABS_OF_MAX = 2e-4, 1e-4
+# fp32 attention: the absolute term over the output's RMS, between the sound
+# kernel's reading (~1e-4) and a skipped KV tile's (> 1e-2), both read here.
+F32_ATTN_ABS_OF_RMS = 1e-3
+# fp32 end to end (phase 8): both paths in fp32 differ by summation order
+# alone, far below bf16's 0.05 and 4; a conv that skips its last Cin step
+# (8 channels) must fail these limits.
+F32_E2E_LATENT_REL_L2 = 1e-3
+F32_E2E_IMAGE_MEAN_LSB = 0.5
+# phase 2's fp32 rows: a graph of 5 calls replayed twice, 3 eager calls (the
+# fp32 kernels take milliseconds; the bf16 rows keep 20 and 10)
+F32_GRAPH = dict(reps=2, calls=5)
+F32_EAGER_REPS = 3
 
 
 def log(*args) -> None:
     print(*args, flush=True)
 
 
-def count_hgmma(library_path: Path) -> dict:
+def count_hgmma(library_path: Path, opcodes=("HGMMA",)) -> dict:
     """Warpgroup MMA instructions (SASS ``HGMMA``, what ``wgmma.mma_async``
-    compiles to) per kernel of a built library, from ``cuobjdump -sass``;
-    empty where the toolkit has no ``cuobjdump``."""
+    compiles to; or any of ``opcodes``) per kernel of a built library, from
+    ``cuobjdump -sass``; empty where the toolkit has no ``cuobjdump``."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -176,14 +216,18 @@ def count_hgmma(library_path: Path) -> dict:
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
             counts[name] = 0
-        elif name is not None and "HGMMA" in line:
+        elif name is not None and any(op in line for op in opcodes):
             counts[name] += 1
     return counts
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_PER_S
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def is_f32(kernel: str) -> bool:
+    return kernel.endswith("_f32")
 
 
 def n_outside(out, ref, rel: float, abs_tol: float) -> int:
@@ -206,8 +250,10 @@ def check_close(what: str, out, ref, rel: float, abs_tol: float) -> tuple[float,
     return err, err / max(scale, 1e-30)
 
 
-def conv_tol(ref) -> float:
-    return CONV_ABS_OF_MAX * float(ref.float().abs().max())
+def conv_tol(ref, f32: bool = False) -> float:
+    """The absolute term of the kernel tolerance (bf16 kernels, or with
+    ``f32`` the fp32 ones): a share of max |ref|."""
+    return (F32_ABS_OF_MAX if f32 else CONV_ABS_OF_MAX) * float(ref.float().abs().max())
 
 
 def err_over_rms(out, ref, rel: float) -> float:
@@ -228,12 +274,31 @@ def kernel_shapes():
     from fastedit_tpu_torch.ops import flags
     from fastedit_tpu_torch.tools import inventory
 
+    import torch
+
     args = (C.SSD1B_UNET, C.SDXL_CONTROLNET_SMALL, C.SDXL_VAE, RESOLUTION)
     sites = {b: inventory.edit_sites(*args, batch=b, steps=3) for b in (1, 2)}
     calls = {f"default_b{b}": inventory.kernel_calls(sites[b]) for b in (1, 2)}
     with flags.override(**OPT_IN):
         calls["optin_b1"] = inventory.kernel_calls(sites[1])
+    for b in (1, 2):  # the fp32 path: the same calls, on the fp32 instances
+        calls[f"f32_b{b}"] = inventory.kernel_calls(sites[b], dtype=torch.float32)
+    quality = inventory.edit_sites(C.SSD1B_UNET, C.SDXL_CONTROLNET_FULL, C.SDXL_VAE, RESOLUTION,
+                                   batch=1, steps=3)
+    calls["f32_quality_b1"] = inventory.kernel_calls(quality, dtype=torch.float32)
     return calls
+
+
+def call_counts(calls: dict, kernel: str, key) -> dict:
+    """A row's calls per configuration: an edit, a batch of two and (bf16)
+    the opt-in edit or (fp32) the quality-mode edit."""
+    if is_f32(kernel):
+        return dict(calls_edit=calls["f32_b1"].get((kernel, key), 0),
+                    calls_edit_batch2=calls["f32_b2"].get((kernel, key), 0),
+                    calls_edit_quality=calls["f32_quality_b1"].get((kernel, key), 0))
+    return dict(calls_edit=calls["default_b1"].get((kernel, key), 0),
+                calls_edit_batch2=calls["default_b2"].get((kernel, key), 0),
+                calls_edit_optin=calls["optin_b1"].get((kernel, key), 0))
 
 
 def keys_of(calls: dict, kernel: str) -> list:
@@ -244,17 +309,19 @@ def _parts(t) -> tuple:
     return tuple(t) if isinstance(t, (tuple, list)) else (t,)
 
 
-def hold_close(what: str, out, ref) -> tuple[float, float]:
-    """``check_close`` with the conv tolerance, part by part where the
-    outputs are tuples (the GroupNorm statistics' scale and shift, each held
-    to its own scale)."""
-    errs = [check_close(what, o, r, CONV_REL, conv_tol(r))
+def hold_close(what: str, out, ref, f32: bool = False) -> tuple[float, float]:
+    """``check_close`` with the kernel tolerance (the fp32 kernels' with
+    ``f32``), part by part where the outputs are tuples (the GroupNorm
+    statistics' scale and shift, each held to its own scale)."""
+    rel = F32_REL if f32 else CONV_REL
+    errs = [check_close(what, o, r, rel, conv_tol(r, f32))
             for o, r in zip(_parts(out), _parts(ref), strict=True)]
     return max(e for e, _ in errs), max(r for _, r in errs)
 
 
-def outside(out, ref) -> int:
-    return sum(n_outside(o, r, CONV_REL, conv_tol(r))
+def outside(out, ref, f32: bool = False) -> int:
+    rel = F32_REL if f32 else CONV_REL
+    return sum(n_outside(o, r, rel, conv_tol(r, f32))
                for o, r in zip(_parts(out), _parts(ref), strict=True))
 
 
@@ -269,25 +336,25 @@ def hold(calls, kernel, key, kern, plain, library, flops, nbytes, faults=None,
 
     from fastedit_tpu_torch.tools.timing import graph_ms, time_ms
 
+    f32 = is_f32(kernel)
     out, ref = kern(), plain()
     torch.cuda.synchronize()
-    err, rel = hold_close(f"{kernel} {key}", out, ref)
+    err, rel = hold_close(f"{kernel} {key}", out, ref, f32)
     row = dict(kernel=kernel, shape=list(key), max_abs_err=err, max_rel_err=rel)
     for name, make in (faults or {}).items():
-        bad = outside(make(), ref)
+        bad = outside(make(), ref, f32)
         row[f"{name}_elements_outside"] = bad
         if bad == 0:
             raise AssertionError(f"{kernel} {key}: the tolerance passes the planted {name}")
     del out, ref
-    b_ms, b_by = bound_ms(flops, nbytes)
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+    gkw, reps = (F32_GRAPH, F32_EAGER_REPS) if f32 else ({}, 10)
     row.update(extra or {})
     row.update(
-        calls_edit=calls["default_b1"].get((kernel, key), 0),
-        calls_edit_batch2=calls["default_b2"].get((kernel, key), 0),
-        calls_edit_optin=calls["optin_b1"].get((kernel, key), 0),
-        ms=graph_ms(kern), library_ms=graph_ms(library) if library else None,
-        plain_ms=time_ms(plain), eager_ms=time_ms(kern),
-        library_eager_ms=time_ms(library) if library else None,
+        **call_counts(calls, kernel, key),
+        ms=graph_ms(kern, **gkw), library_ms=graph_ms(library, **gkw) if library else None,
+        plain_ms=time_ms(plain, reps), eager_ms=time_ms(kern, reps),
+        library_eager_ms=time_ms(library, reps) if library else None,
         bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
     )
     row["tflops"] = flops / row["ms"] / 1e9
@@ -299,22 +366,40 @@ def hold(calls, kernel, key, kern, plain, library, flops, nbytes, faults=None,
     return row
 
 
-def _conv_operands(gen, n, h, w, cin, cout):
+def _conv_operands(gen, n, h, w, cin, cout, dtype=None):
     import torch
 
-    x = torch.randn((n, h, w, cin), generator=gen, device="cuda").bfloat16()
+    dtype = dtype or torch.bfloat16
+    x = torch.randn((n, h, w, cin), generator=gen, device="cuda").to(dtype)
     wt = torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") * (9 * cin) ** -0.5
-    wt = wt.bfloat16().contiguous(memory_format=torch.channels_last)
+    wt = wt.to(dtype).contiguous(memory_format=torch.channels_last)
     bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
     return x, wt, bias
 
 
-def plan_of(x, cout: int, down2_asymmetric=None, up2: bool = False) -> dict:
+def _suffix(dtype) -> tuple[str, int]:
+    """The kernel name's suffix for ``dtype`` (``_f32`` for fp32) and its
+    item size."""
+    import torch
+
+    return ("_f32", 4) if dtype == torch.float32 else ("", 2)
+
+
+def plan_of(x, cout: int, down2_asymmetric=None, up2: bool = False, mode: str = "conv") -> dict:
     """The conv kernel's schedule for this call (stride 1, the upsample form,
     or stride 2 where ``down2_asymmetric`` says which padding), as a row
-    records it."""
-    from fastedit_tpu_torch.ops.conv3x3 import plan_down2_for, plan_for, plan_up2_for
+    records it; for an fp32 ``x`` the fp32 kernel's (``mode`` as in
+    ``plan_f32``)."""
+    import torch
 
+    from fastedit_tpu_torch.ops.conv3x3 import (
+        plan_down2_for, plan_f32_for, plan_for, plan_up2_for)
+
+    if x.dtype == torch.float32:
+        mode = "up2" if up2 else "down2" if down2_asymmetric is not None else mode
+        pl = plan_f32_for(x, cout, mode, bool(down2_asymmetric))
+        return dict(rect=list(pl.rect), bn=pl.bn, tiles=pl.tiles, grid=pl.grid,
+                    smem_bytes=pl.smem_bytes)
     if up2:
         pl = plan_up2_for(x, cout)
     else:
@@ -335,27 +420,29 @@ def neighbour_halo(xin, wt):
     return F.conv2d(xp.permute(0, 3, 1, 2), wt.float()).permute(0, 2, 3, 1)
 
 
-def compare_conv(calls: dict, gen) -> list[dict]:
+def compare_conv(calls: dict, gen, dtype=None) -> list[dict]:
     """Fault, at batch 2: the halo row above an image taken from the
-    neighbouring image.  Library: ``F.conv2d`` in bf16."""
+    neighbouring image.  Library: ``F.conv2d`` in the dtype (bf16, or fp32
+    without TF32)."""
     import torch.nn.functional as F
 
     from fastedit_tpu_torch.ops import conv3x3 as k
 
+    sfx, isz = _suffix(dtype)
     rows = []
-    for key in keys_of(calls, "conv3x3"):
+    for key in keys_of(calls, "conv3x3" + sfx):
         n, h, w, cin, cout = key
-        x, wt, bias = _conv_operands(gen, n, h, w, cin, cout)
-        x_nchw, bias_bf = x.permute(0, 3, 1, 2), bias.bfloat16()
+        x, wt, bias = _conv_operands(gen, n, h, w, cin, cout, dtype)
+        x_nchw, bias_dt = x.permute(0, 3, 1, 2), bias.to(x.dtype)
         faults = {}
         if n > 1:
-            faults["neighbour_halo"] = lambda: (neighbour_halo(x, wt) + bias).bfloat16()
+            faults["neighbour_halo"] = lambda: (neighbour_halo(x, wt) + bias).to(x.dtype)
         rows.append(hold(
-            calls, "conv3x3", key,
+            calls, "conv3x3" + sfx, key,
             lambda: k.conv3x3(x, wt, bias), lambda: k.conv3x3_plain(x, wt, bias),
-            lambda: F.conv2d(x_nchw, wt, bias_bf, padding=1),
+            lambda: F.conv2d(x_nchw, wt, bias_dt, padding=1),
             flops=2.0 * n * h * w * cout * 9 * cin,
-            nbytes=2.0 * (n * h * w * cin + 9 * cin * cout + n * h * w * cout) + 4.0 * cout,
+            nbytes=isz * (n * h * w * cin + 9 * cin * cout + n * h * w * cout) + 4.0 * cout,
             faults=faults, extra=dict(plan=plan_of(x, cout)),
         ))
     return rows
@@ -399,7 +486,7 @@ def host_us_per_launch(calls: dict, gen, launches: int = 200, trials: int = 5) -
     return rows
 
 
-def compare_fused(calls: dict, gen) -> list[dict]:
+def compare_fused(calls: dict, gen, dtype=None) -> list[dict]:
     """The fused resnet conv with its prologue, per-batch or shared bias
     and skip as the key says.  Fault: the prologue applied to the padded
     input, so the ring holds silu(shift) instead of zero.  Library: the
@@ -411,21 +498,22 @@ def compare_fused(calls: dict, gen) -> list[dict]:
 
     from fastedit_tpu_torch.ops.conv3x3 import plan_for
 
+    sfx, isz = _suffix(dtype)
     rows = []
-    for key in keys_of(calls, "conv3x3_fused"):
+    for key in keys_of(calls, "conv3x3_fused" + sfx):
         n, h, w, cin, cout, per_batch_bias, has_skip = key
-        x, wt, bias = _conv_operands(gen, n, h, w, cin, cout)
+        x, wt, bias = _conv_operands(gen, n, h, w, cin, cout, dtype)
         if per_batch_bias:
             bias = torch.randn((n, cout), generator=gen, device="cuda") * 0.1
         scale = torch.rand((n, cin), generator=gen, device="cuda") + 0.5
         shift = torch.randn((n, cin), generator=gen, device="cuda") * 0.5
-        skip = (torch.randn((n, h, w, cout), generator=gen, device="cuda").bfloat16()
+        skip = (torch.randn((n, h, w, cout), generator=gen, device="cuda").to(x.dtype)
                 if has_skip else None)
         pre = (scale, shift)
 
         def finish(out):
             out = out + (bias[:, None, None, :] if bias.dim() == 2 else bias)
-            return (out if skip is None else out + skip.float()).bfloat16()
+            return (out if skip is None else out + skip.float()).to(x.dtype)
 
         def ring_not_zeroed():
             xp = F.pad(x, (0, 0, 1, 1, 1, 1))  # NHWC, zero ring
@@ -438,23 +526,25 @@ def compare_fused(calls: dict, gen) -> list[dict]:
             faults["neighbour_halo"] = lambda: finish(
                 neighbour_halo(cf.prologue_plain(x, scale, shift), wt))
 
-        x_nchw, bias_bf = x.permute(0, 3, 1, 2), bias.reshape(-1, cout)[0].bfloat16()
-        nbytes = (2.0 * (n * h * w * cin + 9 * cin * cout + n * h * w * cout * (2 if skip is not None else 1))
+        x_nchw, bias_dt = x.permute(0, 3, 1, 2), bias.reshape(-1, cout)[0].to(x.dtype)
+        nbytes = (isz * (n * h * w * cin + 9 * cin * cout
+                         + n * h * w * cout * (2 if skip is not None else 1))
                   + 4.0 * (bias.numel() + 2 * n * cin))
+        extra = dict(plan=plan_of(x, cout, mode="fused"))
+        if not sfx:
+            extra["prologue_exps"] = plan_for(x, cout).prologue_exps(n, h, w, cin)
         rows.append(hold(
-            calls, "conv3x3_fused", key,
+            calls, "conv3x3_fused" + sfx, key,
             lambda: cf.conv3x3_fused(x, wt, bias, pre, skip=skip),
             lambda: cf.conv3x3_fused_plain(x, wt, bias, pre, skip=skip),
-            lambda: F.conv2d(x_nchw, wt, bias_bf, padding=1),
+            lambda: F.conv2d(x_nchw, wt, bias_dt, padding=1),
             flops=2.0 * n * h * w * cout * 9 * cin, nbytes=nbytes,
-            faults=faults, extra=dict(
-                plan=plan_of(x, cout),
-                prologue_exps=plan_for(x, cout).prologue_exps(n, h, w, cin)),
+            faults=faults, extra=extra,
         ))
     return rows
 
 
-def compare_up2(calls: dict, gen) -> list[dict]:
+def compare_up2(calls: dict, gen, dtype=None) -> list[dict]:
     """Fault: phase (1, 1) with its two tap rows swapped.  Library: the
     materialised upsample and the conv, two calls (``repeat_interleave``
     + ``F.conv2d``).  The kernel takes its phase weights folded once
@@ -463,33 +553,34 @@ def compare_up2(calls: dict, gen) -> list[dict]:
 
     from fastedit_tpu_torch.ops import conv_fused as cf
 
+    sfx, isz = _suffix(dtype)
     rows = []
-    for key in keys_of(calls, "conv3x3_up2"):
+    for key in keys_of(calls, "conv3x3_up2" + sfx):
         n, h, w, cin, cout = key
-        x, wt, bias = _conv_operands(gen, n, h, w, cin, cout)
+        x, wt, bias = _conv_operands(gen, n, h, w, cin, cout, dtype)
         phases = cf.make_phase_kernels(wt)
         swapped = phases.clone()
         swapped[1, 1] = phases[1, 1].flip(0)
         folded = cf.fold_up2(wt)  # once, as the upsampler modules fold them
-        x_nchw, bias_bf = x.permute(0, 3, 1, 2), bias.bfloat16()
+        x_nchw, bias_dt = x.permute(0, 3, 1, 2), bias.to(x.dtype)
 
         def library():
             up = x_nchw.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
-            return F.conv2d(up, wt, bias_bf, padding=1)
+            return F.conv2d(up, wt, bias_dt, padding=1)
 
         rows.append(hold(
-            calls, "conv3x3_up2", key,
+            calls, "conv3x3_up2" + sfx, key,
             lambda: cf.conv3x3_up2(x, wt, bias, phases=folded),
             lambda: cf.conv3x3_up2_plain(x, wt, bias),
             library, flops=32.0 * n * h * w * cin * cout,
-            nbytes=2.0 * (n * h * w * cin + 9 * cin * cout + 4 * n * h * w * cout) + 4.0 * cout,
+            nbytes=isz * (n * h * w * cin + 9 * cin * cout + 4 * n * h * w * cout) + 4.0 * cout,
             faults={"fault": lambda: cf.up2_phases_plain(x, swapped, bias)},
             extra=dict(plan=plan_of(x, cout, up2=True)),
         ))
     return rows
 
 
-def compare_down2(calls: dict, gen) -> list[dict]:
+def compare_down2(calls: dict, gen, dtype=None) -> list[dict]:
     """Fault: the other padding ((1, 1) where (0, 1) is asked, and the
     reverse).  Library: ``F.conv2d(stride=2)`` (after ``F.pad`` for the
     asymmetric padding)."""
@@ -497,24 +588,25 @@ def compare_down2(calls: dict, gen) -> list[dict]:
 
     from fastedit_tpu_torch.ops import conv_fused as cf
 
+    sfx, isz = _suffix(dtype)
     rows = []
-    for key in keys_of(calls, "conv3x3_down2"):
+    for key in keys_of(calls, "conv3x3_down2" + sfx):
         n, h, w, cin, cout, asym = key
-        x, wt, bias = _conv_operands(gen, n, h, w, cin, cout)
-        x_nchw, bias_bf = x.permute(0, 3, 1, 2), bias.bfloat16()
+        x, wt, bias = _conv_operands(gen, n, h, w, cin, cout, dtype)
+        x_nchw, bias_dt = x.permute(0, 3, 1, 2), bias.to(x.dtype)
 
         def library():
             if asym:
-                return F.conv2d(F.pad(x_nchw, (0, 1, 0, 1)), wt, bias_bf, stride=2)
-            return F.conv2d(x_nchw, wt, bias_bf, stride=2, padding=1)
+                return F.conv2d(F.pad(x_nchw, (0, 1, 0, 1)), wt, bias_dt, stride=2)
+            return F.conv2d(x_nchw, wt, bias_dt, stride=2, padding=1)
 
         ho, wo = h // 2, w // 2
         rows.append(hold(
-            calls, "conv3x3_down2", key,
+            calls, "conv3x3_down2" + sfx, key,
             lambda: cf.conv3x3_down2(x, wt, bias, asymmetric=asym),
             lambda: cf.conv3x3_down2_plain(x, wt, bias, asymmetric=asym),
             library, flops=2.0 * n * ho * wo * cout * 9 * cin,
-            nbytes=2.0 * (n * h * w * cin + 9 * cin * cout + n * ho * wo * cout) + 4.0 * cout,
+            nbytes=isz * (n * h * w * cin + 9 * cin * cout + n * ho * wo * cout) + 4.0 * cout,
             faults={"fault": lambda: cf.conv3x3_down2_plain(x, wt, bias, asymmetric=not asym)},
             extra=dict(plan=plan_of(x, cout, down2_asymmetric=asym)),
         ))
@@ -558,7 +650,7 @@ def device_kernels(fn, calls: int = 3, tries: int = 5) -> list[str]:
                          f"(device kernels, markers, kernels after the last marker: {seen})")
 
 
-def compare_group_norm(calls: dict, gen) -> list[dict]:
+def compare_group_norm(calls: dict, gen, dtype=None) -> list[dict]:
     """The GroupNorm kernel (``group_norm``) and its statistics launch alone
     (``group_norm_scale_shift``, the fused resnet conv's (scale, shift)).
     Two inputs per shape: normal values, held and timed; and the |mean| >>
@@ -585,7 +677,7 @@ def compare_group_norm(calls: dict, gen) -> list[dict]:
     def one_pass(x, gamma, beta, groups, act):
         xf, mean, var = one_pass_stats(x, groups)
         out = ((xf - mean) * torch.rsqrt(var + 1e-5)).reshape(x.shape) * gamma + beta
-        return (F.silu(out) if act == "silu" else out).bfloat16()
+        return (F.silu(out) if act == "silu" else out).to(x.dtype)
 
     def one_pass_scale_shift(x, gamma, beta, groups):
         _, mean, var = one_pass_stats(x, groups)
@@ -593,12 +685,16 @@ def compare_group_norm(calls: dict, gen) -> list[dict]:
         scale = torch.rsqrt(var + 1e-5)[:, 0, :, 0].repeat_interleave(cg, dim=1) * gamma
         return scale, beta - mean[:, 0, :, 0].repeat_interleave(cg, dim=1) * scale
 
+    dtype = dtype or torch.bfloat16
+    sfx, isz = _suffix(dtype)
+    f32 = bool(sfx)
     rows = []
-    for kernel, launches in (("group_norm", 2), ("group_norm_scale_shift", 1)):
+    for base, launches in (("group_norm", 2), ("group_norm_scale_shift", 1)):
+        kernel = base + sfx
         for key in keys_of(calls, kernel):
             n, h, w, c, groups = key[:5]
-            act = key[5] if kernel == "group_norm" else None
-            if kernel == "group_norm":
+            act = key[5] if base == "group_norm" else None
+            if base == "group_norm":
                 def kern(x):
                     return fg.fused_group_norm(x, gamma, beta, groups, 1e-5, act)
 
@@ -619,12 +715,12 @@ def compare_group_norm(calls: dict, gen) -> list[dict]:
             gamma = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1.0
             beta = torch.randn(c, generator=gen, device="cuda") * 0.2
             spikes = torch.rand((n, h, w, c), generator=gen, device="cuda") < GN_SPIKE_RATE
-            offset = (GN_OFFSET + GN_SPIKE * spikes.float()).bfloat16()
+            offset = (GN_OFFSET + GN_SPIKE * spikes.float()).to(dtype)
             del spikes
             out, ref = kern(offset), plain(offset)
             torch.cuda.synchronize()
-            off_err, _ = hold_close(f"{kernel} {key}, |mean| >> std", out, ref)
-            fault_bad = outside(fault(offset), ref)
+            off_err, _ = hold_close(f"{kernel} {key}, |mean| >> std", out, ref, f32)
+            fault_bad = outside(fault(offset), ref, f32)
             del out, ref
             if fault_bad == 0:
                 raise AssertionError(f"{kernel} {key}: the tolerance passes a one-pass variance")
@@ -634,24 +730,24 @@ def compare_group_norm(calls: dict, gen) -> list[dict]:
                 raise AssertionError(f"{kernel} {key}: {len(names)} device kernels per call "
                                      f"({names}), expected 1 to {launches}")
 
-            x = (torch.randn((n, h, w, c), generator=gen, device="cuda") * 2.0 + 0.5).bfloat16()
+            x = (torch.randn((n, h, w, c), generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
             x_nchw = x.permute(0, 3, 1, 2)
-            g_bf, b_bf = gamma.bfloat16(), beta.bfloat16()
+            g_dt, b_dt = gamma.to(dtype), beta.to(dtype)
 
             x_groups = x.view(n, h * w, groups, c // groups)
 
             def library():
-                if kernel == "group_norm_scale_shift":
+                if base == "group_norm_scale_shift":
                     return torch.var_mean(x_groups, dim=(1, 3), correction=0)
-                y = F.group_norm(x_nchw, groups, g_bf, b_bf, 1e-5)
+                y = F.group_norm(x_nchw, groups, g_dt, b_dt, 1e-5)
                 return F.silu(y) if act == "silu" else y
 
             elems = n * h * w * c
             rows.append(hold(
                 calls, kernel, key, lambda: kern(x), lambda: plain(x), library,
-                flops=(8.0 if kernel == "group_norm" else 4.0) * elems,
-                # x read once, and the output written once (bf16) or (scale, shift) (fp32)
-                nbytes=2.0 * elems + 8.0 * c + (2.0 * elems if kernel == "group_norm"
+                flops=(8.0 if base == "group_norm" else 4.0) * elems,
+                # x read once, and the output written once (x's dtype) or (scale, shift) (fp32)
+                nbytes=isz * elems + 8.0 * c + (isz * elems if base == "group_norm"
                                                 else 8.0 * n * c),
                 extra=dict(offset_max_abs_err=off_err, fault_elements_outside=fault_bad,
                            device_kernels_per_call=len(names), device_kernel_names=names,
@@ -671,58 +767,61 @@ def gn_plan_of(x, groups: int) -> dict:
                 route=pl.route)
 
 
-def compare_attention(calls: dict, gen) -> list[dict]:
+def compare_attention(calls: dict, gen, dtype=None) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
     from fastedit_tpu_torch.ops import flash_attention as fa
     from fastedit_tpu_torch.tools.timing import graph_ms, time_ms
 
+    dtype = dtype or torch.bfloat16
+    sfx, isz = _suffix(dtype)
+    rel_tol, abs_of_rms = (F32_REL, F32_ATTN_ABS_OF_RMS) if sfx else (ATTN_REL, ATTN_ABS_OF_RMS)
+    gkw, reps = (F32_GRAPH, F32_EAGER_REPS) if sfx else ({}, 10)
     rows, weak = [], []
     keys = sorted({key for c in calls.values() for (k, key) in c
-                   if k.startswith("flash_attention")})
+                   if k == f"flash_attention_d{key[4]}{sfx}"})
     for key in keys:
         b, sq, skv, h, d = key
-        name = f"flash_attention_d{d}"
-        q = torch.randn((b, sq, h, d), generator=gen, device="cuda").bfloat16()
-        kk = torch.randn((b, skv, h, d), generator=gen, device="cuda").bfloat16()
-        v = torch.randn((b, skv, h, d), generator=gen, device="cuda").bfloat16()
+        name = f"flash_attention_d{d}{sfx}"
+        q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
+        kk = torch.randn((b, skv, h, d), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((b, skv, h, d), generator=gen, device="cuda").to(dtype)
         out = fa.flash_attention(q, kk, v)
         ref = fa.attention_plain(q, kk, v)
-        pl = fa.plan_for(q, skv)
+        pl = fa.plan_f32(b, sq, skv, h, d) if sfx else fa.plan_for(q, skv)
         tile = pl.bkv  # one KV tile of the kernel that runs
         faulty = fa.attention_plain(q, kk[:, :-tile], v[:, :-tile])
         torch.cuda.synchronize()
-        sound_c, fault_c = err_over_rms(out, ref, ATTN_REL), err_over_rms(faulty, ref, ATTN_REL)
-        log("attention", list(key), f"err/rms kernel {sound_c:.5f}, "
-            f"last KV tile skipped {fault_c:.5f}, limit {ATTN_ABS_OF_RMS}")
-        if fault_c <= ATTN_ABS_OF_RMS:
-            weak.append(f"flash_attention {key}: the tolerance passes "
-                        f"a skipped KV tile ({fault_c} <= {ATTN_ABS_OF_RMS})")
+        sound_c, fault_c = err_over_rms(out, ref, rel_tol), err_over_rms(faulty, ref, rel_tol)
+        log("attention", name, list(key), f"err/rms kernel {sound_c:.6f}, "
+            f"last KV tile skipped {fault_c:.5f}, limit {abs_of_rms}")
+        if fault_c <= abs_of_rms:
+            weak.append(f"{name} {key}: the tolerance passes "
+                        f"a skipped KV tile ({fault_c} <= {abs_of_rms})")
         err, rel = check_close(
-            f"flash_attention {key}", out, ref, ATTN_REL,
-            ATTN_ABS_OF_RMS * float(ref.float().square().mean().sqrt()),
+            f"{name} {key}", out, ref, rel_tol,
+            abs_of_rms * float(ref.float().square().mean().sqrt()),
         )
         del ref, out, faulty
         qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
         flops = 4.0 * b * h * sq * skv * d
-        nbytes = 2.0 * b * h * d * (2 * sq + 2 * skv)
-        b_ms, b_by = bound_ms(flops, nbytes)
+        nbytes = isz * b * h * d * (2 * sq + 2 * skv)
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_FLOPS if sfx else PEAK_BF16_FLOPS)
+        plan = dict(bq=pl.bq, bkv=pl.bkv, tiles=pl.tiles, grid=pl.grid,
+                    smem_bytes=pl.smem_bytes)
+        if not sfx:
+            plan.update(stages=pl.stages, v_stages=pl.v_stages)
         rows.append(dict(
-            kernel=name, shape=list(key),
-            calls_edit=calls["default_b1"].get((name, key), 0),
-            calls_edit_batch2=calls["default_b2"].get((name, key), 0),
-            calls_edit_optin=calls["optin_b1"].get((name, key), 0),
+            kernel=name, shape=list(key), **call_counts(calls, name, key),
             max_abs_err=err, max_rel_err=rel, err_over_rms=sound_c,
             fault_err_over_rms=fault_c,
-            ms=graph_ms(lambda: fa.flash_attention(q, kk, v)),
-            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-            plain_ms=time_ms(lambda: fa.attention_plain(q, kk, v)),
-            eager_ms=time_ms(lambda: fa.flash_attention(q, kk, v)),
-            library_eager_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-            bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
-            plan=dict(bq=pl.bq, bkv=pl.bkv, stages=pl.stages, v_stages=pl.v_stages,
-                      tiles=pl.tiles, grid=pl.grid, smem_bytes=pl.smem_bytes),
+            ms=graph_ms(lambda: fa.flash_attention(q, kk, v), **gkw),
+            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), **gkw),
+            plain_ms=time_ms(lambda: fa.attention_plain(q, kk, v), reps),
+            eager_ms=time_ms(lambda: fa.flash_attention(q, kk, v), reps),
+            library_eager_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps),
+            bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes, plan=plan,
         ))
         rows[-1]["tflops"] = flops / rows[-1]["ms"] / 1e9
         log("attention", rows[-1]["shape"], {k: rows[-1][k] for k in
@@ -764,15 +863,22 @@ def check_launches(what: str, launches: dict, expected: dict) -> None:
 
 
 # A launch of each wrapper runs these device kernels (a part of their
-# demangled names): GroupNorm's two-launch route gn_stats_kernel<false> and
-# gn_apply_kernel, its resident route gn_stats_kernel<true> alone, the
-# statistics entry gn_stats_kernel<false> alone.
+# demangled names): GroupNorm's two-launch route gn_stats_kernel<T, false> and
+# gn_apply_kernel<T>, its resident route gn_stats_kernel<T, true> alone, the
+# statistics entry gn_stats_kernel<T, false> alone (T the element type); the
+# fp32 conv's modes are conv_f32_kernel<mode, ...> (0 stride 1, 1 fused, 2
+# stride 2, 3 up2).
 WRAPPER_KERNELS = {
     "conv3x3": "conv3x3_kernel", "conv3x3_fused": "conv3x3_fused_kernel",
     "conv3x3_up2": "conv3x3_up2_kernel", "conv3x3_down2": "conv3x3_down2_kernel",
     "flash_attention_d64": "flash_d64_kernel", "flash_attention_d512": "flash_d512_kernel",
     "up2_phase_weights": "up2_phase_weights_kernel",
+    "conv3x3_f32": "conv_f32_kernel<0,", "conv3x3_fused_f32": "conv_f32_kernel<1,",
+    "conv3x3_down2_f32": "conv_f32_kernel<2,", "conv3x3_up2_f32": "conv_f32_kernel<3,",
+    "flash_attention_d64_f32": "flash_f32_d64_kernel",
+    "flash_attention_d512_f32": "flash_f32_d512_kernel",
 }
+GN_TYPES = {"": "__nv_bfloat16", "_f32": "float"}
 
 
 def wrapper_launches(names: list) -> dict:
@@ -781,9 +887,10 @@ def wrapper_launches(names: list) -> dict:
         return sum(part in name for name in names)
 
     out = {wrapper: count(part) for wrapper, part in WRAPPER_KERNELS.items()}
-    apply = count("gn_apply_kernel")
-    out["group_norm"] = apply + count("gn_stats_kernel<true>")
-    out["group_norm_scale_shift"] = count("gn_stats_kernel<false>") - apply
+    for sfx, t in GN_TYPES.items():
+        apply = count(f"gn_apply_kernel<{t}>")
+        out["group_norm" + sfx] = apply + count(f"gn_stats_kernel<{t}, true>")
+        out["group_norm_scale_shift" + sfx] = count(f"gn_stats_kernel<{t}, false>") - apply
     return out
 
 
@@ -885,7 +992,8 @@ def planted_fault(kind: str):
     """Plant a kernel-sized fault in the plain versions, inside the kernel's
     gate: ``attention`` skips the last KV tile of the kernel's plan, as a
     kernel whose loop stops one tile short; ``conv`` skips the last Cin step (64 channels) of the
-    last tap, as a kernel whose K loop stops one step short."""
+    last tap, as a kernel whose K loop stops one step short; ``conv_f32``
+    skips the fp32 kernel's last Cin step (8 channels, every tap)."""
     from fastedit_tpu_torch.ops import conv3x3, flash_attention
 
     if kind == "attention":
@@ -905,7 +1013,10 @@ def planted_fault(kind: str):
 
         def faulty(x, weight, bias=None, act=None):
             w = weight.clone()
-            w[:, (w.shape[1] - 1) // 64 * 64:, 2, 2] = 0
+            if kind == "conv_f32":
+                w[:, w.shape[1] - conv3x3.F32_KC:] = 0
+            else:
+                w[:, (w.shape[1] - 1) // 64 * 64:, 2, 2] = 0
             return orig(x, w, bias, act)
     setattr(module, name, faulty)
     try:
@@ -1692,10 +1803,175 @@ def clis_at_full_width(ckpt: Path, card: str) -> dict:
         res["run_benchmark_s"] = sec
         log(f"[7] run_benchmark ssd-1b: {sec:.2f} s (sweep, evaluation, three figures, "
             f"archive); {card}")
+
+        # 7.7 fp32 on the checkpoint (cast as it loads), and quality mode, which must fail
+        # only for the checkpoint's missing controlnet_full
+        gc.collect()
+        torch.cuda.empty_cache()
+        inventory.reset_launch_counts()
+        rc, out, sec = cli("run_single_image_full_precision", run_single_image, [
+            "--image", first, "--prompt", "a red square", *model, "--seed", 42,
+            "--full_precision", "--output_dir", work / "single_f32"])
+        launches = inventory.launch_counts()
+        jpgs = list((work / "single_f32" / "single" / "edited" / "ssd-1b_fp32").glob("*.jpg"))
+        if rc != 0 or len(jpgs) != 1 or Image.open(jpgs[0]).size != (RESOLUTION, RESOLUTION):
+            raise AssertionError(f"run_single_image --full_precision: rc {rc}, files {jpgs}")
+        per_f32 = inventory.launches_by_kernel(inventory.kernel_calls(inventory.edit_sites(
+            C.SSD1B_UNET, C.SDXL_CONTROLNET_SMALL, C.SDXL_VAE, RESOLUTION, batch=1, steps=3),
+            dtype=torch.float32))
+        check_launches("run_single_image --full_precision (one warm-up and one capture)",
+                       launches, {k: 2 * n for k, n in per_f32.items()})
+        res["single_full_precision_cli_s"] = sec
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            cli("run_single_image_quality_mode", run_single_image, [
+                "--image", first, "--prompt", "a red square", *model, "--quality_mode",
+                "--output_dir", work / "single_quality"])
+            raise AssertionError("run_single_image --quality_mode ran without controlnet_full")
+        except FileNotFoundError as e:
+            if "controlnet_full" not in str(e):
+                raise
+            res["quality_mode_error"] = str(e).splitlines()[0]
+        log(f"[7] run_single_image --full_precision: {sec:.2f} s for the CLI (load, a first "
+            f"edit with its capture); --quality_mode refused as the reference refuses it: "
+            f"{res['quality_mode_error'][:100]}; {card}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     res["seconds"] = time.perf_counter() - t_phase
     log(f"[7] phase 7 took {res['seconds']:.1f} s; {card}")
+    return res
+
+
+# ------------------------------------------------------------------ phase 8
+
+
+def f32_path(calls: dict, card: str) -> dict:
+    """Phase 8: the fp32 path (the reference's fp32 configuration and its
+    quality mode) on the card, on graphs, with the bf16 editors freed."""
+    import gc
+
+    import torch
+
+    from fastedit_tpu_torch import FastEditor
+    from fastedit_tpu_torch.ops import flags
+    from fastedit_tpu_torch.pipeline.graphs import STAGES
+    from fastedit_tpu_torch.tools.inventory import (
+        launch_counts, launches_by_kernel, reset_launch_counts)
+
+    res: dict = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    editor = FastEditor("ssd-1b", random_weights=True, use_full_precision=True)
+    torch.cuda.synchronize()
+    res["editor_build_s"] = time.perf_counter() - t0
+    images = [test_image(1), test_image(2)]
+    per_edit = launches_by_kernel(calls["f32_b1"])
+    per_batch2 = launches_by_kernel(calls["f32_b2"])
+
+    # 8.1 the main path: a warm-up, two edits, an edit_batch of two, on graphs
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res["warmup_s"] = editor.warmup(**EDIT_KW)
+    res["edits"] = []
+    for i in range(2):
+        t = time.perf_counter()
+        out = editor.edit(images[0], "a watercolor painting of a harbor", seed=i, **EDIT_KW)
+        res["edits"].append(dict(seconds=time.perf_counter() - t, stage_ms=editor.stage_ms()))
+        check_image(out)
+        log(f"[8] fp32 edit {i}: {res['edits'][-1]['seconds']:.4f} s",
+            res["edits"][-1]["stage_ms"])
+    t = time.perf_counter()
+    outs = editor.edit_batch(images, ["a snowy street", "a city at night"], seed=3, **EDIT_KW)
+    res["edit_batch2"] = dict(seconds=time.perf_counter() - t, stage_ms=editor.stage_ms())
+    for out in outs:
+        check_image(out)
+    res["launches"] = launch_counts()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 1024**3
+    keys = editor._graphs.captured
+    if len(keys) != 2 or any(tuple(c.graphs) != STAGES for c in keys.values()):
+        raise AssertionError(f"fp32: expected two keys of three graphs each, got {list(keys)}")
+    res["graph_pool_gib"] = {str(k[:5]): c.pool_bytes / 1024**3 for k, c in keys.items()}
+    check_launches("fp32: two keys' first calls (eager warm-up and capture each), then replays",
+                   res["launches"], {k: 2 * (per_edit[k] + per_batch2[k]) for k in per_edit})
+    res["replay_launches"] = wrapper_launches(device_kernels(
+        lambda: editor.edit(images[0], "a watercolor painting of a harbor", seed=5, **EDIT_KW),
+        calls=2))
+    check_launches("fp32: one replayed edit, device kernels by the profiler",
+                   res["replay_launches"], {**per_edit, "up2_phase_weights": 0})
+    log(f"[8] fp32 warm-up {res['warmup_s']:.2f} s, edit_batch of 2 (first call) "
+        f"{res['edit_batch2']['seconds']:.2f} s, peak {res['peak_gib']:.3f} GiB, pools "
+        f"{res['graph_pool_gib']}; {card}")
+
+    # 8.2 seeded weights: graphs = eager bit for bit, kernels against plain versions
+    seeded_weights_(editor, seed=20261017)
+    img, prompt = test_image(5), "an oil painting of a lighthouse"
+    editor._encode_prompts([prompt, ""])
+
+    def run(fault=None, **override):
+        with flags.override(**override), (planted_fault(fault) if fault
+                                          else contextlib.nullcontext()):
+            return edit_arrays(editor, [img], [prompt], seed=11, **EDIT_KW)
+
+    reset_launch_counts()
+    kern = run()
+    check_launches("fp32, seeded: one edit on graphs (a new key)", launch_counts(),
+                   {k: 2 * n for k, n in per_edit.items()})
+    reset_launch_counts()
+    eager = run(cuda_graphs=False)
+    check_launches("fp32, seeded: one edit on the eager arm", launch_counts(), per_edit)
+    same_bits("fp32", kern, eager)
+    before = launch_counts()
+    plain = run(plain_versions=True)
+    fault = run("conv_f32", plain_versions=True)
+    if launch_counts() != before:
+        raise AssertionError("an fp32 plain-version edit launched a kernel")
+    res["kernels_vs_plain"] = dict(
+        differ(kern, plain), latent_std=float(plain[1].float().std()),
+        seconds_graphs_first_call=kern[2], seconds_eager=eager[2], seconds_plain=plain[2],
+        stage_ms_graphs=kern[3], stage_ms_eager=eager[3])
+    res["planted_conv_fault"] = differ(fault, plain)
+    log("[8] fp32 kernels vs plain end to end:", res["kernels_vs_plain"])
+    log("[8] fp32 planted conv fault (last Cin step skipped) vs plain:",
+        res["planted_conv_fault"])
+    e2e = res["kernels_vs_plain"]
+    if (e2e["latent_rel_l2"] > F32_E2E_LATENT_REL_L2
+            or e2e["image_mean_abs_lsb"] > F32_E2E_IMAGE_MEAN_LSB or e2e["latent_std"] == 0.0):
+        raise AssertionError(f"fp32 kernel edit differs from the plain edit beyond "
+                             f"{F32_E2E_LATENT_REL_L2} / {F32_E2E_IMAGE_MEAN_LSB}: {e2e}")
+    bad = res["planted_conv_fault"]
+    if (bad["latent_rel_l2"] <= F32_E2E_LATENT_REL_L2
+            or bad["image_mean_abs_lsb"] <= F32_E2E_IMAGE_MEAN_LSB):
+        raise AssertionError(f"the fp32 end-to-end tolerance passes a planted conv fault: {bad}")
+    del editor, kern, eager, plain, fault
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8.3 quality mode: fp32 and the full ControlNet
+    quality = FastEditor("ssd-1b", random_weights=True, use_full_precision=True,
+                         use_full_controlnet=True)
+    reset_launch_counts()
+    t = time.perf_counter()
+    check_image(quality.edit(images[0], "a watercolor painting of a harbor", seed=7,
+                             **EDIT_KW))
+    res["quality_first_edit_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    check_image(quality.edit(images[1], "a snowy street", seed=8, **EDIT_KW))
+    res["quality_edit"] = dict(seconds=time.perf_counter() - t, stage_ms=quality.stage_ms())
+    res["quality_launches"] = launch_counts()
+    check_launches("quality mode: one edit's warm-up and capture, then a replay",
+                   res["quality_launches"],
+                   {k: 2 * n for k, n in launches_by_kernel(calls["f32_quality_b1"]).items()})
+    res["quality_peak_gib"] = torch.cuda.max_memory_allocated() / 1024**3
+    log(f"[8] quality mode: first edit {res['quality_first_edit_s']:.2f} s, replayed edit "
+        f"{res['quality_edit']['seconds']:.4f} s", res["quality_edit"]["stage_ms"])
+    del quality
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[8] phase 8 took {res['seconds']:.1f} s; {card}")
     return res
 
 
@@ -1719,17 +1995,26 @@ KERNELS = {  # name: (source, TPU kernel it replaces: file:line of pallas_call)
     "group_norm_scale_shift": ("fastedit_tpu_torch/csrc/group_norm.cu",
                                "fastedit_tpu/ops/groupnorm.py:53"),
 }
+# The fp32 instances (the quality mode's path, phase 8): SIMT FFMA kernels,
+# each replacing the same TPU kernel as its bf16 twin.
+F32_KERNELS = {
+    f"{name}_f32": (source.replace("conv3x3.cu", "conv3x3_f32.cu")
+                    .replace("flash_attention.cu", "flash_attention_f32.cu"), replaces)
+    for name, (source, replaces) in KERNELS.items()}
 # Kernels built on wgmma (SASS HGMMA), by a part of their mangled name; the
 # only other one (the upsample conv's phase-weight fold) must hold none.
 WGMMA_KERNELS = ("conv3x3_kernel", "conv3x3_fused_kernel", "conv3x3_down2_kernel",
                  "conv3x3_up2_kernel", "flash_d64_kernel", "flash_d512_kernel")
+# The fp32 libraries: no tensor-core instruction at all (TF32 alone is not fp32).
+F32_LIBRARIES = ("conv3x3_f32", "flash_attention_f32")
 
 
 
 def kernel_summary(rows: list, main: dict) -> list:
-    """One entry per kernel.  Times and bounds are for one edit's calls of
-    that kernel: the sum over its shapes of calls per edit x per-call time,
-    in the default configuration.  ``ms`` and ``library_ms`` are the
+    """One entry per kernel, the bf16 ones and their fp32 instances.  Times
+    and bounds are for one edit's calls of that kernel: the sum over its
+    shapes of calls per edit x per-call time, in the default configuration
+    (fp32: the fp32 edit's; the bound at 67 TFLOP/s).  ``ms`` and ``library_ms`` are the
     device's own times, from CUDA graphs; ``eager_ms`` and
     ``library_eager_ms`` are the same from back-to-back eager calls, which
     read the host where a call is short; ``plain_ms`` is eager (the plain
@@ -1739,7 +2024,7 @@ def kernel_summary(rows: list, main: dict) -> list:
     kernels of one replayed edit, by the profiler.  ``library_ms`` is null
     where no one PyTorch call computes the same function."""
     out = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces) in {**KERNELS, **F32_KERNELS}.items():
         mine = [r for r in rows if r["kernel"] == name]
         if not mine:
             raise AssertionError(f"no main-path shape reached {name}")
@@ -1747,7 +2032,8 @@ def kernel_summary(rows: list, main: dict) -> list:
         def per_edit(key, mine=mine):
             return sum(r["calls_edit"] * r[key] for r in mine)
 
-        ops_ms = 1e3 * per_edit("flops") / PEAK_BF16_FLOPS
+        peak = PEAK_F32_FLOPS if is_f32(name) else PEAK_BF16_FLOPS
+        ops_ms = 1e3 * per_edit("flops") / peak
         bytes_ms = 1e3 * per_edit("bytes") / PEAK_HBM_BYTES_PER_S
         launches = main["launches"][name]
         out.append(dict(
@@ -1814,6 +2100,13 @@ def main() -> int:
         if not counts:
             log(f"  {lib}: no cuobjdump, HGMMA not counted")
 
+    for lib in F32_LIBRARIES:
+        counts = count_hgmma(build.library_path(lib), ("HGMMA", "HMMA"))
+        log(f"  {lib}: tensor-core instructions (HGMMA, HMMA) per kernel: "
+            f"{counts or 'not counted'}")
+        if any(counts.values()):
+            raise AssertionError(f"{lib}: an fp32 kernel runs tensor-core instructions: {counts}")
+
     log("[2] kernels vs plain versions at the main path's shapes")
     t = time.perf_counter()
     calls = kernel_shapes()
@@ -1825,6 +2118,14 @@ def main() -> int:
         torch.cuda.empty_cache()
     host = host_us_per_launch(calls, gen)
     phase2_s = time.perf_counter() - t
+    log(f"[2] fp32: each kernel's fp32 instance at the fp32 path's shapes (TF32 off); "
+        f"the bf16 rows took {phase2_s:.1f} s")
+    t = time.perf_counter()
+    for compare in (compare_conv, compare_fused, compare_up2, compare_down2,
+                    compare_group_norm, compare_attention):
+        rows += compare(calls, gen, torch.float32)
+        torch.cuda.empty_cache()
+    phase2_f32_s = time.perf_counter() - t
 
     log("[3] main path: FastEditor('ssd-1b', random_weights=True) at 1024², on CUDA graphs")
     editor, main = main_path(calls)
@@ -1853,6 +2154,10 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    log("[8] the fp32 path: FastEditor('ssd-1b', random_weights=True, use_full_precision=True) "
+        "at 1024², on CUDA graphs; then quality mode")
+    phase8 = f32_path(calls, card)
+
     log("[bench] python -m fastedit_tpu_torch.bench --reps 3")
     from fastedit_tpu_torch import bench
 
@@ -1860,15 +2165,21 @@ def main() -> int:
     bench_record = bench.main(["--reps", "3"])
     bench_s = time.perf_counter() - t
 
-    kernels = kernel_summary(rows, main)
+    # the fp32 kernels' launches and replayed device kernels are phase 8's main path's
+    kernels = kernel_summary(rows, dict(
+        launches={**main["launches"], **{k: v for k, v in phase8["launches"].items()
+                                         if is_f32(k)}},
+        replay_launches={"edit": {**main["replay_launches"]["edit"],
+                                  **{k: v for k, v in phase8["replay_launches"].items()
+                                     if is_f32(k)}}}))
     OUT_FILE.parent.mkdir(parents=True, exist_ok=True)
     OUT_FILE.write_text(json.dumps(dict(
         card=card, torch=torch.__version__, cuda=torch.version.cuda, kernels=kernels,
         shapes=rows, host=host, main_path=main, kernels_vs_plain=e2e,
         graphs_vs_eager=vs_eager, checkpoint_and_metrics=phase6, clis=phase7,
-        bench=bench_record,
+        f32_path=phase8, bench=bench_record,
         bench_s=bench_s,
-        phase2_s=phase2_s, build_s=build_s, hgmma=hgmma,
+        phase2_s=phase2_s, phase2_f32_s=phase2_f32_s, build_s=build_s, hgmma=hgmma,
         seconds_total=time.perf_counter() - t_start,
     ), indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s; details in {OUT_FILE.relative_to(ROOT)}")

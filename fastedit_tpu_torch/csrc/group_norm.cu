@@ -1,6 +1,9 @@
-// GroupNorm (+ optional SiLU) over NHWC bf16, fp32 statistics with a
+// GroupNorm (+ optional SiLU) over NHWC bf16 or fp32, fp32 statistics with a
 // two-pass (centred) variance, in two launches; and the statistics launch
-// alone, for the fused resnet conv's prologue.
+// alone, for the fused resnet conv's prologue.  Every kernel is a template
+// over the element type T: a thread owns 8 channels of a pixel, one 16-byte
+// vector in bf16 and two in fp32 (Vec8<T>), so the schedule's thread layout
+// is the same for both and only the bytes of a stage double in fp32.
 //
 // Replaces the TPU kernel fastedit_tpu/ops/fused_groupnorm.py
 // (`fused_group_norm` -> `_fused_gn_4d` / `_gn_kernel`), and serves the XLA
@@ -28,7 +31,7 @@
 //                    writes scale = rstd * gamma, shift = beta - mean * scale
 //                    per (batch item, channel).
 //   gn_apply_kernel  y = x * scale + shift (+ SiLU with __fdividef), one
-//                    rounding to bf16: the second read of x.
+//                    rounding to T (none in fp32): the second read of x.
 //   resident route   where the ring holds each chunk whole and the blocks fit
 //                    the SMs (ops/fused_groupnorm.plan), gn_stats_kernel<true>
 //                    alone, as a cooperative launch: the blocks of a batch
@@ -41,11 +44,12 @@
 // it lies far below the card's ridge point; the least time is one read of x
 // and one write of the output at HBM bandwidth; the kernels read x twice.
 //
-// Thread layout (both kernels): with VC = C / 8 16-byte vectors per pixel, a
-// block has lanes * VC data threads (lanes = 512 / VC, at least one); thread t
-// owns channel vector t % VC of every lanes-th pixel, from pixel t / VC on.  In
-// a stage of whole pixels that is vector t, t + NT, t + 2 NT, ... (NT = lanes *
-// VC): neighbouring threads read neighbouring 16 bytes.  No block-wide step
+// Thread layout (both kernels): with VC = C / 8 vectors of 8 channels per
+// pixel, a block has lanes * VC data threads (lanes = 512 / VC, at least one);
+// thread t owns channel vector t % VC of every lanes-th pixel, from pixel t /
+// VC on.  In a stage of whole pixels that is vector t, t + NT, t + 2 NT, ...
+// (NT = lanes * VC): neighbouring threads read neighbouring 16 (bf16) or 32
+// (fp32) bytes.  No block-wide step
 // per stage but the barrier before a stage is refilled: a thread's statistics
 // stay in its registers until the chunk ends.  Then they go to shared memory,
 // [lanes][C], and each group's lanes * C / G entries are merged by a run of
@@ -63,7 +67,6 @@ constexpr int MAX_THREADS = 512;
 constexpr int MAX_C = 4096;         // 512 vectors; [lanes][C] partials fill MAX_C floats
 constexpr int MAX_G = 128;
 constexpr int MAX_STAGES = 4;
-constexpr int MAX_VECS = 8;             // 16-byte vectors per thread in a stage
 constexpr int RING_BYTES = 192 * 1024;  // the stages of one block
 
 struct Plan {  // ops/fused_groupnorm.plan, as the wrapper passes it
@@ -77,6 +80,23 @@ struct Plan {  // ops/fused_groupnorm.plan, as the wrapper passes it
   int napply;           // apply blocks per batch item
 };
 
+// Eight channels of one pixel: one 16-byte vector of bf16, two of fp32.
+template <typename T>
+struct Vec8;
+template <>
+struct Vec8<__nv_bfloat16> {
+  using Raw = uint4;
+  static constexpr int MAX_VECS = 8;
+};
+struct __align__(16) Float8 {
+  float4 lo, hi;
+};
+template <>
+struct Vec8<float> {
+  using Raw = Float8;
+  static constexpr int MAX_VECS = 4;  // the same 128 bytes per thread and stage
+};
+
 __device__ __forceinline__ void unpack8(const uint4& raw, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
@@ -85,6 +105,10 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float* f) {
     f[2 * e] = v.x;
     f[2 * e + 1] = v.y;
   }
+}
+__device__ __forceinline__ void unpack8(const Float8& raw, float* f) {
+  f[0] = raw.lo.x, f[1] = raw.lo.y, f[2] = raw.lo.z, f[3] = raw.lo.w;
+  f[4] = raw.hi.x, f[5] = raw.hi.y, f[6] = raw.hi.z, f[7] = raw.hi.w;
 }
 
 // Lanes that merge one group's entries: the fewest of 32, 16, ..., 1 with
@@ -190,6 +214,17 @@ __device__ __forceinline__ uint4 affine8(const uint4& raw, const float* sc, cons
   }
   return out;
 }
+__device__ __forceinline__ Float8 affine8(const Float8& raw, const float* sc, const float* sh,
+                                          int silu) {
+  float f[8];
+  unpack8(raw, f);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    f[e] = f[e] * sc[e] + sh[e];
+    if (silu) f[e] = __fdividef(f[e], 1.f + __expf(-f[e]));
+  }
+  return Float8{make_float4(f[0], f[1], f[2], f[3]), make_float4(f[4], f[5], f[6], f[7])};
+}
 
 // Grid (nchunk, B), lanes * VC threads rounded up to warps.  Each thread
 // keeps (n, mean, M2) of its eight channels over its pixels of the chunk: per
@@ -206,12 +241,14 @@ __device__ __forceinline__ uint4 affine8(const uint4& raw, const float* sc, cons
 // last block, so the same bits), and normalises its chunk from shared memory
 // into out: one read of x and one launch.  The last block to leave sets
 // counter[b] and counter[B + b] back to 0.
-template <bool RESIDENT>
+template <typename T, bool RESIDENT>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
-    gn_stats_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gamma,
+    gn_stats_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
                     const float* __restrict__ beta, float* __restrict__ scale_shift,
                     float2* part, unsigned int* counter, const Plan p, float eps,
-                    __nv_bfloat16* __restrict__ out, int silu) {
+                    T* __restrict__ out, int silu) {
+  using Raw = typename Vec8<T>::Raw;
+  constexpr int VECS = Vec8<T>::MAX_VECS;
   extern __shared__ __align__(128) uint8_t ring[];
   __shared__ float red_mean[MAX_C], red_m2[MAX_C];  // [lanes][C]; then [G] each in the last block
   __shared__ float lane_n[MAX_THREADS];             // pixels of the chunk each lane row saw
@@ -222,12 +259,12 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   const int C = p.C, G = p.G, cg = C / G, vc = C / 8, nt = p.lanes * vc;
   const int vecs = p.tile_px / p.lanes, tile0 = chunk * p.tiles_per_chunk;
   const int ntile = min(p.tiles_per_chunk, (p.HW + p.tile_px - 1) / p.tile_px - tile0);
-  const int stage_bytes = p.tile_px * C * 2;
+  const int stage_bytes = p.tile_px * C * (int)sizeof(T);
   const char* xb = reinterpret_cast<const char*>(x + (long long)b * p.HW * C);
 
   auto pixels = [&](int i) { return min(p.tile_px, p.HW - (tile0 + i) * p.tile_px); };
   auto issue = [&](int i) {  // thread 0: tile i of the chunk into stage i % stages
-    const int s = i % p.stages, bytes = pixels(i) * C * 2;
+    const int s = i % p.stages, bytes = pixels(i) * C * (int)sizeof(T);
     mbar_expect_tx(smem_u32(&full[s]), bytes);
     bulk_load(smem_u32(ring + s * stage_bytes), xb + (long long)(tile0 + i) * stage_bytes, bytes,
               smem_u32(&full[s]));
@@ -245,11 +282,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   for (int i = 0; i < ntile; ++i) {
     const int s = i % p.stages, nvec = pixels(i) * vc;
     mbar_wait(smem_u32(&full[s]), (i / p.stages) & 1);
-    const uint4* tile = reinterpret_cast<const uint4*>(ring + s * stage_bytes);
-    uint4 raw[MAX_VECS];
+    const Raw* tile = reinterpret_cast<const Raw*>(ring + s * stage_bytes);
+    Raw raw[VECS];
     int nb = 0;  // this thread's values per channel in the stage: vectors 0 .. nb - 1
 #pragma unroll
-    for (int k = 0; k < MAX_VECS; ++k) {
+    for (int k = 0; k < VECS; ++k) {
       const int v = t + k * nt;
       if (t < nt && k < vecs && v < nvec) {
         raw[k] = tile[v];
@@ -263,7 +300,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 #pragma unroll
     for (int e = 0; e < 8; ++e) lm[e] = lq[e] = 0.f;
 #pragma unroll
-    for (int k = 0; k < MAX_VECS; ++k) {
+    for (int k = 0; k < VECS; ++k) {
       if (k < nb) {
         unpack8(raw[k], f);
 #pragma unroll
@@ -274,7 +311,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 #pragma unroll
     for (int e = 0; e < 8; ++e) lm[e] *= inv_nb;
 #pragma unroll
-    for (int k = 0; k < MAX_VECS; ++k) {
+    for (int k = 0; k < VECS; ++k) {
       if (k < nb) {
         unpack8(raw[k], f);
 #pragma unroll
@@ -342,10 +379,10 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
       sc[e] = red_m2[g] * gamma[c0 + e];
       sh[e] = beta[c0 + e] - red_mean[g] * sc[e];
     }
-    uint4* ob = reinterpret_cast<uint4*>(out + (long long)b * p.HW * C);
+    Raw* ob = reinterpret_cast<Raw*>(out + (long long)b * p.HW * C);
     for (int i = 0; i < ntile; ++i) {
-      const uint4* tile = reinterpret_cast<const uint4*>(ring + i * stage_bytes);
-      uint4* ot = ob + (long long)(tile0 + i) * p.tile_px * vc;
+      const Raw* tile = reinterpret_cast<const Raw*>(ring + i * stage_bytes);
+      Raw* ot = ob + (long long)(tile0 + i) * p.tile_px * vc;
       const int nvec = pixels(i) * vc;
       for (int v = t; v < nvec; v += nt) ot[v] = affine8(tile[v], sc, sh, silu);
     }
@@ -370,9 +407,11 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 
 // Grid (napply, B): block k of batch item b normalises pixels [k * apply_px,
 // (k + 1) * apply_px), four pixels per thread in flight.
+template <typename T>
 __global__ void __launch_bounds__(MAX_THREADS)
-    gn_apply_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ scale_shift,
-                    __nv_bfloat16* __restrict__ out, const Plan p, int silu) {
+    gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ scale_shift,
+                    T* __restrict__ out, const Plan p, int silu) {
+  using Raw = typename Vec8<T>::Raw;
   const int t = threadIdx.x, b = blockIdx.y;
   const int C = p.C, vc = C / 8, lanes = p.lanes;
   if (t >= lanes * vc) return;
@@ -386,11 +425,11 @@ __global__ void __launch_bounds__(MAX_THREADS)
     *reinterpret_cast<float4*>(sh + e) = *reinterpret_cast<const float4*>(shift + e);
   }
   const int p0 = blockIdx.x * p.apply_px, p1 = min(p0 + p.apply_px, p.HW);
-  const uint4* xs = reinterpret_cast<const uint4*>(x + (long long)b * p.HW * C + c0);
-  uint4* os = reinterpret_cast<uint4*>(out + (long long)b * p.HW * C + c0);
+  const Raw* xs = reinterpret_cast<const Raw*>(x + (long long)b * p.HW * C + c0);
+  Raw* os = reinterpret_cast<Raw*>(out + (long long)b * p.HW * C + c0);
   int px = p0 + t / vc;
   for (; px + 3 * lanes < p1; px += 4 * lanes) {
-    uint4 raw[4];
+    Raw raw[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) raw[j] = xs[(long long)(px + j * lanes) * vc];
 #pragma unroll
@@ -402,15 +441,17 @@ __global__ void __launch_bounds__(MAX_THREADS)
 int block_threads(const Plan& p) { return (p.lanes * (p.C / 8) + 31) / 32 * 32; }
 
 // The plan's numbers, checked against what the kernels take; 0 or a CUDA error.
+template <typename T>
 int check(const Plan& p, bool apply) {
   const int ntiles = (p.HW + p.tile_px - 1) / max(p.tile_px, 1);
   const bool ok =
       p.B >= 1 && p.HW >= 1 && p.C % 8 == 0 && p.C <= MAX_C && p.G >= 1 && p.G <= MAX_G &&
       p.C % p.G == 0 && p.lanes >= 1 && p.lanes * (p.C / 8) <= MAX_THREADS &&
       block_threads(p) >= p.G && p.tile_px >= 1 && p.tile_px % p.lanes == 0 &&
-      p.tile_px / p.lanes <= MAX_VECS &&
+      p.tile_px / p.lanes <= Vec8<T>::MAX_VECS &&
       p.stages >= 1 && p.stages <= MAX_STAGES &&
-      (long long)p.stages * p.tile_px * p.C * 2 <= RING_BYTES && p.tiles_per_chunk >= 1 &&
+      (long long)p.stages * p.tile_px * p.C * (int)sizeof(T) <= RING_BYTES &&
+      p.tiles_per_chunk >= 1 &&
       p.nchunk >= 1 && p.nchunk * p.G <= MAX_C && (long long)p.nchunk * p.tiles_per_chunk >= ntiles &&
       (long long)(p.nchunk - 1) * p.tiles_per_chunk < ntiles && p.nchunk <= 65535 &&
       p.B <= 65535 &&
@@ -420,14 +461,14 @@ int check(const Plan& p, bool apply) {
 }
 
 // Raise the statistics kernel's dynamic shared memory limit once per device.
-template <bool RESIDENT>
+template <typename T, bool RESIDENT>
 int configure() {
   static unsigned long long configured = 0;  // one bit per device
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (!(configured >> (device & 63) & 1)) {
-    e = cudaFuncSetAttribute(gn_stats_kernel<RESIDENT>,
+    e = cudaFuncSetAttribute(gn_stats_kernel<T, RESIDENT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, RING_BYTES);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured |= 1ull << (device & 63);
@@ -435,31 +476,83 @@ int configure() {
   return 0;
 }
 
+template <typename T>
 int launch_stats(const void* x, const void* gamma, const void* beta, void* scale_shift,
                  void* part, void* counter, const Plan& p, float eps, cudaStream_t s) {
-  if (int err = configure<false>()) return err;
-  gn_stats_kernel<false>
-      <<<dim3(p.nchunk, p.B), block_threads(p), p.stages * p.tile_px * p.C * 2, s>>>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
-          static_cast<const float*>(beta), static_cast<float*>(scale_shift),
-          static_cast<float2*>(part), static_cast<unsigned int*>(counter), p, eps, nullptr, 0);
+  if (int err = configure<T, false>()) return err;
+  gn_stats_kernel<T, false>
+      <<<dim3(p.nchunk, p.B), block_threads(p), p.stages * p.tile_px * p.C * (int)sizeof(T),
+         s>>>(static_cast<const T*>(x), static_cast<const float*>(gamma),
+              static_cast<const float*>(beta), static_cast<float*>(scale_shift),
+              static_cast<float2*>(part), static_cast<unsigned int*>(counter), p, eps, nullptr,
+              0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int stats(const void* x, const void* gamma, const void* beta, void* scale_shift, void* part,
+          void* counter, const Plan& p, float eps, void* stream) {
+  if (int err = check<T>(p, false)) return err;
+  return launch_stats<T>(x, gamma, beta, scale_shift, part, counter, p, eps,
+                         static_cast<cudaStream_t>(stream));
+}
+
+template <typename T>
+int resident(const void* x, const void* gamma, const void* beta, void* out, void* part,
+             void* counter, const Plan& p, float eps, int silu, void* stream) {
+  if (int err = check<T>(p, false)) return err;
+  if (p.stages != p.tiles_per_chunk) return static_cast<int>(cudaErrorInvalidValue);
+  if (int err = configure<T, true>()) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.nchunk, p.B);
+  cfg.blockDim = dim3(block_threads(p));
+  cfg.dynamicSmemBytes = p.stages * p.tile_px * p.C * sizeof(T);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, gn_stats_kernel<T, true>, static_cast<const T*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<float*>(nullptr), static_cast<float2*>(part),
+      static_cast<unsigned int*>(counter), p, eps, static_cast<T*>(out), silu);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+template <typename T>
+int two_launch(const void* x, const void* gamma, const void* beta, void* out, void* scale_shift,
+               void* part, void* counter, const Plan& p, float eps, int silu, void* stream) {
+  if (int err = check<T>(p, true)) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (int err = launch_stats<T>(x, gamma, beta, scale_shift, part, counter, p, eps, s))
+    return err;
+  gn_apply_kernel<T><<<dim3(p.napply, p.B), block_threads(p), 0, s>>>(
+      static_cast<const T*>(x), static_cast<const float*>(scale_shift), static_cast<T*>(out), p,
+      silu);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // The statistics launch alone: scale_shift [2, B, C] fp32 (scale, then
-// shift).  x [B, HW, C] bf16, 16-byte aligned; gamma, beta [C] fp32; part
-// [B, nchunk, G] float2 of workspace; counter [B] uint32, zero before the
-// call and zero after it.
+// shift).  x [B, HW, C] bf16, 16-byte aligned; gamma, beta [C] fp32; part [B,
+// nchunk, G] float2 of workspace; counter [B] uint32, zero before the call and
+// zero after it.
 extern "C" int group_norm_stats_bf16(const void* x, const void* gamma, const void* beta,
                                      void* scale_shift, void* part, void* counter, int B, int HW,
                                      int C, int G, int lanes, int tile_px, int tiles_per_chunk,
                                      int nchunk, int stages, float eps, void* stream) {
   const Plan p{B, HW, C, G, lanes, tile_px, tiles_per_chunk, nchunk, stages, 0, 0};
-  if (int err = check(p, false)) return err;
-  return launch_stats(x, gamma, beta, scale_shift, part, counter, p, eps,
-                      static_cast<cudaStream_t>(stream));
+  return stats<__nv_bfloat16>(x, gamma, beta, scale_shift, part, counter, p, eps, stream);
+}
+// The same for x in fp32.
+extern "C" int group_norm_stats_f32(const void* x, const void* gamma, const void* beta,
+                                    void* scale_shift, void* part, void* counter, int B, int HW,
+                                    int C, int G, int lanes, int tile_px, int tiles_per_chunk,
+                                    int nchunk, int stages, float eps, void* stream) {
+  const Plan p{B, HW, C, G, lanes, tile_px, tiles_per_chunk, nchunk, stages, 0, 0};
+  return stats<float>(x, gamma, beta, scale_shift, part, counter, p, eps, stream);
 }
 
 // GroupNorm (+ SiLU) in one cooperative launch (the plan's resident route:
@@ -472,25 +565,16 @@ extern "C" int group_norm_resident_bf16(const void* x, const void* gamma, const 
                                         int tiles_per_chunk, int nchunk, int stages, float eps,
                                         int silu, void* stream) {
   const Plan p{B, HW, C, G, lanes, tile_px, tiles_per_chunk, nchunk, stages, 0, 0};
-  if (int err = check(p, false)) return err;
-  if (stages != tiles_per_chunk) return static_cast<int>(cudaErrorInvalidValue);
-  if (int err = configure<true>()) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(p.nchunk, p.B);
-  cfg.blockDim = dim3(block_threads(p));
-  cfg.dynamicSmemBytes = p.stages * p.tile_px * p.C * 2;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, gn_stats_kernel<true>, static_cast<const __nv_bfloat16*>(x),
-      static_cast<const float*>(gamma), static_cast<const float*>(beta),
-      static_cast<float*>(nullptr), static_cast<float2*>(part),
-      static_cast<unsigned int*>(counter), p, eps, static_cast<__nv_bfloat16*>(out), silu);
-  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+  return resident<__nv_bfloat16>(x, gamma, beta, out, part, counter, p, eps, silu, stream);
+}
+// The same for x and out in fp32.
+extern "C" int group_norm_resident_f32(const void* x, const void* gamma, const void* beta,
+                                       void* out, void* part, void* counter, int B, int HW, int C,
+                                       int G, int lanes, int tile_px, int tiles_per_chunk,
+                                       int nchunk, int stages, float eps, int silu,
+                                       void* stream) {
+  const Plan p{B, HW, C, G, lanes, tile_px, tiles_per_chunk, nchunk, stages, 0, 0};
+  return resident<float>(x, gamma, beta, out, part, counter, p, eps, silu, stream);
 }
 
 // GroupNorm (+ SiLU): the statistics launch into scale_shift (workspace, [2,
@@ -501,11 +585,16 @@ extern "C" int group_norm_bf16(const void* x, const void* gamma, const void* bet
                                int stages, int apply_px, int napply, float eps, int silu,
                                void* stream) {
   const Plan p{B, HW, C, G, lanes, tile_px, tiles_per_chunk, nchunk, stages, apply_px, napply};
-  if (int err = check(p, true)) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (int err = launch_stats(x, gamma, beta, scale_shift, part, counter, p, eps, s)) return err;
-  gn_apply_kernel<<<dim3(p.napply, p.B), block_threads(p), 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(scale_shift),
-      static_cast<__nv_bfloat16*>(out), p, silu);
-  return static_cast<int>(cudaGetLastError());
+  return two_launch<__nv_bfloat16>(x, gamma, beta, out, scale_shift, part, counter, p, eps, silu,
+                                   stream);
+}
+// The same for x and out in fp32.
+extern "C" int group_norm_f32(const void* x, const void* gamma, const void* beta, void* out,
+                              void* scale_shift, void* part, void* counter, int B, int HW, int C,
+                              int G, int lanes, int tile_px, int tiles_per_chunk, int nchunk,
+                              int stages, int apply_px, int napply, float eps, int silu,
+                              void* stream) {
+  const Plan p{B, HW, C, G, lanes, tile_px, tiles_per_chunk, nchunk, stages, apply_px, napply};
+  return two_launch<float>(x, gamma, beta, out, scale_shift, part, counter, p, eps, silu,
+                           stream);
 }

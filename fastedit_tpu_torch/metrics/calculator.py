@@ -12,12 +12,11 @@ from ``<weights_dir>/{lpips,clip_vision,clip_text,dino}``, converted by
 them the learned metrics fail closed (NaN) unless ``allow_random=True`` or
 ``tiny=True``, which build seeded random backbones on first use.  SSIM, PSNR
 and MSE are exact either way.  Every metric runs in true fp32
-(:func:`true_fp32`), on the card unless the caller passes ``device="cpu"``.
+(``utils/precision.true_fp32``), on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
 import warnings
 from typing import Optional
@@ -44,25 +43,11 @@ from fastedit_tpu_torch.pipeline.editor import _resolve_device, _seeded_init_
 from fastedit_tpu_torch.text.tokenizer import CLIPTokenizer
 from fastedit_tpu_torch.tools import from_jax
 from fastedit_tpu_torch.utils import checkpoint as ckpt_io
+from fastedit_tpu_torch.utils.precision import true_fp32  # noqa: F401 (re-exported)
 
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
 BACKBONES = ("lpips", "clip_vision", "clip_text", "dino")
-
-
-@contextlib.contextmanager
-def true_fp32():
-    """fp32 matmuls and cuDNN convs without TF32 inside; the previous
-    settings come back on exit.  The counterpart of the JAX package's
-    ``jax.default_matmul_precision("highest")``: SSIM's moments cancel under
-    reduced precision, and the backbones are compared with fp32 references."""
-    backends = torch.backends
-    old = backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32
-    backends.cuda.matmul.allow_tf32 = backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32 = old
 
 
 @torch.no_grad()

@@ -13,7 +13,7 @@ one number over the batch, as the reference's calls do; ``per_image=True``
 returns one per image [B] (the batched calculator).  On the card the blur's
 convs must run in true fp32: under TF32 the moments cancel in sigma = E[x^2]
 - mu^2 (the JAX package saw SSIM 12.8 instead of 0.457 so on its
-accelerator), so callers run these inside ``calculator.true_fp32()``.
+accelerator), so callers run these inside ``utils/precision.true_fp32()``.
 """
 
 from __future__ import annotations

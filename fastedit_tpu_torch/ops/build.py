@@ -46,10 +46,25 @@ KERNELS = {
         "flash_attention_bf16": (
             [_P] * 4 + [_I] * 5 + [_L] * 6 + [ctypes.c_float] + [_I] * 3 + [_P]),
     },
-    "group_norm": {
-        "group_norm_stats_bf16": [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P],
-        "group_norm_resident_bf16": [_P] * 6 + [_I] * 9 + [ctypes.c_float, _I, _P],
-        "group_norm_bf16": [_P] * 7 + [_I] * 11 + [ctypes.c_float, _I, _P],
+    "group_norm": {  # one template over the element type: bf16 and fp32 entries
+        f"{name}_{dtype}": args
+        for dtype in ("bf16", "f32")
+        for name, args in (
+            ("group_norm_stats", [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P]),
+            ("group_norm_resident", [_P] * 6 + [_I] * 9 + [ctypes.c_float, _I, _P]),
+            ("group_norm", [_P] * 7 + [_I] * 11 + [ctypes.c_float, _I, _P]))
+    },
+    # the fp32 (quality mode) kernels: SIMT, fp32 FFMAs
+    "conv3x3_f32": {
+        "conv3x3_f32_smem_bytes": [_I, _I],  # returns bytes
+        "conv3x3_f32": [_P] * 4 + [_I] * 7 + [_P],
+        "conv3x3_fused_f32": [_P] * 7 + [_I] * 8 + [_P],
+        "conv3x3_down2_f32": [_P] * 4 + [_I] * 8 + [_P],
+        "conv3x3_up2_f32": [_P] * 4 + [_I] * 7 + [_P],
+    },
+    "flash_attention_f32": {
+        "flash_attention_f32_smem_bytes": [_I],  # returns bytes
+        "flash_attention_f32": [_P] * 4 + [_I] * 5 + [_L] * 6 + [ctypes.c_float, _P],
     },
 }
 

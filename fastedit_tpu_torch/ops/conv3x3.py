@@ -14,6 +14,14 @@ tiles stage windows of the input's four parity planes instead of one halo, and
 :func:`plan_up2` that of the upsample form (``ops/conv_fused.conv3x3_up2``),
 whose tiles are rectangles of the low-res input times one of four phases.
 
+fp32 (the quality mode): a CUDA fp32 tensor launches the SIMT kernel of
+``csrc/conv3x3_f32.cu`` instead (fp32 FFMAs, no TF32), whose four modes are
+the fp32 instances of this kernel and of the three of
+``ops/conv_fused.py``; :func:`plan_f32` is its schedule (tiles of 8 x 16
+pixels x 16, 64 or 128 channels, one block each, chunks of 8 input
+channels) and :func:`conv_tiled_plain_f32` walks it in plain PyTorch, for
+the tests.  Each dtype's kernel has its own launch counter.
+
 Layouts: ``x`` is NHWC ``[B, H, W, Cin]``; ``weight`` is PyTorch's OIHW
 ``[Cout, Cin, 3, 3]`` and the kernel reads it in channels_last memory
 (OHWI), so both GEMM operands are contiguous along Cin.
@@ -28,8 +36,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-# Launches of the CUDA kernel since the last reset (chip_smoke.py resets it).
+# Launches of the CUDA kernel since the last reset (chip_smoke.py resets it),
+# bf16 and fp32.
 launches = 0
+launches_f32 = 0
 
 
 # The stride-1 kernel's geometry (csrc/conv3x3.cu holds the same constants).
@@ -258,6 +268,191 @@ def plan_up2(b: int, h: int, w: int, cin: int, cout: int, sms: int = H100_SMS) -
     )
 
 
+# The fp32 SIMT kernel (csrc/conv3x3_f32.cu holds the same constants): 256
+# threads, output tiles of 8 x 16 pixels (low-res pixels for up2, one phase),
+# chunks of 8 input channels double-buffered; two blocks per SM (one for the
+# 128-channel tile).
+F32_RECT = (8, 16)
+F32_KC = 8
+F32_STAGES = 2
+F32_BN = (16, 64, 128)
+F32_MODES = ("conv", "fused", "down2", "up2")
+
+
+@dataclass(frozen=True)
+class ConvPlanF32:
+    """The schedule of one call of the fp32 kernel, in any of its modes.
+    ``rect``, ``tiles_y`` and ``tiles_x`` are over the output pixels (the
+    low-res input's for up2)."""
+
+    mode: str
+    rect: tuple[int, int]
+    bn: int  # output channels per tile: 16 threads x 1, 4 or 8 each
+    tiles_y: int
+    tiles_x: int
+    tiles_n: int
+    phases: int  # 4 for up2, else 1
+    tiles: int  # one block each: B * tiles_y * tiles_x * tiles_n * phases
+    window: tuple[int, int]  # input pixels a tile stages per chunk: rows, columns
+    taps: int  # taps of a tile: 9, or 4 for up2 (one phase)
+    pad: int  # down2: padding before the first row and column (1, or 0 for (0, 1))
+    smem_bytes: int  # two stages of window and weights
+
+    @property
+    def grid(self) -> int:
+        return self.tiles
+
+    def tile_at(self, t: int):
+        """(image, y0, x0, first channel, phase) of block ``t``: the channel
+        tile fastest, then the phase, the rectangle's column, its row, the
+        image (``conv_f32_kernel`` in csrc/conv3x3_f32.cu)."""
+        n, t = t % self.tiles_n, t // self.tiles_n
+        phase, t = t % self.phases, t // self.phases
+        rx, t = t % self.tiles_x, t // self.tiles_x
+        ry, b = t % self.tiles_y, t // self.tiles_y
+        return b, ry * self.rect[0], rx * self.rect[1], n * self.bn, phase
+
+    def origin(self, y0: int, x0: int) -> tuple[int, int]:
+        """The input pixel of the window's first row and column."""
+        if self.mode == "down2":
+            return 2 * y0 - self.pad, 2 * x0 - self.pad
+        return y0 - 1, x0 - 1
+
+
+def window_f32(mode: str) -> tuple[int, int]:
+    """Input pixels (rows, columns) a tile of the fp32 kernel stages: its
+    rectangle's stride-1 halo, or the stride-2 one's."""
+    if mode == "down2":
+        return 2 * F32_RECT[0] + 1, 2 * F32_RECT[1] + 1
+    return F32_RECT[0] + 2, F32_RECT[1] + 2
+
+
+def smem_bytes_f32(mode: str, bn: int) -> int:
+    """Dynamic shared memory of the fp32 instance: two stages of the input
+    window ([rows][columns][8 channels]) and the weights ([8][taps][bn])."""
+    rows, cols = window_f32(mode)
+    taps = 4 if mode == "up2" else 9
+    return F32_STAGES * (rows * cols * F32_KC + F32_KC * taps * bn) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def plan_f32(b: int, h: int, w: int, cin: int, cout: int, mode: str = "conv",
+             asymmetric: bool = False, sms: int = H100_SMS) -> ConvPlanF32:
+    """The fp32 kernel's schedule for input [b, h, w, cin], a pure function
+    of the shape (and the SM count).  Channel tile: 16 for Cout <= 16 (the
+    conv_out tails), 128 where it divides Cout, else 64; 128 halved to 64
+    where the call would not give two blocks to every SM (the 32² and 16²
+    calls of the UNet's inner blocks).  One block per tile, no persistence:
+    the blocks are independent and the card's scheduler balances them."""
+    if mode not in F32_MODES:
+        raise ValueError(f"conv plan_f32: unknown mode {mode!r}; one of {F32_MODES}")
+    if min(b, h, w, cin, cout) < 1 or cin % F32_KC:
+        raise ValueError(f"conv plan_f32: {(b, h, w, cin, cout)} is empty or Cin is not a "
+                         f"multiple of {F32_KC}")
+    if mode == "down2" and (h % 2 or w % 2):
+        raise ValueError(f"conv plan_f32: odd-sized stride-2 input {(h, w)}")
+    ho, wo = (h // 2, w // 2) if mode == "down2" else (h, w)
+    phases = 4 if mode == "up2" else 1
+    tiles_y, tiles_x = -(-ho // F32_RECT[0]), -(-wo // F32_RECT[1])
+
+    def tiles_for(bn):
+        return b * tiles_y * tiles_x * -(-cout // bn) * phases
+
+    bn = 16 if cout <= 16 else 128 if cout % 128 == 0 else 64
+    if bn == 128 and tiles_for(bn) < 2 * sms:
+        bn = 64
+    return ConvPlanF32(
+        mode=mode, rect=F32_RECT, bn=bn, tiles_y=tiles_y, tiles_x=tiles_x,
+        tiles_n=-(-cout // bn), phases=phases, tiles=tiles_for(bn), window=window_f32(mode),
+        taps=4 if mode == "up2" else 9, pad=0 if mode == "down2" and asymmetric else 1,
+        smem_bytes=smem_bytes_f32(mode, bn))
+
+
+def plan_f32_for(x: torch.Tensor, cout: int, mode: str = "conv",
+                 asymmetric: bool = False) -> ConvPlanF32:
+    """The fp32 plan of a call on the card that holds ``x``."""
+    return plan_f32(*x.shape, cout, mode, bool(asymmetric), sm_count_of(x))
+
+
+def conv_tiled_plain_f32(
+    x: torch.Tensor,
+    w_rows: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    *,
+    mode: str = "conv",
+    prenorm: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    act: Optional[str] = None,
+    skip: Optional[torch.Tensor] = None,
+    asymmetric: bool = False,
+    chunks_skipped: int = 0,
+) -> torch.Tensor:
+    """The fp32 kernel's schedule in plain PyTorch, for tests only, in any
+    mode.  ``w_rows`` is [Cout, 9, Cin] (the OHWI weight, taps row-major) or,
+    for up2, the folded phase weights [Cout, 16, Cin] (index 4 phase + tap).
+    Per block of :func:`plan_f32` and per chunk of 8 input channels: the
+    input window gathered with zero fill, the fused prologue on its in-image
+    elements (mode ``fused``), then each tap of the tile, a shifted (strided
+    for down2) rectangle of the window times its weights, accumulated in
+    fp32; then bias [Cout] or [B, Cout], SiLU and the skip.  It differs from
+    the plain versions only in the order of the sums.  ``chunks_skipped``
+    plants a fault: the chunk loop stops that many chunks short."""
+    b, h, wd, cin = x.shape
+    cout = w_rows.shape[0]
+    pl = plan_f32(b, h, wd, cin, cout, mode, asymmetric)
+    rh, rw = pl.rect
+    s = 2 if mode == "down2" else 1
+    ho, wo = (h // 2, wd // 2) if mode == "down2" else (h, wd)
+    out_shape = (b, 2 * h, 2 * wd, cout) if mode == "up2" else (b, ho, wo, cout)
+    out = torch.zeros(out_shape, dtype=torch.float32, device=x.device)
+    wf, xf = w_rows.float(), x.float()
+    nk = cin // F32_KC - chunks_skipped
+    for t in range(pl.tiles):
+        bi, y0, x0, n0, phase = pl.tile_at(t)
+        n1 = min(cout, n0 + pl.bn)
+        oy, ox = pl.origin(y0, x0)
+        win = torch.zeros((*pl.window, cin), dtype=torch.float32, device=x.device)
+        ys, xs = max(0, oy), max(0, ox)
+        ye, xe = min(h, oy + pl.window[0]), min(wd, ox + pl.window[1])
+        inside = xf[bi, ys:ye, xs:xe]
+        if prenorm is not None:
+            sc, sh = prenorm[0].float()[bi], prenorm[1].float()[bi]
+            inside = F.silu(inside * sc + sh)
+        win[ys - oy:ye - oy, xs - ox:xe - ox] = inside
+        if mode == "up2":
+            p, q = phase >> 1, phase & 1
+            taps = [(a + p, c + q, 4 * phase + 2 * a + c) for a in (0, 1) for c in (0, 1)]
+        else:
+            taps = [(dy, dx, 3 * dy + dx) for dy in range(3) for dx in range(3)]
+        acc = torch.zeros((rh, rw, n1 - n0), dtype=torch.float32, device=x.device)
+        for k in range(nk):
+            c0, c1 = k * F32_KC, (k + 1) * F32_KC
+            for dy, dx, wtap in taps:
+                a = win[dy:dy + s * rh:s, dx:dx + s * rw:s, c0:c1]
+                acc += a @ wf[n0:n1, wtap, c0:c1].T
+        if mode == "up2":
+            p, q = phase >> 1, phase & 1
+            hh, ww = min(rh, h - y0), min(rw, wd - x0)
+            out[bi, 2 * y0 + p:2 * (y0 + hh):2, 2 * x0 + q:2 * (x0 + ww):2, n0:n1] = \
+                acc[:hh, :ww]
+        else:
+            out[bi, y0:y0 + rh, x0:x0 + rw, n0:n1] = acc[:ho - y0, :wo - x0]
+    if bias is not None:
+        bf = bias.float()
+        out = out + (bf[:, None, None, :] if bf.dim() == 2 else bf)
+    if act == "silu":
+        out = F.silu(out)
+    elif act is not None:
+        raise ValueError(f"unsupported activation {act!r}")
+    if skip is not None:
+        out = out + skip.float()
+    return out.contiguous()
+
+
+def weight_rows(weight: torch.Tensor) -> torch.Tensor:
+    """An OIHW weight [Cout, Cin, 3, 3] as the kernel's rows [Cout, 9, Cin]."""
+    return weight.permute(0, 2, 3, 1).reshape(weight.shape[0], 9, weight.shape[1])
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -377,12 +572,20 @@ def conv3x3_tiled_plain(
     return out.to(x.dtype).contiguous()
 
 
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def check_dtypes(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels take bf16 (the default mode) or fp32 (the quality mode),
+    all operands of one dtype."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or dtypes.pop() not in KERNEL_DTYPES:
+        raise TypeError(f"{name} kernel takes bf16 or fp32 tensors of one dtype; got "
+                        f"{', '.join(str(t.dtype) for t in tensors)}")
+
+
 def _check(x, weight, bias):
-    if x.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
-        raise TypeError(
-            f"conv3x3 kernel takes bf16 tensors; got {x.dtype}, {weight.dtype} "
-            "(fp32 quality mode is a later slice)"
-        )
+    check_dtypes("conv3x3", x, weight)
     if weight.device != x.device or (bias is not None and bias.device != x.device):
         raise ValueError("conv3x3: x, weight and bias must be on one device")
     if not supports(tuple(x.shape), tuple(weight.shape)):
@@ -406,11 +609,13 @@ def conv3x3(
     bias: Optional[torch.Tensor] = None,
     act: Optional[str] = None,
 ) -> torch.Tensor:
-    """3x3 SAME conv: x [B, H, W, Cin] bf16, weight [Cout, Cin, 3, 3] bf16 in
-    channels_last memory, bias [Cout] -> [B, H, W, Cout] bf16.
+    """3x3 SAME conv: x [B, H, W, Cin], weight [Cout, Cin, 3, 3] in
+    channels_last memory, both bf16 or both fp32, bias [Cout] -> [B, H, W,
+    Cout] in x's dtype (the fp32 kernel for fp32).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    or raises; either raises on a dtype the kernels do not take."""
+    check_dtypes("conv3x3", x, weight)
     if x.device.type == "cpu":
         return conv3x3_plain(x, weight, bias, act)
     if act not in (None, "silu"):
@@ -419,20 +624,25 @@ def conv3x3(
     _check(x, weight, bias)
     from fastedit_tpu_torch.ops.build import library
 
-    fn = library("conv3x3").conv3x3_bf16
+    global launches, launches_f32
     b, h, w, cin = x.shape
     cout = weight.shape[0]
-    pl = plan_for(x, cout)
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    f32 = x.dtype == torch.float32
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            x.data_ptr(), weight.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            b, h, w, cin, cout, int(act == "silu"), pl.bn, pl.grid, stream,
-        )
+        args = (x.data_ptr(), weight.data_ptr(), None if bias is None else bias.data_ptr(),
+                out.data_ptr(), b, h, w, cin, cout, int(act == "silu"))
+        if f32:
+            err = library("conv3x3_f32").conv3x3_f32(
+                *args, plan_f32_for(x, cout).bn, stream)
+        else:
+            pl = plan_for(x, cout)
+            err = library("conv3x3").conv3x3_bf16(*args, pl.bn, pl.grid, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {err}")
-    global launches
-    launches += 1
+    if f32:
+        launches_f32 += 1
+    else:
+        launches += 1
     return out

@@ -28,7 +28,12 @@ replace the three TPU kernels of ``fastedit_tpu/ops/conv_fused.py``:
 
 Layouts as in ``ops/conv3x3.py``: ``x`` NHWC, ``weight`` PyTorch's OIHW in
 channels_last memory.  A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises.
+launches the kernel of its dtype or raises: bf16 the kernels above, fp32
+the modes of the fp32 SIMT kernel (``csrc/conv3x3_f32.cu``, schedule
+``conv3x3.plan_f32``, walked by the ``*_tiled_plain_f32`` functions here),
+each with its own launch counter (``<name>_f32``).  The fp32 phase weights
+of the upsample conv are folded in PyTorch (:func:`fold_up2`), in fp32, as
+the JAX package folds them in XLA.
 """
 
 from __future__ import annotations
@@ -39,11 +44,14 @@ import torch
 import torch.nn.functional as F
 
 from fastedit_tpu_torch.ops.conv3x3 import (
-    CHUNK, plan_down2, plan_down2_for, plan_for, plan_up2, plan_up2_for)
+    CHUNK, check_dtypes, conv_tiled_plain_f32, plan_down2, plan_down2_for, plan_f32_for,
+    plan_for, plan_up2, plan_up2_for, weight_rows)
 from fastedit_tpu_torch.ops.conv3x3 import supports as _supports_conv3x3
 
-# Launches of each CUDA kernel since the last reset (chip_smoke.py resets them).
-launches = {"conv3x3_fused": 0, "conv3x3_up2": 0, "conv3x3_down2": 0}
+# Launches of each CUDA kernel since the last reset (chip_smoke.py resets them):
+# the bf16 kernels and, under ``<name>_f32``, the fp32 kernel's modes.
+launches = {"conv3x3_fused": 0, "conv3x3_up2": 0, "conv3x3_down2": 0,
+            "conv3x3_fused_f32": 0, "conv3x3_up2_f32": 0, "conv3x3_down2_f32": 0}
 
 
 def supports_fused(x_shape, w_shape) -> bool:
@@ -234,12 +242,35 @@ def conv3x3_down2_tiled_plain(x, weight, bias=None, act=None, asymmetric: bool =
     return _finish(out, bias, act).to(x.dtype).contiguous()
 
 
+def conv3x3_fused_tiled_plain_f32(x, weight, bias=None, prenorm=None, act=None, skip=None,
+                                  chunks_skipped: int = 0):
+    """The fp32 kernel's fused mode walked in plain PyTorch, for tests only
+    (``conv3x3.conv_tiled_plain_f32``)."""
+    return conv_tiled_plain_f32(x, weight_rows(weight), bias, mode="fused", prenorm=prenorm,
+                                act=act, skip=skip, chunks_skipped=chunks_skipped)
+
+
+def conv3x3_up2_tiled_plain_f32(x, weight, bias=None, act=None, chunks_skipped: int = 0):
+    """The fp32 kernel's upsample mode walked in plain PyTorch, for tests
+    only, on the phase weights :func:`fold_up2` gives."""
+    folded = fold_up2(weight).reshape(weight.shape[0], 16, weight.shape[1])
+    return conv_tiled_plain_f32(x, folded, bias, mode="up2", act=act,
+                                chunks_skipped=chunks_skipped)
+
+
+def conv3x3_down2_tiled_plain_f32(x, weight, bias=None, act=None, asymmetric: bool = False,
+                                  chunks_skipped: int = 0):
+    """The fp32 kernel's stride-2 mode walked in plain PyTorch, for tests
+    only."""
+    return conv_tiled_plain_f32(x, weight_rows(weight), bias, mode="down2", act=act,
+                                asymmetric=asymmetric, chunks_skipped=chunks_skipped)
+
+
 # ------------------------------------------------------------------ wrappers
 
 
 def _check(name, x, weight):
-    if x.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
-        raise TypeError(f"{name} kernel takes bf16 tensors; got {x.dtype}, {weight.dtype}")
+    check_dtypes(name, x, weight)
     if weight.device != x.device:
         raise ValueError(f"{name}: x and weight must be on one device")
     if not x.is_contiguous() or x.data_ptr() % 16:
@@ -262,10 +293,16 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _launch(symbol: str, name: str, out: torch.Tensor, *args) -> torch.Tensor:
+def _launch(name: str, out: torch.Tensor, *args) -> torch.Tensor:
+    """Launch ``name``'s kernel for ``out``'s dtype: the bf16 library's
+    ``<name>_bf16`` or the fp32 library's ``<name>_f32``."""
     from fastedit_tpu_torch.ops.build import library
 
-    fn = getattr(library("conv3x3"), symbol)
+    if out.dtype == torch.float32:
+        name += "_f32"
+        fn = getattr(library("conv3x3_f32"), name)
+    else:
+        fn = getattr(library("conv3x3"), name + "_bf16")
     with torch.cuda.device(out.device):
         err = fn(*args, torch.cuda.current_stream(out.device).cuda_stream)
     if err != 0:
@@ -285,6 +322,7 @@ def conv3x3_fused(
     """Fused resnet conv: x [B, H, W, Cin], weight [Cout, Cin, 3, 3];
     ``bias`` [Cout] or per-batch [B, Cout]; ``prenorm`` fp32 (scale, shift)
     [B, Cin]; ``skip`` [B, H, W, Cout] added after bias and act."""
+    check_dtypes("conv3x3_fused", x, weight)
     if x.device.type == "cpu":
         return conv3x3_fused_plain(x, weight, bias, prenorm, act, skip)
     if act not in (None, "silu"):
@@ -308,23 +346,31 @@ def conv3x3_fused(
                              or not skip.is_contiguous() or skip.device != x.device):
         raise ValueError(f"conv3x3_fused: skip must be a contiguous {x.dtype} "
                          f"{(b, h, w, cout)} tensor on {x.device}")
-    pl = plan_for(x, cout)
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.float32:
+        tiles = (plan_f32_for(x, cout, "fused").bn,)
+    else:
+        pl = plan_for(x, cout)
+        tiles = (pl.bn, pl.grid)
     return _launch(
-        "conv3x3_fused_bf16", "conv3x3_fused", out,
+        "conv3x3_fused", out,
         x.data_ptr(), weight.data_ptr(), _ptr(bias), _ptr(scale), _ptr(shift), _ptr(skip),
         out.data_ptr(), b, h, w, cin, cout, int(act == "silu"),
-        1 if bias is None else bias.shape[0], pl.bn, pl.grid,
+        1 if bias is None else bias.shape[0], *tiles,
     )
 
 
 def fold_up2(weight: torch.Tensor) -> torch.Tensor:
     """The up2 kernel's phase weights [Cout, 2, 2, 2, 2, Cin] (p, q, a, b)
-    of a CUDA weight [Cout, Cin, 3, 3] (channels_last), from one launch:
-    :func:`make_phase_kernels`'s sums, laid out for the kernel."""
+    of a weight [Cout, Cin, 3, 3]: :func:`make_phase_kernels`'s sums, laid out
+    for the kernel.  bf16 (on the card, in channels_last memory): one launch
+    of the fold kernel.  fp32: the same sums in PyTorch, in fp32 (the JAX
+    package folds in XLA), on any device."""
+    if weight.dtype == torch.float32:
+        return make_phase_kernels(weight).permute(4, 0, 1, 2, 3, 5).contiguous()
     if weight.dtype != torch.bfloat16 or not weight.is_contiguous(
             memory_format=torch.channels_last):
-        raise ValueError("fold_up2: weight must be bf16 in channels_last memory")
+        raise ValueError("fold_up2: weight must be fp32, or bf16 in channels_last memory")
     from fastedit_tpu_torch.ops.build import library
 
     cout, cin = weight.shape[:2]
@@ -349,6 +395,7 @@ def conv3x3_up2(
     Cin], weight [Cout, Cin, 3, 3] -> [B, 2H, 2W, Cout].  ``phases``:
     ``fold_up2(weight)``, folded earlier; without it the call folds them
     (one more launch of :func:`fold_up2`)."""
+    check_dtypes("conv3x3_up2", x, weight)
     if x.device.type == "cpu":
         return conv3x3_up2_plain(x, weight, bias, act)
     if act not in (None, "silu"):
@@ -360,7 +407,6 @@ def conv3x3_up2(
     b, h, w, cin = x.shape
     cout = weight.shape[0]
     bias = _f32(bias, (cout,), "conv3x3_up2: bias", x.device)
-    pl = plan_up2_for(x, cout)
     if phases is None:
         phases = fold_up2(weight)
     elif (tuple(phases.shape) != (cout, 2, 2, 2, 2, cin) or phases.dtype != x.dtype
@@ -368,10 +414,15 @@ def conv3x3_up2(
         raise ValueError(f"conv3x3_up2: phases must be fold_up2's contiguous "
                          f"{(cout, 2, 2, 2, 2, cin)} {x.dtype} on {x.device}")
     out = torch.empty((b, 2 * h, 2 * w, cout), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.float32:
+        tiles = (plan_f32_for(x, cout, "up2").bn,)
+    else:
+        pl = plan_up2_for(x, cout)
+        tiles = (pl.bn, pl.grid)
     return _launch(
-        "conv3x3_up2_bf16", "conv3x3_up2", out,
+        "conv3x3_up2", out,
         x.data_ptr(), phases.data_ptr(), _ptr(bias), out.data_ptr(),
-        b, h, w, cin, cout, int(act == "silu"), pl.bn, pl.grid,
+        b, h, w, cin, cout, int(act == "silu"), *tiles,
     )
 
 
@@ -385,6 +436,7 @@ def conv3x3_down2(
     """Stride-2 3x3 conv: x [B, H, W, Cin] (H, W even), weight [Cout, Cin, 3,
     3] -> [B, H/2, W/2, Cout]; padding (1, 1), or (0, 1) with
     ``asymmetric`` (the VAE encoder's)."""
+    check_dtypes("conv3x3_down2", x, weight)
     if x.device.type == "cpu":
         return conv3x3_down2_plain(x, weight, bias, act, asymmetric)
     if act not in (None, "silu"):
@@ -396,10 +448,15 @@ def conv3x3_down2(
     b, h, w, cin = x.shape
     cout = weight.shape[0]
     bias = _f32(bias, (cout,), "conv3x3_down2: bias", x.device)
-    pl = plan_down2_for(x, cout, asymmetric)
     out = torch.empty((b, h // 2, w // 2, cout), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.float32:
+        pl = plan_f32_for(x, cout, "down2", asymmetric)
+        tiles = (pl.pad, pl.bn)
+    else:
+        pl = plan_down2_for(x, cout, asymmetric)
+        tiles = (pl.pad, pl.bn, pl.grid)
     return _launch(
-        "conv3x3_down2_bf16", "conv3x3_down2", out,
+        "conv3x3_down2", out,
         x.data_ptr(), weight.data_ptr(), _ptr(bias), out.data_ptr(),
-        b, h, w, cin, cout, int(act == "silu"), pl.pad, pl.bn, pl.grid,
+        b, h, w, cin, cout, int(act == "silu"), *tiles,
     )

@@ -26,6 +26,15 @@ are the JAX package's values on its accelerator, but one:
     230 device ms and 0.296 instead of 0.407 s (medians of 7) with the
     kernel on (``tools/profile_edit.py``, the two arms in turns).
 
+The gates do not depend on the dtype, a second departure: the JAX package
+passes the item size to its gates, and at fp32 (the quality mode) its VMEM
+tile budget refuses 17 more calls per SSD-1B edit at 1024² than at bf16 (8
+of the VAE decoder's fused resnet convs, 9 of the UNet's up-block convs with
+1920 or 2560 input channels), which then run in XLA.  That budget is the
+TPU's: in fp32 the port sends every call its gates admit to the kernel's
+fp32 instance, the same calls and counts as in bf16 (``tools/inventory.py``;
+``tests/test_torch_f32.py`` holds the difference to exactly those calls).
+
 The stage functions enter their context with :func:`stage`.  PyTorch runs
 eagerly, so a flag is read when the op runs, not when a program is traced.
 

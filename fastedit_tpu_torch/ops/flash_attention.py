@@ -13,6 +13,12 @@ schedule is decided here, by :func:`plan`: the q and KV tiles, the ring
 depths, the grid, the shared memory and (``tile_at``) the order of the tiles.
 :func:`attention_tiled_plain` walks the same schedule in plain PyTorch, for
 the tests.
+
+fp32 (the quality mode): a CUDA fp32 call launches the SIMT kernels of
+``csrc/flash_attention_f32.cu`` instead (fp32 FFMAs, no TF32): q tiles of 64
+rows and KV tiles of 64 keys at D = 64, 32 and 32 at D = 512, one block per
+q tile (:func:`plan_f32`; :func:`attention_tiled_plain_f32` walks it), with
+launch counters of their own (``launches_f32``).
 """
 
 from __future__ import annotations
@@ -23,12 +29,13 @@ from typing import Optional
 
 import torch
 
-from fastedit_tpu_torch.ops.conv3x3 import H100_SMS, sm_count_of
+from fastedit_tpu_torch.ops.conv3x3 import H100_SMS, check_dtypes, sm_count_of
 
 # Head dims the kernel is instantiated for.
 HEAD_DIMS = (64, 512)
-# Launches of the CUDA kernel since the last reset, by head dim.
+# Launches of the CUDA kernel since the last reset, by head dim: bf16 and fp32.
 launches = {d: 0 for d in HEAD_DIMS}
+launches_f32 = {d: 0 for d in HEAD_DIMS}
 
 # The kernels' geometry (csrc/flash_attention.cu holds the same constants):
 # head dim -> (KV tile, K ring stages, Q stages); the blocks are persistent.  At D = 64
@@ -144,6 +151,56 @@ def plan(b: int, sq: int, skv: int, h: int, d: int, sms: int = H100_SMS) -> Atte
     )
 
 
+# The fp32 kernels (csrc/flash_attention_f32.cu holds the same constants):
+# head dim -> (q rows, keys) of a tile; 256 threads; shared memory: Q, K and
+# V transposed or not and P (D = 64), or Q, K (rows padded by 4 floats), V and
+# the eight warps' partial scores, which P reuses, and two row vectors (D = 512).
+F32_TILES = {64: (64, 64), 512: (32, 32)}
+F32_THREADS = 256
+F32_SMEM = {64: 4 * 64 * 64 * 4,
+            512: (32 * 512 + 32 * 516 + 32 * 512 + 8 * 32 * 32 + 2 * 32) * 4}
+
+
+@dataclass(frozen=True)
+class AttentionPlanF32:
+    """The schedule of one call of the fp32 kernel."""
+
+    bq: int  # q rows per tile
+    bkv: int  # keys per KV tile
+    q_tiles: int  # q tiles per (batch, head)
+    kv_tiles: int  # KV tiles each q tile walks
+    tiles: int  # one block each: B * H * q_tiles
+    smem_bytes: int
+    heads: int
+
+    @property
+    def grid(self) -> int:
+        return self.tiles
+
+    def tile_at(self, t):
+        """(batch, head, first q row) of block ``t``: q tile fastest, then
+        the head, then the batch."""
+        bh, qt = t // self.q_tiles, t % self.q_tiles
+        return bh // self.heads, bh % self.heads, qt * self.bq
+
+
+@functools.lru_cache(maxsize=None)
+def plan_f32(b: int, sq: int, skv: int, h: int, d: int) -> AttentionPlanF32:
+    """The fp32 kernel's schedule, a pure function of the shape.  D = 64: q
+    tiles of 64 rows against KV tiles of 64 keys, 16 KB each of Q, K, V and P
+    in shared memory (three blocks per SM).  D = 512: a 64 x 512 fp32 tile
+    is 128 KB, so q tiles of 32 rows and KV tiles of 32 keys, 64 KB each of Q,
+    K and V (one block per SM)."""
+    if d not in F32_TILES:
+        raise ValueError(f"flash attention plan_f32: no kernel for head dim {d}")
+    bq, bkv = F32_TILES[d]
+    if min(b, h) < 1 or sq < bq or skv < bkv or sq % bq or skv % bkv:
+        raise ValueError(f"flash attention plan_f32: q rows {sq} and keys {skv} must be "
+                         f"multiples of {bq} and {bkv}, batch {b} and heads {h} positive")
+    return AttentionPlanF32(bq=bq, bkv=bkv, q_tiles=sq // bq, kv_tiles=skv // bkv,
+                            tiles=b * h * (sq // bq), smem_bytes=F32_SMEM[d], heads=h)
+
+
 def plan_for(q: torch.Tensor, kv_len: int) -> AttentionPlan:
     """The plan of a call on the card that holds ``q``."""
     b, sq, h, d = q.shape
@@ -213,20 +270,50 @@ def attention_tiled_plain(
     return out
 
 
+def attention_tiled_plain_f32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
+    kv_tiles_skipped: int = 0,
+) -> torch.Tensor:
+    """The fp32 kernel's schedule in plain PyTorch, for tests only: per block
+    of :func:`plan_f32`, per KV tile the scores in fp32 times the scale, the
+    running max, the rescale of sum and output, P.V in fp32; O / l at the
+    end.  It differs from ``attention_plain`` only in the order of the sums.
+    ``kv_tiles_skipped`` plants a fault: the walk stops that many KV tiles
+    short."""
+    b, sq, h, d = q.shape
+    scale = scale if scale is not None else d**-0.5
+    pl = plan_f32(b, sq, k.shape[1], h, d)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for t in range(pl.tiles):
+        bi, hi, q0 = pl.tile_at(t)
+        qs = q[bi, q0:q0 + pl.bq, hi].float()
+        m = torch.full((pl.bq, 1), -1e30, dtype=torch.float32, device=q.device)
+        l = torch.zeros((pl.bq, 1), dtype=torch.float32, device=q.device)
+        o = torch.zeros((pl.bq, d), dtype=torch.float32, device=q.device)
+        for j in range(pl.kv_tiles - kv_tiles_skipped):
+            kt = k[bi, j * pl.bkv:(j + 1) * pl.bkv, hi].float()
+            vt = v[bi, j * pl.bkv:(j + 1) * pl.bkv, hi].float()
+            s = (qs @ kt.T) * scale
+            mx = torch.maximum(m, s.max(dim=1, keepdim=True).values)
+            alpha, p = torch.exp(m - mx), torch.exp(s - mx)
+            l = l * alpha + p.sum(dim=1, keepdim=True)
+            o = o * alpha + p @ vt
+            m = mx
+        out[bi, q0:q0 + pl.bq, hi] = o / l
+    return out
+
+
 def _check(q, k, v):
+    check_dtypes("flash_attention", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(
-                f"flash_attention kernel takes bf16; {name} is {t.dtype} "
-                "(fp32 quality mode is a later slice)"
-            )
         if t.device != q.device:
             raise ValueError("flash_attention: q, k and v must be on one device")
         if t.dim() != 4 or t.stride(3) != 1 or t.stride(2) != t.shape[3]:
             raise ValueError(
                 f"flash_attention: {name} must be BSHD with contiguous heads"
             )
-        if t.stride(1) % 8 or t.stride(0) % 8 or t.data_ptr() % 16:
+        if t.stride(1) % (16 // t.element_size()) or t.stride(0) % (16 // t.element_size()) \
+                or t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} rows must be 16-byte aligned")
     b, sq, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
@@ -250,25 +337,28 @@ def flash_attention(
     or raises."""
     d = q.shape[-1]
     scale = scale if scale is not None else d**-0.5
+    check_dtypes("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, scale)
     _check(q, k, v)
     from fastedit_tpu_torch.ops.build import library
 
-    fn = library("flash_attention").flash_attention_bf16
     b, sq, h, _ = q.shape
-    pl = plan_for(q, k.shape[1])
+    f32 = q.dtype == torch.float32
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq, k.shape[1], d,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, sq, k.shape[1], d,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), float(scale),
-            pl.bq, pl.bkv, pl.grid, stream,
-        )
+        if f32:
+            plan_f32(b, sq, k.shape[1], h, d)  # raises on a shape the kernel does not take
+            err = library("flash_attention_f32").flash_attention_f32(*args, stream)
+        else:
+            pl = plan_for(q, k.shape[1])
+            err = library("flash_attention").flash_attention_bf16(
+                *args, pl.bq, pl.bkv, pl.grid, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    launches[d] += 1
+    (launches_f32 if f32 else launches)[d] += 1
     return out

@@ -13,7 +13,8 @@ scratch over three passes of x.  On the card a call is two launches:
   group into the chunk's (mean, M2), and the last block of each batch item to
   finish merges the chunks in a fixed order and writes scale = rstd * gamma
   and shift = beta - mean * scale per channel;
-* the apply launch: y = x * scale + shift (+ SiLU), one rounding to bf16.
+* the apply launch: y = x * scale + shift (+ SiLU), one rounding to x's
+  dtype.
 
 Where the tensor fits the SMs' shared memory (:func:`plan`'s resident route),
 both are one cooperative launch: every block keeps its chunk on chip, waits
@@ -27,6 +28,14 @@ package computes in XLA (``fastedit_tpu/ops/groupnorm.py``
 of the shape and the SM count; :func:`group_norm_chunked_plain` walks it in
 plain PyTorch (chunk partials, then the merge in the kernel's order), for the
 tests.  Both kernels are gated by ``flags.use_cuda_groupnorm``.
+
+The kernels are templates over the element type: bf16, and fp32 for the
+quality mode (the ``_f32`` C entries, with launch counters of their own).  A
+thread owns 8 channels of a pixel either way (one 16-byte vector in bf16,
+two in fp32), so the plan's thread layout is the same; it takes the item size
+(:func:`plan`), since a stage of pixels holds twice the bytes in fp32: at most
+4 vectors per thread and stage there, and the resident route's ring holds
+half the pixels.
 """
 
 from __future__ import annotations
@@ -37,13 +46,16 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from fastedit_tpu_torch.ops.conv3x3 import H100_SMS, sm_count_of
+from fastedit_tpu_torch.ops.conv3x3 import H100_SMS, check_dtypes, sm_count_of
 from fastedit_tpu_torch.ops.groupnorm import group_norm_plain, group_norm_scale_shift_plain
 
 # Launches since the last reset (chip_smoke.py resets them): GroupNorm calls
-# (one or two kernels each) and statistics-only calls (one kernel each).
+# (one or two kernels each) and statistics-only calls (one kernel each), bf16
+# and fp32.
 launches = 0
 scale_shift_launches = 0
+launches_f32 = 0
+scale_shift_launches_f32 = 0
 
 # The kernels' limits and shared memory (csrc/group_norm.cu holds the same).
 MAX_THREADS = 512  # data threads of a block: lanes x C / 8
@@ -53,7 +65,7 @@ MAX_STAGES = 4
 RING_BYTES = 192 * 1024  # a statistics block's stages
 STATIC_SMEM_BYTES = 2 * 4 * MAX_CHANNELS + 4 * MAX_THREADS + 8 * MAX_STAGES + 4
 SMEM_LIMIT = 227 * 1024
-VECS = (8, 4, 2, 1)  # 16-byte vectors per thread in a stage, largest first
+VECS = {2: (8, 4, 2, 1), 4: (4, 2, 1)}  # item size -> vectors per thread in a stage
 APPLY_BLOCKS_PER_SM = 4  # 512-thread apply blocks an SM holds at once
 MERGE_LANES = 32  # a warp's lanes; a group's merge takes a run of them
 
@@ -77,10 +89,11 @@ class GroupNormPlan:
     apply_px: int  # pixels per apply block
     napply: int  # apply blocks per batch item
     route: str  # "resident": one cooperative launch; "two_launch": statistics, then apply
+    itemsize: int = 2  # x's: 2 (bf16) or 4 (fp32)
 
     @property
     def stage_bytes(self) -> int:
-        return self.tile_px * self.c * 2
+        return self.tile_px * self.c * self.itemsize
 
     @property
     def smem_bytes(self) -> int:
@@ -123,14 +136,17 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(b: int, hw: int, c: int, groups: int, sms: int = H100_SMS) -> GroupNormPlan:
-    """The kernels' schedule, a pure function of the shape and the SM count.
+def plan(b: int, hw: int, c: int, groups: int, sms: int = H100_SMS,
+         itemsize: int = 2) -> GroupNormPlan:
+    """The kernels' schedule, a pure function of the shape, the SM count and
+    x's item size (2 for bf16, 4 for fp32).
 
     A block covers ``lanes`` pixels side by side, one thread per 8 channels
     (at most 512 threads).  A stage is ``vecs`` such rows of pixels: the
-    largest of 8, 4, 2, 1 vectors per thread that still gives every SM a
-    stage.  Chunks of whole stages, about one per SM over the batch (at most
-    4096 / G), each streamed through a ring of up to 4 stages in 192 KB.  The
+    largest of 8, 4, 2, 1 vectors per thread (4, 2, 1 in fp32: the same
+    bytes) that still gives every SM a stage.  Chunks of whole stages, about
+    one per SM over the batch (at most 4096 / G), each streamed through a
+    ring of up to 4 stages in 192 KB.  The
     apply launch gives each of ``APPLY_BLOCKS_PER_SM`` blocks per SM one
     contiguous range (at least a row of ``lanes`` pixels).  Where the ring
     holds each chunk whole and the blocks fit the SMs one each, the route is
@@ -138,10 +154,12 @@ def plan(b: int, hw: int, c: int, groups: int, sms: int = H100_SMS) -> GroupNorm
     and writes the output from there (one read of x)."""
     if min(b, hw, c, groups) < 1 or not supports((b, 1, hw, c), groups):
         raise ValueError(f"group_norm kernel does not take [{b}, {hw}, {c}], G={groups}")
+    if itemsize not in VECS:
+        raise ValueError(f"group_norm plan: item size {itemsize}; the kernels take bf16 or fp32")
     vc = c // 8
     lanes = max(1, MAX_THREADS // vc)
     threads = _ceil(lanes * vc, 32) * 32
-    for vecs in VECS:
+    for vecs in VECS[itemsize]:
         tile_px = lanes * vecs
         if b * _ceil(hw, tile_px) >= sms:
             break
@@ -149,19 +167,19 @@ def plan(b: int, hw: int, c: int, groups: int, sms: int = H100_SMS) -> GroupNorm
     # the last block stages every chunk's (mean, M2): nchunk x G of them
     tiles_per_chunk = _ceil(ntiles, min(ntiles, _ceil(sms, b), MAX_CHANNELS // groups))
     nchunk = _ceil(ntiles, tiles_per_chunk)
-    stages = min(MAX_STAGES, RING_BYTES // (tile_px * c * 2), tiles_per_chunk)
+    stages = min(MAX_STAGES, RING_BYTES // (tile_px * c * itemsize), tiles_per_chunk)
     napply = min(_ceil(hw, lanes), _ceil(APPLY_BLOCKS_PER_SM * sms, b))
     apply_px = _ceil(_ceil(hw, napply), lanes) * lanes
     napply = _ceil(hw, apply_px)
     # resident: every chunk held whole by its ring and every block on an SM at once
     route = "resident" if stages == tiles_per_chunk and b * nchunk <= sms else "two_launch"
     return GroupNormPlan(b, hw, c, groups, lanes, threads, vecs, tile_px, ntiles,
-                         tiles_per_chunk, nchunk, stages, apply_px, napply, route)
+                         tiles_per_chunk, nchunk, stages, apply_px, napply, route, itemsize)
 
 
 def plan_for(x: torch.Tensor, groups: int) -> GroupNormPlan:
     b, h, w, c = x.shape
-    return plan(b, h * w, c, groups, sm_count_of(x))
+    return plan(b, h * w, c, groups, sm_count_of(x), x.element_size())
 
 
 def supports(shape, num_groups: int) -> bool:
@@ -255,10 +273,11 @@ def merge_chunks(counts: torch.Tensor, mean: torch.Tensor, m2: torch.Tensor, lan
 
 def scale_shift_chunked_plain(x, gamma, beta, num_groups: int = 32, eps: float = 1e-5,
                               sms: int = H100_SMS):
-    """fp32 (scale, shift) [B, C] from the statistics launch's schedule,
-    walked in plain PyTorch (:func:`chunk_partials`, :func:`merge_chunks`)."""
+    """fp32 (scale, shift) [B, C] from the statistics launch's schedule for
+    x's dtype, walked in plain PyTorch (:func:`chunk_partials`,
+    :func:`merge_chunks`)."""
     b, h, w, c = x.shape
-    p = plan(b, h * w, c, num_groups, sms)
+    p = plan(b, h * w, c, num_groups, sms, x.element_size())
     mean, var = merge_chunks(*chunk_partials(x, p), p.merge_lanes)
     rstd = (1.0 / torch.sqrt(var + eps)).float()
     cg = c // num_groups
@@ -296,8 +315,7 @@ def _counter(x: torch.Tensor, b: int) -> torch.Tensor:
 
 
 def _check(x, gamma, beta, num_groups):
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"group_norm kernel takes bf16; got {x.dtype}")
+    check_dtypes("group_norm", x)
     if not supports(tuple(x.shape), num_groups):
         raise ValueError(f"group_norm kernel does not take {tuple(x.shape)}, G={num_groups}")
     if not x.is_contiguous() or x.data_ptr() % 16:
@@ -316,8 +334,10 @@ def _plan_args(p: GroupNormPlan) -> tuple:
 
 
 def _launch(name, x, *args):
+    """C entry ``name`` for x's dtype (``<name>_bf16`` or ``<name>_f32``)."""
     from fastedit_tpu_torch.ops.build import library
 
+    name += "_f32" if x.dtype == torch.float32 else "_bf16"
     fn = getattr(library("group_norm"), name)
     with torch.cuda.device(x.device):
         err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
@@ -333,10 +353,12 @@ def fused_group_norm(
     eps: float = 1e-5,
     act: Optional[str] = None,
 ) -> torch.Tensor:
-    """x [B, H, W, C] bf16, gamma/beta [C] -> GroupNorm(x) (+ SiLU), bf16.
+    """x [B, H, W, C] bf16 or fp32, gamma/beta [C] -> GroupNorm(x) (+ SiLU)
+    in x's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernels (one or two, by the plan's route) or raises."""
+    check_dtypes("group_norm", x)
     if x.device.type == "cpu":
         return group_norm_plain(x, gamma, beta, num_groups, eps, act)
     if act not in (None, "silu"):
@@ -347,16 +369,19 @@ def fused_group_norm(
     out = torch.empty_like(x)
     counter = _counter(x, 2 * p.b).data_ptr()
     if p.route == "resident":
-        _launch("group_norm_resident_bf16", x, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        _launch("group_norm_resident", x, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                 out.data_ptr(), part.data_ptr(), counter, *_plan_args(p), float(eps),
                 int(act == "silu"))
     else:
         scale_shift = torch.empty((2, p.b, p.c), dtype=torch.float32, device=x.device)
-        _launch("group_norm_bf16", x, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        _launch("group_norm", x, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                 out.data_ptr(), scale_shift.data_ptr(), part.data_ptr(), counter,
                 *_plan_args(p), p.apply_px, p.napply, float(eps), int(act == "silu"))
-    global launches
-    launches += 1
+    global launches, launches_f32
+    if x.dtype == torch.float32:
+        launches_f32 += 1
+    else:
+        launches += 1
     return out
 
 
@@ -372,15 +397,19 @@ def group_norm_scale_shift(
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
+    check_dtypes("group_norm_scale_shift", x)
     if x.device.type == "cpu":
         return group_norm_scale_shift_plain(x, gamma, beta, num_groups, eps)
     gamma, beta = _check(x, gamma, beta, num_groups)
     p = plan_for(x, num_groups)
     scale_shift = torch.empty((2, p.b, p.c), dtype=torch.float32, device=x.device)
     part = torch.empty((p.b, p.nchunk, num_groups, 2), dtype=torch.float32, device=x.device)
-    _launch("group_norm_stats_bf16", x, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+    _launch("group_norm_stats", x, x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             scale_shift.data_ptr(), part.data_ptr(), _counter(x, p.b).data_ptr(),
             *_plan_args(p), float(eps))
-    global scale_shift_launches
-    scale_shift_launches += 1
+    global scale_shift_launches, scale_shift_launches_f32
+    if x.dtype == torch.float32:
+        scale_shift_launches_f32 += 1
+    else:
+        scale_shift_launches += 1
     return scale_shift[0], scale_shift[1]

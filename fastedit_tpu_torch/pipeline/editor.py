@@ -20,8 +20,15 @@ random-weight smoke model with the real topology.
 (``parallel/replicas.py``, the counterpart of the JAX package's device
 mesh), and over processes once ``parallel/multihost.initialize`` has run.
 
-Not ported yet (see ROADMAP.md): the fp32 quality mode on the card (P17),
-tensor parallelism (P15c).
+``use_full_precision=True`` (or ``dtype=torch.float32``) is the reference's
+fp32 configuration, and with ``use_full_controlnet=True`` its quality mode:
+weights and activations in fp32, every kernel call on the kernel's fp32
+instance (the same gates and counts as bf16, ``tools/inventory.py``), and
+the whole edit (prompt encoding, prepare, the stages, eager or captured)
+inside ``utils/precision.true_fp32``, so PyTorch's own fp32 matmuls and
+cuDNN convs run without TF32 as well.
+
+Not ported yet (see ROADMAP.md): tensor parallelism (P15c).
 """
 
 from __future__ import annotations
@@ -53,6 +60,7 @@ from fastedit_tpu_torch.tools import from_jax
 from fastedit_tpu_torch.utils import checkpoint as ckpt_io
 from fastedit_tpu_torch.utils.image import resize
 from fastedit_tpu_torch.utils.logging import get_logger
+from fastedit_tpu_torch.utils.precision import true_fp32
 from fastedit_tpu_torch.utils.profiling import nan_checks_enabled
 
 log = get_logger("FastEditor")
@@ -224,11 +232,6 @@ class FastEditor:
         self.config = self.MODEL_CONFIGS[model_name]
         self.device = _resolve_device(device)
         self.dtype = torch.float32 if use_full_precision else _normalize_dtype(dtype)
-        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                "fp32 on the card (use_full_precision / dtype=float32) is a later "
-                "slice (ROADMAP P17): this slice's CUDA kernels take bf16"
-            )
         self.use_full_controlnet = use_full_controlnet
         self.enable_cpu_offload = enable_cpu_offload
         self.resolution = self.config["resolution"]
@@ -535,7 +538,18 @@ class FastEditor:
     ) -> torch.Tensor:
         """Shared single/batch path; returns uint8 [B, r, r, 3] on the
         device (on the card, a graph's output buffer: copy it before the
-        next edit)."""
+        next edit).  An fp32 editor runs it all without TF32."""
+        with true_fp32() if self.dtype == torch.float32 else contextlib.nullcontext():
+            return self._run_edit_body(
+                images, prompts, negative_prompt, strength, num_inference_steps,
+                guidance_scale, controlnet_conditioning_scale, canny_low_threshold,
+                canny_high_threshold, seed, tile_noise)
+
+    def _run_edit_body(
+        self, images, prompts, negative_prompt, strength, num_inference_steps,
+        guidance_scale, controlnet_conditioning_scale, canny_low_threshold,
+        canny_high_threshold, seed, tile_noise: bool,
+    ) -> torch.Tensor:
         self._stage_events = []
         inputs = self._device_batch(images)
         b, r = inputs.shape[0], self.resolution

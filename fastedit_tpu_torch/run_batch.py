@@ -47,8 +47,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_cpu_offload", action="store_true",
                    help="No-op: the weights always stay in the card's memory")
     p.add_argument("--quality_mode", action="store_true",
-                   help="fp32 + full ControlNet (fp32 on the card raises: ROADMAP P17)")
-    p.add_argument("--full_precision", action="store_true")
+                   help="fp32 (TF32 off, the kernels' fp32 instances) + full ControlNet")
+    p.add_argument("--full_precision", action="store_true",
+                   help="fp32 weights and activations (TF32 off)")
     p.add_argument("--full_controlnet", action="store_true")
     p.add_argument("--skip_existing", action="store_true")
     p.add_argument("--save_comparisons", action="store_true")

@@ -16,17 +16,22 @@ model configs alone, and the kernel each one reaches.
 
 :func:`kernel_calls` routes each call as the modules dispatch it, under the
 flags of its stage (``flags.stage``), and counts the calls each kernel
-takes, keyed by (kernel, shape).  ``chip_smoke.py`` uses it for the shapes
-at which each kernel is held against its plain version and for the launch
-counts the main path must show; the tests hold it to the calls an edit
-makes.  Counts are per edit: the encoder runs once at batch B, the denoise
-loop ``steps`` times at batch 2B under CFG (the ControlNet conditioning
-tower once at batch B), the decoder once per image at batch 1.
+takes, keyed by (kernel, shape).  The gates do not depend on the dtype, so
+an fp32 edit (the quality mode) takes the same calls to each kernel's fp32
+instance, named ``<kernel>_f32`` (``kernel_calls(..., dtype=torch.float32)``).
+``chip_smoke.py`` uses it for the shapes at which each kernel is held against
+its plain version and for the launch counts the main path must show; the
+tests hold it to the calls an edit makes.  Counts are per edit: the encoder
+runs once at batch B, the denoise loop ``steps`` times at batch 2B under CFG
+(the ControlNet conditioning tower once at batch B), the decoder once per
+image at batch 1.
 """
 
 from __future__ import annotations
 
 from collections import Counter
+
+import torch
 
 from fastedit_tpu_torch.models.configs import ControlNetConfig, UNetConfig, VAEConfig
 from fastedit_tpu_torch.models.unet import skip_channels
@@ -36,8 +41,10 @@ from fastedit_tpu_torch.ops import fused_groupnorm
 
 TEXT_TOKENS = 77
 TRANSFORMER_GROUPS = 32
-KERNELS = ("conv3x3", "conv3x3_fused", "conv3x3_up2", "conv3x3_down2", "group_norm",
-           "group_norm_scale_shift", *(f"flash_attention_d{d}" for d in fa.HEAD_DIMS))
+BF16_KERNELS = ("conv3x3", "conv3x3_fused", "conv3x3_up2", "conv3x3_down2", "group_norm",
+                "group_norm_scale_shift", *(f"flash_attention_d{d}" for d in fa.HEAD_DIMS))
+F32_SUFFIX = "_f32"
+KERNELS = (*BF16_KERNELS, *(k + F32_SUFFIX for k in BF16_KERNELS))
 
 
 def _transformer(s, n, hw, ch, heads, depth):
@@ -238,14 +245,19 @@ def route(op: str, key: tuple) -> list:
     raise ValueError(f"unknown op {op!r}")
 
 
-def kernel_calls(sites: Counter) -> Counter:
+def kernel_calls(sites: Counter, dtype: torch.dtype = torch.bfloat16) -> Counter:
     """(kernel, shape key) -> calls, each site routed under its stage's
-    flags (and whatever the caller has overridden around this call)."""
+    flags (and whatever the caller has overridden around this call), for an
+    edit in ``dtype``: the bf16 kernels, or their fp32 instances
+    (``<kernel>_f32``)."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the kernels take bf16 or fp32, not {dtype}")
+    suffix = F32_SUFFIX if dtype == torch.float32 else ""
     out = Counter()
     for (stage, op, key), c in sites.items():
         with flags.stage(stage):
-            for call in route(op, key):
-                out[call] += c
+            for kernel, shape in route(op, key):
+                out[(kernel + suffix, shape)] += c
     return out
 
 
@@ -260,16 +272,21 @@ def launches_by_kernel(calls: Counter) -> dict:
 def launch_counts() -> dict:
     """Kernel -> the launches its wrapper has counted since the last reset
     (a graph's replay counts none: only eager calls and captures do)."""
-    return {"conv3x3": conv3x3.launches, **conv_fused.launches,
-            "group_norm": fused_groupnorm.launches,
-            "group_norm_scale_shift": fused_groupnorm.scale_shift_launches,
-            **{f"flash_attention_d{d}": n for d, n in fa.launches.items()}}
+    counts = {"conv3x3": conv3x3.launches, "conv3x3_f32": conv3x3.launches_f32,
+              **conv_fused.launches,
+              "group_norm": fused_groupnorm.launches,
+              "group_norm_f32": fused_groupnorm.launches_f32,
+              "group_norm_scale_shift": fused_groupnorm.scale_shift_launches,
+              "group_norm_scale_shift_f32": fused_groupnorm.scale_shift_launches_f32,
+              **{f"flash_attention_d{d}": n for d, n in fa.launches.items()},
+              **{f"flash_attention_d{d}_f32": n for d, n in fa.launches_f32.items()}}
+    return {k: counts[k] for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    conv3x3.launches = 0
-    fused_groupnorm.launches = 0
-    fused_groupnorm.scale_shift_launches = 0
-    for counts in (conv_fused.launches, fa.launches):
+    conv3x3.launches = conv3x3.launches_f32 = 0
+    fused_groupnorm.launches = fused_groupnorm.launches_f32 = 0
+    fused_groupnorm.scale_shift_launches = fused_groupnorm.scale_shift_launches_f32 = 0
+    for counts in (conv_fused.launches, fa.launches, fa.launches_f32):
         for k in counts:
             counts[k] = 0

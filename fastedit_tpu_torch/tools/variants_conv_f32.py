@@ -1,0 +1,65 @@
+"""A spec for ``tools/kernel_variants.py``: the fp32 conv kernel
+(``csrc/conv3x3_f32.cu``) as built (two blocks per SM, one for the
+128-channel tile), with two blocks per SM for every tile, and with one for
+every tile, at main-path shapes of each mode.
+
+    python fastedit_tpu_torch/tools/kernel_variants.py \
+        fastedit_tpu_torch/tools/variants_conv_f32.py
+
+Under the 128-register cap of two blocks per SM the 128-channel instances
+spill a few bytes (ptxas, which ``chip_smoke.py`` refuses); one block per SM
+lifts the cap and halves the warps that hide latency.
+"""
+
+LIBRARY = "conv3x3_f32"
+
+_AS_BUILT = "__launch_bounds__(THREADS, TN == 8 ? 1 : 2) conv_f32_kernel"
+VARIANTS = {
+    "as_built": [],
+    "two_blocks": [(_AS_BUILT, "__launch_bounds__(THREADS, 2) conv_f32_kernel")],
+    "one_block": [(_AS_BUILT, "__launch_bounds__(THREADS, 1) conv_f32_kernel")],
+}
+# (mode, B, H, W, Cin, Cout): the UNet's three widths, the VAE decoder's largest
+# stride-1 and fused calls, an upsample and a stride-2 call
+SHAPES = [("conv", 2, 128, 128, 320, 320), ("conv", 2, 64, 64, 640, 640),
+          ("conv", 2, 32, 32, 1280, 1280), ("conv", 1, 1024, 1024, 128, 128),
+          ("fused", 1, 256, 256, 512, 256), ("up2", 1, 512, 512, 256, 256),
+          ("down2", 2, 64, 64, 640, 640)]
+ROUNDS = 2
+
+
+def run(use):
+    import torch
+
+    from fastedit_tpu_torch.ops import conv3x3 as k
+    from fastedit_tpu_torch.ops import conv_fused as cf
+    from fastedit_tpu_torch.tools.timing import graph_ms
+
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for mode, n, h, w, cin, cout in SHAPES:
+        x = torch.randn((n, h, w, cin), generator=gen, device="cuda")
+        wt = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") * (9 * cin) ** -0.5
+              ).contiguous(memory_format=torch.channels_last)
+        bias = torch.randn(cout, generator=gen, device="cuda") * 0.1
+        pre = (torch.rand((n, cin), generator=gen, device="cuda") + 0.5,
+               torch.randn((n, cin), generator=gen, device="cuda"))
+        phases = cf.fold_up2(wt)
+        call, plain, flops = {
+            "conv": (lambda: k.conv3x3(x, wt, bias), lambda: k.conv3x3_plain(x, wt, bias), 9),
+            "fused": (lambda: cf.conv3x3_fused(x, wt, bias, pre),
+                      lambda: cf.conv3x3_fused_plain(x, wt, bias, pre), 9),
+            "up2": (lambda: cf.conv3x3_up2(x, wt, bias, phases=phases),
+                    lambda: cf.conv3x3_up2_plain(x, wt, bias), 16),
+            "down2": (lambda: cf.conv3x3_down2(x, wt, bias),
+                      lambda: cf.conv3x3_down2_plain(x, wt, bias), 9 / 4),
+        }[mode]
+        ref = plain()
+        flops *= 2.0 * n * h * w * cin * cout
+        for _ in range(ROUNDS):
+            for name in use.names:
+                use(name)
+                err = float((call() - ref).abs().max())
+                ms = graph_ms(call, reps=3, calls=5)
+                print(f"{mode} {(n, h, w, cin, cout)} {name:18s} err {err:.3g}  {ms:.4f} ms  "
+                      f"{flops / ms / 1e9:.2f} TFLOP/s", flush=True)

@@ -44,14 +44,17 @@ def test_the_flags_are_part_of_the_name(csrc, monkeypatch):
 
 
 def test_the_ports_kernels_share_one_header():
-    """All three kernel libraries include ``hopper.cuh`` (GroupNorm for its
-    mbarriers and 1-D bulk copies).  Every C function the wrappers call is
-    declared."""
+    """The three bf16 kernel libraries include ``hopper.cuh`` (GroupNorm for
+    its mbarriers and 1-D bulk copies; its fp32 instances live in the same
+    library), the two fp32 SIMT libraries ``simt_f32.cuh``.  Every C function
+    the wrappers call is declared."""
     by_name = {n: sorted(p.name for p in build.sources(n)) for n in build.KERNELS}
     assert by_name == {
         "conv3x3": ["conv3x3.cu", "hopper.cuh"],
         "flash_attention": ["flash_attention.cu", "hopper.cuh"],
         "group_norm": ["group_norm.cu", "hopper.cuh"],
+        "conv3x3_f32": ["conv3x3_f32.cu", "simt_f32.cuh"],
+        "flash_attention_f32": ["flash_attention_f32.cu", "simt_f32.cuh"],
     }
     for name, symbols in build.KERNELS.items():
         text = (build.CSRC / f"{name}.cu").read_text()
@@ -120,5 +123,41 @@ def test_the_group_norm_variants_spec_is_in_step():
     exec(compile(path.read_text(), str(path), "exec"), spec)
     source = (build.CSRC / f"{spec['LIBRARY']}.cu").read_text()
     assert spec["LIBRARY"] == "group_norm" and spec["VARIANTS"]["as_built"] == []
+    for name, replacements in spec["VARIANTS"].items():
+        assert (kv.apply(source, replacements) != source) == bool(replacements), name
+
+
+def test_the_fp32_c_functions_take_the_plans_ints():
+    """The fp32 conv entries take the plan's channel tile (the grid is one
+    block per tile, computed in C), the stride-2 one its padding too; the
+    fp32 attention entry the strides and the scale; every GroupNorm entry has
+    a bf16 and an fp32 twin of one signature; the fp32 sources issue no
+    tensor-core instruction (TF32 alone is not fp32; ``chip_smoke.py``
+    counts the built kernels' HMMA and HGMMA)."""
+    conv, attn, gn = (build.KERNELS[n] for n in ("conv3x3_f32", "flash_attention_f32",
+                                                  "group_norm"))
+    assert conv["conv3x3_f32"].count(build._I) == 7  # B, H, W, Cin, Cout, silu, bn
+    assert conv["conv3x3_down2_f32"].count(build._I) == 8  # ..., pad, bn
+    assert conv["conv3x3_fused_f32"].count(build._P) == 8  # 7 tensors and the stream
+    assert attn["flash_attention_f32"].count(build._L) == 6
+    for name, args in gn.items():
+        twin = name.replace("_bf16", "_f32") if name.endswith("_bf16") else name.replace(
+            "_f32", "_bf16")
+        assert gn[twin] == args
+    for lib in ("conv3x3_f32", "flash_attention_f32"):
+        text = (build.CSRC / f"{lib}.cu").read_text()
+        assert "mma." not in text and "mma_async" not in text  # no mma.sync, no wgmma
+
+
+def test_the_conv_f32_variants_spec_is_in_step():
+    """``tools/variants_conv_f32.py`` (launch bounds of the fp32 conv kernel)
+    replaces text that is in ``csrc/conv3x3_f32.cu``."""
+    from fastedit_tpu_torch.tools import kernel_variants as kv
+
+    spec: dict = {}
+    path = Path(kv.__file__).with_name("variants_conv_f32.py")
+    exec(compile(path.read_text(), str(path), "exec"), spec)
+    source = (build.CSRC / f"{spec['LIBRARY']}.cu").read_text()
+    assert spec["LIBRARY"] == "conv3x3_f32" and spec["VARIANTS"]["as_built"] == []
     for name, replacements in spec["VARIANTS"].items():
         assert (kv.apply(source, replacements) != source) == bool(replacements), name

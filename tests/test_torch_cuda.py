@@ -23,13 +23,18 @@ tiny editor's CUDA graphs (``pipeline/graphs.py``) are held against its eager ar
 batch 1 and 2 with and without CFG, replays on new inputs, two keys on one pool in turns, an
 asynchronous result past the next replay, and no replay under ``plain_versions``.  Tolerances are those of ``chip_smoke.py`` (both sides
 accumulate in fp32 and round once to bf16; the attention's absolute term
-scales with the output's RMS).
+scales with the output's RMS).  The fp32 kernels (the quality mode) are held
+the same way at fp32, TF32 off, with ``chip_smoke.py``'s fp32 tolerances:
+every conv mode at ragged shapes and each channel tile, attention at both
+head dims, GroupNorm and its statistics with a large mean offset, the same
+bits twice, and the tiny editor in fp32 on graphs against its eager arm.
 """
 
 import pytest
 import torch
 
-from chip_smoke import ATTN_ABS_OF_RMS, ATTN_REL, CONV_ABS_OF_MAX, CONV_REL
+from chip_smoke import (ATTN_ABS_OF_RMS, ATTN_REL, CONV_ABS_OF_MAX, CONV_REL, F32_ABS_OF_MAX,
+                        F32_ATTN_ABS_OF_RMS, F32_REL)
 from fastedit_tpu_torch.ops import conv3x3 as k
 from fastedit_tpu_torch.ops import conv_fused as cf
 from fastedit_tpu_torch.ops import flash_attention as fa
@@ -493,8 +498,8 @@ def test_wrappers_raise_outside_their_contract(gen):
     x = torch.randn((1, 8, 8, 64), generator=gen, device="cuda")
     w = torch.randn((64, 64, 3, 3), generator=gen, device="cuda")
     before = (k.launches, dict(fa.launches))
-    with pytest.raises(TypeError):  # fp32 is a later slice
-        k.conv3x3(x, w.contiguous(memory_format=torch.channels_last))
+    with pytest.raises(TypeError):  # fp16: no kernel takes it (fp32 has its own, below)
+        k.conv3x3(x.half(), w.half().contiguous(memory_format=torch.channels_last))
     with pytest.raises(ValueError):  # OIHW-contiguous weight
         k.conv3x3(x.bfloat16(), w.bfloat16())
     q = torch.randn((1, 128, 1, 96), generator=gen, device="cuda").bfloat16()
@@ -636,3 +641,113 @@ def test_plain_versions_never_replay_a_graph(tiny_cuda, monkeypatch):
         tiny_cuda.edit(_scene(30), "plain", seed=30)
     with pytest.raises(AssertionError):
         tiny_cuda.edit(_scene(30), "graphs", seed=30)
+
+
+# ------------------------------------------------------- the fp32 kernels
+
+
+def _f32_conv(gen, n, h, w, cin, cout):
+    x = torch.randn((n, h, w, cin), generator=gen, device="cuda")
+    wt = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda") * (9 * cin) ** -0.5
+          ).contiguous(memory_format=torch.channels_last)
+    return x, wt, torch.randn(cout, generator=gen, device="cuda") * 0.1
+
+
+def _f32_close(out, ref):
+    assert out.dtype == torch.float32
+    _assert_close(out, ref, F32_REL, F32_ABS_OF_MAX * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("mode", ["conv", "fused", "up2", "down2", "down2_asym"])
+@pytest.mark.parametrize(
+    "n,h,w,cin,cout",
+    [
+        (2, 13, 37, 96, 320),  # ragged H and W, Cin 96, the 64-wide tile
+        (1, 16, 32, 64, 256),  # the 128-wide tile where the grid allows it
+        (2, 8, 8, 72, 3),  # Cout 3 (the 16-wide tile), images smaller than a tile
+        (1, 24, 40, 128, 200),  # ragged Cout on the 64-wide tile
+    ],
+)
+def test_f32_conv_kernel_matches_plain(gen, mode, n, h, w, cin, cout):
+    if mode.startswith("down2"):
+        h, w = 2 * (h // 2), 2 * (w // 2)
+    x, wt, bias = _f32_conv(gen, n, h, w, cin, cout)
+    before = dict(conv=k.launches_f32, **cf.launches)
+    if mode == "conv":
+        out, ref = k.conv3x3(x, wt, bias, "silu"), k.conv3x3_plain(x, wt, bias, "silu")
+    elif mode == "fused":
+        pb = torch.randn((n, cout), generator=gen, device="cuda")
+        pre = (torch.rand((n, cin), generator=gen, device="cuda") + 0.5,
+               torch.randn((n, cin), generator=gen, device="cuda"))
+        skip = torch.randn((n, h, w, cout), generator=gen, device="cuda")
+        out = cf.conv3x3_fused(x, wt, pb, pre, skip=skip)
+        ref = cf.conv3x3_fused_plain(x, wt, pb, pre, skip=skip)
+    elif mode == "up2":
+        out, ref = cf.conv3x3_up2(x, wt, bias), cf.conv3x3_up2_plain(x, wt, bias)
+    else:
+        asym = mode == "down2_asym"
+        out = cf.conv3x3_down2(x, wt, bias, asymmetric=asym)
+        ref = cf.conv3x3_down2_plain(x, wt, bias, asymmetric=asym)
+    torch.cuda.synchronize()
+    _f32_close(out, ref)
+    after = dict(conv=k.launches_f32, **cf.launches)
+    name = {"conv": "conv", "fused": "conv3x3_fused_f32", "up2": "conv3x3_up2_f32"}.get(
+        mode, "conv3x3_down2_f32")
+    assert after[name] == before[name] + 1
+    assert all(after[key] == before[key] for key in after if key != name)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d", [(1, 128, 128, 2, 64), (2, 256, 384, 3, 64),
+                                          (1, 128, 256, 1, 512), (2, 384, 128, 1, 512)])
+def test_f32_flash_attention_matches_plain(gen, b, sq, skv, h, d):
+    q = torch.randn((b, sq, h, d), generator=gen, device="cuda")
+    kv = torch.randn((b, skv, 2, h, d), generator=gen, device="cuda")  # k, v through strides
+    kk, v = kv[:, :, 0], kv[:, :, 1]
+    before = dict(fa.launches_f32)
+    out, ref = fa.flash_attention(q, kk, v, 0.1), fa.attention_plain(q, kk, v, 0.1)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and fa.launches_f32[d] == before[d] + 1
+    _assert_close(out, ref, F32_REL, F32_ATTN_ABS_OF_RMS * float(ref.square().mean().sqrt()))
+    assert torch.equal(out, fa.flash_attention(q, kk, v, 0.1))  # the same bits twice
+
+
+@pytest.mark.parametrize("shape,groups,act,offset", [
+    ((2, 32, 32, 640), 32, "silu", 0.0),  # resident route
+    ((1, 128, 128, 512), 32, None, 0.0),  # two launches in fp32 (resident in bf16)
+    ((2, 16, 16, 2560), 32, None, 50.0),  # one pixel per block row, |mean| >> std
+    ((1, 64, 64, 96), 8, "silu", 50.0),
+])
+def test_f32_group_norm_kernels_match_plain(gen, shape, groups, act, offset):
+    x = torch.randn(shape, generator=gen, device="cuda") + offset
+    gamma = torch.rand(shape[-1], generator=gen, device="cuda") + 0.5
+    beta = torch.randn(shape[-1], generator=gen, device="cuda")
+    before = (fg.launches_f32, fg.scale_shift_launches_f32)
+    out = fg.fused_group_norm(x, gamma, beta, groups, 1e-5, act)
+    sc, sh = fg.group_norm_scale_shift(x, gamma, beta, groups)
+    torch.cuda.synchronize()
+    _f32_close(out, group_norm_plain(x, gamma, beta, groups, 1e-5, act))
+    rs, rsh = group_norm_scale_shift_plain(x, gamma, beta, groups)
+    _f32_close(sc, rs)
+    _f32_close(sh, rsh)
+    assert (fg.launches_f32, fg.scale_shift_launches_f32) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, fg.fused_group_norm(x, gamma, beta, groups, 1e-5, act))
+
+
+@pytest.fixture(scope="module")
+def tiny_cuda_f32():
+    """The tiny editor on the card in fp32 (the quality mode's dtype)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run with -m cuda on a machine with one")
+    from fastedit_tpu_torch import FastEditor
+
+    return FastEditor("tiny", use_full_precision=True)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_f32_editor_graphs_match_the_eager_arm(tiny_cuda_f32, batch):
+    imgs, prompts = [_scene(20 + i) for i in range(batch)], ["a red barn"] * batch
+    before = k.launches_f32
+    graph = _edit(tiny_cuda_f32, imgs, prompts, seed=5)
+    eager = _edit(tiny_cuda_f32, imgs, prompts, graphs=False, seed=5)
+    _assert_same(graph, eager)
+    assert graph[1].dtype == torch.float32 and k.launches_f32 > before

@@ -199,13 +199,23 @@ def test_non_cpu_tensor_never_takes_plain_version(op):
 
 
 def test_kernel_wrappers_reject_fp32_off_cpu():
+    """fp32 off the CPU goes to the fp32 kernel (the quality mode) or raises:
+    here (meta tensors, no card) it raises and counts no launch, never
+    returning the plain version's result; a dtype no kernel takes raises a
+    TypeError."""
     x = torch.empty((1, 128, 1, 64), dtype=torch.float32, device="meta")
-    with pytest.raises(TypeError):
-        tfa.flash_attention(x, x, x)
     xc = torch.empty((1, 8, 8, 64), dtype=torch.float32, device="meta")
     wc = torch.empty((64, 64, 3, 3), dtype=torch.float32, device="meta")
-    with pytest.raises(TypeError):
+    before = (tconv3x3.launches_f32, dict(tfa.launches_f32))
+    with pytest.raises((RuntimeError, ValueError)):
+        tfa.flash_attention(x, x, x)
+    with pytest.raises((RuntimeError, ValueError)):
         tconv3x3.conv3x3(xc, wc)
+    assert (tconv3x3.launches_f32, dict(tfa.launches_f32)) == before
+    with pytest.raises(TypeError):
+        tfa.flash_attention(x.half(), x.half(), x.half())
+    with pytest.raises(TypeError):
+        tconv3x3.conv3x3(xc.double(), wc.double())
 
 
 # ------------------------------------------------------------ gate parity
