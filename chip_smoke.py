@@ -37,6 +37,16 @@ order; a failed phase raises and the script exits non-zero:
    off, with the same planted faults, the fp32 tolerance, the bound at the
    fp32 rate outside the tensor cores (67 TFLOP/s) and fp32 library calls
    (``F.conv2d``, SDPA); fewer repeats (a graph of 5 calls, 3 eager calls).
+   The two fp32 kernels on the tensor cores (3xTF32: the stride-2 conv and
+   the D = 512 attention) are also held against an fp64 reference computed on
+   the card, within 8x the plain fp32 version's max |err| against it, and the
+   single-pass TF32 emulation (``ops/tf32x3.py``, the lo products dropped)
+   must fall outside that limit at every shape; their bound counts three
+   TF32 operations per fp32 one at 494.7 TFLOP/s (the SIMT bound beside it).
+   Before all that, every kernel of every library is held to the tensor-core
+   rule by name: the bf16 kernels and the two 3xTF32 ones hold HGMMA, no
+   kernel holds HMMA, every other kernel (the SIMT fp32 ones among them) no
+   tensor-core instruction at all.
 3. The main path in the default configuration:
    ``FastEditor("ssd-1b", random_weights=True)`` at 1024², a warm-up, three
    ``edit()`` calls and one ``edit_batch`` of two images, on CUDA graphs
@@ -65,6 +75,11 @@ order; a failed phase raises and the script exits non-zero:
    an ``edit_batch`` of two; a second replay of a key on new inputs (image,
    prompt, seed, another schedule of three steps, other scales) against a
    fresh eager edit of them; a flags override, which must capture a new key.
+   Then the graph cache's memory rule: ``pipeline/graphs.MEMORY_BUDGET``
+   patched to what is in use plus the largest capture so far and 0.1 GiB,
+   six new keys must evict older ones and keep the card's memory in use
+   within the budget after every capture (reserved bytes and their peak
+   printed).
 6. A converted checkpoint, with the seeded weights of phases 4-5: the five
    models written as an HF-style fp16 snapshot (``config.json`` from the
    port's vendored public configs, diffusers / transformers names, the
@@ -107,7 +122,8 @@ order; a failed phase raises and the script exits non-zero:
    freed: a warm-up, two ``edit()`` calls and one ``edit_batch`` of two, with
    seconds per edit, device ms per stage, peak memory, the wrappers' launches
    (twice the fp32 inventory: every call on an fp32 kernel, no bf16 kernel)
-   and one replayed edit's device kernels by name.  With seeded weights: an
+   and one replayed edit's device kernels by name; then two edits at guidance
+   1.0 (no CFG, a key of its own), timed the same way.  With seeded weights: an
    edit on graphs against the same edit eagerly (bit for bit) and with
    ``plain_versions=True`` (within 1e-3 latent rel L2 and 0.5 LSB mean; a
    plain edit whose convs skip their last 8 input channels, the fp32
@@ -144,6 +160,15 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 # fp32 outside the tensor cores, the rate of the fp32 kernels (SIMT FFMAs)
 PEAK_F32_FLOPS = 67e12
+# dense TF32 on the tensor cores: the fp32 kernels on wgmma take every fp32
+# product as three TF32 products (3xTF32), so their bound is 3 x FLOPs at it
+PEAK_TF32_FLOPS = 494.7e12
+TF32X3_KERNELS = ("conv3x3_down2_f32", "flash_attention_d512_f32")
+# The fp32 kernels on the tensor cores against an fp64 reference computed on
+# the card, at every main-path shape: their max |err| within 8x that of the
+# plain fp32 version (TF32 off), which single-pass TF32 (the lo products
+# dropped, the plain emulation of ops/tf32x3.py) must exceed at every shape.
+F64_GATE = 8.0
 
 RESOLUTION = 1024
 EDIT_KW = dict(strength=0.8, num_inference_steps=4, guidance_scale=1.5)
@@ -228,6 +253,41 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tupl
 
 def is_f32(kernel: str) -> bool:
     return kernel.endswith("_f32")
+
+
+def kernel_peak(kernel: str) -> float:
+    """The rate a kernel's operations are bounded by: bf16 at the bf16
+    tensor-core rate, the SIMT fp32 kernels at the fp32 rate, the 3xTF32 ones
+    at three TF32 operations per fp32 one."""
+    if kernel in TF32X3_KERNELS:
+        return PEAK_TF32_FLOPS / 3.0
+    return PEAK_F32_FLOPS if is_f32(kernel) else PEAK_BF16_FLOPS
+
+
+def kernel_bound(kernel: str, flops: float, nbytes: float) -> tuple[float, str]:
+    return bound_ms(flops, nbytes, kernel_peak(kernel))
+
+
+def fp64_gate(what: str, out, plain, single_pass, ref64) -> dict:
+    """The gate of the 3xTF32 kernels: max |out - ref64| within F64_GATE x
+    max |plain - ref64|, and single-pass TF32 outside that limit."""
+    plain_err = float((plain.double() - ref64).abs().max())
+    err = float((out.double() - ref64).abs().max())
+    single = float((single_pass.double() - ref64).abs().max())
+    limit = F64_GATE * plain_err
+    res = dict(fp64_err=err, fp64_plain_err=plain_err, fp64_limit=limit,
+               fp64_single_pass_err=single, fp64_ratio=err / plain_err,
+               fp64_single_pass_ratio=single / plain_err)
+    log(f"  fp64 gate {what}: kernel {err:.3e} ({err / plain_err:.3f} x plain fp32 "
+        f"{plain_err:.3e}), limit {limit:.3e}; single-pass TF32 {single:.3e} "
+        f"({single / plain_err:.1f} x)")
+    if not err <= limit:
+        raise AssertionError(f"{what}: max |err| vs fp64 {err} above {F64_GATE} x the plain "
+                             f"fp32 version's {plain_err}")
+    if not single > limit:
+        raise AssertionError(f"{what}: the fp64 limit {limit} passes single-pass TF32 ({single});"
+                             " tighten it")
+    return res
 
 
 def n_outside(out, ref, rel: float, abs_tol: float) -> int:
@@ -347,7 +407,9 @@ def hold(calls, kernel, key, kern, plain, library, flops, nbytes, faults=None,
         if bad == 0:
             raise AssertionError(f"{kernel} {key}: the tolerance passes the planted {name}")
     del out, ref
-    b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS)
+    b_ms, b_by = kernel_bound(kernel, flops, nbytes)
+    if kernel in TF32X3_KERNELS:
+        row["bound_simt_ms"] = bound_ms(flops, nbytes, PEAK_F32_FLOPS)[0]
     gkw, reps = (F32_GRAPH, F32_EAGER_REPS) if f32 else ({}, 10)
     row.update(extra or {})
     row.update(
@@ -389,15 +451,14 @@ def plan_of(x, cout: int, down2_asymmetric=None, up2: bool = False, mode: str = 
     """The conv kernel's schedule for this call (stride 1, the upsample form,
     or stride 2 where ``down2_asymmetric`` says which padding), as a row
     records it; for an fp32 ``x`` the fp32 kernel's (``mode`` as in
-    ``plan_f32``)."""
+    ``plan_f32``; stride 2: ``plan_down2`` at item size 4)."""
     import torch
 
     from fastedit_tpu_torch.ops.conv3x3 import (
         plan_down2_for, plan_f32_for, plan_for, plan_up2_for)
 
-    if x.dtype == torch.float32:
-        mode = "up2" if up2 else "down2" if down2_asymmetric is not None else mode
-        pl = plan_f32_for(x, cout, mode, bool(down2_asymmetric))
+    if x.dtype == torch.float32 and down2_asymmetric is None:
+        pl = plan_f32_for(x, cout, "up2" if up2 else mode)
         return dict(rect=list(pl.rect), bn=pl.bn, tiles=pl.tiles, grid=pl.grid,
                     smem_bytes=pl.smem_bytes)
     if up2:
@@ -601,53 +662,86 @@ def compare_down2(calls: dict, gen, dtype=None) -> list[dict]:
             return F.conv2d(x_nchw, wt, bias_dt, stride=2, padding=1)
 
         ho, wo = h // 2, w // 2
+        extra = dict(plan=plan_of(x, cout, down2_asymmetric=asym))
+        # fp32: the 3xTF32 kernel on the weight's TF32 hi and lo copies, split once as the
+        # downsampler modules split them, and its fp64 gate
+        w_split = cf.split_tf32(wt) if sfx else None
+        if sfx:
+            from fastedit_tpu_torch.ops import tf32x3
+
+            pad = (0, 1, 0, 1) if asym else (1, 1, 1, 1)
+            ref64 = F.conv2d(F.pad(x_nchw.double(), pad), wt.double(), bias.double(), stride=2)
+            extra.update(fp64_gate(
+                f"conv3x3_down2_f32 {key}",
+                cf.conv3x3_down2(x, wt, bias, asymmetric=asym, w_split=w_split),
+                cf.conv3x3_down2_plain(x, wt, bias, asymmetric=asym),
+                tf32x3.conv3x3_down2_plain(x, wt, bias, asymmetric=asym, passes=1),
+                ref64.permute(0, 2, 3, 1)))
+            del ref64
         rows.append(hold(
             calls, "conv3x3_down2" + sfx, key,
-            lambda: cf.conv3x3_down2(x, wt, bias, asymmetric=asym),
+            lambda: cf.conv3x3_down2(x, wt, bias, asymmetric=asym, w_split=w_split),
             lambda: cf.conv3x3_down2_plain(x, wt, bias, asymmetric=asym),
             library, flops=2.0 * n * ho * wo * cout * 9 * cin,
             nbytes=isz * (n * h * w * cin + 9 * cin * cout + n * ho * wo * cout) + 4.0 * cout,
             faults={"fault": lambda: cf.conv3x3_down2_plain(x, wt, bias, asymmetric=not asym)},
-            extra=dict(plan=plan_of(x, cout, down2_asymmetric=asym)),
+            extra=extra,
         ))
     return rows
 
 
 def device_kernels(fn, calls: int = 3, tries: int = 5) -> list[str]:
     """The names of the device kernels one call of ``fn`` runs, by
-    ``torch.profiler`` (CUDA activity) over ``calls`` calls, which must run
-    the same number each.  A trace now and then loses its first records (a
-    few kernels, or in one run every kernel of the first ones), so a spin of
-    ~50 ms and then eight short marker spins (``torch.cuda._sleep``) run
-    first and only the kernels after the last marker are read; a profile
-    that still lost records (no marker, nothing after it, or a count that is
-    no multiple of ``calls``) is taken again, up to ``tries`` in all, and
-    raises when every try lost them."""
+    ``torch.profiler`` (CUDA activity) over ``calls`` calls (at least 2).
+    The profiler drops the records at the ends of its window: the first ones
+    (a few kernels, or every kernel of the first ~50 ms and more in a profile
+    taken late in a long process), so a long spin (``torch.cuda._sleep``)
+    opens and closes the window, and a group of eight short marker spins
+    stands before each call and after the last.  Records are dropped only at
+    the ends, so a call is whole when a spin survived on either side of it;
+    at least two whole calls must run the same kernels (as a multiset: the
+    streams' kernels may interleave differently), and then one of them is
+    returned.  A profile without two is taken again with spins four times as
+    long, up to ``tries`` in all, and it raises when every try failed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    if calls < 2:
+        raise ValueError(f"device_kernels needs two calls or more to compare, got {calls}")
+
+    def marks():
+        torch.cuda.synchronize()
+        for _ in range(8):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+
     seen = []
-    for _ in range(tries):
+    for attempt in range(tries):
+        spin = 100_000_000 * 4**attempt  # cycles: ~50 ms at the first try
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(100_000_000)
-            for _ in range(8):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+            torch.cuda._sleep(spin)
             for _ in range(calls):
+                marks()
                 fn()
+            marks()
+            torch.cuda._sleep(spin)
             torch.cuda.synchronize()
         events = sorted((e for e in prof.events()
                          if e.device_type == torch.autograd.DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
         names = [e.name for e in events]
-        marks = [i for i, name in enumerate(names) if "spin_kernel" in name]
-        after = names[marks[-1] + 1:] if marks else []
-        seen.append((len(names), len(marks), len(after)))
-        if after and len(after) % calls == 0:
-            return after[:len(after) // calls]
+        spins = [i for i, name in enumerate(names) if "spin_kernel" in name]
+        whole = [names[a + 1:b] for a, b in zip(spins, spins[1:]) if b > a + 1]
+        agree = [w for w in whole if sorted(w) == sorted(whole[-1])] if whole else []
+        seen.append((len(names), len(spins), [len(w) for w in whole]))
+        if len(whole) >= 2 and len(agree) == len(whole):
+            if attempt:
+                log(f"device_kernels: the profiler dropped records in {attempt} tries "
+                    f"(device kernels, spins, kernels of each whole call: {seen})")
+            return whole[-1]
     raise AssertionError(f"the profiler lost records in all {tries} tries of {calls} calls "
-                         f"(device kernels, markers, kernels after the last marker: {seen})")
+                         f"(device kernels, spins, kernels of each whole call: {seen})")
 
 
 def compare_group_norm(calls: dict, gen, dtype=None) -> list[dict]:
@@ -803,19 +897,32 @@ def compare_attention(calls: dict, gen, dtype=None) -> list[dict]:
             f"{name} {key}", out, ref, rel_tol,
             abs_of_rms * float(ref.float().square().mean().sqrt()),
         )
+        gate = {}
+        if name in TF32X3_KERNELS:
+            from fastedit_tpu_torch.ops import tf32x3
+
+            del faulty
+            qd, kd, vd = (t.double().transpose(1, 2) for t in (q, kk, v))
+            ref64 = (torch.softmax((qd @ kd.transpose(-1, -2)) * d**-0.5, dim=-1) @ vd)
+            del qd, kd, vd
+            faulty = tf32x3.attention_plain(q, kk, v, passes=1)
+            gate = fp64_gate(f"{name} {key}", out, ref, faulty, ref64.transpose(1, 2))
+            del ref64
         del ref, out, faulty
         qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
         flops = 4.0 * b * h * sq * skv * d
         nbytes = isz * b * h * d * (2 * sq + 2 * skv)
-        b_ms, b_by = bound_ms(flops, nbytes, PEAK_F32_FLOPS if sfx else PEAK_BF16_FLOPS)
+        b_ms, b_by = kernel_bound(name, flops, nbytes)
+        if name in TF32X3_KERNELS:
+            gate["bound_simt_ms"] = bound_ms(flops, nbytes, PEAK_F32_FLOPS)[0]
         plan = dict(bq=pl.bq, bkv=pl.bkv, tiles=pl.tiles, grid=pl.grid,
                     smem_bytes=pl.smem_bytes)
-        if not sfx:
+        if not sfx or d == 512:
             plan.update(stages=pl.stages, v_stages=pl.v_stages)
         rows.append(dict(
             kernel=name, shape=list(key), **call_counts(calls, name, key),
             max_abs_err=err, max_rel_err=rel, err_over_rms=sound_c,
-            fault_err_over_rms=fault_c,
+            fault_err_over_rms=fault_c, **gate,
             ms=graph_ms(lambda: fa.flash_attention(q, kk, v), **gkw),
             library_ms=graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), **gkw),
             plain_ms=time_ms(lambda: fa.attention_plain(q, kk, v), reps),
@@ -866,17 +973,19 @@ def check_launches(what: str, launches: dict, expected: dict) -> None:
 # demangled names): GroupNorm's two-launch route gn_stats_kernel<T, false> and
 # gn_apply_kernel<T>, its resident route gn_stats_kernel<T, true> alone, the
 # statistics entry gn_stats_kernel<T, false> alone (T the element type); the
-# fp32 conv's modes are conv_f32_kernel<mode, ...> (0 stride 1, 1 fused, 2
-# stride 2, 3 up2).
+# fp32 conv's modes are conv_f32_kernel<mode, ...> (0 stride 1, 1 fused, 3
+# up2); the fp32 stride-2 conv is conv3x3_down2_tf32x3_kernel (its weight split
+# runs once per weight), the fp32 D = 512 attention split_qkv_tf32_kernel, then
+# flash_d512_tf32x3_kernel.
 WRAPPER_KERNELS = {
     "conv3x3": "conv3x3_kernel", "conv3x3_fused": "conv3x3_fused_kernel",
     "conv3x3_up2": "conv3x3_up2_kernel", "conv3x3_down2": "conv3x3_down2_kernel",
     "flash_attention_d64": "flash_d64_kernel", "flash_attention_d512": "flash_d512_kernel",
     "up2_phase_weights": "up2_phase_weights_kernel",
     "conv3x3_f32": "conv_f32_kernel<0,", "conv3x3_fused_f32": "conv_f32_kernel<1,",
-    "conv3x3_down2_f32": "conv_f32_kernel<2,", "conv3x3_up2_f32": "conv_f32_kernel<3,",
+    "conv3x3_down2_f32": "conv3x3_down2_tf32x3_kernel", "conv3x3_up2_f32": "conv_f32_kernel<3,",
     "flash_attention_d64_f32": "flash_f32_d64_kernel",
-    "flash_attention_d512_f32": "flash_f32_d512_kernel",
+    "flash_attention_d512_f32": "flash_d512_tf32x3_kernel",
 }
 GN_TYPES = {"": "__nv_bfloat16", "_f32": "float"}
 
@@ -956,8 +1065,7 @@ def main_path(calls: dict):
                                          seed=5, **EDIT_KW), per_edit),
             ("edit_batch of 2", lambda: editor.edit_batch(
                 images, ["a snowy street", "a city at night"], seed=6, **EDIT_KW), per_batch2)):
-        # two replays per profile: a profile that lost a record is taken again
-        replays[what] = wrapper_launches(device_kernels(edit, calls=2))
+        replays[what] = wrapper_launches(device_kernels(edit))
         check_launches(f"one replayed {what}, device kernels by the profiler",
                        replays[what], {**expected, "up2_phase_weights": 0})
     if len(keys) != 2:
@@ -1164,6 +1272,55 @@ def graphs_vs_eager(editor) -> dict:
     if len(captured) != keys + 1:
         raise AssertionError("a flags override did not capture a new key")
     return out
+
+
+def graph_memory_sweep(editor, keys: int = 6) -> dict:
+    """The graph cache's memory rule (``pipeline/graphs.py``) on the card:
+    with ``MEMORY_BUDGET`` patched to what the card has in use now plus the
+    rule's margin (the largest capture so far) and 0.1 GiB, ``keys`` new keys
+    (4 to 9 run steps at strength 1.0, no CFG; phases 3-5 captured 5) must
+    evict older ones, leave the card's memory in use within the budget after
+    every capture and still give valid images.  All captures share one pool,
+    on one side stream, so a new key of a captured size costs its static
+    buffers (~0.05 GiB); the reserved bytes after each capture and their peak
+    are printed."""
+    import torch
+
+    from fastedit_tpu_torch.pipeline import graphs
+
+    eg = editor._graphs
+    device = next(iter(eg.captured.values())).out.device
+    largest = max(c.pool_bytes for c in eg.captured.values())
+    in_use, total = graphs._card_memory(device)  # after empty_cache
+    budget = (in_use + largest + 0.1 * 2**30) / total
+    saved = graphs.MEMORY_BUDGET
+    res = dict(budget_share=budget, budget_gib=budget * total / 2**30,
+               largest_pool_gib=largest / 2**30, in_use_gib_before=in_use / 2**30,
+               reserved_gib_before=torch.cuda.memory_reserved(device) / 2**30,
+               keys_before=len(eg.captured), in_use_gib=[], reserved_gib=[], keys_kept=[])
+    torch.cuda.reset_peak_memory_stats(device)
+    graphs.MEMORY_BUDGET = budget
+    try:
+        for steps in range(4, 4 + keys):
+            out = editor.edit(test_image(9), "a harbor at noon", seed=30 + steps, strength=1.0,
+                              num_inference_steps=steps, guidance_scale=1.0)
+            check_image(out)
+            res["reserved_gib"].append(torch.cuda.memory_reserved(device) / 2**30)
+            used, _ = graphs._card_memory(device)
+            res["in_use_gib"].append(used / 2**30)
+            res["keys_kept"].append(len(eg.captured))
+            if used > budget * total:
+                raise AssertionError(f"graph cache: {used / 2**30:.3f} GiB in use after a "
+                                     f"capture, over the budget of {budget * total / 2**30:.3f}")
+    finally:
+        graphs.MEMORY_BUDGET = saved
+    res["peak_reserved_gib"] = torch.cuda.max_memory_reserved(device) / 2**30
+    res["evicted"] = res["keys_before"] + keys - len(eg.captured)
+    log("[5] graph cache under a patched memory budget:", res)
+    if res["evicted"] < 1:
+        raise AssertionError(f"graph cache: {keys} new keys under a budget of one more capture "
+                             "evicted none")
+    return res
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1413,7 +1570,7 @@ def checkpoint_and_metrics(editor, calls: dict, card: str, work: Path) -> dict:
                          stage_ms_loaded=got[3], image_std=float(got[0].std()))
         log(f"loaded = in-memory bit for bit, {what}:", res[what])
     res["replay_launches"] = wrapper_launches(device_kernels(
-        lambda: loaded.edit(img, prompt, seed=43, **EDIT_KW), calls=2))
+        lambda: loaded.edit(img, prompt, seed=43, **EDIT_KW)))
     check_launches("one replayed edit of the loaded editor, device kernels by the profiler",
                    res["replay_launches"], {**per_edit, "up2_phase_weights": 0})
     del loaded
@@ -1897,10 +2054,21 @@ def f32_path(calls: dict, card: str) -> dict:
     check_launches("fp32: two keys' first calls (eager warm-up and capture each), then replays",
                    res["launches"], {k: 2 * (per_edit[k] + per_batch2[k]) for k in per_edit})
     res["replay_launches"] = wrapper_launches(device_kernels(
-        lambda: editor.edit(images[0], "a watercolor painting of a harbor", seed=5, **EDIT_KW),
-        calls=2))
+        lambda: editor.edit(images[0], "a watercolor painting of a harbor", seed=5, **EDIT_KW)))
     check_launches("fp32: one replayed edit, device kernels by the profiler",
                    res["replay_launches"], {**per_edit, "up2_phase_weights": 0})
+    # guidance 1.0 (no CFG: the reference notebook's setting), a key of its own
+    res["guidance1_edits"] = []
+    for i in range(2):
+        t = time.perf_counter()
+        out = editor.edit(images[0], "a watercolor painting of a harbor", seed=10 + i,
+                          **{**EDIT_KW, "guidance_scale": 1.0})
+        res["guidance1_edits"].append(dict(seconds=time.perf_counter() - t,
+                                           stage_ms=editor.stage_ms()))
+        check_image(out)
+    log(f"[8] fp32 edit at guidance 1.0: first call {res['guidance1_edits'][0]['seconds']:.3f} s, "
+        f"replayed {res['guidance1_edits'][1]['seconds']:.4f} s",
+        res["guidance1_edits"][1]["stage_ms"])
     log(f"[8] fp32 warm-up {res['warmup_s']:.2f} s, edit_batch of 2 (first call) "
         f"{res['edit_batch2']['seconds']:.2f} s, peak {res['peak_gib']:.3f} GiB, pools "
         f"{res['graph_pool_gib']}; {card}")
@@ -1995,29 +2163,36 @@ KERNELS = {  # name: (source, TPU kernel it replaces: file:line of pallas_call)
     "group_norm_scale_shift": ("fastedit_tpu_torch/csrc/group_norm.cu",
                                "fastedit_tpu/ops/groupnorm.py:53"),
 }
-# The fp32 instances (the quality mode's path, phase 8): SIMT FFMA kernels,
-# each replacing the same TPU kernel as its bf16 twin.
+# The fp32 instances (the quality mode's path, phase 8), each replacing the same
+# TPU kernel as its bf16 twin: SIMT FFMA kernels, but the stride-2 conv and the
+# D = 512 attention, which run 3xTF32 on the tensor cores.
 F32_KERNELS = {
     f"{name}_f32": (source.replace("conv3x3.cu", "conv3x3_f32.cu")
                     .replace("flash_attention.cu", "flash_attention_f32.cu"), replaces)
     for name, (source, replaces) in KERNELS.items()}
-# Kernels built on wgmma (SASS HGMMA), by a part of their mangled name; the
-# only other one (the upsample conv's phase-weight fold) must hold none.
+F32_KERNELS["conv3x3_down2_f32"] = ("fastedit_tpu_torch/csrc/conv3x3_tf32x3.cu",
+                                    KERNELS["conv3x3_down2"][1])
+F32_KERNELS["flash_attention_d512_f32"] = ("fastedit_tpu_torch/csrc/flash_attention_tf32x3.cu",
+                                           KERNELS["flash_attention_d512"][1])
+# Kernels built on wgmma (SASS HGMMA), by a part of their mangled name: the bf16
+# kernels and the two fp32 ones on 3xTF32.  Every other kernel of every library
+# (the phase-weight fold, the TF32 splits, GroupNorm, the SIMT fp32 kernels)
+# must hold no tensor-core instruction at all, HGMMA or HMMA: TF32 alone is not
+# fp32, and the SIMT fp32 kernels are held to FFMAs by name.
 WGMMA_KERNELS = ("conv3x3_kernel", "conv3x3_fused_kernel", "conv3x3_down2_kernel",
-                 "conv3x3_up2_kernel", "flash_d64_kernel", "flash_d512_kernel")
-# The fp32 libraries: no tensor-core instruction at all (TF32 alone is not fp32).
-F32_LIBRARIES = ("conv3x3_f32", "flash_attention_f32")
-
+                 "conv3x3_up2_kernel", "flash_d64_kernel", "flash_d512_kernel",
+                 "conv3x3_down2_tf32x3_kernel", "flash_d512_tf32x3_kernel")
+SIMT_F32_KERNELS = ("conv_f32_kernel", "flash_f32_d64_kernel")
 
 
 def kernel_summary(rows: list, main: dict) -> list:
     """One entry per kernel, the bf16 ones and their fp32 instances.  Times
     and bounds are for one edit's calls of that kernel: the sum over its
     shapes of calls per edit x per-call time, in the default configuration
-    (fp32: the fp32 edit's; the bound at 67 TFLOP/s).  ``ms`` and ``library_ms`` are the
-    device's own times, from CUDA graphs; ``eager_ms`` and
-    ``library_eager_ms`` are the same from back-to-back eager calls, which
-    read the host where a call is short; ``plain_ms`` is eager (the plain
+    (fp32: the fp32 edit's; the bound at ``kernel_peak``'s rate).  ``ms``
+    and ``library_ms`` are the device's own times, from CUDA graphs;
+    ``eager_ms`` and ``library_eager_ms`` are the same from back-to-back
+    eager calls, which read the host where a call is short; ``plain_ms`` is eager (the plain
     versions take milliseconds).  ``launches`` are the wrapper's counts over
     the main path's run, which on graphs are its two keys' first calls (an
     eager warm-up and a capture each); ``replay_launches`` are the device
@@ -2032,8 +2207,7 @@ def kernel_summary(rows: list, main: dict) -> list:
         def per_edit(key, mine=mine):
             return sum(r["calls_edit"] * r[key] for r in mine)
 
-        peak = PEAK_F32_FLOPS if is_f32(name) else PEAK_BF16_FLOPS
-        ops_ms = 1e3 * per_edit("flops") / peak
+        ops_ms = 1e3 * per_edit("flops") / kernel_peak(name)
         bytes_ms = 1e3 * per_edit("bytes") / PEAK_HBM_BYTES_PER_S
         launches = main["launches"][name]
         out.append(dict(
@@ -2087,25 +2261,26 @@ def main() -> int:
                     not in line):
                 raise AssertionError(f"{name}: ptxas reports {line.strip()}")
 
-    hgmma = {}
-    for lib in ("conv3x3", "flash_attention"):
+    # The per-kernel rule: the kernels of WGMMA_KERNELS hold HGMMA and no HMMA,
+    # every other kernel neither (by name, in every library).
+    hgmma, simt_seen = {}, set()
+    for lib in build.KERNELS:
         counts = count_hgmma(build.library_path(lib))
-        hgmma.update(counts)
+        hmma = count_hgmma(build.library_path(lib), ("HMMA",))
+        if not counts:
+            raise AssertionError(f"{lib}: no cuobjdump; the tensor-core rule cannot be checked")
         for name, n in counts.items():
             on_wgmma = any(k in name for k in WGMMA_KERNELS)
-            log(f"  {lib}: {n} HGMMA in {name}")
-            if on_wgmma != (n > 0):
-                raise AssertionError(f"{name}: {n} HGMMA instructions; {WGMMA_KERNELS}, and "
-                                     "only they, are built on wgmma")
-        if not counts:
-            log(f"  {lib}: no cuobjdump, HGMMA not counted")
-
-    for lib in F32_LIBRARIES:
-        counts = count_hgmma(build.library_path(lib), ("HGMMA", "HMMA"))
-        log(f"  {lib}: tensor-core instructions (HGMMA, HMMA) per kernel: "
-            f"{counts or 'not counted'}")
-        if any(counts.values()):
-            raise AssertionError(f"{lib}: an fp32 kernel runs tensor-core instructions: {counts}")
+            hgmma[name] = dict(HGMMA=n, HMMA=hmma.get(name, 0))
+            simt_seen |= {k for k in SIMT_F32_KERNELS if k in name}
+            log(f"  {lib}: {n} HGMMA, {hmma.get(name, 0)} HMMA in {name}")
+            if on_wgmma != (n > 0) or hmma.get(name, 0):
+                raise AssertionError(f"{name}: {n} HGMMA and {hmma.get(name, 0)} HMMA "
+                                     f"instructions; {WGMMA_KERNELS}, and only they, are built "
+                                     "on the tensor cores (wgmma)")
+    if simt_seen != set(SIMT_F32_KERNELS):
+        raise AssertionError(f"SIMT fp32 kernels not found in the libraries: "
+                             f"{set(SIMT_F32_KERNELS) - simt_seen}")
 
     log("[2] kernels vs plain versions at the main path's shapes")
     t = time.perf_counter()
@@ -2133,8 +2308,9 @@ def main() -> int:
     log("[4] kernels vs plain versions end to end, seeded weights")
     e2e = kernels_vs_plain(editor, calls)
 
-    log("[5] graphs vs the eager arm")
+    log("[5] graphs vs the eager arm; the graph cache's memory budget")
     vs_eager = graphs_vs_eager(editor)
+    vs_eager["memory_sweep"] = graph_memory_sweep(editor)
 
     log("[6] a converted checkpoint: snapshot, converter, FastEditor(checkpoint_dir=...), LoRA, "
         "metrics")

@@ -1,7 +1,9 @@
 // 3x3 convolutions, NHWC fp32, as register-tiled SIMT implicit GEMMs: fp32
 // operands, fp32 multiplies (FFMA, not TF32) and fp32 accumulation.  The
-// fp32 instances of the four TPU kernels that conv3x3.cu ports in bf16, one
-// kernel template (conv_f32_kernel<MODE, TN>) with four modes:
+// fp32 instances of three of the four TPU kernels that conv3x3.cu ports in
+// bf16, one kernel template (conv_f32_kernel<MODE, TN>) with three modes (the
+// fourth, the stride-2 conv, runs on the tensor cores in 3xTF32:
+// conv3x3_tf32x3.cu):
 //
 //   CONV   3x3 SAME stride 1 (+ bias, optional SiLU); replaces
 //          fastedit_tpu/ops/conv3x3.py `conv3x3` (`_conv3x3_call`).
@@ -11,8 +13,6 @@
 //          staged in-image input element (the padding ring stays zero, as
 //          the TPU kernel re-zeroes it), a per-batch bias [B, Cout] and a
 //          skip add after the bias and SiLU.
-//   DOWN2  stride-2 3x3 conv with padding (1, 1) or the VAE encoder's
-//          (0, 1); replaces `conv3x3_down2` (`_down2_call`).
 //   UP2    nearest-2x upsample then 3x3 SAME conv as four 2x2 phase convs of
 //          the low-res input; replaces `conv3x3_up2` (`_up2_call`).  The
 //          phase weights [Cout, 2, 2, 2, 2, Cin] (p, q, a, b) are folded in
@@ -29,12 +29,12 @@
 // channels.  Per chunk of KC = 8 input channels it stages, with cp.async
 // (zero fill outside the image and past Cout) into one of two buffers:
 //   * the input window the tile's taps read, pixel-major [row][col][KC]:
-//     10 x 18 pixels (stride 1, UP2) or 17 x 33 (DOWN2);
+//     10 x 18 pixels, the rectangle's stride-1 halo;
 //   * the weights of those channels, [KC][taps][BN], read from torch's OIHW
 //     in channels_last memory (OHWI) or the folded phase weights.
 // while the other buffer is multiplied.  Each thread owns 8 pixels of one
 // row of the tile (ty) times TN = BN / 16 channels (tx) in registers: per
-// (channel, tap row) it reads the row's 10 (17 for DOWN2) window values once
+// (channel, tap row) it reads the row's 10 window values once
 // and serves its three taps from registers, and per tap one or two 16-byte
 // weight loads; 64 FFMAs per 4 shared-memory loads at TN = 8.  A warp's two
 // pixel groups lie in two rows of the window, so their loads hit different
@@ -63,12 +63,12 @@ constexpr int RH = 8, RW = 16;  // output pixels of a tile (low-res pixels for U
 constexpr int KC = 8;           // input channels per staged chunk
 constexpr int STAGES = 2;
 
-enum Mode { CONV = 0, FUSED = 1, DOWN2 = 2, UP2 = 3 };
+enum Mode { CONV = 0, FUSED = 1, UP2 = 3 };  // 2 was the stride-2 conv
 
 template <int MODE>
 struct Geo {
-  static constexpr int WR = MODE == DOWN2 ? 2 * RH + 1 : RH + 2;  // window rows
-  static constexpr int WC = MODE == DOWN2 ? 2 * RW + 1 : RW + 2;  // window columns
+  static constexpr int WR = RH + 2;  // window rows
+  static constexpr int WC = RW + 2;  // window columns
   static constexpr int TAPS = MODE == UP2 ? 4 : 9;                // taps of a tile
   static constexpr int WTAPS = MODE == UP2 ? 16 : 9;              // taps of a weight row
   static constexpr int WIN = WR * WC * KC;                        // floats of a window
@@ -92,7 +92,7 @@ struct Args {
   const float* shift;
   const float* skip;  // FUSED: [B, H, W, Cout] or null
   float* out;
-  int B, H, W, Cin, Cout, silu, bias_rows, pad;
+  int B, H, W, Cin, Cout, silu, bias_rows;
   int tiles_y, tiles_x, tiles_n;
 };
 
@@ -147,8 +147,7 @@ __global__ void __launch_bounds__(THREADS, TN == 8 ? 1 : 2) conv_f32_kernel(cons
   const int y0 = ry * RH, x0 = rx * RW, n0 = tn * BN;
   const int pp = phase >> 1, pq = phase & 1;
   // the window's first input row and column
-  const int oy = MODE == DOWN2 ? 2 * y0 - a.pad : y0 - 1;
-  const int ox = MODE == DOWN2 ? 2 * x0 - a.pad : x0 - 1;
+  const int oy = y0 - 1, ox = x0 - 1;
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int r = ty & 7, cb = (ty >> 3) * 8;  // the thread's 8 pixels: row r, columns cb..cb+7
@@ -236,10 +235,10 @@ __global__ void __launch_bounds__(THREADS, TN == 8 ? 1 : 2) conv_f32_kernel(cons
           }
         }
       } else {
-        constexpr int S = MODE == DOWN2 ? 2 : 1, NV = 7 * S + 3;
+        constexpr int NV = 10;  // the row's window values the thread's 8 pixels read
 #pragma unroll
         for (int dy = 0; dy < 3; ++dy) {
-          const float* row = win + ((S * r + dy) * G::WC + S * cb) * KC + c;
+          const float* row = win + ((r + dy) * G::WC + cb) * KC + c;
           float v[NV];
 #pragma unroll
           for (int i = 0; i < NV; ++i) v[i] = row[i * KC];
@@ -250,7 +249,7 @@ __global__ void __launch_bounds__(THREADS, TN == 8 ? 1 : 2) conv_f32_kernel(cons
 #pragma unroll
             for (int j = 0; j < 8; ++j)
 #pragma unroll
-              for (int n = 0; n < TN; ++n) acc[j][n] = fmaf(v[S * j + dx], wv[n], acc[j][n]);
+              for (int n = 0; n < TN; ++n) acc[j][n] = fmaf(v[j + dx], wv[n], acc[j][n]);
           }
         }
       }
@@ -259,9 +258,8 @@ __global__ void __launch_bounds__(THREADS, TN == 8 ? 1 : 2) conv_f32_kernel(cons
   }
 
   // epilogue: bias, SiLU, skip, in fp32
-  const int ho = MODE == UP2 ? 2 * a.H : MODE == DOWN2 ? a.H / 2 : a.H;
-  const int wo = MODE == UP2 ? 2 * a.W : MODE == DOWN2 ? a.W / 2 : a.W;
-  const int in_h = MODE == UP2 ? a.H : ho, in_w = MODE == UP2 ? a.W : wo;
+  const int ho = MODE == UP2 ? 2 * a.H : a.H, wo = MODE == UP2 ? 2 * a.W : a.W;
+  const int in_h = a.H, in_w = a.W;
   const float* bias = a.bias == nullptr ? nullptr
                                         : a.bias + (a.bias_rows > 1 ? (long long)b * a.Cout : 0);
 #pragma unroll
@@ -317,12 +315,11 @@ int run(Args a, int bn, void* stream) {
                         reinterpret_cast<uintptr_t>(a.scale) |
                         reinterpret_cast<uintptr_t>(a.shift)) % 16 == 0;
   if (a.B < 1 || a.H < 1 || a.W < 1 || a.Cin < KC || a.Cin % KC || a.Cout < 1 || !aligned ||
-      (bn != 16 && bn != 64 && bn != 128) || (MODE == DOWN2 && (a.H % 2 || a.W % 2)) ||
+      (bn != 16 && bn != 64 && bn != 128) ||
       (MODE == FUSED && (a.scale == nullptr) != (a.shift == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int ho = MODE == DOWN2 ? a.H / 2 : a.H, wo = MODE == DOWN2 ? a.W / 2 : a.W;
-  a.tiles_y = (ho + RH - 1) / RH;
-  a.tiles_x = (wo + RW - 1) / RW;
+  a.tiles_y = (a.H + RH - 1) / RH;
+  a.tiles_x = (a.W + RW - 1) / RW;
   a.tiles_n = (a.Cout + bn - 1) / bn;
   const long long tiles =
       (long long)a.B * a.tiles_y * a.tiles_x * a.tiles_n * (MODE == UP2 ? 4 : 1);
@@ -348,12 +345,11 @@ Args make_args(const void* x, const void* w, const void* bias, void* out, int B,
 
 }  // namespace
 
-// Dynamic shared memory of the instance (mode 0 CONV, 1 FUSED, 2 DOWN2, 3
-// UP2; channel tile bn 16, 64 or 128), or -1.
+// Dynamic shared memory of the instance (mode 0 CONV, 1 FUSED, 3 UP2;
+// channel tile bn 16, 64 or 128), or -1.
 extern "C" int conv3x3_f32_smem_bytes(int mode, int bn) {
   if (bn != 16 && bn != 64 && bn != 128) return -1;
-  const int f = mode == DOWN2 ? Geo<DOWN2>::WIN + KC * 9 * bn
-              : mode == UP2   ? Geo<UP2>::WIN + KC * 4 * bn
+  const int f = mode == UP2   ? Geo<UP2>::WIN + KC * 4 * bn
               : mode == CONV || mode == FUSED ? Geo<CONV>::WIN + KC * 9 * bn
                                               : -1;
   return f < 0 ? -1 : STAGES * f * 4;
@@ -380,17 +376,6 @@ extern "C" int conv3x3_fused_f32(const void* x, const void* w, const void* bias,
   a.bias_rows = bias_rows;
   if (bias_rows != 1 && bias_rows != B) return static_cast<int>(cudaErrorInvalidValue);
   return run<FUSED>(a, bn, stream);
-}
-
-// x [B, H, W, Cin] (H, W even) -> out [B, H/2, W/2, Cout]; pad 1 for (1, 1),
-// 0 for the VAE encoder's (0, 1).
-extern "C" int conv3x3_down2_f32(const void* x, const void* w, const void* bias, void* out,
-                                 int B, int H, int W, int Cin, int Cout, int silu, int pad, int bn,
-                                 void* stream) {
-  if (pad != 0 && pad != 1) return static_cast<int>(cudaErrorInvalidValue);
-  Args a = make_args(x, w, bias, out, B, H, W, Cin, Cout, silu);
-  a.pad = pad;
-  return run<DOWN2>(a, bn, stream);
 }
 
 // x [B, H, W, Cin] -> out [B, 2H, 2W, Cout] through the fp32 phase weights wp

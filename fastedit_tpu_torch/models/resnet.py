@@ -8,9 +8,9 @@ is on and its gate admits the call, and op by op with the same math
 otherwise.  Convs subclass ``nn.Conv2d`` so their parameters keep
 PyTorch's names and OIHW shapes; their ``forward`` takes and returns NHWC
 tensors.  What the kernels take derived from the weights (the bias in fp32,
-the up2 kernel's folded phase weights) is made once per version of the
-weights (:func:`_prepared`), not at every call, so a CUDA graph of a stage
-holds none of it.
+the up2 kernel's folded phase weights, the fp32 stride-2 kernel's TF32 hi and
+lo weights) is made once per version of the weights (:func:`_prepared`), not
+at every call, so a CUDA graph of a stage holds none of it.
 """
 
 from __future__ import annotations
@@ -134,11 +134,18 @@ class StridedConv3x3(nn.Conv2d):
                          padding=0 if asymmetric else 1)
         self.asymmetric = asymmetric
 
+    def _down2(self, x: torch.Tensor, w: torch.Tensor, **kw) -> torch.Tensor:
+        """The stride-2 kernel; in fp32 on the card on the weight's TF32 hi
+        and lo copies, split once per weight version."""
+        split = (_prepared(self, "tf32_split", lambda: conv_fused.split_tf32(w))
+                 if x.is_cuda and w.dtype == torch.float32 else None)
+        return conv_fused.conv3x3_down2(x, w, w_split=split, **kw)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.weight.dtype).contiguous()
         w = self.weight.contiguous(memory_format=torch.channels_last)
         if flags.use_fused_down2() and conv_fused.supports_down2(tuple(x.shape), tuple(w.shape)):
-            fn = flags.kernel_or_plain(conv_fused.conv3x3_down2, conv_fused.conv3x3_down2_plain)
+            fn = flags.kernel_or_plain(self._down2, conv_fused.conv3x3_down2_plain)
             return fn(x, w, bias=_bias_f32(self), asymmetric=self.asymmetric)
         x = x.permute(0, 3, 1, 2)
         if self.asymmetric:

@@ -15,12 +15,14 @@ tiles stage windows of the input's four parity planes instead of one halo, and
 whose tiles are rectangles of the low-res input times one of four phases.
 
 fp32 (the quality mode): a CUDA fp32 tensor launches the SIMT kernel of
-``csrc/conv3x3_f32.cu`` instead (fp32 FFMAs, no TF32), whose four modes are
-the fp32 instances of this kernel and of the three of
+``csrc/conv3x3_f32.cu`` instead (fp32 FFMAs, no TF32), whose three modes are
+the fp32 instances of this kernel and of the fused and upsample kernels of
 ``ops/conv_fused.py``; :func:`plan_f32` is its schedule (tiles of 8 x 16
 pixels x 16, 64 or 128 channels, one block each, chunks of 8 input
 channels) and :func:`conv_tiled_plain_f32` walks it in plain PyTorch, for
-the tests.  Each dtype's kernel has its own launch counter.
+the tests.  The fp32 stride-2 conv runs on the tensor cores in 3xTF32
+(``csrc/conv3x3_tf32x3.cu``), on :func:`plan_down2` at item size 4.  Each
+dtype's kernel has its own launch counter.
 
 Layouts: ``x`` is NHWC ``[B, H, W, Cin]``; ``weight`` is PyTorch's OIHW
 ``[Cout, Cin, 3, 3]`` and the kernel reads it in channels_last memory
@@ -127,6 +129,11 @@ def plan(b: int, h: int, w: int, cin: int, cout: int, sms: int = H100_SMS) -> Co
 # The stride-2 form: channel tiles it is instantiated for, its rings.
 DOWN2_BN_INSTANCES = (64, 80, 128, 160)
 DOWN2_PLANE_STAGES, DOWN2_WEIGHT_STAGES = 2, 4
+# Its fp32 instance (csrc/conv3x3_tf32x3.cu, 3xTF32 on wgmma): chunks of 32
+# channels, so a pixel's chunk is 128 bytes as in bf16 and the windows are the
+# same bytes; a weight stage is one tap's hi and lo copies, as many stages as
+# fit beside the windows, at most four.
+DOWN2_F32_CHUNK, DOWN2_F32_MAX_WEIGHT_STAGES = 32, 4
 
 
 @dataclass(frozen=True)
@@ -148,6 +155,8 @@ class Down2Plan:
     # the tile's first output row and column it starts.
     planes: tuple[tuple[int, int, int, int, int, int], ...]
     box_w: tuple[int, int, int]
+    chunk: int = CHUNK  # input channels a stage holds: 64 (bf16) or 32 (fp32)
+    weight_stages: int = DOWN2_WEIGHT_STAGES
 
     def rectangles(self, ho: int, wo: int):
         """(y0, x0) of every rectangle of one output image."""
@@ -161,41 +170,79 @@ class Down2Plan:
         return (k + self.pad) & 1, int(k == 2)
 
 
+def _down2_window_stage() -> int:
+    """Bytes of a stage of four plane windows of 128-byte pixels (64 bf16 or
+    32 fp32 channels), each window rounded up to 1024 bytes."""
+    windows = [(RECT_H + 1, RECT_W + 1), (RECT_H + 1, RECT_W), (RECT_H, RECT_W + 1),
+               (RECT_H, RECT_W)]
+    return sum(-(-(r * c * 128) // 1024) * 1024 for r, c in windows)
+
+
 def smem_bytes_down2(bn: int) -> int:
     """Dynamic shared memory of the stride-2 instance with channel tile
     ``bn``: alignment slack, two stages of four plane windows (each rounded
     up to 1024 bytes), the weight ring and the mbarriers."""
-    windows = [(RECT_H + 1, RECT_W + 1), (RECT_H + 1, RECT_W), (RECT_H, RECT_W + 1),
-               (RECT_H, RECT_W)]
-    stage = sum(-(-(r * c * CHUNK * 2) // 1024) * 1024 for r, c in windows)
-    return (1024 + DOWN2_PLANE_STAGES * stage + DOWN2_WEIGHT_STAGES * bn * CHUNK * 2
+    return (1024 + DOWN2_PLANE_STAGES * _down2_window_stage()
+            + DOWN2_WEIGHT_STAGES * bn * CHUNK * 2
             + 8 * (3 * DOWN2_PLANE_STAGES + 2 * DOWN2_WEIGHT_STAGES))
+
+
+def down2_f32_weight_stages(bn: int) -> int:
+    """Weight stages of the fp32 stride-2 instance (one tap's hi and lo
+    copies, 2 x bn x 128 bytes, each): as many as fit beside two window
+    stages, at most four."""
+    bars = 8 * (2 * DOWN2_PLANE_STAGES + 2 * DOWN2_F32_MAX_WEIGHT_STAGES)
+    room = SMEM_LIMIT - 1024 - DOWN2_PLANE_STAGES * _down2_window_stage() - bars
+    return min(DOWN2_F32_MAX_WEIGHT_STAGES, room // (2 * bn * 128))
+
+
+def smem_bytes_down2_f32(bn: int) -> int:
+    """Dynamic shared memory of the fp32 stride-2 instance: alignment slack,
+    two window stages, the weight ring and a full and an empty mbarrier per
+    stage."""
+    sb = down2_f32_weight_stages(bn)
+    return (1024 + DOWN2_PLANE_STAGES * _down2_window_stage() + sb * 2 * bn * 128
+            + 8 * (2 * DOWN2_PLANE_STAGES + 2 * sb))
 
 
 @functools.lru_cache(maxsize=None)
 def plan_down2(b: int, h: int, w: int, cin: int, cout: int, asymmetric: bool = False,
-               sms: int = H100_SMS) -> Down2Plan:
+               sms: int = H100_SMS, itemsize: int = 2) -> Down2Plan:
     """The stride-2 kernel's schedule for input [b, h, w, cin] (h, w even).
     Output tiles of 8 x 16 pixels; channel tile 160 where it divides Cout,
     else 128, halved (80, 64) where the full one would leave half the SMs
     without a tile: the main path's calls are small (2 x 32 x 32 outputs x 640
-    channels is 64 tiles of 160 channels)."""
+    channels is 64 tiles of 160 channels).  ``itemsize`` 4: the fp32
+    instance (3xTF32), the same rectangles over chunks of 32 channels, channel
+    tile 80 where it divides Cout, else 64 (its accumulators are twice as
+    many registers); a Cin that is no multiple of 32 ends in a chunk whose
+    channels past Cin the loads zero-fill (in x and in both weight copies), so
+    they add nothing."""
     if min(b, h, w, cin, cout) < 1 or h % 2 or w % 2:
         raise ValueError(f"conv3x3_down2 plan: {(b, h, w, cin, cout)} is empty or odd-sized")
     ho, wo, pad = h // 2, w // 2, 0 if asymmetric else 1
     tiles_y, tiles_x = -(-ho // RECT_H), -(-wo // RECT_W)
-    bn = 160 if cout % 160 == 0 else 128
-    if 2 * b * tiles_y * tiles_x * -(-cout // bn) <= sms:
-        bn //= 2
+    if itemsize == 4:  # the registers of the split sums: 80 or 64 (csrc/conv3x3_tf32x3.cu)
+        bn = 80 if cout % 80 == 0 else 64
+    else:
+        bn = 160 if cout % 160 == 0 else 128
+        if 2 * b * tiles_y * tiles_x * -(-cout // bn) <= sms:
+            bn //= 2
     tiles_n = -(-cout // bn)
     tiles = b * tiles_y * tiles_x * tiles_n
     planes = tuple(
         (py, px, RECT_H + (py == pad), RECT_W + (px == pad), pad * (py == pad), pad * (px == pad))
         for py in (pad, 1 - pad) for px in (pad, 1 - pad))
+    if itemsize not in (2, 4):
+        raise ValueError(f"conv3x3_down2 plan: item size {itemsize}; 2 (bf16) or 4 (fp32)")
+    f32 = itemsize == 4
+    chunk = DOWN2_F32_CHUNK if f32 else CHUNK
     return Down2Plan(
         rect=(RECT_H, RECT_W), bn=bn, tiles_y=tiles_y, tiles_x=tiles_x, tiles_n=tiles_n,
-        tiles=tiles, grid=min(tiles, sms), smem_bytes=smem_bytes_down2(bn), pad=pad,
-        planes=planes, box_w=(CHUNK, 1, bn),
+        tiles=tiles, grid=min(tiles, sms),
+        smem_bytes=smem_bytes_down2_f32(bn) if f32 else smem_bytes_down2(bn), pad=pad,
+        planes=planes, box_w=(chunk, 1, bn), chunk=chunk,
+        weight_stages=down2_f32_weight_stages(bn) if f32 else DOWN2_WEIGHT_STAGES,
     )
 
 
@@ -276,7 +323,7 @@ F32_RECT = (8, 16)
 F32_KC = 8
 F32_STAGES = 2
 F32_BN = (16, 64, 128)
-F32_MODES = ("conv", "fused", "down2", "up2")
+F32_MODES = ("conv", "fused", "up2")
 
 
 @dataclass(frozen=True)
@@ -295,7 +342,6 @@ class ConvPlanF32:
     tiles: int  # one block each: B * tiles_y * tiles_x * tiles_n * phases
     window: tuple[int, int]  # input pixels a tile stages per chunk: rows, columns
     taps: int  # taps of a tile: 9, or 4 for up2 (one phase)
-    pad: int  # down2: padding before the first row and column (1, or 0 for (0, 1))
     smem_bytes: int  # two stages of window and weights
 
     @property
@@ -314,30 +360,25 @@ class ConvPlanF32:
 
     def origin(self, y0: int, x0: int) -> tuple[int, int]:
         """The input pixel of the window's first row and column."""
-        if self.mode == "down2":
-            return 2 * y0 - self.pad, 2 * x0 - self.pad
         return y0 - 1, x0 - 1
 
 
-def window_f32(mode: str) -> tuple[int, int]:
-    """Input pixels (rows, columns) a tile of the fp32 kernel stages: its
-    rectangle's stride-1 halo, or the stride-2 one's."""
-    if mode == "down2":
-        return 2 * F32_RECT[0] + 1, 2 * F32_RECT[1] + 1
-    return F32_RECT[0] + 2, F32_RECT[1] + 2
+# Input pixels (rows, columns) a tile of the fp32 kernel stages: its rectangle's
+# stride-1 halo (the low-res one for up2).
+F32_WINDOW = (F32_RECT[0] + 2, F32_RECT[1] + 2)
 
 
 def smem_bytes_f32(mode: str, bn: int) -> int:
     """Dynamic shared memory of the fp32 instance: two stages of the input
     window ([rows][columns][8 channels]) and the weights ([8][taps][bn])."""
-    rows, cols = window_f32(mode)
+    rows, cols = F32_WINDOW
     taps = 4 if mode == "up2" else 9
     return F32_STAGES * (rows * cols * F32_KC + F32_KC * taps * bn) * 4
 
 
 @functools.lru_cache(maxsize=None)
 def plan_f32(b: int, h: int, w: int, cin: int, cout: int, mode: str = "conv",
-             asymmetric: bool = False, sms: int = H100_SMS) -> ConvPlanF32:
+             sms: int = H100_SMS) -> ConvPlanF32:
     """The fp32 kernel's schedule for input [b, h, w, cin], a pure function
     of the shape (and the SM count).  Channel tile: 16 for Cout <= 16 (the
     conv_out tails), 128 where it divides Cout, else 64; 128 halved to 64
@@ -349,11 +390,8 @@ def plan_f32(b: int, h: int, w: int, cin: int, cout: int, mode: str = "conv",
     if min(b, h, w, cin, cout) < 1 or cin % F32_KC:
         raise ValueError(f"conv plan_f32: {(b, h, w, cin, cout)} is empty or Cin is not a "
                          f"multiple of {F32_KC}")
-    if mode == "down2" and (h % 2 or w % 2):
-        raise ValueError(f"conv plan_f32: odd-sized stride-2 input {(h, w)}")
-    ho, wo = (h // 2, w // 2) if mode == "down2" else (h, w)
     phases = 4 if mode == "up2" else 1
-    tiles_y, tiles_x = -(-ho // F32_RECT[0]), -(-wo // F32_RECT[1])
+    tiles_y, tiles_x = -(-h // F32_RECT[0]), -(-w // F32_RECT[1])
 
     def tiles_for(bn):
         return b * tiles_y * tiles_x * -(-cout // bn) * phases
@@ -363,15 +401,13 @@ def plan_f32(b: int, h: int, w: int, cin: int, cout: int, mode: str = "conv",
         bn = 64
     return ConvPlanF32(
         mode=mode, rect=F32_RECT, bn=bn, tiles_y=tiles_y, tiles_x=tiles_x,
-        tiles_n=-(-cout // bn), phases=phases, tiles=tiles_for(bn), window=window_f32(mode),
-        taps=4 if mode == "up2" else 9, pad=0 if mode == "down2" and asymmetric else 1,
-        smem_bytes=smem_bytes_f32(mode, bn))
+        tiles_n=-(-cout // bn), phases=phases, tiles=tiles_for(bn), window=F32_WINDOW,
+        taps=4 if mode == "up2" else 9, smem_bytes=smem_bytes_f32(mode, bn))
 
 
-def plan_f32_for(x: torch.Tensor, cout: int, mode: str = "conv",
-                 asymmetric: bool = False) -> ConvPlanF32:
+def plan_f32_for(x: torch.Tensor, cout: int, mode: str = "conv") -> ConvPlanF32:
     """The fp32 plan of a call on the card that holds ``x``."""
-    return plan_f32(*x.shape, cout, mode, bool(asymmetric), sm_count_of(x))
+    return plan_f32(*x.shape, cout, mode, sm_count_of(x))
 
 
 def conv_tiled_plain_f32(
@@ -383,7 +419,6 @@ def conv_tiled_plain_f32(
     prenorm: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     act: Optional[str] = None,
     skip: Optional[torch.Tensor] = None,
-    asymmetric: bool = False,
     chunks_skipped: int = 0,
 ) -> torch.Tensor:
     """The fp32 kernel's schedule in plain PyTorch, for tests only, in any
@@ -391,17 +426,16 @@ def conv_tiled_plain_f32(
     for up2, the folded phase weights [Cout, 16, Cin] (index 4 phase + tap).
     Per block of :func:`plan_f32` and per chunk of 8 input channels: the
     input window gathered with zero fill, the fused prologue on its in-image
-    elements (mode ``fused``), then each tap of the tile, a shifted (strided
-    for down2) rectangle of the window times its weights, accumulated in
+    elements (mode ``fused``), then each tap of the tile, a shifted rectangle
+    of the window times its weights, accumulated in
     fp32; then bias [Cout] or [B, Cout], SiLU and the skip.  It differs from
     the plain versions only in the order of the sums.  ``chunks_skipped``
     plants a fault: the chunk loop stops that many chunks short."""
     b, h, wd, cin = x.shape
     cout = w_rows.shape[0]
-    pl = plan_f32(b, h, wd, cin, cout, mode, asymmetric)
+    pl = plan_f32(b, h, wd, cin, cout, mode)
     rh, rw = pl.rect
-    s = 2 if mode == "down2" else 1
-    ho, wo = (h // 2, wd // 2) if mode == "down2" else (h, wd)
+    ho, wo = h, wd
     out_shape = (b, 2 * h, 2 * wd, cout) if mode == "up2" else (b, ho, wo, cout)
     out = torch.zeros(out_shape, dtype=torch.float32, device=x.device)
     wf, xf = w_rows.float(), x.float()
@@ -427,7 +461,7 @@ def conv_tiled_plain_f32(
         for k in range(nk):
             c0, c1 = k * F32_KC, (k + 1) * F32_KC
             for dy, dx, wtap in taps:
-                a = win[dy:dy + s * rh:s, dx:dx + s * rw:s, c0:c1]
+                a = win[dy:dy + rh, dx:dx + rw, c0:c1]
                 acc += a @ wf[n0:n1, wtap, c0:c1].T
         if mode == "up2":
             p, q = phase >> 1, phase & 1
@@ -472,8 +506,9 @@ def plan_for(x: torch.Tensor, cout: int) -> ConvPlan:
 
 
 def plan_down2_for(x: torch.Tensor, cout: int, asymmetric: bool) -> Down2Plan:
-    """The stride-2 plan of a call on the card that holds ``x``."""
-    return plan_down2(*x.shape, cout, bool(asymmetric), sm_count_of(x))
+    """The stride-2 plan of a call on the card that holds ``x``, for its
+    dtype."""
+    return plan_down2(*x.shape, cout, bool(asymmetric), sm_count_of(x), x.element_size())
 
 
 def plan_up2_for(x: torch.Tensor, cout: int) -> Up2Plan:

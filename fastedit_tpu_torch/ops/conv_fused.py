@@ -29,11 +29,13 @@ replace the three TPU kernels of ``fastedit_tpu/ops/conv_fused.py``:
 Layouts as in ``ops/conv3x3.py``: ``x`` NHWC, ``weight`` PyTorch's OIHW in
 channels_last memory.  A CPU tensor takes the plain version; a CUDA tensor
 launches the kernel of its dtype or raises: bf16 the kernels above, fp32
-the modes of the fp32 SIMT kernel (``csrc/conv3x3_f32.cu``, schedule
-``conv3x3.plan_f32``, walked by the ``*_tiled_plain_f32`` functions here),
-each with its own launch counter (``<name>_f32``).  The fp32 phase weights
-of the upsample conv are folded in PyTorch (:func:`fold_up2`), in fp32, as
-the JAX package folds them in XLA.
+the fused and upsample modes of the fp32 SIMT kernel (``csrc/conv3x3_f32.cu``,
+schedule ``conv3x3.plan_f32``) and, for the stride-2 conv, the 3xTF32 kernel of
+``csrc/conv3x3_tf32x3.cu`` (``plan_down2`` at item size 4, on the weight's
+TF32 hi and lo copies, :func:`split_tf32`), walked by the
+``*_tiled_plain_f32`` functions here, each with its own launch counter
+(``<name>_f32``).  The fp32 phase weights of the upsample conv are folded in
+PyTorch (:func:`fold_up2`), in fp32, as the JAX package folds them in XLA.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from fastedit_tpu_torch.ops import tf32x3
 from fastedit_tpu_torch.ops.conv3x3 import (
     CHUNK, check_dtypes, conv_tiled_plain_f32, plan_down2, plan_down2_for, plan_f32_for,
     plan_for, plan_up2, plan_up2_for, weight_rows)
@@ -198,19 +201,23 @@ def conv3x3_down2_plain(x, weight, bias=None, act=None, asymmetric: bool = False
 
 
 def conv3x3_down2_tiled_plain(x, weight, bias=None, act=None, asymmetric: bool = False,
-                              poison_past_cin: bool = False):
+                              poison_past_cin: bool = False, chunks_skipped: int = 0,
+                              itemsize: int = 2):
     """The stride-2 kernel's schedule in plain PyTorch, for tests only: per
-    output rectangle of ``plan_down2`` and per 64-channel chunk, the windows
-    of the input's four parity planes gathered with zero fill, then nine taps,
-    each a shifted rectangle of its plane's window, accumulated in fp32; then
-    bias, SiLU and one rounding.  It differs from ``conv3x3_down2_plain`` only
-    in the order of the sums.  ``poison_past_cin`` plants a fault: a chunk
-    that runs past Cin reads NaN there instead of zeros, as a view that packs
-    both column parities into its innermost dimension would read the
-    neighbouring pixel."""
+    output rectangle of ``plan_down2`` (of the bf16 kernel, chunks of 64
+    channels, or with ``itemsize`` 4 of the fp32 one, chunks of 32; on x's
+    values either way) and per chunk, the windows of the input's four parity
+    planes gathered with zero fill, then nine taps, each a shifted rectangle
+    of its plane's window, accumulated in fp32; then bias, SiLU and one
+    rounding.  It differs from ``conv3x3_down2_plain`` only in the order of
+    the sums.  ``poison_past_cin`` plants a fault: a chunk that runs past Cin
+    reads NaN there instead of zeros, as a view that packs both column
+    parities into its innermost dimension would read the neighbouring pixel;
+    ``chunks_skipped`` another: the chunk loop stops that many chunks short."""
     b, h, w, cin = x.shape
     cout = weight.shape[0]
-    pl = plan_down2(b, h, w, cin, cout, asymmetric)
+    pl = plan_down2(b, h, w, cin, cout, asymmetric, itemsize=itemsize)
+    chunk = pl.chunk
     rh, rw = pl.rect
     ho, wo = h // 2, w // 2
     wf = weight.float()
@@ -218,20 +225,20 @@ def conv3x3_down2_tiled_plain(x, weight, bias=None, act=None, asymmetric: bool =
     for bi in range(b):
         for y0, x0 in pl.rectangles(ho, wo):
             acc = torch.zeros((rh, rw, cout), dtype=torch.float32, device=x.device)
-            for c0 in range(0, cin, CHUNK):
-                c1 = min(cin, c0 + CHUNK)
+            for c0 in range(0, cin - chunks_skipped * chunk, chunk):
+                c1 = min(cin, c0 + chunk)
                 windows = {}
                 for py, px, rows, cols, dy, dx in pl.planes:
                     plane = x[bi, py::2, px::2, c0:c1].float()  # [ho, wo, chunk]
                     ys, xs = y0 - dy, x0 - dx
                     ya, xa = max(0, ys), max(0, xs)
                     yb, xb = min(ho, ys + rows), min(wo, xs + cols)
-                    win = torch.zeros((rows, cols, CHUNK), dtype=torch.float32, device=x.device)
+                    win = torch.zeros((rows, cols, chunk), dtype=torch.float32, device=x.device)
                     if poison_past_cin:
                         win[:, :, c1 - c0:] = float("nan")
                     win[ya - ys:yb - ys, xa - xs:xb - xs, :c1 - c0] = plane[ya:yb, xa:xb]
                     windows[py, px] = win
-                wchunk = torch.zeros((cout, CHUNK, 3, 3), dtype=torch.float32, device=x.device)
+                wchunk = torch.zeros((cout, chunk, 3, 3), dtype=torch.float32, device=x.device)
                 wchunk[:, :c1 - c0] = wf[:, c0:c1]
                 for ky in range(3):
                     for kx in range(3):
@@ -260,10 +267,10 @@ def conv3x3_up2_tiled_plain_f32(x, weight, bias=None, act=None, chunks_skipped: 
 
 def conv3x3_down2_tiled_plain_f32(x, weight, bias=None, act=None, asymmetric: bool = False,
                                   chunks_skipped: int = 0):
-    """The fp32 kernel's stride-2 mode walked in plain PyTorch, for tests
-    only."""
-    return conv_tiled_plain_f32(x, weight_rows(weight), bias, mode="down2", act=act,
-                                asymmetric=asymmetric, chunks_skipped=chunks_skipped)
+    """The fp32 stride-2 kernel's schedule (``plan_down2`` at item size 4:
+    chunks of 32 channels) walked in plain PyTorch, for tests only."""
+    return conv3x3_down2_tiled_plain(x.float(), weight.float(), bias, act, asymmetric,
+                                     chunks_skipped=chunks_skipped, itemsize=4)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -295,12 +302,14 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _launch(name: str, out: torch.Tensor, *args) -> torch.Tensor:
     """Launch ``name``'s kernel for ``out``'s dtype: the bf16 library's
-    ``<name>_bf16`` or the fp32 library's ``<name>_f32``."""
+    ``<name>_bf16`` or, in fp32, the stride-2 conv's 3xTF32 kernel or the
+    SIMT library's ``<name>_f32``."""
     from fastedit_tpu_torch.ops.build import library
 
     if out.dtype == torch.float32:
         name += "_f32"
-        fn = getattr(library("conv3x3_f32"), name)
+        fn = (library("conv3x3_tf32x3").conv3x3_down2_tf32x3 if name == "conv3x3_down2_f32"
+              else getattr(library("conv3x3_f32"), name))
     else:
         fn = getattr(library("conv3x3"), name + "_bf16")
     with torch.cuda.device(out.device):
@@ -426,16 +435,43 @@ def conv3x3_up2(
     )
 
 
+def split_tf32(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 stride-2 kernel's weight operands: the TF32 hi and lo copies
+    of an fp32 weight (``ops/tf32x3.split_tf32``), in its memory layout.  On
+    the card one launch of the split kernel, which the downsampler modules
+    make once per weight (``models/resnet.py``) and pass in; on the CPU the
+    same bits in PyTorch."""
+    if weight.dtype != torch.float32:
+        raise TypeError(f"split_tf32 takes an fp32 weight; got {weight.dtype}")
+    if weight.device.type == "cpu":
+        return tf32x3.split_tf32(weight)
+    from fastedit_tpu_torch.ops.build import library
+
+    hi, lo = torch.empty_like(weight), torch.empty_like(weight)
+    if not (weight.is_contiguous() or weight.is_contiguous(memory_format=torch.channels_last)):
+        raise ValueError("split_tf32: weight must be dense (contiguous or channels_last)")
+    with torch.cuda.device(weight.device):
+        err = library("conv3x3_tf32x3").split_tf32(
+            weight.data_ptr(), hi.data_ptr(), lo.data_ptr(), weight.numel(),
+            torch.cuda.current_stream(weight.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"split_tf32 launch failed: CUDA error {err}")
+    return hi, lo
+
+
 def conv3x3_down2(
     x: torch.Tensor,
     weight: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     act: Optional[str] = None,
     asymmetric: bool = False,
+    w_split: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Stride-2 3x3 conv: x [B, H, W, Cin] (H, W even), weight [Cout, Cin, 3,
     3] -> [B, H/2, W/2, Cout]; padding (1, 1), or (0, 1) with
-    ``asymmetric`` (the VAE encoder's)."""
+    ``asymmetric`` (the VAE encoder's).  fp32 on the card runs the 3xTF32
+    kernel on ``w_split``, ``split_tf32(weight)`` made earlier; without it the
+    call splits the weight first (one more launch)."""
     check_dtypes("conv3x3_down2", x, weight)
     if x.device.type == "cpu":
         return conv3x3_down2_plain(x, weight, bias, act, asymmetric)
@@ -449,14 +485,18 @@ def conv3x3_down2(
     cout = weight.shape[0]
     bias = _f32(bias, (cout,), "conv3x3_down2: bias", x.device)
     out = torch.empty((b, h // 2, w // 2, cout), dtype=x.dtype, device=x.device)
+    pl = plan_down2_for(x, cout, asymmetric)
+    weights = (weight.data_ptr(),)
     if x.dtype == torch.float32:
-        pl = plan_f32_for(x, cout, "down2", asymmetric)
-        tiles = (pl.pad, pl.bn)
-    else:
-        pl = plan_down2_for(x, cout, asymmetric)
-        tiles = (pl.pad, pl.bn, pl.grid)
+        if w_split is None:
+            w_split = split_tf32(weight)
+        if any(t.shape != weight.shape or t.dtype != x.dtype or t.device != x.device
+               or not t.is_contiguous(memory_format=torch.channels_last) for t in w_split):
+            raise ValueError("conv3x3_down2: w_split must be split_tf32(weight), fp32 in "
+                             "channels_last memory on x's device")
+        weights = (w_split[0].data_ptr(), w_split[1].data_ptr())
     return _launch(
         "conv3x3_down2", out,
-        x.data_ptr(), weight.data_ptr(), _ptr(bias), out.data_ptr(),
-        b, h, w, cin, cout, int(act == "silu"), *tiles,
+        x.data_ptr(), *weights, _ptr(bias), out.data_ptr(),
+        b, h, w, cin, cout, int(act == "silu"), pl.pad, pl.bn, pl.grid,
     )

@@ -14,10 +14,12 @@ depths, the grid, the shared memory and (``tile_at``) the order of the tiles.
 :func:`attention_tiled_plain` walks the same schedule in plain PyTorch, for
 the tests.
 
-fp32 (the quality mode): a CUDA fp32 call launches the SIMT kernels of
-``csrc/flash_attention_f32.cu`` instead (fp32 FFMAs, no TF32): q tiles of 64
-rows and KV tiles of 64 keys at D = 64, 32 and 32 at D = 512, one block per
-q tile (:func:`plan_f32`; :func:`attention_tiled_plain_f32` walks it), with
+fp32 (the quality mode): a CUDA fp32 call at D = 64 launches the SIMT kernel
+of ``csrc/flash_attention_f32.cu`` instead (fp32 FFMAs, no TF32), at D = 512
+the 3xTF32 kernel of ``csrc/flash_attention_tf32x3.cu`` (every product as
+three TF32 products on ``wgmma``, after a launch that splits Q, K and V^T into
+hi and lo copies in a scratch buffer): q tiles of 64 rows and KV tiles of 64
+keys (:func:`plan_f32`; :func:`attention_tiled_plain_f32` walks it), with
 launch counters of their own (``launches_f32``).
 """
 
@@ -151,54 +153,90 @@ def plan(b: int, sq: int, skv: int, h: int, d: int, sms: int = H100_SMS) -> Atte
     )
 
 
-# The fp32 kernels (csrc/flash_attention_f32.cu holds the same constants):
-# head dim -> (q rows, keys) of a tile; 256 threads; shared memory: Q, K and
-# V transposed or not and P (D = 64), or Q, K (rows padded by 4 floats), V and
-# the eight warps' partial scores, which P reuses, and two row vectors (D = 512).
-F32_TILES = {64: (64, 64), 512: (32, 32)}
-F32_THREADS = 256
-F32_SMEM = {64: 4 * 64 * 64 * 4,
-            512: (32 * 512 + 32 * 516 + 32 * 512 + 8 * 32 * 32 + 2 * 32) * 4}
+# The fp32 kernels.  D = 64 (csrc/flash_attention_f32.cu, SIMT): q tiles of 64
+# rows, KV tiles of 64 keys, 256 threads, Q, K and V transposed or not and P in
+# shared memory, one block per tile.  D = 512 (csrc/flash_attention_tf32x3.cu,
+# 3xTF32 on wgmma; it holds the same constants): q tiles of 64 rows, KV tiles
+# of 64 keys, Q and K streamed in hi and lo panels of 32 columns through a ring
+# of QK_STAGES stages (4 x 8 KB), V^T's hi and lo through a ring of V_STAGES
+# stages of 32 keys x 64 columns per PV warpgroup, P in fp32 two buffers deep;
+# persistent blocks.
+F32_TILES = {64: (64, 64), 512: (64, 64)}
+TF32X3_PANEL, TF32X3_QK_STAGES, TF32X3_V_STAGES, TF32X3_V_KEYS = 32, 3, 3, 32
+# D = 512: P V runs in two passes over O's column halves; pass 0 writes P's A
+# fragments of every KV tile (64 x 64 fp32) and the rows' rescale factors to a
+# scratch of each block's own, pass 1 reads them back.
+TF32X3_FRAG_FLOATS = 64 * 64
+
+
+def smem_bytes_f32(d: int) -> int:
+    """Dynamic shared memory of the fp32 kernel for head dim ``d``.  D = 512:
+    alignment slack, the Q/K ring (hi and lo panels of 64 rows x 32 columns of
+    each), both PV warpgroups' V rings (hi and lo of 32 keys x 64 columns), two
+    P tiles of 64 x 64 fp32 with a row statistic each, and a full and an empty
+    mbarrier per stage of each ring and per P tile."""
+    if d == 64:
+        return 4 * 64 * 64 * 4
+    tile = 64 * TF32X3_PANEL * 4
+    return (1024 + TF32X3_QK_STAGES * 4 * tile + PV_GROUPS * TF32X3_V_STAGES * 2 * tile
+            + P_STAGES * (64 * 64 * 4 + 64 * 4)
+            + 8 * 2 * (TF32X3_QK_STAGES + PV_GROUPS * TF32X3_V_STAGES + P_STAGES))
 
 
 @dataclass(frozen=True)
 class AttentionPlanF32:
-    """The schedule of one call of the fp32 kernel."""
+    """The schedule of one call of an fp32 kernel."""
 
     bq: int  # q rows per tile
     bkv: int  # keys per KV tile
     q_tiles: int  # q tiles per (batch, head)
     kv_tiles: int  # KV tiles each q tile walks
-    tiles: int  # one block each: B * H * q_tiles
+    tiles: int  # all tiles: B * H * q_tiles
+    grid: int  # blocks: one per tile (D = 64), or persistent (D = 512)
     smem_bytes: int
     heads: int
-
-    @property
-    def grid(self) -> int:
-        return self.tiles
+    # D = 512 (3xTF32): columns of a Q/K panel, the rings' stages, keys of a V
+    # stage, and the floats of the hi and lo copies of Q, K and V^T (scratch)
+    panel: int = 0
+    stages: int = 0
+    v_stages: int = 0
+    v_keys: int = 0
+    scratch_floats: int = 0
 
     def tile_at(self, t):
-        """(batch, head, first q row) of block ``t``: q tile fastest, then
+        """(batch, head, first q row) of tile ``t``: q tile fastest, then
         the head, then the batch."""
         bh, qt = t // self.q_tiles, t % self.q_tiles
         return bh // self.heads, bh % self.heads, qt * self.bq
 
 
 @functools.lru_cache(maxsize=None)
-def plan_f32(b: int, sq: int, skv: int, h: int, d: int) -> AttentionPlanF32:
-    """The fp32 kernel's schedule, a pure function of the shape.  D = 64: q
-    tiles of 64 rows against KV tiles of 64 keys, 16 KB each of Q, K, V and P
-    in shared memory (three blocks per SM).  D = 512: a 64 x 512 fp32 tile
-    is 128 KB, so q tiles of 32 rows and KV tiles of 32 keys, 64 KB each of Q,
-    K and V (one block per SM)."""
+def plan_f32(b: int, sq: int, skv: int, h: int, d: int, sms: int = H100_SMS) -> AttentionPlanF32:
+    """The fp32 kernels' schedule, a pure function of the shape (and the SM
+    count).  D = 64: q tiles of 64 rows against KV tiles of 64 keys, 16 KB each
+    of Q, K, V and P in shared memory (three blocks per SM), one block per tile.
+    D = 512 (3xTF32): q tiles of 64 rows (one wgmma's M; Q in hi and lo would be
+    256 KB, so it is streamed with K, panel by panel), KV tiles of 64 keys, at
+    most one persistent block per SM, q tile fastest (16384 rows are 256 tiles,
+    two rounds of 132 blocks); the scratch holds the hi and lo copies of Q, K
+    and V^T and, per block, P's fragments and rescale factors of a tile."""
     if d not in F32_TILES:
         raise ValueError(f"flash attention plan_f32: no kernel for head dim {d}")
     bq, bkv = F32_TILES[d]
     if min(b, h) < 1 or sq < bq or skv < bkv or sq % bq or skv % bkv:
         raise ValueError(f"flash attention plan_f32: q rows {sq} and keys {skv} must be "
                          f"multiples of {bq} and {bkv}, batch {b} and heads {h} positive")
-    return AttentionPlanF32(bq=bq, bkv=bkv, q_tiles=sq // bq, kv_tiles=skv // bkv,
-                            tiles=b * h * (sq // bq), smem_bytes=F32_SMEM[d], heads=h)
+    tiles = b * h * (sq // bq)
+    common = dict(bq=bq, bkv=bkv, q_tiles=sq // bq, kv_tiles=skv // bkv, tiles=tiles,
+                  smem_bytes=smem_bytes_f32(d), heads=h)
+    if d == 64:
+        return AttentionPlanF32(grid=tiles, **common)
+    grid = min(tiles, sms)
+    return AttentionPlanF32(
+        grid=grid, panel=TF32X3_PANEL, stages=TF32X3_QK_STAGES,
+        v_stages=TF32X3_V_STAGES, v_keys=TF32X3_V_KEYS,
+        scratch_floats=(2 * b * h * (sq + 2 * skv) * d
+                        + grid * (skv // bkv) * (TF32X3_FRAG_FLOATS + bq)), **common)
 
 
 def plan_for(q: torch.Tensor, kv_len: int) -> AttentionPlan:
@@ -351,9 +389,14 @@ def flash_attention(
             float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if f32:
-            plan_f32(b, sq, k.shape[1], h, d)  # raises on a shape the kernel does not take
-            err = library("flash_attention_f32").flash_attention_f32(*args, stream)
+        if f32:  # raises on a shape the kernel does not take
+            pl = plan_f32(b, sq, k.shape[1], h, d, sm_count_of(q))
+            if d == 512:
+                scratch = torch.empty(pl.scratch_floats, dtype=q.dtype, device=q.device)
+                err = library("flash_attention_tf32x3").flash_attention_d512_tf32x3(
+                    *args[:4], scratch.data_ptr(), *args[4:8], *args[9:], pl.grid, stream)
+            else:
+                err = library("flash_attention_f32").flash_attention_f32(*args, stream)
         else:
             pl = plan_for(q, k.shape[1])
             err = library("flash_attention").flash_attention_bf16(

@@ -23,11 +23,22 @@ a ``torch.cuda.CUDAGraph`` and replayed, one launch per stage, back to back:
   kernels built, the GroupNorm kernel's counter buffer sized, the conv
   modules' fp32 biases and folded weights made, cuBLAS warm), on a side
   stream; all captures of an editor allocate from one memory pool, since
-  they replay one at a time from one thread;
+  they replay one at a time from one thread, and on one side stream, the
+  editor's own: the caching allocator hands a freed block out again only on
+  the stream it was freed on, so with a new stream per capture every key
+  would take a pool of its own size (GiBs for SSD-1B at 1024²), and with one
+  a key of a size captured before costs its static buffers;
 * at most :data:`MAX_KEYS` keys are kept, the oldest evicted, as the JAX
-  package caps its caches; a change to the weights (another tensor, or one
-  written in place) drops every capture, since what the conv modules derive
-  from the weights is made again.
+  package caps its caches.  A capture also holds memory, which a JAX program
+  does not (its static buffers, and the pool's growth where it is the
+  largest so far), so before a new capture the oldest keys are evicted until
+  the card's memory in use plus the largest capture so far fits
+  :data:`MEMORY_BUDGET` of the card
+  (:meth:`EditGraphs._make_room`); where evicting every key is not enough,
+  the capture is refused with an error instead of running out of memory;
+* a change to the weights (another tensor, or one written in place) drops
+  every capture, since what the conv modules derive from the weights is made
+  again.
 
 Prepare (Canny) stays outside, eager: its hysteresis loop reads a device
 flag on the host.  Prompt encoding stays eager and cached, as in the JAX
@@ -51,6 +62,10 @@ from fastedit_tpu_torch.pipeline import stages
 from fastedit_tpu_torch.sched.lcm import LCMSchedule
 
 MAX_KEYS = 64
+# The share of the card's memory (``torch.cuda.mem_get_info``'s total) that
+# what is in use, plus the next capture, may take; keys are evicted, oldest
+# first, to keep under it.
+MEMORY_BUDGET = 0.9
 STAGES = ("vae_encode", "denoise", "vae_decode")
 
 
@@ -146,6 +161,7 @@ class EditGraphs:
         self.mod = mod
         self.captured: OrderedDict[tuple, Captured] = OrderedDict()
         self.pool = None
+        self._side = None  # the stream every capture runs on (see the module's docstring)
         self._params = [p for m in (mod.unet, mod.controlnet, mod.vae) for p in m.parameters()]
         self._weights: Optional[tuple] = None
 
@@ -168,6 +184,7 @@ class EditGraphs:
             self._weights = version
         cap = self.captured.get(key)
         if cap is None:
+            self._make_room()
             cap = self.captured[key] = self._capture(inp)
             while len(self.captured) > MAX_KEYS:
                 self.captured.popitem(last=False)
@@ -177,9 +194,35 @@ class EditGraphs:
                 graph.replay()
         return cap.latents, cap.out
 
+    def _make_room(self) -> None:
+        """Evict the oldest keys until the next capture fits: the card's
+        memory in use (after ``empty_cache``: what the process and others hold,
+        less the blocks free in the shared pool, which the next capture reuses)
+        plus a margin, the largest capture's ``pool_bytes`` so far, within
+        :data:`MEMORY_BUDGET` of the card.  Raises where that does not hold
+        with no key left."""
+        margin = max((c.pool_bytes for c in self.captured.values()), default=0)
+        if margin <= 0:
+            return  # no capture so far to go by
+        while True:
+            in_use, total = _card_memory(self._params[0].device)
+            if in_use + margin <= MEMORY_BUDGET * total:
+                return
+            if not self.captured:
+                raise RuntimeError(
+                    f"CUDA graph cache: the next capture needs about {margin / 2**30:.2f} GiB, "
+                    f"but with every key evicted {in_use / 2**30:.2f} of the card's "
+                    f"{total / 2**30:.2f} GiB are in use (budget {MEMORY_BUDGET:.0%}); free "
+                    "memory or run eagerly (flags.override(cuda_graphs=False))")
+            self.captured.popitem(last=False)
+            if not self.captured:
+                self.pool = None  # no graph uses the pool: empty_cache may release it
+
     def _capture(self, inp: EditInputs) -> Captured:
         static = inp.clone()
-        side = torch.cuda.Stream(device=static.vae_in.device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(device=static.vae_in.device)
+        side = self._side
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             run_eager(self.mod, static)  # the warm-up
@@ -200,3 +243,14 @@ class EditGraphs:
                 latents = x
         torch.cuda.current_stream().wait_stream(side)
         return Captured(static, graphs, latents, x, torch.cuda.memory_reserved() - reserved)
+
+
+def _card_memory(device: torch.device) -> tuple[int, int]:
+    """(bytes in use, total bytes) of ``device`` after ``empty_cache``: the
+    card's used memory (every process's) less the blocks this process has
+    reserved but not allocated, which stay in a live graph pool for the next
+    capture to reuse."""
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(device)
+    reusable = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return total - free - reusable, total

@@ -1,9 +1,11 @@
 """Where an edit's device time goes: ``torch.profiler`` over ``edit()`` on the card.
 
     python -m fastedit_tpu_torch.tools.profile_edit [--model ssd-1b] [--edits 2]
-        [--flags NAME=VALUE[,NAME=VALUE...]]... [--json PATH]
+        [--fp32] [--guidance 1.5] [--flags NAME=VALUE[,NAME=VALUE...]]... [--json PATH]
 
-Builds ``FastEditor(model, random_weights=True)`` on the card, runs one
+Builds ``FastEditor(model, random_weights=True)`` on the card (with ``--fp32``
+the fp32 editor, ``use_full_precision=True``: every kernel call on its fp32
+instance, TF32 off), runs one
 warm-up edit per arm (which captures the arm's CUDA graphs), times
 ``--edits`` edits per arm on the host clock (and each stage with the
 editor's CUDA events, ``FastEditor.stage_ms``), then runs as many again per
@@ -23,7 +25,9 @@ name and power limit; ``--json`` also writes them to a file.
 
 Categories come from kernel names: each of this package's CUDA kernels
 (the conv kernels of ``csrc/conv3x3.cu`` one by one, flash attention, the
-GroupNorm kernel's launches), cuDNN convolutions (stems, the VAE encoder's
+GroupNorm kernel's launches; their fp32 instances: the SIMT conv and D = 64
+attention, the 3xTF32 stride-2 conv and D = 512 attention with their TF32
+splits), cuDNN convolutions (stems, the VAE encoder's
 convs and convs outside the kernels' gates), cuBLAS / CUTLASS GEMMs
 (linears and 1x1 convs), softmax (attention outside the flash kernel's
 gate), reductions (norm statistics), elementwise and copy kernels.
@@ -48,6 +52,12 @@ CATEGORIES = (  # first match wins
     ("GroupNorm kernel (csrc/group_norm.cu)", ("gn_stats_kernel", "gn_apply_kernel")),
     ("flash attention kernel (csrc/flash_attention.cu)", ("flash_d64_kernel",
                                                           "flash_d512_kernel")),
+    ("fp32 conv kernel (csrc/conv3x3_f32.cu)", ("conv_f32_kernel",)),
+    ("fp32 down2 conv kernel, 3xTF32 (csrc/conv3x3_tf32x3.cu)",
+     ("conv3x3_down2_tf32x3_kernel", "split_tf32_kernel")),
+    ("fp32 flash attention D = 64 (csrc/flash_attention_f32.cu)", ("flash_f32_d64_kernel",)),
+    ("fp32 flash attention D = 512, 3xTF32 (csrc/flash_attention_tf32x3.cu)",
+     ("flash_d512_tf32x3_kernel", "split_qkv_tf32_kernel")),
     ("cuDNN conv", ("conv", "fprop", "cudnn", "implicit_gemm")),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "cublas", "matmul", "nvjet")),
     ("softmax", ("softmax",)),
@@ -89,8 +99,10 @@ def _spread(values: list) -> dict:
                 max=float(max(values)), all=[float(v) for v in values])
 
 
-def profile(model: str, edits: int, arms=None) -> dict:
-    """One result per arm (a dict of flag overrides), keyed by its spec."""
+def profile(model: str, edits: int, arms=None, fp32: bool = False,
+            guidance: float = 1.5) -> dict:
+    """One result per arm (a dict of flag overrides), keyed by its spec;
+    ``fp32``: the fp32 editor; ``guidance``: 1.0 runs without CFG."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -101,11 +113,11 @@ def profile(model: str, edits: int, arms=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_edit measures the card: no CUDA device")
     arms = arms or {"default": {}}
-    editor = FastEditor(model, random_weights=True)
+    editor = FastEditor(model, random_weights=True, use_full_precision=fp32)
     r = editor.resolution
     rng = np.random.default_rng(0)
     image = Image.fromarray(rng.integers(0, 256, (r, r, 3), dtype=np.uint8), "RGB")
-    kw = dict(strength=0.8, num_inference_steps=4, guidance_scale=1.5)
+    kw = dict(strength=0.8, num_inference_steps=4, guidance_scale=guidance)
     for override in arms.values():  # warm-up: kernels built, graphs captured, prompts cached
         with flags.override(**override):
             editor.edit(image, "a prompt", seed=0, **kw)
@@ -148,6 +160,7 @@ def profile(model: str, edits: int, arms=None) -> dict:
         top = sorted(kernels[name].items(), key=lambda kv: -kv[1][0])[:25]
         results[name] = dict(
             card=card, model=model, resolution=r, edits=edits, flags=arms[name],
+            dtype="fp32" if fp32 else "bf16", guidance_scale=guidance,
             seconds_per_edit=_spread(wall[name]), stage_ms_per_edit=dict(stage_ms[name]),
             device_ms_per_edit=_spread(device[name]),
             launches_per_edit=_spread(launches[name]),
@@ -163,17 +176,22 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="ssd-1b", choices=["ssd-1b", "sdxl"])
     ap.add_argument("--edits", type=int, default=2)
+    ap.add_argument("--fp32", action="store_true",
+                    help="the fp32 editor (use_full_precision=True): the quality mode's kernels")
+    ap.add_argument("--guidance", type=float, default=1.5,
+                    help="guidance scale; 1.0 runs without CFG")
     ap.add_argument("--flags", action="append", default=None,
                     help="one arm's flag overrides, NAME=1|0|none[,...]; repeat for more arms")
     ap.add_argument("--json", default=None, help="also write the result to this file")
     args = ap.parse_args(argv)
     arms = {spec: parse_flags(spec) for spec in args.flags} if args.flags else None
-    results = profile(args.model, args.edits, arms)
+    results = profile(args.model, args.edits, arms, args.fp32, args.guidance)
     print(next(iter(results.values()))["card"])
     for name, res in results.items():
         sec, dev, n = (res[k] for k in ("seconds_per_edit", "device_ms_per_edit",
                                         "launches_per_edit"))
-        print(f"[{name}] {res['model']} at {res['resolution']}², {res['edits']} edits: "
+        print(f"[{name}] {res['model']} {res['dtype']} at {res['resolution']}², guidance "
+              f"{res['guidance_scale']}, {res['edits']} edits: "
               f"{sec['median']:.4f} s/edit ({sec['min']:.4f}-{sec['max']:.4f}), device busy "
               f"{dev['median']:.2f} ms/edit ({dev['min']:.2f}-{dev['max']:.2f}, "
               f"{100 * res['device_busy_share']:.1f}% of wall), "

@@ -20,11 +20,11 @@ VARIANTS = {
     "one_block": [(_AS_BUILT, "__launch_bounds__(THREADS, 1) conv_f32_kernel")],
 }
 # (mode, B, H, W, Cin, Cout): the UNet's three widths, the VAE decoder's largest
-# stride-1 and fused calls, an upsample and a stride-2 call
+# stride-1 and fused calls, an upsample call (the stride-2 conv is the 3xTF32
+# kernel's: tools/variants_conv_tf32x3.py)
 SHAPES = [("conv", 2, 128, 128, 320, 320), ("conv", 2, 64, 64, 640, 640),
           ("conv", 2, 32, 32, 1280, 1280), ("conv", 1, 1024, 1024, 128, 128),
-          ("fused", 1, 256, 256, 512, 256), ("up2", 1, 512, 512, 256, 256),
-          ("down2", 2, 64, 64, 640, 640)]
+          ("fused", 1, 256, 256, 512, 256), ("up2", 1, 512, 512, 256, 256)]
 ROUNDS = 2
 
 
@@ -51,8 +51,6 @@ def run(use):
                       lambda: cf.conv3x3_fused_plain(x, wt, bias, pre), 9),
             "up2": (lambda: cf.conv3x3_up2(x, wt, bias, phases=phases),
                     lambda: cf.conv3x3_up2_plain(x, wt, bias), 16),
-            "down2": (lambda: cf.conv3x3_down2(x, wt, bias),
-                      lambda: cf.conv3x3_down2_plain(x, wt, bias), 9 / 4),
         }[mode]
         ref = plain()
         flops *= 2.0 * n * h * w * cin * cout

@@ -11,20 +11,37 @@ once the legacy and the new ``fp32_precision`` API were mixed.
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
+
+# The switches are the process's, and data-parallel replicas edit on worker
+# threads: the first entry saves and clears them, the last exit restores them,
+# and entries in between only count.
+_lock = threading.Lock()
+_depth = 0
+_saved: tuple[bool, bool] = (False, False)
 
 
 @contextlib.contextmanager
 def true_fp32():
-    """fp32 matmuls and cuDNN convs without TF32 inside; the previous
-    settings come back on exit.  The counterpart of the JAX package's
-    ``jax.default_matmul_precision("highest")``.  The switches are the
-    process's, not the thread's."""
+    """fp32 matmuls and cuDNN convs without TF32 inside; the settings from
+    before the first entry come back at the last exit.  The counterpart of the
+    JAX package's ``jax.default_matmul_precision("highest")``, which is
+    thread-local; PyTorch's switches are the process's, so the rule here is
+    that no thread's fp32 work runs in TF32 while any thread is inside: the
+    switches stay off until every thread has left."""
+    global _depth, _saved
     backends = torch.backends
-    old = backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32
-    backends.cuda.matmul.allow_tf32 = backends.cudnn.allow_tf32 = False
+    with _lock:
+        if _depth == 0:
+            _saved = backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32
+            backends.cuda.matmul.allow_tf32 = backends.cudnn.allow_tf32 = False
+        _depth += 1
     try:
         yield
     finally:
-        backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32 = old
+        with _lock:
+            _depth -= 1
+            if _depth == 0:
+                backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32 = _saved

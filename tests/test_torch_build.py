@@ -46,8 +46,9 @@ def test_the_flags_are_part_of_the_name(csrc, monkeypatch):
 def test_the_ports_kernels_share_one_header():
     """The three bf16 kernel libraries include ``hopper.cuh`` (GroupNorm for
     its mbarriers and 1-D bulk copies; its fp32 instances live in the same
-    library), the two fp32 SIMT libraries ``simt_f32.cuh``.  Every C function
-    the wrappers call is declared."""
+    library), the two fp32 SIMT libraries ``simt_f32.cuh``, the two fp32
+    tensor-core (3xTF32) libraries ``tf32x3.cuh`` and through it
+    ``hopper.cuh``.  Every C function the wrappers call is declared."""
     by_name = {n: sorted(p.name for p in build.sources(n)) for n in build.KERNELS}
     assert by_name == {
         "conv3x3": ["conv3x3.cu", "hopper.cuh"],
@@ -55,6 +56,8 @@ def test_the_ports_kernels_share_one_header():
         "group_norm": ["group_norm.cu", "hopper.cuh"],
         "conv3x3_f32": ["conv3x3_f32.cu", "simt_f32.cuh"],
         "flash_attention_f32": ["flash_attention_f32.cu", "simt_f32.cuh"],
+        "conv3x3_tf32x3": ["conv3x3_tf32x3.cu", "hopper.cuh", "tf32x3.cuh"],
+        "flash_attention_tf32x3": ["flash_attention_tf32x3.cu", "hopper.cuh", "tf32x3.cuh"],
     }
     for name, symbols in build.KERNELS.items():
         text = (build.CSRC / f"{name}.cu").read_text()
@@ -128,18 +131,24 @@ def test_the_group_norm_variants_spec_is_in_step():
 
 
 def test_the_fp32_c_functions_take_the_plans_ints():
-    """The fp32 conv entries take the plan's channel tile (the grid is one
-    block per tile, computed in C), the stride-2 one its padding too; the
-    fp32 attention entry the strides and the scale; every GroupNorm entry has
-    a bf16 and an fp32 twin of one signature; the fp32 sources issue no
-    tensor-core instruction (TF32 alone is not fp32; ``chip_smoke.py``
-    counts the built kernels' HMMA and HGMMA)."""
+    """The SIMT fp32 conv entries take the plan's channel tile (the grid is
+    one block per tile, computed in C); the 3xTF32 stride-2 entry both weight
+    copies, its padding, channel tile and grid; the fp32 attention entries the
+    strides and the scale (the 3xTF32 one a scratch pointer and its grid too);
+    every GroupNorm entry has a bf16 and an fp32 twin of one signature; the
+    SIMT fp32 sources issue no tensor-core instruction (TF32 alone is not
+    fp32; ``chip_smoke.py`` counts every built kernel's HMMA and HGMMA)."""
     conv, attn, gn = (build.KERNELS[n] for n in ("conv3x3_f32", "flash_attention_f32",
                                                   "group_norm"))
+    tc_conv, tc_attn = build.KERNELS["conv3x3_tf32x3"], build.KERNELS["flash_attention_tf32x3"]
     assert conv["conv3x3_f32"].count(build._I) == 7  # B, H, W, Cin, Cout, silu, bn
-    assert conv["conv3x3_down2_f32"].count(build._I) == 8  # ..., pad, bn
+    assert "conv3x3_down2_f32" not in conv  # the stride-2 conv is on the tensor cores
+    assert tc_conv["conv3x3_down2_tf32x3"].count(build._I) == 9  # ..., silu, pad, bn, grid
+    assert tc_conv["conv3x3_down2_tf32x3"].count(build._P) == 6  # x, w hi, w lo, bias, out
     assert conv["conv3x3_fused_f32"].count(build._P) == 8  # 7 tensors and the stream
     assert attn["flash_attention_f32"].count(build._L) == 6
+    assert tc_attn["flash_attention_d512_tf32x3"].count(build._L) == 6
+    assert tc_attn["flash_attention_d512_tf32x3"].count(build._P) == 6  # q, k, v, out, scratch
     for name, args in gn.items():
         twin = name.replace("_bf16", "_f32") if name.endswith("_bf16") else name.replace(
             "_f32", "_bf16")

@@ -28,13 +28,18 @@ the same way at fp32, TF32 off, with ``chip_smoke.py``'s fp32 tolerances:
 every conv mode at ragged shapes and each channel tile, attention at both
 head dims, GroupNorm and its statistics with a large mean offset, the same
 bits twice, and the tiny editor in fp32 on graphs against its eager arm.
+The two fp32 kernels on the tensor cores (3xTF32: the stride-2 conv and the
+D = 512 attention) are also held against fp64 within ``chip_smoke.py``'s gate
+(8x the plain fp32 version's error, which single-pass TF32 exceeds), at
+ragged Cin and through strides; their shared-memory mirrors, the weight
+split's bits and a CUDA graph's replays against the eager calls.
 """
 
 import pytest
 import torch
 
 from chip_smoke import (ATTN_ABS_OF_RMS, ATTN_REL, CONV_ABS_OF_MAX, CONV_REL, F32_ABS_OF_MAX,
-                        F32_ATTN_ABS_OF_RMS, F32_REL)
+                        F32_ATTN_ABS_OF_RMS, F32_REL, F64_GATE)
 from fastedit_tpu_torch.ops import conv3x3 as k
 from fastedit_tpu_torch.ops import conv_fused as cf
 from fastedit_tpu_torch.ops import flash_attention as fa
@@ -751,3 +756,92 @@ def test_f32_editor_graphs_match_the_eager_arm(tiny_cuda_f32, batch):
     eager = _edit(tiny_cuda_f32, imgs, prompts, graphs=False, seed=5)
     _assert_same(graph, eager)
     assert graph[1].dtype == torch.float32 and k.launches_f32 > before
+
+
+# ---------------------------------------- the fp32 kernels on 3xTF32 (wgmma)
+
+
+def _fp64_gate(out, plain, single_pass, ref64):
+    """chip_smoke.py's gate: within F64_GATE x the plain fp32 version's max
+    |err| against fp64, which single-pass TF32 exceeds."""
+    errs = [float((t.double() - ref64).abs().max()) for t in (out, plain, single_pass)]
+    assert errs[0] <= F64_GATE * errs[1] < errs[2], errs
+
+
+@pytest.mark.parametrize("asymmetric", [False, True])
+@pytest.mark.parametrize("n,h,w,cin,cout", [(1, 64, 64, 96, 256), (2, 32, 32, 320, 320),
+                                            (1, 16, 48, 72, 80), (2, 34, 20, 104, 64)])
+def test_tf32x3_down2_passes_the_fp64_gate(gen, n, h, w, cin, cout, asymmetric):
+    import torch.nn.functional as F
+
+    from fastedit_tpu_torch.ops import tf32x3
+
+    x, wt, bias = _f32_conv(gen, n, h, w, cin, cout)
+    pad = (0, 1, 0, 1) if asymmetric else (1, 1, 1, 1)
+    ref64 = F.conv2d(F.pad(x.double().permute(0, 3, 1, 2), pad), wt.double(), bias.double(),
+                     stride=2).permute(0, 2, 3, 1)
+    out = cf.conv3x3_down2(x, wt, bias, asymmetric=asymmetric)
+    _f32_close(out, cf.conv3x3_down2_plain(x, wt, bias, asymmetric=asymmetric))
+    _fp64_gate(out, cf.conv3x3_down2_plain(x, wt, bias, asymmetric=asymmetric),
+               tf32x3.conv3x3_down2_plain(x, wt, bias, asymmetric=asymmetric, passes=1), ref64)
+
+
+@pytest.mark.parametrize("b,sq,skv,scale", [(1, 128, 256, 512**-0.5), (2, 384, 128, 0.1),
+                                            (1, 1024, 1024, 512**-0.5)])
+def test_tf32x3_attention_passes_the_fp64_gate(gen, b, sq, skv, scale):
+    from fastedit_tpu_torch.ops import tf32x3
+
+    q = torch.randn((b, sq, 1, 512), generator=gen, device="cuda")
+    kv = torch.randn((b, skv, 2, 1, 512), generator=gen, device="cuda")  # through strides
+    kk, v = kv[:, :, 0], kv[:, :, 1]
+    qd, kd, vd = (t.double().transpose(1, 2) for t in (q, kk, v))
+    ref64 = (torch.softmax((qd @ kd.transpose(-1, -2)) * scale, -1) @ vd).transpose(1, 2)
+    out = fa.flash_attention(q, kk, v, scale)
+    _fp64_gate(out, fa.attention_plain(q, kk, v, scale),
+               tf32x3.attention_plain(q, kk, v, scale, passes=1), ref64)
+
+
+def test_tf32x3_geometry_mirrors_the_plans(gen):
+    from fastedit_tpu_torch.ops.build import library
+
+    conv = library("conv3x3_tf32x3")
+    for bn in (64, 80):
+        assert [conv.conv3x3_down2_tf32x3_geometry(bn, i) for i in (0, 1, 2)] == \
+            [k.smem_bytes_down2_f32(bn), k.down2_f32_weight_stages(bn), 32]
+    assert conv.conv3x3_down2_tf32x3_geometry(160, 0) == -1
+    attn = library("flash_attention_tf32x3")
+    pl = fa.plan_f32(1, 16384, 16384, 1, 512)
+    assert [attn.flash_d512_tf32x3_geometry(i) for i in range(1, 8)] == [
+        pl.bkv, pl.stages, pl.smem_bytes, pl.v_stages, pl.v_keys, pl.bq,
+        fa.TF32X3_FRAG_FLOATS + pl.bq]
+
+
+def test_tf32x3_split_kernel_gives_the_emulations_bits(gen):
+    from fastedit_tpu_torch.ops import tf32x3
+
+    w = (torch.randn((320, 96, 3, 3), generator=gen, device="cuda")
+         * torch.exp2(torch.randint(-20, 20, (320, 1, 1, 1), generator=gen, device="cuda"))
+         ).contiguous(memory_format=torch.channels_last)
+    for got, want in zip(cf.split_tf32(w), tf32x3.split_tf32(w), strict=True):
+        assert torch.equal(got, want) and got.is_contiguous(memory_format=torch.channels_last)
+
+
+def test_tf32x3_kernels_under_graph_replays_equal_eager(gen):
+    x, wt, bias = _f32_conv(gen, 2, 32, 32, 320, 320)
+    w_split = cf.split_tf32(wt)
+    q = torch.randn((1, 256, 1, 512), generator=gen, device="cuda")
+    kk, v = (torch.randn((1, 256, 1, 512), generator=gen, device="cuda") for _ in range(2))
+    eager = (cf.conv3x3_down2(x, wt, bias, w_split=w_split), fa.flash_attention(q, kk, v))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            outs = (cf.conv3x3_down2(x, wt, bias, w_split=w_split),
+                    fa.flash_attention(q, kk, v))
+    torch.cuda.current_stream().wait_stream(side)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, eager, strict=True):
+            assert torch.equal(got, want)

@@ -78,17 +78,18 @@ def _keys(kernel):
     return sorted({key for (name, key) in CALLS if name == kernel}, key=str)
 
 
+# the SIMT kernel's modes (the stride-2 conv's fp32 plan is plan_down2 at item
+# size 4: tests/test_torch_tf32x3.py)
 CONV_CASES = ([("conv", key[:5], False) for key in _keys("conv3x3_f32")]
               + [("fused", key[:5], False) for key in _keys("conv3x3_fused_f32")]
-              + [("up2", key, False) for key in _keys("conv3x3_up2_f32")]
-              + [("down2", key[:5], key[5]) for key in _keys("conv3x3_down2_f32")])
+              + [("up2", key, False) for key in _keys("conv3x3_up2_f32")])
 
 
 def test_the_fp32_routes_reach_every_kernel():
     names = {name for name, _ in CALLS}
     assert names == {k + inventory.F32_SUFFIX for k in inventory.BF16_KERNELS}
-    assert len(CONV_CASES) >= 40 and {m for m, _, _ in CONV_CASES} == {"conv", "fused", "up2",
-                                                                     "down2"}
+    assert len(CONV_CASES) >= 40 and {m for m, _, _ in CONV_CASES} == {"conv", "fused", "up2"}
+    assert _keys("conv3x3_down2_f32")
 
 
 def _cover(pl, shape, mode):
@@ -115,7 +116,7 @@ def _cover(pl, shape, mode):
                               for m, s, a in CONV_CASES])
 def test_conv_plan_f32_covers_the_call(mode, shape, asym):
     b, h, w, cin, cout = shape
-    pl = k.plan_f32(b, h, w, cin, cout, mode, asym)
+    pl = k.plan_f32(b, h, w, cin, cout, mode)
     assert pl.mode == mode and pl.bn in k.F32_BN and pl.rect == (8, 16)
     assert pl.tiles_n * pl.bn >= cout > (pl.tiles_n - 1) * pl.bn
     assert pl.bn != 16 or cout <= 16
@@ -124,11 +125,8 @@ def test_conv_plan_f32_covers_the_call(mode, shape, asym):
     assert pl.grid == pl.tiles < 2**31
     assert pl.smem_bytes == k.smem_bytes_f32(mode, pl.bn) <= SMEM_LIMIT
     assert 2 * (pl.smem_bytes + 1024) <= SMEM_PER_SM  # two blocks fit an SM
-    assert cin % k.F32_KC == 0
-    if mode == "down2":
-        assert pl.window == (17, 33) and pl.pad == (0 if asym else 1)
-    else:
-        assert pl.window == (10, 18) and pl.taps == (4 if mode == "up2" else 9)
+    assert cin % k.F32_KC == 0 and not asym
+    assert pl.window == (10, 18) and pl.taps == (4 if mode == "up2" else 9)
 
 
 def test_conv_plan_f32_choices():
@@ -138,11 +136,11 @@ def test_conv_plan_f32_choices():
     assert k.plan_f32(1, 1024, 1024, 128, 3).bn == 16
     assert k.plan_f32(1, 1024, 1024, 128, 128).tiles == 64 * 128
     assert k.plan_f32(2, 32, 32, 1280, 1280, "up2").tiles == 2 * 4 * 2 * 10 * 4
-    assert k.smem_bytes_f32("down2", 128) == 2 * (17 * 33 * 8 + 8 * 9 * 128) * 4
+    assert k.smem_bytes_f32("conv", 128) == 2 * (10 * 18 * 8 + 8 * 9 * 128) * 4
     with pytest.raises(ValueError):
         k.plan_f32(1, 8, 8, 60, 64)  # Cin not a multiple of the chunk
     with pytest.raises(ValueError):
-        k.plan_f32(1, 7, 8, 64, 64, "down2")
+        k.plan_f32(1, 8, 8, 64, 64, "down2")  # the stride-2 conv is the 3xTF32 kernel's
     with pytest.raises(ValueError):
         k.plan_f32(1, 8, 8, 64, 64, "stride3")
 
@@ -166,8 +164,12 @@ def test_attention_plan_f32_covers_the_call(key):
 
 def test_attention_plan_f32_shapes():
     assert {key[4] for key in ATTN_KEYS} == {64, 512}
-    assert fa.plan_f32(1, 16384, 16384, 1, 512).tiles == 512
-    assert fa.F32_SMEM[512] == 230_144
+    big = fa.plan_f32(1, 16384, 16384, 1, 512)  # 3xTF32: 64-row tiles, persistent blocks
+    assert (big.tiles, big.grid, big.kv_tiles) == (256, 132, 256)
+    assert big.smem_bytes == fa.smem_bytes_f32(512) == 231_088
+    # hi and lo of Q, K and V^T; per block P's fragments and rescale factors of 256 KV tiles
+    assert big.scratch_floats == 2 * 3 * 16384 * 512 + 132 * 256 * (64 * 64 + 64)
+    assert fa.plan_f32(1, 4096, 4096, 8, 64).grid == fa.plan_f32(1, 4096, 4096, 8, 64).tiles
     with pytest.raises(ValueError):
         fa.plan_f32(1, 96, 128, 1, 64)
     with pytest.raises(ValueError):

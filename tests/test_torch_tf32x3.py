@@ -1,0 +1,243 @@
+"""The fp32 tensor-core kernels' arithmetic (3xTF32), held on the CPU.
+
+The stride-2 conv and the 512-dim attention of the fp32 path take every fp32
+product as three TF32 products on ``wgmma`` (``csrc/conv3x3_tf32x3.cu``,
+``csrc/flash_attention_tf32x3.cu``).  This file holds:
+
+* the split (``ops/tf32x3.py``): rounding to TF32 (ties away from zero) and
+  the tensor cores' truncation, as bit operations on an int32 view, against
+  a numpy reference on the integer bits; hi + lo recovering x to 2^-22;
+* the gate that ``chip_smoke.py`` applies to the kernels on the card, here on
+  their PyTorch emulation: against an fp64 reference, three products stay
+  within 8x the plain fp32 version's error, single-pass TF32 (the lo products
+  dropped) does not;
+* the kernels' schedules: ``plan_down2`` at item size 4 (chunks of 32
+  channels, channel tiles of 80 or 64) at every fp32 main-path shape, walked
+  by ``conv3x3_down2_tiled_plain_f32`` against the plain version and the JAX
+  package's stride-2 conv in interpret mode (also at a Cin that is no multiple
+  of 32); ``plan_f32`` at D = 512 (persistent blocks, the scratch's floats);
+* the ``tools/kernel_variants.py`` specs of both kernels, in step with the
+  sources.
+
+Tolerances: the gate's 8x (``chip_smoke.py``), and rtol = atol = 2e-4 (the
+repo's golden fp32 tolerance) against JAX.
+"""
+
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from fastedit_tpu.ops import conv_fused as jcf
+from fastedit_tpu.ops import flags as jflags
+
+from fastedit_tpu_torch.models import configs as TC
+from fastedit_tpu_torch.ops import build
+from fastedit_tpu_torch.ops import conv3x3 as k
+from fastedit_tpu_torch.ops import conv_fused as cf
+from fastedit_tpu_torch.ops import flash_attention as fa
+from fastedit_tpu_torch.ops import tf32x3
+from fastedit_tpu_torch.tools import inventory
+
+GATE = 8.0  # chip_smoke.py: a kernel's max |err| vs fp64 within 8x the plain fp32 version's
+TOL = dict(rtol=2e-4, atol=2e-4)
+ORDER_TOL = dict(rtol=1e-5, atol=1e-5)
+SMEM_LIMIT = 232_448
+
+
+def _bits_reference(x: np.ndarray, rounded: bool) -> np.ndarray:
+    """TF32 of fp32 ``x`` on its integer bits: the magnitude plus half of the
+    13 dropped bits' weight (round to nearest, ties away from zero) or not
+    (truncation), the low 13 bits cleared, the sign kept."""
+    bits = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    sign, mag = bits & 0x80000000, bits & 0x7FFFFFFF
+    if rounded:
+        mag = mag + 0x1000
+    return ((sign | (mag & 0xFFFFE000)) & 0xFFFFFFFF).astype(np.uint32).view(np.float32)
+
+
+def _values(seed: int) -> np.ndarray:
+    r = np.random.default_rng(seed)
+    x = (r.standard_normal(4096) * np.exp2(r.integers(-20, 20, 4096))).astype(np.float32)
+    # ties: a TF32 value plus exactly half of its last place, both signs
+    ties = (1.0 + np.arange(1, 65) * 2.0**-10 + 2.0**-11).astype(np.float32)
+    return np.concatenate([x, ties, -ties, [0.0, -0.0, 1.0, 2.0**-126]]).astype(np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_tf32_rounding_and_truncation_on_the_bits(seed):
+    x = _values(seed)
+    t = torch.from_numpy(x)
+    np.testing.assert_array_equal(tf32x3.round_tf32(t).numpy(), _bits_reference(x, True))
+    np.testing.assert_array_equal(tf32x3.truncate_tf32(t).numpy(), _bits_reference(x, False))
+    hi = tf32x3.round_tf32(t).numpy()
+    assert np.all(np.abs(hi.astype(np.float64) - x) <= 2.0**-11 * np.abs(x))
+    assert np.all(hi.view(np.uint32) & 0x1FFF == 0)
+    ties = x[4096:4096 + 64]  # away from zero: the larger neighbour
+    assert np.all(tf32x3.round_tf32(torch.from_numpy(ties)).numpy() > ties)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_recovers_x_to_2_pow_22(seed):
+    x = _values(seed)
+    hi, lo = (a.numpy() for a in tf32x3.split_tf32(torch.from_numpy(x)))
+    assert np.all(hi.view(np.uint32) & 0x1FFF == 0) and np.all(lo.view(np.uint32) & 0x1FFF == 0)
+    rest = np.abs(x.astype(np.float64) - hi - lo)
+    assert np.all(rest <= 2.0**-22 * np.abs(x.astype(np.float64)))
+    assert np.all(np.abs(lo) <= 2.0**-11 * np.abs(x.astype(np.float64)))
+
+
+def _err(out, ref) -> float:
+    return float((out.double() - ref).abs().max())
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 16, 64, 32, False), (2, 16, 32, 96, 64, True),
+                                   (1, 32, 32, 128, 64, False)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv_three_products_pass_the_fp64_gate_one_does_not(shape):
+    b, h, w, cin, cout, asym = shape
+    r = np.random.default_rng(7)
+    x = torch.from_numpy(r.standard_normal((b, h, w, cin)).astype(np.float32))
+    wt = torch.from_numpy((r.standard_normal((cout, cin, 3, 3)) / np.sqrt(9 * cin))
+                          .astype(np.float32))
+    bias = torch.from_numpy(r.standard_normal(cout).astype(np.float32) * 0.1)
+    pad = (0, 1, 0, 1) if asym else (1, 1, 1, 1)
+    ref = F.conv2d(F.pad(x.double().permute(0, 3, 1, 2), pad), wt.double(), stride=2)
+    ref = ref.permute(0, 2, 3, 1) + bias.double()
+    plain = _err(cf.conv3x3_down2_plain(x, wt, bias, asymmetric=asym), ref)
+    three = _err(tf32x3.conv3x3_down2_plain(x, wt, bias, asymmetric=asym), ref)
+    one = _err(tf32x3.conv3x3_down2_plain(x, wt, bias, asymmetric=asym, passes=1), ref)
+    assert 0 < plain and three <= GATE * plain < one
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 256, 1, 512), (2, 128, 128, 2, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_attention_three_products_pass_the_fp64_gate_one_does_not(shape):
+    b, sq, skv, h, d = shape
+    r = np.random.default_rng(8)
+    q, kk, v = (torch.from_numpy(r.standard_normal((b, s, h, d)).astype(np.float32))
+                for s in (sq, skv, skv))
+    qd, kd, vd = (t.double().transpose(1, 2) for t in (q, kk, v))
+    ref = (torch.softmax(qd @ kd.transpose(-1, -2) * d**-0.5, -1) @ vd).transpose(1, 2)
+    plain = _err(fa.attention_plain(q, kk, v), ref)
+    three = _err(tf32x3.attention_plain(q, kk, v), ref)
+    one = _err(tf32x3.attention_plain(q, kk, v, passes=1), ref)
+    assert 0 < plain and three <= GATE * plain < one
+
+
+def test_the_split_refuses_what_it_does_not_take():
+    with pytest.raises(ValueError):
+        tf32x3.conv3x3_down2_plain(torch.zeros(1, 4, 4, 8), torch.zeros(8, 8, 3, 3), passes=2)
+    with pytest.raises(TypeError):
+        cf.split_tf32(torch.zeros(8, 8, 3, 3, dtype=torch.bfloat16))
+    w = torch.randn(8, 8, 3, 3).contiguous(memory_format=torch.channels_last)
+    for got, want in zip(cf.split_tf32(w), tf32x3.split_tf32(w), strict=True):
+        assert torch.equal(got, want)
+
+
+def _down2_keys():
+    """Every (B, H, W, Cin, Cout, asymmetric) the fp32 stride-2 kernel takes
+    on the SSD-1B and SDXL edit paths at 1024², batch 1 and 2, default and
+    opt-in configurations."""
+    from fastedit_tpu_torch.ops import flags as tflags
+
+    keys = set()
+    for unet in (TC.SSD1B_UNET, TC.SDXL_UNET):
+        for batch in (1, 2):
+            sites = inventory.edit_sites(unet, TC.SDXL_CONTROLNET_SMALL, TC.SDXL_VAE, 1024,
+                                         batch=batch, steps=3)
+            for override in ({}, dict(use_cuda_conv=True)):
+                with tflags.override(**override):
+                    calls = inventory.kernel_calls(sites, dtype=torch.float32)
+                keys |= {key for (name, key) in calls if name == "conv3x3_down2_f32"}
+    return sorted(keys)
+
+
+DOWN2_KEYS = _down2_keys()
+
+
+@pytest.mark.parametrize("key", DOWN2_KEYS, ids=lambda s: "x".join(map(str, s)))
+def test_down2_plan_f32_covers_the_call(key):
+    b, h, w, cin, cout, asym = key
+    pl = k.plan_down2(b, h, w, cin, cout, asym, itemsize=4)
+    assert pl.chunk == 32 and pl.box_w == (32, 1, pl.bn) and pl.pad == (0 if asym else 1)
+    assert pl.bn == (80 if cout % 80 == 0 else 64) and pl.tiles_n * pl.bn >= cout
+    assert 2 <= pl.weight_stages == k.down2_f32_weight_stages(pl.bn) <= 4
+    assert pl.smem_bytes == k.smem_bytes_down2_f32(pl.bn) <= SMEM_LIMIT
+    ho, wo = h // 2, w // 2
+    rects = pl.rectangles(ho, wo)
+    assert len(rects) * b * pl.tiles_n == pl.tiles and pl.grid == min(pl.tiles, k.H100_SMS)
+    assert all(y0 < ho and x0 < wo for y0, x0 in rects)
+    assert pl.tiles_y * pl.rect[0] >= ho and pl.tiles_x * pl.rect[1] >= wo
+
+
+def test_down2_plan_f32_main_path_and_smem():
+    assert {key[3] % 32 for key in DOWN2_KEYS} == {0}  # every main-path Cin fills its chunks
+    assert {key[4] for key in DOWN2_KEYS} >= {256, 320, 640}
+    # the shared memory the kernel asks for (conv3x3_down2_tf32x3_geometry mirrors it)
+    assert k.smem_bytes_down2_f32(80) == 1024 + 2 * 72_704 + 4 * 2 * 80 * 128 + 8 * (4 + 8)
+    assert k.down2_f32_weight_stages(64) == k.down2_f32_weight_stages(80) == 4
+    assert k.plan_down2(2, 128, 128, 320, 320, itemsize=4).tiles == 2 * 32 * 4
+    with pytest.raises(ValueError):
+        k.plan_down2(1, 16, 16, 64, 64, itemsize=8)
+
+
+def _operands(seed, b, h, w, cin, cout):
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((b, h, w, cin)).astype(np.float32)
+    wt = (r.standard_normal((cout, cin, 3, 3)) / np.sqrt(9 * cin)).astype(np.float32)
+    return x, wt, (r.standard_normal(cout) * 0.1).astype(np.float32)
+
+
+@pytest.mark.parametrize("asymmetric", [False, True], ids=["pad11", "pad01"])
+@pytest.mark.parametrize("shape", [(1, 16, 32, 72, 80), (2, 16, 16, 104, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_down2_walk_f32_at_a_ragged_cin_matches_jax(shape, asymmetric):
+    """Cin 72 and 104 end in a chunk of 8 channels: the walk zero-fills the
+    rest of it, as the kernel's loads do, and matches the JAX package's
+    stride-2 conv (interpret mode, fp32); a skipped chunk is far outside."""
+    x, wt, bias = _operands(11, *shape)
+    hwio = np.transpose(wt, (2, 3, 1, 0))
+    assert jcf.supports_down2(x.shape, hwio.shape, 4)
+    with jflags.override(pallas_interpret=True):
+        ref = np.asarray(jcf.conv3x3_down2(jnp.asarray(x), jnp.asarray(hwio),
+                                           jnp.asarray(bias), None, asymmetric))
+    t = torch.from_numpy
+    out = cf.conv3x3_down2_tiled_plain_f32(t(x), t(wt), t(bias), None, asymmetric)
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    np.testing.assert_allclose(
+        out.numpy(), cf.conv3x3_down2_plain(t(x), t(wt), t(bias), None, asymmetric).numpy(),
+        **ORDER_TOL)
+    short = cf.conv3x3_down2_tiled_plain_f32(t(x), t(wt), t(bias), None, asymmetric,
+                                             chunks_skipped=1)
+    assert float(np.abs(short.numpy() - ref).max()) > 100 * 2e-4
+
+
+def test_attention_plan_f32_d512_scratch_and_grid():
+    pl = fa.plan_f32(2, 16384, 16384, 1, 512, sms=132)
+    assert (pl.bq, pl.bkv, pl.tiles, pl.grid) == (64, 64, 512, 132)
+    assert (pl.panel, pl.stages, pl.v_stages, pl.v_keys) == (32, 3, 3, 32)
+    # hi and lo of Q, K and V^T, then per block P's fragments and the rescale factors
+    assert pl.scratch_floats == 2 * 2 * (16384 + 2 * 16384) * 512 + 132 * 256 * (4096 + 64)
+    small = fa.plan_f32(1, 128, 256, 1, 512, sms=132)
+    assert small.grid == small.tiles == 2 and small.kv_tiles == 4
+    assert fa.smem_bytes_f32(512) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("spec_name", ["variants_conv_tf32x3.py", "variants_flash_tf32x3.py"])
+def test_the_tf32x3_variants_specs_are_in_step(spec_name):
+    """Each spec's replacements (the sums in the tensor cores' accumulators,
+    single-pass TF32, Q split in registers) are found in its source."""
+    from fastedit_tpu_torch.tools import kernel_variants as kv
+
+    spec: dict = {}
+    path = Path(kv.__file__).with_name(spec_name)
+    exec(compile(path.read_text(), str(path), "exec"), spec)
+    source = (build.CSRC / f"{spec['LIBRARY']}.cu").read_text()
+    assert spec["LIBRARY"] in build.KERNELS and spec["VARIANTS"]["as_built"] == []
+    assert {"tensor_core_sums", "single_pass"} <= set(spec["VARIANTS"])
+    for name, replacements in spec["VARIANTS"].items():
+        assert (kv.apply(source, replacements) != source) == bool(replacements), name
