@@ -37,16 +37,18 @@ order; a failed phase raises and the script exits non-zero:
    off, with the same planted faults, the fp32 tolerance, the bound at the
    fp32 rate outside the tensor cores (67 TFLOP/s) and fp32 library calls
    (``F.conv2d``, SDPA); fewer repeats (a graph of 5 calls, 3 eager calls).
-   The two fp32 kernels on the tensor cores (3xTF32: the stride-2 conv and
-   the D = 512 attention) are also held against an fp64 reference computed on
-   the card, within 8x the plain fp32 version's max |err| against it, and the
-   single-pass TF32 emulation (``ops/tf32x3.py``, the lo products dropped)
-   must fall outside that limit at every shape; their bound counts three
-   TF32 operations per fp32 one at 494.7 TFLOP/s (the SIMT bound beside it).
-   Before all that, every kernel of every library is held to the tensor-core
-   rule by name: the bf16 kernels and the two 3xTF32 ones hold HGMMA, no
-   kernel holds HMMA, every other kernel (the SIMT fp32 ones among them) no
-   tensor-core instruction at all.
+   The four fp32 kernels on the tensor cores (3xTF32: the stride-1 and the
+   stride-2 conv, the D = 64 and the D = 512 attention; the stride-1 conv on
+   the weight's TF32 hi and lo copies, split once as the conv modules split
+   them) are also held against an fp64 reference computed on the card, within
+   8x the plain fp32 version's max |err| against it, and the single-pass TF32
+   emulation (``ops/tf32x3.py``, the lo products dropped) must fall outside
+   that limit at every shape; their bound counts three TF32 operations per
+   fp32 one at 494.7 TFLOP/s (the SIMT bound beside it).  Before all that,
+   every kernel of every library is held to the tensor-core rule by name: the
+   bf16 kernels and the four 3xTF32 ones hold HGMMA, no kernel holds HMMA,
+   every other kernel (the SIMT fp32 one among them) no tensor-core
+   instruction at all.
 3. The main path in the default configuration:
    ``FastEditor("ssd-1b", random_weights=True)`` at 1024², a warm-up, three
    ``edit()`` calls and one ``edit_batch`` of two images, on CUDA graphs
@@ -126,8 +128,9 @@ order; a failed phase raises and the script exits non-zero:
    1.0 (no CFG, a key of its own), timed the same way.  With seeded weights: an
    edit on graphs against the same edit eagerly (bit for bit) and with
    ``plain_versions=True`` (within 1e-3 latent rel L2 and 0.5 LSB mean; a
-   plain edit whose convs skip their last 8 input channels, the fp32
-   kernel's Cin step, must fail those limits).  Last, one quality-mode edit
+   plain edit whose stride-1 convs skip their last chunk of 32 input
+   channels, the fp32 kernel's, must fail those limits), and the card memory
+   the stride-1 conv's weight copies take.  Last, one quality-mode edit
    (``use_full_controlnet=True``) with its launches against the inventory of
    the full ControlNet.
 
@@ -163,7 +166,8 @@ PEAK_F32_FLOPS = 67e12
 # dense TF32 on the tensor cores: the fp32 kernels on wgmma take every fp32
 # product as three TF32 products (3xTF32), so their bound is 3 x FLOPs at it
 PEAK_TF32_FLOPS = 494.7e12
-TF32X3_KERNELS = ("conv3x3_down2_f32", "flash_attention_d512_f32")
+TF32X3_KERNELS = ("conv3x3_f32", "conv3x3_down2_f32", "flash_attention_d64_f32",
+                  "flash_attention_d512_f32")
 # The fp32 kernels on the tensor cores against an fp64 reference computed on
 # the card, at every main-path shape: their max |err| within 8x that of the
 # plain fp32 version (TF32 off), which single-pass TF32 (the lo products
@@ -211,8 +215,8 @@ F32_REL, F32_ABS_OF_MAX = 2e-4, 1e-4
 # kernel's reading (~1e-4) and a skipped KV tile's (> 1e-2), both read here.
 F32_ATTN_ABS_OF_RMS = 1e-3
 # fp32 end to end (phase 8): both paths in fp32 differ by summation order
-# alone, far below bf16's 0.05 and 4; a conv that skips its last Cin step
-# (8 channels) must fail these limits.
+# alone, far below bf16's 0.05 and 4; a stride-1 conv that skips its last
+# chunk of 32 input channels must fail these limits.
 F32_E2E_LATENT_REL_L2 = 1e-3
 F32_E2E_IMAGE_MEAN_LSB = 0.5
 # phase 2's fp32 rows: a graph of 5 calls replayed twice, 3 eager calls (the
@@ -447,25 +451,27 @@ def _suffix(dtype) -> tuple[str, int]:
     return ("_f32", 4) if dtype == torch.float32 else ("", 2)
 
 
-def plan_of(x, cout: int, down2_asymmetric=None, up2: bool = False, mode: str = "conv") -> dict:
-    """The conv kernel's schedule for this call (stride 1, the upsample form,
-    or stride 2 where ``down2_asymmetric`` says which padding), as a row
-    records it; for an fp32 ``x`` the fp32 kernel's (``mode`` as in
-    ``plan_f32``; stride 2: ``plan_down2`` at item size 4)."""
+def plan_of(x, cout: int, down2_asymmetric=None, up2: bool = False,
+            fused: bool = False) -> dict:
+    """The conv kernel's schedule for this call (stride 1, fused, the
+    upsample form, or stride 2 where ``down2_asymmetric`` says which padding),
+    as a row records it, for ``x``'s dtype: in fp32 the 3xTF32 kernel's for
+    stride 1 and 2 (``plan`` and ``plan_down2`` at item size 4), the SIMT
+    kernel's (``plan_f32``) for the fused and the upsample conv."""
     import torch
 
     from fastedit_tpu_torch.ops.conv3x3 import (
         plan_down2_for, plan_f32_for, plan_for, plan_up2_for)
 
-    if x.dtype == torch.float32 and down2_asymmetric is None:
-        pl = plan_f32_for(x, cout, "up2" if up2 else mode)
-        return dict(rect=list(pl.rect), bn=pl.bn, tiles=pl.tiles, grid=pl.grid,
-                    smem_bytes=pl.smem_bytes)
-    if up2:
+    f32 = x.dtype == torch.float32
+    if down2_asymmetric is not None:
+        pl = plan_down2_for(x, cout, down2_asymmetric)
+    elif f32 and (up2 or fused):
+        pl = plan_f32_for(x, cout, "up2" if up2 else "fused")
+    elif up2:
         pl = plan_up2_for(x, cout)
     else:
-        pl = (plan_for(x, cout) if down2_asymmetric is None
-              else plan_down2_for(x, cout, down2_asymmetric))
+        pl = plan_for(x, cout)
     return dict(rect=list(pl.rect), bn=pl.bn, tiles=pl.tiles, grid=pl.grid,
                 smem_bytes=pl.smem_bytes)
 
@@ -484,10 +490,13 @@ def neighbour_halo(xin, wt):
 def compare_conv(calls: dict, gen, dtype=None) -> list[dict]:
     """Fault, at batch 2: the halo row above an image taken from the
     neighbouring image.  Library: ``F.conv2d`` in the dtype (bf16, or fp32
-    without TF32)."""
+    without TF32).  fp32: the 3xTF32 kernel on the weight's TF32 hi and lo
+    copies, split once as the conv modules split them, and its fp64 gate."""
     import torch.nn.functional as F
 
     from fastedit_tpu_torch.ops import conv3x3 as k
+    from fastedit_tpu_torch.ops import conv_fused as cf
+    from fastedit_tpu_torch.ops import tf32x3
 
     sfx, isz = _suffix(dtype)
     rows = []
@@ -498,13 +507,22 @@ def compare_conv(calls: dict, gen, dtype=None) -> list[dict]:
         faults = {}
         if n > 1:
             faults["neighbour_halo"] = lambda: (neighbour_halo(x, wt) + bias).to(x.dtype)
+        extra = dict(plan=plan_of(x, cout))
+        w_split = cf.split_tf32(wt) if sfx else None
+        if sfx:
+            ref64 = F.conv2d(x_nchw.double(), wt.double(), bias.double(), padding=1)
+            extra.update(fp64_gate(
+                f"conv3x3_f32 {key}", k.conv3x3(x, wt, bias, w_split=w_split),
+                k.conv3x3_plain(x, wt, bias), tf32x3.conv3x3_plain(x, wt, bias, passes=1),
+                ref64.permute(0, 2, 3, 1)))
+            del ref64
         rows.append(hold(
             calls, "conv3x3" + sfx, key,
-            lambda: k.conv3x3(x, wt, bias), lambda: k.conv3x3_plain(x, wt, bias),
+            lambda: k.conv3x3(x, wt, bias, w_split=w_split), lambda: k.conv3x3_plain(x, wt, bias),
             lambda: F.conv2d(x_nchw, wt, bias_dt, padding=1),
             flops=2.0 * n * h * w * cout * 9 * cin,
             nbytes=isz * (n * h * w * cin + 9 * cin * cout + n * h * w * cout) + 4.0 * cout,
-            faults=faults, extra=dict(plan=plan_of(x, cout)),
+            faults=faults, extra=extra,
         ))
     return rows
 
@@ -591,7 +609,7 @@ def compare_fused(calls: dict, gen, dtype=None) -> list[dict]:
         nbytes = (isz * (n * h * w * cin + 9 * cin * cout
                          + n * h * w * cout * (2 if skip is not None else 1))
                   + 4.0 * (bias.numel() + 2 * n * cin))
-        extra = dict(plan=plan_of(x, cout, mode="fused"))
+        extra = dict(plan=plan_of(x, cout, fused=True))
         if not sfx:
             extra["prologue_exps"] = plan_for(x, cout).prologue_exps(n, h, w, cin)
         rows.append(hold(
@@ -916,9 +934,9 @@ def compare_attention(calls: dict, gen, dtype=None) -> list[dict]:
         if name in TF32X3_KERNELS:
             gate["bound_simt_ms"] = bound_ms(flops, nbytes, PEAK_F32_FLOPS)[0]
         plan = dict(bq=pl.bq, bkv=pl.bkv, tiles=pl.tiles, grid=pl.grid,
-                    smem_bytes=pl.smem_bytes)
+                    smem_bytes=pl.smem_bytes, stages=pl.stages)
         if not sfx or d == 512:
-            plan.update(stages=pl.stages, v_stages=pl.v_stages)
+            plan.update(v_stages=pl.v_stages)
         rows.append(dict(
             kernel=name, shape=list(key), **call_counts(calls, name, key),
             max_abs_err=err, max_rel_err=rel, err_over_rms=sound_c,
@@ -973,18 +991,19 @@ def check_launches(what: str, launches: dict, expected: dict) -> None:
 # demangled names): GroupNorm's two-launch route gn_stats_kernel<T, false> and
 # gn_apply_kernel<T>, its resident route gn_stats_kernel<T, true> alone, the
 # statistics entry gn_stats_kernel<T, false> alone (T the element type); the
-# fp32 conv's modes are conv_f32_kernel<mode, ...> (0 stride 1, 1 fused, 3
-# up2); the fp32 stride-2 conv is conv3x3_down2_tf32x3_kernel (its weight split
-# runs once per weight), the fp32 D = 512 attention split_qkv_tf32_kernel, then
+# fp32 SIMT conv's modes are conv_f32_kernel<mode, ...> (1 fused, 3 up2); the
+# fp32 stride-1 and stride-2 convs are conv3x3_tf32x3_kernel and
+# conv3x3_down2_tf32x3_kernel (their weight split runs once per weight), the
+# fp32 attention split_qkv_tf32_kernel, then flash_d64_tf32x3_kernel or
 # flash_d512_tf32x3_kernel.
 WRAPPER_KERNELS = {
     "conv3x3": "conv3x3_kernel", "conv3x3_fused": "conv3x3_fused_kernel",
     "conv3x3_up2": "conv3x3_up2_kernel", "conv3x3_down2": "conv3x3_down2_kernel",
     "flash_attention_d64": "flash_d64_kernel", "flash_attention_d512": "flash_d512_kernel",
     "up2_phase_weights": "up2_phase_weights_kernel",
-    "conv3x3_f32": "conv_f32_kernel<0,", "conv3x3_fused_f32": "conv_f32_kernel<1,",
+    "conv3x3_f32": "conv3x3_tf32x3_kernel", "conv3x3_fused_f32": "conv_f32_kernel<1,",
     "conv3x3_down2_f32": "conv3x3_down2_tf32x3_kernel", "conv3x3_up2_f32": "conv_f32_kernel<3,",
-    "flash_attention_d64_f32": "flash_f32_d64_kernel",
+    "flash_attention_d64_f32": "flash_d64_tf32x3_kernel",
     "flash_attention_d512_f32": "flash_d512_tf32x3_kernel",
 }
 GN_TYPES = {"": "__nv_bfloat16", "_f32": "float"}
@@ -1101,7 +1120,8 @@ def planted_fault(kind: str):
     gate: ``attention`` skips the last KV tile of the kernel's plan, as a
     kernel whose loop stops one tile short; ``conv`` skips the last Cin step (64 channels) of the
     last tap, as a kernel whose K loop stops one step short; ``conv_f32``
-    skips the fp32 kernel's last Cin step (8 channels, every tap)."""
+    skips the fp32 kernel's last chunk of input channels (32, or what is left
+    of Cin past the last multiple of 32; every tap)."""
     from fastedit_tpu_torch.ops import conv3x3, flash_attention
 
     if kind == "attention":
@@ -1122,7 +1142,7 @@ def planted_fault(kind: str):
         def faulty(x, weight, bias=None, act=None):
             w = weight.clone()
             if kind == "conv_f32":
-                w[:, w.shape[1] - conv3x3.F32_KC:] = 0
+                w[:, (w.shape[1] - 1) // conv3x3.F32_CHUNK * conv3x3.F32_CHUNK:] = 0
             else:
                 w[:, (w.shape[1] - 1) // 64 * 64:, 2, 2] = 0
             return orig(x, w, bias, act)
@@ -2003,6 +2023,18 @@ def clis_at_full_width(ckpt: Path, card: str) -> dict:
 # ------------------------------------------------------------------ phase 8
 
 
+def tf32_split_gib(editor) -> float:
+    """GiB of the TF32 hi and lo weight copies that the conv modules keep for
+    the fp32 kernels (``models/resnet._prepared``, one pair per weight)."""
+    mod, total = editor.modules, 0
+    for model in (mod.unet, mod.controlnet, mod.vae, mod.text_encoder, mod.text_encoder_2):
+        for m in model.modules():
+            hit = m.__dict__.get("_prepared_cache", {}).get("tf32_split")
+            if hit is not None:
+                total += sum(t.numel() * t.element_size() for t in hit[1])
+    return total / 1024**3
+
+
 def f32_path(calls: dict, card: str) -> dict:
     """Phase 8: the fp32 path (the reference's fp32 configuration and its
     quality mode) on the card, on graphs, with the bf16 editors freed."""
@@ -2047,6 +2079,7 @@ def f32_path(calls: dict, card: str) -> dict:
         check_image(out)
     res["launches"] = launch_counts()
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 1024**3
+    res["tf32_split_gib"] = tf32_split_gib(editor)
     keys = editor._graphs.captured
     if len(keys) != 2 or any(tuple(c.graphs) != STAGES for c in keys.values()):
         raise AssertionError(f"fp32: expected two keys of three graphs each, got {list(keys)}")
@@ -2070,7 +2103,8 @@ def f32_path(calls: dict, card: str) -> dict:
         f"replayed {res['guidance1_edits'][1]['seconds']:.4f} s",
         res["guidance1_edits"][1]["stage_ms"])
     log(f"[8] fp32 warm-up {res['warmup_s']:.2f} s, edit_batch of 2 (first call) "
-        f"{res['edit_batch2']['seconds']:.2f} s, peak {res['peak_gib']:.3f} GiB, pools "
+        f"{res['edit_batch2']['seconds']:.2f} s, peak {res['peak_gib']:.3f} GiB (of it the "
+        f"weights' TF32 hi and lo copies {res['tf32_split_gib']:.3f} GiB), pools "
         f"{res['graph_pool_gib']}; {card}")
 
     # 8.2 seeded weights: graphs = eager bit for bit, kernels against plain versions
@@ -2102,7 +2136,7 @@ def f32_path(calls: dict, card: str) -> dict:
         stage_ms_graphs=kern[3], stage_ms_eager=eager[3])
     res["planted_conv_fault"] = differ(fault, plain)
     log("[8] fp32 kernels vs plain end to end:", res["kernels_vs_plain"])
-    log("[8] fp32 planted conv fault (last Cin step skipped) vs plain:",
+    log("[8] fp32 planted conv fault (last Cin chunk skipped) vs plain:",
         res["planted_conv_fault"])
     e2e = res["kernels_vs_plain"]
     if (e2e["latent_rel_l2"] > F32_E2E_LATENT_REL_L2
@@ -2164,25 +2198,25 @@ KERNELS = {  # name: (source, TPU kernel it replaces: file:line of pallas_call)
                                "fastedit_tpu/ops/groupnorm.py:53"),
 }
 # The fp32 instances (the quality mode's path, phase 8), each replacing the same
-# TPU kernel as its bf16 twin: SIMT FFMA kernels, but the stride-2 conv and the
-# D = 512 attention, which run 3xTF32 on the tensor cores.
+# TPU kernel as its bf16 twin: the stride-1 and stride-2 convs and both
+# attention kernels run 3xTF32 on the tensor cores, the fused and the upsample
+# conv are SIMT FFMA kernels, GroupNorm is its own template at float.
 F32_KERNELS = {
     f"{name}_f32": (source.replace("conv3x3.cu", "conv3x3_f32.cu")
-                    .replace("flash_attention.cu", "flash_attention_f32.cu"), replaces)
+                    .replace("flash_attention.cu", "flash_attention_tf32x3.cu"), replaces)
     for name, (source, replaces) in KERNELS.items()}
-F32_KERNELS["conv3x3_down2_f32"] = ("fastedit_tpu_torch/csrc/conv3x3_tf32x3.cu",
-                                    KERNELS["conv3x3_down2"][1])
-F32_KERNELS["flash_attention_d512_f32"] = ("fastedit_tpu_torch/csrc/flash_attention_tf32x3.cu",
-                                           KERNELS["flash_attention_d512"][1])
+for _name in ("conv3x3_f32", "conv3x3_down2_f32"):
+    F32_KERNELS[_name] = ("fastedit_tpu_torch/csrc/conv3x3_tf32x3.cu", F32_KERNELS[_name][1])
 # Kernels built on wgmma (SASS HGMMA), by a part of their mangled name: the bf16
-# kernels and the two fp32 ones on 3xTF32.  Every other kernel of every library
-# (the phase-weight fold, the TF32 splits, GroupNorm, the SIMT fp32 kernels)
+# kernels and the four fp32 ones on 3xTF32.  Every other kernel of every library
+# (the phase-weight fold, the TF32 splits, GroupNorm, the SIMT fp32 kernel)
 # must hold no tensor-core instruction at all, HGMMA or HMMA: TF32 alone is not
-# fp32, and the SIMT fp32 kernels are held to FFMAs by name.
+# fp32, and the SIMT fp32 kernel is held to FFMAs by name.
 WGMMA_KERNELS = ("conv3x3_kernel", "conv3x3_fused_kernel", "conv3x3_down2_kernel",
                  "conv3x3_up2_kernel", "flash_d64_kernel", "flash_d512_kernel",
-                 "conv3x3_down2_tf32x3_kernel", "flash_d512_tf32x3_kernel")
-SIMT_F32_KERNELS = ("conv_f32_kernel", "flash_f32_d64_kernel")
+                 "conv3x3_tf32x3_kernel", "conv3x3_down2_tf32x3_kernel",
+                 "flash_d64_tf32x3_kernel", "flash_d512_tf32x3_kernel")
+SIMT_F32_KERNELS = ("conv_f32_kernel",)
 
 
 def kernel_summary(rows: list, main: dict) -> list:

@@ -1,13 +1,11 @@
 // 3x3 convolutions, NHWC fp32, as register-tiled SIMT implicit GEMMs: fp32
 // operands, fp32 multiplies (FFMA, not TF32) and fp32 accumulation.  The
-// fp32 instances of three of the four TPU kernels that conv3x3.cu ports in
-// bf16, one kernel template (conv_f32_kernel<MODE, TN>) with three modes (the
-// fourth, the stride-2 conv, runs on the tensor cores in 3xTF32:
-// conv3x3_tf32x3.cu):
+// fp32 instances of two of the four TPU kernels that conv3x3.cu ports in
+// bf16, one kernel template (conv_f32_kernel<MODE, TN>) with two modes (the
+// other two, the stride-1 and the stride-2 conv, run on the tensor cores in
+// 3xTF32: conv3x3_tf32x3.cu):
 //
-//   CONV   3x3 SAME stride 1 (+ bias, optional SiLU); replaces
-//          fastedit_tpu/ops/conv3x3.py `conv3x3` (`_conv3x3_call`).
-//   FUSED  the same conv with the resnet block's ops folded in; replaces
+//   FUSED  3x3 SAME stride 1 with the resnet block's ops folded in; replaces
 //          fastedit_tpu/ops/conv_fused.py `conv3x3_fused` (`_fused_call`): a
 //          prologue silu(x * scale[b, c] + shift[b, c]) applied to every
 //          staged in-image input element (the padding ring stays zero, as
@@ -63,7 +61,7 @@ constexpr int RH = 8, RW = 16;  // output pixels of a tile (low-res pixels for U
 constexpr int KC = 8;           // input channels per staged chunk
 constexpr int STAGES = 2;
 
-enum Mode { CONV = 0, FUSED = 1, UP2 = 3 };  // 2 was the stride-2 conv
+enum Mode { FUSED = 1, UP2 = 3 };  // 0 and 2 were the stride-1 and stride-2 convs
 
 template <int MODE>
 struct Geo {
@@ -345,26 +343,20 @@ Args make_args(const void* x, const void* w, const void* bias, void* out, int B,
 
 }  // namespace
 
-// Dynamic shared memory of the instance (mode 0 CONV, 1 FUSED, 3 UP2;
-// channel tile bn 16, 64 or 128), or -1.
+// Dynamic shared memory of the instance (mode 1 FUSED, 3 UP2; channel tile bn
+// 16, 64 or 128), or -1.
 extern "C" int conv3x3_f32_smem_bytes(int mode, int bn) {
   if (bn != 16 && bn != 64 && bn != 128) return -1;
-  const int f = mode == UP2   ? Geo<UP2>::WIN + KC * 4 * bn
-              : mode == CONV || mode == FUSED ? Geo<CONV>::WIN + KC * 9 * bn
-                                              : -1;
+  const int f = mode == UP2     ? Geo<UP2>::WIN + KC * 4 * bn
+              : mode == FUSED ? Geo<FUSED>::WIN + KC * 9 * bn
+                              : -1;
   return f < 0 ? -1 : STAGES * f * 4;
 }
 
 // x [B, H, W, Cin] fp32, w [Cout, 3, 3, Cin] fp32 (OIHW in channels_last
-// memory), bias [Cout] fp32 or null -> out [B, H, W, Cout] fp32; bn from the
-// plan (ops/conv3x3.plan_f32).
-extern "C" int conv3x3_f32(const void* x, const void* w, const void* bias, void* out, int B,
-                           int H, int W, int Cin, int Cout, int silu, int bn, void* stream) {
-  return run<CONV>(make_args(x, w, bias, out, B, H, W, Cin, Cout, silu), bn, stream);
-}
-
-// As conv3x3_f32, plus: bias [bias_rows, Cout] (bias_rows 1 or B); scale,
-// shift [B, Cin] for the prologue, or both null; skip [B, H, W, Cout] or null.
+// memory), bias [bias_rows, Cout] fp32 or null (bias_rows 1 or B) -> out [B, H,
+// W, Cout] fp32; scale, shift [B, Cin] for the prologue, or both null; skip
+// [B, H, W, Cout] or null; bn from the plan (ops/conv3x3.plan_f32).
 extern "C" int conv3x3_fused_f32(const void* x, const void* w, const void* bias,
                                  const void* scale, const void* shift, const void* skip,
                                  void* out, int B, int H, int W, int Cin, int Cout, int silu,

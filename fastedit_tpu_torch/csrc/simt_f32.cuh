@@ -1,5 +1,5 @@
-// What the fp32 SIMT kernels of this directory share (conv3x3_f32.cu and
-// flash_attention_f32.cu): asynchronous copies into shared memory with zero
+// What the fp32 SIMT kernel of this directory (conv3x3_f32.cu) is built
+// from: asynchronous copies into shared memory with zero
 // fill (cp.async, sm_80 and later), a SiLU without the IEEE division's slow
 // path, and the one-time raise of a kernel's dynamic shared memory limit.
 // ops/build.py hashes this file with every source that includes it.

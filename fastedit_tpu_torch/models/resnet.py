@@ -8,9 +8,10 @@ is on and its gate admits the call, and op by op with the same math
 otherwise.  Convs subclass ``nn.Conv2d`` so their parameters keep
 PyTorch's names and OIHW shapes; their ``forward`` takes and returns NHWC
 tensors.  What the kernels take derived from the weights (the bias in fp32,
-the up2 kernel's folded phase weights, the fp32 stride-2 kernel's TF32 hi and
-lo weights) is made once per version of the weights (:func:`_prepared`), not
-at every call, so a CUDA graph of a stage holds none of it.
+the up2 kernel's folded phase weights, the fp32 stride-1 and stride-2 kernels'
+TF32 hi and lo weights) is made once per version of the weights
+(:func:`_prepared`), not at every call, so a CUDA graph of a stage holds none
+of it, and it outlives the graphs that read it: a new version drops them.
 """
 
 from __future__ import annotations
@@ -43,6 +44,13 @@ def _bias_f32(conv: nn.Conv2d) -> torch.Tensor:
     return _prepared(conv, "bias_f32", lambda: conv.bias.float().contiguous())
 
 
+def _tf32_split(conv: nn.Conv2d, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The TF32 hi and lo copies of ``w`` (``conv``'s weight in channels_last
+    memory) that the fp32 kernels take on the card, split once per weight
+    version."""
+    return _prepared(conv, "tf32_split", lambda: conv_fused.split_tf32(w))
+
+
 class Conv3x3(nn.Conv2d):
     """3x3 stride-1 SAME conv dispatched through ``ops.conv.conv3x3_same``
     (the conv kernel for Cin >= 64 where the context turns it on).
@@ -58,6 +66,10 @@ class Conv3x3(nn.Conv2d):
     * ``skip``: [B, H, W, Cout] residual added after the bias.
     * ``up2``: nearest-2x upsample before the conv (``conv3x3_up2``: no
       materialised 4x tensor).
+
+    In fp32 the stride-1 conv kernel takes the weight's TF32 hi and lo
+    copies, split at the first call that reaches it and kept until the weight
+    changes.
     """
 
     def __init__(self, in_channels: int, out_channels: int):
@@ -84,16 +96,20 @@ class Conv3x3(nn.Conv2d):
         shapes = (tuple(x.shape), tuple(w.shape))
 
         bias = _bias_f32(self)
+
+        def split():
+            return _tf32_split(self, w)
+
         if up2:
             assert prenorm is None and extra_bias is None and skip is None
             if flags.use_fused_up2() and conv_fused.supports_up2(*shapes):
                 fn = flags.kernel_or_plain(self._up2, conv_fused.conv3x3_up2_plain)
                 return fn(x, w, bias=bias)
             x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
-            return conv3x3_same(x, w, bias=bias)
+            return conv3x3_same(x, w, bias=bias, split=split)
 
         if prenorm is None and extra_bias is None and skip is None:
-            return conv3x3_same(x, w, bias=bias)
+            return conv3x3_same(x, w, bias=bias, split=split)
 
         bias_eff = bias
         if extra_bias is not None:  # [B, Cout], summed in fp32
@@ -105,7 +121,7 @@ class Conv3x3(nn.Conv2d):
         # Unfused fallback: the same math as the kernel, op by op.
         if prenorm is not None:
             x = conv_fused.prologue_plain(x, *prenorm)
-        out = conv3x3_same(x, w)
+        out = conv3x3_same(x, w, split=split)
         out = out + (bias_eff[:, None, None, :] if bias_eff.dim() == 2 else bias_eff).to(dtype)
         if skip is not None:
             out = out + skip.to(dtype)
@@ -137,8 +153,7 @@ class StridedConv3x3(nn.Conv2d):
     def _down2(self, x: torch.Tensor, w: torch.Tensor, **kw) -> torch.Tensor:
         """The stride-2 kernel; in fp32 on the card on the weight's TF32 hi
         and lo copies, split once per weight version."""
-        split = (_prepared(self, "tf32_split", lambda: conv_fused.split_tf32(w))
-                 if x.is_cuda and w.dtype == torch.float32 else None)
+        split = _tf32_split(self, w) if x.is_cuda and w.dtype == torch.float32 else None
         return conv_fused.conv3x3_down2(x, w, w_split=split, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -14,15 +14,20 @@ tiles stage windows of the input's four parity planes instead of one halo, and
 :func:`plan_up2` that of the upsample form (``ops/conv_fused.conv3x3_up2``),
 whose tiles are rectangles of the low-res input times one of four phases.
 
-fp32 (the quality mode): a CUDA fp32 tensor launches the SIMT kernel of
-``csrc/conv3x3_f32.cu`` instead (fp32 FFMAs, no TF32), whose three modes are
-the fp32 instances of this kernel and of the fused and upsample kernels of
-``ops/conv_fused.py``; :func:`plan_f32` is its schedule (tiles of 8 x 16
-pixels x 16, 64 or 128 channels, one block each, chunks of 8 input
-channels) and :func:`conv_tiled_plain_f32` walks it in plain PyTorch, for
-the tests.  The fp32 stride-2 conv runs on the tensor cores in 3xTF32
-(``csrc/conv3x3_tf32x3.cu``), on :func:`plan_down2` at item size 4.  Each
-dtype's kernel has its own launch counter.
+fp32 (the quality mode): a CUDA fp32 tensor launches the kernel's fp32
+instance, on the tensor cores in 3xTF32 (``csrc/conv3x3_tf32x3.cu``
+``conv3x3_tf32x3_kernel``: every product as three TF32 products, the
+activations split in registers and the weights once per weight version into
+TF32 hi and lo copies, ``ops/conv_fused.split_tf32``, which the call takes as
+``w_split``): :func:`plan` at item size 4 is its schedule (the same
+rectangles over chunks of 32 channels, channel tiles of 80, 64, 48 or 8) and
+:func:`conv3x3_tiled_plain_f32` walks it in plain PyTorch, for the tests.  The
+fp32 stride-2 conv is the same kernel's stride-2 instance, on
+:func:`plan_down2` at item size 4.  The fused and upsample kernels' fp32
+instances are the SIMT kernel of ``csrc/conv3x3_f32.cu`` (fp32 FFMAs, no
+TF32), whose schedule is :func:`plan_f32` (tiles of 8 x 16 pixels x 16, 64 or
+128 channels, one block each, chunks of 8 input channels), walked by
+:func:`conv_tiled_plain_f32`.  Each dtype's kernel has its own launch counter.
 
 Layouts: ``x`` is NHWC ``[B, H, W, Cin]``; ``weight`` is PyTorch's OIHW
 ``[Cout, Cin, 3, 3]`` and the kernel reads it in channels_last memory
@@ -53,9 +58,19 @@ SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on an H100
 H100_SMS = 132
 
 
+# Its fp32 instance (csrc/conv3x3_tf32x3.cu, 3xTF32 on wgmma, the stride-2
+# conv's core): chunks of 32 channels, so a pixel's chunk is 128 bytes as in
+# bf16; a halo stage is 23 KB, three of them; a weight stage is one tap's hi and
+# lo copies, as many stages as fit beside the halos, at most eight.
+F32_CHUNK = 32
+CONV_F32_HALO_STAGES, CONV_F32_MAX_WEIGHT_STAGES = 3, 8
+CONV_F32_BN = (8, 48, 64, 80)  # channel tiles the fp32 instance is built for
+
+
 @dataclass(frozen=True)
 class ConvPlan:
-    """The schedule of one stride-1 conv call (plain or fused)."""
+    """The schedule of one stride-1 conv call (plain or fused; bf16, or fp32
+    on the 3xTF32 instance)."""
 
     rect: tuple[int, int]  # output rectangle (rows, columns) of one tile
     bn: int  # output channels per tile: the wgmma N
@@ -67,6 +82,9 @@ class ConvPlan:
     smem_bytes: int  # dynamic shared memory of the instance
     box_x: tuple[int, int, int, int]  # TMA box over x [Cin, W, H, B], innermost first
     box_w: tuple[int, int, int]  # TMA box over the weight [Cin, 9, Cout]
+    chunk: int = CHUNK  # input channels a halo stage holds: 64 (bf16) or 32 (fp32)
+    halo_stages: int = HALO_STAGES
+    weight_stages: int = WEIGHT_STAGES
 
     def rectangles(self, h: int, w: int):
         """(y0, x0) of every rectangle of one image, in the kernel's order."""
@@ -102,38 +120,79 @@ def smem_bytes(bn: int) -> int:
             + 8 * (3 * HALO_STAGES + 2 * WEIGHT_STAGES))
 
 
+def _halo_stage_f32() -> int:
+    """Bytes of an fp32 halo stage: (8 + 2) x (16 + 2) pixels of 128 bytes,
+    rounded up to 1024."""
+    return -(-((RECT_H + 2) * (RECT_W + 2) * F32_CHUNK * 4) // 1024) * 1024
+
+
+def conv_f32_weight_stages(bn: int) -> int:
+    """Weight stages of the fp32 stride-1 instance (one tap's hi and lo
+    copies, 2 x bn x 128 bytes, each): as many as fit beside three halo
+    stages, at most eight."""
+    bars = 8 * (2 * CONV_F32_HALO_STAGES + 2 * CONV_F32_MAX_WEIGHT_STAGES)
+    room = SMEM_LIMIT - 1024 - CONV_F32_HALO_STAGES * _halo_stage_f32() - bars
+    return min(CONV_F32_MAX_WEIGHT_STAGES, room // (2 * bn * 128))
+
+
+def smem_bytes_conv_f32(bn: int) -> int:
+    """Dynamic shared memory of the fp32 stride-1 instance: alignment slack,
+    three halo stages, the weight ring and a full and an empty mbarrier per
+    stage."""
+    sb = conv_f32_weight_stages(bn)
+    return (1024 + CONV_F32_HALO_STAGES * _halo_stage_f32() + sb * 2 * bn * 128
+            + 8 * (2 * CONV_F32_HALO_STAGES + 2 * sb))
+
+
 @functools.lru_cache(maxsize=None)
-def plan(b: int, h: int, w: int, cin: int, cout: int, sms: int = H100_SMS) -> ConvPlan:
+def plan(b: int, h: int, w: int, cin: int, cout: int, sms: int = H100_SMS,
+         itemsize: int = 2) -> ConvPlan:
     """The kernel's schedule, a pure function of the call's shape (and the
     card's SM count, for the grid).  Channel tile: 8 for the Cout <= 8 tails,
     160 where it divides Cout (320, 640, 1280: no wasted column, and grids of
     128 to 512 tiles that fill 132 SMs), else 128.  One block per SM at most,
-    each walking its share of the tiles."""
+    each walking its share of the tiles.  ``itemsize`` 4: the fp32 instance
+    (3xTF32), the same rectangles over chunks of 32 channels; channel tile 8
+    for the Cout <= 8 tails, else whichever of 80, 64 and 48 leaves the fewest
+    columns empty, the larger on a tie (320, 640, 1280: 80; 96: 48; 128 to 512:
+    64): its accumulators and a tap's fresh ones are twice as many registers
+    as bf16's, so no tile is wider than 80.  A Cin that is no multiple of 32
+    ends in a chunk whose channels past Cin the loads zero-fill (in x and in
+    both weight copies), so they add nothing."""
     if min(b, h, w, cin, cout) < 1:
         raise ValueError(f"conv3x3 plan: empty call {(b, h, w, cin, cout)}")
+    if itemsize not in (2, 4):
+        raise ValueError(f"conv3x3 plan: item size {itemsize}; 2 (bf16) or 4 (fp32)")
+    f32 = itemsize == 4
     if cout <= 8:
         bn = 8
+    elif f32:
+        bn = min((80, 64, 48), key=lambda n: (-(-cout // n) * n - cout, -n))
     elif cout % 160 == 0:
         bn = 160
     else:
         bn = 128
     tiles_y, tiles_x, tiles_n = -(-h // RECT_H), -(-w // RECT_W), -(-cout // bn)
     tiles = b * tiles_y * tiles_x * tiles_n
+    chunk = F32_CHUNK if f32 else CHUNK
     return ConvPlan(
         rect=(RECT_H, RECT_W), bn=bn, tiles_y=tiles_y, tiles_x=tiles_x, tiles_n=tiles_n,
-        tiles=tiles, grid=min(tiles, sms), smem_bytes=smem_bytes(bn),
-        box_x=(CHUNK, RECT_W + 2, RECT_H + 2, 1), box_w=(CHUNK, 1, bn),
+        tiles=tiles, grid=min(tiles, sms),
+        smem_bytes=smem_bytes_conv_f32(bn) if f32 else smem_bytes(bn),
+        box_x=(chunk, RECT_W + 2, RECT_H + 2, 1), box_w=(chunk, 1, bn), chunk=chunk,
+        halo_stages=CONV_F32_HALO_STAGES if f32 else HALO_STAGES,
+        weight_stages=conv_f32_weight_stages(bn) if f32 else WEIGHT_STAGES,
     )
 
 
 # The stride-2 form: channel tiles it is instantiated for, its rings.
 DOWN2_BN_INSTANCES = (64, 80, 128, 160)
 DOWN2_PLANE_STAGES, DOWN2_WEIGHT_STAGES = 2, 4
-# Its fp32 instance (csrc/conv3x3_tf32x3.cu, 3xTF32 on wgmma): chunks of 32
-# channels, so a pixel's chunk is 128 bytes as in bf16 and the windows are the
-# same bytes; a weight stage is one tap's hi and lo copies, as many stages as
-# fit beside the windows, at most four.
-DOWN2_F32_CHUNK, DOWN2_F32_MAX_WEIGHT_STAGES = 32, 4
+# Its fp32 instance (csrc/conv3x3_tf32x3.cu, 3xTF32 on wgmma): chunks of
+# F32_CHUNK channels, so a pixel's chunk is 128 bytes as in bf16 and the windows
+# are the same bytes; a weight stage is one tap's hi and lo copies, as many
+# stages as fit beside the windows, at most four.
+DOWN2_F32_MAX_WEIGHT_STAGES = 4
 
 
 @dataclass(frozen=True)
@@ -236,7 +295,7 @@ def plan_down2(b: int, h: int, w: int, cin: int, cout: int, asymmetric: bool = F
     if itemsize not in (2, 4):
         raise ValueError(f"conv3x3_down2 plan: item size {itemsize}; 2 (bf16) or 4 (fp32)")
     f32 = itemsize == 4
-    chunk = DOWN2_F32_CHUNK if f32 else CHUNK
+    chunk = F32_CHUNK if f32 else CHUNK
     return Down2Plan(
         rect=(RECT_H, RECT_W), bn=bn, tiles_y=tiles_y, tiles_x=tiles_x, tiles_n=tiles_n,
         tiles=tiles, grid=min(tiles, sms),
@@ -315,15 +374,15 @@ def plan_up2(b: int, h: int, w: int, cin: int, cout: int, sms: int = H100_SMS) -
     )
 
 
-# The fp32 SIMT kernel (csrc/conv3x3_f32.cu holds the same constants): 256
-# threads, output tiles of 8 x 16 pixels (low-res pixels for up2, one phase),
-# chunks of 8 input channels double-buffered; two blocks per SM (one for the
-# 128-channel tile).
+# The fp32 SIMT kernel of the fused and the upsample conv (csrc/conv3x3_f32.cu
+# holds the same constants): 256 threads, output tiles of 8 x 16 pixels
+# (low-res pixels for up2, one phase), chunks of 8 input channels
+# double-buffered; two blocks per SM (one for the 128-channel tile).
 F32_RECT = (8, 16)
 F32_KC = 8
 F32_STAGES = 2
 F32_BN = (16, 64, 128)
-F32_MODES = ("conv", "fused", "up2")
+F32_MODES = ("fused", "up2")
 
 
 @dataclass(frozen=True)
@@ -377,7 +436,7 @@ def smem_bytes_f32(mode: str, bn: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def plan_f32(b: int, h: int, w: int, cin: int, cout: int, mode: str = "conv",
+def plan_f32(b: int, h: int, w: int, cin: int, cout: int, mode: str = "fused",
              sms: int = H100_SMS) -> ConvPlanF32:
     """The fp32 kernel's schedule for input [b, h, w, cin], a pure function
     of the shape (and the SM count).  Channel tile: 16 for Cout <= 16 (the
@@ -405,7 +464,7 @@ def plan_f32(b: int, h: int, w: int, cin: int, cout: int, mode: str = "conv",
         taps=4 if mode == "up2" else 9, smem_bytes=smem_bytes_f32(mode, bn))
 
 
-def plan_f32_for(x: torch.Tensor, cout: int, mode: str = "conv") -> ConvPlanF32:
+def plan_f32_for(x: torch.Tensor, cout: int, mode: str = "fused") -> ConvPlanF32:
     """The fp32 plan of a call on the card that holds ``x``."""
     return plan_f32(*x.shape, cout, mode, sm_count_of(x))
 
@@ -415,15 +474,16 @@ def conv_tiled_plain_f32(
     w_rows: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     *,
-    mode: str = "conv",
+    mode: str = "fused",
     prenorm: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     act: Optional[str] = None,
     skip: Optional[torch.Tensor] = None,
     chunks_skipped: int = 0,
 ) -> torch.Tensor:
-    """The fp32 kernel's schedule in plain PyTorch, for tests only, in any
-    mode.  ``w_rows`` is [Cout, 9, Cin] (the OHWI weight, taps row-major) or,
-    for up2, the folded phase weights [Cout, 16, Cin] (index 4 phase + tap).
+    """The fp32 SIMT kernel's schedule in plain PyTorch, for tests only, in
+    either mode.  ``w_rows`` is [Cout, 9, Cin] (the OHWI weight, taps
+    row-major) or, for up2, the folded phase weights [Cout, 16, Cin] (index 4
+    phase + tap).
     Per block of :func:`plan_f32` and per chunk of 8 input channels: the
     input window gathered with zero fill, the fused prologue on its in-image
     elements (mode ``fused``), then each tap of the tile, a shifted rectangle
@@ -501,8 +561,9 @@ def sm_count_of(t: torch.Tensor) -> int:
 
 
 def plan_for(x: torch.Tensor, cout: int) -> ConvPlan:
-    """The stride-1 plan of a call on the card that holds ``x``."""
-    return plan(*x.shape, cout, sm_count_of(x))
+    """The stride-1 plan of a call on the card that holds ``x``, for its
+    dtype."""
+    return plan(*x.shape, cout, sm_count_of(x), x.element_size())
 
 
 def plan_down2_for(x: torch.Tensor, cout: int, asymmetric: bool) -> Down2Plan:
@@ -607,6 +668,67 @@ def conv3x3_tiled_plain(
     return out.to(x.dtype).contiguous()
 
 
+def conv3x3_tiled_plain_f32(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    act: Optional[str] = None,
+    chunks_skipped: int = 0,
+) -> torch.Tensor:
+    """The fp32 instance's schedule (:func:`plan` at item size 4) in plain
+    PyTorch, for tests only: per rectangle and per chunk of 32 input channels,
+    the halo gathered with zero fill and the chunk's weights zero-filled past
+    Cin (as the kernel's loads fill both operands), then per tap a shifted
+    rectangle of the halo times the tap's weights, its own sum (the kernel's
+    fresh accumulator) added into the tile's in fp32; then bias and SiLU in
+    fp32.  It differs from :func:`conv3x3_plain` only in the order of the
+    sums.  ``chunks_skipped`` plants a fault: the chunk loop stops that many
+    chunks short."""
+    b, h, w, cin = x.shape
+    cout = weight.shape[0]
+    pl = plan(b, h, w, cin, cout, itemsize=4)
+    rh, rw, chunk = *pl.rect, pl.chunk
+    xf, wf = x.float(), weight.float()
+    out = torch.zeros((b, h, w, cout), dtype=torch.float32, device=x.device)
+    for bi in range(b):
+        for y0, x0 in pl.rectangles(h, w):
+            acc = torch.zeros((rh, rw, cout), dtype=torch.float32, device=x.device)
+            ys, xs = max(0, y0 - 1), max(0, x0 - 1)
+            ye, xe = min(h, y0 + rh + 1), min(w, x0 + rw + 1)
+            for c0 in range(0, cin - chunks_skipped * chunk, chunk):
+                c1 = min(cin, c0 + chunk)
+                halo = torch.zeros((rh + 2, rw + 2, chunk), dtype=torch.float32,
+                                   device=x.device)
+                halo[ys - y0 + 1:ye - y0 + 1, xs - x0 + 1:xe - x0 + 1, :c1 - c0] = \
+                    xf[bi, ys:ye, xs:xe, c0:c1]
+                wchunk = torch.zeros((cout, chunk, 3, 3), dtype=torch.float32, device=x.device)
+                wchunk[:, :c1 - c0] = wf[:, c0:c1]
+                for dy in range(3):
+                    for dx in range(3):
+                        acc += halo[dy:dy + rh, dx:dx + rw] @ wchunk[:, :, dy, dx].T
+            out[bi, y0:y0 + rh, x0:x0 + rw] = acc[:h - y0, :w - x0]
+    if bias is not None:
+        out = out + bias.float()
+    if act == "silu":
+        out = F.silu(out)
+    elif act is not None:
+        raise ValueError(f"unsupported activation {act!r}")
+    return out.contiguous()
+
+
+def check_split(name: str, w_split, weight: torch.Tensor) -> tuple[int, int]:
+    """The fp32 kernels' weight operands: ``w_split`` must be
+    ``conv_fused.split_tf32(weight)``, two fp32 tensors of the weight's shape
+    in channels_last memory on its device; their pointers."""
+    if w_split is None or len(w_split) != 2 or any(
+            t.shape != weight.shape or t.dtype != torch.float32 or t.device != weight.device
+            or not t.is_contiguous(memory_format=torch.channels_last) or t.data_ptr() % 16
+            for t in w_split):
+        raise ValueError(f"{name}: w_split must be split_tf32(weight), fp32 in channels_last "
+                         "memory on the weight's device")
+    return w_split[0].data_ptr(), w_split[1].data_ptr()
+
+
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -643,10 +765,14 @@ def conv3x3(
     weight: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     act: Optional[str] = None,
+    w_split: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """3x3 SAME conv: x [B, H, W, Cin], weight [Cout, Cin, 3, 3] in
     channels_last memory, both bf16 or both fp32, bias [Cout] -> [B, H, W,
-    Cout] in x's dtype (the fp32 kernel for fp32).
+    Cout] in x's dtype.  fp32 on the card runs the 3xTF32 instance on
+    ``w_split``, the weight's TF32 hi and lo copies
+    (``conv_fused.split_tf32(weight)``, which the conv modules make once per
+    weight version); an fp32 call on the card without them raises.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises; either raises on a dtype the kernels do not take."""
@@ -662,18 +788,18 @@ def conv3x3(
     global launches, launches_f32
     b, h, w, cin = x.shape
     cout = weight.shape[0]
-    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     f32 = x.dtype == torch.float32
+    weights = check_split("conv3x3", w_split, weight) if f32 else (weight.data_ptr(),)
+    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    pl = plan_for(x, cout)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        args = (x.data_ptr(), weight.data_ptr(), None if bias is None else bias.data_ptr(),
-                out.data_ptr(), b, h, w, cin, cout, int(act == "silu"))
+        args = (x.data_ptr(), *weights, None if bias is None else bias.data_ptr(),
+                out.data_ptr(), b, h, w, cin, cout, int(act == "silu"), pl.bn, pl.grid, stream)
         if f32:
-            err = library("conv3x3_f32").conv3x3_f32(
-                *args, plan_f32_for(x, cout).bn, stream)
+            err = library("conv3x3_tf32x3").conv3x3_tf32x3(*args)
         else:
-            pl = plan_for(x, cout)
-            err = library("conv3x3").conv3x3_bf16(*args, pl.bn, pl.grid, stream)
+            err = library("conv3x3").conv3x3_bf16(*args)
     if err != 0:
         raise RuntimeError(f"conv3x3 kernel launch failed: CUDA error {err}")
     if f32:

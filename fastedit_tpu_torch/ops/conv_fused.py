@@ -30,12 +30,13 @@ Layouts as in ``ops/conv3x3.py``: ``x`` NHWC, ``weight`` PyTorch's OIHW in
 channels_last memory.  A CPU tensor takes the plain version; a CUDA tensor
 launches the kernel of its dtype or raises: bf16 the kernels above, fp32
 the fused and upsample modes of the fp32 SIMT kernel (``csrc/conv3x3_f32.cu``,
-schedule ``conv3x3.plan_f32``) and, for the stride-2 conv, the 3xTF32 kernel of
-``csrc/conv3x3_tf32x3.cu`` (``plan_down2`` at item size 4, on the weight's
-TF32 hi and lo copies, :func:`split_tf32`), walked by the
-``*_tiled_plain_f32`` functions here, each with its own launch counter
-(``<name>_f32``).  The fp32 phase weights of the upsample conv are folded in
-PyTorch (:func:`fold_up2`), in fp32, as the JAX package folds them in XLA.
+schedule ``conv3x3.plan_f32``) and, for the stride-2 conv, the stride-2
+instance of the 3xTF32 kernel of ``csrc/conv3x3_tf32x3.cu`` (``plan_down2`` at
+item size 4, on the weight's TF32 hi and lo copies, :func:`split_tf32`, as the
+stride-1 conv's fp32 instance), walked by the ``*_tiled_plain_f32`` functions
+here, each with its own launch counter (``<name>_f32``).  The fp32 phase
+weights of the upsample conv are folded in PyTorch (:func:`fold_up2`), in
+fp32, as the JAX package folds them in XLA.
 """
 
 from __future__ import annotations
@@ -47,8 +48,8 @@ import torch.nn.functional as F
 
 from fastedit_tpu_torch.ops import tf32x3
 from fastedit_tpu_torch.ops.conv3x3 import (
-    CHUNK, check_dtypes, conv_tiled_plain_f32, plan_down2, plan_down2_for, plan_f32_for,
-    plan_for, plan_up2, plan_up2_for, weight_rows)
+    CHUNK, check_dtypes, check_split, conv_tiled_plain_f32, plan_down2, plan_down2_for,
+    plan_f32_for, plan_for, plan_up2, plan_up2_for, weight_rows)
 from fastedit_tpu_torch.ops.conv3x3 import supports as _supports_conv3x3
 
 # Launches of each CUDA kernel since the last reset (chip_smoke.py resets them):
@@ -436,11 +437,11 @@ def conv3x3_up2(
 
 
 def split_tf32(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The fp32 stride-2 kernel's weight operands: the TF32 hi and lo copies
-    of an fp32 weight (``ops/tf32x3.split_tf32``), in its memory layout.  On
-    the card one launch of the split kernel, which the downsampler modules
-    make once per weight (``models/resnet.py``) and pass in; on the CPU the
-    same bits in PyTorch."""
+    """The fp32 stride-1 and stride-2 kernels' weight operands: the TF32 hi
+    and lo copies of an fp32 weight (``ops/tf32x3.split_tf32``), in its memory
+    layout.  On the card one launch of the split kernel, which the conv
+    modules make once per weight version (``models/resnet.py``) and pass in;
+    on the CPU the same bits in PyTorch."""
     if weight.dtype != torch.float32:
         raise TypeError(f"split_tf32 takes an fp32 weight; got {weight.dtype}")
     if weight.device.type == "cpu":
@@ -488,13 +489,8 @@ def conv3x3_down2(
     pl = plan_down2_for(x, cout, asymmetric)
     weights = (weight.data_ptr(),)
     if x.dtype == torch.float32:
-        if w_split is None:
-            w_split = split_tf32(weight)
-        if any(t.shape != weight.shape or t.dtype != x.dtype or t.device != x.device
-               or not t.is_contiguous(memory_format=torch.channels_last) for t in w_split):
-            raise ValueError("conv3x3_down2: w_split must be split_tf32(weight), fp32 in "
-                             "channels_last memory on x's device")
-        weights = (w_split[0].data_ptr(), w_split[1].data_ptr())
+        weights = check_split("conv3x3_down2",
+                              split_tf32(weight) if w_split is None else w_split, weight)
     return _launch(
         "conv3x3_down2", out,
         x.data_ptr(), *weights, _ptr(bias), out.data_ptr(),

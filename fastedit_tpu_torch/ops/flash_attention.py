@@ -14,12 +14,12 @@ depths, the grid, the shared memory and (``tile_at``) the order of the tiles.
 :func:`attention_tiled_plain` walks the same schedule in plain PyTorch, for
 the tests.
 
-fp32 (the quality mode): a CUDA fp32 call at D = 64 launches the SIMT kernel
-of ``csrc/flash_attention_f32.cu`` instead (fp32 FFMAs, no TF32), at D = 512
-the 3xTF32 kernel of ``csrc/flash_attention_tf32x3.cu`` (every product as
-three TF32 products on ``wgmma``, after a launch that splits Q, K and V^T into
-hi and lo copies in a scratch buffer): q tiles of 64 rows and KV tiles of 64
-keys (:func:`plan_f32`; :func:`attention_tiled_plain_f32` walks it), with
+fp32 (the quality mode): a CUDA fp32 call launches the 3xTF32 kernels of
+``csrc/flash_attention_tf32x3.cu`` instead (every product as three TF32
+products on ``wgmma``, after a launch that splits Q, K and V^T into hi and lo
+copies in a scratch buffer): at D = 64 q tiles of 128 rows whose Q stays in
+shared memory and P in registers, at D = 512 q tiles of 64 rows; KV tiles of
+64 keys (:func:`plan_f32`; :func:`attention_tiled_plain_f32` walks it), with
 launch counters of their own (``launches_f32``).
 """
 
@@ -153,15 +153,21 @@ def plan(b: int, sq: int, skv: int, h: int, d: int, sms: int = H100_SMS) -> Atte
     )
 
 
-# The fp32 kernels.  D = 64 (csrc/flash_attention_f32.cu, SIMT): q tiles of 64
-# rows, KV tiles of 64 keys, 256 threads, Q, K and V transposed or not and P in
-# shared memory, one block per tile.  D = 512 (csrc/flash_attention_tf32x3.cu,
-# 3xTF32 on wgmma; it holds the same constants): q tiles of 64 rows, KV tiles
-# of 64 keys, Q and K streamed in hi and lo panels of 32 columns through a ring
-# of QK_STAGES stages (4 x 8 KB), V^T's hi and lo through a ring of V_STAGES
-# stages of 32 keys x 64 columns per PV warpgroup, P in fp32 two buffers deep;
-# persistent blocks.
-F32_TILES = {64: (64, 64), 512: (64, 64)}
+# The fp32 kernels (csrc/flash_attention_tf32x3.cu, 3xTF32 on wgmma; it holds the
+# same constants), both after a split of Q, K and V^T into hi and lo copies.
+# D = 64: q tiles of 128 rows (64 for each of two consumer warpgroups) whose Q
+# in hi and lo stays in shared memory, KV tiles of 64 keys, K(j) and V(j)^T in
+# turn through a ring of TF32X3_D64_STAGES stages of 32 KB (hi and lo of 64 keys
+# x 64 columns), P in registers; V^T's keys are written in the order P's
+# fragments take them (TF32X3_D64_KEY_ORDER: slot i of each group of eight
+# holds key KEY_ORDER[i]).  D = 512: q tiles of 64 rows, KV tiles of 64 keys, Q
+# and K streamed in hi and lo panels of 32 columns through a ring of
+# QK_STAGES stages (4 x 8 KB), V^T's hi and lo through a ring of V_STAGES stages
+# of 32 keys x 64 columns per PV warpgroup, P in fp32 two buffers deep.
+# Persistent blocks, q tile fastest.
+F32_TILES = {64: (128, 64), 512: (64, 64)}
+TF32X3_D64_STAGES = 5
+TF32X3_D64_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 TF32X3_PANEL, TF32X3_QK_STAGES, TF32X3_V_STAGES, TF32X3_V_KEYS = 32, 3, 3, 32
 # D = 512: P V runs in two passes over O's column halves; pass 0 writes P's A
 # fragments of every KV tile (64 x 64 fp32) and the rows' rescale factors to a
@@ -170,13 +176,17 @@ TF32X3_FRAG_FLOATS = 64 * 64
 
 
 def smem_bytes_f32(d: int) -> int:
-    """Dynamic shared memory of the fp32 kernel for head dim ``d``.  D = 512:
-    alignment slack, the Q/K ring (hi and lo panels of 64 rows x 32 columns of
-    each), both PV warpgroups' V rings (hi and lo of 32 keys x 64 columns), two
-    P tiles of 64 x 64 fp32 with a row statistic each, and a full and an empty
-    mbarrier per stage of each ring and per P tile."""
+    """Dynamic shared memory of the fp32 kernel for head dim ``d``.  D = 64:
+    alignment slack, Q's hi and lo copies (128 rows x 64 columns each), the ring
+    (hi and lo of 64 keys x 64 columns a stage) and the mbarriers (a full and an
+    empty one for Q and for each stage).  D = 512: alignment slack, the Q/K
+    ring (hi and lo panels of 64 rows x 32 columns of each), both PV
+    warpgroups' V rings (hi and lo of 32 keys x 64 columns), two P tiles of 64
+    x 64 fp32 with a row statistic each, and a full and an empty mbarrier per
+    stage of each ring and per P tile."""
     if d == 64:
-        return 4 * 64 * 64 * 4
+        return (1024 + 2 * 128 * 64 * 4 + TF32X3_D64_STAGES * 2 * 64 * 64 * 4
+                + 8 * 2 * (1 + TF32X3_D64_STAGES))
     tile = 64 * TF32X3_PANEL * 4
     return (1024 + TF32X3_QK_STAGES * 4 * tile + PV_GROUPS * TF32X3_V_STAGES * 2 * tile
             + P_STAGES * (64 * 64 * 4 + 64 * 4)
@@ -192,16 +202,17 @@ class AttentionPlanF32:
     q_tiles: int  # q tiles per (batch, head)
     kv_tiles: int  # KV tiles each q tile walks
     tiles: int  # all tiles: B * H * q_tiles
-    grid: int  # blocks: one per tile (D = 64), or persistent (D = 512)
+    grid: int  # persistent blocks
     smem_bytes: int
     heads: int
-    # D = 512 (3xTF32): columns of a Q/K panel, the rings' stages, keys of a V
-    # stage, and the floats of the hi and lo copies of Q, K and V^T (scratch)
+    stages: int  # D = 64: the K / V ring; D = 512: the Q/K ring
+    scratch_floats: int  # the hi and lo copies of Q, K and V^T (D = 512: and P's fragments)
+    # D = 512: columns of a Q/K panel, the V rings' stages, keys of a V stage
     panel: int = 0
-    stages: int = 0
     v_stages: int = 0
     v_keys: int = 0
-    scratch_floats: int = 0
+    # the keys of a group of eight in the order P V contracts them (D = 64)
+    key_order: tuple[int, ...] = tuple(range(8))
 
     def tile_at(self, t):
         """(batch, head, first q row) of tile ``t``: q tile fastest, then
@@ -213,13 +224,15 @@ class AttentionPlanF32:
 @functools.lru_cache(maxsize=None)
 def plan_f32(b: int, sq: int, skv: int, h: int, d: int, sms: int = H100_SMS) -> AttentionPlanF32:
     """The fp32 kernels' schedule, a pure function of the shape (and the SM
-    count).  D = 64: q tiles of 64 rows against KV tiles of 64 keys, 16 KB each
-    of Q, K, V and P in shared memory (three blocks per SM), one block per tile.
-    D = 512 (3xTF32): q tiles of 64 rows (one wgmma's M; Q in hi and lo would be
-    256 KB, so it is streamed with K, panel by panel), KV tiles of 64 keys, at
-    most one persistent block per SM, q tile fastest (16384 rows are 256 tiles,
-    two rounds of 132 blocks); the scratch holds the hi and lo copies of Q, K
-    and V^T and, per block, P's fragments and rescale factors of a tile."""
+    count): at most one persistent block per SM, q tile fastest; the scratch
+    holds the hi and lo copies of Q, K and V^T.  D = 64: q tiles of 128 rows
+    (Q in hi and lo, 64 KB, stays in shared memory for the walk over the keys;
+    2 x 1024 rows x 20 heads is 320 tiles, 2.4 rounds of 132 blocks, and 2 x
+    4096 x 10 is 640, 4.8 rounds), KV tiles of 64 keys.  D = 512: q tiles of 64
+    rows (one wgmma's M; Q in hi and lo would be 256 KB, so it is streamed with
+    K, panel by panel), KV tiles of 64 keys (16384 rows are 256 tiles, two
+    rounds of 132 blocks); the scratch also holds, per block, P's fragments and
+    rescale factors of a tile."""
     if d not in F32_TILES:
         raise ValueError(f"flash attention plan_f32: no kernel for head dim {d}")
     bq, bkv = F32_TILES[d]
@@ -227,16 +240,17 @@ def plan_f32(b: int, sq: int, skv: int, h: int, d: int, sms: int = H100_SMS) -> 
         raise ValueError(f"flash attention plan_f32: q rows {sq} and keys {skv} must be "
                          f"multiples of {bq} and {bkv}, batch {b} and heads {h} positive")
     tiles = b * h * (sq // bq)
-    common = dict(bq=bq, bkv=bkv, q_tiles=sq // bq, kv_tiles=skv // bkv, tiles=tiles,
-                  smem_bytes=smem_bytes_f32(d), heads=h)
-    if d == 64:
-        return AttentionPlanF32(grid=tiles, **common)
     grid = min(tiles, sms)
+    copies = 2 * b * h * (sq + 2 * skv) * d
+    common = dict(bq=bq, bkv=bkv, q_tiles=sq // bq, kv_tiles=skv // bkv, tiles=tiles,
+                  grid=grid, smem_bytes=smem_bytes_f32(d), heads=h)
+    if d == 64:
+        return AttentionPlanF32(stages=TF32X3_D64_STAGES, scratch_floats=copies,
+                                key_order=TF32X3_D64_KEY_ORDER, **common)
     return AttentionPlanF32(
-        grid=grid, panel=TF32X3_PANEL, stages=TF32X3_QK_STAGES,
-        v_stages=TF32X3_V_STAGES, v_keys=TF32X3_V_KEYS,
-        scratch_floats=(2 * b * h * (sq + 2 * skv) * d
-                        + grid * (skv // bkv) * (TF32X3_FRAG_FLOATS + bq)), **common)
+        stages=TF32X3_QK_STAGES, panel=TF32X3_PANEL, v_stages=TF32X3_V_STAGES,
+        v_keys=TF32X3_V_KEYS,
+        scratch_floats=copies + grid * (skv // bkv) * (TF32X3_FRAG_FLOATS + bq), **common)
 
 
 def plan_for(q: torch.Tensor, kv_len: int) -> AttentionPlan:
@@ -312,15 +326,17 @@ def attention_tiled_plain_f32(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
     kv_tiles_skipped: int = 0,
 ) -> torch.Tensor:
-    """The fp32 kernel's schedule in plain PyTorch, for tests only: per block
+    """The fp32 kernel's schedule in plain PyTorch, for tests only: per tile
     of :func:`plan_f32`, per KV tile the scores in fp32 times the scale, the
-    running max, the rescale of sum and output, P.V in fp32; O / l at the
-    end.  It differs from ``attention_plain`` only in the order of the sums.
-    ``kv_tiles_skipped`` plants a fault: the walk stops that many KV tiles
-    short."""
+    running max, the rescale of sum and output, P.V in fp32 over the keys in
+    the plan's order (D = 64: the order of P's fragments, which the kernel's
+    prologue writes V^T in); O / l at the end.  It differs from
+    ``attention_plain`` only in the order of the sums.  ``kv_tiles_skipped``
+    plants a fault: the walk stops that many KV tiles short."""
     b, sq, h, d = q.shape
     scale = scale if scale is not None else d**-0.5
     pl = plan_f32(b, sq, k.shape[1], h, d)
+    order = torch.tensor([8 * g + i for g in range(pl.bkv // 8) for i in pl.key_order])
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     for t in range(pl.tiles):
         bi, hi, q0 = pl.tile_at(t)
@@ -335,7 +351,7 @@ def attention_tiled_plain_f32(
             mx = torch.maximum(m, s.max(dim=1, keepdim=True).values)
             alpha, p = torch.exp(m - mx), torch.exp(s - mx)
             l = l * alpha + p.sum(dim=1, keepdim=True)
-            o = o * alpha + p @ vt
+            o = o * alpha + p[:, order] @ vt[order]
             m = mx
         out[bi, q0:q0 + pl.bq, hi] = o / l
     return out
@@ -391,12 +407,9 @@ def flash_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if f32:  # raises on a shape the kernel does not take
             pl = plan_f32(b, sq, k.shape[1], h, d, sm_count_of(q))
-            if d == 512:
-                scratch = torch.empty(pl.scratch_floats, dtype=q.dtype, device=q.device)
-                err = library("flash_attention_tf32x3").flash_attention_d512_tf32x3(
-                    *args[:4], scratch.data_ptr(), *args[4:8], *args[9:], pl.grid, stream)
-            else:
-                err = library("flash_attention_f32").flash_attention_f32(*args, stream)
+            scratch = torch.empty(pl.scratch_floats, dtype=q.dtype, device=q.device)
+            entry = getattr(library("flash_attention_tf32x3"), f"flash_attention_d{d}_tf32x3")
+            err = entry(*args[:4], scratch.data_ptr(), *args[4:8], *args[9:], pl.grid, stream)
         else:
             pl = plan_for(q, k.shape[1])
             err = library("flash_attention").flash_attention_bf16(

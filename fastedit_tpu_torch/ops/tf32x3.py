@@ -1,9 +1,9 @@
 """3xTF32 in plain PyTorch: the split the fp32 tensor-core kernels make, and
 their arithmetic on it, for the tests and for ``chip_smoke.py``'s gate.
 
-The stride-2 conv (``csrc/conv3x3_tf32x3.cu``) and the 512-dim attention
-(``csrc/flash_attention_tf32x3.cu``) take every fp32 product as three TF32
-products on the tensor cores: with ``hi = tf32(x)`` rounded to nearest (ties
+The stride-1 and stride-2 convs (``csrc/conv3x3_tf32x3.cu``) and the 64- and
+512-dim attention (``csrc/flash_attention_tf32x3.cu``) take every fp32 product
+as three TF32 products on the tensor cores: with ``hi = tf32(x)`` rounded to nearest (ties
 away from zero, ``cvt.rna.tf32.f32``) and ``lo = tf32(x - hi)``,
 ``a * b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi``.  The tensor cores read an fp32
 word's top 19 bits and drop the rest (:func:`truncate_tf32`); a TF32 product
@@ -58,6 +58,16 @@ def _products(a: torch.Tensor, b: torch.Tensor, op, passes: int) -> torch.Tensor
     return op(a_lo, b_hi) + op(a_hi, b_lo) + op(a_hi, b_hi)
 
 
+def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, act: Optional[str] = None,
+                  passes: int = 3) -> torch.Tensor:
+    """The SAME stride-1 conv of fp32 NHWC ``x`` and OIHW ``weight`` as the
+    3xTF32 kernel takes its products (``passes=1``: single-pass TF32), then
+    bias and SiLU in fp32."""
+    xp = F.pad(x.float().permute(0, 3, 1, 2), (1, 1, 1, 1))
+    return _finish(_products(xp, weight.float(), F.conv2d, passes), bias, act)
+
+
 def conv3x3_down2_plain(x: torch.Tensor, weight: torch.Tensor,
                         bias: Optional[torch.Tensor] = None, act: Optional[str] = None,
                         asymmetric: bool = False, passes: int = 3) -> torch.Tensor:
@@ -66,7 +76,12 @@ def conv3x3_down2_plain(x: torch.Tensor, weight: torch.Tensor,
     bias and SiLU in fp32."""
     pad = (0, 1, 0, 1) if asymmetric else (1, 1, 1, 1)
     xp = F.pad(x.float().permute(0, 3, 1, 2), pad)
-    out = _products(xp, weight.float(), lambda a, b: F.conv2d(a, b, stride=2), passes)
+    return _finish(_products(xp, weight.float(), lambda a, b: F.conv2d(a, b, stride=2), passes),
+                   bias, act)
+
+
+def _finish(out: torch.Tensor, bias: Optional[torch.Tensor], act: Optional[str]) -> torch.Tensor:
+    """NCHW conv sums -> NHWC, then bias and SiLU in fp32."""
     out = out.permute(0, 2, 3, 1)
     if bias is not None:
         out = out + bias.float()

@@ -1,7 +1,7 @@
-"""A spec for ``tools/kernel_variants.py``: the fp32 conv kernel
-(``csrc/conv3x3_f32.cu``) as built (two blocks per SM, one for the
-128-channel tile), with two blocks per SM for every tile, and with one for
-every tile, at main-path shapes of each mode.
+"""A spec for ``tools/kernel_variants.py``: the fp32 SIMT conv kernel of the
+fused and the upsample conv (``csrc/conv3x3_f32.cu``) as built (two blocks per
+SM, one for the 128-channel tile), with two blocks per SM for every tile, and
+with one for every tile, at main-path shapes of each mode.
 
     python fastedit_tpu_torch/tools/kernel_variants.py \
         fastedit_tpu_torch/tools/variants_conv_f32.py
@@ -19,19 +19,17 @@ VARIANTS = {
     "two_blocks": [(_AS_BUILT, "__launch_bounds__(THREADS, 2) conv_f32_kernel")],
     "one_block": [(_AS_BUILT, "__launch_bounds__(THREADS, 1) conv_f32_kernel")],
 }
-# (mode, B, H, W, Cin, Cout): the UNet's three widths, the VAE decoder's largest
-# stride-1 and fused calls, an upsample call (the stride-2 conv is the 3xTF32
-# kernel's: tools/variants_conv_tf32x3.py)
-SHAPES = [("conv", 2, 128, 128, 320, 320), ("conv", 2, 64, 64, 640, 640),
-          ("conv", 2, 32, 32, 1280, 1280), ("conv", 1, 1024, 1024, 128, 128),
-          ("fused", 1, 256, 256, 512, 256), ("up2", 1, 512, 512, 256, 256)]
+# (mode, B, H, W, Cin, Cout): the VAE decoder's fused calls at two widths, two
+# upsample calls (the stride-1 and stride-2 convs are the 3xTF32 kernel's:
+# tools/variants_conv_tf32x3.py)
+SHAPES = [("fused", 1, 256, 256, 512, 256), ("fused", 1, 1024, 1024, 128, 128),
+          ("up2", 1, 512, 512, 256, 256), ("up2", 2, 32, 32, 1280, 1280)]
 ROUNDS = 2
 
 
 def run(use):
     import torch
 
-    from fastedit_tpu_torch.ops import conv3x3 as k
     from fastedit_tpu_torch.ops import conv_fused as cf
     from fastedit_tpu_torch.tools.timing import graph_ms
 
@@ -46,7 +44,6 @@ def run(use):
                torch.randn((n, cin), generator=gen, device="cuda"))
         phases = cf.fold_up2(wt)
         call, plain, flops = {
-            "conv": (lambda: k.conv3x3(x, wt, bias), lambda: k.conv3x3_plain(x, wt, bias), 9),
             "fused": (lambda: cf.conv3x3_fused(x, wt, bias, pre),
                       lambda: cf.conv3x3_fused_plain(x, wt, bias, pre), 9),
             "up2": (lambda: cf.conv3x3_up2(x, wt, bias, phases=phases),

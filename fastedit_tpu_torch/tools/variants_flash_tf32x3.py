@@ -1,16 +1,21 @@
-"""A spec for ``tools/kernel_variants.py``: the fp32 D = 512 attention (3xTF32
-on wgmma) as built (the products of a group summed in a fresh accumulator and
-added in with rounding to nearest), with every product summed in the tensor
-cores' accumulators instead (``tensor_core_sums``: S's k steps alternating
-over two chains, each group's stage handed back once the next is issued),
-single-pass TF32 (the small products of S and of P V dropped), with Q split on
-its way to the tensor cores instead of once per call (``q_in_registers``: its
-panels land as they are and the softmax warpgroup splits its A fragments in
-registers), with other ring depths in the same shared memory, and, for its
-time alone, without the round trip of P's fragments and rescale factors
-through the scratch (``no_fragment_scratch``: pass 1 multiplies by zeros, so
-its output is wrong), each held against an fp64 attention on the card beside
-the plain fp32 attention (TF32 off) and timed, at the VAE mid block's shape.
+"""A spec for ``tools/kernel_variants.py``: the fp32 attention kernels (3xTF32
+on wgmma, D = 64 and D = 512) as built (the products of a group summed in a
+fresh accumulator and added in with rounding to nearest), with every product
+summed in the tensor cores' accumulators instead (``tensor_core_sums``: at D
+= 512 S's k steps alternating over two chains, each group's stage handed back
+once the next is issued; at D = 64 S in one accumulator and P V straight into
+O), single-pass TF32 (the small products of S and of P V dropped; both
+kernels), and at D = 512 with Q split on its way to the tensor cores instead
+of once per call (``q_in_registers``: its panels land as they are and the
+softmax warpgroup splits its A fragments in registers), with other ring
+depths in the same shared memory, and, for its time alone, without the round
+trip of P's fragments and rescale factors through the scratch
+(``no_fragment_scratch``: pass 1 multiplies by zeros, so its output is
+wrong), each held against an fp64 attention on the card beside the plain fp32
+attention (TF32 off) and timed, at the VAE mid block's shape and the UNet's
+two.  The D = 512 variants leave the D = 64 kernel as built, but
+``q_in_registers``, whose prologue writes Q unsplit where the D = 64 kernel
+reads Q's hi copy (and no lo copy): its D = 64 rows are wrong by design.
 
     python fastedit_tpu_torch/tools/kernel_variants.py \
         fastedit_tpu_torch/tools/variants_flash_tf32x3.py
@@ -48,7 +53,61 @@ _PV_GROUP = (
     "#pragma unroll\n"
     "              for (int i = 0; i < 32; ++i) o[c][i] += part[i];\n")
 
-TENSOR_CORE_SUMS = [
+# D = 64: S's two panels into one accumulator, P V's two boxes straight into O
+_D64_S_SUMS = [
+    ("      s_panel(part, smem_desc(q_rows + Q_PANEL)",
+     "      s_panel_on(score, smem_desc(q_rows + Q_PANEL)"),
+    ("#pragma unroll\n      for (int i = 0; i < 32; ++i) score[i] += part[i];\n", ""),
+    ("// d = P V of 32 keys (k steps k0 .. k0 + 3 of P's fragments) against a box of\n",
+     "__device__ __forceinline__ void s_panel_on(float (&d)[32], uint64_t dqh, uint64_t dql,\n"
+     "                                           uint64_t dkh, uint64_t dkl) {\n"
+     "#pragma unroll\n"
+     "  for (int kk = 0; kk < 4; ++kk) {\n"
+     "    wgmma_tf32_ss(d, dql + 2 * kk, dkh + 2 * kk);\n"
+     "    wgmma_tf32_ss(d, dqh + 2 * kk, dkl + 2 * kk);\n"
+     "    wgmma_tf32_ss(d, dqh + 2 * kk, dkh + 2 * kk);\n"
+     "  }\n"
+     "}\n"
+     "template <int K0>\n"
+     "__device__ __forceinline__ void pv_box_on(float (&d)[32], const uint32_t (&hi)[8][4],\n"
+     "                                          const uint32_t (&lo)[8][4], uint64_t dvh,\n"
+     "                                          uint64_t dvl) {\n"
+     "#pragma unroll\n"
+     "  for (int kk = 0; kk < 4; ++kk) {\n"
+     "    wgmma_tf32_rs(d, lo[K0 + kk], dvh + 2 * kk);\n"
+     "    wgmma_tf32_rs(d, hi[K0 + kk], dvl + 2 * kk);\n"
+     "    wgmma_tf32_rs(d, hi[K0 + kk], dvh + 2 * kk);\n"
+     "  }\n"
+     "}\n"
+     "// d = P V of 32 keys (k steps k0 .. k0 + 3 of P's fragments) against a box of\n"),
+    ("      pv_box<0>(part, phi, plo, smem_desc(vst), smem_desc(vst + HALF));\n"
+     "      wgmma_commit();\n"
+     "      wgmma_wait<0>();\n"
+     "#pragma unroll\n"
+     "      for (int i = 0; i < 32; ++i) o[i] += part[i];\n"
+     "      wgmma_fence();\n"
+     "      pv_box<4>(part, phi, plo, smem_desc(vst + TILE), smem_desc(vst + HALF + TILE));\n"
+     "      wgmma_commit();\n"
+     "      wgmma_wait<0>();\n"
+     "#pragma unroll\n"
+     "      for (int i = 0; i < 32; ++i) o[i] += part[i];\n",
+     "      pv_box_on<0>(o, phi, plo, smem_desc(vst), smem_desc(vst + HALF));\n"
+     "      pv_box_on<4>(o, phi, plo, smem_desc(vst + TILE), smem_desc(vst + HALF + TILE));\n"
+     "      wgmma_commit();\n"
+     "      wgmma_wait<0>();\n"),
+]
+_D64_ZERO = ("    if (kk == 0) {\n"
+             "      for (int i = 0; i < 32; ++i) d[i] = 0.f;\n"
+             "      wgmma_fence();\n"
+             "    }\n")
+_D64_SINGLE_PASS = [
+    ("    wgmma_tf32_ss(d, dql + 2 * kk, dkh + 2 * kk, kk > 0);\n"
+     "    wgmma_tf32_ss(d, dqh + 2 * kk, dkl + 2 * kk);\n", _D64_ZERO),
+    ("    wgmma_tf32_rs(d, lo[K0 + kk], dvh + 2 * kk, kk > 0);\n"
+     "    wgmma_tf32_rs(d, hi[K0 + kk], dvl + 2 * kk);\n", _D64_ZERO),
+]
+
+TENSOR_CORE_SUMS = _D64_S_SUMS + [
     (_S_DECL, "    float score[BKV / 2], s[2][BKV / 2];  // the scores, and two chains of S\n"
               "    int prev = 0;  // the stage of the panel before\n"),
     (_S_GROUP + _S_SUM,
@@ -82,7 +141,7 @@ TENSOR_CORE_SUMS = [
      "              wgmma_commit();\n"
      "              wgmma_wait<0>();\n"),
 ]
-SINGLE_PASS = [
+SINGLE_PASS = _D64_SINGLE_PASS + [
     (_S_SMALL, "            if (kk == 0) {\n"
                "              for (int i = 0; i < BKV / 2; ++i) s[i] = 0.f;\n"
                "              wgmma_fence();\n"
@@ -150,7 +209,8 @@ VARIANTS = {
                   ("constexpr int V_STAGES = 3;", "constexpr int V_STAGES = 2;")],
     "no_fragment_scratch": NO_FRAGMENT_SCRATCH,
 }
-SHAPE = (1, 16384, 16384, 1, 512)  # B, Sq, Skv, H, D
+# (B, Sq, Skv, H, D): the VAE mid block's head, the UNet's two 64-dim calls
+SHAPES = [(1, 16384, 16384, 1, 512), (2, 4096, 4096, 10, 64), (2, 1024, 1024, 20, 64)]
 ROUNDS = 2
 
 
@@ -170,20 +230,23 @@ def run(use):
     from fastedit_tpu_torch.tools.timing import graph_ms
     from fastedit_tpu_torch.utils.precision import true_fp32
 
-    b, sq, skv, h, d = SHAPE
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda") for s in (sq, skv, skv))
-    with true_fp32():
-        ref = attention_fp64(q, k, v)
-        plain = float((fa.attention_plain(q, k, v).double() - ref).abs().max())
-        print(f"shape {SHAPE}: plain fp32 max|err| vs fp64 {plain:.3e}, "
-              f"rms(ref) {float(ref.square().mean().sqrt()):.4f}", flush=True)
-        flops = 4.0 * b * h * sq * skv * d
-        for _ in range(ROUNDS):
-            for name in use.names:
-                use(name)
-                out = fa.flash_attention(q, k, v)
-                err = float((out.double() - ref).abs().max())
-                ms = graph_ms(lambda: fa.flash_attention(q, k, v), reps=2, calls=3)
-                print(f"  {name:19s} max|err| {err:.3e} = {err / plain:7.2f} x plain  "
-                      f"{ms:.3f} ms  {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    for shape in SHAPES:
+        b, sq, skv, h, d = shape
+        q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+                   for s in (sq, skv, skv))
+        with true_fp32():
+            ref = attention_fp64(q, k, v)
+            plain = float((fa.attention_plain(q, k, v).double() - ref).abs().max())
+            print(f"shape {shape}: plain fp32 max|err| vs fp64 {plain:.3e}, "
+                  f"rms(ref) {float(ref.square().mean().sqrt()):.4f}", flush=True)
+            flops = 4.0 * b * h * sq * skv * d
+            for _ in range(ROUNDS):
+                for name in use.names:
+                    use(name)
+                    out = fa.flash_attention(q, k, v)
+                    err = float((out.double() - ref).abs().max())
+                    ms = graph_ms(lambda: fa.flash_attention(q, k, v), reps=2, calls=3)
+                    print(f"  {name:19s} max|err| {err:.3e} = {err / plain:7.2f} x plain  "
+                          f"{ms:.3f} ms  {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+        del ref

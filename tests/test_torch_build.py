@@ -46,7 +46,7 @@ def test_the_flags_are_part_of_the_name(csrc, monkeypatch):
 def test_the_ports_kernels_share_one_header():
     """The three bf16 kernel libraries include ``hopper.cuh`` (GroupNorm for
     its mbarriers and 1-D bulk copies; its fp32 instances live in the same
-    library), the two fp32 SIMT libraries ``simt_f32.cuh``, the two fp32
+    library), the fp32 SIMT library ``simt_f32.cuh``, the two fp32
     tensor-core (3xTF32) libraries ``tf32x3.cuh`` and through it
     ``hopper.cuh``.  Every C function the wrappers call is declared."""
     by_name = {n: sorted(p.name for p in build.sources(n)) for n in build.KERNELS}
@@ -55,7 +55,6 @@ def test_the_ports_kernels_share_one_header():
         "flash_attention": ["flash_attention.cu", "hopper.cuh"],
         "group_norm": ["group_norm.cu", "hopper.cuh"],
         "conv3x3_f32": ["conv3x3_f32.cu", "simt_f32.cuh"],
-        "flash_attention_f32": ["flash_attention_f32.cu", "simt_f32.cuh"],
         "conv3x3_tf32x3": ["conv3x3_tf32x3.cu", "hopper.cuh", "tf32x3.cuh"],
         "flash_attention_tf32x3": ["flash_attention_tf32x3.cu", "hopper.cuh", "tf32x3.cuh"],
     }
@@ -131,31 +130,37 @@ def test_the_group_norm_variants_spec_is_in_step():
 
 
 def test_the_fp32_c_functions_take_the_plans_ints():
-    """The SIMT fp32 conv entries take the plan's channel tile (the grid is
-    one block per tile, computed in C); the 3xTF32 stride-2 entry both weight
-    copies, its padding, channel tile and grid; the fp32 attention entries the
-    strides and the scale (the 3xTF32 one a scratch pointer and its grid too);
-    every GroupNorm entry has a bf16 and an fp32 twin of one signature; the
-    SIMT fp32 sources issue no tensor-core instruction (TF32 alone is not
-    fp32; ``chip_smoke.py`` counts every built kernel's HMMA and HGMMA)."""
-    conv, attn, gn = (build.KERNELS[n] for n in ("conv3x3_f32", "flash_attention_f32",
-                                                  "group_norm"))
+    """The SIMT fp32 conv entries (the fused and the upsample conv) take the
+    plan's channel tile (the grid is one block per tile, computed in C); the
+    3xTF32 stride-1 and stride-2 entries both weight copies, the channel tile
+    and the grid (stride 2: its padding too); both 3xTF32 attention entries the
+    strides, the scale, a scratch pointer and the grid; every GroupNorm entry
+    has a bf16 and an fp32 twin of one signature; the SIMT fp32 source issues
+    no tensor-core instruction (TF32 alone is not fp32; ``chip_smoke.py``
+    counts every built kernel's HMMA and HGMMA), and the SIMT stride-1 conv and
+    D = 64 attention are gone from the build."""
+    conv, gn = build.KERNELS["conv3x3_f32"], build.KERNELS["group_norm"]
     tc_conv, tc_attn = build.KERNELS["conv3x3_tf32x3"], build.KERNELS["flash_attention_tf32x3"]
-    assert conv["conv3x3_f32"].count(build._I) == 7  # B, H, W, Cin, Cout, silu, bn
-    assert "conv3x3_down2_f32" not in conv  # the stride-2 conv is on the tensor cores
+    assert set(conv) == {"conv3x3_f32_smem_bytes", "conv3x3_fused_f32", "conv3x3_up2_f32"}
+    assert "flash_attention_f32" not in build.KERNELS
+    assert not (build.CSRC / "flash_attention_f32.cu").exists()
+    assert tc_conv["conv3x3_tf32x3"].count(build._I) == 8  # ..., silu, bn, grid
+    assert tc_conv["conv3x3_tf32x3"].count(build._P) == 6  # x, w hi, w lo, bias, out, stream
     assert tc_conv["conv3x3_down2_tf32x3"].count(build._I) == 9  # ..., silu, pad, bn, grid
     assert tc_conv["conv3x3_down2_tf32x3"].count(build._P) == 6  # x, w hi, w lo, bias, out
+    assert tc_conv["conv3x3_tf32x3_geometry"] == [build._I] * 3  # stride, bn, which
     assert conv["conv3x3_fused_f32"].count(build._P) == 8  # 7 tensors and the stream
-    assert attn["flash_attention_f32"].count(build._L) == 6
-    assert tc_attn["flash_attention_d512_tf32x3"].count(build._L) == 6
-    assert tc_attn["flash_attention_d512_tf32x3"].count(build._P) == 6  # q, k, v, out, scratch
+    for d in (64, 512):
+        entry = tc_attn[f"flash_attention_d{d}_tf32x3"]
+        assert entry.count(build._L) == 6 and entry.count(build._P) == 6  # q, k, v, out, scratch
+        assert tc_attn[f"flash_d{d}_tf32x3_geometry"] == [build._I]
     for name, args in gn.items():
         twin = name.replace("_bf16", "_f32") if name.endswith("_bf16") else name.replace(
             "_f32", "_bf16")
         assert gn[twin] == args
-    for lib in ("conv3x3_f32", "flash_attention_f32"):
-        text = (build.CSRC / f"{lib}.cu").read_text()
-        assert "mma." not in text and "mma_async" not in text  # no mma.sync, no wgmma
+    text = (build.CSRC / "conv3x3_f32.cu").read_text()
+    assert "mma." not in text and "mma_async" not in text  # no mma.sync, no wgmma
+    assert "CONV = 0" not in text and 'extern "C" int conv3x3_f32(' not in text
 
 
 def test_the_conv_f32_variants_spec_is_in_step():

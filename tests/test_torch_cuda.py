@@ -28,11 +28,13 @@ the same way at fp32, TF32 off, with ``chip_smoke.py``'s fp32 tolerances:
 every conv mode at ragged shapes and each channel tile, attention at both
 head dims, GroupNorm and its statistics with a large mean offset, the same
 bits twice, and the tiny editor in fp32 on graphs against its eager arm.
-The two fp32 kernels on the tensor cores (3xTF32: the stride-2 conv and the
-D = 512 attention) are also held against fp64 within ``chip_smoke.py``'s gate
-(8x the plain fp32 version's error, which single-pass TF32 exceeds), at
-ragged Cin and through strides; their shared-memory mirrors, the weight
-split's bits and a CUDA graph's replays against the eager calls.
+The four fp32 kernels on the tensor cores (3xTF32: the stride-1 and stride-2
+convs, the D = 64 and D = 512 attention) are also held against fp64 within
+``chip_smoke.py``'s gate (8x the plain fp32 version's error, which
+single-pass TF32 exceeds), at ragged Cin, Cout 3, 4 and 96 and through
+strides; their shared-memory mirrors, the weight split's bits, a CUDA
+graph's replays against the eager calls, and the stride-1 conv's refusal of
+an fp32 call without the weight's split.
 """
 
 import pytest
@@ -667,10 +669,10 @@ def _f32_close(out, ref):
 @pytest.mark.parametrize(
     "n,h,w,cin,cout",
     [
-        (2, 13, 37, 96, 320),  # ragged H and W, Cin 96, the 64-wide tile
-        (1, 16, 32, 64, 256),  # the 128-wide tile where the grid allows it
-        (2, 8, 8, 72, 3),  # Cout 3 (the 16-wide tile), images smaller than a tile
-        (1, 24, 40, 128, 200),  # ragged Cout on the 64-wide tile
+        (2, 13, 37, 96, 320),  # ragged H and W, Cin 96; SIMT: the 64-wide tile
+        (1, 16, 32, 64, 256),  # SIMT: the 128-wide tile where the grid allows it
+        (2, 8, 8, 72, 3),  # Cout 3 (3xTF32: the 8-wide tile), images smaller than a tile
+        (1, 24, 40, 128, 200),  # ragged Cout on the 80-wide (SIMT: 64-wide) tile
     ],
 )
 def test_f32_conv_kernel_matches_plain(gen, mode, n, h, w, cin, cout):
@@ -679,7 +681,8 @@ def test_f32_conv_kernel_matches_plain(gen, mode, n, h, w, cin, cout):
     x, wt, bias = _f32_conv(gen, n, h, w, cin, cout)
     before = dict(conv=k.launches_f32, **cf.launches)
     if mode == "conv":
-        out, ref = k.conv3x3(x, wt, bias, "silu"), k.conv3x3_plain(x, wt, bias, "silu")
+        out = k.conv3x3(x, wt, bias, "silu", w_split=cf.split_tf32(wt))
+        ref = k.conv3x3_plain(x, wt, bias, "silu")
     elif mode == "fused":
         pb = torch.randn((n, cout), generator=gen, device="cuda")
         pre = (torch.rand((n, cin), generator=gen, device="cuda") + 0.5,
@@ -786,13 +789,42 @@ def test_tf32x3_down2_passes_the_fp64_gate(gen, n, h, w, cin, cout, asymmetric):
                tf32x3.conv3x3_down2_plain(x, wt, bias, asymmetric=asymmetric, passes=1), ref64)
 
 
-@pytest.mark.parametrize("b,sq,skv,scale", [(1, 128, 256, 512**-0.5), (2, 384, 128, 0.1),
-                                            (1, 1024, 1024, 512**-0.5)])
-def test_tf32x3_attention_passes_the_fp64_gate(gen, b, sq, skv, scale):
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 64, 64, 320, 320), (1, 32, 48, 96, 96),
+                                            (2, 16, 40, 72, 4), (1, 24, 16, 104, 200),
+                                            (1, 64, 64, 128, 3), (2, 8, 8, 1280, 640)])
+def test_tf32x3_conv_passes_the_fp64_gate(gen, n, h, w, cin, cout):
+    import torch.nn.functional as F
+
     from fastedit_tpu_torch.ops import tf32x3
 
-    q = torch.randn((b, sq, 1, 512), generator=gen, device="cuda")
-    kv = torch.randn((b, skv, 2, 1, 512), generator=gen, device="cuda")  # through strides
+    x, wt, bias = _f32_conv(gen, n, h, w, cin, cout)
+    ref64 = F.conv2d(x.double().permute(0, 3, 1, 2), wt.double(), bias.double(),
+                     padding=1).permute(0, 2, 3, 1)
+    out = k.conv3x3(x, wt, bias, w_split=cf.split_tf32(wt))
+    plain = k.conv3x3_plain(x, wt, bias)
+    _f32_close(out, plain)
+    _fp64_gate(out, plain, tf32x3.conv3x3_plain(x, wt, bias, passes=1), ref64)
+
+
+def test_tf32x3_conv_refuses_an_fp32_call_without_the_split(gen):
+    x, wt, bias = _f32_conv(gen, 1, 16, 16, 64, 64)
+    with pytest.raises(ValueError, match="w_split"):
+        k.conv3x3(x, wt, bias)
+    with pytest.raises(ValueError, match="w_split"):
+        k.conv3x3(x, wt, bias, w_split=(wt, wt.contiguous()))  # OIHW memory, not channels_last
+
+
+@pytest.mark.parametrize("b,sq,skv,h,d,scale", [(1, 128, 256, 1, 512, 512**-0.5),
+                                                (2, 384, 128, 1, 512, 0.1),
+                                                (1, 1024, 1024, 1, 512, 512**-0.5),
+                                                (1, 256, 128, 3, 64, 0.125),
+                                                (2, 256, 384, 2, 64, 0.3),
+                                                (1, 1024, 1024, 4, 64, 0.125)])
+def test_tf32x3_attention_passes_the_fp64_gate(gen, b, sq, skv, h, d, scale):
+    from fastedit_tpu_torch.ops import tf32x3
+
+    q = torch.randn((b, sq, h, d), generator=gen, device="cuda")
+    kv = torch.randn((b, skv, 2, h, d), generator=gen, device="cuda")  # through strides
     kk, v = kv[:, :, 0], kv[:, :, 1]
     qd, kd, vd = (t.double().transpose(1, 2) for t in (q, kk, v))
     ref64 = (torch.softmax((qd @ kd.transpose(-1, -2)) * scale, -1) @ vd).transpose(1, 2)
@@ -806,14 +838,23 @@ def test_tf32x3_geometry_mirrors_the_plans(gen):
 
     conv = library("conv3x3_tf32x3")
     for bn in (64, 80):
-        assert [conv.conv3x3_down2_tf32x3_geometry(bn, i) for i in (0, 1, 2)] == \
-            [k.smem_bytes_down2_f32(bn), k.down2_f32_weight_stages(bn), 32]
-    assert conv.conv3x3_down2_tf32x3_geometry(160, 0) == -1
+        assert [conv.conv3x3_tf32x3_geometry(2, bn, i) for i in (0, 1, 2, 3)] == \
+            [k.smem_bytes_down2_f32(bn), k.down2_f32_weight_stages(bn), 32,
+             k.DOWN2_PLANE_STAGES]
+    for bn in k.CONV_F32_BN:
+        pl = k.plan(2, 64, 64, 320, bn, itemsize=4)
+        assert pl.bn == bn
+        assert [conv.conv3x3_tf32x3_geometry(1, bn, i) for i in (0, 1, 2, 3)] == \
+            [pl.smem_bytes, pl.weight_stages, pl.chunk, pl.halo_stages]
+    assert conv.conv3x3_tf32x3_geometry(2, 160, 0) == conv.conv3x3_tf32x3_geometry(1, 16, 0) == -1
     attn = library("flash_attention_tf32x3")
     pl = fa.plan_f32(1, 16384, 16384, 1, 512)
     assert [attn.flash_d512_tf32x3_geometry(i) for i in range(1, 8)] == [
         pl.bkv, pl.stages, pl.smem_bytes, pl.v_stages, pl.v_keys, pl.bq,
         fa.TF32X3_FRAG_FLOATS + pl.bq]
+    pl = fa.plan_f32(2, 1024, 1024, 20, 64)
+    assert [attn.flash_d64_tf32x3_geometry(i) for i in (1, 2, 3, 6)] == [
+        pl.bkv, pl.stages, pl.smem_bytes, pl.bq]
 
 
 def test_tf32x3_split_kernel_gives_the_emulations_bits(gen):
@@ -831,14 +872,20 @@ def test_tf32x3_kernels_under_graph_replays_equal_eager(gen):
     w_split = cf.split_tf32(wt)
     q = torch.randn((1, 256, 1, 512), generator=gen, device="cuda")
     kk, v = (torch.randn((1, 256, 1, 512), generator=gen, device="cuda") for _ in range(2))
-    eager = (cf.conv3x3_down2(x, wt, bias, w_split=w_split), fa.flash_attention(q, kk, v))
+    q64, kk64, v64 = (torch.randn((2, 256, 3, 64), generator=gen, device="cuda")
+                      for _ in range(3))
+
+    def calls():
+        return (cf.conv3x3_down2(x, wt, bias, w_split=w_split), fa.flash_attention(q, kk, v),
+                k.conv3x3(x, wt, bias, w_split=w_split), fa.flash_attention(q64, kk64, v64))
+
+    eager = calls()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=side):
-            outs = (cf.conv3x3_down2(x, wt, bias, w_split=w_split),
-                    fa.flash_attention(q, kk, v))
+            outs = calls()
     torch.cuda.current_stream().wait_stream(side)
     for _ in range(2):
         graph.replay()

@@ -1,18 +1,22 @@
 """The fp32 quality mode's kernels, held on the CPU.
 
 In fp32 every kernel call of the edit goes to the kernel's fp32 instance
-(``csrc/conv3x3_f32.cu``, ``csrc/flash_attention_f32.cu``, the fp32 entries
-of ``csrc/group_norm.cu``).  This file holds:
+(``csrc/conv3x3_tf32x3.cu`` for the stride-1 and stride-2 convs,
+``csrc/conv3x3_f32.cu`` for the fused and upsample ones,
+``csrc/flash_attention_tf32x3.cu``, the fp32 entries of
+``csrc/group_norm.cu``).  This file holds:
 
-* each fp32 schedule (``conv3x3.plan_f32`` in its four modes,
-  ``flash_attention.plan_f32``, ``fused_groupnorm.plan`` at item size 4) at
-  every shape the SSD-1B and SDXL edit paths at 1024² give it: every output
-  once, shared memory within the 227 KB a block may use;
-* the PyTorch walks of those schedules (``conv_tiled_plain_f32`` and the
-  ``*_tiled_plain_f32`` wrappers, ``attention_tiled_plain_f32``,
-  ``group_norm_chunked_plain`` on the fp32 plan) against the JAX package's
-  Pallas kernels in interpret mode at fp32, on numpy-seeded inputs, with a
-  planted fault of each read against the same tolerance;
+* each fp32 schedule (the stride-1 conv's ``conv3x3.plan`` at item size 4,
+  ``conv3x3.plan_f32`` in its two modes, ``flash_attention.plan_f32``,
+  ``fused_groupnorm.plan`` at item size 4) at every shape the SSD-1B and SDXL
+  edit paths at 1024² give it: every output once, shared memory within the
+  227 KB a block may use;
+* the PyTorch walks of those schedules (``conv3x3_tiled_plain_f32``,
+  ``conv_tiled_plain_f32`` and the ``*_tiled_plain_f32`` wrappers,
+  ``attention_tiled_plain_f32``, ``group_norm_chunked_plain`` on the fp32
+  plan) against the JAX package's Pallas kernels in interpret mode at fp32,
+  on numpy-seeded inputs, with a planted fault of each read against the same
+  tolerance;
 * the routing: the port's gates do not depend on the dtype, so every call the
   JAX gates send to a kernel at item size 4 reaches that kernel's fp32
   instance; the extra calls are exactly those JAX's tile pickers refuse for
@@ -78,8 +82,9 @@ def _keys(kernel):
     return sorted({key for (name, key) in CALLS if name == kernel}, key=str)
 
 
-# the SIMT kernel's modes (the stride-2 conv's fp32 plan is plan_down2 at item
-# size 4: tests/test_torch_tf32x3.py)
+# "conv": the stride-1 conv's 3xTF32 plan (``plan`` at item size 4); "fused" and
+# "up2": the SIMT kernel's modes (the stride-2 conv's fp32 plan is plan_down2 at
+# item size 4: tests/test_torch_tf32x3.py)
 CONV_CASES = ([("conv", key[:5], False) for key in _keys("conv3x3_f32")]
               + [("fused", key[:5], False) for key in _keys("conv3x3_fused_f32")]
               + [("up2", key, False) for key in _keys("conv3x3_up2_f32")])
@@ -98,7 +103,11 @@ def _cover(pl, shape, mode):
     the output, and the blocks' outputs summing to the output's size (an
     up2 block writes one phase: every other pixel of every other row)."""
     b, h, w, cin, cout = shape
-    tb, y0, x0, n0, phase = pl.tile_at(np.arange(pl.tiles))
+    if mode == "conv":
+        tb, y0, x0, n0 = k.tile_at(pl, np.arange(pl.tiles))
+        phase = np.zeros_like(tb)
+    else:
+        tb, y0, x0, n0, phase = pl.tile_at(np.arange(pl.tiles))
     ho, wo = (h // 2, w // 2) if mode == "down2" else (h, w)  # low-res for up2
     rows = np.minimum(ho, y0 + pl.rect[0]) - y0
     cols = np.minimum(wo, x0 + pl.rect[1]) - x0
@@ -116,6 +125,11 @@ def _cover(pl, shape, mode):
                               for m, s, a in CONV_CASES])
 def test_conv_plan_f32_covers_the_call(mode, shape, asym):
     b, h, w, cin, cout = shape
+    if mode == "conv":  # the 3xTF32 instance (its tiles: tests/test_torch_tf32x3.py)
+        pl = k.plan(b, h, w, cin, cout, itemsize=4)
+        assert pl.chunk == 32 and not asym
+        _cover(pl, shape, mode)
+        return
     pl = k.plan_f32(b, h, w, cin, cout, mode)
     assert pl.mode == mode and pl.bn in k.F32_BN and pl.rect == (8, 16)
     assert pl.tiles_n * pl.bn >= cout > (pl.tiles_n - 1) * pl.bn
@@ -130,17 +144,25 @@ def test_conv_plan_f32_covers_the_call(mode, shape, asym):
 
 
 def test_conv_plan_f32_choices():
-    assert k.plan_f32(2, 128, 128, 320, 320).bn == 64  # 320 = 5 x 64
-    assert k.plan_f32(2, 64, 64, 640, 640).bn == 128  # 640 tiles of 128 fill two rounds
-    assert k.plan_f32(2, 32, 32, 1280, 1280).bn == 64  # 160 tiles of 128 would not
-    assert k.plan_f32(1, 1024, 1024, 128, 3).bn == 16
-    assert k.plan_f32(1, 1024, 1024, 128, 128).tiles == 64 * 128
+    # the stride-1 conv: the 3xTF32 instance's tiles of 80, 64, 48 or 8 channels
+    assert k.plan(2, 128, 128, 320, 320, itemsize=4).bn == 80  # 320 = 4 x 80
+    assert k.plan(2, 64, 64, 640, 640, itemsize=4).bn == 80
+    assert k.plan(2, 32, 32, 1280, 1280, itemsize=4).tiles == 256  # 16 rectangles x 16
+    assert k.plan(1, 256, 256, 96, 96, itemsize=4).bn == 48  # 96 = 2 x 48, no column empty
+    assert k.plan(1, 1024, 1024, 128, 3, itemsize=4).bn == 8
+    assert k.plan(1, 1024, 1024, 128, 128, itemsize=4).tiles == 64 * 128 * 2
+    assert k.smem_bytes_conv_f32(80) == 1024 + 3 * 23 * 1024 + 7 * 2 * 80 * 128 + 8 * (6 + 14)
+    # the SIMT kernel's fused and upsample modes
+    assert k.plan_f32(2, 32, 32, 1280, 1280, "fused").bn == 64  # 160 tiles of 128 would not fill
+    assert k.plan_f32(2, 64, 64, 640, 640, "fused").bn == 128
+    assert k.plan_f32(1, 1024, 1024, 128, 3, "fused").bn == 16
     assert k.plan_f32(2, 32, 32, 1280, 1280, "up2").tiles == 2 * 4 * 2 * 10 * 4
-    assert k.smem_bytes_f32("conv", 128) == 2 * (10 * 18 * 8 + 8 * 9 * 128) * 4
+    assert k.smem_bytes_f32("fused", 128) == 2 * (10 * 18 * 8 + 8 * 9 * 128) * 4
     with pytest.raises(ValueError):
         k.plan_f32(1, 8, 8, 60, 64)  # Cin not a multiple of the chunk
-    with pytest.raises(ValueError):
-        k.plan_f32(1, 8, 8, 64, 64, "down2")  # the stride-2 conv is the 3xTF32 kernel's
+    for mode in ("conv", "down2"):  # the stride-1 and stride-2 convs are the 3xTF32 kernel's
+        with pytest.raises(ValueError):
+            k.plan_f32(1, 8, 8, 64, 64, mode)
     with pytest.raises(ValueError):
         k.plan_f32(1, 8, 8, 64, 64, "stride3")
 
@@ -157,9 +179,8 @@ def test_attention_plan_f32_covers_the_call(key):
     tb, th, q0 = pl.tile_at(t)
     assert len(set(zip(tb.tolist(), th.tolist(), q0.tolist()))) == pl.tiles == b * h * sq // pl.bq
     assert q0.max() + pl.bq == sq and tb.max() == b - 1 and th.max() == h - 1
-    assert pl.smem_bytes <= SMEM_LIMIT
-    if d == 64:
-        assert 3 * (pl.smem_bytes + 1024) <= SMEM_PER_SM  # three blocks per SM
+    assert pl.smem_bytes == fa.smem_bytes_f32(d) <= SMEM_LIMIT
+    assert pl.grid == min(pl.tiles, fa.H100_SMS)  # persistent blocks
 
 
 def test_attention_plan_f32_shapes():
@@ -169,9 +190,13 @@ def test_attention_plan_f32_shapes():
     assert big.smem_bytes == fa.smem_bytes_f32(512) == 231_088
     # hi and lo of Q, K and V^T; per block P's fragments and rescale factors of 256 KV tiles
     assert big.scratch_floats == 2 * 3 * 16384 * 512 + 132 * 256 * (64 * 64 + 64)
-    assert fa.plan_f32(1, 4096, 4096, 8, 64).grid == fa.plan_f32(1, 4096, 4096, 8, 64).tiles
+    small = fa.plan_f32(1, 4096, 4096, 8, 64)  # 3xTF32: 128-row tiles, persistent blocks
+    assert (small.bq, small.tiles, small.grid, small.kv_tiles) == (128, 256, 132, 64)
+    assert small.smem_bytes == fa.smem_bytes_f32(64) == 1024 + 2 * 32768 + 5 * 32768 + 8 * 12
     with pytest.raises(ValueError):
         fa.plan_f32(1, 96, 128, 1, 64)
+    with pytest.raises(ValueError):
+        fa.plan_f32(1, 192, 128, 1, 64)  # not a multiple of the 128-row tile
     with pytest.raises(ValueError):
         fa.plan_f32(1, 128, 128, 1, 128)
 
@@ -230,9 +255,9 @@ def _hwio(w_oihw):
 t = torch.from_numpy
 # JAX's kernels take widths that are multiples of 8 only.
 JAX_SHAPES = [
-    (2, 8, 8, 64, 200),  # two images smaller than a tile, ragged Cout (64-wide tiles)
-    (1, 8, 16, 72, 3),  # Cin 72 (nine chunks), Cout 3 (the 16-wide tile)
-    (1, 16, 24, 96, 128),  # past one rectangle both ways, the 128-wide tile
+    (2, 8, 8, 64, 200),  # two images smaller than a tile, ragged Cout (SIMT: 64-wide tiles)
+    (1, 8, 16, 72, 3),  # Cin 72 (3xTF32: a last chunk of 8; SIMT: nine chunks), Cout 3
+    (1, 16, 24, 96, 128),  # past one rectangle both ways (SIMT: the 128-wide tile)
 ]
 
 
@@ -248,10 +273,10 @@ def test_conv_walk_f32_matches_jax_conv3x3(shape):
     with jflags.override(pallas_interpret=True):
         ref = np.asarray(jconv3x3.conv3x3(jnp.asarray(x), jnp.asarray(_hwio(wt)),
                                           bias=jnp.asarray(bias), act="silu"))
-    out = k.conv_tiled_plain_f32(t(x), k.weight_rows(t(wt)), t(bias), act="silu")
+    out = k.conv3x3_tiled_plain_f32(t(x), t(wt), t(bias), act="silu")
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
-    _far_outside(k.conv_tiled_plain_f32(t(x), k.weight_rows(t(wt)), t(bias), act="silu",
-                                        chunks_skipped=1).numpy(), ref)
+    _far_outside(k.conv3x3_tiled_plain_f32(t(x), t(wt), t(bias), act="silu",
+                                           chunks_skipped=1).numpy(), ref)
 
 
 @pytest.mark.parametrize("shape", JAX_SHAPES, ids=lambda s: "x".join(map(str, s)))
@@ -317,7 +342,7 @@ def test_conv_walk_f32_equals_the_plain_versions(shape, mode):
     x, wt, bias, pre, sk = _operands(44, *shape, per_batch_bias=mode == "fused")
     x, wt, bias, sk, pre = t(x), t(wt), t(bias), t(sk), tuple(map(t, pre))
     if mode == "conv":
-        out = k.conv_tiled_plain_f32(x, k.weight_rows(wt), bias, act="silu")
+        out = k.conv3x3_tiled_plain_f32(x, wt, bias, act="silu")
         ref = k.conv3x3_plain(x, wt, bias, "silu")
     elif mode == "fused":
         out = cf.conv3x3_fused_tiled_plain_f32(x, wt, bias, pre, "silu", sk)

@@ -1,8 +1,9 @@
 """The fp32 tensor-core kernels' arithmetic (3xTF32), held on the CPU.
 
-The stride-2 conv and the 512-dim attention of the fp32 path take every fp32
-product as three TF32 products on ``wgmma`` (``csrc/conv3x3_tf32x3.cu``,
-``csrc/flash_attention_tf32x3.cu``).  This file holds:
+The stride-1 and stride-2 convs and the 64- and 512-dim attention of the fp32
+path take every fp32 product as three TF32 products on ``wgmma``
+(``csrc/conv3x3_tf32x3.cu``, ``csrc/flash_attention_tf32x3.cu``).  This file
+holds:
 
 * the split (``ops/tf32x3.py``): rounding to TF32 (ties away from zero) and
   the tensor cores' truncation, as bit operations on an int32 view, against
@@ -11,12 +12,17 @@ product as three TF32 products on ``wgmma`` (``csrc/conv3x3_tf32x3.cu``,
   their PyTorch emulation: against an fp64 reference, three products stay
   within 8x the plain fp32 version's error, single-pass TF32 (the lo products
   dropped) does not;
-* the kernels' schedules: ``plan_down2`` at item size 4 (chunks of 32
-  channels, channel tiles of 80 or 64) at every fp32 main-path shape, walked
-  by ``conv3x3_down2_tiled_plain_f32`` against the plain version and the JAX
-  package's stride-2 conv in interpret mode (also at a Cin that is no multiple
-  of 32); ``plan_f32`` at D = 512 (persistent blocks, the scratch's floats);
-* the ``tools/kernel_variants.py`` specs of both kernels, in step with the
+* the kernels' schedules: ``plan`` and ``plan_down2`` at item size 4
+  (chunks of 32 channels; channel tiles of 80, 64, 48 or 8, and of 80 or 64)
+  at every fp32 main-path shape, within 227 KB of shared memory and the
+  register-sized tiles, walked by ``conv3x3_tiled_plain_f32`` and
+  ``conv3x3_down2_tiled_plain_f32`` against the plain versions and the JAX
+  package's convs in interpret mode (also at a Cin that is no multiple of 32
+  and at Cout 4); ``plan_f32`` at D = 64 (128-row tiles, Q resident, the
+  order of V^T's keys that P's fragments take) and D = 512 (persistent
+  blocks, the scratch's floats), the D = 64 walk against JAX's kernel;
+* the conv modules' split weights, made again when the weights change;
+* the ``tools/kernel_variants.py`` specs of both libraries, in step with the
   sources.
 
 Tolerances: the gate's 8x (``chip_smoke.py``), and rtol = atol = 2e-4 (the
@@ -113,7 +119,21 @@ def test_conv_three_products_pass_the_fp64_gate_one_does_not(shape):
     assert 0 < plain and three <= GATE * plain < one
 
 
-@pytest.mark.parametrize("shape", [(1, 128, 256, 1, 512), (2, 128, 128, 2, 64)],
+@pytest.mark.parametrize("shape", [(1, 16, 16, 64, 32), (2, 16, 32, 72, 4), (1, 24, 16, 96, 96)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv_stride1_three_products_pass_the_fp64_gate_one_does_not(shape):
+    b, h, w, cin, cout = shape
+    x, wt, bias = (torch.from_numpy(a) for a in _operands(9, b, h, w, cin, cout))
+    ref = F.conv2d(x.double().permute(0, 3, 1, 2), wt.double(), padding=1)
+    ref = ref.permute(0, 2, 3, 1) + bias.double()
+    plain = _err(k.conv3x3_plain(x, wt, bias), ref)
+    three = _err(tf32x3.conv3x3_plain(x, wt, bias), ref)
+    one = _err(tf32x3.conv3x3_plain(x, wt, bias, passes=1), ref)
+    assert 0 < plain and three <= GATE * plain < one
+
+
+@pytest.mark.parametrize("shape", [(1, 128, 256, 1, 512), (2, 128, 128, 2, 64),
+                                   (1, 256, 128, 3, 64)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_attention_three_products_pass_the_fp64_gate_one_does_not(shape):
     b, sq, skv, h, d = shape
@@ -138,25 +158,28 @@ def test_the_split_refuses_what_it_does_not_take():
         assert torch.equal(got, want)
 
 
-def _down2_keys():
-    """Every (B, H, W, Cin, Cout, asymmetric) the fp32 stride-2 kernel takes
-    on the SSD-1B and SDXL edit paths at 1024², batch 1 and 2, default and
-    opt-in configurations."""
+def _keys(kernel, controlnets=(TC.SDXL_CONTROLNET_SMALL,)):
+    """Every shape key the fp32 kernel ``kernel`` takes on the SSD-1B and SDXL
+    edit paths at 1024², batch 1 and 2, default and opt-in configurations,
+    with each ControlNet of ``controlnets``."""
     from fastedit_tpu_torch.ops import flags as tflags
 
     keys = set()
     for unet in (TC.SSD1B_UNET, TC.SDXL_UNET):
-        for batch in (1, 2):
-            sites = inventory.edit_sites(unet, TC.SDXL_CONTROLNET_SMALL, TC.SDXL_VAE, 1024,
-                                         batch=batch, steps=3)
-            for override in ({}, dict(use_cuda_conv=True)):
-                with tflags.override(**override):
-                    calls = inventory.kernel_calls(sites, dtype=torch.float32)
-                keys |= {key for (name, key) in calls if name == "conv3x3_down2_f32"}
+        for cn in controlnets:
+            for batch in (1, 2):
+                sites = inventory.edit_sites(unet, cn, TC.SDXL_VAE, 1024, batch=batch, steps=3)
+                for override in ({}, dict(use_cuda_conv=True)):
+                    with tflags.override(**override):
+                        calls = inventory.kernel_calls(sites, dtype=torch.float32)
+                    keys |= {key for (name, key) in calls if name == kernel}
     return sorted(keys)
 
 
-DOWN2_KEYS = _down2_keys()
+DOWN2_KEYS = _keys("conv3x3_down2_f32")
+BOTH_CONTROLNETS = (TC.SDXL_CONTROLNET_SMALL, TC.SDXL_CONTROLNET_FULL)
+CONV_KEYS = _keys("conv3x3_f32", BOTH_CONTROLNETS)
+D64_KEYS = _keys("flash_attention_d64_f32", BOTH_CONTROLNETS)
 
 
 @pytest.mark.parametrize("key", DOWN2_KEYS, ids=lambda s: "x".join(map(str, s)))
@@ -227,10 +250,183 @@ def test_attention_plan_f32_d512_scratch_and_grid():
     assert fa.smem_bytes_f32(512) <= SMEM_LIMIT
 
 
+def _ssd1b_calls(controlnet, kernel):
+    """(shape key -> calls) of ``kernel`` per fp32 SSD-1B edit at 1024², batch
+    1, CFG, 3 steps run, default configuration."""
+    sites = inventory.edit_sites(TC.SSD1B_UNET, controlnet, TC.SDXL_VAE, 1024, batch=1, steps=3)
+    return {key: n for (name, key), n in inventory.kernel_calls(sites, dtype=torch.float32).items()
+            if name == kernel}
+
+
+@pytest.mark.parametrize("key", CONV_KEYS, ids=lambda s: "x".join(map(str, s)))
+def test_conv_plan_f32_stride1_covers_the_call(key):
+    """The stride-1 fp32 plan at every main-path shape: chunks of 32 channels
+    in halos of (8 + 2) x (16 + 2) pixels, a register-sized channel tile (the
+    tile's accumulators and a tap's fresh ones, 2 x bn / 2, with a tap's 32
+    fragment registers within the 168 a thread has: bn <= 80) that leaves the
+    fewest columns empty, every rectangle once, shared memory within 227 KB."""
+    b, h, w, cin, cout = key
+    pl = k.plan(b, h, w, cin, cout, itemsize=4)
+    assert pl.chunk == 32 and pl.box_x == (32, 18, 10, 1) and pl.box_w == (32, 1, pl.bn)
+    assert pl.bn in k.CONV_F32_BN and 2 * (pl.bn // 2) + 32 <= 168 - 32
+    empty = pl.tiles_n * pl.bn - cout
+    assert 0 <= empty < pl.bn
+    if cout > 8:
+        assert empty == min(-(-cout // n) * n - cout for n in (80, 64, 48))
+    assert pl.halo_stages == 3 and 7 <= pl.weight_stages == k.conv_f32_weight_stages(pl.bn) <= 8
+    assert pl.smem_bytes == k.smem_bytes_conv_f32(pl.bn) <= SMEM_LIMIT
+    rects = pl.rectangles(h, w)
+    assert len(rects) * b * pl.tiles_n == pl.tiles and pl.grid == min(pl.tiles, k.H100_SMS)
+    assert len(set(rects)) == len(rects) and all(y0 < h and x0 < w for y0, x0 in rects)
+    assert pl.tiles_y * pl.rect[0] >= h and pl.tiles_x * pl.rect[1] >= w
+
+
+def test_conv_plan_f32_stride1_main_path():
+    """The SSD-1B fp32 edit's stride-1 calls: 144 per edit, 9.829 TFLOP, the
+    same with the full ControlNet; Cout 4 and 3 on the 8-wide tile, Cout 96 on
+    48 (no column empty), every UNet width on 80; the 32² x 1280 calls are 256
+    tiles, 1.94 rounds of 132 blocks."""
+    for cn in BOTH_CONTROLNETS:
+        calls = _ssd1b_calls(cn, "conv3x3_f32")
+        assert sum(calls.values()) == 144
+        flops = sum(n * 2 * b * h * w * cout * 9 * cin for (b, h, w, cin, cout), n in calls.items())
+        assert round(flops / 1e12, 3) == 9.829
+    keys = set(CONV_KEYS)
+    assert {(2, 128, 128, 320, 4), (1, 1024, 1024, 128, 3), (1, 256, 256, 96, 96),
+            (2, 32, 32, 1280, 1280), (2, 32, 32, 2560, 1280), (2, 64, 64, 1920, 640)} <= keys
+    bns = {key: k.plan(*key, itemsize=4).bn for key in keys}
+    assert {bn for key, bn in bns.items() if key[4] in (320, 640, 1280)} == {80}
+    assert bns[(2, 128, 128, 320, 4)] == bns[(1, 1024, 1024, 128, 3)] == 8
+    assert bns[(1, 256, 256, 96, 96)] == 48
+    assert k.plan(2, 32, 32, 1280, 1280, itemsize=4).tiles == 256
+    assert {key[3] % 32 for key in keys} == {0}  # a ragged last chunk only off the main path
+    assert k.conv_f32_weight_stages(80) == 7 and k.conv_f32_weight_stages(64) == 8
+    with pytest.raises(ValueError):
+        k.plan(1, 16, 16, 64, 64, itemsize=8)
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 32, 72, 4), (2, 8, 24, 104, 80), (1, 16, 16, 96, 96)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv_walk_f32_stride1_at_a_ragged_cin_matches_jax(shape):
+    """Cin 72 and 104 end in a chunk of 8 channels: the walk zero-fills the
+    rest of it in both operands, as the kernel's loads do, and matches the
+    JAX package's conv (interpret mode, fp32), at Cout 4 (the 8-wide tile) too;
+    a skipped chunk is far outside."""
+    from fastedit_tpu.ops import conv3x3 as jconv3x3
+
+    x, wt, bias = _operands(12, *shape)
+    hwio = np.transpose(wt, (2, 3, 1, 0))
+    assert jconv3x3.supports(x.shape, hwio.shape, 4)
+    with jflags.override(pallas_interpret=True):
+        ref = np.asarray(jconv3x3.conv3x3(jnp.asarray(x), jnp.asarray(hwio),
+                                          bias=jnp.asarray(bias), act="silu"))
+    t = torch.from_numpy
+    out = k.conv3x3_tiled_plain_f32(t(x), t(wt), t(bias), "silu")
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    np.testing.assert_allclose(out.numpy(), k.conv3x3_plain(t(x), t(wt), t(bias), "silu").numpy(),
+                               **ORDER_TOL)
+    short = k.conv3x3_tiled_plain_f32(t(x), t(wt), t(bias), "silu", chunks_skipped=1)
+    assert float(np.abs(short.numpy() - ref).max()) > 100 * 2e-4
+
+
+@pytest.mark.parametrize("key", D64_KEYS, ids=lambda s: "x".join(map(str, s)))
+def test_attention_plan_f32_d64_keeps_q_resident(key):
+    """The D = 64 fp32 plan at every main-path shape: 128-row tiles whose Q in
+    hi and lo (64 KB) stays in shared memory beside a ring of five 32 KB K / V
+    stages, within 227 KB; persistent blocks; the scratch holds the hi and lo
+    copies of Q, K and V^T."""
+    b, sq, skv, h, d = key
+    pl = fa.plan_f32(b, sq, skv, h, d)
+    assert (pl.bq, pl.bkv, pl.stages) == (128, 64, 5) and pl.q_tiles * 128 == sq
+    assert pl.smem_bytes == 1024 + 2 * 128 * 64 * 4 + 5 * 2 * 64 * 64 * 4 + 8 * 12 <= SMEM_LIMIT
+    assert pl.tiles == b * h * sq // 128 and pl.grid == min(pl.tiles, 132)
+    assert pl.scratch_floats == 2 * b * h * (sq + 2 * skv) * 64
+
+
+def test_attention_plan_f32_d64_main_path():
+    """The SSD-1B fp32 edit's 64-dim calls: 102 per edit (2.899 TFLOP) with the
+    small ControlNet, 204 (4.896 TFLOP) in quality mode."""
+    for cn, calls_edit, tflop in ((TC.SDXL_CONTROLNET_SMALL, 102, 2.899),
+                                  (TC.SDXL_CONTROLNET_FULL, 204, 4.896)):
+        calls = _ssd1b_calls(cn, "flash_attention_d64_f32")
+        assert sum(calls.values()) == calls_edit
+        flops = sum(n * 4 * b * h * sq * skv * d for (b, sq, skv, h, d), n in calls.items())
+        assert round(flops / 1e12, 3) == tflop
+    assert {(2, 1024, 1024, 20, 64), (2, 4096, 4096, 10, 64)} <= set(D64_KEYS)
+
+
+def test_attention_d64_key_order_is_the_fragment_layout():
+    """P's A fragments come straight from S's accumulators: thread t of a
+    quad holds S's columns 2 (t % 4) and + 1 of each 8-key k step
+    (accumulator layout), and an A fragment at .tf32 takes columns t % 4 and
+    t % 4 + 4 of the k step.  So slot t % 4 must hold key 2 (t % 4) and slot
+    t % 4 + 4 key 2 (t % 4) + 1, which is the order the prologue writes V^T in;
+    a walk in that order equals the plain version."""
+    order = fa.plan_f32(1, 128, 128, 1, 64).key_order
+    for q in range(4):
+        assert (order[q], order[q + 4]) == (2 * q, 2 * q + 1)
+    assert fa.plan_f32(1, 128, 128, 1, 512).key_order == tuple(range(8))
+    q, kk, v = (torch.from_numpy(a) for a in _qkv(13, 1, 128, 192, 2, 64))
+    np.testing.assert_allclose(fa.attention_tiled_plain_f32(q, kk, v).numpy(),
+                               fa.attention_plain(q, kk, v).numpy(), **ORDER_TOL)
+
+
+def _qkv(seed, b, sq, skv, h, d):
+    r = np.random.default_rng(seed)
+    return tuple(r.standard_normal((b, s, h, d)).astype(np.float32) for s in (sq, skv, skv))
+
+
+@pytest.mark.parametrize("shape", [(2, 128, 256, 3, 64), (1, 256, 128, 2, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_attention_walk_f32_d64_matches_jax(shape):
+    """The D = 64 walk (128-row tiles, P V over the keys in the fragments'
+    order) against the JAX package's head-packed kernel in interpret mode;
+    a skipped KV tile is far outside."""
+    from fastedit_tpu.ops import flash_attention as jfa
+
+    q, kk, v = _qkv(14, *shape)
+    with jflags.override(pallas_interpret=True):
+        ref = np.asarray(jfa.flash_attention(*map(jnp.asarray, (q, kk, v))))
+    t = torch.from_numpy
+    out = fa.attention_tiled_plain_f32(t(q), t(kk), t(v))
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    short = fa.attention_tiled_plain_f32(t(q), t(kk), t(v), kv_tiles_skipped=1)
+    assert float(np.abs(short.numpy() - ref).max()) > 0.05
+
+
+def test_conv3x3_split_is_made_again_after_load_state_dict():
+    """``Conv3x3`` keeps the weight's TF32 hi and lo copies (the fp32
+    kernel's operands) until the weight changes: the same tensors while it
+    stands, new ones after ``load_state_dict`` or an in-place write, each the
+    split of the weight it then holds."""
+    from fastedit_tpu_torch.models import resnet
+
+    torch.manual_seed(0)
+    conv = resnet.Conv3x3(64, 32)
+    w = conv.weight.contiguous(memory_format=torch.channels_last)
+    first = resnet._tf32_split(conv, w)
+    assert resnet._tf32_split(conv, w) is first
+    for got, want in zip(first, tf32x3.split_tf32(conv.weight.detach()), strict=True):
+        assert torch.equal(got, want)
+    conv.load_state_dict({"weight": torch.randn(32, 64, 3, 3), "bias": torch.zeros(32)})
+    w = conv.weight.contiguous(memory_format=torch.channels_last)
+    second = resnet._tf32_split(conv, w)
+    assert second is not first and not torch.equal(second[0], first[0])
+    for got, want in zip(second, tf32x3.split_tf32(conv.weight.detach()), strict=True):
+        assert torch.equal(got, want)
+    with torch.no_grad():
+        conv.weight.mul_(2.0)
+    assert resnet._tf32_split(conv, w)[0] is not second[0]
+
+
 @pytest.mark.parametrize("spec_name", ["variants_conv_tf32x3.py", "variants_flash_tf32x3.py"])
 def test_the_tf32x3_variants_specs_are_in_step(spec_name):
-    """Each spec's replacements (the sums in the tensor cores' accumulators,
-    single-pass TF32, Q split in registers) are found in its source."""
+    """Each spec's replacements (the sums in the tensor cores' accumulators and
+    single-pass TF32, for every kernel of the library; the conv's halo ring;
+    the D = 512 attention's Q split in registers and ring depths) are found in
+    its source, and the variants that change the sums or the passes reach
+    every kernel: both conv strides share one core, and the attention spec
+    changes the D = 64 kernel's helpers and the D = 512 kernel's body."""
     from fastedit_tpu_torch.tools import kernel_variants as kv
 
     spec: dict = {}
@@ -241,3 +437,9 @@ def test_the_tf32x3_variants_specs_are_in_step(spec_name):
     assert {"tensor_core_sums", "single_pass"} <= set(spec["VARIANTS"])
     for name, replacements in spec["VARIANTS"].items():
         assert (kv.apply(source, replacements) != source) == bool(replacements), name
+    if spec["LIBRARY"] == "flash_attention_tf32x3":  # D = 64's S (helper or call), D = 512's
+        for name, d64 in (("tensor_core_sums", "s_panel(part"), ("single_pass", "(d, dql")):
+            olds = "".join(old for old, _ in spec["VARIANTS"][name])
+            assert d64 in olds and "(s, dql" in olds, name
+    else:
+        assert "conv_tiles<BN, false>" in source and "conv_tiles<BN, true>" in source
