@@ -22,9 +22,10 @@ order; a failed phase raises and the script exits non-zero:
    less than the host takes to enqueue it), the plain version eagerly.
    Each kernel also reads a planted fault in its plain version (attention:
    the last KV tile of the kernel's plan skipped; fused conv: the padding
-   ring not re-zeroed; both stride-1 convs at batch 2: the halo row above an
-   image read from the neighbouring image, as a tile that straddles two
-   images would; up2: one phase's tap rows swapped; down2: the other padding;
+   ring not re-zeroed; both stride-1 convs and up2 at batch 2: the halo row
+   above an image read from the neighbouring image, as a tile that straddles
+   two images would; up2: one phase's tap rows swapped; down2: the other
+   padding;
    GroupNorm and its statistics launch alone: a one-pass variance on an
    input with |mean| >> std), which the tolerance must reject; a GroupNorm
    call must run two device kernels (one on its resident route), a
@@ -34,21 +35,22 @@ order; a failed phase raises and the script exits non-zero:
    Then the same in fp32 for each kernel's fp32 instance (``<kernel>_f32``)
    at every distinct shape of the fp32 path (an ``edit``, an ``edit_batch``
    of two and a quality-mode edit), on seeded random fp32 inputs with TF32
-   off, with the same planted faults, the fp32 tolerance, the bound at the
-   fp32 rate outside the tensor cores (67 TFLOP/s) and fp32 library calls
-   (``F.conv2d``, SDPA); fewer repeats (a graph of 5 calls, 3 eager calls).
-   The four fp32 kernels on the tensor cores (3xTF32: the stride-1 and the
-   stride-2 conv, the D = 64 and the D = 512 attention; the stride-1 conv on
-   the weight's TF32 hi and lo copies, split once as the conv modules split
-   them) are also held against an fp64 reference computed on the card, within
-   8x the plain fp32 version's max |err| against it, and the single-pass TF32
-   emulation (``ops/tf32x3.py``, the lo products dropped) must fall outside
-   that limit at every shape; their bound counts three TF32 operations per
-   fp32 one at 494.7 TFLOP/s (the SIMT bound beside it).  Before all that,
-   every kernel of every library is held to the tensor-core rule by name: the
-   bf16 kernels and the four 3xTF32 ones hold HGMMA, no kernel holds HMMA,
-   every other kernel (the SIMT fp32 one among them) no tensor-core
-   instruction at all.
+   off, with the same planted faults, the fp32 tolerance and fp32 library
+   calls (``F.conv2d``, SDPA); fewer repeats (a graph of 5 calls, 3 eager
+   calls).  The six fp32 kernels on the tensor cores (3xTF32: the stride-1,
+   fused, upsample and stride-2 convs, the D = 64 and the D = 512 attention;
+   the convs on the TF32 hi and lo copies of the weight or of the upsample
+   conv's phase weights, split once as the conv modules split them) are also
+   held against an fp64 reference computed on the card, within 8x the plain
+   fp32 version's max |err| against it, and the single-pass TF32 emulation
+   (``ops/tf32x3.py``, the lo products dropped) must fall outside that limit
+   at every shape; their bound counts three TF32 operations per fp32 one at
+   494.7 TFLOP/s (the bound at the fp32 rate outside the tensor cores, 67
+   TFLOP/s, beside it), GroupNorm's at 67 TFLOP/s.  Before all that, every
+   kernel of every library is held to the tensor-core rule by name: the bf16
+   kernels and the six 3xTF32 ones hold HGMMA, no kernel holds HMMA, every
+   other kernel (the fp32 GroupNorm kernels, which must be built, among them)
+   no tensor-core instruction at all.
 3. The main path in the default configuration:
    ``FastEditor("ssd-1b", random_weights=True)`` at 1024², a warm-up, three
    ``edit()`` calls and one ``edit_batch`` of two images, on CUDA graphs
@@ -130,7 +132,7 @@ order; a failed phase raises and the script exits non-zero:
    ``plain_versions=True`` (within 1e-3 latent rel L2 and 0.5 LSB mean; a
    plain edit whose stride-1 convs skip their last chunk of 32 input
    channels, the fp32 kernel's, must fail those limits), and the card memory
-   the stride-1 conv's weight copies take.  Last, one quality-mode edit
+   the conv modules' TF32 weight copies take.  Last, one quality-mode edit
    (``use_full_controlnet=True``) with its launches against the inventory of
    the full ControlNet.
 
@@ -161,13 +163,14 @@ OUT_FILE = ROOT / "chiprun_out" / "chip_smoke.json"
 # bytes / bandwidth.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
-# fp32 outside the tensor cores, the rate of the fp32 kernels (SIMT FFMAs)
+# fp32 outside the tensor cores (FFMAs): the bound of an fp32 kernel that took
+# its products there, beside its 3xTF32 bound
 PEAK_F32_FLOPS = 67e12
 # dense TF32 on the tensor cores: the fp32 kernels on wgmma take every fp32
 # product as three TF32 products (3xTF32), so their bound is 3 x FLOPs at it
 PEAK_TF32_FLOPS = 494.7e12
-TF32X3_KERNELS = ("conv3x3_f32", "conv3x3_down2_f32", "flash_attention_d64_f32",
-                  "flash_attention_d512_f32")
+TF32X3_KERNELS = ("conv3x3_f32", "conv3x3_fused_f32", "conv3x3_up2_f32", "conv3x3_down2_f32",
+                  "flash_attention_d64_f32", "flash_attention_d512_f32")
 # The fp32 kernels on the tensor cores against an fp64 reference computed on
 # the card, at every main-path shape: their max |err| within 8x that of the
 # plain fp32 version (TF32 off), which single-pass TF32 (the lo products
@@ -261,8 +264,8 @@ def is_f32(kernel: str) -> bool:
 
 def kernel_peak(kernel: str) -> float:
     """The rate a kernel's operations are bounded by: bf16 at the bf16
-    tensor-core rate, the SIMT fp32 kernels at the fp32 rate, the 3xTF32 ones
-    at three TF32 operations per fp32 one."""
+    tensor-core rate, the 3xTF32 kernels at three TF32 operations per fp32
+    one, the other fp32 kernels (GroupNorm) at the fp32 rate."""
     if kernel in TF32X3_KERNELS:
         return PEAK_TF32_FLOPS / 3.0
     return PEAK_F32_FLOPS if is_f32(kernel) else PEAK_BF16_FLOPS
@@ -455,25 +458,24 @@ def plan_of(x, cout: int, down2_asymmetric=None, up2: bool = False,
             fused: bool = False) -> dict:
     """The conv kernel's schedule for this call (stride 1, fused, the
     upsample form, or stride 2 where ``down2_asymmetric`` says which padding),
-    as a row records it, for ``x``'s dtype: in fp32 the 3xTF32 kernel's for
-    stride 1 and 2 (``plan`` and ``plan_down2`` at item size 4), the SIMT
-    kernel's (``plan_f32``) for the fused and the upsample conv."""
-    import torch
+    as a row records it, for ``x``'s dtype (fp32: the 3xTF32 kernel's, the
+    plans at item size 4)."""
+    from fastedit_tpu_torch.ops.conv3x3 import plan_down2_for, plan_for, plan_up2_for
 
-    from fastedit_tpu_torch.ops.conv3x3 import (
-        plan_down2_for, plan_f32_for, plan_for, plan_up2_for)
-
-    f32 = x.dtype == torch.float32
     if down2_asymmetric is not None:
         pl = plan_down2_for(x, cout, down2_asymmetric)
-    elif f32 and (up2 or fused):
-        pl = plan_f32_for(x, cout, "up2" if up2 else "fused")
     elif up2:
         pl = plan_up2_for(x, cout)
     else:
-        pl = plan_for(x, cout)
+        pl = plan_for(x, cout, fused)
     return dict(rect=list(pl.rect), bn=pl.bn, tiles=pl.tiles, grid=pl.grid,
                 smem_bytes=pl.smem_bytes)
+
+
+def weight_bytes(taps: int, cin: int, cout: int, sfx: str) -> float:
+    """Bytes of the weights a conv kernel reads: bf16, or (fp32) the TF32 hi
+    and lo copies, 8 bytes a weight."""
+    return (8.0 if sfx else 2.0) * taps * cin * cout
 
 
 def neighbour_halo(xin, wt):
@@ -521,7 +523,8 @@ def compare_conv(calls: dict, gen, dtype=None) -> list[dict]:
             lambda: k.conv3x3(x, wt, bias, w_split=w_split), lambda: k.conv3x3_plain(x, wt, bias),
             lambda: F.conv2d(x_nchw, wt, bias_dt, padding=1),
             flops=2.0 * n * h * w * cout * 9 * cin,
-            nbytes=isz * (n * h * w * cin + 9 * cin * cout + n * h * w * cout) + 4.0 * cout,
+            nbytes=(isz * (n * h * w * cin + n * h * w * cout) + weight_bytes(9, cin, cout, sfx)
+                    + 4.0 * cout),
             faults=faults, extra=extra,
         ))
     return rows
@@ -569,12 +572,14 @@ def compare_fused(calls: dict, gen, dtype=None) -> list[dict]:
     """The fused resnet conv with its prologue, per-batch or shared bias
     and skip as the key says.  Fault: the prologue applied to the padded
     input, so the ring holds silu(shift) instead of zero.  Library: the
-    bare conv (``F.conv2d``), without the prologue and epilogue."""
+    bare conv (``F.conv2d``), without the prologue and epilogue.  fp32: the
+    3xTF32 kernel on the weight's TF32 hi and lo copies, split once as the
+    conv modules split them, and its fp64 gate."""
     import torch
     import torch.nn.functional as F
 
     from fastedit_tpu_torch.ops import conv_fused as cf
-
+    from fastedit_tpu_torch.ops import tf32x3
     from fastedit_tpu_torch.ops.conv3x3 import plan_for
 
     sfx, isz = _suffix(dtype)
@@ -606,15 +611,28 @@ def compare_fused(calls: dict, gen, dtype=None) -> list[dict]:
                 neighbour_halo(cf.prologue_plain(x, scale, shift), wt))
 
         x_nchw, bias_dt = x.permute(0, 3, 1, 2), bias.reshape(-1, cout)[0].to(x.dtype)
-        nbytes = (isz * (n * h * w * cin + 9 * cin * cout
-                         + n * h * w * cout * (2 if skip is not None else 1))
-                  + 4.0 * (bias.numel() + 2 * n * cin))
-        extra = dict(plan=plan_of(x, cout, fused=True))
-        if not sfx:
-            extra["prologue_exps"] = plan_for(x, cout).prologue_exps(n, h, w, cin)
+        nbytes = (isz * (n * h * w * cin + n * h * w * cout * (2 if skip is not None else 1))
+                  + weight_bytes(9, cin, cout, sfx) + 4.0 * (bias.numel() + 2 * n * cin))
+        extra = dict(plan=plan_of(x, cout, fused=True),
+                     prologue_exps=plan_for(x, cout, True).prologue_exps(n, h, w, cin))
+        w_split = cf.split_tf32(wt) if sfx else None
+        if sfx:
+            xin = F.silu(x.double() * scale.double()[:, None, None, :]
+                         + shift.double()[:, None, None, :])
+            ref64 = F.conv2d(xin.permute(0, 3, 1, 2), wt.double(), padding=1).permute(0, 2, 3, 1)
+            ref64 += bias.double()[:, None, None, :] if bias.dim() == 2 else bias.double()
+            if skip is not None:
+                ref64 += skip.double()
+            del xin
+            extra.update(fp64_gate(
+                f"conv3x3_fused_f32 {key}",
+                cf.conv3x3_fused(x, wt, bias, pre, skip=skip, w_split=w_split),
+                cf.conv3x3_fused_plain(x, wt, bias, pre, skip=skip),
+                tf32x3.conv3x3_fused_plain(x, wt, bias, pre, skip=skip, passes=1), ref64))
+            del ref64
         rows.append(hold(
             calls, "conv3x3_fused" + sfx, key,
-            lambda: cf.conv3x3_fused(x, wt, bias, pre, skip=skip),
+            lambda: cf.conv3x3_fused(x, wt, bias, pre, skip=skip, w_split=w_split),
             lambda: cf.conv3x3_fused_plain(x, wt, bias, pre, skip=skip),
             lambda: F.conv2d(x_nchw, wt, bias_dt, padding=1),
             flops=2.0 * n * h * w * cout * 9 * cin, nbytes=nbytes,
@@ -624,13 +642,16 @@ def compare_fused(calls: dict, gen, dtype=None) -> list[dict]:
 
 
 def compare_up2(calls: dict, gen, dtype=None) -> list[dict]:
-    """Fault: phase (1, 1) with its two tap rows swapped.  Library: the
-    materialised upsample and the conv, two calls (``repeat_interleave``
-    + ``F.conv2d``).  The kernel takes its phase weights folded once
-    (``fold_up2``), as on the main path."""
+    """Fault: phase (1, 1) with its two tap rows swapped; at batch 2 also the
+    halo row above an image taken from the neighbouring image.  Library: the
+    materialised upsample and the conv, two calls (``repeat_interleave`` +
+    ``F.conv2d``).  The kernel takes its phase weights folded once
+    (``fold_up2``; fp32: their TF32 hi and lo copies, ``split_up2``), as on the
+    main path; fp32 also the fp64 gate."""
     import torch.nn.functional as F
 
     from fastedit_tpu_torch.ops import conv_fused as cf
+    from fastedit_tpu_torch.ops import tf32x3
 
     sfx, isz = _suffix(dtype)
     rows = []
@@ -640,21 +661,40 @@ def compare_up2(calls: dict, gen, dtype=None) -> list[dict]:
         phases = cf.make_phase_kernels(wt)
         swapped = phases.clone()
         swapped[1, 1] = phases[1, 1].flip(0)
-        folded = cf.fold_up2(wt)  # once, as the upsampler modules fold them
+        # once, as the upsampler modules fold (fp32: and split) them
+        folded = cf.split_up2(wt) if sfx else cf.fold_up2(wt)
         x_nchw, bias_dt = x.permute(0, 3, 1, 2), bias.to(x.dtype)
+
+        def kern():
+            if sfx:
+                return cf.conv3x3_up2(x, wt, bias, w_split=folded)
+            return cf.conv3x3_up2(x, wt, bias, phases=folded)
 
         def library():
             up = x_nchw.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
             return F.conv2d(up, wt, bias_dt, padding=1)
 
+        faults = {"fault": lambda: cf.up2_phases_plain(x, swapped, bias)}
+        if n > 1:
+            faults["neighbour_halo"] = lambda: (neighbour_halo(
+                x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2), wt) + bias).to(x.dtype)
+        extra = dict(plan=plan_of(x, cout, up2=True))
+        if sfx:
+            up64 = x_nchw.double().repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+            ref64 = F.conv2d(up64, wt.double(), bias.double(), padding=1).permute(0, 2, 3, 1)
+            del up64
+            extra.update(fp64_gate(
+                f"conv3x3_up2_f32 {key}", kern(), cf.conv3x3_up2_plain(x, wt, bias),
+                tf32x3.conv3x3_up2_plain(x, wt, bias, passes=1), ref64))
+            del ref64
         rows.append(hold(
-            calls, "conv3x3_up2" + sfx, key,
-            lambda: cf.conv3x3_up2(x, wt, bias, phases=folded),
+            calls, "conv3x3_up2" + sfx, key, kern,
             lambda: cf.conv3x3_up2_plain(x, wt, bias),
             library, flops=32.0 * n * h * w * cin * cout,
-            nbytes=isz * (n * h * w * cin + 9 * cin * cout + 4 * n * h * w * cout) + 4.0 * cout,
-            faults={"fault": lambda: cf.up2_phases_plain(x, swapped, bias)},
-            extra=dict(plan=plan_of(x, cout, up2=True)),
+            nbytes=(isz * (n * h * w * cin + 4 * n * h * w * cout)
+                    + (weight_bytes(16, cin, cout, sfx) if sfx else 2.0 * 9 * cin * cout)
+                    + 4.0 * cout),
+            faults=faults, extra=extra,
         ))
     return rows
 
@@ -701,7 +741,8 @@ def compare_down2(calls: dict, gen, dtype=None) -> list[dict]:
             lambda: cf.conv3x3_down2(x, wt, bias, asymmetric=asym, w_split=w_split),
             lambda: cf.conv3x3_down2_plain(x, wt, bias, asymmetric=asym),
             library, flops=2.0 * n * ho * wo * cout * 9 * cin,
-            nbytes=isz * (n * h * w * cin + 9 * cin * cout + n * ho * wo * cout) + 4.0 * cout,
+            nbytes=(isz * (n * h * w * cin + n * ho * wo * cout) + weight_bytes(9, cin, cout, sfx)
+                    + 4.0 * cout),
             faults={"fault": lambda: cf.conv3x3_down2_plain(x, wt, bias, asymmetric=not asym)},
             extra=extra,
         ))
@@ -991,18 +1032,18 @@ def check_launches(what: str, launches: dict, expected: dict) -> None:
 # demangled names): GroupNorm's two-launch route gn_stats_kernel<T, false> and
 # gn_apply_kernel<T>, its resident route gn_stats_kernel<T, true> alone, the
 # statistics entry gn_stats_kernel<T, false> alone (T the element type); the
-# fp32 SIMT conv's modes are conv_f32_kernel<mode, ...> (1 fused, 3 up2); the
-# fp32 stride-1 and stride-2 convs are conv3x3_tf32x3_kernel and
-# conv3x3_down2_tf32x3_kernel (their weight split runs once per weight), the
-# fp32 attention split_qkv_tf32_kernel, then flash_d64_tf32x3_kernel or
-# flash_d512_tf32x3_kernel.
+# fp32 convs are conv3x3_tf32x3_kernel, conv3x3_fused_tf32x3_kernel,
+# conv3x3_up2_tf32x3_kernel and conv3x3_down2_tf32x3_kernel (their weight split
+# runs once per weight), the fp32 attention split_qkv_tf32_kernel, then
+# flash_d64_tf32x3_kernel or flash_d512_tf32x3_kernel.
 WRAPPER_KERNELS = {
     "conv3x3": "conv3x3_kernel", "conv3x3_fused": "conv3x3_fused_kernel",
     "conv3x3_up2": "conv3x3_up2_kernel", "conv3x3_down2": "conv3x3_down2_kernel",
     "flash_attention_d64": "flash_d64_kernel", "flash_attention_d512": "flash_d512_kernel",
     "up2_phase_weights": "up2_phase_weights_kernel",
-    "conv3x3_f32": "conv3x3_tf32x3_kernel", "conv3x3_fused_f32": "conv_f32_kernel<1,",
-    "conv3x3_down2_f32": "conv3x3_down2_tf32x3_kernel", "conv3x3_up2_f32": "conv_f32_kernel<3,",
+    "conv3x3_f32": "conv3x3_tf32x3_kernel", "conv3x3_fused_f32": "conv3x3_fused_tf32x3_kernel",
+    "conv3x3_down2_f32": "conv3x3_down2_tf32x3_kernel",
+    "conv3x3_up2_f32": "conv3x3_up2_tf32x3_kernel",
     "flash_attention_d64_f32": "flash_d64_tf32x3_kernel",
     "flash_attention_d512_f32": "flash_d512_tf32x3_kernel",
 }
@@ -2025,13 +2066,15 @@ def clis_at_full_width(ckpt: Path, card: str) -> dict:
 
 def tf32_split_gib(editor) -> float:
     """GiB of the TF32 hi and lo weight copies that the conv modules keep for
-    the fp32 kernels (``models/resnet._prepared``, one pair per weight)."""
+    the fp32 kernels (``models/resnet._prepared``, one pair per weight, of the
+    upsample convs' phase weights)."""
     mod, total = editor.modules, 0
     for model in (mod.unet, mod.controlnet, mod.vae, mod.text_encoder, mod.text_encoder_2):
         for m in model.modules():
-            hit = m.__dict__.get("_prepared_cache", {}).get("tf32_split")
-            if hit is not None:
-                total += sum(t.numel() * t.element_size() for t in hit[1])
+            for name in ("tf32_split", "up2_tf32_split"):
+                hit = m.__dict__.get("_prepared_cache", {}).get(name)
+                if hit is not None:
+                    total += sum(t.numel() * t.element_size() for t in hit[1])
     return total / 1024**3
 
 
@@ -2198,25 +2241,25 @@ KERNELS = {  # name: (source, TPU kernel it replaces: file:line of pallas_call)
                                "fastedit_tpu/ops/groupnorm.py:53"),
 }
 # The fp32 instances (the quality mode's path, phase 8), each replacing the same
-# TPU kernel as its bf16 twin: the stride-1 and stride-2 convs and both
-# attention kernels run 3xTF32 on the tensor cores, the fused and the upsample
-# conv are SIMT FFMA kernels, GroupNorm is its own template at float.
+# TPU kernel as its bf16 twin: every conv form and both attention kernels run
+# 3xTF32 on the tensor cores, GroupNorm is its own template at float.
 F32_KERNELS = {
-    f"{name}_f32": (source.replace("conv3x3.cu", "conv3x3_f32.cu")
+    f"{name}_f32": (source.replace("conv3x3.cu", "conv3x3_tf32x3.cu")
                     .replace("flash_attention.cu", "flash_attention_tf32x3.cu"), replaces)
     for name, (source, replaces) in KERNELS.items()}
-for _name in ("conv3x3_f32", "conv3x3_down2_f32"):
-    F32_KERNELS[_name] = ("fastedit_tpu_torch/csrc/conv3x3_tf32x3.cu", F32_KERNELS[_name][1])
 # Kernels built on wgmma (SASS HGMMA), by a part of their mangled name: the bf16
-# kernels and the four fp32 ones on 3xTF32.  Every other kernel of every library
-# (the phase-weight fold, the TF32 splits, GroupNorm, the SIMT fp32 kernel)
-# must hold no tensor-core instruction at all, HGMMA or HMMA: TF32 alone is not
-# fp32, and the SIMT fp32 kernel is held to FFMAs by name.
+# kernels and the six fp32 ones on 3xTF32.  Every other kernel of every library
+# (the phase-weight fold, the TF32 splits, GroupNorm) must hold no tensor-core
+# instruction at all, HGMMA or HMMA: TF32 alone is not fp32.
 WGMMA_KERNELS = ("conv3x3_kernel", "conv3x3_fused_kernel", "conv3x3_down2_kernel",
                  "conv3x3_up2_kernel", "flash_d64_kernel", "flash_d512_kernel",
-                 "conv3x3_tf32x3_kernel", "conv3x3_down2_tf32x3_kernel",
+                 "conv3x3_tf32x3_kernel", "conv3x3_fused_tf32x3_kernel",
+                 "conv3x3_up2_tf32x3_kernel", "conv3x3_down2_tf32x3_kernel",
                  "flash_d64_tf32x3_kernel", "flash_d512_tf32x3_kernel")
-SIMT_F32_KERNELS = ("conv_f32_kernel",)
+# fp32 kernels that must be built and hold no tensor-core instruction, by a part
+# of their mangled names: GroupNorm's statistics and apply kernels at float
+# (gn_stats_kernel<float, ...>, gn_apply_kernel<float>).
+SIMT_F32_KERNELS = ("gn_stats_kernelIf", "gn_apply_kernelIf")
 
 
 def kernel_summary(rows: list, main: dict) -> list:
@@ -2313,8 +2356,8 @@ def main() -> int:
                                      f"instructions; {WGMMA_KERNELS}, and only they, are built "
                                      "on the tensor cores (wgmma)")
     if simt_seen != set(SIMT_F32_KERNELS):
-        raise AssertionError(f"SIMT fp32 kernels not found in the libraries: "
-                             f"{set(SIMT_F32_KERNELS) - simt_seen}")
+        raise AssertionError(f"fp32 kernels outside the tensor cores not found in the "
+                             f"libraries: {set(SIMT_F32_KERNELS) - simt_seen}")
 
     log("[2] kernels vs plain versions at the main path's shapes")
     t = time.perf_counter()

@@ -8,8 +8,9 @@ is on and its gate admits the call, and op by op with the same math
 otherwise.  Convs subclass ``nn.Conv2d`` so their parameters keep
 PyTorch's names and OIHW shapes; their ``forward`` takes and returns NHWC
 tensors.  What the kernels take derived from the weights (the bias in fp32,
-the up2 kernel's folded phase weights, the fp32 stride-1 and stride-2 kernels'
-TF32 hi and lo weights) is made once per version of the weights
+the up2 kernel's folded phase weights, the fp32 kernels' TF32 hi and lo
+weights: of the weight, or of the upsample conv's phase weights folded in
+fp32) is made once per version of the weights
 (:func:`_prepared`), not at every call, so a CUDA graph of a stage holds none
 of it, and it outlives the graphs that read it: a new version drops them.
 """
@@ -67,9 +68,9 @@ class Conv3x3(nn.Conv2d):
     * ``up2``: nearest-2x upsample before the conv (``conv3x3_up2``: no
       materialised 4x tensor).
 
-    In fp32 the stride-1 conv kernel takes the weight's TF32 hi and lo
-    copies, split at the first call that reaches it and kept until the weight
-    changes.
+    In fp32 the stride-1 and the fused conv kernel take the weight's TF32 hi
+    and lo copies, the upsample conv kernel those of its phase weights, each
+    split at the first call that reaches it and kept until the weight changes.
     """
 
     def __init__(self, in_channels: int, out_channels: int):
@@ -77,10 +78,20 @@ class Conv3x3(nn.Conv2d):
 
     def _up2(self, x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
         """The upsample conv kernel, on phase weights folded once per weight
-        version."""
-        phases = (_prepared(self, "up2_phases", lambda: conv_fused.fold_up2(w))
-                  if x.is_cuda else None)
+        version (fp32: their TF32 hi and lo copies)."""
+        if not x.is_cuda:
+            return conv_fused.conv3x3_up2(x, w, bias=bias)
+        if w.dtype == torch.float32:
+            split = _prepared(self, "up2_tf32_split", lambda: conv_fused.split_up2(w))
+            return conv_fused.conv3x3_up2(x, w, bias=bias, w_split=split)
+        phases = _prepared(self, "up2_phases", lambda: conv_fused.fold_up2(w))
         return conv_fused.conv3x3_up2(x, w, bias=bias, phases=phases)
+
+    def _fused(self, x: torch.Tensor, w: torch.Tensor, **kw) -> torch.Tensor:
+        """The fused conv kernel; in fp32 on the card on the weight's TF32 hi
+        and lo copies, split once per weight version."""
+        split = _tf32_split(self, w) if x.is_cuda and w.dtype == torch.float32 else None
+        return conv_fused.conv3x3_fused(x, w, w_split=split, **kw)
 
     def forward(
         self,
@@ -115,7 +126,7 @@ class Conv3x3(nn.Conv2d):
         if extra_bias is not None:  # [B, Cout], summed in fp32
             bias_eff = bias[None, :] + extra_bias.float()
         if flags.use_fused_resnet() and conv_fused.supports_fused(*shapes):
-            fn = flags.kernel_or_plain(conv_fused.conv3x3_fused, conv_fused.conv3x3_fused_plain)
+            fn = flags.kernel_or_plain(self._fused, conv_fused.conv3x3_fused_plain)
             return fn(x, w, bias=bias_eff, prenorm=prenorm,
                       skip=None if skip is None else skip.to(dtype).contiguous())
         # Unfused fallback: the same math as the kernel, op by op.

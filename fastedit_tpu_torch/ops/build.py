@@ -54,18 +54,13 @@ KERNELS = {
             ("group_norm_resident", [_P] * 6 + [_I] * 9 + [ctypes.c_float, _I, _P]),
             ("group_norm", [_P] * 7 + [_I] * 11 + [ctypes.c_float, _I, _P]))
     },
-    # the fp32 (quality mode) kernels: SIMT, fp32 FFMAs, for the fused and the
-    # upsample conv (the others are on the tensor cores, below)
-    "conv3x3_f32": {
-        "conv3x3_f32_smem_bytes": [_I, _I],  # returns bytes
-        "conv3x3_fused_f32": [_P] * 7 + [_I] * 8 + [_P],
-        "conv3x3_up2_f32": [_P] * 4 + [_I] * 7 + [_P],
-    },
-    # the fp32 kernels on the tensor cores: 3xTF32 wgmma
+    # the fp32 (quality mode) kernels, on the tensor cores: 3xTF32 wgmma
     "conv3x3_tf32x3": {
         "conv3x3_tf32x3_geometry": [_I, _I, _I],  # returns bytes or a count
         "split_tf32": [_P] * 3 + [_L, _P],
         "conv3x3_tf32x3": [_P] * 5 + [_I] * 8 + [_P],
+        "conv3x3_fused_tf32x3": [_P] * 8 + [_I] * 9 + [_P],
+        "conv3x3_up2_tf32x3": [_P] * 5 + [_I] * 8 + [_P],
         "conv3x3_down2_tf32x3": [_P] * 5 + [_I] * 9 + [_P],
     },
     "flash_attention_tf32x3": {

@@ -22,12 +22,10 @@ TF32 hi and lo copies, ``ops/conv_fused.split_tf32``, which the call takes as
 ``w_split``): :func:`plan` at item size 4 is its schedule (the same
 rectangles over chunks of 32 channels, channel tiles of 80, 64, 48 or 8) and
 :func:`conv3x3_tiled_plain_f32` walks it in plain PyTorch, for the tests.  The
-fp32 stride-2 conv is the same kernel's stride-2 instance, on
-:func:`plan_down2` at item size 4.  The fused and upsample kernels' fp32
-instances are the SIMT kernel of ``csrc/conv3x3_f32.cu`` (fp32 FFMAs, no
-TF32), whose schedule is :func:`plan_f32` (tiles of 8 x 16 pixels x 16, 64 or
-128 channels, one block each, chunks of 8 input channels), walked by
-:func:`conv_tiled_plain_f32`.  Each dtype's kernel has its own launch counter.
+fp32 fused, upsample and stride-2 convs are the same kernel's other forms, on
+:func:`plan` (``fused=True``: its ready barriers), :func:`plan_up2` and
+:func:`plan_down2` at item size 4.  Each dtype's kernel has its own launch
+counter.
 
 Layouts: ``x`` is NHWC ``[B, H, W, Cin]``; ``weight`` is PyTorch's OIHW
 ``[Cout, Cin, 3, 3]`` and the kernel reads it in channels_last memory
@@ -58,10 +56,11 @@ SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on an H100
 H100_SMS = 132
 
 
-# Its fp32 instance (csrc/conv3x3_tf32x3.cu, 3xTF32 on wgmma, the stride-2
-# conv's core): chunks of 32 channels, so a pixel's chunk is 128 bytes as in
+# Its fp32 instance (csrc/conv3x3_tf32x3.cu, 3xTF32 on wgmma, one core for
+# every form): chunks of 32 channels, so a pixel's chunk is 128 bytes as in
 # bf16; a halo stage is 23 KB, three of them; a weight stage is one tap's hi and
-# lo copies, as many stages as fit beside the halos, at most eight.
+# lo copies, as many stages as fit beside the halos, at most eight.  The fused
+# and the upsample forms take the same rings and channel tiles.
 F32_CHUNK = 32
 CONV_F32_HALO_STAGES, CONV_F32_MAX_WEIGHT_STAGES = 3, 8
 CONV_F32_BN = (8, 48, 64, 80)  # channel tiles the fp32 instance is built for
@@ -126,27 +125,42 @@ def _halo_stage_f32() -> int:
     return -(-((RECT_H + 2) * (RECT_W + 2) * F32_CHUNK * 4) // 1024) * 1024
 
 
-def conv_f32_weight_stages(bn: int) -> int:
+def _bars_f32(sb: int, fused: bool) -> int:
+    """mbarrier bytes of the fp32 stride-1 instance: a full and an empty one
+    per stage, and per halo stage a ready one for the fused form."""
+    return 8 * ((3 if fused else 2) * CONV_F32_HALO_STAGES + 2 * sb)
+
+
+def conv_f32_weight_stages(bn: int, fused: bool = False) -> int:
     """Weight stages of the fp32 stride-1 instance (one tap's hi and lo
     copies, 2 x bn x 128 bytes, each): as many as fit beside three halo
     stages, at most eight."""
-    bars = 8 * (2 * CONV_F32_HALO_STAGES + 2 * CONV_F32_MAX_WEIGHT_STAGES)
-    room = SMEM_LIMIT - 1024 - CONV_F32_HALO_STAGES * _halo_stage_f32() - bars
+    room = (SMEM_LIMIT - 1024 - CONV_F32_HALO_STAGES * _halo_stage_f32()
+            - _bars_f32(CONV_F32_MAX_WEIGHT_STAGES, fused))
     return min(CONV_F32_MAX_WEIGHT_STAGES, room // (2 * bn * 128))
 
 
-def smem_bytes_conv_f32(bn: int) -> int:
-    """Dynamic shared memory of the fp32 stride-1 instance: alignment slack,
-    three halo stages, the weight ring and a full and an empty mbarrier per
-    stage."""
-    sb = conv_f32_weight_stages(bn)
+def smem_bytes_conv_f32(bn: int, fused: bool = False) -> int:
+    """Dynamic shared memory of the fp32 stride-1 instance (and of the fused
+    and the upsample forms, which share its rings): alignment slack, three
+    halo stages, the weight ring and the mbarriers."""
+    sb = conv_f32_weight_stages(bn, fused)
     return (1024 + CONV_F32_HALO_STAGES * _halo_stage_f32() + sb * 2 * bn * 128
-            + 8 * (2 * CONV_F32_HALO_STAGES + 2 * sb))
+            + _bars_f32(sb, fused))
+
+
+def bn_f32(cout: int) -> int:
+    """The fp32 stride-1 channel tile: 8 for the Cout <= 8 tails, else
+    whichever of 80, 64 and 48 leaves the fewest columns empty, the larger on a
+    tie."""
+    if cout <= 8:
+        return 8
+    return min((80, 64, 48), key=lambda n: (-(-cout // n) * n - cout, -n))
 
 
 @functools.lru_cache(maxsize=None)
 def plan(b: int, h: int, w: int, cin: int, cout: int, sms: int = H100_SMS,
-         itemsize: int = 2) -> ConvPlan:
+         itemsize: int = 2, fused: bool = False) -> ConvPlan:
     """The kernel's schedule, a pure function of the call's shape (and the
     card's SM count, for the grid).  Channel tile: 8 for the Cout <= 8 tails,
     160 where it divides Cout (320, 640, 1280: no wasted column, and grids of
@@ -158,16 +172,18 @@ def plan(b: int, h: int, w: int, cin: int, cout: int, sms: int = H100_SMS,
     64): its accumulators and a tap's fresh ones are twice as many registers
     as bf16's, so no tile is wider than 80.  A Cin that is no multiple of 32
     ends in a chunk whose channels past Cin the loads zero-fill (in x and in
-    both weight copies), so they add nothing."""
+    both weight copies), so they add nothing.  ``fused``: the fused form
+    (``conv_fused.conv3x3_fused``), whose fp32 instance adds a "ready" barrier
+    per halo stage (the bf16 rings hold one in every form)."""
     if min(b, h, w, cin, cout) < 1:
         raise ValueError(f"conv3x3 plan: empty call {(b, h, w, cin, cout)}")
     if itemsize not in (2, 4):
         raise ValueError(f"conv3x3 plan: item size {itemsize}; 2 (bf16) or 4 (fp32)")
     f32 = itemsize == 4
-    if cout <= 8:
+    if f32:
+        bn = bn_f32(cout)
+    elif cout <= 8:
         bn = 8
-    elif f32:
-        bn = min((80, 64, 48), key=lambda n: (-(-cout // n) * n - cout, -n))
     elif cout % 160 == 0:
         bn = 160
     else:
@@ -178,10 +194,10 @@ def plan(b: int, h: int, w: int, cin: int, cout: int, sms: int = H100_SMS,
     return ConvPlan(
         rect=(RECT_H, RECT_W), bn=bn, tiles_y=tiles_y, tiles_x=tiles_x, tiles_n=tiles_n,
         tiles=tiles, grid=min(tiles, sms),
-        smem_bytes=smem_bytes_conv_f32(bn) if f32 else smem_bytes(bn),
+        smem_bytes=smem_bytes_conv_f32(bn, fused) if f32 else smem_bytes(bn),
         box_x=(chunk, RECT_W + 2, RECT_H + 2, 1), box_w=(chunk, 1, bn), chunk=chunk,
         halo_stages=CONV_F32_HALO_STAGES if f32 else HALO_STAGES,
-        weight_stages=conv_f32_weight_stages(bn) if f32 else WEIGHT_STAGES,
+        weight_stages=conv_f32_weight_stages(bn, fused) if f32 else WEIGHT_STAGES,
     )
 
 
@@ -329,6 +345,8 @@ class Up2Plan:
     box_w: tuple[int, int, int]  # TMA box over the folded weights [Cin, 16, Cout]
     # (phase 2p + q, tap 2a + b) -> the halo shift (rows, columns) the tap reads
     shifts: tuple[tuple[tuple[int, int], ...], ...]
+    chunk: int = CHUNK  # input channels a halo stage holds: 64 (bf16) or 32 (fp32)
+    weight_stages: int = WEIGHT_STAGES
 
     def rectangles(self, h: int, w: int):
         """(y0, x0) of every rectangle of one low-res image."""
@@ -351,7 +369,8 @@ class Up2Plan:
 
 
 @functools.lru_cache(maxsize=None)
-def plan_up2(b: int, h: int, w: int, cin: int, cout: int, sms: int = H100_SMS) -> Up2Plan:
+def plan_up2(b: int, h: int, w: int, cin: int, cout: int, sms: int = H100_SMS,
+             itemsize: int = 2) -> Up2Plan:
     """The upsample kernel's schedule for input [b, h, w, cin].  Output pixel
     (2i + p, 2j + q) is a 2 x 2 conv of the low-res input: tap (a, b) of phase
     (p, q) reads x[i - 1 + a + p, j - 1 + b + q], which is shift (a + p, b + q)
@@ -359,192 +378,27 @@ def plan_up2(b: int, h: int, w: int, cin: int, cout: int, sms: int = H100_SMS) -
     every tap of every phase.  Tiles of 8 x 16 low-res pixels x ``bn`` channels
     x one phase (4 taps, K = 4 Cin); channel tile 160 where it divides Cout,
     else 128.  Every main-path call is at least 512 tiles, 3.9 rounds of 132
-    SMs, so no halved channel tile is needed."""
+    SMs, so no halved channel tile is needed.  ``itemsize`` 4: the fp32
+    instance (3xTF32), the stride-1 fp32 instance's rings and channel tiles
+    (:func:`bn_f32`) over chunks of 32 channels."""
     if min(b, h, w, cin, cout) < 1:
         raise ValueError(f"conv3x3_up2 plan: empty call {(b, h, w, cin, cout)}")
-    bn = 160 if cout % 160 == 0 else 128
+    if itemsize not in (2, 4):
+        raise ValueError(f"conv3x3_up2 plan: item size {itemsize}; 2 (bf16) or 4 (fp32)")
+    f32 = itemsize == 4
+    bn = bn_f32(cout) if f32 else 160 if cout % 160 == 0 else 128
+    chunk = F32_CHUNK if f32 else CHUNK
     tiles_y, tiles_x, tiles_n = -(-h // RECT_H), -(-w // RECT_W), -(-cout // bn)
     tiles = b * tiles_y * tiles_x * tiles_n * 4
     shifts = tuple(tuple((a + p, c + q) for a in (0, 1) for c in (0, 1))
                    for p in (0, 1) for q in (0, 1))
     return Up2Plan(
         rect=(RECT_H, RECT_W), bn=bn, tiles_y=tiles_y, tiles_x=tiles_x, tiles_n=tiles_n,
-        phases=4, tiles=tiles, grid=min(tiles, sms), smem_bytes=smem_bytes(bn),
-        box_x=(CHUNK, RECT_W + 2, RECT_H + 2, 1), box_w=(CHUNK, 1, bn), shifts=shifts,
+        phases=4, tiles=tiles, grid=min(tiles, sms),
+        smem_bytes=smem_bytes_conv_f32(bn) if f32 else smem_bytes(bn),
+        box_x=(chunk, RECT_W + 2, RECT_H + 2, 1), box_w=(chunk, 1, bn), shifts=shifts,
+        chunk=chunk, weight_stages=conv_f32_weight_stages(bn) if f32 else WEIGHT_STAGES,
     )
-
-
-# The fp32 SIMT kernel of the fused and the upsample conv (csrc/conv3x3_f32.cu
-# holds the same constants): 256 threads, output tiles of 8 x 16 pixels
-# (low-res pixels for up2, one phase), chunks of 8 input channels
-# double-buffered; two blocks per SM (one for the 128-channel tile).
-F32_RECT = (8, 16)
-F32_KC = 8
-F32_STAGES = 2
-F32_BN = (16, 64, 128)
-F32_MODES = ("fused", "up2")
-
-
-@dataclass(frozen=True)
-class ConvPlanF32:
-    """The schedule of one call of the fp32 kernel, in any of its modes.
-    ``rect``, ``tiles_y`` and ``tiles_x`` are over the output pixels (the
-    low-res input's for up2)."""
-
-    mode: str
-    rect: tuple[int, int]
-    bn: int  # output channels per tile: 16 threads x 1, 4 or 8 each
-    tiles_y: int
-    tiles_x: int
-    tiles_n: int
-    phases: int  # 4 for up2, else 1
-    tiles: int  # one block each: B * tiles_y * tiles_x * tiles_n * phases
-    window: tuple[int, int]  # input pixels a tile stages per chunk: rows, columns
-    taps: int  # taps of a tile: 9, or 4 for up2 (one phase)
-    smem_bytes: int  # two stages of window and weights
-
-    @property
-    def grid(self) -> int:
-        return self.tiles
-
-    def tile_at(self, t: int):
-        """(image, y0, x0, first channel, phase) of block ``t``: the channel
-        tile fastest, then the phase, the rectangle's column, its row, the
-        image (``conv_f32_kernel`` in csrc/conv3x3_f32.cu)."""
-        n, t = t % self.tiles_n, t // self.tiles_n
-        phase, t = t % self.phases, t // self.phases
-        rx, t = t % self.tiles_x, t // self.tiles_x
-        ry, b = t % self.tiles_y, t // self.tiles_y
-        return b, ry * self.rect[0], rx * self.rect[1], n * self.bn, phase
-
-    def origin(self, y0: int, x0: int) -> tuple[int, int]:
-        """The input pixel of the window's first row and column."""
-        return y0 - 1, x0 - 1
-
-
-# Input pixels (rows, columns) a tile of the fp32 kernel stages: its rectangle's
-# stride-1 halo (the low-res one for up2).
-F32_WINDOW = (F32_RECT[0] + 2, F32_RECT[1] + 2)
-
-
-def smem_bytes_f32(mode: str, bn: int) -> int:
-    """Dynamic shared memory of the fp32 instance: two stages of the input
-    window ([rows][columns][8 channels]) and the weights ([8][taps][bn])."""
-    rows, cols = F32_WINDOW
-    taps = 4 if mode == "up2" else 9
-    return F32_STAGES * (rows * cols * F32_KC + F32_KC * taps * bn) * 4
-
-
-@functools.lru_cache(maxsize=None)
-def plan_f32(b: int, h: int, w: int, cin: int, cout: int, mode: str = "fused",
-             sms: int = H100_SMS) -> ConvPlanF32:
-    """The fp32 kernel's schedule for input [b, h, w, cin], a pure function
-    of the shape (and the SM count).  Channel tile: 16 for Cout <= 16 (the
-    conv_out tails), 128 where it divides Cout, else 64; 128 halved to 64
-    where the call would not give two blocks to every SM (the 32² and 16²
-    calls of the UNet's inner blocks).  One block per tile, no persistence:
-    the blocks are independent and the card's scheduler balances them."""
-    if mode not in F32_MODES:
-        raise ValueError(f"conv plan_f32: unknown mode {mode!r}; one of {F32_MODES}")
-    if min(b, h, w, cin, cout) < 1 or cin % F32_KC:
-        raise ValueError(f"conv plan_f32: {(b, h, w, cin, cout)} is empty or Cin is not a "
-                         f"multiple of {F32_KC}")
-    phases = 4 if mode == "up2" else 1
-    tiles_y, tiles_x = -(-h // F32_RECT[0]), -(-w // F32_RECT[1])
-
-    def tiles_for(bn):
-        return b * tiles_y * tiles_x * -(-cout // bn) * phases
-
-    bn = 16 if cout <= 16 else 128 if cout % 128 == 0 else 64
-    if bn == 128 and tiles_for(bn) < 2 * sms:
-        bn = 64
-    return ConvPlanF32(
-        mode=mode, rect=F32_RECT, bn=bn, tiles_y=tiles_y, tiles_x=tiles_x,
-        tiles_n=-(-cout // bn), phases=phases, tiles=tiles_for(bn), window=F32_WINDOW,
-        taps=4 if mode == "up2" else 9, smem_bytes=smem_bytes_f32(mode, bn))
-
-
-def plan_f32_for(x: torch.Tensor, cout: int, mode: str = "fused") -> ConvPlanF32:
-    """The fp32 plan of a call on the card that holds ``x``."""
-    return plan_f32(*x.shape, cout, mode, sm_count_of(x))
-
-
-def conv_tiled_plain_f32(
-    x: torch.Tensor,
-    w_rows: torch.Tensor,
-    bias: Optional[torch.Tensor] = None,
-    *,
-    mode: str = "fused",
-    prenorm: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
-    act: Optional[str] = None,
-    skip: Optional[torch.Tensor] = None,
-    chunks_skipped: int = 0,
-) -> torch.Tensor:
-    """The fp32 SIMT kernel's schedule in plain PyTorch, for tests only, in
-    either mode.  ``w_rows`` is [Cout, 9, Cin] (the OHWI weight, taps
-    row-major) or, for up2, the folded phase weights [Cout, 16, Cin] (index 4
-    phase + tap).
-    Per block of :func:`plan_f32` and per chunk of 8 input channels: the
-    input window gathered with zero fill, the fused prologue on its in-image
-    elements (mode ``fused``), then each tap of the tile, a shifted rectangle
-    of the window times its weights, accumulated in
-    fp32; then bias [Cout] or [B, Cout], SiLU and the skip.  It differs from
-    the plain versions only in the order of the sums.  ``chunks_skipped``
-    plants a fault: the chunk loop stops that many chunks short."""
-    b, h, wd, cin = x.shape
-    cout = w_rows.shape[0]
-    pl = plan_f32(b, h, wd, cin, cout, mode)
-    rh, rw = pl.rect
-    ho, wo = h, wd
-    out_shape = (b, 2 * h, 2 * wd, cout) if mode == "up2" else (b, ho, wo, cout)
-    out = torch.zeros(out_shape, dtype=torch.float32, device=x.device)
-    wf, xf = w_rows.float(), x.float()
-    nk = cin // F32_KC - chunks_skipped
-    for t in range(pl.tiles):
-        bi, y0, x0, n0, phase = pl.tile_at(t)
-        n1 = min(cout, n0 + pl.bn)
-        oy, ox = pl.origin(y0, x0)
-        win = torch.zeros((*pl.window, cin), dtype=torch.float32, device=x.device)
-        ys, xs = max(0, oy), max(0, ox)
-        ye, xe = min(h, oy + pl.window[0]), min(wd, ox + pl.window[1])
-        inside = xf[bi, ys:ye, xs:xe]
-        if prenorm is not None:
-            sc, sh = prenorm[0].float()[bi], prenorm[1].float()[bi]
-            inside = F.silu(inside * sc + sh)
-        win[ys - oy:ye - oy, xs - ox:xe - ox] = inside
-        if mode == "up2":
-            p, q = phase >> 1, phase & 1
-            taps = [(a + p, c + q, 4 * phase + 2 * a + c) for a in (0, 1) for c in (0, 1)]
-        else:
-            taps = [(dy, dx, 3 * dy + dx) for dy in range(3) for dx in range(3)]
-        acc = torch.zeros((rh, rw, n1 - n0), dtype=torch.float32, device=x.device)
-        for k in range(nk):
-            c0, c1 = k * F32_KC, (k + 1) * F32_KC
-            for dy, dx, wtap in taps:
-                a = win[dy:dy + rh, dx:dx + rw, c0:c1]
-                acc += a @ wf[n0:n1, wtap, c0:c1].T
-        if mode == "up2":
-            p, q = phase >> 1, phase & 1
-            hh, ww = min(rh, h - y0), min(rw, wd - x0)
-            out[bi, 2 * y0 + p:2 * (y0 + hh):2, 2 * x0 + q:2 * (x0 + ww):2, n0:n1] = \
-                acc[:hh, :ww]
-        else:
-            out[bi, y0:y0 + rh, x0:x0 + rw, n0:n1] = acc[:ho - y0, :wo - x0]
-    if bias is not None:
-        bf = bias.float()
-        out = out + (bf[:, None, None, :] if bf.dim() == 2 else bf)
-    if act == "silu":
-        out = F.silu(out)
-    elif act is not None:
-        raise ValueError(f"unsupported activation {act!r}")
-    if skip is not None:
-        out = out + skip.float()
-    return out.contiguous()
-
-
-def weight_rows(weight: torch.Tensor) -> torch.Tensor:
-    """An OIHW weight [Cout, Cin, 3, 3] as the kernel's rows [Cout, 9, Cin]."""
-    return weight.permute(0, 2, 3, 1).reshape(weight.shape[0], 9, weight.shape[1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -560,10 +414,10 @@ def sm_count_of(t: torch.Tensor) -> int:
     return _sm_count(index)
 
 
-def plan_for(x: torch.Tensor, cout: int) -> ConvPlan:
+def plan_for(x: torch.Tensor, cout: int, fused: bool = False) -> ConvPlan:
     """The stride-1 plan of a call on the card that holds ``x``, for its
-    dtype."""
-    return plan(*x.shape, cout, sm_count_of(x), x.element_size())
+    dtype (``fused``: the fused form's)."""
+    return plan(*x.shape, cout, sm_count_of(x), x.element_size(), fused)
 
 
 def plan_down2_for(x: torch.Tensor, cout: int, asymmetric: bool) -> Down2Plan:
@@ -573,8 +427,9 @@ def plan_down2_for(x: torch.Tensor, cout: int, asymmetric: bool) -> Down2Plan:
 
 
 def plan_up2_for(x: torch.Tensor, cout: int) -> Up2Plan:
-    """The upsample plan of a call on the card that holds ``x``."""
-    return plan_up2(*x.shape, cout, sm_count_of(x))
+    """The upsample plan of a call on the card that holds ``x``, for its
+    dtype."""
+    return plan_up2(*x.shape, cout, sm_count_of(x), x.element_size())
 
 
 def supports(x_shape, w_shape) -> bool:
@@ -674,16 +529,20 @@ def conv3x3_tiled_plain_f32(
     bias: Optional[torch.Tensor] = None,
     act: Optional[str] = None,
     chunks_skipped: int = 0,
+    prenorm: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+    skip: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The fp32 instance's schedule (:func:`plan` at item size 4) in plain
-    PyTorch, for tests only: per rectangle and per chunk of 32 input channels,
-    the halo gathered with zero fill and the chunk's weights zero-filled past
-    Cin (as the kernel's loads fill both operands), then per tap a shifted
-    rectangle of the halo times the tap's weights, its own sum (the kernel's
-    fresh accumulator) added into the tile's in fp32; then bias and SiLU in
-    fp32.  It differs from :func:`conv3x3_plain` only in the order of the
-    sums.  ``chunks_skipped`` plants a fault: the chunk loop stops that many
-    chunks short."""
+    PyTorch, for tests only, plain or fused: per rectangle and per chunk of 32
+    input channels, the halo gathered with zero fill and the chunk's weights
+    zero-filled past Cin (as the kernel's loads fill both operands), the fused
+    prologue ``prenorm`` applied to its in-image elements alone, then per tap a
+    shifted rectangle of the halo times the tap's weights, its own sum (the
+    kernel's fresh accumulator) added into the tile's in fp32; then bias
+    [Cout] or [B, Cout], SiLU and the skip in fp32.  It differs from
+    :func:`conv3x3_plain` (``conv_fused.conv3x3_fused_plain``) only in the
+    order of the sums.  ``chunks_skipped`` plants a fault: the chunk loop stops
+    that many chunks short."""
     b, h, w, cin = x.shape
     cout = weight.shape[0]
     pl = plan(b, h, w, cin, cout, itemsize=4)
@@ -697,10 +556,13 @@ def conv3x3_tiled_plain_f32(
             ye, xe = min(h, y0 + rh + 1), min(w, x0 + rw + 1)
             for c0 in range(0, cin - chunks_skipped * chunk, chunk):
                 c1 = min(cin, c0 + chunk)
+                inside = xf[bi, ys:ye, xs:xe, c0:c1]
+                if prenorm is not None:
+                    sc, sh = prenorm[0].float()[bi, c0:c1], prenorm[1].float()[bi, c0:c1]
+                    inside = F.silu(inside * sc + sh)
                 halo = torch.zeros((rh + 2, rw + 2, chunk), dtype=torch.float32,
                                    device=x.device)
-                halo[ys - y0 + 1:ye - y0 + 1, xs - x0 + 1:xe - x0 + 1, :c1 - c0] = \
-                    xf[bi, ys:ye, xs:xe, c0:c1]
+                halo[ys - y0 + 1:ye - y0 + 1, xs - x0 + 1:xe - x0 + 1, :c1 - c0] = inside
                 wchunk = torch.zeros((cout, chunk, 3, 3), dtype=torch.float32, device=x.device)
                 wchunk[:, :c1 - c0] = wf[:, c0:c1]
                 for dy in range(3):
@@ -708,11 +570,14 @@ def conv3x3_tiled_plain_f32(
                         acc += halo[dy:dy + rh, dx:dx + rw] @ wchunk[:, :, dy, dx].T
             out[bi, y0:y0 + rh, x0:x0 + rw] = acc[:h - y0, :w - x0]
     if bias is not None:
-        out = out + bias.float()
+        bf = bias.float()
+        out = out + (bf[:, None, None, :] if bf.dim() == 2 else bf)
     if act == "silu":
         out = F.silu(out)
     elif act is not None:
         raise ValueError(f"unsupported activation {act!r}")
+    if skip is not None:
+        out = out + skip.float()
     return out.contiguous()
 
 

@@ -28,15 +28,16 @@ replace the three TPU kernels of ``fastedit_tpu/ops/conv_fused.py``:
 
 Layouts as in ``ops/conv3x3.py``: ``x`` NHWC, ``weight`` PyTorch's OIHW in
 channels_last memory.  A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel of its dtype or raises: bf16 the kernels above, fp32
-the fused and upsample modes of the fp32 SIMT kernel (``csrc/conv3x3_f32.cu``,
-schedule ``conv3x3.plan_f32``) and, for the stride-2 conv, the stride-2
-instance of the 3xTF32 kernel of ``csrc/conv3x3_tf32x3.cu`` (``plan_down2`` at
-item size 4, on the weight's TF32 hi and lo copies, :func:`split_tf32`, as the
-stride-1 conv's fp32 instance), walked by the ``*_tiled_plain_f32`` functions
-here, each with its own launch counter (``<name>_f32``).  The fp32 phase
-weights of the upsample conv are folded in PyTorch (:func:`fold_up2`), in
-fp32, as the JAX package folds them in XLA.
+launches the kernel of its dtype or raises: bf16 the kernels above, fp32 the
+fused, upsample and stride-2 forms of the 3xTF32 kernel of
+``csrc/conv3x3_tf32x3.cu`` (``plan(..., fused=True)``, ``plan_up2`` and
+``plan_down2`` at item size 4), on the TF32 hi and lo copies of the weight
+(:func:`split_tf32`) or of the upsample conv's fp32 phase weights
+(:func:`split_up2`), which the conv modules make once per weight version and
+pass in as ``w_split``; the ``*_tiled_plain_f32`` functions here walk those
+schedules, and each form has its own launch counter (``<name>_f32``).  The
+fp32 phase weights are folded in PyTorch (:func:`fold_up2`), in fp32, as the
+JAX package folds them in XLA.
 """
 
 from __future__ import annotations
@@ -48,12 +49,12 @@ import torch.nn.functional as F
 
 from fastedit_tpu_torch.ops import tf32x3
 from fastedit_tpu_torch.ops.conv3x3 import (
-    CHUNK, check_dtypes, check_split, conv_tiled_plain_f32, plan_down2, plan_down2_for,
-    plan_f32_for, plan_for, plan_up2, plan_up2_for, weight_rows)
+    check_dtypes, check_split, conv3x3_tiled_plain_f32, plan_down2, plan_down2_for, plan_for,
+    plan_up2, plan_up2_for)
 from fastedit_tpu_torch.ops.conv3x3 import supports as _supports_conv3x3
 
 # Launches of each CUDA kernel since the last reset (chip_smoke.py resets them):
-# the bf16 kernels and, under ``<name>_f32``, the fp32 kernel's modes.
+# the bf16 kernels and, under ``<name>_f32``, the fp32 ones.
 launches = {"conv3x3_fused": 0, "conv3x3_up2": 0, "conv3x3_down2": 0,
             "conv3x3_fused_f32": 0, "conv3x3_up2_f32": 0, "conv3x3_down2_f32": 0}
 
@@ -157,19 +158,24 @@ def conv3x3_up2_plain(x, weight, bias=None, act=None) -> torch.Tensor:
     return up2_phases_plain(x, make_phase_kernels(weight), bias, act)
 
 
-def conv3x3_up2_tiled_plain(x, weight, bias=None, act=None) -> torch.Tensor:
+def conv3x3_up2_tiled_plain(x, weight, bias=None, act=None, chunks_skipped: int = 0,
+                            itemsize: int = 2) -> torch.Tensor:
     """The upsample kernel's schedule in plain PyTorch, for tests only: the
     phase weights folded as the call folds them, laid out [Cout, 16, Cin];
-    then per low-res rectangle of ``plan_up2``, per phase and per 64-channel
-    chunk, the rectangle's stride-1 halo gathered with zero fill and four
+    then per low-res rectangle of ``plan_up2`` (of the bf16 kernel, chunks of
+    64 channels, or with ``itemsize`` 4 of the fp32 one, chunks of 32; on x's
+    values either way), per phase and per chunk, the rectangle's stride-1
+    halo gathered with zero fill (past Cin too, in both operands) and four
     taps, each the halo at the plan's shift times weight stage 4 phase + tap,
-    accumulated in fp32; the phase's outputs go to every other pixel of every
-    other row; then bias, SiLU and one rounding.  It differs from
-    ``conv3x3_up2_plain`` only in the order of the sums."""
+    its own sum added into the phase's in fp32; the phase's outputs go to
+    every other pixel of every other row; then bias, SiLU and one rounding.
+    It differs from ``conv3x3_up2_plain`` only in the order of the sums.
+    ``chunks_skipped`` plants a fault: the chunk loop stops that many chunks
+    short."""
     b, h, w, cin = x.shape
     cout = weight.shape[0]
-    pl = plan_up2(b, h, w, cin, cout)
-    rh, rw = pl.rect
+    pl = plan_up2(b, h, w, cin, cout, itemsize=itemsize)
+    rh, rw, chunk = *pl.rect, pl.chunk
     # [p, q, a, b, Cout, Cin] -> [Cout, 16, Cin], as the kernel's fold writes it
     folded = make_phase_kernels(weight).permute(4, 0, 1, 2, 3, 5).reshape(cout, 16, cin).float()
     out = torch.zeros((b, 2 * h, 2 * w, cout), dtype=torch.float32, device=x.device)
@@ -179,14 +185,15 @@ def conv3x3_up2_tiled_plain(x, weight, bias=None, act=None) -> torch.Tensor:
             ye, xe = min(h, y0 + rh + 1), min(w, x0 + rw + 1)
             for phase in range(pl.phases):
                 acc = torch.zeros((rh, rw, cout), dtype=torch.float32, device=x.device)
-                for c0 in range(0, cin, CHUNK):
-                    c1 = min(cin, c0 + CHUNK)
-                    halo = torch.zeros((rh + 2, rw + 2, c1 - c0), dtype=torch.float32,
+                for c0 in range(0, cin - chunks_skipped * chunk, chunk):
+                    c1 = min(cin, c0 + chunk)
+                    halo = torch.zeros((rh + 2, rw + 2, chunk), dtype=torch.float32,
                                        device=x.device)
-                    halo[ys - y0 + 1:ye - y0 + 1, xs - x0 + 1:xe - x0 + 1] = \
+                    halo[ys - y0 + 1:ye - y0 + 1, xs - x0 + 1:xe - x0 + 1, :c1 - c0] = \
                         x[bi, ys:ye, xs:xe, c0:c1].float()
                     for tap, (dy, dx) in enumerate(pl.shifts[phase]):
-                        wt = folded[:, pl.weight_stage(phase, tap), c0:c1]
+                        wt = torch.zeros((cout, chunk), dtype=torch.float32, device=x.device)
+                        wt[:, :c1 - c0] = folded[:, pl.weight_stage(phase, tap), c0:c1]
                         acc += halo[dy:dy + rh, dx:dx + rw] @ wt.T
                 py, px = phase >> 1, phase & 1
                 out[bi, 2 * y0 + py:2 * (y0 + rh):2, 2 * x0 + px:2 * (x0 + rw):2] = \
@@ -252,18 +259,18 @@ def conv3x3_down2_tiled_plain(x, weight, bias=None, act=None, asymmetric: bool =
 
 def conv3x3_fused_tiled_plain_f32(x, weight, bias=None, prenorm=None, act=None, skip=None,
                                   chunks_skipped: int = 0):
-    """The fp32 kernel's fused mode walked in plain PyTorch, for tests only
-    (``conv3x3.conv_tiled_plain_f32``)."""
-    return conv_tiled_plain_f32(x, weight_rows(weight), bias, mode="fused", prenorm=prenorm,
-                                act=act, skip=skip, chunks_skipped=chunks_skipped)
+    """The fp32 fused kernel's schedule (``plan(..., itemsize=4, fused=True)``)
+    walked in plain PyTorch, for tests only (``conv3x3.conv3x3_tiled_plain_f32``
+    with the prologue and the skip)."""
+    return conv3x3_tiled_plain_f32(x, weight, bias, act, chunks_skipped, prenorm, skip)
 
 
 def conv3x3_up2_tiled_plain_f32(x, weight, bias=None, act=None, chunks_skipped: int = 0):
-    """The fp32 kernel's upsample mode walked in plain PyTorch, for tests
-    only, on the phase weights :func:`fold_up2` gives."""
-    folded = fold_up2(weight).reshape(weight.shape[0], 16, weight.shape[1])
-    return conv_tiled_plain_f32(x, folded, bias, mode="up2", act=act,
-                                chunks_skipped=chunks_skipped)
+    """The fp32 upsample kernel's schedule (``plan_up2`` at item size 4:
+    chunks of 32 channels) walked in plain PyTorch, for tests only, on the
+    phase weights folded in fp32."""
+    return conv3x3_up2_tiled_plain(x.float(), weight.float(), bias, act, chunks_skipped,
+                                   itemsize=4)
 
 
 def conv3x3_down2_tiled_plain_f32(x, weight, bias=None, act=None, asymmetric: bool = False,
@@ -303,14 +310,13 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _launch(name: str, out: torch.Tensor, *args) -> torch.Tensor:
     """Launch ``name``'s kernel for ``out``'s dtype: the bf16 library's
-    ``<name>_bf16`` or, in fp32, the stride-2 conv's 3xTF32 kernel or the
-    SIMT library's ``<name>_f32``."""
+    ``<name>_bf16`` or the 3xTF32 library's ``<name>_tf32x3`` (counted as
+    ``<name>_f32``)."""
     from fastedit_tpu_torch.ops.build import library
 
     if out.dtype == torch.float32:
+        fn = getattr(library("conv3x3_tf32x3"), name + "_tf32x3")
         name += "_f32"
-        fn = (library("conv3x3_tf32x3").conv3x3_down2_tf32x3 if name == "conv3x3_down2_f32"
-              else getattr(library("conv3x3_f32"), name))
     else:
         fn = getattr(library("conv3x3"), name + "_bf16")
     with torch.cuda.device(out.device):
@@ -328,10 +334,14 @@ def conv3x3_fused(
     prenorm: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     act: Optional[str] = None,
     skip: Optional[torch.Tensor] = None,
+    w_split: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Fused resnet conv: x [B, H, W, Cin], weight [Cout, Cin, 3, 3];
     ``bias`` [Cout] or per-batch [B, Cout]; ``prenorm`` fp32 (scale, shift)
-    [B, Cin]; ``skip`` [B, H, W, Cout] added after bias and act."""
+    [B, Cin]; ``skip`` [B, H, W, Cout] added after bias and act.  fp32 on the
+    card runs the 3xTF32 kernel on ``w_split``, ``split_tf32(weight)`` made
+    earlier (the conv modules make it once per weight version); an fp32 call
+    on the card without it raises."""
     check_dtypes("conv3x3_fused", x, weight)
     if x.device.type == "cpu":
         return conv3x3_fused_plain(x, weight, bias, prenorm, act, skip)
@@ -343,6 +353,9 @@ def conv3x3_fused(
                          f"weight {tuple(weight.shape)}")
     b, h, w, cin = x.shape
     cout = weight.shape[0]
+    f32 = x.dtype == torch.float32
+    weights = (check_split("conv3x3_fused", w_split, weight) if f32
+               else (weight.data_ptr(),))
     if bias is not None:
         bias = bias.float().reshape(-1, cout).contiguous()
         if bias.shape[0] not in (1, b) or bias.device != x.device:
@@ -352,21 +365,19 @@ def conv3x3_fused(
     if prenorm is not None:
         scale = _f32(prenorm[0], (b, cin), "conv3x3_fused: scale", x.device)
         shift = _f32(prenorm[1], (b, cin), "conv3x3_fused: shift", x.device)
+        if scale.data_ptr() % 16 or shift.data_ptr() % 16:
+            raise ValueError("conv3x3_fused: scale and shift must be 16-byte aligned")
     if skip is not None and (skip.dtype != x.dtype or tuple(skip.shape) != (b, h, w, cout)
                              or not skip.is_contiguous() or skip.device != x.device):
         raise ValueError(f"conv3x3_fused: skip must be a contiguous {x.dtype} "
                          f"{(b, h, w, cout)} tensor on {x.device}")
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    if x.dtype == torch.float32:
-        tiles = (plan_f32_for(x, cout, "fused").bn,)
-    else:
-        pl = plan_for(x, cout)
-        tiles = (pl.bn, pl.grid)
+    pl = plan_for(x, cout, fused=True)
     return _launch(
         "conv3x3_fused", out,
-        x.data_ptr(), weight.data_ptr(), _ptr(bias), _ptr(scale), _ptr(shift), _ptr(skip),
+        x.data_ptr(), *weights, _ptr(bias), _ptr(scale), _ptr(shift), _ptr(skip),
         out.data_ptr(), b, h, w, cin, cout, int(act == "silu"),
-        1 if bias is None else bias.shape[0], *tiles,
+        1 if bias is None else bias.shape[0], pl.bn, pl.grid,
     )
 
 
@@ -394,17 +405,41 @@ def fold_up2(weight: torch.Tensor) -> torch.Tensor:
     return phases
 
 
+def split_up2(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 upsample kernel's weight operands: the TF32 hi and lo copies
+    (:func:`split_tf32`) of the phase weights :func:`fold_up2` folds in fp32,
+    each [Cout, 2, 2, 2, 2, Cin]; the upsampler modules make them once per
+    weight version."""
+    return split_tf32(fold_up2(weight))
+
+
+def _check_up2_split(w_split, weight: torch.Tensor) -> tuple[int, int]:
+    """``w_split`` must be ``split_up2(weight)``; their pointers."""
+    cout, cin = weight.shape[:2]
+    if w_split is None or len(w_split) != 2 or any(
+            tuple(t.shape) != (cout, 2, 2, 2, 2, cin) or t.dtype != torch.float32
+            or t.device != weight.device or not t.is_contiguous() or t.data_ptr() % 16
+            for t in w_split):
+        raise ValueError(f"conv3x3_up2: w_split must be split_up2(weight), two contiguous "
+                         f"fp32 {(cout, 2, 2, 2, 2, cin)} tensors on the weight's device")
+    return w_split[0].data_ptr(), w_split[1].data_ptr()
+
+
 def conv3x3_up2(
     x: torch.Tensor,
     weight: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
     act: Optional[str] = None,
     phases: Optional[torch.Tensor] = None,
+    w_split: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Nearest-2x upsample then 3x3 SAME conv in one kernel: x [B, H, W,
-    Cin], weight [Cout, Cin, 3, 3] -> [B, 2H, 2W, Cout].  ``phases``:
-    ``fold_up2(weight)``, folded earlier; without it the call folds them
-    (one more launch of :func:`fold_up2`)."""
+    Cin], weight [Cout, Cin, 3, 3] -> [B, 2H, 2W, Cout].  bf16: ``phases``,
+    ``fold_up2(weight)`` folded earlier; without it the call folds them (one
+    more launch of :func:`fold_up2`).  fp32 on the card: the 3xTF32 kernel on
+    ``w_split``, ``split_up2(weight)`` made earlier (the upsampler modules make
+    it once per weight version); an fp32 call on the card without it
+    raises."""
     check_dtypes("conv3x3_up2", x, weight)
     if x.device.type == "cpu":
         return conv3x3_up2_plain(x, weight, bias, act)
@@ -417,29 +452,28 @@ def conv3x3_up2(
     b, h, w, cin = x.shape
     cout = weight.shape[0]
     bias = _f32(bias, (cout,), "conv3x3_up2: bias", x.device)
-    if phases is None:
-        phases = fold_up2(weight)
-    elif (tuple(phases.shape) != (cout, 2, 2, 2, 2, cin) or phases.dtype != x.dtype
-          or phases.device != x.device or not phases.is_contiguous()):
-        raise ValueError(f"conv3x3_up2: phases must be fold_up2's contiguous "
-                         f"{(cout, 2, 2, 2, 2, cin)} {x.dtype} on {x.device}")
-    out = torch.empty((b, 2 * h, 2 * w, cout), dtype=x.dtype, device=x.device)
     if x.dtype == torch.float32:
-        tiles = (plan_f32_for(x, cout, "up2").bn,)
+        weights = _check_up2_split(w_split, weight)
     else:
-        pl = plan_up2_for(x, cout)
-        tiles = (pl.bn, pl.grid)
+        if phases is None:
+            phases = fold_up2(weight)
+        elif (tuple(phases.shape) != (cout, 2, 2, 2, 2, cin) or phases.dtype != x.dtype
+              or phases.device != x.device or not phases.is_contiguous()):
+            raise ValueError(f"conv3x3_up2: phases must be fold_up2's contiguous "
+                             f"{(cout, 2, 2, 2, 2, cin)} {x.dtype} on {x.device}")
+        weights = (phases.data_ptr(),)
+    out = torch.empty((b, 2 * h, 2 * w, cout), dtype=x.dtype, device=x.device)
+    pl = plan_up2_for(x, cout)
     return _launch(
         "conv3x3_up2", out,
-        x.data_ptr(), phases.data_ptr(), _ptr(bias), out.data_ptr(),
-        b, h, w, cin, cout, int(act == "silu"), *tiles,
+        x.data_ptr(), *weights, _ptr(bias), out.data_ptr(),
+        b, h, w, cin, cout, int(act == "silu"), pl.bn, pl.grid,
     )
 
 
 def split_tf32(weight: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The fp32 stride-1 and stride-2 kernels' weight operands: the TF32 hi
-    and lo copies of an fp32 weight (``ops/tf32x3.split_tf32``), in its memory
-    layout.  On the card one launch of the split kernel, which the conv
+    """The fp32 conv kernels' weight operands: the TF32 hi and lo copies of
+    an fp32 weight (``ops/tf32x3.split_tf32``), in its memory layout.  On the card one launch of the split kernel, which the conv
     modules make once per weight version (``models/resnet.py``) and pass in;
     on the CPU the same bits in PyTorch."""
     if weight.dtype != torch.float32:

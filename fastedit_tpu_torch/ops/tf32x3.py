@@ -1,8 +1,8 @@
 """3xTF32 in plain PyTorch: the split the fp32 tensor-core kernels make, and
 their arithmetic on it, for the tests and for ``chip_smoke.py``'s gate.
 
-The stride-1 and stride-2 convs (``csrc/conv3x3_tf32x3.cu``) and the 64- and
-512-dim attention (``csrc/flash_attention_tf32x3.cu``) take every fp32 product
+The stride-1, fused, upsample and stride-2 convs (``csrc/conv3x3_tf32x3.cu``)
+and the 64- and 512-dim attention (``csrc/flash_attention_tf32x3.cu``) take every fp32 product
 as three TF32 products on the tensor cores: with ``hi = tf32(x)`` rounded to nearest (ties
 away from zero, ``cvt.rna.tf32.f32``) and ``lo = tf32(x - hi)``,
 ``a * b ~ a_hi b_hi + a_hi b_lo + a_lo b_hi``.  The tensor cores read an fp32
@@ -68,6 +68,44 @@ def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
     return _finish(_products(xp, weight.float(), F.conv2d, passes), bias, act)
 
 
+def conv3x3_fused_plain(x: torch.Tensor, weight: torch.Tensor,
+                        bias: Optional[torch.Tensor] = None,
+                        prenorm: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+                        act: Optional[str] = None, skip: Optional[torch.Tensor] = None,
+                        passes: int = 3) -> torch.Tensor:
+    """The fused conv as the 3xTF32 kernel takes its products: the prologue
+    silu(x * scale + shift) in fp32 first, then the split, the SAME stride-1
+    conv of the products (``passes=1``: single-pass TF32), bias [Cout] or [B,
+    Cout], SiLU and the skip in fp32."""
+    xf = x.float()
+    if prenorm is not None:
+        xf = F.silu(xf * prenorm[0].float()[:, None, None, :]
+                    + prenorm[1].float()[:, None, None, :])
+    out = conv3x3_plain(xf, weight, bias, act, passes)
+    return out if skip is None else out + skip.float()
+
+
+def conv3x3_up2_plain(x: torch.Tensor, weight: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None, act: Optional[str] = None,
+                      passes: int = 3) -> torch.Tensor:
+    """Nearest-2x upsample then 3x3 SAME conv as the 3xTF32 kernel takes its
+    products: the phase weights folded in fp32 (``conv_fused.make_phase_kernels``)
+    and split, four 2 x 2 convs of the split low-res input (``passes=1``:
+    single-pass TF32), interleaved; then bias and SiLU in fp32."""
+    from fastedit_tpu_torch.ops.conv_fused import make_phase_kernels
+
+    phases = make_phase_kernels(weight.float())  # [p, q, a, b, Cout, Cin]
+    b, h, w, _ = x.shape
+    xp = F.pad(x.float().permute(0, 3, 1, 2), (1, 1, 1, 1))
+    out = torch.empty((b, weight.shape[0], 2 * h, 2 * w), dtype=torch.float32, device=x.device)
+    for p in (0, 1):
+        for q in (0, 1):
+            k = phases[p, q].permute(2, 3, 0, 1)  # [a, b, o, i] -> OIHW
+            out[:, :, p::2, q::2] = _products(xp[:, :, p:p + h + 1, q:q + w + 1], k, F.conv2d,
+                                              passes)
+    return _finish(out, bias, act)
+
+
 def conv3x3_down2_plain(x: torch.Tensor, weight: torch.Tensor,
                         bias: Optional[torch.Tensor] = None, act: Optional[str] = None,
                         asymmetric: bool = False, passes: int = 3) -> torch.Tensor:
@@ -84,7 +122,8 @@ def _finish(out: torch.Tensor, bias: Optional[torch.Tensor], act: Optional[str])
     """NCHW conv sums -> NHWC, then bias and SiLU in fp32."""
     out = out.permute(0, 2, 3, 1)
     if bias is not None:
-        out = out + bias.float()
+        b = bias.float()
+        out = out + (b[:, None, None, :] if b.dim() == 2 else b)
     if act == "silu":
         out = F.silu(out)
     elif act is not None:

@@ -25,9 +25,9 @@ name and power limit; ``--json`` also writes them to a file.
 
 Categories come from kernel names: each of this package's CUDA kernels
 (the conv kernels of ``csrc/conv3x3.cu`` one by one, flash attention, the
-GroupNorm kernel's launches; their fp32 instances: the SIMT fused and up2
-conv, the 3xTF32 stride-1 and stride-2 convs and D = 64 and D = 512
-attention with their TF32 splits), cuDNN convolutions (stems, the VAE encoder's
+GroupNorm kernel's launches; their fp32 instances: the 3xTF32 stride-1,
+fused, up2 and stride-2 convs and D = 64 and D = 512 attention with their
+TF32 splits), cuDNN convolutions (stems, the VAE encoder's
 convs and convs outside the kernels' gates), cuBLAS / CUTLASS GEMMs
 (linears and 1x1 convs), softmax (attention outside the flash kernel's
 gate), reductions (norm statistics), elementwise and copy kernels.
@@ -52,7 +52,9 @@ CATEGORIES = (  # first match wins
     ("GroupNorm kernel (csrc/group_norm.cu)", ("gn_stats_kernel", "gn_apply_kernel")),
     ("flash attention kernel (csrc/flash_attention.cu)", ("flash_d64_kernel",
                                                           "flash_d512_kernel")),
-    ("fp32 fused and up2 conv kernel, SIMT (csrc/conv3x3_f32.cu)", ("conv_f32_kernel",)),
+    ("fp32 fused resnet conv kernel, 3xTF32 (csrc/conv3x3_tf32x3.cu)",
+     ("conv3x3_fused_tf32x3_kernel",)),
+    ("fp32 up2 conv kernel, 3xTF32 (csrc/conv3x3_tf32x3.cu)", ("conv3x3_up2_tf32x3_kernel",)),
     ("fp32 conv kernel, 3xTF32 (csrc/conv3x3_tf32x3.cu)",
      ("conv3x3_tf32x3_kernel", "split_tf32_kernel")),
     ("fp32 down2 conv kernel, 3xTF32 (csrc/conv3x3_tf32x3.cu)", ("conv3x3_down2_tf32x3_kernel",)),

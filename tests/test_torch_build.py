@@ -46,15 +46,14 @@ def test_the_flags_are_part_of_the_name(csrc, monkeypatch):
 def test_the_ports_kernels_share_one_header():
     """The three bf16 kernel libraries include ``hopper.cuh`` (GroupNorm for
     its mbarriers and 1-D bulk copies; its fp32 instances live in the same
-    library), the fp32 SIMT library ``simt_f32.cuh``, the two fp32
-    tensor-core (3xTF32) libraries ``tf32x3.cuh`` and through it
-    ``hopper.cuh``.  Every C function the wrappers call is declared."""
+    library), the two fp32 tensor-core (3xTF32) libraries ``tf32x3.cuh`` and
+    through it ``hopper.cuh``.  Every C function the wrappers call is
+    declared."""
     by_name = {n: sorted(p.name for p in build.sources(n)) for n in build.KERNELS}
     assert by_name == {
         "conv3x3": ["conv3x3.cu", "hopper.cuh"],
         "flash_attention": ["flash_attention.cu", "hopper.cuh"],
         "group_norm": ["group_norm.cu", "hopper.cuh"],
-        "conv3x3_f32": ["conv3x3_f32.cu", "simt_f32.cuh"],
         "conv3x3_tf32x3": ["conv3x3_tf32x3.cu", "hopper.cuh", "tf32x3.cuh"],
         "flash_attention_tf32x3": ["flash_attention_tf32x3.cu", "hopper.cuh", "tf32x3.cuh"],
     }
@@ -130,26 +129,25 @@ def test_the_group_norm_variants_spec_is_in_step():
 
 
 def test_the_fp32_c_functions_take_the_plans_ints():
-    """The SIMT fp32 conv entries (the fused and the upsample conv) take the
-    plan's channel tile (the grid is one block per tile, computed in C); the
-    3xTF32 stride-1 and stride-2 entries both weight copies, the channel tile
-    and the grid (stride 2: its padding too); both 3xTF32 attention entries the
+    """The 3xTF32 conv entries take both weight copies, the channel tile and
+    the grid (stride 2: its padding too; the fused conv: the prologue's scale
+    and shift, the skip and the bias rows); both 3xTF32 attention entries the
     strides, the scale, a scratch pointer and the grid; every GroupNorm entry
-    has a bf16 and an fp32 twin of one signature; the SIMT fp32 source issues
-    no tensor-core instruction (TF32 alone is not fp32; ``chip_smoke.py``
-    counts every built kernel's HMMA and HGMMA), and the SIMT stride-1 conv and
-    D = 64 attention are gone from the build."""
-    conv, gn = build.KERNELS["conv3x3_f32"], build.KERNELS["group_norm"]
+    has a bf16 and an fp32 twin of one signature; the SIMT fp32 convs and D =
+    64 attention are gone from the build, and every fp32 conv form is an
+    instance of the 3xTF32 core."""
+    gn = build.KERNELS["group_norm"]
     tc_conv, tc_attn = build.KERNELS["conv3x3_tf32x3"], build.KERNELS["flash_attention_tf32x3"]
-    assert set(conv) == {"conv3x3_f32_smem_bytes", "conv3x3_fused_f32", "conv3x3_up2_f32"}
-    assert "flash_attention_f32" not in build.KERNELS
-    assert not (build.CSRC / "flash_attention_f32.cu").exists()
+    assert "conv3x3_f32" not in build.KERNELS and "flash_attention_f32" not in build.KERNELS
+    for gone in ("flash_attention_f32.cu", "conv3x3_f32.cu", "simt_f32.cuh"):
+        assert not (build.CSRC / gone).exists()
+    assert set(tc_conv) == {"conv3x3_tf32x3_geometry", "split_tf32", "conv3x3_tf32x3",
+                            "conv3x3_fused_tf32x3", "conv3x3_up2_tf32x3", "conv3x3_down2_tf32x3"}
     assert tc_conv["conv3x3_tf32x3"].count(build._I) == 8  # ..., silu, bn, grid
     assert tc_conv["conv3x3_tf32x3"].count(build._P) == 6  # x, w hi, w lo, bias, out, stream
     assert tc_conv["conv3x3_down2_tf32x3"].count(build._I) == 9  # ..., silu, pad, bn, grid
     assert tc_conv["conv3x3_down2_tf32x3"].count(build._P) == 6  # x, w hi, w lo, bias, out
-    assert tc_conv["conv3x3_tf32x3_geometry"] == [build._I] * 3  # stride, bn, which
-    assert conv["conv3x3_fused_f32"].count(build._P) == 8  # 7 tensors and the stream
+    assert tc_conv["conv3x3_tf32x3_geometry"] == [build._I] * 3  # form, bn, which
     for d in (64, 512):
         entry = tc_attn[f"flash_attention_d{d}_tf32x3"]
         assert entry.count(build._L) == 6 and entry.count(build._P) == 6  # q, k, v, out, scratch
@@ -158,20 +156,25 @@ def test_the_fp32_c_functions_take_the_plans_ints():
         twin = name.replace("_bf16", "_f32") if name.endswith("_bf16") else name.replace(
             "_f32", "_bf16")
         assert gn[twin] == args
-    text = (build.CSRC / "conv3x3_f32.cu").read_text()
-    assert "mma." not in text and "mma_async" not in text  # no mma.sync, no wgmma
-    assert "CONV = 0" not in text and 'extern "C" int conv3x3_f32(' not in text
+    assert not Path(build.CSRC.parent / "tools" / "variants_conv_f32.py").exists()
 
 
-def test_the_conv_f32_variants_spec_is_in_step():
-    """``tools/variants_conv_f32.py`` (launch bounds of the fp32 conv kernel)
-    replaces text that is in ``csrc/conv3x3_f32.cu``."""
-    from fastedit_tpu_torch.tools import kernel_variants as kv
-
-    spec: dict = {}
-    path = Path(kv.__file__).with_name("variants_conv_f32.py")
-    exec(compile(path.read_text(), str(path), "exec"), spec)
-    source = (build.CSRC / f"{spec['LIBRARY']}.cu").read_text()
-    assert spec["LIBRARY"] == "conv3x3_f32" and spec["VARIANTS"]["as_built"] == []
-    for name, replacements in spec["VARIANTS"].items():
-        assert (kv.apply(source, replacements) != source) == bool(replacements), name
+@pytest.mark.parametrize("symbol,tensors,ints", [
+    ("conv3x3_fused_tf32x3", 7, 9),  # x, w hi, w lo, bias, scale, shift, skip; out below
+    ("conv3x3_up2_tf32x3", 4, 8),  # x, w hi, w lo (the phase weights'), bias
+])
+def test_the_fused_and_up2_fp32_entries_take_the_plans_ints(symbol, tensors, ints):
+    """The fused and the upsample conv's 3xTF32 entries: their pointers, the
+    output, the shape and flags, the plan's channel tile and grid last, then
+    the stream; the C signature has as many parameters, and the kernel each
+    launches is the form's instance of the one core."""
+    args = build.KERNELS["conv3x3_tf32x3"][symbol]
+    assert args == [build._P] * (tensors + 1) + [build._I] * ints + [build._P]
+    text = (build.CSRC / "conv3x3_tf32x3.cu").read_text()
+    start = text.index(f'extern "C" int {symbol}(') + len(f'extern "C" int {symbol}(')
+    params = [p.split()[-1] for p in text[start:text.index(")", start)].split(",")]
+    assert len(params) == len(args) and params[-3:] == ["bn", "grid", "stream"]
+    form = "FUSED" if "fused" in symbol else "UP2"
+    kernel = symbol.replace("_tf32x3", "_tf32x3_kernel")
+    assert f"conv_tiles<BN, {form}>(maps_x, map_w_hi, map_w_lo, p);" in text
+    assert f"return &{kernel}<BN>;" in text

@@ -28,13 +28,14 @@ the same way at fp32, TF32 off, with ``chip_smoke.py``'s fp32 tolerances:
 every conv mode at ragged shapes and each channel tile, attention at both
 head dims, GroupNorm and its statistics with a large mean offset, the same
 bits twice, and the tiny editor in fp32 on graphs against its eager arm.
-The four fp32 kernels on the tensor cores (3xTF32: the stride-1 and stride-2
-convs, the D = 64 and D = 512 attention) are also held against fp64 within
-``chip_smoke.py``'s gate (8x the plain fp32 version's error, which
-single-pass TF32 exceeds), at ragged Cin, Cout 3, 4 and 96 and through
-strides; their shared-memory mirrors, the weight split's bits, a CUDA
-graph's replays against the eager calls, and the stride-1 conv's refusal of
-an fp32 call without the weight's split.
+The six fp32 kernels on the tensor cores (3xTF32: the stride-1, fused,
+upsample and stride-2 convs, the D = 64 and D = 512 attention) are also held
+against fp64 within ``chip_smoke.py``'s gate (8x the plain fp32 version's
+error, which single-pass TF32 exceeds), at ragged Cin, Cout 3, 4 and 96, the
+fused conv's prologue with per-channel scale and shift, per-batch bias and
+skip, and through strides; their shared-memory mirrors, the weight split's
+bits, a CUDA graph's replays against the eager calls, and the convs' refusal
+of an fp32 call without the weight's split.
 """
 
 import pytest
@@ -669,10 +670,10 @@ def _f32_close(out, ref):
 @pytest.mark.parametrize(
     "n,h,w,cin,cout",
     [
-        (2, 13, 37, 96, 320),  # ragged H and W, Cin 96; SIMT: the 64-wide tile
-        (1, 16, 32, 64, 256),  # SIMT: the 128-wide tile where the grid allows it
-        (2, 8, 8, 72, 3),  # Cout 3 (3xTF32: the 8-wide tile), images smaller than a tile
-        (1, 24, 40, 128, 200),  # ragged Cout on the 80-wide (SIMT: 64-wide) tile
+        (2, 13, 37, 96, 320),  # ragged H and W, Cin 96, the 80-wide tile
+        (1, 16, 32, 64, 256),  # the 64-wide tile
+        (2, 8, 8, 72, 3),  # Cout 3: the 8-wide tile; images smaller than a tile
+        (1, 24, 40, 128, 200),  # ragged Cout on the 80-wide tile
     ],
 )
 def test_f32_conv_kernel_matches_plain(gen, mode, n, h, w, cin, cout):
@@ -688,10 +689,11 @@ def test_f32_conv_kernel_matches_plain(gen, mode, n, h, w, cin, cout):
         pre = (torch.rand((n, cin), generator=gen, device="cuda") + 0.5,
                torch.randn((n, cin), generator=gen, device="cuda"))
         skip = torch.randn((n, h, w, cout), generator=gen, device="cuda")
-        out = cf.conv3x3_fused(x, wt, pb, pre, skip=skip)
+        out = cf.conv3x3_fused(x, wt, pb, pre, skip=skip, w_split=cf.split_tf32(wt))
         ref = cf.conv3x3_fused_plain(x, wt, pb, pre, skip=skip)
     elif mode == "up2":
-        out, ref = cf.conv3x3_up2(x, wt, bias), cf.conv3x3_up2_plain(x, wt, bias)
+        out = cf.conv3x3_up2(x, wt, bias, w_split=cf.split_up2(wt))
+        ref = cf.conv3x3_up2_plain(x, wt, bias)
     else:
         asym = mode == "down2_asym"
         out = cf.conv3x3_down2(x, wt, bias, asymmetric=asym)
@@ -808,10 +810,90 @@ def test_tf32x3_conv_passes_the_fp64_gate(gen, n, h, w, cin, cout):
 
 def test_tf32x3_conv_refuses_an_fp32_call_without_the_split(gen):
     x, wt, bias = _f32_conv(gen, 1, 16, 16, 64, 64)
+    before = (k.launches_f32, dict(cf.launches))
     with pytest.raises(ValueError, match="w_split"):
         k.conv3x3(x, wt, bias)
     with pytest.raises(ValueError, match="w_split"):
         k.conv3x3(x, wt, bias, w_split=(wt, wt.contiguous()))  # OIHW memory, not channels_last
+    with pytest.raises(ValueError, match="w_split"):
+        cf.conv3x3_fused(x, wt, bias)
+    with pytest.raises(ValueError, match="w_split"):
+        cf.conv3x3_up2(x, wt, bias)
+    with pytest.raises(ValueError, match="w_split"):  # the weight's split, not the phases'
+        cf.conv3x3_up2(x, wt, bias, w_split=cf.split_tf32(wt))
+    assert (k.launches_f32, cf.launches) == before
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,per_batch_bias,skip",
+                         [(1, 32, 48, 512, 512, False, True), (2, 24, 40, 96, 200, True, True),
+                          (1, 16, 16, 72, 4, False, False), (2, 40, 24, 128, 128, True, False),
+                          (1, 64, 64, 256, 256, False, True)])
+def test_tf32x3_fused_conv_passes_the_fp64_gate(gen, n, h, w, cin, cout, per_batch_bias, skip):
+    """The fused conv at the VAE decoder's widths (Cout 512, 256, 128: the
+    64-wide tile), a ragged Cin and Cout, the Cout <= 8 tail; per-channel
+    scale and shift (a channel the prologue maps wrongly shows), a per-batch
+    bias and a skip; against the plain version and fp64.  The prologue leaves
+    the padding ring zero: the same conv with the ring mapped too fails."""
+    import torch.nn.functional as F
+
+    from fastedit_tpu_torch.ops import tf32x3
+
+    x, wt, bias = _f32_conv(gen, n, h, w, cin, cout)
+    if per_batch_bias:
+        bias = torch.randn((n, cout), generator=gen, device="cuda") * 0.1
+    pre = (torch.rand((n, cin), generator=gen, device="cuda") + 0.5,
+           torch.randn((n, cin), generator=gen, device="cuda") * 0.5)
+    sk = torch.randn((n, h, w, cout), generator=gen, device="cuda") if skip else None
+    before = cf.launches["conv3x3_fused_f32"]
+    out = cf.conv3x3_fused(x, wt, bias, pre, skip=sk, w_split=cf.split_tf32(wt))
+    assert cf.launches["conv3x3_fused_f32"] == before + 1
+    plain = cf.conv3x3_fused_plain(x, wt, bias, pre, skip=sk)
+    _f32_close(out, plain)
+    xin = F.silu(x.double() * pre[0].double()[:, None, None, :] + pre[1].double()[:, None, None, :])
+    ref64 = F.conv2d(xin.permute(0, 3, 1, 2), wt.double(), padding=1).permute(0, 2, 3, 1)
+    ref64 = ref64 + (bias.double()[:, None, None, :] if bias.dim() == 2 else bias.double())
+    if sk is not None:
+        ref64 = ref64 + sk.double()
+    _fp64_gate(out, plain, tf32x3.conv3x3_fused_plain(x, wt, bias, pre, skip=sk, passes=1),
+               ref64)
+    ring = cf.prologue_plain(F.pad(x, (0, 0, 1, 1, 1, 1)), *pre)
+    wrong = F.conv2d(ring.permute(0, 3, 1, 2), wt).permute(0, 2, 3, 1)
+    wrong = wrong + (bias[:, None, None, :] if bias.dim() == 2 else bias)
+    with pytest.raises(AssertionError):
+        _f32_close(out, wrong if sk is None else wrong + sk)
+    assert torch.equal(out, cf.conv3x3_fused(x, wt, bias, pre, skip=sk,
+                                             w_split=cf.split_tf32(wt)))  # the same bits twice
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 32, 32, 1280, 1280), (2, 16, 24, 640, 640),
+                                            (1, 40, 24, 512, 512), (1, 13, 21, 72, 200),
+                                            (2, 8, 8, 96, 4)])
+def test_tf32x3_up2_conv_passes_the_fp64_gate(gen, n, h, w, cin, cout):
+    """The upsample conv at the UNet's widths (the 80-wide tile), the VAE's
+    (64-wide), a ragged Cin, Cout and input, the Cout <= 8 tail; against the
+    plain version and fp64, on the phase weights folded in fp32 and split
+    once; a phase with its tap rows swapped fails."""
+    import torch.nn.functional as F
+
+    from fastedit_tpu_torch.ops import tf32x3
+
+    x, wt, bias = _f32_conv(gen, n, h, w, cin, cout)
+    w_split = cf.split_up2(wt)
+    before = cf.launches["conv3x3_up2_f32"]
+    out = cf.conv3x3_up2(x, wt, bias, "silu", w_split=w_split)
+    assert cf.launches["conv3x3_up2_f32"] == before + 1
+    plain = cf.conv3x3_up2_plain(x, wt, bias, "silu")
+    _f32_close(out, plain)
+    out = cf.conv3x3_up2(x, wt, bias, w_split=w_split)
+    up = x.double().permute(0, 3, 1, 2).repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    ref64 = F.conv2d(up, wt.double(), bias.double(), padding=1).permute(0, 2, 3, 1)
+    plain = cf.conv3x3_up2_plain(x, wt, bias)
+    _fp64_gate(out, plain, tf32x3.conv3x3_up2_plain(x, wt, bias, passes=1), ref64)
+    phases = cf.make_phase_kernels(wt)
+    phases[1, 1] = phases[1, 1].flip(0).clone()
+    with pytest.raises(AssertionError):
+        _f32_close(out, cf.up2_phases_plain(x, phases, bias))
+    assert torch.equal(out, cf.conv3x3_up2(x, wt, bias, w_split=w_split))
 
 
 @pytest.mark.parametrize("b,sq,skv,h,d,scale", [(1, 128, 256, 1, 512, 512**-0.5),
@@ -841,12 +923,16 @@ def test_tf32x3_geometry_mirrors_the_plans(gen):
         assert [conv.conv3x3_tf32x3_geometry(2, bn, i) for i in (0, 1, 2, 3)] == \
             [k.smem_bytes_down2_f32(bn), k.down2_f32_weight_stages(bn), 32,
              k.DOWN2_PLANE_STAGES]
-    for bn in k.CONV_F32_BN:
-        pl = k.plan(2, 64, 64, 320, bn, itemsize=4)
-        assert pl.bn == bn
-        assert [conv.conv3x3_tf32x3_geometry(1, bn, i) for i in (0, 1, 2, 3)] == \
-            [pl.smem_bytes, pl.weight_stages, pl.chunk, pl.halo_stages]
+    for bn in k.CONV_F32_BN:  # forms 1 stride 1, 3 fused, 4 up2
+        for form, pl, threads in (
+                (1, k.plan(2, 64, 64, 320, bn, itemsize=4), 288),
+                (3, k.plan(2, 64, 64, 320, bn, itemsize=4, fused=True), 384),
+                (4, k.plan_up2(2, 64, 64, 320, bn, itemsize=4), 288)):
+            assert pl.bn == bn
+            assert [conv.conv3x3_tf32x3_geometry(form, bn, i) for i in (0, 1, 2, 3, 4)] == \
+                [pl.smem_bytes, pl.weight_stages, pl.chunk, k.CONV_F32_HALO_STAGES, threads]
     assert conv.conv3x3_tf32x3_geometry(2, 160, 0) == conv.conv3x3_tf32x3_geometry(1, 16, 0) == -1
+    assert conv.conv3x3_tf32x3_geometry(2, 8, 0) == conv.conv3x3_tf32x3_geometry(5, 64, 0) == -1
     attn = library("flash_attention_tf32x3")
     pl = fa.plan_f32(1, 16384, 16384, 1, 512)
     assert [attn.flash_d512_tf32x3_geometry(i) for i in range(1, 8)] == [
@@ -875,9 +961,15 @@ def test_tf32x3_kernels_under_graph_replays_equal_eager(gen):
     q64, kk64, v64 = (torch.randn((2, 256, 3, 64), generator=gen, device="cuda")
                       for _ in range(3))
 
+    pre = (torch.rand((2, 320), generator=gen, device="cuda") + 0.5,
+           torch.randn((2, 320), generator=gen, device="cuda"))
+    up2_split = cf.split_up2(wt)
+
     def calls():
         return (cf.conv3x3_down2(x, wt, bias, w_split=w_split), fa.flash_attention(q, kk, v),
-                k.conv3x3(x, wt, bias, w_split=w_split), fa.flash_attention(q64, kk64, v64))
+                k.conv3x3(x, wt, bias, w_split=w_split), fa.flash_attention(q64, kk64, v64),
+                cf.conv3x3_fused(x, wt, bias, pre, skip=x, w_split=w_split),
+                cf.conv3x3_up2(x, wt, bias, w_split=up2_split))
 
     eager = calls()
     side = torch.cuda.Stream()

@@ -1,20 +1,18 @@
 """The fp32 quality mode's kernels, held on the CPU.
 
 In fp32 every kernel call of the edit goes to the kernel's fp32 instance
-(``csrc/conv3x3_tf32x3.cu`` for the stride-1 and stride-2 convs,
-``csrc/conv3x3_f32.cu`` for the fused and upsample ones,
-``csrc/flash_attention_tf32x3.cu``, the fp32 entries of
+(``csrc/conv3x3_tf32x3.cu`` for the stride-1, fused, upsample and stride-2
+convs, ``csrc/flash_attention_tf32x3.cu``, the fp32 entries of
 ``csrc/group_norm.cu``).  This file holds:
 
-* each fp32 schedule (the stride-1 conv's ``conv3x3.plan`` at item size 4,
-  ``conv3x3.plan_f32`` in its two modes, ``flash_attention.plan_f32``,
-  ``fused_groupnorm.plan`` at item size 4) at every shape the SSD-1B and SDXL
-  edit paths at 1024² give it: every output once, shared memory within the
-  227 KB a block may use;
-* the PyTorch walks of those schedules (``conv3x3_tiled_plain_f32``,
-  ``conv_tiled_plain_f32`` and the ``*_tiled_plain_f32`` wrappers,
-  ``attention_tiled_plain_f32``, ``group_norm_chunked_plain`` on the fp32
-  plan) against the JAX package's Pallas kernels in interpret mode at fp32,
+* each fp32 schedule (``conv3x3.plan`` at item size 4 for the stride-1 and,
+  with ``fused=True``, the fused conv, ``conv3x3.plan_up2`` at item size 4,
+  ``flash_attention.plan_f32``, ``fused_groupnorm.plan`` at item size 4) at
+  every shape the SSD-1B and SDXL edit paths at 1024² give it: every output
+  once, shared memory within the 227 KB a block may use;
+* the PyTorch walks of those schedules (``conv3x3_tiled_plain_f32`` and the
+  ``*_tiled_plain_f32`` wrappers, ``attention_tiled_plain_f32``,
+  ``group_norm_chunked_plain`` on the fp32 plan) against the JAX package's Pallas kernels in interpret mode at fp32,
   on numpy-seeded inputs, with a planted fault of each read against the same
   tolerance;
 * the routing: the port's gates do not depend on the dtype, so every call the
@@ -56,7 +54,6 @@ from test_torch_pipeline import _img
 TOL = dict(rtol=2e-4, atol=2e-4)  # the repo's golden tolerance, fp32
 ORDER_TOL = dict(rtol=1e-5, atol=1e-5)  # a walk against the plain version: order of sums
 SMEM_LIMIT = 232_448  # the dynamic shared memory an H100 block may use
-SMEM_PER_SM = 233_472  # an H100 SM's shared memory (the kernel runs two blocks on one)
 F32 = torch.float32
 
 
@@ -82,9 +79,9 @@ def _keys(kernel):
     return sorted({key for (name, key) in CALLS if name == kernel}, key=str)
 
 
-# "conv": the stride-1 conv's 3xTF32 plan (``plan`` at item size 4); "fused" and
-# "up2": the SIMT kernel's modes (the stride-2 conv's fp32 plan is plan_down2 at
-# item size 4: tests/test_torch_tf32x3.py)
+# "conv" and "fused": the stride-1 3xTF32 plan (``plan`` at item size 4, the
+# fused form's with its ready barriers); "up2": ``plan_up2`` at item size 4 (the
+# stride-2 conv's fp32 plan is plan_down2 at item size 4: tests/test_torch_tf32x3.py)
 CONV_CASES = ([("conv", key[:5], False) for key in _keys("conv3x3_f32")]
               + [("fused", key[:5], False) for key in _keys("conv3x3_fused_f32")]
               + [("up2", key, False) for key in _keys("conv3x3_up2_f32")])
@@ -103,7 +100,7 @@ def _cover(pl, shape, mode):
     the output, and the blocks' outputs summing to the output's size (an
     up2 block writes one phase: every other pixel of every other row)."""
     b, h, w, cin, cout = shape
-    if mode == "conv":
+    if mode in ("conv", "fused"):
         tb, y0, x0, n0 = k.tile_at(pl, np.arange(pl.tiles))
         phase = np.zeros_like(tb)
     else:
@@ -124,23 +121,22 @@ def _cover(pl, shape, mode):
                          ids=[f"{m}-{'x'.join(map(str, s))}{'-asym' if a else ''}"
                               for m, s, a in CONV_CASES])
 def test_conv_plan_f32_covers_the_call(mode, shape, asym):
+    """Every fp32 stride-1, fused and upsample plan at the main path's shapes
+    (the 3xTF32 kernel's; their tiles: tests/test_torch_tf32x3.py): chunks of
+    32 channels, the channel tile :func:`bn_f32` picks, every output once,
+    persistent blocks, shared memory within 227 KB."""
     b, h, w, cin, cout = shape
-    if mode == "conv":  # the 3xTF32 instance (its tiles: tests/test_torch_tf32x3.py)
-        pl = k.plan(b, h, w, cin, cout, itemsize=4)
-        assert pl.chunk == 32 and not asym
-        _cover(pl, shape, mode)
-        return
-    pl = k.plan_f32(b, h, w, cin, cout, mode)
-    assert pl.mode == mode and pl.bn in k.F32_BN and pl.rect == (8, 16)
-    assert pl.tiles_n * pl.bn >= cout > (pl.tiles_n - 1) * pl.bn
-    assert pl.bn != 16 or cout <= 16
-    assert pl.bn != 128 or (cout % 128 == 0 and pl.tiles >= 2 * k.H100_SMS)
+    if mode == "up2":
+        pl = k.plan_up2(b, h, w, cin, cout, itemsize=4)
+        smem = k.smem_bytes_conv_f32(pl.bn)
+    else:
+        pl = k.plan(b, h, w, cin, cout, itemsize=4, fused=mode == "fused")
+        smem = k.smem_bytes_conv_f32(pl.bn, mode == "fused")
+    assert pl.chunk == 32 and pl.rect == (8, 16) and not asym
+    assert pl.bn == k.bn_f32(cout) and pl.tiles_n * pl.bn >= cout > (pl.tiles_n - 1) * pl.bn
     _cover(pl, shape, mode)
-    assert pl.grid == pl.tiles < 2**31
-    assert pl.smem_bytes == k.smem_bytes_f32(mode, pl.bn) <= SMEM_LIMIT
-    assert 2 * (pl.smem_bytes + 1024) <= SMEM_PER_SM  # two blocks fit an SM
-    assert cin % k.F32_KC == 0 and not asym
-    assert pl.window == (10, 18) and pl.taps == (4 if mode == "up2" else 9)
+    assert pl.grid == min(pl.tiles, k.H100_SMS) and pl.tiles < 2**31
+    assert pl.smem_bytes == smem <= SMEM_LIMIT
 
 
 def test_conv_plan_f32_choices():
@@ -152,19 +148,18 @@ def test_conv_plan_f32_choices():
     assert k.plan(1, 1024, 1024, 128, 3, itemsize=4).bn == 8
     assert k.plan(1, 1024, 1024, 128, 128, itemsize=4).tiles == 64 * 128 * 2
     assert k.smem_bytes_conv_f32(80) == 1024 + 3 * 23 * 1024 + 7 * 2 * 80 * 128 + 8 * (6 + 14)
-    # the SIMT kernel's fused and upsample modes
-    assert k.plan_f32(2, 32, 32, 1280, 1280, "fused").bn == 64  # 160 tiles of 128 would not fill
-    assert k.plan_f32(2, 64, 64, 640, 640, "fused").bn == 128
-    assert k.plan_f32(1, 1024, 1024, 128, 3, "fused").bn == 16
-    assert k.plan_f32(2, 32, 32, 1280, 1280, "up2").tiles == 2 * 4 * 2 * 10 * 4
-    assert k.smem_bytes_f32("fused", 128) == 2 * (10 * 18 * 8 + 8 * 9 * 128) * 4
+    # the fused form: the VAE decoder's Couts on the 64-wide tile, a ready barrier a halo stage
+    assert k.plan(1, 128, 128, 512, 512, itemsize=4, fused=True).bn == 64
+    assert k.plan(1, 1024, 1024, 128, 128, itemsize=4, fused=True).tiles == 64 * 128 * 2
+    assert k.smem_bytes_conv_f32(64, True) == k.smem_bytes_conv_f32(64) + 8 * 3
+    assert k.conv_f32_weight_stages(80, True) == 7 and k.conv_f32_weight_stages(64, True) == 8
+    # the upsample form: phases x low-res rectangles x channel tiles, the stride-1 rings
+    assert k.plan_up2(2, 32, 32, 1280, 1280, itemsize=4).tiles == 2 * 4 * 2 * 16 * 4
+    assert k.plan_up2(1, 512, 512, 256, 256, itemsize=4).tiles == 64 * 32 * 4 * 4
+    assert k.plan_up2(1, 8, 8, 64, 3, itemsize=4).bn == 8
+    assert k.plan_up2(2, 64, 64, 640, 640, itemsize=4).smem_bytes == k.smem_bytes_conv_f32(80)
     with pytest.raises(ValueError):
-        k.plan_f32(1, 8, 8, 60, 64)  # Cin not a multiple of the chunk
-    for mode in ("conv", "down2"):  # the stride-1 and stride-2 convs are the 3xTF32 kernel's
-        with pytest.raises(ValueError):
-            k.plan_f32(1, 8, 8, 64, 64, mode)
-    with pytest.raises(ValueError):
-        k.plan_f32(1, 8, 8, 64, 64, "stride3")
+        k.plan_up2(1, 8, 8, 64, 64, itemsize=8)
 
 
 ATTN_KEYS = _keys("flash_attention_d64_f32") + _keys("flash_attention_d512_f32")
@@ -255,9 +250,9 @@ def _hwio(w_oihw):
 t = torch.from_numpy
 # JAX's kernels take widths that are multiples of 8 only.
 JAX_SHAPES = [
-    (2, 8, 8, 64, 200),  # two images smaller than a tile, ragged Cout (SIMT: 64-wide tiles)
-    (1, 8, 16, 72, 3),  # Cin 72 (3xTF32: a last chunk of 8; SIMT: nine chunks), Cout 3
-    (1, 16, 24, 96, 128),  # past one rectangle both ways (SIMT: the 128-wide tile)
+    (2, 8, 8, 64, 200),  # two images smaller than a tile, ragged Cout (80-wide tiles)
+    (1, 8, 16, 72, 3),  # Cin 72: a last chunk of 8; Cout 3: the 8-wide tile
+    (1, 16, 24, 96, 128),  # past one rectangle both ways (64-wide tiles)
 ]
 
 

@@ -1,9 +1,9 @@
 """The fp32 tensor-core kernels' arithmetic (3xTF32), held on the CPU.
 
-The stride-1 and stride-2 convs and the 64- and 512-dim attention of the fp32
-path take every fp32 product as three TF32 products on ``wgmma``
-(``csrc/conv3x3_tf32x3.cu``, ``csrc/flash_attention_tf32x3.cu``).  This file
-holds:
+The stride-1, fused, upsample and stride-2 convs and the 64- and 512-dim
+attention of the fp32 path take every fp32 product as three TF32 products on
+``wgmma`` (``csrc/conv3x3_tf32x3.cu``, ``csrc/flash_attention_tf32x3.cu``).
+This file holds:
 
 * the split (``ops/tf32x3.py``): rounding to TF32 (ties away from zero) and
   the tensor cores' truncation, as bit operations on an int32 view, against
@@ -12,16 +12,19 @@ holds:
   their PyTorch emulation: against an fp64 reference, three products stay
   within 8x the plain fp32 version's error, single-pass TF32 (the lo products
   dropped) does not;
-* the kernels' schedules: ``plan`` and ``plan_down2`` at item size 4
-  (chunks of 32 channels; channel tiles of 80, 64, 48 or 8, and of 80 or 64)
-  at every fp32 main-path shape, within 227 KB of shared memory and the
-  register-sized tiles, walked by ``conv3x3_tiled_plain_f32`` and
-  ``conv3x3_down2_tiled_plain_f32`` against the plain versions and the JAX
-  package's convs in interpret mode (also at a Cin that is no multiple of 32
-  and at Cout 4); ``plan_f32`` at D = 64 (128-row tiles, Q resident, the
+* the kernels' schedules: ``plan`` (plain and fused), ``plan_up2`` and
+  ``plan_down2`` at item size 4 (chunks of 32 channels; channel tiles of 80,
+  64, 48 or 8, and of 80 or 64) at every fp32 main-path shape, within 227 KB
+  of shared memory and the register-sized tiles, walked by
+  ``conv3x3_tiled_plain_f32`` (with the fused prologue and skip),
+  ``conv3x3_up2_tiled_plain_f32`` and ``conv3x3_down2_tiled_plain_f32``
+  against the plain versions and the JAX package's convs in interpret mode
+  (also at a Cin that is no multiple of 32, at Cout 4, with per-channel scale
+  and shift, a per-batch bias and a skip); ``plan_f32`` at D = 64 (128-row tiles, Q resident, the
   order of V^T's keys that P's fragments take) and D = 512 (persistent
   blocks, the scratch's floats), the D = 64 walk against JAX's kernel;
-* the conv modules' split weights, made again when the weights change;
+* the conv modules' split weights (of the upsample conv: its fp32 phase
+  weights'), made again when the weights change;
 * the ``tools/kernel_variants.py`` specs of both libraries, in step with the
   sources.
 
@@ -132,6 +135,45 @@ def test_conv_stride1_three_products_pass_the_fp64_gate_one_does_not(shape):
     assert 0 < plain and three <= GATE * plain < one
 
 
+@pytest.mark.parametrize("shape", [(1, 16, 16, 64, 32, False, True), (2, 16, 24, 72, 4, True, False),
+                                   (1, 24, 16, 128, 64, True, True)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv_fused_three_products_pass_the_fp64_gate_one_does_not(shape):
+    """The fused conv's emulation: the prologue in fp32, then the split; per
+    channel scale and shift, a per-batch bias, a skip."""
+    b, h, w, cin, cout, per_batch_bias, skip = shape
+    x, wt, bias = (torch.from_numpy(a) for a in _operands(15, b, h, w, cin, cout))
+    r = np.random.default_rng(16)
+    if per_batch_bias:
+        bias = torch.from_numpy(r.standard_normal((b, cout)).astype(np.float32) * 0.1)
+    pre = (torch.from_numpy(r.uniform(0.5, 1.5, (b, cin)).astype(np.float32)),
+           torch.from_numpy(r.standard_normal((b, cin)).astype(np.float32) * 0.5))
+    sk = torch.from_numpy(r.standard_normal((b, h, w, cout)).astype(np.float32)) if skip else None
+    xin = F.silu(x.double() * pre[0].double()[:, None, None, :] + pre[1].double()[:, None, None, :])
+    ref = F.conv2d(xin.permute(0, 3, 1, 2), wt.double(), padding=1).permute(0, 2, 3, 1)
+    ref = ref + (bias.double()[:, None, None, :] if bias.dim() == 2 else bias.double())
+    if sk is not None:
+        ref = ref + sk.double()
+    plain = _err(cf.conv3x3_fused_plain(x, wt, bias, pre, skip=sk), ref)
+    three = _err(tf32x3.conv3x3_fused_plain(x, wt, bias, pre, skip=sk), ref)
+    one = _err(tf32x3.conv3x3_fused_plain(x, wt, bias, pre, skip=sk, passes=1), ref)
+    assert 0 < plain and three <= GATE * plain < one
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 8, 64, 32), (2, 8, 12, 72, 4), (1, 12, 8, 96, 80)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv_up2_three_products_pass_the_fp64_gate_one_does_not(shape):
+    """The upsample conv's emulation, on the phase weights folded in fp32."""
+    b, h, w, cin, cout = shape
+    x, wt, bias = (torch.from_numpy(a) for a in _operands(17, b, h, w, cin, cout))
+    up = x.double().permute(0, 3, 1, 2).repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    ref = F.conv2d(up, wt.double(), padding=1).permute(0, 2, 3, 1) + bias.double()
+    plain = _err(cf.conv3x3_up2_plain(x, wt, bias), ref)
+    three = _err(tf32x3.conv3x3_up2_plain(x, wt, bias), ref)
+    one = _err(tf32x3.conv3x3_up2_plain(x, wt, bias, passes=1), ref)
+    assert 0 < plain and three <= GATE * plain < one
+
+
 @pytest.mark.parametrize("shape", [(1, 128, 256, 1, 512), (2, 128, 128, 2, 64),
                                    (1, 256, 128, 3, 64)],
                          ids=lambda s: "x".join(map(str, s)))
@@ -178,6 +220,8 @@ def _keys(kernel, controlnets=(TC.SDXL_CONTROLNET_SMALL,)):
 
 DOWN2_KEYS = _keys("conv3x3_down2_f32")
 BOTH_CONTROLNETS = (TC.SDXL_CONTROLNET_SMALL, TC.SDXL_CONTROLNET_FULL)
+FUSED_KEYS = _keys("conv3x3_fused_f32", BOTH_CONTROLNETS)
+UP2_KEYS = _keys("conv3x3_up2_f32", BOTH_CONTROLNETS)
 CONV_KEYS = _keys("conv3x3_f32", BOTH_CONTROLNETS)
 D64_KEYS = _keys("flash_attention_d64_f32", BOTH_CONTROLNETS)
 
@@ -329,6 +373,136 @@ def test_conv_walk_f32_stride1_at_a_ragged_cin_matches_jax(shape):
     assert float(np.abs(short.numpy() - ref).max()) > 100 * 2e-4
 
 
+FUSED_UP2_CASES = ([("fused", key) for key in FUSED_KEYS]
+                   + [("up2", key) for key in UP2_KEYS])
+
+
+@pytest.mark.parametrize("form,key", FUSED_UP2_CASES,
+                         ids=[f"{f}-{'x'.join(map(str, key))}" for f, key in FUSED_UP2_CASES])
+def test_conv_plan_f32_fused_and_up2_cover_the_call(form, key):
+    """The fused and the upsample fp32 plans at every main-path shape: the
+    stride-1 instance's halos of (8 + 2) x (16 + 2) pixels x 32 channels and
+    rings (the fused form with a ready barrier per halo stage), a
+    register-sized channel tile that leaves the fewest columns empty, every
+    (up2: low-res) rectangle once per channel tile (up2: and phase), shared
+    memory within 227 KB."""
+    b, h, w, cin, cout = key[:5]
+    if form == "fused":
+        pl = k.plan(b, h, w, cin, cout, itemsize=4, fused=True)
+        phases = 1
+        assert pl.smem_bytes == k.smem_bytes_conv_f32(pl.bn, True) <= SMEM_LIMIT
+        assert pl.weight_stages == k.conv_f32_weight_stages(pl.bn, True)
+    else:
+        pl = k.plan_up2(b, h, w, cin, cout, itemsize=4)
+        phases = pl.phases
+        assert pl.smem_bytes == k.smem_bytes_conv_f32(pl.bn) <= SMEM_LIMIT
+        assert pl.weight_stages == k.conv_f32_weight_stages(pl.bn)
+        assert len({shift for taps in pl.shifts for shift in taps}) == 9  # the halo's nine shifts
+    assert pl.chunk == 32 and pl.box_x == (32, 18, 10, 1) and pl.box_w == (32, 1, pl.bn)
+    assert pl.bn in k.CONV_F32_BN and 2 * (pl.bn // 2) + 32 <= 168 - 32
+    assert pl.bn == k.bn_f32(cout) and 0 <= pl.tiles_n * pl.bn - cout < pl.bn
+    assert 7 <= pl.weight_stages <= 8
+    rects = pl.rectangles(h, w)
+    assert len(set(rects)) == len(rects) and all(y0 < h and x0 < w for y0, x0 in rects)
+    assert pl.tiles_y * pl.rect[0] >= h and pl.tiles_x * pl.rect[1] >= w
+    assert len(rects) * b * pl.tiles_n * phases == pl.tiles
+    assert pl.grid == min(pl.tiles, k.H100_SMS)
+
+
+def test_conv_plan_f32_fused_and_up2_main_path():
+    """The SSD-1B fp32 edit's fused calls: 28 per edit, 6.958 TFLOP, all in
+    the VAE decoder (Cout 512, 256, 128: the 64-wide tile); its upsample
+    calls: 9, 1.881 TFLOP (16/36 of the materialised conv), the UNet's on the
+    80-wide tile, the VAE's on the 64-wide one; the same with the full
+    ControlNet."""
+    for cn in BOTH_CONTROLNETS:
+        fused = _ssd1b_calls(cn, "conv3x3_fused_f32")
+        assert sum(fused.values()) == 28
+        flops = sum(n * 2 * b * h * w * cout * 9 * cin
+                    for (b, h, w, cin, cout, *_), n in fused.items())
+        assert round(flops / 1e12, 3) == 6.958
+        up2 = _ssd1b_calls(cn, "conv3x3_up2_f32")
+        assert sum(up2.values()) == 9
+        flops = sum(n * 2 * b * (2 * h) * (2 * w) * cout * 4 * cin
+                    for (b, h, w, cin, cout), n in up2.items())
+        assert round(flops / 1e12, 3) == 1.881
+    assert {k.plan(*key[:5], itemsize=4, fused=True).bn for key in FUSED_KEYS} == {64}
+    assert not any(key[5] for key in FUSED_KEYS)  # no per-batch bias on the main path
+    assert {key[3] % 32 for key in FUSED_KEYS + UP2_KEYS} == {0}
+    assert k.plan_up2(2, 32, 32, 1280, 1280, itemsize=4).tiles == 1024
+    assert k.plan_up2(1, 512, 512, 256, 256, itemsize=4).tiles == 32768
+    assert k.plan_up2(2, 64, 64, 640, 640, itemsize=4).bn == 80
+    assert k.plan_up2(1, 256, 256, 512, 512, itemsize=4).bn == 64
+
+
+def _prenorm(seed, b, cin, cout, h, w):
+    """Per-channel scale and shift (a channel mapped with another's shows), a
+    per-batch bias and a skip."""
+    r = np.random.default_rng(seed)
+    return ((r.uniform(0.5, 1.5, (b, cin)).astype(np.float32),
+             r.standard_normal((b, cin)).astype(np.float32)),
+            r.standard_normal((b, cout)).astype(np.float32),
+            r.standard_normal((b, h, w, cout)).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 32, 72, 4), (2, 8, 24, 104, 80), (1, 24, 16, 96, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv_walk_f32_fused_at_a_ragged_cin_matches_jax(shape):
+    """The fused walk (the prologue on each halo's in-image elements, chunks
+    of 32 channels, Cin 72 and 104 ending in a chunk of 8) against the JAX
+    package's fused conv in interpret mode at fp32: per-channel scale and
+    shift, a per-batch bias, a skip; the padding ring mapped by the prologue
+    too, or a skipped chunk, is far outside."""
+    b, h, w, cin, cout = shape
+    x, wt, _ = _operands(18, *shape)
+    pre, bias, sk = _prenorm(19, b, cin, cout, h, w)
+    hwio = np.transpose(wt, (2, 3, 1, 0))
+    assert jcf.supports_fused(x.shape, hwio.shape, 4, True)
+    with jflags.override(pallas_interpret=True):
+        ref = np.asarray(jcf.conv3x3_fused(jnp.asarray(x), jnp.asarray(hwio), jnp.asarray(bias),
+                                           tuple(map(jnp.asarray, pre)), None, jnp.asarray(sk)))
+    t = torch.from_numpy
+    pre_t = tuple(map(t, pre))
+    out = cf.conv3x3_fused_tiled_plain_f32(t(x), t(wt), t(bias), pre_t, skip=t(sk))
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    np.testing.assert_allclose(
+        out.numpy(), cf.conv3x3_fused_plain(t(x), t(wt), t(bias), pre_t, skip=t(sk)).numpy(),
+        **ORDER_TOL)
+    ring = cf.prologue_plain(F.pad(t(x), (0, 0, 1, 1, 1, 1)), *pre_t)
+    wrong = F.conv2d(ring.permute(0, 3, 1, 2), t(wt)).permute(0, 2, 3, 1)
+    assert float(np.abs((wrong + t(bias)[:, None, None, :] + t(sk)).numpy() - ref).max()) > 0.02
+    short = cf.conv3x3_fused_tiled_plain_f32(t(x), t(wt), t(bias), pre_t, skip=t(sk),
+                                             chunks_skipped=1)
+    assert float(np.abs(short.numpy() - ref).max()) > 100 * 2e-4
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 16, 72, 4), (2, 8, 8, 104, 80), (1, 12, 20, 64, 96)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_conv_walk_f32_up2_at_a_ragged_cin_matches_jax(shape):
+    """The upsample walk (per low-res rectangle, phase and chunk of 32
+    channels, four taps on the halo, the phase weights folded in fp32)
+    against the JAX package's upsample conv in interpret mode at fp32; a
+    phase with its tap rows swapped, or a skipped chunk, is far outside."""
+    x, wt, bias = _operands(20, *shape)
+    hwio = np.transpose(wt, (2, 3, 1, 0))
+    assert jcf.supports_up2(x.shape, hwio.shape, 4)
+    with jflags.override(pallas_interpret=True):
+        ref = np.asarray(jcf.conv3x3_up2(jnp.asarray(x), jnp.asarray(hwio), jnp.asarray(bias),
+                                         "silu"))
+    t = torch.from_numpy
+    out = cf.conv3x3_up2_tiled_plain_f32(t(x), t(wt), t(bias), "silu")
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    np.testing.assert_allclose(out.numpy(),
+                               cf.conv3x3_up2_plain(t(x), t(wt), t(bias), "silu").numpy(),
+                               **ORDER_TOL)
+    phases = cf.make_phase_kernels(t(wt))
+    phases[1, 1] = phases[1, 1].flip(0).clone()
+    swapped = cf.up2_phases_plain(t(x), phases, t(bias), "silu")
+    assert float(np.abs(swapped.numpy() - ref).max()) > 100 * 2e-4
+    short = cf.conv3x3_up2_tiled_plain_f32(t(x), t(wt), t(bias), "silu", chunks_skipped=1)
+    assert float(np.abs(short.numpy() - ref).max()) > 100 * 2e-4
+
+
 @pytest.mark.parametrize("key", D64_KEYS, ids=lambda s: "x".join(map(str, s)))
 def test_attention_plan_f32_d64_keeps_q_resident(key):
     """The D = 64 fp32 plan at every main-path shape: 128-row tiles whose Q in
@@ -419,6 +593,36 @@ def test_conv3x3_split_is_made_again_after_load_state_dict():
     assert resnet._tf32_split(conv, w)[0] is not second[0]
 
 
+def test_conv3x3_up2_split_is_made_again_after_load_state_dict():
+    """An upsampler's ``Conv3x3`` keeps the TF32 hi and lo copies of its
+    phase weights, folded in fp32 (the fp32 upsample kernel's operands),
+    until the weight changes: the same tensors while it stands, new ones after
+    ``load_state_dict``, each the split of the fold of the weight it then
+    holds."""
+    from fastedit_tpu_torch.models import resnet
+
+    torch.manual_seed(1)
+    conv = resnet.Conv3x3(64, 32)
+
+    def split():
+        w = conv.weight.contiguous(memory_format=torch.channels_last)
+        return resnet._prepared(conv, "up2_tf32_split", lambda: cf.split_up2(w))
+
+    def want():  # the fold's sums in the weight's channels_last memory, as the module folds
+        w = conv.weight.detach().contiguous(memory_format=torch.channels_last)
+        return tf32x3.split_tf32(cf.fold_up2(w))
+
+    first = split()
+    assert split() is first and first[0].shape == (32, 2, 2, 2, 2, 64)
+    for got, ref in zip(first, want(), strict=True):
+        assert torch.equal(got, ref)
+    conv.load_state_dict({"weight": torch.randn(32, 64, 3, 3), "bias": torch.zeros(32)})
+    second = split()
+    assert second is not first and not torch.equal(second[0], first[0])
+    for got, ref in zip(second, want(), strict=True):
+        assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("spec_name", ["variants_conv_tf32x3.py", "variants_flash_tf32x3.py"])
 def test_the_tf32x3_variants_specs_are_in_step(spec_name):
     """Each spec's replacements (the sums in the tensor cores' accumulators and
@@ -441,5 +645,7 @@ def test_the_tf32x3_variants_specs_are_in_step(spec_name):
         for name, d64 in (("tensor_core_sums", "s_panel(part"), ("single_pass", "(d, dql")):
             olds = "".join(old for old, _ in spec["VARIANTS"][name])
             assert d64 in olds and "(s, dql" in olds, name
-    else:
-        assert "conv_tiles<BN, false>" in source and "conv_tiles<BN, true>" in source
+    else:  # every form shares the core: the sums' variant reaches all four kernels
+        for form in ("CONV", "FUSED", "UP2", "DOWN2"):
+            assert f"conv_tiles<BN, {form}>" in source
+        assert {"prologue_in_registers", "up2_window_at_tap_1"} <= set(spec["VARIANTS"])
