@@ -61,7 +61,9 @@ order; a failed phase raises and the script exits non-zero:
    capture, which must come to twice the inventory's counts per key; and
    the device kernels of one replayed edit and one replayed batch of two,
    by name (``torch.profiler``), which must come to the inventory's counts
-   (the phase-weight fold: none, it runs once per weight).
+   (the phase-weight fold: none, it runs once per weight).  Then one new
+   prompt's host ms (to the return, and to a sync) and device ms (the
+   editor's CUDA events) on the prompt graph and on the eager arm, in turns.
 4. Kernels against plain versions end to end, with seeded fan-in-scaled
    weights, in two arms: the default configuration, and the opt-in one
    (``use_cuda_conv=True``: the encoder on the conv, fused resnet and
@@ -79,6 +81,9 @@ order; a failed phase raises and the script exits non-zero:
    an ``edit_batch`` of two; a second replay of a key on new inputs (image,
    prompt, seed, another schedule of three steps, other scales) against a
    fresh eager edit of them; a flags override, which must capture a new key.
+   The prompt graph against the eager arm, bit for bit, for 1, 3 and 5 novel
+   prompts (padded counts 1, 4 and 8), and a cached prompt's row unchanged
+   after a later prompt replayed the same key (the cache holds copies).
    Then the graph cache's memory rule: ``pipeline/graphs.MEMORY_BUDGET``
    patched to what is in use plus the largest capture so far and 0.1 GiB,
    six new keys must evict older ones and keep the card's memory in use
@@ -134,7 +139,32 @@ order; a failed phase raises and the script exits non-zero:
    channels, the fp32 kernel's, must fail those limits), and the card memory
    the conv modules' TF32 weight copies take.  Last, one quality-mode edit
    (``use_full_controlnet=True``) with its launches against the inventory of
-   the full ControlNet.
+   the full ControlNet.  Also, with the seeded weights: the fp32 prompt
+   graph, captured with TF32 allowed in the process, equals the text
+   encoders run with TF32 off (which TF32 moves), and one request through
+   ``serve.EditService`` gives the graphs' edit of the same input bit for
+   bit.
+9. Serving, run right after phase 5 on its editor (seeded weights, bf16,
+   default flags): ``serve.EditService(max_batch=4)``, its warm-up at batch
+   1, 2 and 4 (seconds and memory in use per key), ``make_http_server(port=0)``
+   on a thread, and 1024² JPEG requests from client threads: one alone (a new
+   prompt, then the same prompt cached); four at once with seed 7 (one batch
+   of four; each image and its final latents within phase 4's limits of a
+   solo ``edit`` of the same image, prompt and seed, its rows matched to the
+   requests by the order the batch encoded their prompts in); three at once (padded
+   to four, three images back); two that differ only in guidance (two
+   batches); a burst of 16 new prompts (requests per minute, latency, the
+   batch histogram); a bad body (400), an unknown route (404), a service
+   with no queue (503), a request queued behind two batches of four past a
+   short timeout (504, its future cancelled); ``close()`` with six requests
+   in flight (every future resolved).  The wrappers' launches over the phase
+   must be twice the inventory's for each key it captured.
+10. ``python -m fastedit_tpu_torch.tools.conformance`` (``main([])``): the
+   card against the CPU, exit 0, the flash attention and GroupNorm kernels
+   launched; then its SSIM check with TF32 allowed (outside
+   ``true_fp32()``), which must fail, or where TF32 leaves the stress pair
+   within its tolerance, with the card's SSIM inputs cast to bf16, which
+   must.
 
 Last, ``python -m fastedit_tpu_torch.bench --reps 3`` (``bench.main``) on a
 new editor, whose JSON line is printed.
@@ -1108,7 +1138,7 @@ def main_path(calls: dict):
     log(f"edit_batch of 2, replayed: {batch_replay['seconds']:.4f} s", batch_replay["stage_ms"])
     launches = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 1024**3
-    keys = editor._graphs.captured
+    keys = edit_captures(editor)
     if len(keys) != 2 or any(tuple(c.graphs) != STAGES for c in keys.values()):
         raise AssertionError(f"expected two keys of three graphs each, got {list(keys)}")
 
@@ -1128,13 +1158,57 @@ def main_path(calls: dict):
         replays[what] = wrapper_launches(device_kernels(edit))
         check_launches(f"one replayed {what}, device kernels by the profiler",
                        replays[what], {**expected, "up2_phase_weights": 0})
-    if len(keys) != 2:
+    if len(edit_captures(editor)) != 2:
         raise AssertionError(f"the profiled replays captured another key: {list(keys)}")
+    prompt = prompt_encode_times(editor)
+    if launch_counts() != launches:
+        raise AssertionError("encoding prompts launched a kernel of the port")
     return editor, dict(
         editor_build_s=build_s, warmup_s=warm_s, edits=edits, edit_batch2=batch,
         edit_batch2_replay=batch_replay, launches=launches, launches_per_edit=per_edit,
-        replay_launches=replays, peak_gib=peak_gib, graph_pool_gib=pools,
+        replay_launches=replays, peak_gib=peak_gib, graph_pool_gib=pools, prompt_encode=prompt,
     )
+
+
+def edit_captures(editor) -> dict:
+    """The editor's captures of the edit's three graphs, by key (not its
+    prompt graphs')."""
+    eg = editor._graphs
+    return {k: eg.captured[k] for k in eg.edit_keys()}
+
+
+def prompt_encode_times(editor, reps: int = 5) -> dict:
+    """One new prompt, on the prompt graph and on the eager arm in turns
+    (after one unrecorded round): the host ms to the return of
+    ``_encode_prompts`` (tokenizing, the copies in, the replay or the eager
+    launches), the host ms to a sync after it, and the device ms between the
+    editor's CUDA events around the replay or the eager encode; medians."""
+    import statistics
+
+    import torch
+
+    from fastedit_tpu_torch.ops import flags
+
+    rows: dict = {"graph": [], "eager": []}
+    for i in range(reps + 1):
+        for arm in rows:
+            torch.cuda.synchronize()
+            editor._stage_events = []
+            t = time.perf_counter()
+            with flags.override(cuda_graphs=arm == "graph"):
+                editor._encode_prompts([f"a new prompt to time, {arm} {i}"])
+            host = time.perf_counter() - t
+            torch.cuda.synchronize()
+            synced = time.perf_counter() - t
+            if i:
+                rows[arm].append(dict(host_ms=1e3 * host, synced_ms=1e3 * synced,
+                                      device_ms=editor.stage_ms()["encode_prompt"]))
+    out = {arm: {k: statistics.median(r[k] for r in rs) for k in rs[0]}
+           for arm, rs in rows.items()}
+    out["reps"] = reps
+    log("[3] one new prompt, medians of", reps, "(host ms to return, to a sync, device ms):",
+        out)
+    return out
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1302,8 +1376,10 @@ def graphs_vs_eager(editor) -> dict:
     from fastedit_tpu_torch.ops import flags
 
     images, prompts = [test_image(6), test_image(7)], ["a red barn", "a lake at dawn"]
-    captured = editor._graphs.captured
     out = {}
+
+    def n_keys():  # a new prompt may capture a prompt graph: count the edit's keys
+        return len(editor._graphs.edit_keys())
 
     def pair(what, imgs, prm, **kw):
         graph = edit_arrays(editor, imgs, prm, **kw)
@@ -1312,26 +1388,73 @@ def graphs_vs_eager(editor) -> dict:
         same_bits(what, graph, eager)
         out[what] = dict(seconds_graphs=graph[2], seconds_eager=eager[2],
                          stage_ms_graphs=graph[3], stage_ms_eager=eager[3],
-                         keys=len(captured), image_std=float(graph[0].std()))
+                         keys=n_keys(), image_std=float(graph[0].std()))
         log(f"graphs = eager, {what}:", out[what])
 
     pair("batch 1, CFG", images[:1], prompts[:1], seed=21, **EDIT_KW)
     pair("batch 1, no CFG", images[:1], prompts[:1], seed=22,
          **{**EDIT_KW, "guidance_scale": 1.0})
     pair("edit_batch of 2", images, prompts, seed=23, **EDIT_KW)
-    keys = len(captured)
+    keys = n_keys()
     # the batch-1 CFG key again: another image, prompt, seed, schedule (5 steps at
     # strength 0.6 run 3, from t = 599) and scales
     pair("batch 1, CFG, a second replay on new inputs", [test_image(8)], ["a desert road"],
          seed=24, strength=0.6, num_inference_steps=5, guidance_scale=2.0,
          controlnet_conditioning_scale=0.8)
-    if len(captured) != keys:
+    if n_keys() != keys:
         raise AssertionError("new inputs of a captured key captured another key")
     with flags.override(use_fused_down2=False):
         pair("flags override use_fused_down2=False", images[:1], prompts[:1], seed=25,
              **EDIT_KW)
-    if len(captured) != keys + 1:
+    if n_keys() != keys + 1:
         raise AssertionError("a flags override did not capture a new key")
+    return out
+
+
+def encode_anew(editor, prompts: list, on_graphs: bool = True) -> list:
+    """``prompts`` encoded anew (dropped from the cache first) on the prompt
+    graph or the eager arm: copies of their cached (context, pooled) rows."""
+    from fastedit_tpu_torch.ops import flags
+
+    for p in prompts:
+        editor._prompt_cache.pop(p, None)
+    with flags.override(cuda_graphs=on_graphs):
+        editor._encode_prompts(prompts)
+    return [tuple(t.clone() for t in editor._prompt_cache[p]) for p in prompts]
+
+
+def prompt_graph_vs_eager(editor) -> dict:
+    """The prompt graph against the eager arm, bit for bit, on the seeded
+    weights: 1, 3 and 5 novel prompts (padded counts 1, 4 and 8); a cached
+    row of prompt A unchanged after prompt B replayed the same key; the
+    memory the prompt captures hold (pool growth, static buffers)."""
+    import torch
+
+    from fastedit_tpu_torch.pipeline import graphs
+
+    out = {}
+    for n in (1, 3, 5):
+        prompts = [f"a prompt graph check, {n} prompts, {i}" for i in range(n)]
+        graph, eager = encode_anew(editor, prompts), encode_anew(editor, prompts, False)
+        if not all(torch.equal(a, b) for g, e in zip(graph, eager) for a, b in zip(g, e)):
+            raise AssertionError(f"prompt graph and the eager arm differ at {n} prompts")
+        padded = 1 << (n - 1).bit_length()
+        if graphs.prompt_key(padded) not in editor._graphs.captured:
+            raise AssertionError(f"{n} prompts: no prompt graph of {padded} captured")
+        if float(graph[0][0].float().std()) == 0.0:
+            raise AssertionError("seeded text encoders gave a constant context")
+        out[f"novel_{n}"] = dict(padded=padded, same_bits=True)
+    a = encode_anew(editor, ["a cached prompt, a"])[0]
+    b = encode_anew(editor, ["a cached prompt, b"])[0]
+    cached = editor._prompt_cache["a cached prompt, a"]
+    if not (all(torch.equal(x, y) for x, y in zip(cached, a)) and not torch.equal(a[0], b[0])):
+        raise AssertionError("a cached prompt changed when a later prompt replayed its graph")
+    caps = {k: c for k, c in editor._graphs.captured.items()
+            if isinstance(c, graphs.PromptCaptured)}
+    out["pool_gib_by_padded_count"] = {k[1]: c.pool_bytes / 2**30 for k, c in caps.items()}
+    out["static_gib"] = sum(t.numel() * t.element_size() for c in caps.values()
+                            for t in (*c.ids, c.context, c.pooled)) / 2**30
+    log("[5] prompt graph = eager arm bit for bit at 1, 3 and 5 prompts; a cached row kept:", out)
     return out
 
 
@@ -1350,8 +1473,9 @@ def graph_memory_sweep(editor, keys: int = 6) -> dict:
     from fastedit_tpu_torch.pipeline import graphs
 
     eg = editor._graphs
-    device = next(iter(eg.captured.values())).out.device
+    device = editor.device
     largest = max(c.pool_bytes for c in eg.captured.values())
+    before = list(eg.captured)
     in_use, total = graphs._card_memory(device)  # after empty_cache
     budget = (in_use + largest + 0.1 * 2**30) / total
     saved = graphs.MEMORY_BUDGET
@@ -1376,11 +1500,11 @@ def graph_memory_sweep(editor, keys: int = 6) -> dict:
     finally:
         graphs.MEMORY_BUDGET = saved
     res["peak_reserved_gib"] = torch.cuda.max_memory_reserved(device) / 2**30
-    res["evicted"] = res["keys_before"] + keys - len(eg.captured)
+    res["evicted"] = sum(k not in eg.captured for k in before)  # the oldest go first
     log("[5] graph cache under a patched memory budget:", res)
     if res["evicted"] < 1:
         raise AssertionError(f"graph cache: {keys} new keys under a budget of one more capture "
-                             "evicted none")
+                             "evicted none of the keys before them")
     return res
 
 
@@ -2078,11 +2202,48 @@ def tf32_split_gib(editor) -> float:
     return total / 1024**3
 
 
+def f32_prompt_graph_without_tf32(editor) -> dict:
+    """With TF32 on in the process, the fp32 editor's prompt graph, captured
+    here (outside an edit, as ``bench.py`` encodes), equals its text encoders
+    run with TF32 off, which TF32 would move."""
+    import numpy as np
+    import torch
+
+    from fastedit_tpu_torch.pipeline import graphs, stages
+
+    eg, prompts = editor._graphs, ["an fp32 prompt graph", "captured with tf32 allowed"]
+    for key in [k for k, c in eg.captured.items() if isinstance(c, graphs.PromptCaptured)]:
+        del eg.captured[key]
+    backends = torch.backends
+    saved = backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32
+    try:
+        backends.cuda.matmul.allow_tf32 = backends.cudnn.allow_tf32 = True
+        ctx = torch.cat([rows[0] for rows in encode_anew(editor, prompts)])
+        ids = [torch.from_numpy(np.stack([tok.encode(p) for p in prompts])).long().cuda()
+               for tok in (editor.tokenizer, editor.tokenizer_2)]
+        with_tf32 = stages.encode_prompt(editor.modules, *ids)[0]
+        backends.cuda.matmul.allow_tf32 = backends.cudnn.allow_tf32 = False
+        without = stages.encode_prompt(editor.modules, *ids)[0]
+    finally:
+        backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32 = saved
+    res = dict(graph_equals_tf32_off=bool(torch.equal(ctx, without)),
+               tf32_max_abs_diff=float((with_tf32 - without).abs().max()),
+               graph_max_abs_diff=float((ctx - without).abs().max()))
+    log("[8] the fp32 prompt graph captured with TF32 allowed in the process:", res)
+    if not res["graph_equals_tf32_off"]:
+        raise AssertionError(f"the fp32 prompt graph is not the TF32-off encode: {res}")
+    if res["tf32_max_abs_diff"] == 0.0:
+        raise AssertionError("TF32 does not move the fp32 text encoders: the check cannot see "
+                             "a prompt graph captured in TF32")
+    return res
+
+
 def f32_path(calls: dict, card: str) -> dict:
     """Phase 8: the fp32 path (the reference's fp32 configuration and its
     quality mode) on the card, on graphs, with the bf16 editors freed."""
     import gc
 
+    import numpy as np
     import torch
 
     from fastedit_tpu_torch import FastEditor
@@ -2123,7 +2284,7 @@ def f32_path(calls: dict, card: str) -> dict:
     res["launches"] = launch_counts()
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 1024**3
     res["tf32_split_gib"] = tf32_split_gib(editor)
-    keys = editor._graphs.captured
+    keys = edit_captures(editor)
     if len(keys) != 2 or any(tuple(c.graphs) != STAGES for c in keys.values()):
         raise AssertionError(f"fp32: expected two keys of three graphs each, got {list(keys)}")
     res["graph_pool_gib"] = {str(k[:5]): c.pool_bytes / 1024**3 for k, c in keys.items()}
@@ -2152,6 +2313,7 @@ def f32_path(calls: dict, card: str) -> dict:
 
     # 8.2 seeded weights: graphs = eager bit for bit, kernels against plain versions
     seeded_weights_(editor, seed=20261017)
+    res["prompt_graph_tf32"] = f32_prompt_graph_without_tf32(editor)
     img, prompt = test_image(5), "an oil painting of a lighthouse"
     editor._encode_prompts([prompt, ""])
 
@@ -2190,6 +2352,17 @@ def f32_path(calls: dict, card: str) -> dict:
     if (bad["latent_rel_l2"] <= F32_E2E_LATENT_REL_L2
             or bad["image_mean_abs_lsb"] <= F32_E2E_IMAGE_MEAN_LSB):
         raise AssertionError(f"the fp32 end-to-end tolerance passes a planted conv fault: {bad}")
+    # one request through the fp32 service: the graphs' edit of the same input
+    from fastedit_tpu_torch.serve import EditParams, EditService
+
+    t = time.perf_counter()
+    with EditService(editor, max_batch=4) as svc:
+        served = np.asarray(svc.edit(img, prompt, EditParams(seed=11), timeout=600))
+    res["service_request_s"] = time.perf_counter() - t
+    if not np.array_equal(served, kern[0][0]):
+        raise AssertionError("fp32 service: the served image differs from the editor's edit")
+    log(f"[8] one fp32 request through EditService: {res['service_request_s']:.3f} s, the "
+        "editor's own edit bit for bit")
     del editor, kern, eager, plain, fault
     gc.collect()
     torch.cuda.empty_cache()
@@ -2217,6 +2390,367 @@ def f32_path(calls: dict, card: str) -> dict:
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_phase
     log(f"[8] phase 8 took {res['seconds']:.1f} s; {card}")
+    return res
+
+
+# ------------------------------------------------------------------ phase 9
+
+# The service's window for the lone requests and the burst (the CLI's
+# default), and the one it is widened to for the cases that must coalesce:
+# four 1024² requests sent at once from four threads reach ``submit`` some
+# tens of ms apart (each body is decoded in its own handler thread).
+SERVE_WINDOW_MS = 10.0
+COALESCE_WINDOW_S = 1.0
+# a request held behind two batches of four times out after this long
+SHORT_TIMEOUT_S = 0.2
+
+
+def request_body(img, prompt: str, **fields) -> tuple[dict, object]:
+    """A ``POST /v1/edit`` body with ``img`` as a JPEG (quality 95), and the
+    image the server decodes from it."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    img.save(buf, format="JPEG", quality=95)
+    decoded = Image.open(io.BytesIO(buf.getvalue())).convert("RGB")
+    return {"image": base64.b64encode(buf.getvalue()).decode("ascii"), "prompt": prompt,
+            **fields}, decoded
+
+
+def http_call(port: int, method: str, path: str, body=None, timeout: float = 600.0):
+    """(status, JSON reply, client seconds) of one request to localhost."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t = time.perf_counter()
+    try:
+        conn.request(method, path, body=None if body is None else json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read()), time.perf_counter() - t
+    finally:
+        conn.close()
+
+
+def concurrently(calls: list) -> list:
+    """Run the zero-argument ``calls`` on threads of their own, all at once;
+    their results in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(calls)) as pool:
+        return list(pool.map(lambda call: call(), calls))
+
+
+def posted_images(replies: list) -> list:
+    """The uint8 images of 200 replies to ``POST /v1/edit``."""
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    out = []
+    for code, reply, _ in replies:
+        if code != 200:
+            raise AssertionError(f"edit request answered {code}: {reply}")
+        img = np.asarray(Image.open(io.BytesIO(base64.b64decode(reply["image"]))).convert("RGB"))
+        check_image(img)
+        out.append(img)
+    return out
+
+
+def hist_delta(before: dict, after: dict) -> dict:
+    """What a run of requests added to the service's ``batch_size_hist``."""
+    a, b = after["batch_size_hist"], before["batch_size_hist"]
+    return {k: v - b.get(k, 0) for k, v in a.items() if v != b.get(k, 0)}
+
+
+def serving(editor, card: str) -> dict:
+    """Phase 9: ``serve.EditService`` and its HTTP front-end on the SSD-1B
+    editor of phases 3-5 (seeded weights), bf16 at 1024², default flags."""
+    import statistics
+    import threading
+
+    import numpy as np
+    import torch
+
+    from fastedit_tpu_torch.models import configs as C
+    from fastedit_tpu_torch.pipeline import graphs
+    from fastedit_tpu_torch.serve import EditService, make_http_server
+    from fastedit_tpu_torch.tools import inventory
+    from fastedit_tpu_torch.tools.inventory import launch_counts, reset_launch_counts
+
+    res: dict = {}
+    t_phase = time.perf_counter()
+    editor._graphs.clear()  # every key this phase serves is captured in it
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    svc = EditService(editor, max_batch=4, batch_window_ms=SERVE_WINDOW_MS)
+    # warmup((1, 2, 4)), one size at a time: each key's capture seconds and the
+    # card's memory in use after it
+    res["warmup"] = []
+    for b in (1, 2, 4):
+        seconds = svc.warmup((b,))
+        res["warmup"].append(dict(batch=b, seconds=seconds,
+                                  in_use_gib=graphs._card_memory(editor.device)[0] / 2**30,
+                                  allocated_gib=torch.cuda.memory_allocated() / 2**30,
+                                  reserved_gib=torch.cuda.memory_reserved() / 2**30))
+    res["warmup_s"] = sum(w["seconds"] for w in res["warmup"])
+    log(f"[9] warmup((1, 2, 4)) {res['warmup_s']:.2f} s:", res["warmup"])
+
+    servers = []
+
+    def serve_on(service, timeout_s=600.0):
+        httpd = make_http_server(service, port=0, request_timeout_s=timeout_s)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        servers.append(httpd)
+        return httpd.server_address[1]
+
+    futures = []  # (prompt, future) of every request the service took
+    submit = svc.submit
+
+    def recording_submit(image, prompt, params=None):
+        futures.append((prompt, submit(image, prompt, params)))
+        return futures[-1][1]
+
+    svc.submit = recording_submit
+    port = serve_on(svc)
+    try:
+        # one request alone: a new prompt, then the same request (the prompt cached)
+        lone = {"new_prompt": [], "cached_prompt": []}
+        for i in range(3):
+            body, _ = request_body(test_image(40 + i), f"a lone request {i}")
+            for kind in lone:
+                code, reply, sec = http_call(port, "POST", "/v1/edit", body)
+                posted_images([(code, reply, sec)])
+                lone[kind].append(dict(client_s=sec, server_ms=reply["latency_ms"]))
+        res["lone"] = {k: dict(client_s=statistics.median(r["client_s"] for r in v),
+                               server_ms=statistics.median(r["server_ms"] for r in v), runs=v)
+                       for k, v in lone.items()}
+        log("[9] one request alone (JPEG in and out, 1024²), medians of 3:",
+            {k: (v["client_s"], v["server_ms"]) for k, v in res["lone"].items()})
+
+        svc.batch_window_s = COALESCE_WINDOW_S
+        # four at once, equal params, seed 7: one batch of four
+        four = [request_body(test_image(50 + i), f"a batched request {i}", seed=7,
+                             format="png") for i in range(4)]
+        before = svc.stats()
+        replies = concurrently([lambda b=b: http_call(port, "POST", "/v1/edit", b)
+                                for b, _ in four])
+        batched = posted_images(replies)
+        # The batch's rows are in the order the requests reached the queue, which
+        # the four client threads do not fix; the editor cached their new prompts
+        # in that order.  The latents, copied now (the service is idle), in the
+        # requests' order:
+        prompts = [f"a batched request {i}" for i in range(4)]
+        queued = list(editor._prompt_cache)[-4:]
+        if sorted(queued) != prompts:
+            raise AssertionError(f"the batch of four encoded {queued}, not {prompts}")
+        batched_latents = editor.last_latents[[queued.index(p) for p in prompts]]
+        res["four"] = dict(hist=hist_delta(before, svc.stats()), queued=queued,
+                           client_s=[r[2] for r in replies])
+        if res["four"]["hist"] != {"4": 1} or batched_latents.shape[0] != 4:
+            raise AssertionError(f"four requests at once did not form one batch: {res['four']}")
+        # three at once: padded to four, three images back
+        before = svc.stats()
+        replies = concurrently([lambda i=i: http_call(port, "POST", "/v1/edit", request_body(
+            test_image(54 + i), f"a padded request {i}", seed=8)[0]) for i in range(3)])
+        res["three"] = dict(hist=hist_delta(before, svc.stats()), images=len(posted_images(replies)))
+        if res["three"] != dict(hist={"3": 1}, images=3):
+            raise AssertionError(f"three requests at once: {res['three']}")
+        # two that differ only in guidance: two batches
+        before = svc.stats()
+        replies = concurrently([lambda g=g: http_call(port, "POST", "/v1/edit", request_body(
+            test_image(57), "a guidance request", seed=9, guidance_scale=g)[0])
+            for g in (1.5, 2.0)])
+        posted_images(replies)
+        res["two_guidances"] = dict(hist=hist_delta(before, svc.stats()),
+                                    batches=svc.stats()["batches"] - before["batches"])
+        if res["two_guidances"] != dict(hist={"1": 2}, batches=2):
+            raise AssertionError(f"two guidances shared a batch: {res['two_guidances']}")
+        log("[9] coalescing:", {k: res[k] for k in ("four", "three", "two_guidances")})
+
+        # a burst of 16 new prompts, equal params, at the serving window
+        svc.batch_window_s = SERVE_WINDOW_MS / 1000
+        bodies = [request_body(test_image(60 + i % 4), f"a burst request {i}")[0]
+                  for i in range(16)]
+        before = svc.stats()
+        t = time.perf_counter()
+        replies = concurrently([lambda b=b: http_call(port, "POST", "/v1/edit", b)
+                                for b in bodies])
+        wall = time.perf_counter() - t
+        posted_images(replies)
+        lat = [r[2] for r in replies]
+        res["burst"] = dict(requests=16, wall_s=wall, requests_per_min=16 * 60 / wall,
+                            client_latency_s_mean=statistics.mean(lat),
+                            client_latency_s_max=max(lat),
+                            server_latency_ms_mean=statistics.mean(r[1]["latency_ms"]
+                                                                   for r in replies),
+                            hist=hist_delta(before, svc.stats()))
+        log(f"[9] a burst of 16 new prompts: {res['burst']['requests_per_min']:.1f} requests "
+            f"per minute, latency mean {res['burst']['client_latency_s_mean']:.3f} s, max "
+            f"{res['burst']['client_latency_s_max']:.3f} s, batches {res['burst']['hist']}; "
+            f"{card}")
+
+        # the error paths: 400, 404, 503 (a service with no queue), 504
+        res["errors"] = {
+            "bad_body": http_call(port, "POST", "/v1/edit", {"prompt": "no image"})[0],
+            "unknown_route": http_call(port, "GET", "/nope")[0]}
+        full = EditService(editor, max_batch=1, max_queue=0)
+        try:
+            res["errors"]["full_queue"] = http_call(serve_on(full), "POST", "/v1/edit",
+                                                    bodies[0])[0]
+        finally:
+            full.close()
+        # two batches of four, then a request with other params behind them that
+        # times out while still queued
+        short_port = serve_on(svc, SHORT_TIMEOUT_S)
+        svc.batch_window_s = COALESCE_WINDOW_S
+        before, taken = svc.stats(), len(futures)
+        held = [threading.Thread(target=http_call, args=(port, "POST", "/v1/edit", request_body(
+            test_image(64 + i), f"a request ahead {i}", guidance_scale=g)[0]))
+            for g in (1.5, 1.6) for i in range(4)]
+        for th in held:
+            th.start()
+        while len(futures) < taken + 8:
+            time.sleep(0.001)
+        code, reply, sec = http_call(short_port, "POST", "/v1/edit", request_body(
+            test_image(68), "a request that waits too long", guidance_scale=1.7)[0])
+        for th in held:
+            th.join()
+        late = futures[-1][1]
+        res["errors"]["timeout"] = code
+        res["timeout"] = dict(client_s=sec, cancelled=late.cancelled(),
+                              batches=svc.stats()["batches"] - before["batches"])
+        svc.batch_window_s = SERVE_WINDOW_MS / 1000
+        log("[9] error paths:", res["errors"], res["timeout"])
+        if res["errors"] != dict(bad_body=400, unknown_route=404, full_queue=503, timeout=504):
+            raise AssertionError(f"error paths answered {res['errors']}")
+        if not late.cancelled():
+            raise AssertionError("the timed-out request's future was not cancelled")
+
+        # close() with work in flight resolves every future
+        inflight = [svc.submit(test_image(70 + i % 4), f"a request at close {i}")
+                    for i in range(6)]
+        t = time.perf_counter()
+        svc.close(timeout=120)
+        res["close"] = dict(seconds=time.perf_counter() - t,
+                            resolved=sum(f.done() for f in inflight))
+        for f in inflight:
+            check_image(f.result(timeout=0))
+        if res["close"]["resolved"] != 6:
+            raise AssertionError(f"close() left futures unresolved: {res['close']}")
+        if any(not f.done() for _, f in futures):
+            raise AssertionError("a future of the service is unresolved after close()")
+        res["stats"] = svc.stats()
+        log("[9] close() with 6 requests in flight:", res["close"], "stats:", res["stats"])
+    finally:
+        for httpd in servers:
+            httpd.shutdown()
+            httpd.server_close()
+        svc.close()
+
+    # batching is invisible: each batched image against a solo edit of it
+    rows = []
+    for i, (_, img) in enumerate(four):
+        solo = np.asarray(editor.edit(img, prompts[i], seed=7))
+        lat = editor.last_latents[0].float()
+        diff = np.abs(batched[i].astype(np.int32) - solo.astype(np.int32))
+        rows.append(dict(latent_rel_l2=float((batched_latents[i].float() - lat).norm()
+                                              / lat.norm()),
+                         image_mean_abs_lsb=float(diff.mean()), image_max_abs_lsb=int(diff.max()),
+                         same_bits=bool(np.array_equal(batched[i], solo))))
+    res["batched_vs_solo"] = rows
+    log("[9] each of the batch of four against a solo edit of it:", rows)
+    for row in rows:
+        if (row["latent_rel_l2"] > E2E_LATENT_REL_L2
+                or row["image_mean_abs_lsb"] > E2E_IMAGE_MEAN_LSB):
+            raise AssertionError(f"a batched result differs from its solo edit: {row}")
+
+    # the kernels ran: the wrappers' launches are the inventory's, twice (an
+    # eager warm-up and a capture) for each key the phase captured
+    keys = sorted(k[:4] for k in editor._graphs.edit_keys())
+    want = [(1, True, 3, False), (2, True, 3, False), (4, True, 3, False), (4, True, 3, True)]
+    if keys != want:
+        raise AssertionError(f"phase 9 captured the keys {keys}, expected {want}")
+    per_batch = {b: inventory.launches_by_kernel(inventory.kernel_calls(inventory.edit_sites(
+        C.SSD1B_UNET, C.SDXL_CONTROLNET_SMALL, C.SDXL_VAE, RESOLUTION, batch=b, steps=3)))
+        for b in (1, 2, 4)}
+    expected = {k: 2 * sum(per_batch[key[0]][k] for key in keys) for k in per_batch[1]}
+    res["launches"] = launch_counts()
+    check_launches("phase 9: the keys served, each an eager warm-up and a capture",
+                   res["launches"], expected)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[9] phase 9 took {res['seconds']:.1f} s; {card}")
+    return res
+
+
+# ----------------------------------------------------------------- phase 10
+
+
+def conformance_on_card(card: str) -> dict:
+    """Phase 10: ``tools/conformance.py`` on the card against the CPU, which
+    must pass and run the flash attention and GroupNorm kernels; then its
+    SSIM check with TF32 allowed on the card (outside ``true_fp32()``), which
+    must fail, or, where TF32 does not move the stress pair past its
+    tolerance, with the device's SSIM inputs cast to bf16, which must."""
+    import io
+    from unittest import mock
+
+    import torch
+
+    from fastedit_tpu_torch.metrics import functional
+    from fastedit_tpu_torch.tools import conformance
+    from fastedit_tpu_torch.tools.inventory import launch_counts, reset_launch_counts
+
+    res: dict = {}
+    t = time.perf_counter()
+    reset_launch_counts()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = conformance.main([])
+    res["rc"], res["lines"] = rc, text.getvalue().splitlines()
+    res["launches"] = {k: v for k, v in launch_counts().items() if v}
+    for line in res["lines"]:
+        log(line)
+    if rc != 0:
+        raise AssertionError(f"the conformance tool failed on the card: rc {rc}")
+    if not (res["launches"].get("flash_attention_d64_f32") and res["launches"].get(
+            "group_norm_f32")):
+        raise AssertionError(f"the conformance tool ran no kernel: {res['launches']}")
+
+    device, host, inp = torch.device("cuda"), torch.device("cpu"), conformance.inputs()
+    backends = torch.backends
+    saved = backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32
+    try:
+        backends.cuda.matmul.allow_tf32 = backends.cudnn.allow_tf32 = True
+        with mock.patch.object(conformance, "true_fp32", contextlib.nullcontext):
+            tf32 = conformance.metric_checks(device, host, inp)
+    finally:
+        backends.cuda.matmul.allow_tf32, backends.cudnn.allow_tf32 = saved
+    res["tf32_fault"] = {r.name: dict(delta=r.delta, tol=r.tol, ok=r.ok) for r in tf32}
+    log("[10] planted fault, TF32 allowed:", res["tf32_fault"])
+    if tf32[0].ok:
+        ssim = functional.ssim
+
+        def bf16_inputs(a, b, **kw):
+            if a.is_cuda:
+                a, b = a.bfloat16().float(), b.bfloat16().float()
+            return ssim(a, b, **kw)
+
+        with mock.patch.object(functional, "ssim", bf16_inputs):
+            bf16 = conformance.metric_checks(device, host, inp)
+        res["bf16_fault"] = {r.name: dict(delta=r.delta, tol=r.tol, ok=r.ok) for r in bf16}
+        log("[10] TF32 passed the stress pair; planted fault, the device's SSIM inputs in "
+            "bf16:", res["bf16_fault"])
+        if bf16[0].ok:
+            raise AssertionError("the SSIM check passes the device's inputs cast to bf16")
+    res["seconds"] = time.perf_counter() - t
+    log(f"[10] phase 10 took {res['seconds']:.1f} s; {card}")
     return res
 
 
@@ -2385,9 +2919,13 @@ def main() -> int:
     log("[4] kernels vs plain versions end to end, seeded weights")
     e2e = kernels_vs_plain(editor, calls)
 
-    log("[5] graphs vs the eager arm; the graph cache's memory budget")
+    log("[5] graphs vs the eager arm; the prompt graph; the graph cache's memory budget")
     vs_eager = graphs_vs_eager(editor)
+    vs_eager["prompt_graph"] = prompt_graph_vs_eager(editor)
     vs_eager["memory_sweep"] = graph_memory_sweep(editor)
+
+    log("[9] serving at full width on phase 5's editor: EditService, HTTP, 1024² requests")
+    phase9 = serving(editor, card)
 
     log("[6] a converted checkpoint: snapshot, converter, FastEditor(checkpoint_dir=...), LoRA, "
         "metrics")
@@ -2411,6 +2949,9 @@ def main() -> int:
         "at 1024², on CUDA graphs; then quality mode")
     phase8 = f32_path(calls, card)
 
+    log("[10] the conformance tool on the card, then its planted fault")
+    phase10 = conformance_on_card(card)
+
     log("[bench] python -m fastedit_tpu_torch.bench --reps 3")
     from fastedit_tpu_torch import bench
 
@@ -2430,7 +2971,7 @@ def main() -> int:
         card=card, torch=torch.__version__, cuda=torch.version.cuda, kernels=kernels,
         shapes=rows, host=host, main_path=main, kernels_vs_plain=e2e,
         graphs_vs_eager=vs_eager, checkpoint_and_metrics=phase6, clis=phase7,
-        f32_path=phase8, bench=bench_record,
+        f32_path=phase8, serving=phase9, conformance=phase10, bench=bench_record,
         bench_s=bench_s,
         phase2_s=phase2_s, phase2_f32_s=phase2_f32_s, build_s=build_s, hgmma=hgmma,
         seconds_total=time.perf_counter() - t_start,

@@ -12,10 +12,15 @@ Bit-exact to the JAX package's ``canny_np`` (and so to cv2 5.0):
   * double threshold and 8-connected hysteresis, grown by masked dilation
     to a fixed point (the same fixed point as cv2's flood fill).
 Works on one image [H, W, 3] or a batch [B, H, W, 3].
+
+:func:`canny_np` is the same algorithm in plain numpy with a stack-based
+flood fill for the hysteresis, the port's own copy of the JAX package's
+reference (``tools/conformance.py`` holds the card to it bit for bit).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -102,3 +107,74 @@ def canny(image: torch.Tensor, low_threshold=100.0, high_threshold=200.0) -> tor
     strong = cand & (mag > high)
     edges = (_hysteresis(strong, cand).to(torch.uint8) * 255)
     return edges[0] if single else edges
+
+
+def canny_np(
+    image: np.ndarray, low_threshold=100.0, high_threshold=200.0
+) -> np.ndarray:
+    """Same cv2-exact algorithm in plain numpy (BFS hysteresis)."""
+    img = np.asarray(image)
+    if img.ndim == 3:
+        u = np.round(img).astype(np.int64) if np.issubdtype(
+            img.dtype, np.floating
+        ) else img.astype(np.int64)
+        acc = (
+            u[..., 0] * _GRAY_COEF[0]
+            + u[..., 1] * _GRAY_COEF[1]
+            + u[..., 2] * _GRAY_COEF[2]
+            + (1 << (_GRAY_SHIFT - 1))
+        )
+        gray = (acc >> _GRAY_SHIFT).astype(np.int32)
+    elif np.issubdtype(img.dtype, np.floating):
+        gray = np.round(img).astype(np.int32)
+    else:
+        gray = img.astype(np.int32)
+    low = int(np.floor(low_threshold))
+    high = int(np.floor(high_threshold))
+    if low > high:
+        low, high = high, low
+
+    g = np.pad(gray, 1, mode="edge")
+    h, w = gray.shape
+
+    def sh(dy, dx):
+        return g[1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+
+    gx = (sh(-1, 1) - sh(-1, -1)) + 2 * (sh(0, 1) - sh(0, -1)) + (sh(1, 1) - sh(1, -1))
+    gy = (sh(1, -1) - sh(-1, -1)) + 2 * (sh(1, 0) - sh(-1, 0)) + (sh(1, 1) - sh(-1, 1))
+    mag = np.abs(gx) + np.abs(gy)
+
+    ax = np.abs(gx)
+    ay = np.abs(gy) << _CANNY_SHIFT
+    tg22x = ax * _TG22
+    tg67x = tg22x + ((2 * ax) << _CANNY_SHIFT)
+    m = np.pad(mag, 1)
+
+    def shm(dy, dx):
+        return m[1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+
+    horiz = ay < tg22x
+    vert = ay > tg67x
+    s_neg = np.bitwise_xor(gx, gy) < 0
+    keep_h = (mag > shm(0, -1)) & (mag >= shm(0, 1))
+    keep_v = (mag > shm(-1, 0)) & (mag >= shm(1, 0))
+    keep_d1 = (mag > shm(-1, -1)) & (mag > shm(1, 1))
+    keep_d2 = (mag > shm(-1, 1)) & (mag > shm(1, -1))
+    keep = np.where(
+        horiz, keep_h, np.where(vert, keep_v, np.where(s_neg, keep_d2, keep_d1))
+    )
+
+    cand = keep & (mag > low)
+    strong = cand & (mag > high)
+    # BFS from strong pixels through candidate ones.
+    visited = strong.copy()
+    stack = list(zip(*np.nonzero(strong)))
+    while stack:
+        y, x = stack.pop()
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                ny, nx = y + dy, x + dx
+                if 0 <= ny < h and 0 <= nx < w and cand[ny, nx] and not visited[ny, nx]:
+                    visited[ny, nx] = True
+                    stack.append((ny, nx))
+    return (visited * 255).astype(np.uint8)

@@ -6,9 +6,9 @@ package's ``FastEditor``: ``preprocess_image``, ``edit`` (with
 a batch already on the device), ``stage_inputs``, ``edit_batch_async``
 (a :class:`PendingEdit`), ``warmup``, ``clear_memory`` and
 ``get_memory_usage``.  It runs on the card unless the caller asks for
-``device="cpu"``; on the card the pixel path replays CUDA graphs
-(``pipeline/graphs.py``), the counterpart of the JAX package's one jitted
-program per edit, unless ``flags.override(cuda_graphs=False)`` asks for the
+``device="cpu"``; on the card the pixel path and the encoding of new prompts
+replay CUDA graphs (``pipeline/graphs.py``), the counterpart of the JAX
+package's jitted programs, unless ``flags.override(cuda_graphs=False)`` asks for the
 eager arm.  By default the weights load from a converted checkpoint
 directory (``checkpoint_dir``, else ``checkpoints/<model_name>``), the layout
 ``tools/convert_checkpoint.py`` writes and the JAX package reads;
@@ -80,6 +80,10 @@ def _normalize_dtype(dtype) -> torch.dtype:
     if name not in mapping:
         raise ValueError(f"unsupported dtype {dtype!r}")
     return mapping[name]
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
 
 
 def _resolve_device(device: Optional[str]) -> torch.device:
@@ -271,7 +275,8 @@ class FastEditor:
         self._graphs = graphs.EditGraphs(self.modules) if self.device.type == "cuda" else None
         self._stage_events: list = []
         self._group = None
-        # the last edit's final latents (on the graphs, the capture's buffer)
+        # the last edit's final latents (on the graphs, the capture's buffer:
+        # valid until the next edit, whatever its key)
         self.last_latents: Optional[torch.Tensor] = None
 
     def _init_models(self, unet_cfg, cn_cfg, vae_cfg, te1_cfg, te2_cfg, generator):
@@ -430,19 +435,37 @@ class FastEditor:
             ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
         return ms
 
+    def _on_graphs(self) -> bool:
+        """Replay CUDA graphs: on the card, unless the flags ask for the
+        eager arm or the NaN checks (a host sync per stage) are on."""
+        return self._graphs is not None and flags.use_cuda_graphs() and not nan_checks_enabled()
+
     def _encode_prompts(self, prompts) -> None:
-        """Encode every novel prompt in one text-encoder call and cache it."""
+        """Encode every novel prompt in one call of the text encoders and
+        cache a copy of each row.  The novel prompts, deduplicated, are padded
+        to the next power of two with the last of them, as the JAX package
+        pads them (a bounded set of shapes); on the card the padded batch is
+        one replay of the prompt graph of its count
+        (``graphs.EditGraphs.encode_prompts``), else it runs eagerly at the
+        same count.  An fp32 editor encodes without TF32 here, not only inside
+        an edit: a graph keeps what it was captured under."""
         novel = list(dict.fromkeys(p for p in prompts if p not in self._prompt_cache))
         if not novel:
             return
-        ids1 = torch.from_numpy(np.stack([self.tokenizer.encode(p) for p in novel]))
-        ids2 = torch.from_numpy(np.stack([self.tokenizer_2.encode(p) for p in novel]))
-        with self._timed("encode_prompt"):
-            ctx, pooled = stages.encode_prompt(
-                self.modules, ids1.long().to(self.device), ids2.long().to(self.device)
-            )
+        batch = novel + [novel[-1]] * (_next_pow2(len(novel)) - len(novel))
+        ids1 = torch.from_numpy(np.stack([self.tokenizer.encode(p) for p in batch])).long()
+        ids2 = torch.from_numpy(np.stack([self.tokenizer_2.encode(p) for p in batch])).long()
+        with true_fp32() if self.dtype == torch.float32 else contextlib.nullcontext():
+            if self._on_graphs():
+                ctx, pooled = self._graphs.encode_prompts(
+                    graphs.prompt_key(len(batch)), ids1, ids2, self._timed)
+            else:
+                with self._timed("encode_prompt"):
+                    ctx, pooled = stages.encode_prompt(
+                        self.modules, ids1.to(self.device), ids2.to(self.device))
+        # copies, enqueued before any later replay overwrites the graph's outputs
         for i, p in enumerate(novel):
-            self._prompt_cache[p] = (ctx[i : i + 1], pooled[i : i + 1])
+            self._prompt_cache[p] = (ctx[i : i + 1].clone(), pooled[i : i + 1].clone())
         while len(self._prompt_cache) > 4096:
             self._prompt_cache.pop(next(iter(self._prompt_cache)))
 
@@ -589,7 +612,7 @@ class FastEditor:
             vae_in, control, eps_enc, noise_init, tuple(step_noise), context, pooled,
             self._const("time_ids", context.shape[0]), schedule, guidance, cn_scale, do_cfg,
         )
-        if self._graphs is not None and flags.use_cuda_graphs() and not nan_checks_enabled():
+        if self._on_graphs():
             key = graphs.graph_key(b, do_cfg, schedule.num_steps, tile_noise, r)
             self.last_latents, out = self._graphs.run(key, inp, self._timed)
         else:

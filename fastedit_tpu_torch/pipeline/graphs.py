@@ -27,7 +27,11 @@ a ``torch.cuda.CUDAGraph`` and replayed, one launch per stage, back to back:
   editor's own: the caching allocator hands a freed block out again only on
   the stream it was freed on, so with a new stream per capture every key
   would take a pool of its own size (GiBs for SSD-1B at 1024²), and with one
-  a key of a size captured before costs its static buffers;
+  a key of a size captured before costs its static buffers.  The price of one
+  pool: keys replay in any order, so a replay may write over another key's
+  outputs (PyTorch shares a pool safely only in capture order); whatever
+  reads a capture's outputs does so before the next replay of any key (the
+  editor copies its images and prompt rows out at once);
 * at most :data:`MAX_KEYS` keys are kept, the oldest evicted, as the JAX
   package caps its caches.  A capture also holds memory, which a JAX program
   does not (its static buffers, and the pool's growth where it is the
@@ -40,10 +44,16 @@ a ``torch.cuda.CUDAGraph`` and replayed, one launch per stage, back to back:
   every capture, since what the conv modules derive from the weights is made
   again.
 
-Prepare (Canny) stays outside, eager: its hysteresis loop reads a device
-flag on the host.  Prompt encoding stays eager and cached, as in the JAX
-package.  A capture or replay that fails raises; nothing runs the eager
-path in its place.  :func:`run_eager` is the same three stages without
+Prompt encoding is a graph of its own per padded number of prompts
+(:func:`prompt_key`, :meth:`EditGraphs.encode_prompts`), the counterpart of
+the JAX package's jitted ``make_encode_prompt``: two int64 token-id buffers
+[padded, 77] in, the context [padded, 77, D] and pooled [padded, P]
+embeddings out, in the same cache, pool, capture stream, count cap and
+memory budget as the edit's keys.  Its outputs are overwritten by the next
+replay: the editor caches copies of their rows.  Prepare (Canny) stays
+outside, eager: its hysteresis loop reads a device flag on the host.  A
+capture or replay that fails raises; nothing runs the eager path in its
+place.  :func:`run_eager` is the same three stages without
 graphs: on the CPU, and under ``flags.override(cuda_graphs=False)`` or
 ``plain_versions=True``.
 """
@@ -74,6 +84,12 @@ def graph_key(batch: int, do_cfg: bool, steps: int, tile_noise: bool,
     """What one capture serves: its shapes and every kernel flag in force
     in the calling thread."""
     return (batch, do_cfg, steps, tile_noise, resolution, dataclasses.astuple(flags.current()))
+
+
+def prompt_key(padded: int) -> tuple:
+    """What one prompt capture serves: the padded number of prompts and
+    every kernel flag in force in the calling thread."""
+    return ("prompt", padded, dataclasses.astuple(flags.current()))
 
 
 @dataclasses.dataclass
@@ -154,15 +170,29 @@ class Captured:
     pool_bytes: int  # memory the pool reserved for this capture
 
 
+@dataclasses.dataclass
+class PromptCaptured:
+    """One padded prompt count's graph, the token ids it reads and the
+    embeddings it writes."""
+
+    ids: tuple  # two int64 [padded, 77] buffers, one per text encoder
+    graphs: dict  # {"encode_prompt": torch.cuda.CUDAGraph}
+    context: torch.Tensor  # [padded, 77, D]
+    pooled: torch.Tensor  # [padded, P]
+    pool_bytes: int
+
+
 class EditGraphs:
     """One editor's captures, by :func:`graph_key`, on one memory pool."""
 
     def __init__(self, mod: stages.PipelineModules):
         self.mod = mod
-        self.captured: OrderedDict[tuple, Captured] = OrderedDict()
+        self.captured: OrderedDict[tuple, Captured | PromptCaptured] = OrderedDict()
         self.pool = None
         self._side = None  # the stream every capture runs on (see the module's docstring)
-        self._params = [p for m in (mod.unet, mod.controlnet, mod.vae) for p in m.parameters()]
+        models = [getattr(mod, name, None) for name in
+                  ("unet", "controlnet", "vae", "text_encoder", "text_encoder_2")]
+        self._params = [p for m in models if m is not None for p in m.parameters()]
         self._weights: Optional[tuple] = None
 
     def clear(self) -> None:
@@ -174,10 +204,13 @@ class EditGraphs:
         return (sum(p._version for p in self._params),
                 hash(tuple(p.data_ptr() for p in self._params)))
 
-    def run(self, key: tuple, inp: EditInputs, timed=contextlib.nullcontext):
-        """Replay ``key``'s graphs on ``inp`` (captured first if new);
-        returns (final latents, uint8 images), the capture's own output
-        buffers, which the next replay of the key overwrites."""
+    def edit_keys(self) -> list:
+        """The keys of the edit's captures (not the prompt graphs')."""
+        return [k for k, c in self.captured.items() if isinstance(c, Captured)]
+
+    def _lookup(self, key: tuple, capture):
+        """``key``'s capture, made by ``capture()`` if new (after room is
+        made for it); every capture is dropped first if a weight changed."""
         version = self._weights_version()
         if version != self._weights:
             self.clear()
@@ -185,14 +218,41 @@ class EditGraphs:
         cap = self.captured.get(key)
         if cap is None:
             self._make_room()
-            cap = self.captured[key] = self._capture(inp)
+            cap = self.captured[key] = capture()
             while len(self.captured) > MAX_KEYS:
                 self.captured.popitem(last=False)
+        return cap
+
+    def run(self, key: tuple, inp: EditInputs, timed=contextlib.nullcontext):
+        """Replay ``key``'s graphs on ``inp`` (captured first if new);
+        returns (final latents, uint8 images), the capture's own output
+        buffers, valid until the next replay of any key: captures share one
+        pool, so an earlier capture's replay may write where a later one's
+        outputs lie."""
+        cap = self._lookup(key, lambda: self._capture(inp))
         cap.inputs.copy_(inp)
         for name, graph in cap.graphs.items():
             with timed(name):
                 graph.replay()
         return cap.latents, cap.out
+
+    def encode_prompts(self, key: tuple, ids_1: torch.Tensor, ids_2: torch.Tensor,
+                       timed=contextlib.nullcontext):
+        """Replay ``key``'s prompt graph (:func:`prompt_key`; captured first
+        if new) on host token ids, int64 [padded, 77] each, copied in from
+        pinned memory without a sync; returns (context, pooled), the
+        capture's own output buffers, valid until the next replay of any key
+        (see :meth:`run`)."""
+        cap = self._lookup(key, lambda: self._capture_prompts(ids_1, ids_2))
+        for dst, src in zip(cap.ids, (ids_1, ids_2), strict=True):
+            if dst.shape != src.shape:
+                raise ValueError(f"token ids of shape {tuple(src.shape)} for a buffer of "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(src.pin_memory(), non_blocking=True)
+        for name, graph in cap.graphs.items():
+            with timed(name):
+                graph.replay()
+        return cap.context, cap.pooled
 
     def _make_room(self) -> None:
         """Evict the oldest keys until the next capture fits: the card's
@@ -220,29 +280,45 @@ class EditGraphs:
 
     def _capture(self, inp: EditInputs) -> Captured:
         static = inp.clone()
+        graphs, outs, pool_bytes = self._capture_chain(
+            static.vae_in.device, _stage_fns(self.mod, static))
+        return Captured(static, graphs, outs["denoise"], outs["vae_decode"], pool_bytes)
+
+    def _capture_prompts(self, ids_1: torch.Tensor, ids_2: torch.Tensor) -> PromptCaptured:
+        device = self._params[0].device
+        ids = (ids_1.to(device), ids_2.to(device))
+        graphs, outs, pool_bytes = self._capture_chain(
+            device, (("encode_prompt", lambda _: stages.encode_prompt(self.mod, *ids)),))
+        return PromptCaptured(ids, graphs, *outs["encode_prompt"], pool_bytes)
+
+    def _capture_chain(self, device: torch.device, fns) -> tuple[dict, dict, int]:
+        """Run ``fns`` ((name, fn) pairs, each fn taking the previous one's
+        output) once eagerly on the capture stream, the warm-up, then capture
+        each as a graph on the shared pool; returns (graphs by name, outputs
+        by name, the bytes the pool grew by)."""
         if self._side is None:
-            self._side = torch.cuda.Stream(device=static.vae_in.device)
+            self._side = torch.cuda.Stream(device=device)
         side = self._side
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            run_eager(self.mod, static)  # the warm-up
+            x = None
+            for _, fn in fns:
+                x = fn(x)
         side.synchronize()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        graphs, x, latents = {}, None, None
-        for name, fn in _stage_fns(self.mod, static):
+        graphs, outs, x = {}, {}, None
+        for name, fn in fns:
             graph = torch.cuda.CUDAGraph()
             # thread_local: a loader thread may stage the next batch meanwhile
             with torch.cuda.graph(graph, pool=self.pool, stream=side,
                                   capture_error_mode="thread_local"):
                 x = fn(x)
-            graphs[name] = graph
-            if name == "denoise":
-                latents = x
+            graphs[name], outs[name] = graph, x
         torch.cuda.current_stream().wait_stream(side)
-        return Captured(static, graphs, latents, x, torch.cuda.memory_reserved() - reserved)
+        return graphs, outs, torch.cuda.memory_reserved() - reserved
 
 
 def _card_memory(device: torch.device) -> tuple[int, int]:

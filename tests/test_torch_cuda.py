@@ -21,7 +21,10 @@ for other SM counts (one chunk through the whole ring, more chunks than a warp m
 the same bits twice and under a CUDA graph's replays; the upsample conv on weights folded once.  The
 tiny editor's CUDA graphs (``pipeline/graphs.py``) are held against its eager arm bit for bit: at
 batch 1 and 2 with and without CFG, replays on new inputs, two keys on one pool in turns, an
-asynchronous result past the next replay, and no replay under ``plain_versions``.  Tolerances are those of ``chip_smoke.py`` (both sides
+asynchronous result past the next replay, and no replay under ``plain_versions``; its prompt graph
+against the eager arm bit for bit at 1, 3 and 5 novel prompts, a cached prompt unchanged after a
+later replay of the same key, the fp32 editor's prompt graph captured without TF32 while the
+process allows it, and one HTTP round trip through ``serve.py`` on the card.  Tolerances are those of ``chip_smoke.py`` (both sides
 accumulate in fp32 and round once to bf16; the attention's absolute term
 scales with the output's RMS).  The fp32 kernels (the quality mode) are held
 the same way at fp32, TF32 off, with ``chip_smoke.py``'s fp32 tolerances:
@@ -38,6 +41,7 @@ bits, a CUDA graph's replays against the eager calls, and the convs' refusal
 of an fp32 call without the weight's split.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -606,11 +610,11 @@ def test_editor_replay_on_new_inputs_equals_a_fresh_eager_edit(tiny_cuda):
     """Another image, prompt, seed, schedule (5 steps at 0.6: three run, from
     t = 599) and scales, on the key of 4 steps at 0.8."""
     _edit(tiny_cuda, [_scene(0)], ["a"], seed=1)
-    keys = len(tiny_cuda._graphs.captured)
+    keys = len(tiny_cuda._graphs.edit_keys())  # a new prompt may capture a prompt graph
     kw = dict(seed=9, strength=0.6, num_inference_steps=5, guidance_scale=2.5,
               controlnet_conditioning_scale=0.8)
     graph = _edit(tiny_cuda, [_scene(7)], ["a new prompt"], **kw)
-    assert len(tiny_cuda._graphs.captured) == keys
+    assert len(tiny_cuda._graphs.edit_keys()) == keys
     _assert_same(graph, _edit(tiny_cuda, [_scene(7)], ["a new prompt"], graphs=False, **kw))
 
 
@@ -649,6 +653,102 @@ def test_plain_versions_never_replay_a_graph(tiny_cuda, monkeypatch):
         tiny_cuda.edit(_scene(30), "plain", seed=30)
     with pytest.raises(AssertionError):
         tiny_cuda.edit(_scene(30), "graphs", seed=30)
+
+
+def _encode(editor, prompts, graphs=True):
+    """The cached (context, pooled) rows of ``prompts``, encoded anew."""
+    from fastedit_tpu_torch.ops import flags
+
+    for p in prompts:
+        editor._prompt_cache.pop(p, None)
+    with flags.override(cuda_graphs=graphs):
+        editor._encode_prompts(prompts)
+    return [tuple(t.clone() for t in editor._prompt_cache[p]) for p in prompts]
+
+
+@pytest.mark.parametrize("novel", [1, 3, 5])
+def test_prompt_graph_matches_the_eager_arm(tiny_cuda, novel):
+    """One replay of the prompt graph of the padded count (1, 4, 8) against
+    the eager arm at the same count, bit for bit."""
+    from fastedit_tpu_torch.pipeline import graphs
+
+    prompts = [f"graph prompt {novel} {i}" for i in range(novel)]
+    graph = _encode(tiny_cuda, prompts)
+    eager = _encode(tiny_cuda, prompts, graphs=False)
+    assert graphs.prompt_key(1 << (novel - 1).bit_length()) in tiny_cuda._graphs.captured
+    for g, e in zip(graph, eager, strict=True):
+        assert all(torch.equal(a, b) for a, b in zip(g, e)) and g[0].abs().sum() > 0
+
+
+def test_a_cached_prompt_survives_a_later_replay(tiny_cuda):
+    """Prompt A, then prompt B at the same padded count: the graph's output
+    buffers now hold B, and A's cached row must still hold A."""
+    a = _encode(tiny_cuda, ["prompt survives a"])[0]
+    b = _encode(tiny_cuda, ["prompt survives b"])[0]
+    cached = tiny_cuda._prompt_cache["prompt survives a"]
+    assert all(torch.equal(x, y) for x, y in zip(cached, a))
+    assert not torch.equal(a[0], b[0])
+
+
+def test_fp32_prompt_graph_is_captured_without_tf32(tiny_cuda_f32):
+    """With TF32 on in the process, an fp32 editor's prompt graph (captured
+    here, outside an edit) equals the text encoders run with TF32 off
+    (``chip_smoke.py`` also shows TF32 moving them at full width)."""
+    from fastedit_tpu_torch.pipeline import graphs, stages
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    prompts = ["an fp32 prompt", "another fp32 prompt"]
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        tiny_cuda_f32._graphs.clear()
+        ctx = torch.cat([row[0] for row in _encode(tiny_cuda_f32, prompts)])
+        assert graphs.prompt_key(2) in tiny_cuda_f32._graphs.captured
+        ids = [torch.from_numpy(np.stack([tok.encode(p) for p in prompts])).long().cuda()
+               for tok in (tiny_cuda_f32.tokenizer, tiny_cuda_f32.tokenizer_2)]
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        without = stages.encode_prompt(tiny_cuda_f32.modules, *ids)[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert torch.equal(ctx, without)
+
+
+def test_http_round_trip_on_the_card(tiny_cuda):
+    """One request through ``serve.py``'s HTTP front-end to the tiny editor
+    on the card: the PNG it returns is the editor's own edit of the same
+    image, prompt and seed."""
+    import base64
+    import http.client
+    import io
+    import json
+    import threading
+
+    from PIL import Image
+
+    from fastedit_tpu_torch.serve import EditService, make_http_server
+
+    img = _scene(40)
+    buf = io.BytesIO()
+    img.save(buf, format="PNG")
+    body = json.dumps({"image": base64.b64encode(buf.getvalue()).decode("ascii"),
+                       "prompt": "a served prompt", "seed": 40, "format": "png"})
+    with EditService(tiny_cuda, max_batch=2, batch_window_ms=0) as svc:
+        httpd = make_http_server(svc, "127.0.0.1", 0, request_timeout_s=300)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=300)
+            conn.request("POST", "/v1/edit", body=body)
+            resp = conn.getresponse()
+            code, out = resp.status, json.loads(resp.read())
+            conn.request("GET", "/healthz")
+            health = json.loads(conn.getresponse().read())
+            conn.close()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+    assert code == 200, out
+    assert health["backend"].startswith("cuda")
+    served = np.asarray(Image.open(io.BytesIO(base64.b64decode(out["image"]))).convert("RGB"))
+    assert np.array_equal(served, np.asarray(tiny_cuda.edit(img, "a served prompt", seed=40)))
 
 
 # ------------------------------------------------------- the fp32 kernels

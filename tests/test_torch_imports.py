@@ -64,7 +64,8 @@ def test_importing_the_port_loads_no_jax():
                 "fastedit_tpu_torch.tools.convert_checkpoint",
                 "fastedit_tpu_torch.utils.safetensors_io", "fastedit_tpu_torch.run_batch",
                 "fastedit_tpu_torch.parallel.batch", "fastedit_tpu_torch.run_benchmark",
-                "fastedit_tpu_torch.plotting.compare_methods"):
+                "fastedit_tpu_torch.plotting.compare_methods", "fastedit_tpu_torch.serve",
+                "fastedit_tpu_torch.tools.conformance"):
         assert new in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
