@@ -49,8 +49,18 @@ order; a failed phase raises and the script exits non-zero:
    TFLOP/s, beside it), GroupNorm's at 67 TFLOP/s.  Before all that, every
    kernel of every library is held to the tensor-core rule by name: the bf16
    kernels and the six 3xTF32 ones hold HGMMA, no kernel holds HMMA, every
-   other kernel (the fp32 GroupNorm kernels, which must be built, among them)
-   no tensor-core instruction at all.
+   other kernel (the fp32 GroupNorm kernels and the Canny kernels, which must
+   be built, among them) no tensor-core instruction at all.  The Canny
+   prepare kernels (``canny_front``, ``canny_hysteresis``; bf16 and fp32
+   outputs) are held bit for bit against their plain versions at batch 1, 2
+   and 4 at 1024², on the test images and smooth images with long edges at
+   three threshold pairs (one swapped), the hysteresis also on random
+   candidates at densities 0.1 to 0.6, at batch 1 the edges against
+   ``canny_np`` and the hysteresis on a 1024² serpentine (one chain of ~524k
+   pixels) against ``scipy.ndimage.label``; planted faults, each launched
+   on the card: the front pass built from a copy of ``csrc/canny.cu`` with
+   cv2's horizontal NMS tie rule flipped, the hysteresis without its merge
+   across tile borders.
 3. The main path in the default configuration:
    ``FastEditor("ssd-1b", random_weights=True)`` at 1024², a warm-up, three
    ``edit()`` calls and one ``edit_batch`` of two images, on CUDA graphs
@@ -61,9 +71,13 @@ order; a failed phase raises and the script exits non-zero:
    capture, which must come to twice the inventory's counts per key; and
    the device kernels of one replayed edit and one replayed batch of two,
    by name (``torch.profiler``), which must come to the inventory's counts
-   (the phase-weight fold: none, it runs once per weight).  Then one new
+   (the phase-weight fold: none, it runs once per weight).  Prepare (Canny)
+   is the first graph of each key's chain.  Then one new
    prompt's host ms (to the return, and to a sync) and device ms (the
-   editor's CUDA events) on the prompt graph and on the eager arm, in turns.
+   editor's CUDA events) on the prompt graph and on the eager arm, in turns;
+   and one eager kernel prepare, then the dispatch of a replayed
+   ``edit_batch_async``, each under ``torch.cuda.set_sync_debug_mode(
+   "error")``, which must raise nothing.
 4. Kernels against plain versions end to end, with seeded fan-in-scaled
    weights, in two arms: the default configuration, and the opt-in one
    (``use_cuda_conv=True``: the encoder on the conv, fused resnet and
@@ -81,6 +95,9 @@ order; a failed phase raises and the script exits non-zero:
    an ``edit_batch`` of two; a second replay of a key on new inputs (image,
    prompt, seed, another schedule of three steps, other scales) against a
    fresh eager edit of them; a flags override, which must capture a new key.
+   One key replayed at the thresholds (100, 200), (50, 150) and (200, 100):
+   the control image its prepare graph wrote equals ``canny_np``'s edges at
+   each, the edit equals the eager arm's bit for bit, and no key is captured.
    The prompt graph against the eager arm, bit for bit, for 1, 3 and 5 novel
    prompts (padded counts 1, 4 and 8), and a cached prompt's row unchanged
    after a later prompt replayed the same key (the cache holds copies).
@@ -157,14 +174,28 @@ order; a failed phase raises and the script exits non-zero:
    batch histogram); a bad body (400), an unknown route (404), a service
    with no queue (503), a request queued behind two batches of four past a
    short timeout (504, its future cancelled); ``close()`` with six requests
-   in flight (every future resolved).  The wrappers' launches over the phase
-   must be twice the inventory's for each key it captured.
+   in flight (every future resolved).  The burst's wall time is split into
+   the card's work (the editor's CUDA events of each batch) and the host's:
+   the dispatcher's calls of the editor, split by part (``dispatch_spans``),
+   and the time the card did not work.
+   The wrappers' launches over the phase must be twice the inventory's for
+   each key it captured.
 10. ``python -m fastedit_tpu_torch.tools.conformance`` (``main([])``): the
    card against the CPU, exit 0, the flash attention and GroupNorm kernels
    launched; then its SSIM check with TF32 allowed (outside
    ``true_fp32()``), which must fail, or where TF32 leaves the stress pair
    within its tolerance, with the card's SSIM inputs cast to bf16, which
-   must.
+   must; and its Canny checks (through the kernels, the Canny kernels
+   launched) with the hysteresis run without its border merge, which must
+   fail its stress chains.
+11. Tensor parallelism on one card, right after phase 9 on its editor:
+   ``enable_data_parallel(["cuda:0", "cuda:0"], model_parallel=2)`` (the
+   transformer linears split in two shards on the one card), an
+   ``edit_batch`` of two images on the kernels and CUDA graphs (a TP
+   replica pins no flag) against the same edit without TP, within phase 4's
+   limits; the replica's captures and its kernels' launches (the shards'
+   flash attention, the convs, Canny), seconds per edit and the peak
+   memory.
 
 Last, ``python -m fastedit_tpu_torch.bench --reps 3`` (``bench.main``) on a
 new editor, whose JSON line is printed.
@@ -963,7 +994,7 @@ def compare_attention(calls: dict, gen, dtype=None) -> list[dict]:
     gkw, reps = (F32_GRAPH, F32_EAGER_REPS) if sfx else ({}, 10)
     rows, weak = [], []
     keys = sorted({key for c in calls.values() for (k, key) in c
-                   if k == f"flash_attention_d{key[4]}{sfx}"})
+                   if k.startswith("flash_attention") and k == f"flash_attention_d{key[4]}{sfx}"})
     for key in keys:
         b, sq, skv, h, d = key
         name = f"flash_attention_d{d}{sfx}"
@@ -1028,6 +1059,203 @@ def compare_attention(calls: dict, gen, dtype=None) -> list[dict]:
     return rows
 
 
+def hysteresis_without_border_merge(cls, dtype):
+    """The planted fault of the Canny hysteresis: its launches without the
+    merge across tile borders, so a chain that crosses a tile's edge
+    breaks there."""
+    import torch
+
+    from fastedit_tpu_torch.ops import canny
+
+    b, h, w = cls.shape
+    labels = torch.empty((b, h, w), dtype=torch.int32, device=cls.device)
+    control = torch.empty((b, h, w, 3), dtype=dtype, device=cls.device)
+    canny._launch("ccl_local", cls.device, cls.data_ptr(), labels.data_ptr(), b, h, w)
+    canny._launch(f"ccl_write_{canny._suffix(dtype)}", cls.device, cls.data_ptr(),
+                  labels.data_ptr(), control.data_ptr(), b, h, w)
+    return control
+
+
+# The planted fault of the Canny front pass: a copy of csrc/canny.cu whose
+# horizontal NMS keeps a pixel on m >= left and m > right (cv2's tie rule
+# flipped), built in the background beside the kernels.
+FRONT_FAULT = ("front_tie_flipped", [("keep = m > mag[mr][mc - 1] && m >= mag[mr][mc + 1];",
+                                      "keep = m >= mag[mr][mc - 1] && m > mag[mr][mc + 1];")])
+_front_fault: dict = {}
+
+
+def start_front_fault_build() -> None:
+    """Start nvcc on the faulty copy of ``csrc/canny.cu``
+    (``tools/kernel_variants.build_variants``) on a thread of its own, after
+    the kernels' own build, so the two do not share the cores."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fastedit_tpu_torch.tools.kernel_variants import build_variants
+
+    pool = ThreadPoolExecutor(1)
+    _front_fault["future"] = pool.submit(build_variants, "canny", dict([FRONT_FAULT]))
+    pool.shutdown(wait=False)
+
+
+def front_with_fault(image, low, high, dtype):
+    """The class map of the faulty front pass (:data:`FRONT_FAULT`), launched
+    on the card like ``ops/canny.canny_front`` (its counter untouched)."""
+    import torch
+
+    libs = _front_fault["future"].result()
+    if FRONT_FAULT[0] not in libs:
+        raise AssertionError("the faulty copy of csrc/canny.cu did not build")
+    b, h, w, _ = image.shape
+    cls = torch.empty((b, h, w), dtype=torch.uint8, device=image.device)
+    vae_in = torch.empty((b, h, w, 3), dtype=dtype, device=image.device)
+    fn = getattr(libs[FRONT_FAULT[0]], f"canny_front_{'f32' if dtype == torch.float32 else 'bf16'}")
+    err = fn(image.data_ptr(), low.data_ptr(), high.data_ptr(), cls.data_ptr(), vae_in.data_ptr(),
+             b, h, w, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the faulty canny_front failed: CUDA error {err}")
+    return cls
+
+
+def smooth_image(seed: int, n: int = RESOLUTION):
+    """A smooth RGB scene with long edges: soft ramps, a few large discs and
+    bands (the edge chains run across many of the kernels' tiles)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:n, :n].astype(np.float64) / n
+    img = np.stack([96 + 64 * np.sin(3 * xx + 2 * yy), 128 + 48 * np.cos(4 * yy),
+                    80 + 60 * xx * yy], -1)
+    for _ in range(6):
+        cy, cx, r = rng.random(3) * [1, 1, 0.3] + [0, 0, 0.05]
+        img[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] += rng.integers(-90, 91, 3)
+    for _ in range(3):
+        a, c = rng.random(2) * [2, 1]
+        img[np.abs(yy - a * xx - c + 0.5) < 0.02] += rng.integers(-80, 81, 3)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+CANNY_THRESHOLDS = ((100, 200), (50, 150), (200, 100))
+# Canny's operations per pixel (integer and fp32, outside the tensor cores):
+# the front pass ~60 (gray 7, Sobel 16, magnitude 3, NMS ~25, the VAE input
+# 9), the hysteresis ~10 (its initialisation, merges and write); both far below
+# their bytes, so bound by bytes at any rate.
+CANNY_FRONT_OPS, CANNY_HYSTERESIS_OPS = 60.0, 10.0
+
+
+def compare_canny(calls: dict, gen, dtype=None) -> list[dict]:
+    """The Canny prepare kernels, ``canny_front`` and ``canny_hysteresis``,
+    bit for bit against their plain versions at the main path's batches (1,
+    2) and at batch 4 (serving's), 1024²: on the phase's test images and on
+    smooth images with long edges at three threshold pairs (one swapped),
+    the hysteresis also on random candidates at densities 0.1 to 0.6; at
+    batch 1 the edges against ``canny_np`` on the host, and the hysteresis on
+    a 1024² serpentine (one chain of ~524k pixels, strong at one end) against
+    ``scipy.ndimage.label``.  Planted faults, each launched on the card: the
+    front pass with cv2's horizontal tie rule flipped (:data:`FRONT_FAULT`);
+    the hysteresis without its merge across tile borders.  Timed on the test images at (100, 200) (graph, eager, plain);
+    no PyTorch call computes Canny (``library_ms`` null)."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from fastedit_tpu_torch.ops import canny
+    from fastedit_tpu_torch.tools.conformance import stress_classes, serpentine
+    from fastedit_tpu_torch.tools.timing import graph_ms, time_ms
+
+    dtype = dtype or torch.bfloat16
+    sfx, isz = _suffix(dtype)
+    gkw, reps = (F32_GRAPH, F32_EAGER_REPS) if sfx else ({}, 10)
+    rows = []
+    keys = sorted(set(keys_of(calls, "canny_front" + sfx)) | {(4, RESOLUTION, RESOLUTION)})
+    for key in keys:
+        b, h, w = key
+        photos = torch.from_numpy(np.stack([np.asarray(test_image(70 + i)) for i in range(b)]))
+        smooth = torch.from_numpy(np.stack([smooth_image(80 + i) for i in range(b)]))
+        photos, smooth = photos.cuda(), smooth.cuda()
+        checked, fault_front, fault_hyst = 0, 0, 0
+        for img in (photos, smooth):
+            for low, high in CANNY_THRESHOLDS:
+                lo, hi = canny.threshold_tensors(low, high, "cuda")
+                cls, vae_in = canny.canny_front(img, lo, hi, dtype)
+                cls_p, vae_p = canny.canny_front_plain(img, lo, hi, dtype)
+                control = canny.canny_hysteresis(cls, dtype)
+                control_p = canny.canny_hysteresis_plain(cls_p, dtype)
+                torch.cuda.synchronize()
+                for what, got, want in (("class map", cls, cls_p), ("VAE input", vae_in, vae_p),
+                                        ("control", control, control_p)):
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"canny{sfx} {key} ({low}, {high}): the kernels' {what} differs "
+                            f"from the plain version's in {int((got != want).sum())} values")
+                fault_front += int((front_with_fault(img, lo, hi, dtype) != cls_p).sum())
+                bad = hysteresis_without_border_merge(cls, dtype)
+                fault_hyst += int((bad != control).sum())
+                if b == 1 and img is photos:
+                    ref = canny.canny_np(img[0].cpu().numpy(), low, high)
+                    got = (control[0, ..., 0] > 0).cpu().numpy().astype(np.uint8) * 255
+                    if not np.array_equal(got, ref):
+                        raise AssertionError(f"canny{sfx} {key} ({low}, {high}): the kernels "
+                                             f"differ from canny_np in {int((got != ref).sum())}"
+                                             " pixels")
+                checked += 1
+        random_masks = {}
+        for name, m in stress_classes(seed=b, size=h):
+            if not name.startswith("random"):
+                continue
+            cls = torch.from_numpy(np.stack([m] * b)).cuda()
+            control = canny.canny_hysteresis(cls, dtype)
+            if not torch.equal(control, canny.canny_hysteresis_plain(cls, dtype)):
+                raise AssertionError(f"canny_hysteresis{sfx} {key}: {name} differs from the "
+                                     "plain version")
+            random_masks[name] = graph_ms(lambda c=cls: canny.canny_hysteresis(c, dtype), **gkw)
+        extra = {}
+        if b == 1:
+            chain = serpentine(h, w)
+            cls = chain.astype(np.uint8)
+            cls[tuple(np.argwhere(chain)[0])] = canny.STRONG
+            labels, _ = ndimage.label(chain, np.ones((3, 3), bool))
+            ct = torch.from_numpy(cls)[None].cuda()
+            got = (canny.canny_hysteresis(ct, dtype)[0, ..., 0] > 0).cpu().numpy()
+            if labels.max() != 1 or not np.array_equal(got, labels == 1):
+                raise AssertionError(f"canny_hysteresis{sfx}: the 1024² serpentine differs "
+                                     f"from scipy.ndimage.label in "
+                                     f"{int((got != (labels == 1)).sum())} pixels")
+            broken = (hysteresis_without_border_merge(ct, dtype)[0, ..., 0] > 0).cpu().numpy()
+            extra = dict(serpentine_pixels=int(chain.sum()),
+                         serpentine_ms=graph_ms(lambda: canny.canny_hysteresis(ct, dtype),
+                                                **gkw),
+                         serpentine_fault_pixels_missing=int((~broken & got).sum()))
+            if not extra["serpentine_fault_pixels_missing"]:
+                raise AssertionError("the serpentine passes a hysteresis without its border merge")
+            fault_hyst += extra["serpentine_fault_pixels_missing"]
+        if not fault_front or not fault_hyst:
+            raise AssertionError(f"canny{sfx} {key}: a planted fault passes (front "
+                                 f"{fault_front}, hysteresis {fault_hyst} values differ)")
+        lo, hi = canny.threshold_tensors(100, 200, "cuda")
+        cls, _ = canny.canny_front(photos, lo, hi, dtype)
+        px = b * h * w
+        for name, kern, plain, ops, nbytes, fault in (
+                ("canny_front" + sfx, lambda: canny.canny_front(photos, lo, hi, dtype),
+                 lambda: canny.canny_front_plain(photos, lo, hi, dtype), CANNY_FRONT_OPS,
+                 px * (3 + 1 + 3 * isz) + 8, fault_front),
+                ("canny_hysteresis" + sfx, lambda: canny.canny_hysteresis(cls, dtype),
+                 lambda: canny.canny_hysteresis_plain(cls, dtype), CANNY_HYSTERESIS_OPS,
+                 px * (1 + 3 * isz), fault_hyst)):
+            b_ms, b_by = bound_ms(ops * px, nbytes, PEAK_F32_FLOPS)
+            row = dict(kernel=name, shape=list(key), **call_counts(calls, name, key),
+                       max_abs_err=0.0, max_rel_err=0.0, checked_inputs=checked,
+                       fault_values_differing=fault,
+                       ms=graph_ms(kern, **gkw), library_ms=None, library_eager_ms=None,
+                       plain_ms=time_ms(plain, reps), eager_ms=time_ms(kern, reps),
+                       bound_ms=b_ms, bound_by=b_by, flops=ops * px, bytes=nbytes)
+            if name.startswith("canny_hysteresis"):
+                row.update(random_masks_ms=random_masks, **extra)
+            rows.append(row)
+            log(name, list(key), {k: v for k, v in row.items() if k not in ("kernel", "shape")})
+        del photos, smooth
+    return rows
+
+
 # ------------------------------------------------------------------ phase 3
 
 
@@ -1087,6 +1315,8 @@ def wrapper_launches(names: list) -> dict:
 
     out = {wrapper: count(part) for wrapper, part in WRAPPER_KERNELS.items()}
     for sfx, t in GN_TYPES.items():
+        out["canny_front" + sfx] = count(f"canny_front_kernel<{t}>")
+        out["canny_hysteresis" + sfx] = count(f"ccl_write_kernel<{t}>")
         apply = count(f"gn_apply_kernel<{t}>")
         out["group_norm" + sfx] = apply + count(f"gn_stats_kernel<{t}, true>")
         out["group_norm_scale_shift" + sfx] = count(f"gn_stats_kernel<{t}, false>") - apply
@@ -1140,7 +1370,8 @@ def main_path(calls: dict):
     peak_gib = torch.cuda.max_memory_allocated() / 1024**3
     keys = edit_captures(editor)
     if len(keys) != 2 or any(tuple(c.graphs) != STAGES for c in keys.values()):
-        raise AssertionError(f"expected two keys of three graphs each, got {list(keys)}")
+        raise AssertionError(f"expected two keys of four graphs each ({STAGES}), got "
+                             f"{list(keys)}")
 
     per_edit = launches_by_kernel(calls["default_b1"])
     per_batch2 = launches_by_kernel(calls["default_b2"])
@@ -1163,11 +1394,64 @@ def main_path(calls: dict):
     prompt = prompt_encode_times(editor)
     if launch_counts() != launches:
         raise AssertionError("encoding prompts launched a kernel of the port")
-    return editor, dict(
+    no_sync = prepare_without_a_sync(editor, images)
+    return editor, dict(no_sync_prepare=no_sync, 
         editor_build_s=build_s, warmup_s=warm_s, edits=edits, edit_batch2=batch,
         edit_batch2_replay=batch_replay, launches=launches, launches_per_edit=per_edit,
         replay_launches=replays, peak_gib=peak_gib, graph_pool_gib=pools, prompt_encode=prompt,
     )
+
+
+def prepare_without_a_sync(editor, images) -> dict:
+    """One eager kernel prepare, the thresholds copied in as the editor
+    copies them, under ``torch.cuda.set_sync_debug_mode("error")``: a host
+    sync anywhere in it raises.  Its device ms and launches."""
+    import numpy as np
+    import torch
+
+    from fastedit_tpu_torch.ops import canny
+    from fastedit_tpu_torch.pipeline import stages
+
+    staged = editor.stage_inputs(np.stack([np.asarray(im) for im in images]))
+    torch.cuda.synchronize()
+    before = dict(canny.launches)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        low, high = canny.threshold_tensors(60, 170, editor.device)
+        control, vae_in = stages.prepare(editor.modules, staged, low, high, editor._control_res)
+        end.record()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    end.synchronize()
+    launched = {k: canny.launches[k] - before[k] for k in before}
+    if launched != {"canny_front": 1, "canny_front_f32": 0, "canny_hysteresis": 1,
+                    "canny_hysteresis_f32": 0}:
+        raise AssertionError(f"the eager prepare launched {launched}")
+    res = dict(device_ms=start.elapsed_time(end), batch=len(images), launches=launched)
+    log("[3] an eager kernel prepare under sync debug mode 'error': no sync;", res)
+    # the whole dispatch of a replayed key (cached prompts, new thresholds), as
+    # serving's dispatcher makes it: no host read between the batch and the replay
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = editor.edit_batch_async(images, ["a snowy street", "a city at night"],
+                                          seed=4, canny_low_threshold=70,
+                                          canny_high_threshold=160, **EDIT_KW)
+        res["dispatch_sync"] = None
+    except RuntimeError as e:
+        pending, res["dispatch_sync"] = None, str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if pending is not None:
+        pending.result()
+    log("[3] a replayed edit_batch_async's dispatch under sync debug mode 'error':",
+        res["dispatch_sync"] or "no sync")
+    if res["dispatch_sync"] is not None:
+        raise AssertionError(f"a replayed edit's dispatch reads the card on the host: "
+                             f"{res['dispatch_sync']}")
+    return res
 
 
 def edit_captures(editor) -> dict:
@@ -1408,7 +1692,44 @@ def graphs_vs_eager(editor) -> dict:
              **EDIT_KW)
     if n_keys() != keys + 1:
         raise AssertionError("a flags override did not capture a new key")
+    out["thresholds"] = thresholds_on_one_key(editor)
     return out
+
+
+def thresholds_on_one_key(editor) -> dict:
+    """One key replayed with each pair of ``CANNY_THRESHOLDS``: the control
+    image its prepare graph wrote equals ``canny_np``'s edges at that pair,
+    the final latents and images equal the eager arm's, and no key is
+    captured."""
+    import numpy as np
+
+    from fastedit_tpu_torch.ops import canny, flags
+    from fastedit_tpu_torch.pipeline import graphs
+
+    image = test_image(9)
+    arr = np.asarray(image)
+    keys = len(editor._graphs.edit_keys())
+    res = {}
+    for low, high in CANNY_THRESHOLDS:
+        kw = dict(seed=26, canny_low_threshold=low, canny_high_threshold=high, **EDIT_KW)
+        graph = edit_arrays(editor, [image], ["a harbor"], **kw)
+        key = graphs.graph_key(1, True, 3, False, RESOLUTION)
+        control = editor._graphs.captured[key].prepared["control"]
+        got = (control[0, ..., 0] > 0).cpu().numpy().astype(np.uint8) * 255
+        ref = canny.canny_np(arr, low, high)
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"the prepare graph at ({low}, {high}) differs from canny_np "
+                                 f"in {int((got != ref).sum())} pixels")
+        with flags.override(cuda_graphs=False):
+            eager = edit_arrays(editor, [image], ["a harbor"], **kw)
+        same_bits(f"thresholds ({low}, {high})", graph, eager)
+        res[f"{low},{high}"] = dict(edge_pixels=int((ref > 0).sum()),
+                                    prepare_ms_graph=graph[3]["prepare"],
+                                    prepare_ms_eager=eager[3]["prepare"])
+    if len(editor._graphs.edit_keys()) != keys:
+        raise AssertionError("new thresholds captured another key")
+    log("[5] one key, three threshold pairs, each equal to canny_np and the eager arm:", res)
+    return res
 
 
 def encode_anew(editor, prompts: list, on_graphs: bool = True) -> list:
@@ -1505,6 +1826,79 @@ def graph_memory_sweep(editor, keys: int = 6) -> dict:
     if res["evicted"] < 1:
         raise AssertionError(f"graph cache: {keys} new keys under a budget of one more capture "
                              "evicted none of the keys before them")
+    return res
+
+
+# ----------------------------------------------------------------- phase 11
+
+
+def tensor_parallel(editor, card: str) -> dict:
+    """Phase 11: tensor parallelism on one card, on the seeded editor of
+    phases 3-5 (bf16, 1024²): ``enable_data_parallel(["cuda:0", "cuda:0"],
+    model_parallel=2)``, the UNet's and the ControlNet's transformer linears
+    split in two on the one card (``parallel/tp.py``), an ``edit_batch`` of
+    two images on the kernels and the graphs, under the caller's flags as
+    any replica, against the same edit without TP, within phase 4's limits;
+    the replica must have captured its graphs and launched the flash
+    attention, conv and Canny kernels (the counts of its warm-up and
+    capture); seconds per edit and the peak memory."""
+    import torch
+
+    from fastedit_tpu_torch.parallel import tp
+    from fastedit_tpu_torch.tools.inventory import launch_counts, reset_launch_counts
+
+    res: dict = {}
+    t_phase = time.perf_counter()
+    images, prompts = [test_image(90), test_image(91)], ["a stone bridge", "a foggy forest"]
+    kw = dict(seed=31, **EDIT_KW)
+    edit_arrays(editor, images, prompts, **kw)  # the key's capture
+    ref = edit_arrays(editor, images, prompts, **kw)
+    res["without_tp_s"] = ref[2]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    group = editor.enable_data_parallel(["cuda:0", "cuda:0"], model_parallel=2)
+    res["group_build_s"] = time.perf_counter() - t
+    try:
+        if group.shape != {"data": 1, "model": 2}:
+            raise AssertionError(f"the TP group's shape is {group.shape}")
+        replica = group.replicas[0]
+        split = sum(isinstance(m, (tp.TPAttention, tp.TPFeedForward))
+                    for name in ("unet", "controlnet")
+                    for m in getattr(replica.modules, name).modules())
+        seconds, outs = [], None
+        reset_launch_counts()
+        for _ in range(3):
+            t = time.perf_counter()
+            outs = editor.edit_batch(images, prompts, **kw)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t)
+        import numpy as np
+
+        got = (np.stack([np.asarray(o) for o in outs]), replica.last_latents.clone())
+        res.update(differ(got, ref), split_modules=split, seconds_per_edit_batch2=seconds,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   captured_keys=len(replica._graphs.edit_keys()) if replica._graphs else 0,
+                   launches={k: v for k, v in launch_counts().items() if v})
+    finally:
+        editor._group = None
+        del group
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"[11] tensor parallelism x2 on one card: {res}; {card}")
+    if not split:
+        raise AssertionError("the TP replica split no module")
+    not_launched = {"flash_attention_d64", "conv3x3", "canny_front",
+                    "canny_hysteresis"} - set(res["launches"])
+    if res["captured_keys"] != 1 or not_launched:
+        raise AssertionError(f"the TP replica on one card captured {res['captured_keys']} keys "
+                             f"(1 expected) and launched none of {sorted(not_launched)}")
+    if (res["latent_rel_l2"] > E2E_LATENT_REL_L2
+            or res["image_mean_abs_lsb"] > E2E_IMAGE_MEAN_LSB):
+        raise AssertionError(f"the TP edit differs from the edit without TP beyond phase 4's "
+                             f"limits (latents rel L2 <= {E2E_LATENT_REL_L2}, image mean <= "
+                             f"{E2E_IMAGE_MEAN_LSB} LSB): {res}")
     return res
 
 
@@ -2468,6 +2862,58 @@ def hist_delta(before: dict, after: dict) -> dict:
     return {k: v - b.get(k, 0) for k, v in a.items() if v != b.get(k, 0)}
 
 
+@contextlib.contextmanager
+def dispatch_spans(editor):
+    """Where an editor's dispatch spends its host time: each part's seconds,
+    less the parts it calls (``seconds``), over the calls of ``dispatch``
+    (the editor's ``_dispatch``) inside the block.  Parts: ``upload`` (the
+    images to the card), ``prompts`` (tokenizing and the prompt graphs'
+    enqueueing), ``noise``, ``thresholds`` (the Canny thresholds through
+    pinned memory), ``buffer_copies`` (the inputs into a capture's static
+    buffers), ``graph_replay`` (``CUDAGraph.replay``: a full launch queue
+    blocks here), ``readback`` (``PendingEdit``: the pinned output buffer and
+    its copy enqueued), ``other`` (the rest of the call)."""
+    import collections
+    import threading
+    from types import SimpleNamespace
+    from unittest import mock
+
+    import torch
+
+    from fastedit_tpu_torch.ops import canny
+    from fastedit_tpu_torch.pipeline import editor as editor_mod, graphs
+
+    seconds = collections.defaultdict(float)
+    local = threading.local()
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            stack = local.__dict__.setdefault("stack", [])
+            stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                took = time.perf_counter() - t0
+                seconds[name] += took - stack.pop()
+                if stack:
+                    stack[-1] += took
+        return call
+
+    cls = type(editor)
+    with contextlib.ExitStack() as stack:
+        for name, attr in (("upload", "_device_batch"), ("prompts", "_encode_prompts"),
+                           ("noise", "_noise")):
+            stack.enter_context(mock.patch.object(editor, attr, timed(name, getattr(editor, attr))))
+        for name, owner, attr in (("thresholds", canny, "threshold_tensors"),
+                                  ("buffer_copies", graphs.EditInputs, "copy_"),
+                                  ("graph_replay", torch.cuda.CUDAGraph, "replay"),
+                                  ("readback", editor_mod.PendingEdit, "__init__")):
+            stack.enter_context(mock.patch.object(owner, attr, timed(name, getattr(owner, attr))))
+        yield SimpleNamespace(seconds=seconds,
+                              dispatch=timed("other", lambda *a, **k: cls._dispatch(editor, *a, **k)))
+
+
 def serving(editor, card: str) -> dict:
     """Phase 9: ``serve.EditService`` and its HTTP front-end on the SSD-1B
     editor of phases 3-5 (seeded weights), bf16 at 1024², default flags."""
@@ -2578,18 +3024,46 @@ def serving(editor, card: str) -> dict:
         bodies = [request_body(test_image(60 + i % 4), f"a burst request {i}")[0]
                   for i in range(16)]
         before = svc.stats()
-        t = time.perf_counter()
-        replies = concurrently([lambda b=b: http_call(port, "POST", "/v1/edit", b)
-                                for b in bodies])
-        wall = time.perf_counter() - t
+        # each dispatch's host seconds (the dispatcher's call of the editor) and its
+        # CUDA events (prompt encoding, prepare and the stages), read after the burst;
+        # and where in the call the dispatcher's host time goes (dispatch_split_s)
+        dispatches = []
+        with dispatch_spans(editor) as spans:
+            def timed_dispatch(*args, **kw):
+                t0 = time.perf_counter()
+                pending = spans.dispatch(*args, **kw)
+                dispatches.append((time.perf_counter() - t0, list(editor._stage_events)))
+                return pending
+
+            editor._dispatch = timed_dispatch
+            t = time.perf_counter()
+            try:
+                replies = concurrently([lambda b=b: http_call(port, "POST", "/v1/edit", b)
+                                        for b in bodies])
+            finally:
+                del editor._dispatch
+            wall = time.perf_counter() - t
         posted_images(replies)
+        events = [ev for _, evs in dispatches for ev in evs]
+        events[-1][2].synchronize()
+        device_s = sum(start.elapsed_time(end) for _, start, end in events) / 1e3
+        span_s = events[0][1].elapsed_time(events[-1][2]) / 1e3
         lat = [r[2] for r in replies]
         res["burst"] = dict(requests=16, wall_s=wall, requests_per_min=16 * 60 / wall,
                             client_latency_s_mean=statistics.mean(lat),
                             client_latency_s_max=max(lat),
                             server_latency_ms_mean=statistics.mean(r[1]["latency_ms"]
                                                                    for r in replies),
-                            hist=hist_delta(before, svc.stats()))
+                            hist=hist_delta(before, svc.stats()),
+                            dispatch_host_s=sum(h for h, _ in dispatches),
+                            dispatches=len(dispatches), device_s=device_s,
+                            device_span_s=span_s, device_idle_in_span_s=span_s - device_s,
+                            host_only_s=wall - device_s, dispatch_split_s=dict(spans.seconds))
+        log("[9] the burst's time: wall {wall_s:.3f} s, device work {device_s:.3f} s (first "
+            "to last event {device_span_s:.3f} s, idle in it {device_idle_in_span_s:.3f} s), "
+            "the dispatcher's host calls {dispatch_host_s:.3f} s over {dispatches} batches, "
+            "host only {host_only_s:.3f} s; the calls' host seconds by part "
+            "{dispatch_split_s}".format(**res["burst"]))
         log(f"[9] a burst of 16 new prompts: {res['burst']['requests_per_min']:.1f} requests "
             f"per minute, latency mean {res['burst']['client_latency_s_mean']:.3f} s, max "
             f"{res['burst']['client_latency_s_max']:.3f} s, batches {res['burst']['hist']}; "
@@ -2719,9 +3193,24 @@ def conformance_on_card(card: str) -> dict:
         log(line)
     if rc != 0:
         raise AssertionError(f"the conformance tool failed on the card: rc {rc}")
-    if not (res["launches"].get("flash_attention_d64_f32") and res["launches"].get(
-            "group_norm_f32")):
-        raise AssertionError(f"the conformance tool ran no kernel: {res['launches']}")
+    if not all(res["launches"].get(k) for k in (
+            "flash_attention_d64_f32", "group_norm_f32", "canny_front_f32",
+            "canny_hysteresis_f32")):
+        raise AssertionError(f"the conformance tool missed a kernel: {res['launches']}")
+
+    # the planted fault on the card: the hysteresis without its merge across tile
+    # borders must fail the stress chains
+    def broken_hysteresis(cls):
+        return hysteresis_without_border_merge(cls[None], torch.float32)[0, ..., 0] > 0
+
+    with mock.patch.object(conformance, "hysteresis", broken_hysteresis):
+        fault = conformance.canny_checks(torch.device("cuda"), torch.device("cpu"),
+                                         conformance.inputs())
+    res["hysteresis_fault"] = {r.name: dict(delta=r.delta, ok=r.ok) for r in fault}
+    log("[10] planted fault, the hysteresis without its border merge:", res["hysteresis_fault"])
+    chains = res["hysteresis_fault"]["hysteresis chains (device vs fill)"]
+    if chains["ok"]:
+        raise AssertionError("the conformance tool passes a hysteresis without its border merge")
 
     device, host, inp = torch.device("cuda"), torch.device("cpu"), conformance.inputs()
     backends = torch.backends
@@ -2773,6 +3262,10 @@ KERNELS = {  # name: (source, TPU kernel it replaces: file:line of pallas_call)
     # the statistics launch alone; in the JAX package an XLA function
     "group_norm_scale_shift": ("fastedit_tpu_torch/csrc/group_norm.cu",
                                "fastedit_tpu/ops/groupnorm.py:53"),
+    # Canny prepare; in the JAX package XLA (canny_jax's stencil and its
+    # while_loop hysteresis), no pallas_call
+    "canny_front": ("fastedit_tpu_torch/csrc/canny.cu", "fastedit_tpu/ops/canny.py:140"),
+    "canny_hysteresis": ("fastedit_tpu_torch/csrc/canny.cu", "fastedit_tpu/ops/canny.py:102"),
 }
 # The fp32 instances (the quality mode's path, phase 8), each replacing the same
 # TPU kernel as its bf16 twin: every conv form and both attention kernels run
@@ -2794,6 +3287,11 @@ WGMMA_KERNELS = ("conv3x3_kernel", "conv3x3_fused_kernel", "conv3x3_down2_kernel
 # of their mangled names: GroupNorm's statistics and apply kernels at float
 # (gn_stats_kernel<float, ...>, gn_apply_kernel<float>).
 SIMT_F32_KERNELS = ("gn_stats_kernelIf", "gn_apply_kernelIf")
+# The Canny kernels, which must be built and hold no tensor-core instruction:
+# integer stencils and union-find (both instances of the templated ones)
+CANNY_KERNELS = ("canny_front_kernelI13__nv_bfloat16", "canny_front_kernelIf",
+                 "ccl_local_kernel", "ccl_border_kernel", "ccl_write_kernelI13__nv_bfloat16",
+                 "ccl_write_kernelIf")
 
 
 def kernel_summary(rows: list, main: dict) -> list:
@@ -2859,6 +3357,7 @@ def main() -> int:
     t = time.perf_counter()
     nvcc_logs = build.build_all()
     build_s = time.perf_counter() - t
+    start_front_fault_build()  # needed at phase 2's last rows: builds while they run
     log(f"[1] kernels built in {build_s:.2f} s")
     for name, text in nvcc_logs.items():
         for line in text.splitlines():
@@ -2883,15 +3382,16 @@ def main() -> int:
         for name, n in counts.items():
             on_wgmma = any(k in name for k in WGMMA_KERNELS)
             hgmma[name] = dict(HGMMA=n, HMMA=hmma.get(name, 0))
-            simt_seen |= {k for k in SIMT_F32_KERNELS if k in name}
+            simt_seen |= {k for k in (*SIMT_F32_KERNELS, *CANNY_KERNELS) if k in name}
             log(f"  {lib}: {n} HGMMA, {hmma.get(name, 0)} HMMA in {name}")
             if on_wgmma != (n > 0) or hmma.get(name, 0):
                 raise AssertionError(f"{name}: {n} HGMMA and {hmma.get(name, 0)} HMMA "
                                      f"instructions; {WGMMA_KERNELS}, and only they, are built "
                                      "on the tensor cores (wgmma)")
-    if simt_seen != set(SIMT_F32_KERNELS):
-        raise AssertionError(f"fp32 kernels outside the tensor cores not found in the "
-                             f"libraries: {set(SIMT_F32_KERNELS) - simt_seen}")
+    missing = {*SIMT_F32_KERNELS, *CANNY_KERNELS} - simt_seen
+    if missing:
+        raise AssertionError(f"kernels outside the tensor cores not found in the libraries: "
+                             f"{missing}")
 
     log("[2] kernels vs plain versions at the main path's shapes")
     t = time.perf_counter()
@@ -2899,7 +3399,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for compare in (compare_conv, compare_fused, compare_up2, compare_down2,
-                    compare_group_norm, compare_attention):
+                    compare_group_norm, compare_attention, compare_canny):
         rows += compare(calls, gen)
         torch.cuda.empty_cache()
     host = host_us_per_launch(calls, gen)
@@ -2908,7 +3408,7 @@ def main() -> int:
         f"the bf16 rows took {phase2_s:.1f} s")
     t = time.perf_counter()
     for compare in (compare_conv, compare_fused, compare_up2, compare_down2,
-                    compare_group_norm, compare_attention):
+                    compare_group_norm, compare_attention, compare_canny):
         rows += compare(calls, gen, torch.float32)
         torch.cuda.empty_cache()
     phase2_f32_s = time.perf_counter() - t
@@ -2926,6 +3426,9 @@ def main() -> int:
 
     log("[9] serving at full width on phase 5's editor: EditService, HTTP, 1024² requests")
     phase9 = serving(editor, card)
+
+    log("[11] tensor parallelism on one card: a group of two shards of cuda:0")
+    phase11 = tensor_parallel(editor, card)
 
     log("[6] a converted checkpoint: snapshot, converter, FastEditor(checkpoint_dir=...), LoRA, "
         "metrics")
@@ -2971,7 +3474,8 @@ def main() -> int:
         card=card, torch=torch.__version__, cuda=torch.version.cuda, kernels=kernels,
         shapes=rows, host=host, main_path=main, kernels_vs_plain=e2e,
         graphs_vs_eager=vs_eager, checkpoint_and_metrics=phase6, clis=phase7,
-        f32_path=phase8, serving=phase9, conformance=phase10, bench=bench_record,
+        f32_path=phase8, serving=phase9, conformance=phase10, tensor_parallel=phase11,
+        bench=bench_record,
         bench_s=bench_s,
         phase2_s=phase2_s, phase2_f32_s=phase2_f32_s, build_s=build_s, hgmma=hgmma,
         seconds_total=time.perf_counter() - t_start,

@@ -63,6 +63,14 @@ KERNELS = {
         "conv3x3_up2_tf32x3": [_P] * 5 + [_I] * 8 + [_P],
         "conv3x3_down2_tf32x3": [_P] * 5 + [_I] * 9 + [_P],
     },
+    # Canny prepare (bf16 and fp32 outputs): the front pass, then the
+    # hysteresis' three launches (ops/canny.py)
+    "canny": {
+        **{f"canny_front_{dtype}": [_P] * 5 + [_I] * 3 + [_P] for dtype in ("bf16", "f32")},
+        "ccl_local": [_P] * 2 + [_I] * 3 + [_P],
+        "ccl_border": [_P] * 2 + [_I] * 3 + [_P],
+        **{f"ccl_write_{dtype}": [_P] * 3 + [_I] * 3 + [_P] for dtype in ("bf16", "f32")},
+    },
     "flash_attention_tf32x3": {
         "flash_d64_tf32x3_geometry": [_I],  # returns a tile size, a count or bytes
         "flash_d512_tf32x3_geometry": [_I],

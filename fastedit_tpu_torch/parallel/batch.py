@@ -71,7 +71,7 @@ def run_batch_data_parallel(args, editor, selected: List[Tuple[str, dict]],
     """The sweep over ``editor``'s replica group; with ``comparisons_dir``
     the writer pool also draws each saved image's comparison figure there,
     as the sequential sweep does (``--save_comparisons``)."""
-    group = editor.enable_data_parallel()
+    group = editor.enable_data_parallel(model_parallel=getattr(args, "model_parallel", 1) or 1)
     chunk_size = int(group.shape["data"])
 
     multi = multihost.spans_processes(group)

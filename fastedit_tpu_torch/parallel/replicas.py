@@ -8,9 +8,10 @@ with a copy of the weights, its own CUDA graphs and memory pool
 (``FastEditor.enable_data_parallel``).  A chunk's rows split over the
 replicas in order, process by process (``multihost.local_rows``).  Where
 a process holds several replicas, each replica's rows are dispatched from a
-long-lived worker thread of its own, so one replica's host work (prompt
-encoding, Canny) does not hold up another's card (a replay enqueues without
-waiting) and a replica's captures and replays always come from one thread;
+long-lived worker thread of its own, so one replica's host work (the
+input's upload, tokenizing) does not hold up another's card (a replay
+enqueues without waiting) and a replica's captures and replays always come
+from one thread;
 a process's only replica is dispatched on the calling thread.  Each
 replica's rows are edited as
 one ``edit_batch`` of that replica, so with a fixed seed every row takes the
@@ -18,8 +19,9 @@ same noise stream as on one editor; unseeded, each replica draws its own.
 
 Kernel flags are per thread (``ops/flags.py``): each worker runs under the
 calling thread's flags, so the replicas capture and replay the graph key
-the caller would.  A replica takes one call at a time, since the dispatch
-waits for every replica's before it returns.
+the caller would, under tensor parallelism (``model_parallel > 1``,
+``parallel/tp.py``) too.  A replica takes one call at a time, since the
+dispatch waits for every replica's before it returns.
 """
 
 from __future__ import annotations
@@ -57,9 +59,11 @@ class ReplicaGroup:
     """One editor replica per device, across ``world`` processes of which
     this is ``rank`` (every process holds as many replicas)."""
 
-    def __init__(self, replicas: list, rank: int = 0, world: int = 1):
+    def __init__(self, replicas: list, rank: int = 0, world: int = 1,
+                 model_parallel: int = 1):
         self.replicas = list(replicas)
         self.rank, self.world = rank, world
+        self.model_parallel = model_parallel
         self._workers = ([ThreadPoolExecutor(1, thread_name_prefix=f"replica{j}")
                           for j in range(len(self.replicas))]
                          if len(self.replicas) > 1 else [])
@@ -71,8 +75,9 @@ class ReplicaGroup:
     @property
     def shape(self) -> dict:
         """The mesh's shape: ``data`` is the number of replicas over every
-        process, the chunk a sweep dispatches at once."""
-        return {DATA_AXIS: self.world * len(self.replicas), MODEL_AXIS: 1}
+        process, the chunk a sweep dispatches at once; ``model`` the devices
+        of each replica's tensor-parallel group."""
+        return {DATA_AXIS: self.world * len(self.replicas), MODEL_AXIS: self.model_parallel}
 
     def _runs(self, batch: int) -> list:
         """(replica, first row, end row) for this process's replicas."""

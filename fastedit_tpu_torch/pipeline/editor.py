@@ -28,7 +28,8 @@ the whole edit (prompt encoding, prepare, the stages, eager or captured)
 inside ``utils/precision.true_fp32``, so PyTorch's own fp32 matmuls and
 cuDNN convs run without TF32 as well.
 
-Not ported yet (see ROADMAP.md): tensor parallelism (P15c).
+``enable_data_parallel(..., model_parallel=k)`` adds tensor parallelism
+(``parallel/tp.py``) within each group of ``k`` devices.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ from fastedit_tpu_torch.models.layers import GroupNorm, LayerNorm, cast_model
 from fastedit_tpu_torch.models.unet import UNet2DConditionModel
 from fastedit_tpu_torch.models.vae import AutoencoderKL
 from fastedit_tpu_torch.ops import flags
-from fastedit_tpu_torch.ops.canny import canny
+from fastedit_tpu_torch.ops import canny
 from fastedit_tpu_torch.pipeline import graphs, stages
 from fastedit_tpu_torch.sched.lcm import LCMSchedulerConfig, make_schedule
 from fastedit_tpu_torch.text.tokenizer import CLIPTokenizer
@@ -366,26 +367,69 @@ class FastEditor:
         own rows (``multihost.local_rows``).  Returns the group
         (``parallel/replicas.ReplicaGroup``).
 
-        ``model_parallel > 1`` (tensor parallelism) is not ported and
-        raises."""
-        if model_parallel > 1:
-            raise NotImplementedError(
-                "tensor parallelism (model_parallel > 1) is not ported to the PyTorch "
-                "package yet (ROADMAP P15c)")
+        ``model_parallel = k > 1`` adds tensor parallelism (the JAX
+        package's ``model`` mesh axis, ``parallel/tp.py``): the devices are
+        taken in consecutive groups of ``k``, in the row-major order of the
+        JAX package's ``make_mesh``, and each group holds one replica, a
+        copy of this editor (whose own modules stay whole) with the UNet's
+        and the ControlNet's transformer linears split over the group's
+        devices; ``shape`` is ``{"data": n // k, "model": k}``.  On the CPU
+        the default list is this editor's device ``k`` times.  A list that
+        ``k`` does not divide raises, as ``make_mesh`` asserts, and a group
+        that would take cards of several processes is not ported (raises).
+        Such a replica runs the caller's kernel flags, as any replica does;
+        it captures CUDA graphs where its group is one card named ``k``
+        times, and runs eagerly where the group spans cards."""
         from fastedit_tpu_torch.parallel import multihost
         from fastedit_tpu_torch.parallel.replicas import ReplicaGroup
 
+        k = int(model_parallel)
+        if k < 1:
+            raise ValueError(f"model_parallel must be >= 1, got {model_parallel}")
+        rank, world = multihost.rank_and_world()
         if devices is None:
-            devices = multihost.local_devices() if self.device.type == "cuda" else [self.device]
+            devices = (multihost.local_devices() if self.device.type == "cuda"
+                       else [self.device] * k)
+        devices = [_resolve_device(d) for d in devices]
+        if len(devices) % k:
+            if world > 1 and (len(devices) * world) % k == 0:
+                raise NotImplementedError(
+                    f"a tensor-parallel group of {k} would take cards of several processes "
+                    f"({len(devices)} per process): not ported (ROADMAP)")
+            raise ValueError(f"model_parallel={k} does not divide the {len(devices)} devices "
+                             f"{[str(d) for d in devices]}")
         replicas = []
-        for device in map(_resolve_device, devices):
-            own = device == self.device and self not in replicas
-            replicas.append(self if own else self._replica(device))
-        self._group = ReplicaGroup(replicas, *multihost.rank_and_world())
-        log.info("Data parallelism enabled over %d replicas (%s), chunks of %d rows",
+        for j in range(0, len(devices), k):
+            group = devices[j:j + k]
+            if k > 1:
+                replicas.append(self._tp_replica(group))
+            else:
+                own = group[0] == self.device and self not in replicas
+                replicas.append(self if own else self._replica(group[0]))
+        self._group = ReplicaGroup(replicas, rank, world, model_parallel=k)
+        log.info("Data parallelism enabled over %d replicas (%s), chunks of %d rows%s",
                  len(replicas), ", ".join(map(str, self._group.devices)),
-                 self._group.shape["data"])
+                 self._group.shape["data"],
+                 f"; tensor parallelism x{k} over {[str(d) for d in devices]}" if k > 1 else "")
         return self._group
+
+    def _tp_replica(self, group: list) -> "FastEditor":
+        """A replica on ``group[0]`` whose UNet and ControlNet transformer
+        linears are split over ``group`` (``parallel/tp.py``); on CUDA
+        graphs where every device of the group is ``group[0]``, else
+        eager."""
+        from fastedit_tpu_torch.parallel import tp
+
+        replica = self._replica(group[0])
+        split = {name: tp.split_transformers(getattr(replica.modules, name), group)
+                 for name in ("unet", "controlnet")}
+        # the graphs' weight list, taken after the split; one capture cannot span cards
+        replica._graphs = (graphs.EditGraphs(replica.modules)
+                           if replica._graphs is not None and set(group) == {group[0]}
+                           else None)
+        log.info("Tensor parallelism x%d on %s: %s", len(group),
+                 ", ".join(map(str, group)), split)
+        return replica
 
     def _replica(self, device: torch.device) -> "FastEditor":
         """A ``FastEditor`` on ``device`` with this one's configuration,
@@ -405,10 +449,15 @@ class FastEditor:
     def preprocess_image(
         self, image: Image.Image, low_threshold: int = 100, high_threshold: int = 200
     ) -> Image.Image:
-        """PIL RGB -> Canny edge map as 3-channel RGB PIL (ControlNet input)."""
+        """PIL RGB -> Canny edge map as 3-channel RGB PIL (ControlNet input),
+        through prepare's Canny kernels on the card (the plain version on the
+        CPU)."""
         arr = torch.from_numpy(np.asarray(image.convert("RGB"), dtype=np.uint8).copy())
-        edges = canny(arr.to(self.device), low_threshold, high_threshold).cpu().numpy()
-        return Image.fromarray(np.stack([edges] * 3, axis=2))
+        low, high = canny.threshold_tensors(low_threshold, high_threshold, self.device)
+        control, _ = stages.prepare(self.modules, arr[None].to(self.device), low, high,
+                                    arr.shape[0])
+        edges = (control[0] > 0).to(torch.uint8).mul_(255).cpu().numpy()
+        return Image.fromarray(edges)
 
     # ------------------------------------------------------------------ edit
 
@@ -603,14 +652,12 @@ class FastEditor:
         guidance, cn_scale = self._const(
             "scalars", float(guidance_scale), float(controlnet_conditioning_scale))
 
-        with self._timed("prepare"):
-            control, vae_in = stages.prepare(
-                self.modules, inputs, canny_low_threshold, canny_high_threshold,
-                self._control_res,
-            )
+        low, high = canny.threshold_tensors(canny_low_threshold, canny_high_threshold,
+                                            self.device)
         inp = graphs.EditInputs(
-            vae_in, control, eps_enc, noise_init, tuple(step_noise), context, pooled,
+            inputs, low, high, eps_enc, noise_init, tuple(step_noise), context, pooled,
             self._const("time_ids", context.shape[0]), schedule, guidance, cn_scale, do_cfg,
+            self._control_res,
         )
         if self._on_graphs():
             key = graphs.graph_key(b, do_cfg, schedule.num_steps, tile_noise, r)

@@ -2,23 +2,32 @@
 ``make_edit_core`` and its per-stage programs (``fastedit_tpu/pipeline/
 stages.py``).
 
-The JAX package runs VAE encode, the denoise loop and VAE decode as jitted
-programs, one dispatch each, or one for the whole edit.  Eager PyTorch
-enqueues every launch of an edit from the host instead (some 8,600 for
-SSD-1B at 1024²).  Here each of the three stages is captured once per key as
-a ``torch.cuda.CUDAGraph`` and replayed, one launch per stage, back to back:
+The JAX package runs Canny prepare, VAE encode, the denoise loop and VAE
+decode as jitted programs, one dispatch each, or one for the whole edit.
+Eager PyTorch enqueues every launch of an edit from the host instead (some
+8,600 for SSD-1B at 1024²).  Here each of the four stages is captured once
+per key as a ``torch.cuda.CUDAGraph`` and replayed, one launch per stage,
+back to back:
 
 * the key (:func:`graph_key`) is everything the captured launches depend on:
   batch, CFG, the number of run steps, noise tiling, resolution, and every
   kernel flag, since the flags are read in Python while a stage runs and a
   capture bakes in what they said;
 * a capture's static buffers (:class:`EditInputs`) hold what its graphs
-  read: the VAE input, the Canny control, the noise draws, the prompt
+  read: the uint8 images, both Canny thresholds, the noise draws, the prompt
   embeddings, time ids, the schedule table and both scales.  A replay first
   copies the call's tensors into them: the kernel wrappers encode TMA
   tensor maps from data pointers, so a graph is right only on the buffers it
-  was captured on.  The schedule and the scales are tensors, so one capture
-  serves every strength and scale with the same number of run steps;
+  was captured on.  The thresholds, the schedule and the scales are
+  tensors, so one capture serves every threshold, strength and scale with
+  the same number of run steps;
+* prepare's outputs (the control image and the VAE input) are the capture's
+  own tensors, held by it (:attr:`Captured.prepared`): the denoise graph
+  reads the control image that the prepare graph writes.  The union-find
+  labels of the hysteresis are allocated and freed inside prepare's capture,
+  so they stay in the pool for as long as the graphs live, and a later
+  capture may reuse them only for its own intermediates, as with every
+  stage's: the chain replays in capture order;
 * a capture follows one eager run of the same key on the same buffers (the
   kernels built, the GroupNorm kernel's counter buffer sized, the conv
   modules' fp32 biases and folded weights made, cuBLAS warm), on a side
@@ -50,12 +59,10 @@ the JAX package's jitted ``make_encode_prompt``: two int64 token-id buffers
 [padded, 77] in, the context [padded, 77, D] and pooled [padded, P]
 embeddings out, in the same cache, pool, capture stream, count cap and
 memory budget as the edit's keys.  Its outputs are overwritten by the next
-replay: the editor caches copies of their rows.  Prepare (Canny) stays
-outside, eager: its hysteresis loop reads a device flag on the host.  A
-capture or replay that fails raises; nothing runs the eager path in its
-place.  :func:`run_eager` is the same three stages without
-graphs: on the CPU, and under ``flags.override(cuda_graphs=False)`` or
-``plain_versions=True``.
+replay: the editor caches copies of their rows.  A capture or replay that
+fails raises; nothing runs the eager path in its place.  :func:`run_eager`
+is the same four stages without graphs: on the CPU, and under
+``flags.override(cuda_graphs=False)`` or ``plain_versions=True``.
 """
 
 from __future__ import annotations
@@ -76,7 +83,7 @@ MAX_KEYS = 64
 # what is in use, plus the next capture, may take; keys are evicted, oldest
 # first, to keep under it.
 MEMORY_BUDGET = 0.9
-STAGES = ("vae_encode", "denoise", "vae_decode")
+STAGES = ("prepare", "vae_encode", "denoise", "vae_decode")
 
 
 def graph_key(batch: int, do_cfg: bool, steps: int, tile_noise: bool,
@@ -94,10 +101,11 @@ def prompt_key(padded: int) -> tuple:
 
 @dataclasses.dataclass
 class EditInputs:
-    """Every tensor the three stages read, for one call."""
+    """Every tensor the four stages read, for one call."""
 
-    vae_in: torch.Tensor  # [B, r, r, 3] model dtype, in [-1, 1]
-    control: torch.Tensor  # [B, c, c, 3] model dtype, in [0, 1]
+    images: torch.Tensor  # uint8 [B, r, r, 3]
+    canny_low: torch.Tensor  # 0-dim int32, floored, <= canny_high (canny.threshold_tensors)
+    canny_high: torch.Tensor  # 0-dim int32
     eps_enc: torch.Tensor  # fp32 [Bn, r/8, r/8, 4]; Bn = 1 with tiled noise, else B
     noise_init: torch.Tensor  # fp32, eps_enc's shape
     step_noise: tuple  # one fp32 draw per run step, eps_enc's shape
@@ -109,9 +117,10 @@ class EditInputs:
     guidance: torch.Tensor  # 0-dim, model dtype (stages.edit_scalars)
     controlnet_scale: torch.Tensor  # 0-dim fp32
     do_cfg: bool
+    control_res: int  # the ControlNet conditioning image's size (the key's resolution fixes it)
 
-    TENSORS = ("vae_in", "control", "eps_enc", "noise_init", "context", "pooled", "time_ids",
-               "guidance", "controlnet_scale")
+    TENSORS = ("images", "canny_low", "canny_high", "eps_enc", "noise_init", "context", "pooled",
+               "time_ids", "guidance", "controlnet_scale")
 
     def tensors(self) -> list:
         return [*(getattr(self, f) for f in self.TENSORS), *self.step_noise,
@@ -134,24 +143,33 @@ class EditInputs:
             dst.copy_(src)
 
 
-def _stage_fns(mod: stages.PipelineModules, inp: EditInputs):
+def _stage_fns(mod: stages.PipelineModules, inp: EditInputs, prepared: dict):
     """(name, fn) per stage, in order; each fn takes the previous stage's
-    output (the latents) and returns its own."""
+    output (prepare's: the VAE input; then the latents) and returns its own.
+    Prepare also leaves its outputs in ``prepared``, where denoise reads the
+    control image."""
+    def prepare(_):
+        prepared["control"], prepared["vae_in"] = stages.prepare(
+            mod, inp.images, inp.canny_low, inp.canny_high, inp.control_res)
+        return prepared["vae_in"]
+
     return (
-        ("vae_encode", lambda _: stages.vae_sample(mod, inp.vae_in, inp.eps_enc)),
+        ("prepare", prepare),
+        ("vae_encode", lambda vae_in: stages.vae_sample(mod, vae_in, inp.eps_enc)),
         ("denoise", lambda latents: stages.denoise(
-            mod, latents, inp.context, inp.pooled, inp.time_ids, inp.control, inp.schedule,
-            inp.guidance, inp.controlnet_scale, inp.noise_init, inp.step_noise, inp.do_cfg)),
+            mod, latents, inp.context, inp.pooled, inp.time_ids, prepared["control"],
+            inp.schedule, inp.guidance, inp.controlnet_scale, inp.noise_init, inp.step_noise,
+            inp.do_cfg)),
         ("vae_decode", lambda latents: stages.vae_decode(mod, latents)),
     )
 
 
 def run_eager(mod: stages.PipelineModules, inp: EditInputs,
               timed=contextlib.nullcontext) -> tuple[torch.Tensor, torch.Tensor]:
-    """The three stages op by op; returns (final latents, uint8 images).
+    """The four stages op by op; returns (final latents, uint8 images).
     ``timed(name)`` is entered around each stage."""
     x = latents = None
-    for name, fn in _stage_fns(mod, inp):
+    for name, fn in _stage_fns(mod, inp, {}):
         with timed(name):
             x = fn(x)
         if name == "denoise":
@@ -168,6 +186,8 @@ class Captured:
     latents: torch.Tensor  # the denoise graph's output
     out: torch.Tensor  # the decode graph's output, uint8 [B, r, r, 3]
     pool_bytes: int  # memory the pool reserved for this capture
+    # the prepare graph's outputs, "control" and "vae_in" (denoise reads the control)
+    prepared: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -279,10 +299,11 @@ class EditGraphs:
                 self.pool = None  # no graph uses the pool: empty_cache may release it
 
     def _capture(self, inp: EditInputs) -> Captured:
-        static = inp.clone()
+        static, prepared = inp.clone(), {}
         graphs, outs, pool_bytes = self._capture_chain(
-            static.vae_in.device, _stage_fns(self.mod, static))
-        return Captured(static, graphs, outs["denoise"], outs["vae_decode"], pool_bytes)
+            static.images.device, _stage_fns(self.mod, static, prepared))
+        return Captured(static, graphs, outs["denoise"], outs["vae_decode"], pool_bytes,
+                        prepared)
 
     def _capture_prompts(self, ids_1: torch.Tensor, ids_2: torch.Tensor) -> PromptCaptured:
         device = self._params[0].device

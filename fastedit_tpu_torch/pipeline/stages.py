@@ -4,10 +4,11 @@ The edit path is Canny prepare -> VAE encode -> LCM denoise loop
 (ControlNet + UNet on a pair-interleaved CFG batch) -> VAE decode to
 uint8, as in the JAX package's ``pipeline/stages.py``.  Each stage is a
 plain function of its modules and tensors, with no host synchronisation in
-VAE encode, denoise and VAE decode, so ``pipeline/graphs.py`` can capture
-each of them as a CUDA graph.  The schedule and both scales are device
-tensors (:func:`edit_scalars`), so one graph serves every strength and
-scale.  Every stage that needs random numbers takes them as explicit
+prepare (the Canny kernels of ``ops/canny.py``), VAE encode, denoise and VAE
+decode, so ``pipeline/graphs.py`` can capture each of them as a CUDA graph.
+The Canny thresholds, the schedule and both scales are device tensors
+(``canny.threshold_tensors``, :func:`edit_scalars`), so one graph serves
+every threshold, strength and scale.  Every stage that needs random numbers takes them as explicit
 tensors: the editor draws them from a ``torch.Generator``, and the parity
 tests pass the JAX package's own ``jax.random`` draws.
 
@@ -42,7 +43,7 @@ from fastedit_tpu_torch.models.controlnet import ControlNetModel
 from fastedit_tpu_torch.models.unet import UNet2DConditionModel
 from fastedit_tpu_torch.models.vae import AutoencoderKL
 from fastedit_tpu_torch.ops import flags
-from fastedit_tpu_torch.ops.canny import canny
+from fastedit_tpu_torch.ops import canny
 from fastedit_tpu_torch.sched.lcm import LCMSchedule, add_noise, lcm_step
 from fastedit_tpu_torch.utils.profiling import check_finite
 
@@ -77,18 +78,19 @@ def encode_prompt(mod: PipelineModules, ids_1: torch.Tensor, ids_2: torch.Tensor
 
 @torch.no_grad()
 def prepare(mod: PipelineModules, img_u8: torch.Tensor, low, high, control_res: int):
-    """uint8 [B, H, W, 3] -> (canny control [B, r, r, 3] in [0, 1], VAE input
-    [B, H, W, 3] in [-1, 1]), both in the model dtype."""
-    f = img_u8.float()
-    edges = canny(img_u8, low, high)  # [B, H, W] uint8
-    control = edges[..., None].expand(*edges.shape, 3).float() / 255.0
+    """uint8 [B, H, W, 3] -> (canny control [B, r, r, 3] in {0, 1}, VAE input
+    [B, H, W, 3] in [-1, 1]), both in the model dtype.  On the card the
+    Canny kernels (``ops/canny.prepare``), with the thresholds as int32
+    device tensors (``canny.threshold_tensors``): no host sync, so the
+    editor captures prepare as the first graph of its chain; on the CPU, or
+    with ``plain_versions``, the plain version."""
+    fn = flags.kernel_or_plain(canny.prepare, canny.prepare_plain)
+    control, vae_in = fn(img_u8, low, high, mod.dtype)
     if control_res != control.shape[1]:
         control = F.interpolate(
-            control.permute(0, 3, 1, 2), size=(control_res, control_res),
+            control.float().permute(0, 3, 1, 2), size=(control_res, control_res),
             mode="nearest-exact",
-        ).permute(0, 2, 3, 1)
-    vae_in = f / 127.5 - 1.0
-    control, vae_in = control.to(mod.dtype).contiguous(), vae_in.to(mod.dtype)
+        ).permute(0, 2, 3, 1).to(mod.dtype).contiguous()
     check_finite("prepare", control, vae_in)
     return control, vae_in
 

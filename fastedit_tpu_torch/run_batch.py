@@ -6,8 +6,10 @@ On the card unless ``FASTEDIT_PLATFORM=cpu`` asks for the CPU.
 (``parallel/batch.py``); ``--num_processes``, ``--process_id`` and
 ``--coordinator_address`` join several processes into one sweep, each
 on its share of the host's cards and saving its own rows
-(``parallel/multihost.py``).  ``--model_parallel > 1``
-(tensor parallelism) is not ported and raises.
+(``parallel/multihost.py``).  ``--model_parallel k`` (tensor parallelism,
+``parallel/tp.py``) splits each replica's transformer linears over a group
+of ``k`` devices and implies ``--data_parallel``; on the CPU the group is
+the CPU ``k`` times.
 
 Usage:
     python -m fastedit_tpu_torch.run_batch --num_images 50 --editing_types 0 1 2
@@ -57,8 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_parallel", action="store_true",
                    help="Split the sweep over one replica per local card")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="Tensor-parallel group size: not ported (> 1 raises, "
-                        "ROADMAP P15c)")
+                   help="Tensor-parallel group size over the 'model' axis "
+                        "(implies --data_parallel)")
     p.add_argument("--coordinator_address", type=str, default=None,
                    help="host:port of process 0 (multi-process sweep, "
                         "torch.distributed over gloo)")
@@ -72,9 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model_parallel > 1 (tensor parallelism) is not ported to the PyTorch "
-            "package yet (ROADMAP P15c)")
+        args.data_parallel = True
     if args.quality_mode:
         args.full_precision = True
         args.full_controlnet = True

@@ -12,8 +12,14 @@ tolerances:
   * SSIM on a high-DC low-variance stress pair and on a structured pair
     (1e-4), PSNR (1e-3) and MSE (1e-7), from ``metrics/functional.py``
     inside ``utils/precision.true_fp32()``, as the metrics run;
-  * Canny (``ops/canny.py``), bit for bit: device against host, and each
-    against ``canny_np``, the numpy reference;
+  * Canny (``ops/canny.py``, on the card its prepare kernels), bit for bit:
+    device against host, and each against ``canny_np``, the numpy
+    reference; a sweep of thresholds (floats, ``low > high``, none at all)
+    on the device against ``canny_np``; and the hysteresis alone on the
+    device against a flood fill (``canny.flood_fill_np``) on stress masks: a
+    serpentine (one weak chain of every other row, turning through corners
+    only, strong at one end), a zigzag whose every link is through a corner,
+    and random candidates at densities 0.1 to 0.6;
   * attention at (1, 256, 2, 64), fp32 in (5e-3): the plain op on the device
     against the host, then the flash kernel (K2) on the device against the
     plain op on the host, the routes pinned with ``flags.override``;
@@ -42,7 +48,8 @@ import torch
 from fastedit_tpu_torch.metrics import functional as F
 from fastedit_tpu_torch.ops import flags
 from fastedit_tpu_torch.ops.attention import attention
-from fastedit_tpu_torch.ops.canny import canny, canny_np
+from fastedit_tpu_torch.ops import canny as canny_ops
+from fastedit_tpu_torch.ops.canny import canny_np, flood_fill_np
 from fastedit_tpu_torch.ops.groupnorm import group_norm, group_norm_plain
 from fastedit_tpu_torch.utils.precision import true_fp32
 
@@ -89,6 +96,7 @@ def inputs(seed: int = 0) -> dict:
     y = (x + 0.005 * rng.standard_normal((1, 256, 256, 3))).astype(np.float32)
     g = np.clip(np.cumsum(rng.random((1, 256, 256, 3)), axis=1) / 256.0, 0, 1).astype(np.float32)
     img = rng.integers(0, 255, (128, 128, 3)).astype(np.float32)
+    img[20:90, 30:70] = rng.integers(0, 255, 3)  # a block: long edges to grow along
     q = rng.standard_normal((1, 256, 2, 64)).astype(np.float32) * 0.1
     h = rng.standard_normal((1, 32, 32, 64)).astype(np.float32)
     return dict(x=x, y=y, g=g, img=img, q=q, h=h)
@@ -108,14 +116,98 @@ def metric_checks(device: torch.device, host: torch.device, inp: dict) -> list:
         ]
 
 
+def serpentine(h: int, w: int) -> np.ndarray:
+    """bool [h, w]: one chain of every other row (x from 1 to w - 2), each
+    row joined to the next through one pixel beside its end, which touches
+    both rows at a corner only, at alternate ends."""
+    m = np.zeros((h, w), bool)
+    rows = range(0, h, 2)
+    for k, y in enumerate(rows):
+        m[y, 1:w - 1] = True
+        if y + 2 < h:
+            m[y + 1, w - 1 if k % 2 == 0 else 0] = True
+    return m
+
+
+def zigzag(h: int, w: int) -> np.ndarray:
+    """bool [h, w]: one chain on the pixels with y + x even, so that no two of
+    its pixels share an edge and every link is through a corner: zigzag rows
+    four apart, each joined to the next at alternate ends."""
+    m = np.zeros((h, w - w % 2), bool)
+    w = m.shape[1]
+    xs = np.arange(w)
+    bands = list(range(0, h - 1, 4))
+    for k, y in enumerate(bands):
+        m[y + xs % 2, xs] = True
+        if y + 5 < h:
+            if k % 2 == 0:
+                m[y + 2, w - 2] = m[y + 3, w - 1] = True
+            else:
+                m[y + 2, 0] = m[y + 3, 1] = True
+    return m
+
+
+def stress_classes(seed: int = 0, size: int = 128) -> list:
+    """(name, class map uint8 [H, W]) for the hysteresis checks: the serpentine
+    and the zigzag, weak but for one strong end, and random candidates at
+    densities 0.1 to 0.6 with one in fifty strong."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, chain in (("serpentine", serpentine(size, size)), ("zigzag", zigzag(size, size))):
+        cls = chain.astype(np.uint8) * canny_ops.WEAK
+        y, x = np.argwhere(chain)[0]
+        cls[y, x] = canny_ops.STRONG
+        out.append((name, cls))
+    for density in (0.1, 0.2, 0.3, 0.4, 0.5, 0.6):
+        cand = rng.random((size, size)) < density
+        strong = cand & (rng.random((size, size)) < 0.02)
+        out.append((f"random {density}", cand.astype(np.uint8) + strong.astype(np.uint8)))
+    return out
+
+
+def canny_edges(image: torch.Tensor, low, high) -> torch.Tensor:
+    """uint8 edges [H, W] in {0, 255} of an [H, W, 3] image with integer
+    values, through prepare's Canny (``ops/canny.prepare``: the kernels on
+    the card, the plain version on the CPU)."""
+    lo, hi = canny_ops.threshold_tensors(low, high, image.device)
+    control, _ = canny_ops.prepare(image.round().to(torch.uint8)[None], lo, hi, torch.float32)
+    return (control[0, ..., 0] > 0).to(torch.uint8) * 255
+
+
+def hysteresis(cls: torch.Tensor) -> torch.Tensor:
+    """bool edges [H, W] of a class map [H, W] (uint8), through prepare's
+    hysteresis (``ops/canny.canny_hysteresis``)."""
+    return canny_ops.canny_hysteresis(cls[None], torch.float32)[0, ..., 0] > 0
+
+
+# Threshold pairs of the sweep: the default, swapped, floats, none at all,
+# above every magnitude, and equal thresholds.
+THRESHOLD_SWEEP = ((100, 200), (200, 100), (50.7, 120.2), (0, 0), (20, 40), (150, 150),
+                   (300, 3000))
+
+
 def canny_checks(device: torch.device, host: torch.device, inp: dict) -> list:
     img = inp["img"]
-    on_device = _on(device, lambda t: canny(t, 100, 200), img)
-    on_host = _on(host, lambda t: canny(t, 100, 200), img)
+    on_device = _on(device, lambda t: canny_edges(t, 100, 200), img)
+    on_host = _on(host, lambda t: canny_edges(t, 100, 200), img)
     ref = canny_np(img, 100, 200)
+    sweep = sum(int(np.sum(_on(device, lambda t: canny_edges(t, lo, hi), img)
+                           != canny_np(img, lo, hi))) for lo, hi in THRESHOLD_SWEEP)
+    chains, random_masks = 0, 0
+    for name, cls in stress_classes():
+        want = flood_fill_np(cls == canny_ops.STRONG, cls != 0)
+        wrong = int(np.sum(_on(device, hysteresis, cls) != want))
+        if name.startswith("random"):
+            random_masks += wrong
+        else:
+            chains += wrong
     return [_exact("canny (device vs host)", on_device, on_host),
             _exact("canny (device vs numpy reference)", on_device, ref),
-            _exact("canny (host vs numpy reference)", on_host, ref)]
+            _exact("canny (host vs numpy reference)", on_host, ref),
+            Result("canny thresholds (device vs numpy)", float(sweep), 0.0, exact=True),
+            Result("hysteresis chains (device vs fill)", float(chains), 0.0, exact=True),
+            Result("hysteresis random (device vs fill)", float(random_masks), 0.0,
+                   exact=True)]
 
 
 def op_checks(device: torch.device, host: torch.device, inp: dict) -> list:

@@ -68,7 +68,7 @@ def main() -> int:
         gn_calls[name] = Counter({key: c for (k, key), c in calls.items() if k == "group_norm"})
         ss = Counter()  # the statistics of each fused resnet block's two prologues
         for (stage, op, key), c in sites.items():
-            with flags.override(**override), flags.stage(stage):
+            with flags.override(**override), inventory.stage_context(stage):
                 if op == "resnet" and flags.use_fused_resnet():
                     n, h, w, cin, cout, groups, _ = key
                     ss[(n, h, w, cin, groups)] += c

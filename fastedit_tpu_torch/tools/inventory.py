@@ -1,5 +1,5 @@
-"""Every conv, GroupNorm and attention call of one edit, by stage, from the
-model configs alone, and the kernel each one reaches.
+"""Every conv, GroupNorm, attention and Canny call of one edit, by stage,
+from the model configs alone, and the kernel each one reaches.
 
 :func:`edit_sites` lists the calls as (stage, op, key) with their counts:
 
@@ -12,7 +12,10 @@ model configs alone, and the kernel each one reaches.
 * ``("down2", (N, H, W, C, Cout, asymmetric))``: a stride-2 conv;
 * ``("gn", (N, H, W, C, groups, act))``: any other GroupNorm (``conv_norm_out``,
   the transformers' and the VAE attention's);
-* ``("attn", (B, Sq, Skv, heads, head_dim))``.
+* ``("attn", (B, Sq, Skv, heads, head_dim))``;
+* ``("canny", (B, H, W))``: Canny prepare, once per edit in its own stage
+  (``"prepare"``, outside the kernel contexts), on the card the front pass
+  and the hysteresis (``ops/canny.py``).
 
 :func:`kernel_calls` routes each call as the modules dispatch it, under the
 flags of its stage (``flags.stage``), and counts the calls each kernel
@@ -29,20 +32,22 @@ image at batch 1.
 
 from __future__ import annotations
 
+import contextlib
 from collections import Counter
 
 import torch
 
 from fastedit_tpu_torch.models.configs import ControlNetConfig, UNetConfig, VAEConfig
 from fastedit_tpu_torch.models.unet import skip_channels
-from fastedit_tpu_torch.ops import conv3x3, conv_fused, flags
+from fastedit_tpu_torch.ops import canny, conv3x3, conv_fused, flags
 from fastedit_tpu_torch.ops import flash_attention as fa
 from fastedit_tpu_torch.ops import fused_groupnorm
 
 TEXT_TOKENS = 77
 TRANSFORMER_GROUPS = 32
 BF16_KERNELS = ("conv3x3", "conv3x3_fused", "conv3x3_up2", "conv3x3_down2", "group_norm",
-                "group_norm_scale_shift", *(f"flash_attention_d{d}" for d in fa.HEAD_DIMS))
+                "group_norm_scale_shift", *(f"flash_attention_d{d}" for d in fa.HEAD_DIMS),
+                "canny_front", "canny_hysteresis")
 F32_SUFFIX = "_f32"
 KERNELS = (*BF16_KERNELS, *(k + F32_SUFFIX for k in BF16_KERNELS))
 
@@ -161,6 +166,7 @@ def edit_sites(unet_cfg: UNetConfig, cn_cfg: ControlNetConfig, vae_cfg: VAEConfi
         for (op, key), c in sites.items():
             s[(stage, op, key)] += c * times
 
+    s[("prepare", "canny", (batch, resolution, resolution))] += 1
     add("encode", vae_sites(vae_cfg, batch, resolution, encoder=True))
     add("denoise", cond_tower_sites(cn_cfg, batch, control_res or resolution))
     add("denoise", unet_sites(cn_cfg.unet, nd, lat, decoder=False), steps)
@@ -210,7 +216,9 @@ def route(op: str, key: tuple) -> list:
     (N, H, W, Cin, Cout, per-batch bias, skip), each after the
     ``group_norm_scale_shift`` (N, H, W, C, groups) of its prologue;
     ``conv3x3_up2`` as the site; ``conv3x3_down2`` as the site;
-    ``group_norm`` as a "gn" site; ``flash_attention_d<D>`` as the site."""
+    ``group_norm`` as a "gn" site; ``flash_attention_d<D>`` as the site;
+    ``canny_front`` and ``canny_hysteresis`` as a "canny" site (no flag
+    gates them)."""
     if op == "conv":
         return _conv(key)
     if op == "resnet":
@@ -242,7 +250,15 @@ def route(op: str, key: tuple) -> list:
         if flags.use_cuda_attention() and fa.supports((b, sq, heads, d), skv):
             return [(f"flash_attention_d{d}", key)]
         return []
+    if op == "canny":
+        return [("canny_front", key), ("canny_hysteresis", key)]
     raise ValueError(f"unknown op {op!r}")
+
+
+def stage_context(stage: str):
+    """The kernel context a site's stage runs in: ``flags.stage`` for the
+    three model stages, none for prepare."""
+    return flags.stage(stage) if stage in flags.STAGES else contextlib.nullcontext()
 
 
 def kernel_calls(sites: Counter, dtype: torch.dtype = torch.bfloat16) -> Counter:
@@ -255,7 +271,7 @@ def kernel_calls(sites: Counter, dtype: torch.dtype = torch.bfloat16) -> Counter
     suffix = F32_SUFFIX if dtype == torch.float32 else ""
     out = Counter()
     for (stage, op, key), c in sites.items():
-        with flags.stage(stage):
+        with stage_context(stage):
             for kernel, shape in route(op, key):
                 out[(kernel + suffix, shape)] += c
     return out
@@ -279,7 +295,8 @@ def launch_counts() -> dict:
               "group_norm_scale_shift": fused_groupnorm.scale_shift_launches,
               "group_norm_scale_shift_f32": fused_groupnorm.scale_shift_launches_f32,
               **{f"flash_attention_d{d}": n for d, n in fa.launches.items()},
-              **{f"flash_attention_d{d}_f32": n for d, n in fa.launches_f32.items()}}
+              **{f"flash_attention_d{d}_f32": n for d, n in fa.launches_f32.items()},
+              **canny.launches}
     return {k: counts[k] for k in KERNELS}
 
 
@@ -287,6 +304,6 @@ def reset_launch_counts() -> None:
     conv3x3.launches = conv3x3.launches_f32 = 0
     fused_groupnorm.launches = fused_groupnorm.launches_f32 = 0
     fused_groupnorm.scale_shift_launches = fused_groupnorm.scale_shift_launches_f32 = 0
-    for counts in (conv_fused.launches, fa.launches, fa.launches_f32):
+    for counts in (conv_fused.launches, fa.launches, fa.launches_f32, canny.launches):
         for k in counts:
             counts[k] = 0

@@ -170,8 +170,9 @@ def test_group_edit_batch_against_one_editor(demo):
         assert d.max() <= 1
     with pytest.raises(ValueError, match="does not split"):
         dp.edit_batch(images[:1] * 3, prompts[:1] * 3, seed=5)
-    with pytest.raises(NotImplementedError, match="P15c"):
-        dp.enable_data_parallel(model_parallel=2)
+    # tensor parallelism: three devices do not split into groups of two
+    with pytest.raises(ValueError, match="does not divide"):
+        dp.enable_data_parallel(["cpu"] * 3, model_parallel=2)
 
 
 def test_evaluate_matches_the_jax_evaluate(demo, tmp_path):
@@ -320,12 +321,17 @@ def test_run_benchmark_tiny_writes_every_artifact(tmp_path, monkeypatch):
 
 
 def test_model_parallel_raises(demo, tmp_path, monkeypatch):
-    """Refused before an editor is built or a file is written."""
-    monkeypatch.setattr(teditor, "FastEditor", None)
-    with pytest.raises(NotImplementedError, match="P15c"):
+    """``--model_parallel`` runs (``tests/test_torch_tp.py``), but a device
+    list it does not divide is refused before any row is edited, as the JAX
+    package's ``make_mesh`` asserts."""
+    enable = teditor.FastEditor.enable_data_parallel
+    monkeypatch.setattr(teditor.FastEditor, "enable_data_parallel",
+                        lambda self, devices=None, model_parallel=1:
+                        enable(self, ["cpu"] * 3, model_parallel))
+    with pytest.raises(ValueError, match="does not divide"):
         trun_batch.main([*_data(demo), "--model", "tiny", "--model_parallel", "2",
                          "--output_dir", str(tmp_path / "out")])
-    assert not (tmp_path / "out").exists()
+    assert not list((tmp_path / "out").rglob("*.jpg"))
 
 
 @pytest.mark.parametrize("cli", ["run_single_image", "run_batch", "evaluate", "run_benchmark"])

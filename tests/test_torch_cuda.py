@@ -18,7 +18,12 @@ bias and skip, the upsample conv's five main-path shapes, both down2 paddings,
 Cin 96, all four stride-2 channel tiles and odd-sized inputs; for the GroupNorm kernel and its
 statistics launch alone, a large mean offset, 2560 channels (one pixel per block row), schedules
 for other SM counts (one chunk through the whole ring, more chunks than a warp merges at once),
-the same bits twice and under a CUDA graph's replays; the upsample conv on weights folded once.  The
+the same bits twice and under a CUDA graph's replays; the upsample conv on weights folded once;
+the Canny kernels (the front pass and the hysteresis) bit for bit against their plain versions
+and a flood fill, at sizes that are no multiple of their tile, on the stress masks of
+``tools/conformance.py`` and a 1024² serpentine (with the border merge left out, a planted
+fault, it must break), under a CUDA graph's replays with new thresholds, and an eager prepare
+with no host sync.  The
 tiny editor's CUDA graphs (``pipeline/graphs.py``) are held against its eager arm bit for bit: at
 batch 1 and 2 with and without CFG, replays on new inputs, two keys on one pool in turns, an
 asynchronous result past the next replay, and no replay under ``plain_versions``; its prompt graph
@@ -47,6 +52,7 @@ import torch
 
 from chip_smoke import (ATTN_ABS_OF_RMS, ATTN_REL, CONV_ABS_OF_MAX, CONV_REL, F32_ABS_OF_MAX,
                         F32_ATTN_ABS_OF_RMS, F32_REL, F64_GATE)
+from fastedit_tpu_torch.ops import canny as cn
 from fastedit_tpu_torch.ops import conv3x3 as k
 from fastedit_tpu_torch.ops import conv_fused as cf
 from fastedit_tpu_torch.ops import flash_attention as fa
@@ -551,6 +557,128 @@ def test_conv3x3_up2_takes_weights_folded_once(gen):
         cf.conv3x3_up2(x, wt, bias, phases=phases[:64])
 
 
+# ------------------------------------------------------------ Canny prepare
+
+
+def _canny_batch(seed, b, h, w):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    img = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) * 255 // (h + w)], -1)
+    img = np.broadcast_to(img, (b, h, w, 3)) + rng.integers(-20, 21, (b, h, w, 3))
+    for i in range(b):
+        for _ in range(4):
+            y0, x0 = rng.integers(0, max(1, h - 8)), rng.integers(0, max(1, w - 8))
+            img[i, y0:y0 + rng.integers(4, h // 2 + 5), x0:x0 + rng.integers(4, w // 2 + 5)] = \
+                rng.integers(0, 256, 3)
+    return torch.from_numpy(np.clip(img, 0, 255).astype(np.uint8)).cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w", [(1, 64, 64), (2, 100, 72), (4, 33, 130), (1, 256, 320)])
+def test_canny_front_matches_plain(gen, b, h, w, dtype):
+    """The class map and the VAE input bit for bit, at sizes that are no
+    multiple of the 32 x 32 tile, over thresholds with floats, swapped and
+    none at all."""
+    img = _canny_batch(b * h + w, b, h, w)
+    for low, high in ((100, 200), (200, 100), (50.7, 120.2), (0, 0), (300, 3000)):
+        lo, hi = cn.threshold_tensors(low, high, "cuda")
+        before = cn.launches["canny_front" + ("_f32" if dtype == torch.float32 else "")]
+        cls, vae_in = cn.canny_front(img, lo, hi, dtype)
+        cls_p, vae_p = cn.canny_front_plain(img, lo, hi, dtype)
+        torch.cuda.synchronize()
+        assert cn.launches["canny_front" + ("_f32" if dtype == torch.float32 else "")] \
+            == before + 1
+        assert torch.equal(cls, cls_p), (low, high, int((cls != cls_p).sum()))
+        assert torch.equal(vae_in, vae_p)
+    # the plain version divides by a device tensor: by a Python number PyTorch
+    # multiplies by the reciprocal on the card, which differs in the last bit
+    f = img.float()
+    assert torch.equal(vae_in, (f / f.new_full((), 127.5) - 1.0).to(dtype))
+
+
+def _stress(size):
+    from fastedit_tpu_torch.tools.conformance import stress_classes
+
+    return stress_classes(seed=size, size=size)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("size", [64, 200])
+def test_canny_hysteresis_matches_the_flood_fill(gen, size, dtype):
+    """Every stress mask (serpentine, zigzag, random candidates at 0.1 to
+    0.6), one batch of all of them, against the flood fill and the plain
+    version."""
+    import numpy as np
+
+    masks = _stress(size)
+    cls = torch.from_numpy(np.stack([m for _, m in masks])).cuda()
+    control = cn.canny_hysteresis(cls, dtype)
+    plain = cn.canny_hysteresis_plain(cls, dtype)
+    torch.cuda.synchronize()
+    assert control.dtype == dtype and control.shape == (*cls.shape, 3)
+    assert torch.equal(control, plain)
+    for i, (name, m) in enumerate(masks):
+        want = cn.flood_fill_np(m == cn.STRONG, m != 0)
+        assert np.array_equal((control[i, ..., 0] > 0).cpu().numpy(), want), name
+
+
+def test_canny_hysteresis_on_a_1024_serpentine(gen):
+    """~524k pixels in one chain, strong at one end, and the same chain with
+    the strong pixel at the far end, against ``scipy.ndimage.label``."""
+    import numpy as np
+    from scipy import ndimage
+
+    from chip_smoke import hysteresis_without_border_merge
+    from fastedit_tpu_torch.tools.conformance import serpentine
+
+    chain = serpentine(1024, 1024)
+    pts = np.argwhere(chain)
+    cls = np.stack([chain.astype(np.uint8)] * 2)
+    cls[0][tuple(pts[0])] = cls[1][tuple(pts[-1])] = cn.STRONG
+    labels, _ = ndimage.label(chain, np.ones((3, 3), bool))
+    assert labels.max() == 1
+    t = torch.from_numpy(cls).cuda()
+    out = cn.canny_hysteresis(t, torch.bfloat16)[..., 0] > 0
+    assert torch.equal(out, torch.from_numpy(np.stack([labels == 1] * 2)).cuda())
+    # the planted fault: without the merge across tile borders the chain breaks
+    bad = hysteresis_without_border_merge(t, torch.bfloat16)[..., 0] > 0
+    assert int(bad.sum()) < int(out.sum())
+
+
+def test_canny_prepare_under_graph_replays_and_without_a_sync(gen):
+    """prepare captured once and replayed with new thresholds copied into
+    its buffers gives each pair's plain result; an eager call makes no host
+    sync."""
+    img = _canny_batch(3, 2, 128, 96)
+    lo, hi = cn.threshold_tensors(100, 200, "cuda")
+    static = (img.clone(), lo.clone(), hi.clone())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cn.prepare(*static, torch.bfloat16)
+        cn.threshold_tensors(50, 150, "cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cn.prepare(*static, torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        control, vae_in = cn.prepare(*static, torch.bfloat16)
+    for low, high in ((100, 200), (50, 150), (200, 100)):
+        new_lo, new_hi = cn.threshold_tensors(low, high, "cuda")
+        static[1].copy_(new_lo)
+        static[2].copy_(new_hi)
+        graph.replay()
+        want = cn.prepare_plain(img, new_lo, new_hi, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(control, want[0]) and torch.equal(vae_in, want[1]), (low, high)
+
+
 # ------------------------------------------------------ the editor's graphs
 
 
@@ -616,6 +744,43 @@ def test_editor_replay_on_new_inputs_equals_a_fresh_eager_edit(tiny_cuda):
     graph = _edit(tiny_cuda, [_scene(7)], ["a new prompt"], **kw)
     assert len(tiny_cuda._graphs.edit_keys()) == keys
     _assert_same(graph, _edit(tiny_cuda, [_scene(7)], ["a new prompt"], graphs=False, **kw))
+
+
+def test_editor_replays_one_key_with_new_thresholds(tiny_cuda):
+    """Prepare is the chain's first graph: three threshold pairs on one key,
+    each equal to a fresh eager edit, and no new capture."""
+    _edit(tiny_cuda, [_scene(40)], ["t"], seed=40)
+    keys = len(tiny_cuda._graphs.edit_keys())
+    for low, high in ((100, 200), (50, 150), (200, 100)):
+        kw = dict(seed=41, canny_low_threshold=low, canny_high_threshold=high)
+        graph = _edit(tiny_cuda, [_scene(41)], ["t"], **kw)
+        _assert_same(graph, _edit(tiny_cuda, [_scene(41)], ["t"], graphs=False, **kw))
+    assert len(tiny_cuda._graphs.edit_keys()) == keys
+
+
+def test_tp_replica_on_one_card_replays_graphs_equal_to_its_eager_arm(tiny_cuda):
+    """A tensor-parallel group of one card named twice runs the caller's
+    flags and captures its graphs; a replay equals its eager arm bit for
+    bit."""
+    import numpy as np
+
+    from fastedit_tpu_torch.ops import flags
+    from fastedit_tpu_torch.parallel import tp
+
+    group = tiny_cuda.enable_data_parallel(["cuda:0", "cuda:0"], model_parallel=2)
+    try:
+        replica = group.replicas[0]
+        assert any(isinstance(m, tp.TPAttention) for m in replica.modules.unet.modules())
+        runs = []
+        for graphs in (True, True, False):
+            with flags.override(cuda_graphs=graphs):
+                outs = tiny_cuda.edit_batch([_scene(50), _scene(51)], ["tp a", "tp b"], seed=50)
+            runs.append((np.stack([np.asarray(o) for o in outs]), replica.last_latents.clone()))
+        assert len(replica._graphs.edit_keys()) == 1
+        _assert_same(runs[0], runs[2])
+        _assert_same(runs[1], runs[2])
+    finally:
+        tiny_cuda._group = None
 
 
 def test_editor_keys_sharing_one_pool_replay_after_each_other(tiny_cuda):

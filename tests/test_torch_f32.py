@@ -476,6 +476,8 @@ def test_fp32_routes_every_jax_kernel_call_and_only_the_vmem_refusals_more():
     jax_calls, refused = Counter(), Counter()
     with _on_tpu():
         for (stage, op, key), count in sites.items():
+            if op == "canny":  # the JAX package computes Canny in XLA: no Pallas call
+                continue
             with tflags.stage(stage), jflags.override(**_jax_stage_overrides(stage)):
                 j4, j2 = Counter(_jax_route(op, key, 4)), Counter(_jax_route(op, key, 2))
                 port = Counter(c for c in inventory.route(op, key)
@@ -494,7 +496,8 @@ def test_fp32_routes_every_jax_kernel_call_and_only_the_vmem_refusals_more():
     assert {name: n for name, n in f32.items() if n} == {
         "conv3x3_f32": 144, "conv3x3_fused_f32": 28, "conv3x3_up2_f32": 9,
         "conv3x3_down2_f32": 13, "group_norm_f32": 195, "group_norm_scale_shift_f32": 28,
-        "flash_attention_d64_f32": 102, "flash_attention_d512_f32": 2}
+        "flash_attention_d64_f32": 102, "flash_attention_d512_f32": 2,
+        "canny_front_f32": 1, "canny_hysteresis_f32": 1}
     bf16 = inventory.launches_by_kernel(inventory.kernel_calls(sites))
     assert all(bf16[name] == f32[name + inventory.F32_SUFFIX] for name in inventory.BF16_KERNELS)
 

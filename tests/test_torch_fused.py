@@ -35,6 +35,7 @@ from fastedit_tpu.ops import fused_groupnorm as jgn
 from fastedit_tpu_torch.models import configs as TC
 from fastedit_tpu_torch.models import resnet as tresnet
 from fastedit_tpu_torch.models.vae import AutoencoderKL
+from fastedit_tpu_torch.ops import canny as tcanny
 from fastedit_tpu_torch.ops import conv3x3 as tconv3x3
 from fastedit_tpu_torch.ops import conv_fused as tcf
 from fastedit_tpu_torch.ops import flags as tflags
@@ -412,6 +413,8 @@ KERNEL_FUNCS = {  # the wrappers the dispatchers look up, by inventory name
     "group_norm": (tgn, "fused_group_norm"),
     "group_norm_scale_shift": (tgn, "group_norm_scale_shift"),
     "flash_attention_d64": (tfa, "flash_attention"),
+    "canny_front": (tcanny, "canny_front"),
+    "canny_hysteresis": (tcanny, "canny_hysteresis"),
 }
 
 
