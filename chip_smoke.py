@@ -6,7 +6,11 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda) and
-``nvidia-smi``; it imports neither JAX nor the JAX package.  Phases, in
+``nvidia-smi``; it imports neither JAX nor the JAX package.  With ``--only
+group_norm`` (or ``conv``, ``fused``, ``up2``, ``down2``, ``attention``,
+``canny``; several may be named) it builds the kernels and runs those rows of
+phase 2 alone, bf16 and fp32, into ``chiprun_out/chip_smoke_only.json``, and
+prints no result line.  Phases, in
 order; a failed phase raises and the script exits non-zero:
 
 1. Build the CUDA kernels of ``fastedit_tpu_torch/csrc/`` (one ``nvcc`` per
@@ -26,10 +30,12 @@ order; a failed phase raises and the script exits non-zero:
    above an image read from the neighbouring image, as a tile that straddles
    two images would; up2: one phase's tap rows swapped; down2: the other
    padding;
-   GroupNorm and its statistics launch alone: a one-pass variance on an
-   input with |mean| >> std), which the tolerance must reject; a GroupNorm
-   call must run two device kernels (one on its resident route), a
-   statistics call one (the profiler counts them).  The rows of the convs, attention and GroupNorm also carry
+   GroupNorm and its statistics alone: a one-pass variance on an input with
+   |mean| >> std, and where the plan takes clusters the kernel built from
+   a copy of ``csrc/group_norm.cu`` whose clusters leave a block out of
+   their merge), which the tolerance must reject; every
+   GroupNorm and statistics call must run one device kernel (the profiler
+   counts them).  The rows of the convs, attention and GroupNorm also carry
    their plan (tiles, grid, shared memory), and the host's microseconds per
    launch of the stride-1 conv, the stride-2 conv and attention are printed.
    Then the same in fp32 for each kernel's fp32 instance (``<kernel>_f32``)
@@ -194,8 +200,10 @@ order; a failed phase raises and the script exits non-zero:
    ``edit_batch`` of two images on the kernels and CUDA graphs (a TP
    replica pins no flag) against the same edit without TP, within phase 4's
    limits; the replica's captures and its kernels' launches (the shards'
-   flash attention, the convs, Canny), seconds per edit and the peak
-   memory.
+   flash attention, the convs, GroupNorm, Canny), seconds per edit and the
+   peak memory.  Its fp32 arm runs inside phase 8, on the seeded fp32
+   editor: the same group and edit, within phase 8's fp32 limits, every
+   launch an ``_f32`` kernel's.
 
 Last, ``python -m fastedit_tpu_torch.bench --reps 3`` (``bench.main``) on a
 new editor, whose JSON line is printed.
@@ -865,13 +873,17 @@ def device_kernels(fn, calls: int = 3, tries: int = 5) -> list[str]:
 
 
 def compare_group_norm(calls: dict, gen, dtype=None) -> list[dict]:
-    """The GroupNorm kernel (``group_norm``) and its statistics launch alone
+    """The GroupNorm kernel (``group_norm``) and its statistics alone
     (``group_norm_scale_shift``, the fused resnet conv's (scale, shift)).
-    Two inputs per shape: normal values, held and timed; and the |mean| >>
-    std input, held too, with the planted fault (a one-pass variance) read on
-    it.  Each call must run one or two device kernels (the profiler counts
-    them): two for GroupNorm (one on the resident route), one for the
-    statistics.  Library: ``F.group_norm`` (+ ``F.silu``) on channels_last
+    Three inputs per shape: normal values, held and timed, with the planted
+    merge fault read on them wherever the plan takes clusters: the kernel
+    built from a copy of ``csrc/group_norm.cu`` whose clusters leave their
+    last block's partial out of their merge (:data:`MERGE_FAULT`); the
+    |mean| >> std input, held too, with the planted one-pass variance read
+    on it; and a step (the last sixteenth of each image's pixels 32 higher),
+    held too.  Each call must run one device kernel (the
+    profiler counts them), on every route.  Library: ``F.group_norm`` (+
+    ``F.silu``) on channels_last
     NCHW for GroupNorm; for the statistics ``torch.var_mean`` over each
     group's pixels and channels, the reduction that dominates them (the
     fold with the affine into scale and shift is a few hundred elements)."""
@@ -903,7 +915,7 @@ def compare_group_norm(calls: dict, gen, dtype=None) -> list[dict]:
     sfx, isz = _suffix(dtype)
     f32 = bool(sfx)
     rows = []
-    for base, launches in (("group_norm", 2), ("group_norm_scale_shift", 1)):
+    for base in ("group_norm", "group_norm_scale_shift"):
         kernel = base + sfx
         for key in keys_of(calls, kernel):
             n, h, w, c, groups = key[:5]
@@ -917,6 +929,9 @@ def compare_group_norm(calls: dict, gen, dtype=None) -> list[dict]:
 
                 def fault(x):
                     return one_pass(x, gamma, beta, groups, act)
+
+                def merge_fault(x):
+                    return group_norm_with_fault(x, gamma, beta, groups, act)
             else:
                 def kern(x):
                     return fg.group_norm_scale_shift(x, gamma, beta, groups, 1e-5)
@@ -926,6 +941,9 @@ def compare_group_norm(calls: dict, gen, dtype=None) -> list[dict]:
 
                 def fault(x):
                     return one_pass_scale_shift(x, gamma, beta, groups)
+
+                def merge_fault(x):
+                    return group_norm_with_fault(x, gamma, beta, groups, stats=True)
             gamma = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1.0
             beta = torch.randn(c, generator=gen, device="cuda") * 0.2
             spikes = torch.rand((n, h, w, c), generator=gen, device="cuda") < GN_SPIKE_RATE
@@ -940,11 +958,25 @@ def compare_group_norm(calls: dict, gen, dtype=None) -> list[dict]:
                 raise AssertionError(f"{kernel} {key}: the tolerance passes a one-pass variance")
             names = device_kernels(lambda: kern(offset))
             del offset
-            if not 1 <= len(names) <= launches:
+            if len(names) != 1:
                 raise AssertionError(f"{kernel} {key}: {len(names)} device kernels per call "
-                                     f"({names}), expected 1 to {launches}")
+                                     f"({names}), expected 1")
+            step = torch.randn((n, h, w, c), generator=gen, device="cuda")
+            step[:, (h * w * 15 // 16) // w:] += 32.0  # whole rows: ~the last sixteenth
+            step = step.to(dtype)
+            out, ref = kern(step), plain(step)
+            torch.cuda.synchronize()
+            step_err, _ = hold_close(f"{kernel} {key}, step", out, ref, f32)
+            del out, ref, step
 
             x = (torch.randn((n, h, w, c), generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
+            # the merge fault, read on the normal input: a block's M2 left out
+            # takes 1/cluster of the variance away (its mean moves little)
+            plan_x = fg.plan_for(x, groups)
+            merge_bad = outside(merge_fault(x), plain(x), f32) if plan_x.cluster > 1 else None
+            if merge_bad == 0:
+                raise AssertionError(f"{kernel} {key}: the tolerance passes the kernel with a "
+                                     "block left out of its cluster's merge")
             x_nchw = x.permute(0, 3, 1, 2)
             g_dt, b_dt = gamma.to(dtype), beta.to(dtype)
 
@@ -964,10 +996,14 @@ def compare_group_norm(calls: dict, gen, dtype=None) -> list[dict]:
                 nbytes=isz * elems + 8.0 * c + (isz * elems if base == "group_norm"
                                                 else 8.0 * n * c),
                 extra=dict(offset_max_abs_err=off_err, fault_elements_outside=fault_bad,
+                           step_max_abs_err=step_err, merge_fault_elements_outside=merge_bad,
                            device_kernels_per_call=len(names), device_kernel_names=names,
                            plan=gn_plan_of(x, groups)),
             ))
             del x, x_nchw, x_groups
+        if not any(r["merge_fault_elements_outside"] for r in rows if r["kernel"] == kernel):
+            raise AssertionError(f"{kernel}: no main-path shape took clusters, so the merge "
+                                 "fault was read nowhere")
     return rows
 
 
@@ -977,8 +1013,51 @@ def gn_plan_of(x, groups: int) -> dict:
 
     pl = plan_for(x, groups)
     return dict(lanes=pl.lanes, threads=pl.threads, tile_px=pl.tile_px, stages=pl.stages,
-                grid=list(pl.grid), apply_grid=list(pl.apply_grid), smem_bytes=pl.smem_bytes,
-                route=pl.route)
+                grid=list(pl.grid), cluster=pl.cluster, nclusters=pl.nclusters,
+                max_tiles=pl.max_tiles, smem_bytes=pl.smem_bytes, route=pl.route,
+                reread_bytes=pl.reread_bytes)
+
+
+# The planted merge fault of GroupNorm: a copy of csrc/group_norm.cu whose
+# clusters merge their blocks' partials but the last one's (its pixels still
+# counted), built in the background beside the kernels.
+MERGE_FAULT = ("cluster_merge_short", [("g < G ? p.cluster : 0, sub, sl,",
+                                        "g < G ? p.cluster - 1 : 0, sub, sl,")])
+
+
+def group_norm_with_fault(x, gamma, beta, groups: int, act=None, stats: bool = False):
+    """GroupNorm (+ SiLU) or, with ``stats``, the statistics' (scale,
+    shift), from the faulty copy of the kernel
+    (:data:`MERGE_FAULT`), launched like ``ops/fused_groupnorm``'s wrappers
+    (their counters untouched)."""
+    import torch
+
+    from fastedit_tpu_torch.ops import fused_groupnorm as fg
+
+    libs = _faults["group_norm"].result()
+    if MERGE_FAULT[0] not in libs:
+        raise AssertionError("the faulty copy of csrc/group_norm.cu did not build")
+    p = fg.plan_for(x, groups)
+    sfx = "f32" if x.dtype == torch.float32 else "bf16"
+    gamma, beta = gamma.float().contiguous(), beta.float().contiguous()
+    part = torch.empty((p.b, p.nclusters, groups, 2), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = libs[MERGE_FAULT[0]]
+    if stats:
+        ss = torch.empty((2, p.b, p.c), dtype=torch.float32, device=x.device)
+        err = getattr(lib, f"group_norm_stats_{sfx}")(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ss.data_ptr(), part.data_ptr(),
+            fg._counter(x, p.b).data_ptr(), *fg._plan_args(p), 1e-5, stream)
+        out = (ss[0], ss[1])
+    else:
+        out = torch.empty_like(x)
+        err = getattr(lib, f"group_norm_{sfx}")(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), part.data_ptr(),
+            fg._counter(x, 4 * p.b).data_ptr(), *fg._plan_args(p), 1e-5, int(act == "silu"),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"the faulty group_norm failed: CUDA error {err}")
+    return out
 
 
 def compare_attention(calls: dict, gen, dtype=None) -> list[dict]:
@@ -1081,19 +1160,21 @@ def hysteresis_without_border_merge(cls, dtype):
 # flipped), built in the background beside the kernels.
 FRONT_FAULT = ("front_tie_flipped", [("keep = m > mag[mr][mc - 1] && m >= mag[mr][mc + 1];",
                                       "keep = m >= mag[mr][mc - 1] && m > mag[mr][mc + 1];")])
-_front_fault: dict = {}
+_faults: dict = {}  # library -> the future of its faulty copies' build
 
 
-def start_front_fault_build() -> None:
-    """Start nvcc on the faulty copy of ``csrc/canny.cu``
-    (``tools/kernel_variants.build_variants``) on a thread of its own, after
-    the kernels' own build, so the two do not share the cores."""
+def start_fault_builds() -> None:
+    """Start nvcc on the faulty copies of ``csrc/canny.cu`` and
+    ``csrc/group_norm.cu`` (``tools/kernel_variants.build_variants``, one
+    ``nvcc`` each, both at once) on threads of their own, after the kernels'
+    own build, so the two builds do not share the cores."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fastedit_tpu_torch.tools.kernel_variants import build_variants
 
-    pool = ThreadPoolExecutor(1)
-    _front_fault["future"] = pool.submit(build_variants, "canny", dict([FRONT_FAULT]))
+    pool = ThreadPoolExecutor(2)
+    _faults["canny"] = pool.submit(build_variants, "canny", dict([FRONT_FAULT]))
+    _faults["group_norm"] = pool.submit(build_variants, "group_norm", dict([MERGE_FAULT]))
     pool.shutdown(wait=False)
 
 
@@ -1102,7 +1183,7 @@ def front_with_fault(image, low, high, dtype):
     on the card like ``ops/canny.canny_front`` (its counter untouched)."""
     import torch
 
-    libs = _front_fault["future"].result()
+    libs = _faults["canny"].result()
     if FRONT_FAULT[0] not in libs:
         raise AssertionError("the faulty copy of csrc/canny.cu did not build")
     b, h, w, _ = image.shape
@@ -1287,9 +1368,8 @@ def check_launches(what: str, launches: dict, expected: dict) -> None:
 
 
 # A launch of each wrapper runs these device kernels (a part of their
-# demangled names): GroupNorm's two-launch route gn_stats_kernel<T, false> and
-# gn_apply_kernel<T>, its resident route gn_stats_kernel<T, true> alone, the
-# statistics entry gn_stats_kernel<T, false> alone (T the element type); the
+# demangled names): GroupNorm gn_kernel<T, true> on every route, the statistics
+# entry gn_kernel<T, false> (T the element type); the
 # fp32 convs are conv3x3_tf32x3_kernel, conv3x3_fused_tf32x3_kernel,
 # conv3x3_up2_tf32x3_kernel and conv3x3_down2_tf32x3_kernel (their weight split
 # runs once per weight), the fp32 attention split_qkv_tf32_kernel, then
@@ -1317,9 +1397,8 @@ def wrapper_launches(names: list) -> dict:
     for sfx, t in GN_TYPES.items():
         out["canny_front" + sfx] = count(f"canny_front_kernel<{t}>")
         out["canny_hysteresis" + sfx] = count(f"ccl_write_kernel<{t}>")
-        apply = count(f"gn_apply_kernel<{t}>")
-        out["group_norm" + sfx] = apply + count(f"gn_stats_kernel<{t}, true>")
-        out["group_norm_scale_shift" + sfx] = count(f"gn_stats_kernel<{t}, false>") - apply
+        out["group_norm" + sfx] = count(f"gn_kernel<{t}, true>")
+        out["group_norm_scale_shift" + sfx] = count(f"gn_kernel<{t}, false>")
     return out
 
 
@@ -1832,16 +1911,18 @@ def graph_memory_sweep(editor, keys: int = 6) -> dict:
 # ----------------------------------------------------------------- phase 11
 
 
-def tensor_parallel(editor, card: str) -> dict:
+def tensor_parallel(editor, card: str, f32: bool = False) -> dict:
     """Phase 11: tensor parallelism on one card, on the seeded editor of
-    phases 3-5 (bf16, 1024²): ``enable_data_parallel(["cuda:0", "cuda:0"],
+    phases 3-5 (bf16, 1024²) or, with ``f32``, on phase 8's seeded fp32
+    editor (its fp32 arm): ``enable_data_parallel(["cuda:0", "cuda:0"],
     model_parallel=2)``, the UNet's and the ControlNet's transformer linears
     split in two on the one card (``parallel/tp.py``), an ``edit_batch`` of
     two images on the kernels and the graphs, under the caller's flags as
-    any replica, against the same edit without TP, within phase 4's limits;
-    the replica must have captured its graphs and launched the flash
-    attention, conv and Canny kernels (the counts of its warm-up and
-    capture); seconds per edit and the peak memory."""
+    any replica, against the same edit without TP, within phase 4's limits
+    (fp32: phase 8's); the replica must have captured its graphs and
+    launched the flash attention, conv, GroupNorm and Canny kernels (the
+    counts of its warm-up and capture; fp32: their ``_f32`` instances);
+    seconds per edit and the peak memory."""
     import torch
 
     from fastedit_tpu_torch.parallel import tp
@@ -1886,19 +1967,22 @@ def tensor_parallel(editor, card: str) -> dict:
         del group
         torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_phase
-    log(f"[11] tensor parallelism x2 on one card: {res}; {card}")
+    log(f"[11] tensor parallelism x2 on one card{' (fp32)' if f32 else ''}: {res}; {card}")
     if not split:
         raise AssertionError("the TP replica split no module")
-    not_launched = {"flash_attention_d64", "conv3x3", "canny_front",
-                    "canny_hysteresis"} - set(res["launches"])
+    sfx = "_f32" if f32 else ""
+    not_launched = {k + sfx for k in ("flash_attention_d64", "conv3x3", "group_norm",
+                                      "canny_front", "canny_hysteresis")} - set(res["launches"])
     if res["captured_keys"] != 1 or not_launched:
         raise AssertionError(f"the TP replica on one card captured {res['captured_keys']} keys "
                              f"(1 expected) and launched none of {sorted(not_launched)}")
-    if (res["latent_rel_l2"] > E2E_LATENT_REL_L2
-            or res["image_mean_abs_lsb"] > E2E_IMAGE_MEAN_LSB):
-        raise AssertionError(f"the TP edit differs from the edit without TP beyond phase 4's "
-                             f"limits (latents rel L2 <= {E2E_LATENT_REL_L2}, image mean <= "
-                             f"{E2E_IMAGE_MEAN_LSB} LSB): {res}")
+    if f32 and set(res["launches"]) != {k for k in res["launches"] if k.endswith("_f32")}:
+        raise AssertionError(f"the fp32 TP replica launched bf16 kernels: {res['launches']}")
+    rel, lsb = (F32_E2E_LATENT_REL_L2, F32_E2E_IMAGE_MEAN_LSB) if f32 else (
+        E2E_LATENT_REL_L2, E2E_IMAGE_MEAN_LSB)
+    if res["latent_rel_l2"] > rel or res["image_mean_abs_lsb"] > lsb:
+        raise AssertionError(f"the TP edit differs from the edit without TP beyond the limits "
+                             f"(latents rel L2 <= {rel}, image mean <= {lsb} LSB): {res}")
     return res
 
 
@@ -2737,6 +2821,8 @@ def f32_path(calls: dict, card: str) -> dict:
     log("[8] fp32 kernels vs plain end to end:", res["kernels_vs_plain"])
     log("[8] fp32 planted conv fault (last Cin chunk skipped) vs plain:",
         res["planted_conv_fault"])
+    log("[11] phase 11's fp32 arm: tensor parallelism on phase 8's seeded fp32 editor")
+    res["tensor_parallel"] = tensor_parallel(editor, card, f32=True)
     e2e = res["kernels_vs_plain"]
     if (e2e["latent_rel_l2"] > F32_E2E_LATENT_REL_L2
             or e2e["image_mean_abs_lsb"] > F32_E2E_IMAGE_MEAN_LSB or e2e["latent_std"] == 0.0):
@@ -3284,9 +3370,9 @@ WGMMA_KERNELS = ("conv3x3_kernel", "conv3x3_fused_kernel", "conv3x3_down2_kernel
                  "conv3x3_up2_tf32x3_kernel", "conv3x3_down2_tf32x3_kernel",
                  "flash_d64_tf32x3_kernel", "flash_d512_tf32x3_kernel")
 # fp32 kernels that must be built and hold no tensor-core instruction, by a part
-# of their mangled names: GroupNorm's statistics and apply kernels at float
-# (gn_stats_kernel<float, ...>, gn_apply_kernel<float>).
-SIMT_F32_KERNELS = ("gn_stats_kernelIf", "gn_apply_kernelIf")
+# of their mangled names: GroupNorm's kernel at float, with its apply and
+# without (gn_kernel<float, true>, gn_kernel<float, false>).
+SIMT_F32_KERNELS = ("gn_kernelIfLb1E", "gn_kernelIfLb0E")
 # The Canny kernels, which must be built and hold no tensor-core instruction:
 # integer stencils and union-find (both instances of the templated ones)
 CANNY_KERNELS = ("canny_front_kernelI13__nv_bfloat16", "canny_front_kernelIf",
@@ -3333,9 +3419,19 @@ def kernel_summary(rows: list, main: dict) -> list:
     return out
 
 
-def main() -> int:
+COMPARES = ("conv", "fused", "up2", "down2", "group_norm", "attention", "canny")
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive the port on one card (no arguments: "
+                                 "every phase).")
+    ap.add_argument("--only", nargs="+", choices=COMPARES, default=None,
+                    help="build, then only these phase-2 rows (bf16 and fp32); no result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on a card",
               file=sys.stderr)
@@ -3357,7 +3453,7 @@ def main() -> int:
     t = time.perf_counter()
     nvcc_logs = build.build_all()
     build_s = time.perf_counter() - t
-    start_front_fault_build()  # needed at phase 2's last rows: builds while they run
+    start_fault_builds()  # needed at phase 2's GroupNorm and Canny rows: builds meanwhile
     log(f"[1] kernels built in {build_s:.2f} s")
     for name, text in nvcc_logs.items():
         for line in text.splitlines():
@@ -3397,6 +3493,20 @@ def main() -> int:
     t = time.perf_counter()
     calls = kernel_shapes()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.only:  # a part of phase 2 alone, for work on one kernel
+        rows = []
+        for dtype in (torch.bfloat16, torch.float32):
+            for name in args.only:
+                rows += globals()[f"compare_{name}"](calls, gen, dtype)
+                torch.cuda.empty_cache()
+        out = OUT_FILE.with_name("chip_smoke_only.json")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(dict(card=card, torch=torch.__version__, shapes=rows,
+                                       build_s=build_s, seconds=time.perf_counter() - t),
+                                  indent=1, default=str))
+        log(f"{len(rows)} rows in {time.perf_counter() - t:.1f} s; {out.relative_to(ROOT)}; "
+            f"{card}")
+        return 0
     rows = []
     for compare in (compare_conv, compare_fused, compare_up2, compare_down2,
                     compare_group_norm, compare_attention, compare_canny):

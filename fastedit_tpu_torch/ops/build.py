@@ -47,12 +47,12 @@ KERNELS = {
             [_P] * 4 + [_I] * 5 + [_L] * 6 + [ctypes.c_float] + [_I] * 3 + [_P]),
     },
     "group_norm": {  # one template over the element type: bf16 and fp32 entries
-        f"{name}_{dtype}": args
-        for dtype in ("bf16", "f32")
-        for name, args in (
-            ("group_norm_stats", [_P] * 6 + [_I] * 9 + [ctypes.c_float, _P]),
-            ("group_norm_resident", [_P] * 6 + [_I] * 9 + [ctypes.c_float, _I, _P]),
-            ("group_norm", [_P] * 7 + [_I] * 11 + [ctypes.c_float, _I, _P]))
+        "group_norm_slots": [_I, _P],  # cluster, int* out
+        **{f"{name}_{dtype}": args
+           for dtype in ("bf16", "f32")
+           for name, args in (
+               ("group_norm_stats", [_P] * 6 + [_I] * 10 + [ctypes.c_float, _P]),
+               ("group_norm", [_P] * 6 + [_I] * 10 + [ctypes.c_float, _I, _P]))},
     },
     # the fp32 (quality mode) kernels, on the tensor cores: 3xTF32 wgmma
     "conv3x3_tf32x3": {

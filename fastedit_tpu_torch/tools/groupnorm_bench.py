@@ -2,6 +2,7 @@
 this repository on the card.
 
     python fastedit_tpu_torch/tools/groupnorm_bench.py [--root DIR] [--out FILE]
+        [--dtype bf16|fp32]
 
 ``--root`` is the checkout whose ``fastedit_tpu_torch`` is imported (default:
 the one this file lies in), so two trees can be read in one run on one card,
@@ -17,8 +18,10 @@ of 20 calls (``graph_ms``) and eagerly (10 back-to-back calls), the plain
 version's (eager), ``F.group_norm`` (+ ``F.silu``) from a graph, and the
 bound (one read of x, one write of the output, at 3.35 TB/s); then the sums
 over one edit's calls.  Where a tree has no statistics kernel, only the plain
-version is timed.  One JSON object, also written to ``--out``.  It needs a
-CUDA card and ``nvcc``.
+version is timed.  ``--dtype fp32`` reads the kernels' fp32 instances on
+fp32 inputs at the same shapes, with the fp32 edit's call counts (the default
+configuration), and each row carries its plan's route.  One JSON object, also
+written to ``--out``.  It needs a CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--out", default=None)
+    ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
     args = ap.parse_args()
     import torch
     import torch.nn.functional as F
@@ -59,13 +63,17 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
     sites = inventory.edit_sites(C.SSD1B_UNET, C.SDXL_CONTROLNET_SMALL, C.SDXL_VAE, 1024,
                                  batch=1, steps=3)
-    configs = {"optin": dict(use_cuda_conv=True, use_cuda_groupnorm=True),
-               "gn_on": dict(use_cuda_groupnorm=True), "default": {}}
+    f32 = args.dtype == "fp32"
+    dtype, isz, sfx = (torch.float32, 4, "_f32") if f32 else (torch.bfloat16, 2, "")
+    configs = {"default": {}} if f32 else {
+        "optin": dict(use_cuda_conv=True, use_cuda_groupnorm=True),
+        "gn_on": dict(use_cuda_groupnorm=True), "default": {}}
     gn_calls, ss_calls = {}, {}
     for name, override in configs.items():
         with flags.override(**override):
-            calls = inventory.kernel_calls(sites)
-        gn_calls[name] = Counter({key: c for (k, key), c in calls.items() if k == "group_norm"})
+            calls = inventory.kernel_calls(sites, dtype=dtype)
+        gn_calls[name] = Counter({key: c for (k, key), c in calls.items()
+                                  if k == "group_norm" + sfx})
         ss = Counter()  # the statistics of each fused resnet block's two prologues
         for (stage, op, key), c in sites.items():
             with flags.override(**override), inventory.stage_context(stage):
@@ -84,12 +92,14 @@ def main() -> int:
         for key in sorted(keys, key=str):
             n, h, w, c, groups = key[:5]
             act = key[5] if kind == "group_norm" else None
-            x = (torch.randn((n, h, w, c), generator=gen, device="cuda") * 2.0 + 0.5).bfloat16()
+            x = (torch.randn((n, h, w, c), generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
             gamma = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1.0
             beta = torch.randn(c, generator=gen, device="cuda") * 0.2
-            x_nchw, g_bf, b_bf = x.permute(0, 3, 1, 2), gamma.bfloat16(), beta.bfloat16()
+            x_nchw, g_bf, b_bf = x.permute(0, 3, 1, 2), gamma.to(dtype), beta.to(dtype)
             elems = n * h * w * c
-            row = dict(kernel=kind, shape=list(key))
+            row = dict(kernel=kind, shape=list(key), dtype=args.dtype)
+            if hasattr(fg, "plan_for"):
+                row["route"] = fg.plan_for(x, groups).route
             if kind == "group_norm":
                 kern = lambda: fg.fused_group_norm(x, gamma, beta, groups, 1e-5, act)  # noqa
                 plain = lambda: gn.group_norm_plain(x, gamma, beta, groups, 1e-5, act)  # noqa
@@ -98,13 +108,13 @@ def main() -> int:
                     y = F.group_norm(x_nchw, groups, g_bf, b_bf, 1e-5)
                     return F.silu(y) if act == "silu" else y
 
-                nbytes = 4.0 * elems + 8.0 * c
+                nbytes = 2.0 * isz * elems + 8.0 * c
                 row.update(library_ms=graph_ms(library))
             else:
                 kern = (lambda: fg.group_norm_scale_shift(x, gamma, beta, groups, 1e-5)) \
                     if has_ss else None
                 plain = lambda: plain_ss(x, gamma, beta, groups, 1e-5)  # noqa
-                nbytes = 2.0 * elems + 8.0 * c + 8.0 * n * c
+                nbytes = isz * elems + 8.0 * c + 8.0 * n * c
             row.update(
                 bound_ms=1e3 * nbytes / PEAK_HBM_BYTES_PER_S, plain_ms=time_ms(plain),
                 ms=graph_ms(kern) if kern else None, eager_ms=time_ms(kern) if kern else None,
@@ -127,7 +137,11 @@ def main() -> int:
                     per_edit[k] = per_edit.get(k, 0.0) + count * row[field]
             k = f"{row['kernel']}_{name}_calls"
             per_edit[k] = per_edit.get(k, 0) + count
-    result = dict(root=str(args.root), card=card, torch=torch.__version__,
+            if row.get("route") and row.get("ms") is not None:  # the split by route
+                for field, v in (("ms", count * row["ms"]), ("calls", count)):
+                    k = f"{row['kernel']}_{name}_{row['route']}_{field}"
+                    per_edit[k] = per_edit.get(k, 0) + v
+    result = dict(root=str(args.root), card=card, torch=torch.__version__, dtype=args.dtype,
                   ms_per_edit=per_edit, shapes=rows)
     print(json.dumps({k_: v for k_, v in result.items() if k_ != "shapes"}), flush=True)
     if args.out:

@@ -49,7 +49,7 @@ CATEGORIES = (  # first match wins
     ("fused resnet conv kernel (csrc/conv3x3.cu)", ("conv3x3_fused_kernel",)),
     ("up2 conv kernel (csrc/conv3x3.cu)", ("conv3x3_up2_kernel", "up2_phase_weights_kernel")),
     ("down2 conv kernel (csrc/conv3x3.cu)", ("conv3x3_down2_kernel",)),
-    ("GroupNorm kernel (csrc/group_norm.cu)", ("gn_stats_kernel", "gn_apply_kernel")),
+    ("GroupNorm kernel (csrc/group_norm.cu)", ("gn_kernel",)),
     ("flash attention kernel (csrc/flash_attention.cu)", ("flash_d64_kernel",
                                                           "flash_d512_kernel")),
     ("fp32 fused resnet conv kernel, 3xTF32 (csrc/conv3x3_tf32x3.cu)",

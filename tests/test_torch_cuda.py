@@ -410,11 +410,15 @@ def test_group_norm_kernel_matches_plain(gen, shape, groups, act, offset):
     _conv_close(out, ref)
 
 
-def _gn_operands(gen, shape, offset):
-    x = (torch.randn(shape, generator=gen, device="cuda") * 0.5 + offset).bfloat16()
+def _gn_operands(gen, shape, offset, dtype=torch.bfloat16):
+    x = (torch.randn(shape, generator=gen, device="cuda") * 0.5 + offset).to(dtype)
     gamma = torch.randn(shape[-1], generator=gen, device="cuda") * 0.5 + 1.0
     beta = torch.randn(shape[-1], generator=gen, device="cuda")
     return x, gamma, beta
+
+
+def _gn_close(out, ref):
+    (_f32_close if out.dtype == torch.float32 else _conv_close)(out, ref)
 
 
 @pytest.mark.parametrize(
@@ -440,32 +444,53 @@ def test_group_norm_scale_shift_kernel_matches_plain(gen, shape, groups, offset)
     _conv_close(shift, rsh)
 
 
-@pytest.mark.parametrize("sms", [1, 7, 100])
-def test_group_norm_kernels_at_other_schedules(gen, monkeypatch, sms):
-    """Plans for other SM counts: one chunk of many stages through the whole
-    ring (1), a few chunks (7), both on two launches; and the resident route
-    with more chunks than a merge's lanes, merged in rounds (100)."""
-    monkeypatch.setattr(fg, "sm_count_of", lambda t: sms)
-    x, gamma, beta = _gn_operands(gen, (2, 40, 40, 320), 20.0)
-    p = fg.plan_for(x, 32)
-    assert (p.nchunk == 1 and p.tiles_per_chunk > p.stages) if sms == 1 else p.nchunk > 1
-    assert p.route == ("resident" if sms == 100 else "two_launch")
-    assert sms != 100 or p.nchunk > p.merge_lanes
+GN_DTYPES = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                                    ids=["bf16", "fp32"])
+
+
+@GN_DTYPES
+@pytest.mark.parametrize("sms,cluster", [(1, 8), (16, 4), (96, 16), (100, 8)])
+def test_group_norm_kernels_at_other_schedules(gen, monkeypatch, sms, cluster, dtype):
+    """Plans for other counts of resident blocks and cluster sizes: one block
+    per batch item, its chunk through the whole ring and read again, one
+    launch per batch item (1); two clusters of four (16); clusters of 16,
+    merged over two rounds of a group's lanes (96); six clusters of 8 of the
+    50 blocks a batch item may take (100).  Every count stays within what
+    the card holds (cooperative launches past it are refused); clusters are
+    taken wherever they fit (no cost for them in the plan)."""
+    monkeypatch.setattr(fg, "slots_of", lambda t, cluster=8: sms)
+    monkeypatch.setattr(fg, "CLUSTER", cluster)
+    monkeypatch.setattr(fg, "plan", fg.plan.__wrapped__)  # uncached while patched
+    monkeypatch.setattr(fg, "CLUSTER_COST_BYTES", 0)
+    x, gamma, beta = _gn_operands(gen, (2, 40, 40, 320), 20.0, dtype)
+    p = fg.plan(1 if sms == 1 else 2, 1600, 320, 32, sms, x.element_size(), cluster)
+    assert p == (fg.plan_for(x[:1], 32) if sms == 1 else fg.plan_for(x, 32))
+    assert p.cluster == {1: 1, 16: 4, 96: 16, 100: 8}[sms]
+    assert sms != 1 or (p.nchunk == 1 and p.route == "reread")
+    assert sms != 96 or p.cluster > p.merge_lanes
+    counts = (fg.launches, fg.launches_f32)
     out = fg.fused_group_norm(x, gamma, beta, 32, 1e-5, "silu")
     scale, shift = fg.group_norm_scale_shift(x, gamma, beta, 32, 1e-5)
     torch.cuda.synchronize()
-    _conv_close(out, group_norm_plain(x, gamma, beta, 32, 1e-5, "silu"))
+    per_call = 2 if sms == 1 else 1  # a launch per run of resident batch items
+    assert (fg.launches, fg.launches_f32) == (
+        (counts[0], counts[1] + per_call) if dtype == torch.float32
+        else (counts[0] + per_call, counts[1]))
+    _gn_close(out, group_norm_plain(x, gamma, beta, 32, 1e-5, "silu"))
     rs, rsh = group_norm_scale_shift_plain(x, gamma, beta, 32, 1e-5)
-    _conv_close(scale, rs)
-    _conv_close(shift, rsh)
-    cs, csh = fg.scale_shift_chunked_plain(x.cpu(), gamma.cpu(), beta.cpu(), 32, 1e-5, sms)
-    _conv_close(scale.cpu(), cs)
+    _gn_close(scale, rs)
+    _gn_close(shift, rsh)
+    if sms != 1:  # the walk of the same schedule
+        cs, _ = fg.scale_shift_chunked_plain(x.cpu(), gamma.cpu(), beta.cpu(), 32, 1e-5, sms,
+                                             cluster)
+        _gn_close(scale.cpu(), cs)
 
 
-def test_group_norm_kernels_give_the_same_bits_twice(gen):
-    """Sums in a fixed order, no float atomics: the chunk merge does not
-    depend on which block finishes last."""
-    x, gamma, beta = _gn_operands(gen, (2, 64, 64, 640), 3.0)
+@GN_DTYPES
+def test_group_norm_kernels_give_the_same_bits_twice(gen, dtype):
+    """Sums in a fixed order, no float atomics: neither the cluster's merge
+    nor the batch item's depends on which block finishes first."""
+    x, gamma, beta = _gn_operands(gen, (2, 64, 64, 640), 3.0, dtype)
     a = fg.fused_group_norm(x, gamma, beta, 32, 1e-5, "silu")
     b = fg.fused_group_norm(x, gamma, beta, 32, 1e-5, "silu")
     sa = torch.stack(fg.group_norm_scale_shift(x, gamma, beta, 32, 1e-5))
@@ -474,20 +499,22 @@ def test_group_norm_kernels_give_the_same_bits_twice(gen):
     assert torch.equal(a, b) and torch.equal(sa, sb)
 
 
+@GN_DTYPES
 @pytest.mark.parametrize("shape", [(2, 32, 32, 1280), (1, 256, 256, 512)],
-                         ids=["resident", "two_launch"])
-def test_group_norm_kernels_under_graph_replays(gen, shape):
-    """The kernels set their counters back to 0, so replays of a captured
-    call (a cooperative launch on the resident route) give the eager call's
-    bits, and each call runs two device kernels (GroupNorm; one on the
-    resident route) or one (the statistics)."""
+                         ids=["resident", "reread"])
+def test_group_norm_kernels_under_graph_replays(gen, shape, dtype):
+    """The kernel sets its counters back to 0, so replays of a captured
+    call (a cooperative cluster launch) give the eager call's bits, and each
+    call runs one device kernel (GroupNorm, on either route; the
+    statistics)."""
     from torch.profiler import ProfilerActivity, profile
 
-    x, gamma, beta = _gn_operands(gen, shape, 1.0)
+    x, gamma, beta = _gn_operands(gen, shape, 1.0, dtype)
     route = fg.plan_for(x, 32).route
-    assert route == ("resident" if shape[0] == 2 else "two_launch")
+    assert route == ("resident" if shape[0] == 2 else "reread")
     eager = fg.fused_group_norm(x, gamma, beta, 32, 1e-5, None)
     eager_ss = torch.stack(fg.group_norm_scale_shift(x, gamma, beta, 32, 1e-5))
+    _gn_close(eager, group_norm_plain(x, gamma, beta, 32, 1e-5, None))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -500,16 +527,15 @@ def test_group_norm_kernels_under_graph_replays(gen, shape):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, eager) and torch.equal(torch.stack(ss), eager_ss)
-    for fn, kernels in ((lambda: fg.fused_group_norm(x, gamma, beta, 32, 1e-5, None),
-                         1 if route == "resident" else 2),
-                        (lambda: fg.group_norm_scale_shift(x, gamma, beta, 32, 1e-5), 1)):
+    for fn in (lambda: fg.fused_group_norm(x, gamma, beta, 32, 1e-5, None),
+               lambda: fg.group_norm_scale_shift(x, gamma, beta, 32, 1e-5)):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        assert len(names) == kernels, names
+        assert len(names) == 1, names
 
 
 def test_wrappers_raise_outside_their_contract(gen):
@@ -988,7 +1014,7 @@ def test_f32_flash_attention_matches_plain(gen, b, sq, skv, h, d):
 
 @pytest.mark.parametrize("shape,groups,act,offset", [
     ((2, 32, 32, 640), 32, "silu", 0.0),  # resident route
-    ((1, 128, 128, 512), 32, None, 0.0),  # two launches in fp32 (resident in bf16)
+    ((1, 128, 128, 512), 32, None, 0.0),  # read again in part in fp32 (resident in bf16)
     ((2, 16, 16, 2560), 32, None, 50.0),  # one pixel per block row, |mean| >> std
     ((1, 64, 64, 96), 8, "silu", 50.0),
 ])

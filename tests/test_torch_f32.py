@@ -212,19 +212,20 @@ def test_group_norm_plan_f32_covers_the_call(key):
     spans = p.chunks()
     assert spans[0][0] == 0 and spans[-1][1] == h * w  # every pixel once
     assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
-    aspans = p.apply_chunks()
-    assert aspans[-1][1] == h * w and all(a[1] == b[0] for a, b in zip(aspans, aspans[1:]))
-    if p.route == "resident":  # each chunk held whole, every block on an SM at once
-        assert p.stages == p.tiles_per_chunk and n * p.nchunk <= k.H100_SMS
+    assert n * p.nchunk <= k.H100_SMS and p.nchunk % p.cluster == 0  # all resident at once
+    if p.route == "resident":  # each chunk held whole
+        assert p.max_tiles <= p.stages and p.reread_bytes == 0
 
 
 def test_group_norm_plan_f32_fits_half_the_pixels():
     """A stage of fp32 pixels holds twice the bytes: the resident route
-    takes tensors up to half the pixels of bf16's."""
+    takes tensors up to half the pixels of bf16's; past it the chunk's
+    first stages are read again."""
     assert fg.plan(2, 32 * 32, 1280, 32, itemsize=4).route == "resident"
     big = fg.plan(1, 128 * 128, 512, 32)
-    assert big.route == "resident" and fg.plan(1, 128 * 128, 512, 32, itemsize=4).route == \
-        "two_launch"
+    f32 = fg.plan(1, 128 * 128, 512, 32, itemsize=4)
+    assert big.route == "resident" and f32.route == "reread"
+    assert 0 < f32.reread_bytes < 128 * 128 * 512 * 4 // 2
     with pytest.raises(ValueError):
         fg.plan(1, 64, 64, 32, itemsize=8)
 
