@@ -57,16 +57,17 @@ order; a failed phase raises and the script exits non-zero:
    kernels and the six 3xTF32 ones hold HGMMA, no kernel holds HMMA, every
    other kernel (the fp32 GroupNorm kernels and the Canny kernels, which must
    be built, among them) no tensor-core instruction at all.  The Canny
-   prepare kernels (``canny_front``, ``canny_hysteresis``; bf16 and fp32
-   outputs) are held bit for bit against their plain versions at batch 1, 2
-   and 4 at 1024², on the test images and smooth images with long edges at
-   three threshold pairs (one swapped), the hysteresis also on random
+   kernel's three entries (``canny_prepare``, what an edit launches, one
+   device kernel a call; ``canny_front`` and ``canny_hysteresis``; bf16 and
+   fp32 outputs) are held bit for bit against their plain versions at batch
+   1, 2 and 4 at 1024², on the test images and smooth images with long edges
+   at three threshold pairs (one swapped), the hysteresis also on random
    candidates at densities 0.1 to 0.6, at batch 1 the edges against
    ``canny_np`` and the hysteresis on a 1024² serpentine (one chain of ~524k
-   pixels) against ``scipy.ndimage.label``; planted faults, each launched
-   on the card: the front pass built from a copy of ``csrc/canny.cu`` with
-   cv2's horizontal NMS tie rule flipped, the hysteresis without its merge
-   across tile borders.
+   pixels) against ``scipy.ndimage.label``; planted faults, each a copy of
+   ``csrc/canny.cu`` built beside the kernels and launched on the card: cv2's
+   horizontal NMS tie rule flipped, the unions across tile edges taken out,
+   each block's last tile skipped.
 3. The main path in the default configuration:
    ``FastEditor("ssd-1b", random_weights=True)`` at 1024², a warm-up, three
    ``edit()`` calls and one ``edit_batch`` of two images, on CUDA graphs
@@ -191,9 +192,9 @@ order; a failed phase raises and the script exits non-zero:
    launched; then its SSIM check with TF32 allowed (outside
    ``true_fp32()``), which must fail, or where TF32 leaves the stress pair
    within its tolerance, with the card's SSIM inputs cast to bf16, which
-   must; and its Canny checks (through the kernels, the Canny kernels
-   launched) with the hysteresis run without its border merge, which must
-   fail its stress chains.
+   must; and its Canny checks (through the kernels, the Canny kernel
+   launched) with the hysteresis run without its unions across tile edges,
+   which must fail its stress chains.
 11. Tensor parallelism on one card, right after phase 9 on its editor:
    ``enable_data_parallel(["cuda:0", "cuda:0"], model_parallel=2)`` (the
    transformer linears split in two shards on the one card), an
@@ -1138,63 +1139,75 @@ def compare_attention(calls: dict, gen, dtype=None) -> list[dict]:
     return rows
 
 
-def hysteresis_without_border_merge(cls, dtype):
-    """The planted fault of the Canny hysteresis: its launches without the
-    merge across tile borders, so a chain that crosses a tile's edge
-    breaks there."""
-    import torch
-
-    from fastedit_tpu_torch.ops import canny
-
-    b, h, w = cls.shape
-    labels = torch.empty((b, h, w), dtype=torch.int32, device=cls.device)
-    control = torch.empty((b, h, w, 3), dtype=dtype, device=cls.device)
-    canny._launch("ccl_local", cls.device, cls.data_ptr(), labels.data_ptr(), b, h, w)
-    canny._launch(f"ccl_write_{canny._suffix(dtype)}", cls.device, cls.data_ptr(),
-                  labels.data_ptr(), control.data_ptr(), b, h, w)
-    return control
-
-
-# The planted fault of the Canny front pass: a copy of csrc/canny.cu whose
-# horizontal NMS keeps a pixel on m >= left and m > right (cv2's tie rule
-# flipped), built in the background beside the kernels.
-FRONT_FAULT = ("front_tie_flipped", [("keep = m > mag[mr][mc - 1] && m >= mag[mr][mc + 1];",
-                                      "keep = m >= mag[mr][mc - 1] && m > mag[mr][mc + 1];")])
+# The planted faults of the Canny kernel: copies of csrc/canny.cu built in the
+# background beside the kernels.  The horizontal NMS keeps a pixel on m >= left
+# and m > right (cv2's tie rule flipped); the unions across tile edges taken
+# out (a chain that crosses a tile's edge breaks there); each block stops one
+# tile early in its first phase (a block of one tile does none).
+CANNY_FAULTS = {
+    "front_tie_flipped": [
+        ("const bool keep = m > m1 && (sector >= 2 ? m > m2 : m >= m2);",
+         "const bool keep = sector == 0 ? m >= m1 && m > m2\n"
+         "                                : m > m1 && (sector >= 2 ? m > m2 : m >= m2);")],
+    "no_border_unions": [("    border_unions(a, tile_of",
+                          "    if (false) border_unions(a, tile_of")],
+    "last_tile_skipped": [("    if (t >= a.ntiles) break;",
+                           "    if (t >= a.ntiles || next >= a.ntiles) break;")],
+}
 _faults: dict = {}  # library -> the future of its faulty copies' build
 
 
 def start_fault_builds() -> None:
     """Start nvcc on the faulty copies of ``csrc/canny.cu`` and
     ``csrc/group_norm.cu`` (``tools/kernel_variants.build_variants``, one
-    ``nvcc`` each, both at once) on threads of their own, after the kernels'
+    ``nvcc`` each, all at once) on threads of their own, after the kernels'
     own build, so the two builds do not share the cores."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fastedit_tpu_torch.tools.kernel_variants import build_variants
 
     pool = ThreadPoolExecutor(2)
-    _faults["canny"] = pool.submit(build_variants, "canny", dict([FRONT_FAULT]))
+    _faults["canny"] = pool.submit(build_variants, "canny", CANNY_FAULTS)
     _faults["group_norm"] = pool.submit(build_variants, "group_norm", dict([MERGE_FAULT]))
     pool.shutdown(wait=False)
 
 
-def front_with_fault(image, low, high, dtype):
-    """The class map of the faulty front pass (:data:`FRONT_FAULT`), launched
-    on the card like ``ops/canny.canny_front`` (its counter untouched)."""
+def canny_with_fault(fault: str, entry: str, x, dtype, low=None, high=None):
+    """The faulty copy ``fault`` of the Canny kernel (:data:`CANNY_FAULTS`),
+    launched on the card like ``ops/canny``'s wrappers (their counters
+    untouched) into outputs filled with NaN and labels filled with
+    ``canny.NONE``, so what it leaves unwritten differs: ``entry`` "prepare"
+    (x an image) gives (control, VAE input), "front" (class map, VAE input),
+    "hysteresis" (x a class map) the control."""
     import torch
 
+    from fastedit_tpu_torch.ops import canny
+
+    if "canny" not in _faults:
+        start_fault_builds()
     libs = _faults["canny"].result()
-    if FRONT_FAULT[0] not in libs:
-        raise AssertionError("the faulty copy of csrc/canny.cu did not build")
-    b, h, w, _ = image.shape
-    cls = torch.empty((b, h, w), dtype=torch.uint8, device=image.device)
-    vae_in = torch.empty((b, h, w, 3), dtype=dtype, device=image.device)
-    fn = getattr(libs[FRONT_FAULT[0]], f"canny_front_{'f32' if dtype == torch.float32 else 'bf16'}")
-    err = fn(image.data_ptr(), low.data_ptr(), high.data_ptr(), cls.data_ptr(), vae_in.data_ptr(),
-             b, h, w, torch.cuda.current_stream().cuda_stream)
+    if fault not in libs:
+        raise AssertionError(f"the faulty copy {fault} of csrc/canny.cu did not build")
+    b, h, w = x.shape[:3]
+    sfx = "f32" if dtype == torch.float32 else "bf16"
+    grid = canny.plan_for(x, dtype).grid
+    labels = torch.full((b, h, w), canny.NONE, dtype=torch.int32, device=x.device)
+    control = torch.full((b, h, w, 3), float("nan"), dtype=dtype, device=x.device)
+    vae_in = torch.full((b, h, w, 3), float("nan"), dtype=dtype, device=x.device)
+    cls = torch.full((b, h, w), 7, dtype=torch.uint8, device=x.device)
+    counter = canny._counter(x.device).data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = getattr(libs[fault], f"canny_{entry}_{sfx}")
+    if entry == "prepare":
+        args, out = (x, low, high, labels, counter, control, vae_in), (control, vae_in)
+    elif entry == "front":
+        args, out = (x, low, high, counter, cls, vae_in), (cls, vae_in)
+    else:
+        args, out = (x, labels, counter, control), control
+    err = fn(*(a if isinstance(a, int) else a.data_ptr() for a in args), b, h, w, grid, stream)
     if err != 0:
-        raise RuntimeError(f"the faulty canny_front failed: CUDA error {err}")
-    return cls
+        raise RuntimeError(f"the faulty canny_{entry} ({fault}) failed: CUDA error {err}")
+    return out
 
 
 def smooth_image(seed: int, n: int = RESOLUTION):
@@ -1217,24 +1230,28 @@ def smooth_image(seed: int, n: int = RESOLUTION):
 
 CANNY_THRESHOLDS = ((100, 200), (50, 150), (200, 100))
 # Canny's operations per pixel (integer and fp32, outside the tensor cores):
-# the front pass ~60 (gray 7, Sobel 16, magnitude 3, NMS ~25, the VAE input
-# 9), the hysteresis ~10 (its initialisation, merges and write); both far below
-# their bytes, so bound by bytes at any rate.
+# the front ~60 (gray 7, Sobel 16, magnitude 3, NMS ~25, the VAE input 9), the
+# hysteresis ~10 (its runs, unions and write); far below their bytes, so bound
+# by bytes at any rate.
 CANNY_FRONT_OPS, CANNY_HYSTERESIS_OPS = 60.0, 10.0
 
 
 def compare_canny(calls: dict, gen, dtype=None) -> list[dict]:
-    """The Canny prepare kernels, ``canny_front`` and ``canny_hysteresis``,
-    bit for bit against their plain versions at the main path's batches (1,
-    2) and at batch 4 (serving's), 1024²: on the phase's test images and on
-    smooth images with long edges at three threshold pairs (one swapped),
-    the hysteresis also on random candidates at densities 0.1 to 0.6; at
-    batch 1 the edges against ``canny_np`` on the host, and the hysteresis on
-    a 1024² serpentine (one chain of ~524k pixels, strong at one end) against
-    ``scipy.ndimage.label``.  Planted faults, each launched on the card: the
-    front pass with cv2's horizontal tie rule flipped (:data:`FRONT_FAULT`);
-    the hysteresis without its merge across tile borders.  Timed on the test images at (100, 200) (graph, eager, plain);
-    no PyTorch call computes Canny (``library_ms`` null)."""
+    """The Canny kernel's three entries, ``canny_prepare`` (what an edit
+    launches: one device kernel a call, the profiler counts them),
+    ``canny_front`` and ``canny_hysteresis``, bit for bit against their plain
+    versions at the main path's batches (1, 2) and at batch 4 (serving's),
+    1024²: on the phase's test images and on smooth images with long edges at
+    three threshold pairs (one swapped), the hysteresis also on random
+    candidates at densities 0.1 to 0.6; at batch 1 the edges against
+    ``canny_np`` on the host, and the hysteresis on a 1024² serpentine (one
+    chain of ~524k pixels, strong at one end) against ``scipy.ndimage.label``.
+    Planted faults, each a built copy launched on the card
+    (:data:`CANNY_FAULTS`): cv2's horizontal tie rule flipped (the front's
+    class map), the unions across tile edges taken out (prepare, the
+    serpentine), each block's last tile skipped (prepare).  Timed on the test
+    images at (100, 200) (graph, eager, plain); no PyTorch call computes
+    Canny (``library_ms`` null)."""
     import numpy as np
     import torch
     from scipy import ndimage
@@ -1247,36 +1264,45 @@ def compare_canny(calls: dict, gen, dtype=None) -> list[dict]:
     sfx, isz = _suffix(dtype)
     gkw, reps = (F32_GRAPH, F32_EAGER_REPS) if sfx else ({}, 10)
     rows = []
-    keys = sorted(set(keys_of(calls, "canny_front" + sfx)) | {(4, RESOLUTION, RESOLUTION)})
+    keys = sorted(set(keys_of(calls, "canny_prepare" + sfx)) | {(4, RESOLUTION, RESOLUTION)})
     for key in keys:
         b, h, w = key
         photos = torch.from_numpy(np.stack([np.asarray(test_image(70 + i)) for i in range(b)]))
         smooth = torch.from_numpy(np.stack([smooth_image(80 + i) for i in range(b)]))
         photos, smooth = photos.cuda(), smooth.cuda()
-        checked, fault_front, fault_hyst = 0, 0, 0
+        checked = 0
+        faults = dict.fromkeys(CANNY_FAULTS, 0)
         for img in (photos, smooth):
             for low, high in CANNY_THRESHOLDS:
                 lo, hi = canny.threshold_tensors(low, high, "cuda")
-                cls, vae_in = canny.canny_front(img, lo, hi, dtype)
+                control, vae_in = canny.prepare(img, lo, hi, dtype)
+                cls, vae_front = canny.canny_front(img, lo, hi, dtype)
                 cls_p, vae_p = canny.canny_front_plain(img, lo, hi, dtype)
-                control = canny.canny_hysteresis(cls, dtype)
                 control_p = canny.canny_hysteresis_plain(cls_p, dtype)
+                control_h = canny.canny_hysteresis(cls_p, dtype)
                 torch.cuda.synchronize()
-                for what, got, want in (("class map", cls, cls_p), ("VAE input", vae_in, vae_p),
-                                        ("control", control, control_p)):
+                for what, got, want in (
+                        ("prepare's control", control, control_p),
+                        ("prepare's VAE input", vae_in, vae_p), ("front's class map", cls, cls_p),
+                        ("front's VAE input", vae_front, vae_p),
+                        ("hysteresis' control", control_h, control_p)):
                     if not torch.equal(got, want):
                         raise AssertionError(
-                            f"canny{sfx} {key} ({low}, {high}): the kernels' {what} differs "
+                            f"canny{sfx} {key} ({low}, {high}): the kernel's {what} differs "
                             f"from the plain version's in {int((got != want).sum())} values")
-                fault_front += int((front_with_fault(img, lo, hi, dtype) != cls_p).sum())
-                bad = hysteresis_without_border_merge(cls, dtype)
-                fault_hyst += int((bad != control).sum())
+                faults["front_tie_flipped"] += int(
+                    (canny_with_fault("front_tie_flipped", "front", img, dtype, lo, hi)[0]
+                     != cls_p).sum())
+                for fault in ("no_border_unions", "last_tile_skipped"):
+                    bad_control, bad_vae = canny_with_fault(fault, "prepare", img, dtype, lo, hi)
+                    faults[fault] += int((bad_control != control_p).sum()
+                                         + (bad_vae != vae_p).sum())
                 if b == 1 and img is photos:
                     ref = canny.canny_np(img[0].cpu().numpy(), low, high)
                     got = (control[0, ..., 0] > 0).cpu().numpy().astype(np.uint8) * 255
                     if not np.array_equal(got, ref):
-                        raise AssertionError(f"canny{sfx} {key} ({low}, {high}): the kernels "
-                                             f"differ from canny_np in {int((got != ref).sum())}"
+                        raise AssertionError(f"canny{sfx} {key} ({low}, {high}): the kernel "
+                                             f"differs from canny_np in {int((got != ref).sum())}"
                                              " pixels")
                 checked += 1
         random_masks = {}
@@ -1301,34 +1327,46 @@ def compare_canny(calls: dict, gen, dtype=None) -> list[dict]:
                 raise AssertionError(f"canny_hysteresis{sfx}: the 1024² serpentine differs "
                                      f"from scipy.ndimage.label in "
                                      f"{int((got != (labels == 1)).sum())} pixels")
-            broken = (hysteresis_without_border_merge(ct, dtype)[0, ..., 0] > 0).cpu().numpy()
+            broken = (canny_with_fault("no_border_unions", "hysteresis", ct, dtype)[0, ..., 0]
+                      > 0).cpu().numpy()
             extra = dict(serpentine_pixels=int(chain.sum()),
                          serpentine_ms=graph_ms(lambda: canny.canny_hysteresis(ct, dtype),
                                                 **gkw),
                          serpentine_fault_pixels_missing=int((~broken & got).sum()))
             if not extra["serpentine_fault_pixels_missing"]:
-                raise AssertionError("the serpentine passes a hysteresis without its border merge")
-            fault_hyst += extra["serpentine_fault_pixels_missing"]
-        if not fault_front or not fault_hyst:
-            raise AssertionError(f"canny{sfx} {key}: a planted fault passes (front "
-                                 f"{fault_front}, hysteresis {fault_hyst} values differ)")
+                raise AssertionError("the serpentine passes a hysteresis without its unions "
+                                     "across tile edges")
+        if not all(faults.values()):
+            raise AssertionError(f"canny{sfx} {key}: a planted fault passes (values that differ "
+                                 f"from the plain version's: {faults})")
         lo, hi = canny.threshold_tensors(100, 200, "cuda")
         cls, _ = canny.canny_front(photos, lo, hi, dtype)
+        kernels = device_kernels(lambda: canny.prepare(photos, lo, hi, dtype))
+        if len(kernels) != 1 or "canny_kernel" not in kernels[0]:
+            raise AssertionError(f"canny_prepare{sfx} {key}: one call ran {kernels}")
         px = b * h * w
-        for name, kern, plain, ops, nbytes, fault in (
+        plan = canny.plan_for(photos, dtype)
+        for name, kern, plain, ops, nbytes in (
+                ("canny_prepare" + sfx, lambda: canny.prepare(photos, lo, hi, dtype),
+                 lambda: canny.prepare_plain(photos, lo, hi, dtype),
+                 CANNY_FRONT_OPS + CANNY_HYSTERESIS_OPS, px * (3 + 6 * isz) + 8),
                 ("canny_front" + sfx, lambda: canny.canny_front(photos, lo, hi, dtype),
                  lambda: canny.canny_front_plain(photos, lo, hi, dtype), CANNY_FRONT_OPS,
-                 px * (3 + 1 + 3 * isz) + 8, fault_front),
+                 px * (3 + 1 + 3 * isz) + 8),
                 ("canny_hysteresis" + sfx, lambda: canny.canny_hysteresis(cls, dtype),
                  lambda: canny.canny_hysteresis_plain(cls, dtype), CANNY_HYSTERESIS_OPS,
-                 px * (1 + 3 * isz), fault_hyst)):
+                 px * (1 + 3 * isz))):
             b_ms, b_by = bound_ms(ops * px, nbytes, PEAK_F32_FLOPS)
             row = dict(kernel=name, shape=list(key), **call_counts(calls, name, key),
                        max_abs_err=0.0, max_rel_err=0.0, checked_inputs=checked,
-                       fault_values_differing=fault,
+                       fault_values_differing=faults,
+                       plan=dict(grid=plan.grid, tiles_per_block=plan.tiles_per_block,
+                                 smem_bytes=plan.smem_bytes),
                        ms=graph_ms(kern, **gkw), library_ms=None, library_eager_ms=None,
                        plain_ms=time_ms(plain, reps), eager_ms=time_ms(kern, reps),
                        bound_ms=b_ms, bound_by=b_by, flops=ops * px, bytes=nbytes)
+            if name.startswith("canny_prepare"):
+                row.update(device_kernels=kernels)
             if name.startswith("canny_hysteresis"):
                 row.update(random_masks_ms=random_masks, **extra)
             rows.append(row)
@@ -1395,8 +1433,7 @@ def wrapper_launches(names: list) -> dict:
 
     out = {wrapper: count(part) for wrapper, part in WRAPPER_KERNELS.items()}
     for sfx, t in GN_TYPES.items():
-        out["canny_front" + sfx] = count(f"canny_front_kernel<{t}>")
-        out["canny_hysteresis" + sfx] = count(f"ccl_write_kernel<{t}>")
+        out["canny_prepare" + sfx] = count(f"canny_kernel<{t}, 0>")
         out["group_norm" + sfx] = count(f"gn_kernel<{t}, true>")
         out["group_norm_scale_shift" + sfx] = count(f"gn_kernel<{t}, false>")
     return out
@@ -1505,8 +1542,7 @@ def prepare_without_a_sync(editor, images) -> dict:
         torch.cuda.set_sync_debug_mode(0)
     end.synchronize()
     launched = {k: canny.launches[k] - before[k] for k in before}
-    if launched != {"canny_front": 1, "canny_front_f32": 0, "canny_hysteresis": 1,
-                    "canny_hysteresis_f32": 0}:
+    if launched != {**dict.fromkeys(canny.launches, 0), "canny_prepare": 1}:
         raise AssertionError(f"the eager prepare launched {launched}")
     res = dict(device_ms=start.elapsed_time(end), batch=len(images), launches=launched)
     log("[3] an eager kernel prepare under sync debug mode 'error': no sync;", res)
@@ -1972,7 +2008,7 @@ def tensor_parallel(editor, card: str, f32: bool = False) -> dict:
         raise AssertionError("the TP replica split no module")
     sfx = "_f32" if f32 else ""
     not_launched = {k + sfx for k in ("flash_attention_d64", "conv3x3", "group_norm",
-                                      "canny_front", "canny_hysteresis")} - set(res["launches"])
+                                      "canny_prepare")} - set(res["launches"])
     if res["captured_keys"] != 1 or not_launched:
         raise AssertionError(f"the TP replica on one card captured {res['captured_keys']} keys "
                              f"(1 expected) and launched none of {sorted(not_launched)}")
@@ -3264,6 +3300,7 @@ def conformance_on_card(card: str) -> dict:
     import torch
 
     from fastedit_tpu_torch.metrics import functional
+    from fastedit_tpu_torch.ops import canny
     from fastedit_tpu_torch.tools import conformance
     from fastedit_tpu_torch.tools.inventory import launch_counts, reset_launch_counts
 
@@ -3274,29 +3311,32 @@ def conformance_on_card(card: str) -> dict:
     with contextlib.redirect_stdout(text):
         rc = conformance.main([])
     res["rc"], res["lines"] = rc, text.getvalue().splitlines()
-    res["launches"] = {k: v for k, v in launch_counts().items() if v}
+    res["launches"] = {k: v for k, v in {**launch_counts(), **canny.launches}.items() if v}
     for line in res["lines"]:
         log(line)
     if rc != 0:
         raise AssertionError(f"the conformance tool failed on the card: rc {rc}")
     if not all(res["launches"].get(k) for k in (
-            "flash_attention_d64_f32", "group_norm_f32", "canny_front_f32",
+            "flash_attention_d64_f32", "group_norm_f32", "canny_prepare_f32",
             "canny_hysteresis_f32")):
         raise AssertionError(f"the conformance tool missed a kernel: {res['launches']}")
 
-    # the planted fault on the card: the hysteresis without its merge across tile
-    # borders must fail the stress chains
+    # the planted fault on the card: the hysteresis without its unions across
+    # tile edges must fail the stress chains
     def broken_hysteresis(cls):
-        return hysteresis_without_border_merge(cls[None], torch.float32)[0, ..., 0] > 0
+        return canny_with_fault("no_border_unions", "hysteresis", cls[None],
+                                torch.float32)[0, ..., 0] > 0
 
     with mock.patch.object(conformance, "hysteresis", broken_hysteresis):
         fault = conformance.canny_checks(torch.device("cuda"), torch.device("cpu"),
                                          conformance.inputs())
     res["hysteresis_fault"] = {r.name: dict(delta=r.delta, ok=r.ok) for r in fault}
-    log("[10] planted fault, the hysteresis without its border merge:", res["hysteresis_fault"])
+    log("[10] planted fault, the hysteresis without its unions across tile edges:",
+        res["hysteresis_fault"])
     chains = res["hysteresis_fault"]["hysteresis chains (device vs fill)"]
     if chains["ok"]:
-        raise AssertionError("the conformance tool passes a hysteresis without its border merge")
+        raise AssertionError("the conformance tool passes a hysteresis without its unions across "
+                             "tile edges")
 
     device, host, inp = torch.device("cuda"), torch.device("cpu"), conformance.inputs()
     backends = torch.backends
@@ -3350,8 +3390,7 @@ KERNELS = {  # name: (source, TPU kernel it replaces: file:line of pallas_call)
                                "fastedit_tpu/ops/groupnorm.py:53"),
     # Canny prepare; in the JAX package XLA (canny_jax's stencil and its
     # while_loop hysteresis), no pallas_call
-    "canny_front": ("fastedit_tpu_torch/csrc/canny.cu", "fastedit_tpu/ops/canny.py:140"),
-    "canny_hysteresis": ("fastedit_tpu_torch/csrc/canny.cu", "fastedit_tpu/ops/canny.py:102"),
+    "canny_prepare": ("fastedit_tpu_torch/csrc/canny.cu", "fastedit_tpu/ops/canny.py:140"),
 }
 # The fp32 instances (the quality mode's path, phase 8), each replacing the same
 # TPU kernel as its bf16 twin: every conv form and both attention kernels run
@@ -3373,11 +3412,10 @@ WGMMA_KERNELS = ("conv3x3_kernel", "conv3x3_fused_kernel", "conv3x3_down2_kernel
 # of their mangled names: GroupNorm's kernel at float, with its apply and
 # without (gn_kernel<float, true>, gn_kernel<float, false>).
 SIMT_F32_KERNELS = ("gn_kernelIfLb1E", "gn_kernelIfLb0E")
-# The Canny kernels, which must be built and hold no tensor-core instruction:
-# integer stencils and union-find (both instances of the templated ones)
-CANNY_KERNELS = ("canny_front_kernelI13__nv_bfloat16", "canny_front_kernelIf",
-                 "ccl_local_kernel", "ccl_border_kernel", "ccl_write_kernelI13__nv_bfloat16",
-                 "ccl_write_kernelIf")
+# The Canny kernel's instances, which must be built and hold no tensor-core
+# instruction: integer stencils and union-find, three entries at each type
+CANNY_KERNELS = tuple(f"canny_kernelI{t}Li{mode}E" for t in ("13__nv_bfloat16", "f")
+                      for mode in range(3))
 
 
 def kernel_summary(rows: list, main: dict) -> list:

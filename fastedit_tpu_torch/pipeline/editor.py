@@ -450,7 +450,7 @@ class FastEditor:
         self, image: Image.Image, low_threshold: int = 100, high_threshold: int = 200
     ) -> Image.Image:
         """PIL RGB -> Canny edge map as 3-channel RGB PIL (ControlNet input),
-        through prepare's Canny kernels on the card (the plain version on the
+        through prepare's Canny kernel on the card (the plain version on the
         CPU)."""
         arr = torch.from_numpy(np.asarray(image.convert("RGB"), dtype=np.uint8).copy())
         low, high = canny.threshold_tensors(low_threshold, high_threshold, self.device)

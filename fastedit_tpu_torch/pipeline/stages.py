@@ -4,7 +4,7 @@ The edit path is Canny prepare -> VAE encode -> LCM denoise loop
 (ControlNet + UNet on a pair-interleaved CFG batch) -> VAE decode to
 uint8, as in the JAX package's ``pipeline/stages.py``.  Each stage is a
 plain function of its modules and tensors, with no host synchronisation in
-prepare (the Canny kernels of ``ops/canny.py``), VAE encode, denoise and VAE
+prepare (the Canny kernel of ``ops/canny.py``), VAE encode, denoise and VAE
 decode, so ``pipeline/graphs.py`` can capture each of them as a CUDA graph.
 The Canny thresholds, the schedule and both scales are device tensors
 (``canny.threshold_tensors``, :func:`edit_scalars`), so one graph serves
@@ -80,7 +80,7 @@ def encode_prompt(mod: PipelineModules, ids_1: torch.Tensor, ids_2: torch.Tensor
 def prepare(mod: PipelineModules, img_u8: torch.Tensor, low, high, control_res: int):
     """uint8 [B, H, W, 3] -> (canny control [B, r, r, 3] in {0, 1}, VAE input
     [B, H, W, 3] in [-1, 1]), both in the model dtype.  On the card the
-    Canny kernels (``ops/canny.prepare``), with the thresholds as int32
+    Canny kernel (``ops/canny.prepare``, one launch), with the thresholds as int32
     device tensors (``canny.threshold_tensors``): no host sync, so the
     editor captures prepare as the first graph of its chain; on the CPU, or
     with ``plain_versions``, the plain version."""

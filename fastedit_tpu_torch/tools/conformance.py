@@ -12,7 +12,7 @@ tolerances:
   * SSIM on a high-DC low-variance stress pair and on a structured pair
     (1e-4), PSNR (1e-3) and MSE (1e-7), from ``metrics/functional.py``
     inside ``utils/precision.true_fp32()``, as the metrics run;
-  * Canny (``ops/canny.py``, on the card its prepare kernels), bit for bit:
+  * Canny (``ops/canny.py``, on the card its kernel), bit for bit:
     device against host, and each against ``canny_np``, the numpy
     reference; a sweep of thresholds (floats, ``low > high``, none at all)
     on the device against ``canny_np``; and the hysteresis alone on the

@@ -14,8 +14,8 @@ from the model configs alone, and the kernel each one reaches.
   the transformers' and the VAE attention's);
 * ``("attn", (B, Sq, Skv, heads, head_dim))``;
 * ``("canny", (B, H, W))``: Canny prepare, once per edit in its own stage
-  (``"prepare"``, outside the kernel contexts), on the card the front pass
-  and the hysteresis (``ops/canny.py``).
+  (``"prepare"``, outside the kernel contexts), on the card one launch of
+  the Canny kernel (``ops/canny.prepare``).
 
 :func:`kernel_calls` routes each call as the modules dispatch it, under the
 flags of its stage (``flags.stage``), and counts the calls each kernel
@@ -47,7 +47,7 @@ TEXT_TOKENS = 77
 TRANSFORMER_GROUPS = 32
 BF16_KERNELS = ("conv3x3", "conv3x3_fused", "conv3x3_up2", "conv3x3_down2", "group_norm",
                 "group_norm_scale_shift", *(f"flash_attention_d{d}" for d in fa.HEAD_DIMS),
-                "canny_front", "canny_hysteresis")
+                "canny_prepare")
 F32_SUFFIX = "_f32"
 KERNELS = (*BF16_KERNELS, *(k + F32_SUFFIX for k in BF16_KERNELS))
 
@@ -217,8 +217,7 @@ def route(op: str, key: tuple) -> list:
     ``group_norm_scale_shift`` (N, H, W, C, groups) of its prologue;
     ``conv3x3_up2`` as the site; ``conv3x3_down2`` as the site;
     ``group_norm`` as a "gn" site; ``flash_attention_d<D>`` as the site;
-    ``canny_front`` and ``canny_hysteresis`` as a "canny" site (no flag
-    gates them)."""
+    ``canny_prepare`` as a "canny" site (no flag gates it)."""
     if op == "conv":
         return _conv(key)
     if op == "resnet":
@@ -251,7 +250,7 @@ def route(op: str, key: tuple) -> list:
             return [(f"flash_attention_d{d}", key)]
         return []
     if op == "canny":
-        return [("canny_front", key), ("canny_hysteresis", key)]
+        return [("canny_prepare", key)]
     raise ValueError(f"unknown op {op!r}")
 
 

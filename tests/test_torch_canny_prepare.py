@@ -227,13 +227,13 @@ def test_two_edits_with_other_thresholds_see_their_own_edges(editor, monkeypatch
 
 def test_preprocess_image_goes_through_prepare(editor, monkeypatch):
     calls = []
-    real = canny.canny_front
+    real = canny.prepare
 
     def spy(img, low, high, dtype):
         calls.append((int(low), int(high), dtype))
         return real(img, low, high, dtype)
 
-    monkeypatch.setattr(canny, "canny_front", spy)
+    monkeypatch.setattr(canny, "prepare", spy)
     img = Image.fromarray(_random(8))
     out = np.asarray(editor.preprocess_image(img, 90, 180))
     assert calls == [(90, 180, torch.float32)]

@@ -19,11 +19,11 @@ Cin 96, all four stride-2 channel tiles and odd-sized inputs; for the GroupNorm 
 statistics launch alone, a large mean offset, 2560 channels (one pixel per block row), schedules
 for other SM counts (one chunk through the whole ring, more chunks than a warp merges at once),
 the same bits twice and under a CUDA graph's replays; the upsample conv on weights folded once;
-the Canny kernels (the front pass and the hysteresis) bit for bit against their plain versions
-and a flood fill, at sizes that are no multiple of their tile, on the stress masks of
-``tools/conformance.py`` and a 1024² serpentine (with the border merge left out, a planted
-fault, it must break), under a CUDA graph's replays with new thresholds, and an eager prepare
-with no host sync.  The
+the Canny kernel's entries (prepare, the front and the hysteresis) bit for bit against their
+plain versions and a flood fill, at sizes that are no multiple of their tile, on the stress
+masks of ``tools/conformance.py`` and a 1024² serpentine (with the unions across tile edges
+left out, a planted fault, it must break), under a CUDA graph's replays with new thresholds, an
+eager prepare with no host sync, and an image off a 16-byte boundary refused.  The
 tiny editor's CUDA graphs (``pipeline/graphs.py``) are held against its eager arm bit for bit: at
 batch 1 and 2 with and without CFG, replays on new inputs, two keys on one pool in turns, an
 asynchronous result past the next replay, and no replay under ``plain_versions``; its prompt graph
@@ -602,26 +602,42 @@ def _canny_batch(seed, b, h, w):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,h,w", [(1, 64, 64), (2, 100, 72), (4, 33, 130), (1, 256, 320)])
+@pytest.mark.parametrize("b,h,w", [(1, 64, 64), (2, 100, 72), (4, 33, 130), (1, 256, 320),
+                                   (3, 45, 70)])
 def test_canny_front_matches_plain(gen, b, h, w, dtype):
-    """The class map and the VAE input bit for bit, at sizes that are no
-    multiple of the 32 x 32 tile, over thresholds with floats, swapped and
-    none at all."""
+    """The front entry's class map and VAE input, and the prepare entry's
+    control and VAE input, bit for bit, at sizes that are no multiple of the
+    32 x 32 tile (rows that start off a 16-byte boundary among them), over
+    thresholds with floats, swapped and none at all."""
     img = _canny_batch(b * h + w, b, h, w)
+    sfx = "_f32" if dtype == torch.float32 else ""
     for low, high in ((100, 200), (200, 100), (50.7, 120.2), (0, 0), (300, 3000)):
         lo, hi = cn.threshold_tensors(low, high, "cuda")
-        before = cn.launches["canny_front" + ("_f32" if dtype == torch.float32 else "")]
+        before = dict(cn.launches)
         cls, vae_in = cn.canny_front(img, lo, hi, dtype)
+        control, vae_prep = cn.prepare(img, lo, hi, dtype)
         cls_p, vae_p = cn.canny_front_plain(img, lo, hi, dtype)
         torch.cuda.synchronize()
-        assert cn.launches["canny_front" + ("_f32" if dtype == torch.float32 else "")] \
-            == before + 1
+        assert {k: v - before[k] for k, v in cn.launches.items() if v != before[k]} == {
+            "canny_front" + sfx: 1, "canny_prepare" + sfx: 1}
         assert torch.equal(cls, cls_p), (low, high, int((cls != cls_p).sum()))
-        assert torch.equal(vae_in, vae_p)
+        assert torch.equal(vae_in, vae_p) and torch.equal(vae_prep, vae_p)
+        assert torch.equal(control, cn.canny_hysteresis_plain(cls_p, dtype))
     # the plain version divides by a device tensor: by a Python number PyTorch
     # multiplies by the reciprocal on the card, which differs in the last bit
     f = img.float()
     assert torch.equal(vae_in, (f / f.new_full((), 127.5) - 1.0).to(dtype))
+
+
+def test_canny_refuses_an_image_off_a_16_byte_boundary(gen):
+    """The kernel stages its rows in 16-byte copies: an image that starts off
+    such a boundary is refused before any launch."""
+    img = torch.zeros(2 * 64 * 64 * 3 + 1, dtype=torch.uint8, device="cuda")[1:]
+    lo, hi = cn.threshold_tensors(100, 200, "cuda")
+    before = dict(cn.launches)
+    with pytest.raises(ValueError):
+        cn.prepare(img.view(2, 64, 64, 3), lo, hi, torch.bfloat16)
+    assert cn.launches == before
 
 
 def _stress(size):
@@ -656,7 +672,7 @@ def test_canny_hysteresis_on_a_1024_serpentine(gen):
     import numpy as np
     from scipy import ndimage
 
-    from chip_smoke import hysteresis_without_border_merge
+    from chip_smoke import canny_with_fault
     from fastedit_tpu_torch.tools.conformance import serpentine
 
     chain = serpentine(1024, 1024)
@@ -668,8 +684,8 @@ def test_canny_hysteresis_on_a_1024_serpentine(gen):
     t = torch.from_numpy(cls).cuda()
     out = cn.canny_hysteresis(t, torch.bfloat16)[..., 0] > 0
     assert torch.equal(out, torch.from_numpy(np.stack([labels == 1] * 2)).cuda())
-    # the planted fault: without the merge across tile borders the chain breaks
-    bad = hysteresis_without_border_merge(t, torch.bfloat16)[..., 0] > 0
+    # the planted fault: without the unions across tile edges the chain breaks
+    bad = canny_with_fault("no_border_unions", "hysteresis", t, torch.bfloat16)[..., 0] > 0
     assert int(bad.sum()) < int(out.sum())
 
 

@@ -498,7 +498,7 @@ def test_fp32_routes_every_jax_kernel_call_and_only_the_vmem_refusals_more():
         "conv3x3_f32": 144, "conv3x3_fused_f32": 28, "conv3x3_up2_f32": 9,
         "conv3x3_down2_f32": 13, "group_norm_f32": 195, "group_norm_scale_shift_f32": 28,
         "flash_attention_d64_f32": 102, "flash_attention_d512_f32": 2,
-        "canny_front_f32": 1, "canny_hysteresis_f32": 1}
+        "canny_prepare_f32": 1}
     bf16 = inventory.launches_by_kernel(inventory.kernel_calls(sites))
     assert all(bf16[name] == f32[name + inventory.F32_SUFFIX] for name in inventory.BF16_KERNELS)
 

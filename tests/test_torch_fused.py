@@ -413,8 +413,7 @@ KERNEL_FUNCS = {  # the wrappers the dispatchers look up, by inventory name
     "group_norm": (tgn, "fused_group_norm"),
     "group_norm_scale_shift": (tgn, "group_norm_scale_shift"),
     "flash_attention_d64": (tfa, "flash_attention"),
-    "canny_front": (tcanny, "canny_front"),
-    "canny_hysteresis": (tcanny, "canny_hysteresis"),
+    "canny_prepare": (tcanny, "prepare"),
 }
 
 
