@@ -10,7 +10,8 @@ It needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda) and
 group_norm`` (or ``conv``, ``fused``, ``up2``, ``down2``, ``attention``,
 ``canny``; several may be named) it builds the kernels and runs those rows of
 phase 2 alone, bf16 and fp32, into ``chiprun_out/chip_smoke_only.json``, and
-prints no result line.  Phases, in
+prints no result line; ``--only tensor_parallel`` runs phase 11's two bf16
+arms there, on a new editor with phase 4's seeded weights.  Phases, in
 order; a failed phase raises and the script exits non-zero:
 
 1. Build the CUDA kernels of ``fastedit_tpu_torch/csrc/`` (one ``nvcc`` per
@@ -202,9 +203,23 @@ order; a failed phase raises and the script exits non-zero:
    replica pins no flag) against the same edit without TP, within phase 4's
    limits; the replica's captures and its kernels' launches (the shards'
    flash attention, the convs, GroupNorm, Canny), seconds per edit and the
-   peak memory.  Its fp32 arm runs inside phase 8, on the seeded fp32
-   editor: the same group and edit, within phase 8's fp32 limits, every
-   launch an ``_f32`` kernel's.
+   peak memory; the same group run eagerly (``cuda_graphs=False``: its
+   seconds and peak memory, the same bits as the graphs').  Then the arm
+   across processes: ``python -m fastedit_tpu_torch.tools.multihost_dryrun``
+   runs two processes joined over gloo, each with ``cuda:0`` as its one
+   device, as one group of two (a shard each; the row-parallel partials
+   through pinned host memory and gloo, eagerly), on phase 4's seeded
+   weights and the same ``edit_batch`` and seed: each worker's owned rows
+   against its own one-process recompute bit for bit; here the owner's rows
+   against this process's eager group (the max difference) and against the
+   edit without TP within phase 4's limits, each process's bytes sent per
+   ``edit_batch`` against the reckoning (3,963,617,280 B), the flash
+   attention, conv, GroupNorm and Canny kernels launched in each, each
+   process's seconds per ``edit_batch`` and peak memory; the tool's session
+   is killed past its time limit, which fails the phase.  Its fp32 arm runs
+   inside phase 8, on the seeded fp32 editor: the same group and edit (on
+   one process), within phase 8's fp32 limits, every launch an ``_f32``
+   kernel's.
 
 Last, ``python -m fastedit_tpu_torch.bench --reps 3`` (``bench.main``) on a
 new editor, whose JSON line is printed.
@@ -1612,6 +1627,10 @@ def prompt_encode_times(editor, reps: int = 5) -> dict:
 
 # ------------------------------------------------------------------ phase 4
 
+# the seeded weights of phases 4-7, 9 and 11 (``tools/multihost_dryrun.py
+# --init_seed`` draws the same on its own editors)
+WEIGHT_SEED = 20261016
+
 
 def seeded_weights_(editor, seed: int) -> None:
     """Seeded fan-in-scaled normal weights on the card, zero biases,
@@ -1705,7 +1724,7 @@ def kernels_vs_plain(editor, calls: dict) -> dict:
     from fastedit_tpu_torch.tools.inventory import (
         launch_counts, launches_by_kernel, reset_launch_counts)
 
-    seeded_weights_(editor, seed=20261016)  # drops the graphs: the weights changed
+    seeded_weights_(editor, seed=WEIGHT_SEED)  # drops the graphs: the weights changed
     img, prompt = test_image(5), "an oil painting of a lighthouse"
     editor._encode_prompts([prompt, ""])
 
@@ -1947,7 +1966,7 @@ def graph_memory_sweep(editor, keys: int = 6) -> dict:
 # ----------------------------------------------------------------- phase 11
 
 
-def tensor_parallel(editor, card: str, f32: bool = False) -> dict:
+def tensor_parallel(editor, card: str, f32: bool = False, kept: dict | None = None) -> dict:
     """Phase 11: tensor parallelism on one card, on the seeded editor of
     phases 3-5 (bf16, 1024²) or, with ``f32``, on phase 8's seeded fp32
     editor (its fp32 arm): ``enable_data_parallel(["cuda:0", "cuda:0"],
@@ -1958,16 +1977,22 @@ def tensor_parallel(editor, card: str, f32: bool = False) -> dict:
     (fp32: phase 8's); the replica must have captured its graphs and
     launched the flash attention, conv, GroupNorm and Canny kernels (the
     counts of its warm-up and capture; fp32: their ``_f32`` instances);
-    seconds per edit and the peak memory."""
+    seconds per edit and the peak memory.  With ``kept`` (bf16), the same
+    group's edit eagerly as well (``cuda_graphs=False``: its seconds and
+    peak memory; the same bits as the graphs'), and ``kept`` receives the
+    eager edit's and the edit without TP's (images, latents) for the arm
+    across processes."""
+    import numpy as np
     import torch
 
+    from fastedit_tpu_torch.ops import flags
     from fastedit_tpu_torch.parallel import tp
     from fastedit_tpu_torch.tools.inventory import launch_counts, reset_launch_counts
 
     res: dict = {}
     t_phase = time.perf_counter()
-    images, prompts = [test_image(90), test_image(91)], ["a stone bridge", "a foggy forest"]
-    kw = dict(seed=31, **EDIT_KW)
+    images, prompts = tp_images(), list(TP_PROMPTS)
+    kw = dict(seed=TP_SEED, **EDIT_KW)
     edit_arrays(editor, images, prompts, **kw)  # the key's capture
     ref = edit_arrays(editor, images, prompts, **kw)
     res["without_tp_s"] = ref[2]
@@ -1991,13 +2016,25 @@ def tensor_parallel(editor, card: str, f32: bool = False) -> dict:
             outs = editor.edit_batch(images, prompts, **kw)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t)
-        import numpy as np
-
         got = (np.stack([np.asarray(o) for o in outs]), replica.last_latents.clone())
         res.update(differ(got, ref), split_modules=split, seconds_per_edit_batch2=seconds,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    captured_keys=len(replica._graphs.edit_keys()) if replica._graphs else 0,
                    launches={k: v for k, v in launch_counts().items() if v})
+        if kept is not None:
+            torch.cuda.reset_peak_memory_stats()
+            eager_s = []
+            with flags.override(cuda_graphs=False):
+                for _ in range(2):
+                    t = time.perf_counter()
+                    outs = editor.edit_batch(images, prompts, **kw)
+                    torch.cuda.synchronize()
+                    eager_s.append(time.perf_counter() - t)
+            eager = (np.stack([np.asarray(o) for o in outs]), replica.last_latents.clone())
+            res.update(eager_seconds_per_edit_batch2=eager_s,
+                       eager_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            same_bits("the TP group on one card", got, eager)
+            kept.update(eager=(eager[0], eager[1].cpu()), without_tp=(ref[0], ref[1].cpu()))
     finally:
         editor._group = None
         del group
@@ -2007,8 +2044,7 @@ def tensor_parallel(editor, card: str, f32: bool = False) -> dict:
     if not split:
         raise AssertionError("the TP replica split no module")
     sfx = "_f32" if f32 else ""
-    not_launched = {k + sfx for k in ("flash_attention_d64", "conv3x3", "group_norm",
-                                      "canny_prepare")} - set(res["launches"])
+    not_launched = {k + sfx for k in TP_KERNELS} - set(res["launches"])
     if res["captured_keys"] != 1 or not_launched:
         raise AssertionError(f"the TP replica on one card captured {res['captured_keys']} keys "
                              f"(1 expected) and launched none of {sorted(not_launched)}")
@@ -2019,6 +2055,134 @@ def tensor_parallel(editor, card: str, f32: bool = False) -> dict:
     if res["latent_rel_l2"] > rel or res["image_mean_abs_lsb"] > lsb:
         raise AssertionError(f"the TP edit differs from the edit without TP beyond the limits "
                              f"(latents rel L2 <= {rel}, image mean <= {lsb} LSB): {res}")
+    return res
+
+
+# Phase 11's edit: an edit_batch of two at 1024², seed 31 (EDIT_KW: 4 steps at
+# strength 0.8, 3 run, CFG 1.5), and the kernels each arm must launch.
+TP_PROMPTS = ("a stone bridge", "a foggy forest")
+TP_SEED = 31
+TP_KERNELS = ("flash_attention_d64", "conv3x3", "group_norm", "canny_prepare")
+
+
+def tp_images() -> list:
+    return [test_image(90), test_image(91)]
+
+
+# What each process of the arm across processes hands to its group's
+# all-gathers per edit_batch of two (CFG: 4 rows through the UNet), per UNet
+# call: SSD-1B's 26 transformer blocks at 32² tokens x 1280 channels and 8 at
+# 64² x 640, three row-parallel layers a block (both attentions' to_out.0 and
+# ff.net.2), one bf16 partial each (the small ControlNet has no transformer
+# block); 3 steps.
+TP_BYTES_PER_EDIT_BATCH = 3 * (78 * 4 * 32**2 * 1280 * 2 + 24 * 4 * 64**2 * 640 * 2)
+assert TP_BYTES_PER_EDIT_BATCH == 3_963_617_280
+TP_PROCESSES_REPS = 2
+TP_PROCESSES_TIMEOUT_S = 420
+
+
+def tensor_parallel_across_processes(card: str, in_process: dict, kept: dict) -> dict:
+    """Phase 11's arm across processes: ``python -m
+    fastedit_tpu_torch.tools.multihost_dryrun`` on the card, two processes
+    joined over gloo, each with ``cuda:0`` as its one device, as one
+    tensor-parallel group of two (each process holds one shard, the partials
+    pass through pinned host memory and gloo), SSD-1B at 1024² in bf16 with
+    the seeded weights of phase 4 (``--init_seed``), phase 11's
+    ``edit_batch`` of two images and seed, ``TP_PROCESSES_REPS`` times.  The
+    tool holds each worker's owned rows bit for bit against its own
+    one-process recompute (the in-process group, eager), every row computed
+    alike by both, and each worker's bytes against its reckoning; here, the
+    owner's rows against this process's in-process group run eagerly
+    (``kept["eager"]``: the max difference, predicted 0), against the edit
+    without TP within phase 4's limits, each process's bytes per
+    ``edit_batch`` against ``TP_BYTES_PER_EDIT_BATCH``, and the flash
+    attention, conv, GroupNorm and Canny kernels launched in each.  The
+    tool runs in a session of its own under ``TP_PROCESSES_TIMEOUT_S``: past
+    it the session is killed and the phase fails, as it does on any
+    worker's failure (the tool's exit code)."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    work = ROOT / "build" / "chip_smoke_tp_processes"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "out").mkdir(parents=True)
+    np.save(work / "images.npy", np.stack([np.asarray(im) for im in tp_images()]))
+    argv = [sys.executable, "-m", "fastedit_tpu_torch.tools.multihost_dryrun",
+            "--device", "cuda", "--model", "ssd-1b", "--dtype", "bf16", "--processes", "2",
+            "--local_devices", "1", "--model_parallel", "2", "--batch", "2",
+            "--images", str(work / "images.npy"), "--prompts", *TP_PROMPTS,
+            "--seed", str(TP_SEED), "--init_seed", str(WEIGHT_SEED),
+            "--reps", str(TP_PROCESSES_REPS), "--timeout", str(TP_PROCESSES_TIMEOUT_S - 30),
+            "--out", str(work / "out")]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved() / 2**30
+    t = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=TP_PROCESSES_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    wall = time.perf_counter() - t
+    log_file = OUT_FILE.with_name("chip_smoke_tp_processes.log")
+    log_file.parent.mkdir(parents=True, exist_ok=True)
+    log_file.write_text(out)
+    for line in out.splitlines():
+        if line.startswith("[multihost_dryrun]"):
+            log("  " + line)
+    if proc.returncode != 0:
+        raise AssertionError(f"tools/multihost_dryrun.py exited {proc.returncode} after "
+                             f"{wall:.1f} s (limit {TP_PROCESSES_TIMEOUT_S} s); "
+                             f"{log_file.relative_to(ROOT)}:\n{out[-3000:]}")
+    ranks = [json.loads((work / "out" / f"rank{r}.json").read_text()) for r in range(2)]
+    rows = np.load(work / "out" / "rank0_rows.npz")
+    owner = (rows["images"], torch.from_numpy(rows["latents"]))
+    eager_img, eager_lat = kept["eager"]
+    res = dict(
+        card=card, seconds=wall, memory_reserved_here_gib=reserved,
+        per_process=[{key: r.get(key) for key in (
+            "rank", "owned_rows", "computed_rows", "seconds_per_edit_batch", "peak_gib",
+            "bytes_sent", "bytes_reckoned", "stage_s", "exchange_s", "group_build_s",
+            "one_process_s", "without_tp_s",
+            "one_process_max_abs", "launches")} for r in ranks],
+        vs_in_process_eager=dict(
+            image_max_abs_lsb=int(np.abs(owner[0].astype(np.int32)
+                                         - eager_img.astype(np.int32)).max()),
+            latent_max_abs=float((owner[1] - eager_lat.float()).abs().max())),
+        vs_without_tp=differ(owner, kept["without_tp"]),
+        in_process=dict(seconds_per_edit_batch2=in_process["seconds_per_edit_batch2"],
+                        eager_seconds_per_edit_batch2=in_process[
+                            "eager_seconds_per_edit_batch2"],
+                        peak_gib=in_process["peak_gib"],
+                        eager_peak_gib=in_process["eager_peak_gib"]),
+        bytes_per_edit_batch_reckoned=TP_BYTES_PER_EDIT_BATCH)
+    for p in res["per_process"]:
+        p["bytes_per_edit_batch"] = p["bytes_sent"] / TP_PROCESSES_REPS
+    log(f"[11] tensor parallelism x2 across two processes on one card: {res}; {card}")
+    if [r["owned_rows"] for r in ranks] != [[0, 1], []]:
+        raise AssertionError(f"rows owned: {[r['owned_rows'] for r in ranks]}, expected rank 0 "
+                             "to own both")
+    for p in res["per_process"]:
+        if p["bytes_per_edit_batch"] != TP_BYTES_PER_EDIT_BATCH:
+            raise AssertionError(f"rank {p['rank']} sent {p['bytes_per_edit_batch']} bytes per "
+                                 f"edit_batch, the configuration reckons "
+                                 f"{TP_BYTES_PER_EDIT_BATCH}")
+        missing = set(TP_KERNELS) - set(p["launches"])
+        if missing:
+            raise AssertionError(f"rank {p['rank']} launched none of {sorted(missing)}")
+    near = res["vs_without_tp"]
+    if near["latent_rel_l2"] > E2E_LATENT_REL_L2 or near["image_mean_abs_lsb"] > E2E_IMAGE_MEAN_LSB:
+        raise AssertionError(f"the edit across processes differs from the edit without TP "
+                             f"beyond phase 4's limits: {near}")
+    shutil.rmtree(work, ignore_errors=True)
     return res
 
 
@@ -3467,8 +3631,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Drive the port on one card (no arguments: "
                                  "every phase).")
-    ap.add_argument("--only", nargs="+", choices=COMPARES, default=None,
-                    help="build, then only these phase-2 rows (bf16 and fp32); no result line")
+    ap.add_argument("--only", nargs="+", choices=(*COMPARES, "tensor_parallel"), default=None,
+                    help="build, then only these phase-2 rows (bf16 and fp32), or phase 11 "
+                         "(tensor_parallel: both arms on a seeded editor); no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script drives the port on a card",
@@ -3532,15 +3697,24 @@ def main(argv=None) -> int:
     calls = kernel_shapes()
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.only:  # a part of phase 2 alone, for work on one kernel
-        rows = []
+        rows, phase11 = [], None
         for dtype in (torch.bfloat16, torch.float32):
-            for name in args.only:
+            for name in [n for n in args.only if n != "tensor_parallel"]:
                 rows += globals()[f"compare_{name}"](calls, gen, dtype)
                 torch.cuda.empty_cache()
+        if "tensor_parallel" in args.only:
+            from fastedit_tpu_torch import FastEditor
+
+            editor = FastEditor("ssd-1b", random_weights=True)
+            seeded_weights_(editor, seed=WEIGHT_SEED)
+            kept: dict = {}
+            phase11 = tensor_parallel(editor, card, kept=kept)
+            phase11["across_processes"] = tensor_parallel_across_processes(card, phase11, kept)
         out = OUT_FILE.with_name("chip_smoke_only.json")
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(dict(card=card, torch=torch.__version__, shapes=rows,
-                                       build_s=build_s, seconds=time.perf_counter() - t),
+                                       tensor_parallel=phase11, build_s=build_s,
+                                       seconds=time.perf_counter() - t),
                                   indent=1, default=str))
         log(f"{len(rows)} rows in {time.perf_counter() - t:.1f} s; {out.relative_to(ROOT)}; "
             f"{card}")
@@ -3575,8 +3749,11 @@ def main(argv=None) -> int:
     log("[9] serving at full width on phase 5's editor: EditService, HTTP, 1024² requests")
     phase9 = serving(editor, card)
 
-    log("[11] tensor parallelism on one card: a group of two shards of cuda:0")
-    phase11 = tensor_parallel(editor, card)
+    log("[11] tensor parallelism on one card: a group of two shards of cuda:0, then the same "
+        "group over two processes")
+    kept: dict = {}
+    phase11 = tensor_parallel(editor, card, kept=kept)
+    phase11["across_processes"] = tensor_parallel_across_processes(card, phase11, kept)
 
     log("[6] a converted checkpoint: snapshot, converter, FastEditor(checkpoint_dir=...), LoRA, "
         "metrics")

@@ -49,9 +49,10 @@ on, the editor replays its pixel path as CUDA graphs on the card
 off, it runs the same stages eagerly, op by op (the arm the graphs are held
 against).  A graph is captured under the flags in force and keyed by all
 of them (``graphs.graph_key``).  ``plain_versions`` runs eagerly too, and so
-does a tensor-parallel replica whose group spans several cards
-(``parallel/tp.py``), whatever this flag says: one capture cannot span
-cards.
+does a tensor-parallel replica whose group spans several cards or several
+processes (``parallel/tp.py``), whatever this flag says: one capture cannot
+span cards, and a group over processes sums its partials through gloo
+collectives inside the denoise stage, host work that no capture can hold.
 
 The flags are per thread: every thread starts from the defaults below and
 sees only its own :func:`override`s, as the JAX package's flags are read

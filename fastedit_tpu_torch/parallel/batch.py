@@ -12,7 +12,9 @@ loader thread decodes, LANCZOS-resizes and stages chunk i + 1 on the
 devices while chunk i computes, and JPEG encodes of finished images run on
 a writer pool, so finishing a chunk waits only for its copy to the host.
 Across processes (``multihost.py``) every process builds the same chunk
-list and saves only its own rows.
+list and saves only the rows it owns; where a tensor-parallel group spans
+processes, every member of the group dispatches the group's rows and its
+owner saves them.
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ def run_batch_data_parallel(args, editor, selected: List[Tuple[str, dict]],
     chunk_size = int(group.shape["data"])
 
     multi = multihost.spans_processes(group)
+    spanning = multihost.groups_span(group.world, group.local, group.model_parallel)
     # Under multi-process DP each process owns a fixed set of chunk rows (its
     # replicas'); it edits and saves exactly those, so no decoded pixels
     # ever cross processes.
@@ -232,6 +235,10 @@ def run_batch_data_parallel(args, editor, selected: List[Tuple[str, dict]],
                 editor.resolution,
                 editor.stage_inputs,
             )
+        if images is None and spanning:
+            # every member of a group must dispatch its rows (the others wait
+            # in its collectives): a blank chunk, none of whose rows is saved
+            images = np.zeros((chunk_size, editor.resolution, editor.resolution, 3), np.uint8)
         if images is None:  # every image in the chunk failed to load
             progress(real)
             continue

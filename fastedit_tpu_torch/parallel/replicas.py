@@ -1,21 +1,30 @@
 """The replica group of a data-parallel editor: the counterpart of the JAX
 package's ``parallel/mesh.py``.
 
-The JAX package lays a 1-D ``data`` mesh over the devices, replicates the
-weights on each and shards the batch dimension over it, so one jitted
-program edits a chunk.  Here each device holds a replica, a ``FastEditor``
-with a copy of the weights, its own CUDA graphs and memory pool
-(``FastEditor.enable_data_parallel``).  A chunk's rows split over the
-replicas in order, process by process (``multihost.local_rows``).  Where
-a process holds several replicas, each replica's rows are dispatched from a
+The JAX package lays a ``(data, model)`` mesh over the devices, replicates
+the weights over ``data`` and shards the batch dimension over it, so one
+jitted program edits a chunk.  Here each tensor-parallel group of devices
+(one device where ``model_parallel`` is 1) holds a replica, a
+``FastEditor`` with a copy of the weights, its own CUDA graphs and memory
+pool (``FastEditor.enable_data_parallel``).  A chunk's rows split over the
+groups in order (``multihost.members``: the rank-major device list, ``k``
+devices a group).  A group may span processes: then each of its processes
+holds a replica with its own shards (``parallel/tp.py``), every member
+dispatches the group's rows, and only the group's owner, the process of its
+first device, keeps them for ``PendingEdit.local_result``
+(``multihost.local_rows``); the others' copies stay in
+``PendingEdit.computed_result``.  Where a process holds several replicas
+(several groups, or parts of two), each replica's rows are dispatched from a
 long-lived worker thread of its own, so one replica's host work (the
-input's upload, tokenizing) does not hold up another's card (a replay
-enqueues without waiting) and a replica's captures and replays always come
-from one thread;
-a process's only replica is dispatched on the calling thread.  Each
-replica's rows are edited as
-one ``edit_batch`` of that replica, so with a fixed seed every row takes the
-same noise stream as on one editor; unseeded, each replica draws its own.
+input's upload, tokenizing, a group's gloo collectives) does not hold up
+another's card (a replay enqueues without waiting) and a replica's captures
+and replays always come from one thread; a process's only replica is
+dispatched on the calling thread.  Each replica's rows are edited as one
+``edit_batch`` of that replica, so with a fixed seed every row takes the
+same noise stream as on one editor.  Unseeded, each replica draws its own,
+but where a group spans processes its members must draw the same: rank 0
+draws once per dispatch (``multihost.shared_seed``) and group g takes that
+draw plus g.
 
 Kernel flags are per thread (``ops/flags.py``): each worker runs under the
 calling thread's flags, so the replicas capture and replay the graph key
@@ -56,14 +65,22 @@ class Staged:
 
 
 class ReplicaGroup:
-    """One editor replica per device, across ``world`` processes of which
-    this is ``rank`` (every process holds as many replicas)."""
+    """One editor replica per tensor-parallel group this process holds a
+    shard of, across ``world`` processes of which this is ``rank``, each
+    process with ``local`` devices (every process as many) and groups of
+    ``model_parallel``; ``groups`` are the replicas' group indices
+    (``multihost.members``), by default this process's whole groups in
+    order."""
 
     def __init__(self, replicas: list, rank: int = 0, world: int = 1,
-                 model_parallel: int = 1):
+                 model_parallel: int = 1, local: int | None = None, groups=None):
         self.replicas = list(replicas)
         self.rank, self.world = rank, world
         self.model_parallel = model_parallel
+        self.local = len(self.replicas) * model_parallel if local is None else local
+        first = rank * self.local // model_parallel
+        self.groups = (list(range(first, first + len(self.replicas))) if groups is None
+                       else list(groups))
         self._workers = ([ThreadPoolExecutor(1, thread_name_prefix=f"replica{j}")
                           for j in range(len(self.replicas))]
                          if len(self.replicas) > 1 else [])
@@ -74,22 +91,25 @@ class ReplicaGroup:
 
     @property
     def shape(self) -> dict:
-        """The mesh's shape: ``data`` is the number of replicas over every
-        process, the chunk a sweep dispatches at once; ``model`` the devices
-        of each replica's tensor-parallel group."""
-        return {DATA_AXIS: self.world * len(self.replicas), MODEL_AXIS: self.model_parallel}
+        """The mesh's shape: ``data`` is the number of groups over every
+        process, the chunk a sweep dispatches at once (one row per group);
+        ``model`` the devices of each group."""
+        return {DATA_AXIS: self.world * self.local // self.model_parallel,
+                MODEL_AXIS: self.model_parallel}
 
     def _runs(self, batch: int) -> list:
-        """(replica, first row, end row) for this process's replicas."""
-        rows = multihost.local_rows(self, batch)
-        k = len(rows) // len(self.replicas)
-        return [(r, rows[0] + j * k, rows[0] + (j + 1) * k)
-                for j, r in enumerate(self.replicas)]
+        """(replica, group, first row, end row, owned) for this process's
+        replicas: every row of each group it holds a shard of, ``owned``
+        where this process owns the group's rows."""
+        per = multihost.rows_per_group(self, batch)
+        layout = multihost.members(self.world, self.local, self.model_parallel)
+        return [(r, g, g * per, (g + 1) * per, multihost.owner(layout[g]) == self.rank)
+                for r, g in zip(self.replicas, self.groups)]
 
     def stage(self, images) -> Staged:
         """Each replica's rows of a pre-resized uint8 batch, on its device."""
         arr = np.ascontiguousarray(images, dtype=np.uint8)
-        return Staged([(a, r._stage_inputs(arr[a:b])) for r, a, b in self._runs(len(arr))],
+        return Staged([(a, r._stage_inputs(arr[a:b])) for r, _, a, b, _ in self._runs(len(arr))],
                       len(arr))
 
     def edit_batch_async(self, images, prompts: list, kw: dict) -> PendingEdit:
@@ -97,23 +117,31 @@ class ReplicaGroup:
         uint8 array or a :class:`Staged` chunk, with every row's prompt."""
         runs = self._runs(len(prompts))
         if isinstance(images, Staged):
-            if [a for _, a, _ in runs] != [a for a, _ in images.parts]:
+            if [a for _, _, a, _, _ in runs] != [a for a, _ in images.parts]:
                 raise ValueError("a chunk staged for another batch size or group")
             parts = [t for _, t in images.parts]
         else:
-            parts = [images[a:b] for _, a, b in runs]
+            parts = [images[a:b] for _, _, a, b, _ in runs]
+        kws = [kw] * len(runs)
+        if kw.get("seed") is None and multihost.groups_span(self.world, self.local,
+                                                            self.model_parallel):
+            # the members of a group must draw the same noise: rank 0's draw
+            seed = multihost.shared_seed()
+            kws = [{**kw, "seed": (seed + g) % 2**32, "tile_noise": False}
+                   for _, g, _, _, _ in runs]
         caller = dataclasses.asdict(flags.current())
 
-        def dispatch(replica, part, first, end):
+        def dispatch(replica, part, first, end, kw):
             device = (torch.cuda.device(replica.device) if replica.device.type == "cuda"
                       else contextlib.nullcontext())
             with device, flags.override(**caller):
                 return replica._dispatch(part, prompts[first:end], kw, first_row=first)
 
-        jobs = [(r, part, a, b) for (r, a, b), part in zip(runs, parts)]
+        jobs = [(r, part, a, b, k) for (r, _, a, b, _), part, k in zip(runs, parts, kws)]
         if self._workers:
             futures = [w.submit(dispatch, *job) for w, job in zip(self._workers, jobs)]
             handles = [f.result() for f in futures]
         else:
             handles = [dispatch(*job) for job in jobs]
-        return PendingEdit.join(handles, len(prompts))
+        owned = [h for h, run in zip(handles, runs) if run[4]]
+        return PendingEdit.join(owned, len(prompts), computed=handles)

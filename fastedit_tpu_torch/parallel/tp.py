@@ -17,12 +17,12 @@ stays in one process, the counterpart of one GSPMD program:
     way.)
   * row-parallel: ``attn*.to_out.0`` and ``ff.net.2``, their weights split on
     the input dim; each partial product comes out of its shard's linear
-    rounded to the model dtype, the partials are summed on the group's
-    first device in a fixed order (shard 0, then 1, ...) in fp32, the bias,
-    which is not split, is added once, and the sum rounds to the model dtype
+    rounded to the model dtype, the partials are summed on the replica's
+    device in a fixed order (shard 0, then 1, ...) in fp32, the bias, which
+    is not split, is added once, and the sum rounds to the model dtype
     again: two roundings where the whole layer's product rounds once.
   * everything else (convs, norms, embeddings, ``proj_in`` / ``proj_out``)
-    is replicated: it stays whole on the group's first device.  An attention
+    is replicated: it stays whole on the replica's device.  An attention
     whose heads, or a feed-forward whose hidden width, ``tp`` does not
     divide stays replicated, as the JAX package replicates a dimension that
     does not divide (``fastedit_tpu/parallel/tp.py`` ``tp_spec``).
@@ -31,16 +31,31 @@ stays in one process, the counterpart of one GSPMD program:
 applies it to a UNet's or a ControlNet's transformer blocks in place.  The
 split modules run the same kernels as whole ones, under the caller's flags:
 each shard's attention is ``ops.attention`` over whole heads on one device,
-each feed-forward shard is local, and every conv runs whole on the group's
-first device.  (The JAX package pins its XLA paths under TP because GSPMD
-cannot partition a ``pallas_call``; here no program is partitioned, so
-nothing is pinned.)  A group whose devices are all one card captures its
+each feed-forward shard is local, and every conv runs whole on the
+replica's device.  (The JAX package pins its XLA paths under TP because
+GSPMD cannot partition a ``pallas_call``; here no program is partitioned,
+so nothing is pinned.)  A group whose devices are all one card captures its
 CUDA graphs as any replica does; a group over several cards runs eagerly
 (``ops/flags.py``: one capture cannot span cards).
+
+A group may span processes (``parallel/multihost.py``): each process then
+holds a replica with only the shards on its own devices (a
+:class:`Placement`) and runs the replicated rest whole, and each
+row-parallel layer gathers every member's partials over the group's gloo
+subgroup (:class:`GroupComm`) and sums all ``k`` in shard order on every
+member, so each member computes the bits the group would in one process.
+An all-reduce would not do: its order of summation is the backend's.  The
+partials pass through host memory (pinned on the card): a copy out, the
+gloo all-gather on CPU tensors, a copy back, the same code on the CPU and
+on the card.  Such a group runs eagerly, since a gloo collective is host
+work that no CUDA graph can hold.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import time
 from typing import Optional, Sequence
 
 import torch
@@ -73,20 +88,124 @@ def tp_rule(name: str, shape: Sequence[int], tp: int, heads: Optional[int] = Non
     return None
 
 
-class TPAttention(nn.Module):
-    """``Attention`` split by heads over ``devices``: shard i holds heads
-    ``[i h / tp, (i + 1) h / tp)`` of ``to_q``, ``to_k`` and ``to_v`` and the
-    matching input columns of ``to_out.0``, on ``devices[i]``; the output
-    projection's bias stays whole on ``devices[0]``."""
+class GroupComm:
+    """The handle of a tensor-parallel group to its other processes: the
+    group's gloo subgroup ``pg``, its ``members`` (``(rank, local index,
+    shard index)``, ``multihost.members``) and this process's ``rank``.
 
-    def __init__(self, attn: Attention, devices: Sequence[torch.device]):
+    :meth:`gather` hands every member's partials to every member.  A member
+    that holds fewer shards than another pads its part to the same number
+    of slots (``slots``: the most shards any member holds), so one
+    all-gather of equal parts serves every layout.  ``bytes_sent`` counts
+    the bytes this process hands to the all-gathers (padding included);
+    ``stage_s`` the host seconds of the copies to host memory (which wait
+    for the device's work before them), ``exchange_s`` those of the
+    all-gathers."""
+
+    def __init__(self, pg, members: Sequence[tuple], rank: int):
+        self.pg, self.rank = pg, rank
+        self.tp = len(members)
+        self.ranks = sorted({r for r, _, _ in members})
+        self.shards_of = {r: [s for rr, _, s in members if rr == r] for r in self.ranks}
+        self.slots = max(len(v) for v in self.shards_of.values())
+        self.bytes_sent = 0
+        self.stage_s = self.exchange_s = 0.0
+        self._buffers: dict = {}
+
+    def _host(self, nbytes: int, pinned: bool) -> tuple:
+        """(send, receive) byte buffers in host memory, kept per size."""
+        key = (nbytes, pinned)
+        if key not in self._buffers:
+            self._buffers[key] = (
+                torch.empty(self.slots * nbytes, dtype=torch.uint8, pin_memory=pinned),
+                torch.empty(len(self.ranks), self.slots * nbytes, dtype=torch.uint8,
+                            pin_memory=pinned))
+        return self._buffers[key]
+
+    def gather(self, partials: list) -> list:
+        """Every shard's partial in shard order, from this process's
+        ``partials`` (its shards', in shard order, all of one shape and
+        dtype): its own as they are, the others' copied from the host buffer
+        to the device of ``partials[0]``."""
+        first = partials[0]
+        nbytes = first.numel() * first.element_size()
+        send, recv = self._host(nbytes, first.is_cuda)
+        t0 = time.perf_counter()
+        for i, p in enumerate(partials):  # a copy to the host waits for p
+            send[i * nbytes:(i + 1) * nbytes].view(first.dtype).view(first.shape).copy_(p)
+        t1 = time.perf_counter()
+        torch.distributed.all_gather(list(recv), send, group=self.pg)
+        self.stage_s += t1 - t0
+        self.exchange_s += time.perf_counter() - t1
+        self.bytes_sent += send.numel()
+        out = [None] * self.tp
+        for pos, r in enumerate(self.ranks):
+            for slot, shard in enumerate(self.shards_of[r]):
+                if r == self.rank:
+                    out[shard] = partials[slot]
+                else:
+                    part = recv[pos, slot * nbytes:(slot + 1) * nbytes]
+                    out[shard] = part.view(first.dtype).view(first.shape).to(
+                        first.device, non_blocking=True)
+        return out
+
+    def agree(self, value, what: str) -> None:
+        """Raise on every member unless each holds the same ``value`` (a
+        picklable summary) as the group's owner, naming the members that
+        differ."""
+        values = [None] * len(self.ranks)
+        torch.distributed.all_gather_object(values, value, group=self.pg)
+        differ = [r for r, v in zip(self.ranks, values) if v != values[0]]
+        if differ:
+            raise ValueError(
+                f"the tensor-parallel group of ranks {self.ranks}: {what} of rank(s) {differ} "
+                f"differ from rank {self.ranks[0]}'s; every process must run the same "
+                "program on the same weights")
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where a replica's shards lie: ``tp`` shards in all, this process's
+    ``(shard index, device)`` pairs in shard order, and the handle to the
+    group's other processes (``None``: every shard is here)."""
+
+    tp: int
+    local: tuple
+    comm: Optional[GroupComm] = None
+
+    @classmethod
+    def of(cls, devices) -> "Placement":
+        """A placement as given, or every shard in this process: shard i on
+        ``devices[i]``."""
+        if isinstance(devices, Placement):
+            return devices
+        return cls(len(devices), tuple(enumerate(devices)))
+
+    @property
+    def devices(self) -> list:
+        return [d for _, d in self.local]
+
+    @property
+    def shards(self) -> list:
+        return [s for s, _ in self.local]
+
+
+class TPAttention(nn.Module):
+    """``Attention`` split by heads over ``tp`` shards: shard i holds heads
+    ``[i h / tp, (i + 1) h / tp)`` of ``to_q``, ``to_k`` and ``to_v`` and the
+    matching input columns of ``to_out.0``.  This module holds the shards of
+    ``placement`` (a :class:`Placement`, or a list of devices, shard i on
+    the i-th), each on its device; the output projection's bias stays whole
+    on the first."""
+
+    def __init__(self, attn: Attention, placement):
         super().__init__()
-        tp = len(devices)
-        self.devices = list(devices)
-        self.heads, self.head_dim = attn.heads // tp, attn.head_dim
+        place = Placement.of(placement)
+        self.devices, self.shard_ids, self.comm = place.devices, place.shards, place.comm
+        self.heads, self.head_dim = attn.heads // place.tp, attn.head_dim
         width = self.heads * self.head_dim
         self.shards = nn.ModuleList()
-        for i, device in enumerate(self.devices):
+        for i, device in place.local:
             rows = slice(i * width, (i + 1) * width)
             shard = nn.Module()
             for name in ("to_q", "to_k", "to_v"):
@@ -110,24 +229,26 @@ class TPAttention(nn.Module):
             v = shard.to_v(cs).view(b, skv, self.heads, self.head_dim)
             out = ops.attention(q, k, v).reshape(b, sq, self.heads * self.head_dim)
             partials.append(shard.to_out(out))
-        return _reduce(partials, self.out_bias)
+        return _reduce(partials, self.out_bias, self.comm)
 
 
 class TPFeedForward(nn.Module):
-    """``FeedForward`` (GEGLU) split over ``devices``: shard i holds rows
+    """``FeedForward`` (GEGLU) split over ``tp`` shards: shard i holds rows
     ``[i w, (i + 1) w)`` of the value half and of the gate half of
     ``net.0.proj`` (w = hidden / tp) and the matching input columns of
-    ``net.2``; ``net.2``'s bias stays whole on ``devices[0]``."""
+    ``net.2``; this module holds the shards of ``placement``, as
+    :class:`TPAttention`; ``net.2``'s bias stays whole on the first
+    device."""
 
-    def __init__(self, ff: FeedForward, devices: Sequence[torch.device]):
+    def __init__(self, ff: FeedForward, placement):
         super().__init__()
-        tp = len(devices)
-        self.devices = list(devices)
+        place = Placement.of(placement)
+        self.devices, self.shard_ids, self.comm = place.devices, place.shards, place.comm
         proj, out = ff.net[0].proj, ff.net[2]
         hidden = proj.weight.shape[0] // 2
-        width = hidden // tp
+        width = hidden // place.tp
         self.shards = nn.ModuleList()
-        for i, device in enumerate(self.devices):
+        for i, device in place.local:
             value = slice(i * width, (i + 1) * width)
             gate = slice(hidden + i * width, hidden + (i + 1) * width)
             shard = nn.Module()
@@ -142,7 +263,7 @@ class TPFeedForward(nn.Module):
         for shard, device in zip(self.shards, self.devices):
             value, gate = shard.proj(x.to(device)).chunk(2, dim=-1)
             partials.append(shard.out(value * F.gelu(gate)))
-        return _reduce(partials, self.out_bias)
+        return _reduce(partials, self.out_bias, self.comm)
 
 
 def _linear(weight: torch.Tensor, bias: Optional[torch.Tensor], device) -> nn.Linear:
@@ -156,22 +277,28 @@ def _linear(weight: torch.Tensor, bias: Optional[torch.Tensor], device) -> nn.Li
     return lin
 
 
-def _reduce(partials: list, bias: torch.Tensor) -> torch.Tensor:
+def _reduce(partials: list, bias: torch.Tensor, comm: Optional[GroupComm] = None
+            ) -> torch.Tensor:
     """The partial products (each already rounded to the model dtype by its
-    shard's linear) summed on the bias's device in fp32, shard 0 first, then
-    the bias added once and the sum rounded to the partials' dtype."""
+    shard's linear; with ``comm``, this process's, the others' gathered
+    first) summed on the bias's device in fp32, shard 0 first, then the
+    bias added once and the sum rounded to the partials' dtype."""
+    if comm is not None:
+        partials = comm.gather(partials)
     total = partials[0].to(bias.device, torch.float32)
     for p in partials[1:]:
         total = total + p.to(bias.device, torch.float32)
     return (total + bias.float()).to(partials[0].dtype)
 
 
-def split_transformers(model: nn.Module, devices: Sequence[torch.device]) -> dict:
+def split_transformers(model: nn.Module, placement) -> dict:
     """Split every transformer block's attentions and feed-forward of
-    ``model`` (a UNet or a ControlNet on ``devices[0]``) over ``devices``, in
-    place, where :func:`tp_rule` splits their weights; returns the count of
-    modules split and kept whole, by kind."""
-    tp = len(devices)
+    ``model`` (a UNet or a ControlNet on the first device) over
+    ``placement`` (a :class:`Placement`, or a list of devices: every shard
+    here), in place, where :func:`tp_rule` splits their weights; returns
+    the count of modules split and kept whole, by kind."""
+    place = Placement.of(placement)
+    tp = place.tp
     counts = {"attention_split": 0, "attention_replicated": 0, "ff_split": 0,
               "ff_replicated": 0}
     blocks = [(name, m) for name, m in model.named_modules()
@@ -181,14 +308,39 @@ def split_transformers(model: nn.Module, devices: Sequence[torch.device]) -> dic
             attn = getattr(block, name)
             weight = attn.to_q.weight
             if tp_rule(f"{prefix}.{name}.to_q.weight", weight.shape, tp, attn.heads):
-                setattr(block, name, TPAttention(attn, devices))
+                setattr(block, name, TPAttention(attn, place))
                 counts["attention_split"] += 1
             else:
                 counts["attention_replicated"] += 1
         weight = block.ff.net[0].proj.weight
         if tp_rule(f"{prefix}.ff.net.0.proj.weight", weight.shape, tp):
-            block.ff = TPFeedForward(block.ff, devices)
+            block.ff = TPFeedForward(block.ff, place)
             counts["ff_split"] += 1
         else:
             counts["ff_replicated"] += 1
     return counts
+
+
+def comms(modules) -> list:
+    """The distinct :class:`GroupComm` handles the split modules of
+    ``modules`` (nn.Modules) use: their counters."""
+    found = {id(m.comm): m.comm for mod in modules for m in mod.modules()
+             if isinstance(m, (TPAttention, TPFeedForward)) and m.comm is not None}
+    return list(found.values())
+
+
+def weights_checksum(modules) -> str:
+    """An exact digest of ``modules``' state (nn.Modules): per tensor its
+    name, dtype, shape and two integer sums over its bytes as 32-bit words
+    (the plain sum and one weighted by position), computed where the tensor
+    lies, so equal states give equal digests on any device."""
+    h = hashlib.sha256()
+    for mod in modules:
+        for name, t in mod.state_dict().items():
+            raw = t.detach().contiguous().view(-1).view(torch.uint8)
+            raw = torch.cat([raw, raw.new_zeros(-raw.numel() % 4)])
+            words = raw.view(torch.int32).to(torch.int64)
+            pos = torch.arange(words.numel(), device=words.device) % 65521 + 1
+            h.update(repr((name, str(t.dtype), tuple(t.shape), int(words.sum()),
+                           int((words * pos).sum()))).encode())
+    return h.hexdigest()

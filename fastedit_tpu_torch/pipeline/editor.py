@@ -29,7 +29,8 @@ inside ``utils/precision.true_fp32``, so PyTorch's own fp32 matmuls and
 cuDNN convs run without TF32 as well.
 
 ``enable_data_parallel(..., model_parallel=k)`` adds tensor parallelism
-(``parallel/tp.py``) within each group of ``k`` devices.
+(``parallel/tp.py``) within each group of ``k`` devices, which may span
+processes.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import math
 import os
 import time
 from typing import Optional
@@ -155,28 +157,45 @@ class PendingEdit:
         else:
             host = out
         self._parts = [(first_row, host, event)]
+        self._computed = self._parts
         self.batch = out.shape[0]
 
     @classmethod
-    def join(cls, parts: list, batch: int) -> "PendingEdit":
+    def join(cls, parts: list, batch: int, computed: Optional[list] = None) -> "PendingEdit":
         """One handle for the rows of ``parts`` (handles of disjoint runs of
-        rows) out of a batch of ``batch``."""
+        rows) out of a batch of ``batch``; ``computed`` (default ``parts``)
+        are the handles of every row this process computed, ``parts`` and
+        the rows of groups another process owns."""
+        def rows(handles):
+            return sorted((p for h in handles for p in h._parts), key=lambda p: p[0])
+
         joined = cls.__new__(cls)
-        joined._parts = sorted((p for part in parts for p in part._parts), key=lambda p: p[0])
+        joined._parts = rows(parts)
+        joined._computed = rows(parts if computed is None else computed)
         joined.batch = batch
         return joined
 
-    def local_result(self) -> list:
-        """``[(row, PIL image)]``, in row order, for the rows this process
-        edited: every row of the batch, but under a data-parallel group that
-        spans processes (``parallel/multihost.py``) only this process's."""
+    @staticmethod
+    def _images(parts: list) -> list:
         rows = []
-        for first, host, event in self._parts:
+        for first, host, event in parts:
             if event is not None:
                 event.synchronize()
             arr = host.numpy()
             rows += [(first + i, Image.fromarray(arr[i])) for i in range(arr.shape[0])]
         return rows
+
+    def local_result(self) -> list:
+        """``[(row, PIL image)]``, in row order, for the rows this process
+        owns: every row of the batch, but under a data-parallel group that
+        spans processes (``parallel/multihost.py``) only this process's."""
+        return self._images(self._parts)
+
+    def computed_result(self) -> list:
+        """``[(row, PIL image)]``, in row order, for every row this process
+        computed: its own, and those of a tensor-parallel group it holds a
+        shard of whose rows another process owns (and saves)."""
+        return self._images(self._computed)
 
     def result(self) -> list:
         """Every row's PIL image, in order; raises where another process
@@ -352,9 +371,8 @@ class FastEditor:
     def enable_data_parallel(self, devices=None, model_parallel: int = 1):
         """Split later ``edit_batch[_async]`` calls over one replica per
         device, the counterpart of the JAX package's ICI data parallelism:
-        ``devices`` defaults to this process's cards (on the CPU, this
-        editor's device alone): every local card, or under
-        ``parallel/multihost.initialize`` this process's share of its
+        ``devices`` defaults to this process's cards: every local card, or
+        under ``parallel/multihost.initialize`` this process's share of its
         host's (``multihost.local_devices``, so the processes of a host
         split its cards); a list may name a device more than once
         (``["cpu", "cpu"]``).  This editor serves the first entry of its own
@@ -368,19 +386,27 @@ class FastEditor:
         (``parallel/replicas.ReplicaGroup``).
 
         ``model_parallel = k > 1`` adds tensor parallelism (the JAX
-        package's ``model`` mesh axis, ``parallel/tp.py``): the devices are
-        taken in consecutive groups of ``k``, in the row-major order of the
-        JAX package's ``make_mesh``, and each group holds one replica, a
-        copy of this editor (whose own modules stay whole) with the UNet's
-        and the ControlNet's transformer linears split over the group's
-        devices; ``shape`` is ``{"data": n // k, "model": k}``.  On the CPU
-        the default list is this editor's device ``k`` times.  A list that
-        ``k`` does not divide raises, as ``make_mesh`` asserts, and a group
-        that would take cards of several processes is not ported (raises).
-        Such a replica runs the caller's kernel flags, as any replica does;
-        it captures CUDA graphs where its group is one card named ``k``
-        times, and runs eagerly where the group spans cards."""
-        from fastedit_tpu_torch.parallel import multihost
+        package's ``model`` mesh axis, ``parallel/tp.py``): every process's
+        devices, rank-major, are taken in consecutive groups of ``k``, as
+        the JAX package's ``make_mesh`` lays them (``multihost.members``),
+        and each group holds one replica, a copy of this editor (whose own
+        modules stay whole) with the UNet's and the ControlNet's transformer
+        linears split over the group's devices; ``shape`` is ``{"data":
+        world * n // k, "model": k}``.  A group may take devices of several
+        processes: each process then holds a replica with its own shards,
+        the members gather their partials over a gloo subgroup, every member
+        computes the group's rows and the process of its first device owns
+        them; when the group is built its members must hold the same
+        weights, dtype and TF32 switches, or every member raises, naming the
+        ranks that differ.  On the CPU the default list is this editor's
+        device ``k / gcd(k, world)`` times: ``k`` times in one process, the
+        fewest for ``k`` to divide every process's devices in several.  A
+        device count that ``k`` does not divide over the processes raises,
+        as ``make_mesh`` asserts.  Such a replica runs the caller's kernel
+        flags, as any replica does; it captures CUDA graphs where its group
+        is one card named ``k`` times in this process, and runs eagerly
+        where the group spans cards or processes."""
+        from fastedit_tpu_torch.parallel import multihost, tp
         from fastedit_tpu_torch.parallel.replicas import ReplicaGroup
 
         k = int(model_parallel)
@@ -389,46 +415,63 @@ class FastEditor:
         rank, world = multihost.rank_and_world()
         if devices is None:
             devices = (multihost.local_devices() if self.device.type == "cuda"
-                       else [self.device] * k)
+                       else [self.device] * (k // math.gcd(k, world)))
         devices = [_resolve_device(d) for d in devices]
-        if len(devices) % k:
-            if world > 1 and (len(devices) * world) % k == 0:
-                raise NotImplementedError(
-                    f"a tensor-parallel group of {k} would take cards of several processes "
-                    f"({len(devices)} per process): not ported (ROADMAP)")
+        if (len(devices) * world) % k:
+            over = f" in each of {world} processes" if world > 1 else ""
             raise ValueError(f"model_parallel={k} does not divide the {len(devices)} devices "
-                             f"{[str(d) for d in devices]}")
+                             f"{[str(d) for d in devices]}{over}")
+        layout = multihost.members(world, len(devices), k)
+        mine = [(g, m) for g, m in enumerate(layout) if rank in multihost.ranks_of(m)]
+        pgs = (multihost.subgroups(world, len(devices), k, rank)
+               if multihost.groups_span(world, len(devices), k) else {})
+        comms = {g: tp.GroupComm(pg, layout[g], rank) for g, pg in pgs.items()}
+        if comms:  # before any copy: a member that differs fails fast
+            state = (self.model_name, str(self.dtype), torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32,
+                     tp.weights_checksum(getattr(self.modules, name) for name in
+                                         ("unet", "controlnet", "vae", "text_encoder",
+                                          "text_encoder_2")))
+            for comm in comms.values():
+                comm.agree(state, "the model, dtype, TF32 switches or replicated weights")
         replicas = []
-        for j in range(0, len(devices), k):
-            group = devices[j:j + k]
+        for g, m in mine:
+            shards = tuple((s, devices[i]) for r, i, s in m if r == rank)
             if k > 1:
-                replicas.append(self._tp_replica(group))
+                replicas.append(self._tp_replica(tp.Placement(k, shards, comms.get(g))))
             else:
-                own = group[0] == self.device and self not in replicas
-                replicas.append(self if own else self._replica(group[0]))
-        self._group = ReplicaGroup(replicas, rank, world, model_parallel=k)
+                own = shards[0][1] == self.device and self not in replicas
+                replicas.append(self if own else self._replica(shards[0][1]))
+        self._group = ReplicaGroup(replicas, rank, world, model_parallel=k, local=len(devices),
+                                   groups=[g for g, _ in mine])
         log.info("Data parallelism enabled over %d replicas (%s), chunks of %d rows%s",
                  len(replicas), ", ".join(map(str, self._group.devices)),
                  self._group.shape["data"],
-                 f"; tensor parallelism x{k} over {[str(d) for d in devices]}" if k > 1 else "")
+                 f"; tensor parallelism x{k} over {[str(d) for d in devices]}"
+                 f"{f' x {world} processes' if world > 1 else ''}" if k > 1 else "")
         return self._group
 
-    def _tp_replica(self, group: list) -> "FastEditor":
-        """A replica on ``group[0]`` whose UNet and ControlNet transformer
-        linears are split over ``group`` (``parallel/tp.py``); on CUDA
-        graphs where every device of the group is ``group[0]``, else
-        eager."""
+    def _tp_replica(self, placement) -> "FastEditor":
+        """A replica on the first device of ``placement`` (a
+        ``parallel/tp.Placement``, or a list of devices) whose UNet and
+        ControlNet transformer linears are split over it
+        (``parallel/tp.py``); on CUDA graphs where every shard lies in this
+        process on that one card, else eager."""
         from fastedit_tpu_torch.parallel import tp
 
+        place = tp.Placement.of(placement)
+        group = place.devices
         replica = self._replica(group[0])
-        split = {name: tp.split_transformers(getattr(replica.modules, name), group)
+        split = {name: tp.split_transformers(getattr(replica.modules, name), place)
                  for name in ("unet", "controlnet")}
-        # the graphs' weight list, taken after the split; one capture cannot span cards
+        # the graphs' weight list, taken after the split; one capture cannot
+        # span cards, nor hold the gloo collectives of a group over processes
         replica._graphs = (graphs.EditGraphs(replica.modules)
-                           if replica._graphs is not None and set(group) == {group[0]}
-                           else None)
-        log.info("Tensor parallelism x%d on %s: %s", len(group),
-                 ", ".join(map(str, group)), split)
+                           if replica._graphs is not None and place.comm is None
+                           and set(group) == {group[0]} else None)
+        log.info("Tensor parallelism x%d: shards %s on %s%s: %s", place.tp, place.shards,
+                 ", ".join(map(str, group)),
+                 f", ranks {place.comm.ranks}" if place.comm is not None else "", split)
         return replica
 
     def _replica(self, device: torch.device) -> "FastEditor":
@@ -725,9 +768,13 @@ class FastEditor:
 
     def _dispatch(self, images, prompts, kw: dict, first_row: int = 0) -> PendingEdit:
         """This editor's edit of ``images`` (rows ``first_row`` on of a
-        batch), not waited for."""
-        return PendingEdit(self._run_edit(images, prompts, **kw,
-                                          tile_noise=kw["seed"] is not None), first_row)
+        batch), not waited for.  Every row takes the same noise stream where
+        the caller fixed the seed; ``kw["tile_noise"]`` (False) keeps a
+        seed drawn for the caller (``parallel/replicas.py``) untiled."""
+        kw = dict(kw)
+        tile_noise = kw.pop("tile_noise", kw["seed"] is not None)
+        return PendingEdit(self._run_edit(images, prompts, **kw, tile_noise=tile_noise),
+                           first_row)
 
     # ----------------------------------------------------------------- misc
 

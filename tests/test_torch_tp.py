@@ -120,14 +120,39 @@ def test_group_shape_and_the_indivisible_list():
 
 
 def test_a_group_across_processes_is_not_ported(monkeypatch):
-    """One device in each of two processes: a group of two would take a
-    device of each, which is not ported."""
+    """One device in each of two processes: a group of two takes a device of
+    each.  Rank 0 builds a replica holding shard 0 alone, eager, with a
+    handle to its peer, and owns the group's row; rank 1 holds shard 1 and
+    owns none (the subgroup and the weights' agreement patched: no peer is
+    contacted)."""
     from fastedit_tpu_torch.parallel import multihost
 
     ed = FastEditor("tiny", device="cpu", dtype=torch.float32, init_seed=4)
-    monkeypatch.setattr(multihost, "rank_and_world", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="several processes"):
-        ed.enable_data_parallel(["cpu"], model_parallel=2)
+    agreed = []
+    monkeypatch.setattr(multihost, "subgroups", lambda world, local, k, rank: {0: "peers"})
+    monkeypatch.setattr(tp.GroupComm, "agree", lambda self, value, what: agreed.append(value))
+    for rank in (0, 1):
+        monkeypatch.setattr(multihost, "rank_and_world", lambda rank=rank: (rank, 2))
+        group = ed.enable_data_parallel(["cpu"], model_parallel=2)
+        assert group.shape == {"data": 1, "model": 2} and group.groups == [0]
+        (replica,) = group.replicas
+        assert replica is not ed and replica._graphs is None
+        split = [m for name in ("unet", "controlnet")
+                 for m in getattr(replica.modules, name).modules()
+                 if isinstance(m, (tp.TPAttention, tp.TPFeedForward))]
+        assert split and all(m.shard_ids == [rank] and m.devices == [torch.device("cpu")]
+                             and m.comm.ranks == [0, 1] and m.comm.pg == "peers"
+                             for m in split)
+        attn = next(m for m in split if isinstance(m, tp.TPAttention))
+        whole = next(m for m in ed.modules.unet.modules() if isinstance(m, tp.Attention)
+                     and m.to_q.out_features == attn.heads * 2 * attn.head_dim)
+        width = attn.heads * attn.head_dim
+        assert torch.equal(attn.shards[0].to_q.weight,
+                           whole.to_q.weight[rank * width:(rank + 1) * width])
+        assert multihost.local_rows(group, 2) == ([0, 1] if rank == 0 else [])
+        assert multihost.computed_rows(group, 2) == [0, 1]
+    assert len(agreed) == 2 and agreed[0] == agreed[1]
+    assert not torch.distributed.is_initialized()
     with pytest.raises(ValueError, match="does not divide"):
         ed.enable_data_parallel(["cpu"], model_parallel=3)
 
