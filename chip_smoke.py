@@ -184,7 +184,7 @@ order; a failed phase raises and the script exits non-zero:
    short timeout (504, its future cancelled); ``close()`` with six requests
    in flight (every future resolved).  The burst's wall time is split into
    the card's work (the editor's CUDA events of each batch) and the host's:
-   the dispatcher's calls of the editor, split by part (``dispatch_spans``),
+   the dispatcher's calls of the editor, split by part (``dispatch_split``),
    and the time the card did not work.
    The wrappers' launches over the phase must be twice the inventory's for
    each key it captured.
@@ -1607,16 +1607,16 @@ def prompt_encode_times(editor, reps: int = 5) -> dict:
     for i in range(reps + 1):
         for arm in rows:
             torch.cuda.synchronize()
-            editor._stage_events = []
+            times = editor._stage_times()
             t = time.perf_counter()
             with flags.override(cuda_graphs=arm == "graph"):
-                editor._encode_prompts([f"a new prompt to time, {arm} {i}"])
+                editor._encode_prompts([f"a new prompt to time, {arm} {i}"], times)
             host = time.perf_counter() - t
             torch.cuda.synchronize()
             synced = time.perf_counter() - t
             if i:
                 rows[arm].append(dict(host_ms=1e3 * host, synced_ms=1e3 * synced,
-                                      device_ms=editor.stage_ms()["encode_prompt"]))
+                                      device_ms=times.read()["encode_prompt"]))
     out = {arm: {k: statistics.median(r[k] for r in rs) for k in rs[0]}
            for arm, rs in rows.items()}
     out["reps"] = reps
@@ -3148,56 +3148,27 @@ def hist_delta(before: dict, after: dict) -> dict:
     return {k: v - b.get(k, 0) for k, v in a.items() if v != b.get(k, 0)}
 
 
-@contextlib.contextmanager
-def dispatch_spans(editor):
-    """Where an editor's dispatch spends its host time: each part's seconds,
-    less the parts it calls (``seconds``), over the calls of ``dispatch``
-    (the editor's ``_dispatch``) inside the block.  Parts: ``upload`` (the
-    images to the card), ``prompts`` (tokenizing and the prompt graphs'
-    enqueueing), ``noise``, ``thresholds`` (the Canny thresholds through
-    pinned memory), ``buffer_copies`` (the inputs into a capture's static
-    buffers), ``graph_replay`` (``CUDAGraph.replay``: a full launch queue
-    blocks here), ``readback`` (``PendingEdit``: the pinned output buffer and
-    its copy enqueued), ``other`` (the rest of the call)."""
+def dispatch_split(since_ns: int) -> dict:
+    """Where the dispatcher's calls of the editor since ``since_ns`` spent
+    their host seconds: each ``serve.dispatch`` record's outermost facade
+    and graphs spans (``utils/profiling.py``; a replay by its stage), and
+    ``other``, the rest of the call."""
     import collections
-    import threading
-    from types import SimpleNamespace
-    from unittest import mock
 
-    import torch
+    from fastedit_tpu_torch.utils import profiling
 
-    from fastedit_tpu_torch.ops import canny
-    from fastedit_tpu_torch.pipeline import editor as editor_mod, graphs
-
-    seconds = collections.defaultdict(float)
-    local = threading.local()
-
-    def timed(name, fn):
-        def call(*args, **kw):
-            stack = local.__dict__.setdefault("stack", [])
-            stack.append(0.0)
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kw)
-            finally:
-                took = time.perf_counter() - t0
-                seconds[name] += took - stack.pop()
-                if stack:
-                    stack[-1] += took
-        return call
-
-    cls = type(editor)
-    with contextlib.ExitStack() as stack:
-        for name, attr in (("upload", "_device_batch"), ("prompts", "_encode_prompts"),
-                           ("noise", "_noise")):
-            stack.enter_context(mock.patch.object(editor, attr, timed(name, getattr(editor, attr))))
-        for name, owner, attr in (("thresholds", canny, "threshold_tensors"),
-                                  ("buffer_copies", graphs.EditInputs, "copy_"),
-                                  ("graph_replay", torch.cuda.CUDAGraph, "replay"),
-                                  ("readback", editor_mod.PendingEdit, "__init__")):
-            stack.enter_context(mock.patch.object(owner, attr, timed(name, getattr(owner, attr))))
-        yield SimpleNamespace(seconds=seconds,
-                              dispatch=timed("other", lambda *a, **k: cls._dispatch(editor, *a, **k)))
+    recs = profiling.records(since_ns=since_ns)
+    out = collections.defaultdict(float)
+    for d in (r for r in recs if r.name == "serve.dispatch"):
+        mine = [r for r in recs if r.thread == d.thread and d.t0_ns <= r.t0_ns
+                and r.t1_ns <= d.t1_ns and r.name.startswith(("facade.", "graphs."))]
+        top = [r for r in mine if not any(o is not r and o.t0_ns <= r.t0_ns and r.t1_ns <= o.t1_ns
+                                          for o in mine)]
+        for r in top:
+            name = r.name + (f"[{r.ids['stage']}]" if "stage" in r.ids else "")
+            out[name] += (r.t1_ns - r.t0_ns) / 1e9
+        out["other"] += (d.t1_ns - d.t0_ns - sum(r.t1_ns - r.t0_ns for r in top)) / 1e9
+    return dict(out)
 
 
 def serving(editor, card: str) -> dict:
@@ -3314,21 +3285,21 @@ def serving(editor, card: str) -> dict:
         # CUDA events (prompt encoding, prepare and the stages), read after the burst;
         # and where in the call the dispatcher's host time goes (dispatch_split_s)
         dispatches = []
-        with dispatch_spans(editor) as spans:
-            def timed_dispatch(*args, **kw):
-                t0 = time.perf_counter()
-                pending = spans.dispatch(*args, **kw)
-                dispatches.append((time.perf_counter() - t0, list(editor._stage_events)))
-                return pending
 
-            editor._dispatch = timed_dispatch
-            t = time.perf_counter()
-            try:
-                replies = concurrently([lambda b=b: http_call(port, "POST", "/v1/edit", b)
-                                        for b in bodies])
-            finally:
-                del editor._dispatch
-            wall = time.perf_counter() - t
+        def timed_dispatch(*args, **kw):
+            t0 = time.perf_counter()
+            pending = type(editor)._dispatch(editor, *args, **kw)
+            dispatches.append((time.perf_counter() - t0, list(editor._last_times.events)))
+            return pending
+
+        editor._dispatch = timed_dispatch
+        t, since = time.perf_counter(), time.perf_counter_ns()
+        try:
+            replies = concurrently([lambda b=b: http_call(port, "POST", "/v1/edit", b)
+                                    for b in bodies])
+        finally:
+            del editor._dispatch
+        wall = time.perf_counter() - t
         posted_images(replies)
         events = [ev for _, evs in dispatches for ev in evs]
         events[-1][2].synchronize()
@@ -3344,7 +3315,7 @@ def serving(editor, card: str) -> dict:
                             dispatch_host_s=sum(h for h, _ in dispatches),
                             dispatches=len(dispatches), device_s=device_s,
                             device_span_s=span_s, device_idle_in_span_s=span_s - device_s,
-                            host_only_s=wall - device_s, dispatch_split_s=dict(spans.seconds))
+                            host_only_s=wall - device_s, dispatch_split_s=dispatch_split(since))
         log("[9] the burst's time: wall {wall_s:.3f} s, device work {device_s:.3f} s (first "
             "to last event {device_span_s:.3f} s, idle in it {device_idle_in_span_s:.3f} s), "
             "the dispatcher's host calls {dispatch_host_s:.3f} s over {dispatches} batches, "

@@ -31,6 +31,17 @@ cuDNN convs run without TF32 as well.
 ``enable_data_parallel(..., model_parallel=k)`` adds tensor parallelism
 (``parallel/tp.py``) within each group of ``k`` devices, which may span
 processes.
+
+Spans (``utils/profiling.py``): ``facade.build`` around the constructor
+(``facade.init_weights`` for the modules' build and fill), ``facade.stage``
+around ``stage_inputs``; each ``edit_batch_async`` (and ``edit``) call takes
+an ``edit`` id, which its spans carry: ``facade.encode_prompts`` for new
+prompts (``facade.tokenize`` inside), ``facade.inputs``, the graphs layer's
+(``pipeline/graphs.py``), ``facade.readback_enqueue`` (the pinned buffer and
+the copy), then on the reading thread ``facade.readback`` with
+``facade.readback_wait`` and ``facade.to_pil`` inside.  Once read back, the
+CUDA events around each stage give one ``stage.<name>`` record per stage:
+its device ns in ``device_ns``, with ``edit`` and ``rows``.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import itertools
 import math
 import os
 import time
@@ -61,12 +73,14 @@ from fastedit_tpu_torch.sched.lcm import LCMSchedulerConfig, make_schedule
 from fastedit_tpu_torch.text.tokenizer import CLIPTokenizer
 from fastedit_tpu_torch.tools import from_jax
 from fastedit_tpu_torch.utils import checkpoint as ckpt_io
+from fastedit_tpu_torch.utils import profiling
 from fastedit_tpu_torch.utils.image import resize
 from fastedit_tpu_torch.utils.logging import get_logger
 from fastedit_tpu_torch.utils.precision import true_fp32
 from fastedit_tpu_torch.utils.profiling import nan_checks_enabled
 
 log = get_logger("FastEditor")
+_EDIT_IDS = itertools.count(1)
 
 
 def _normalize_dtype(dtype) -> torch.dtype:
@@ -137,6 +151,54 @@ def _build(cls, cfg, device, dtype, generator: Optional[torch.Generator] = None,
     return model.eval().requires_grad_(False)
 
 
+class StageTimes:
+    """One edit's device time by stage: entered as ``timed(name)`` around
+    each stage (prompt encoding, prepare, VAE encode, denoise, VAE decode:
+    an eager stage or its graph's replay), it records a pair of CUDA events
+    (nothing off the card); :meth:`read` gives device ms by stage and, the
+    first time, writes the ``stage.<name>`` records."""
+
+    def __init__(self, edit: Optional[int] = None, cuda: bool = False):
+        self.edit, self.rows, self.cuda = edit, 0, cuda
+        self.events: list = []  # (name, start, end)
+        self.ms: Optional[dict] = None
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        if not self.cuda:
+            yield
+            return
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        yield
+        end.record()
+        self.events.append((name, start, end))
+
+    def read(self, wait: bool = True) -> dict:
+        """Device ms by stage.  ``wait=False`` once the stream has passed
+        the last event (the edit's copy to the host was waited for)."""
+        if self.ms is None:
+            ms = {}
+            for name, start, end in self.events:
+                if wait:
+                    end.synchronize()
+                ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
+            self.ms = ms
+            now = time.perf_counter_ns()
+            for name, v in ms.items():
+                profiling.record("stage." + name, now, now, edit=self.edit, rows=self.rows,
+                                 device_ns=round(v * 1e6))
+        return self.ms
+
+
+@dataclasses.dataclass
+class _Part:
+    first: int  # the batch's row of the part's first
+    host: torch.Tensor  # uint8 [rows, r, r, 3], pinned on the card
+    event: Optional[torch.cuda.Event]  # recorded after the copy into ``host``
+    times: StageTimes
+
+
 class PendingEdit:
     """Handle to an edit in flight: its images' copy to the host enqueued
     (into a fresh pinned buffer, behind the edit on the stream and so before
@@ -146,19 +208,23 @@ class PendingEdit:
     parallelism one handle joins the replicas' parts of a batch
     (:meth:`join`), each a run of rows from its ``first_row``."""
 
-    def __init__(self, out: torch.Tensor, first_row: int = 0):
-        event = None
-        if out.is_cuda:
-            with torch.cuda.device(out.device):
-                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                host.copy_(out, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-        else:
-            host = out
-        self._parts = [(first_row, host, event)]
+    def __init__(self, out: torch.Tensor, first_row: int = 0,
+                 times: Optional[StageTimes] = None):
+        times = StageTimes() if times is None else times
+        with profiling.span("facade.readback_enqueue", edit=times.edit):
+            event = None
+            if out.is_cuda:
+                with torch.cuda.device(out.device):
+                    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                    host.copy_(out, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record()
+            else:
+                host = out
+        self._parts = [_Part(first_row, host, event, times)]
         self._computed = self._parts
         self.batch = out.shape[0]
+        self.edit = times.edit
 
     @classmethod
     def join(cls, parts: list, batch: int, computed: Optional[list] = None) -> "PendingEdit":
@@ -167,23 +233,37 @@ class PendingEdit:
         are the handles of every row this process computed, ``parts`` and
         the rows of groups another process owns."""
         def rows(handles):
-            return sorted((p for h in handles for p in h._parts), key=lambda p: p[0])
+            return sorted((p for h in handles for p in h._parts), key=lambda p: p.first)
 
         joined = cls.__new__(cls)
         joined._parts = rows(parts)
         joined._computed = rows(parts if computed is None else computed)
         joined.batch = batch
+        joined.edit = next((h.edit for h in (computed or parts)), None)
         return joined
 
-    @staticmethod
-    def _images(parts: list) -> list:
+    def _images(self, parts: list) -> list:
         rows = []
-        for first, host, event in parts:
-            if event is not None:
-                event.synchronize()
-            arr = host.numpy()
-            rows += [(first + i, Image.fromarray(arr[i])) for i in range(arr.shape[0])]
+        with profiling.span("facade.readback", edit=self.edit):
+            for part in parts:
+                if part.event is not None:
+                    with profiling.span("facade.readback_wait", edit=self.edit):
+                        part.event.synchronize()
+                with profiling.span("facade.to_pil", edit=self.edit):
+                    arr = part.host.numpy()
+                    rows += [(part.first + i, Image.fromarray(arr[i]))
+                             for i in range(arr.shape[0])]
+                part.times.read(wait=False)  # the copy came after every stage
         return rows
+
+    def stage_ms(self) -> dict:
+        """Device ms per stage over every part this process computed,
+        waiting only for a part not yet read back."""
+        ms = {}
+        for part in self._computed:
+            for name, v in part.times.read().items():
+                ms[name] = ms.get(name, 0.0) + v
+        return ms
 
     def local_result(self) -> list:
         """``[(row, PIL image)]``, in row order, for the rows this process
@@ -248,44 +328,47 @@ class FastEditor:
         init_seed: int = 0,
         random_weights: bool = False,
     ):
-        if model_name not in self.MODEL_CONFIGS:
-            raise ValueError(
-                f"Unknown model: {model_name}. Choose from {list(self.MODEL_CONFIGS)}"
-            )
-        self.model_name = model_name
-        self.config = self.MODEL_CONFIGS[model_name]
-        self.device = _resolve_device(device)
-        self.dtype = torch.float32 if use_full_precision else _normalize_dtype(dtype)
-        self.use_full_controlnet = use_full_controlnet
-        self.enable_cpu_offload = enable_cpu_offload
-        self.resolution = self.config["resolution"]
-        if enable_cpu_offload:
-            log.info(
-                "CPU offload requested but not needed: every weight stays in "
-                "the card's memory (SSD-1B and SDXL in bf16 fit one H100 by design)."
-            )
-        log.info("Initializing %s (%s)", model_name, self.config["description"])
-        log.info("Device: %s, dtype: %s", self.device, str(self.dtype).replace("torch.", ""))
-
-        if model_name == "tiny":
-            self._init_models(
-                C.TINY_UNET, C.TINY_CONTROLNET, C.TINY_VAE, C.TINY_TEXT_ENCODER,
-                C.TINY_TEXT_ENCODER_2,
-                torch.Generator(device=self.device).manual_seed(init_seed),
-            )
-            cn_ds = 2 ** (len(C.TINY_CONTROLNET.conditioning_embedding_channels) - 1)
-            self._control_res = self.resolution // C.TINY_VAE.downscale_factor * cn_ds
-        elif random_weights:
-            cn_cfg = C.SDXL_CONTROLNET_FULL if use_full_controlnet else C.SDXL_CONTROLNET_SMALL
-            self._init_models(
-                self.config["unet_config"], cn_cfg, C.SDXL_VAE, C.SDXL_TEXT_ENCODER,
-                C.SDXL_TEXT_ENCODER_2, None,
-            )
-            self._control_res = self.resolution
-        else:
-            self._load_checkpoint(checkpoint_dir or os.path.join("checkpoints", model_name))
-        self.scheduler_config = LCMSchedulerConfig()
-        self._init_runtime()
+        with profiling.span("facade.build"):
+            if model_name not in self.MODEL_CONFIGS:
+                raise ValueError(
+                    f"Unknown model: {model_name}. Choose from {list(self.MODEL_CONFIGS)}"
+                )
+            self.model_name = model_name
+            self.config = self.MODEL_CONFIGS[model_name]
+            self.device = _resolve_device(device)
+            self.dtype = torch.float32 if use_full_precision else _normalize_dtype(dtype)
+            self.use_full_controlnet = use_full_controlnet
+            self.enable_cpu_offload = enable_cpu_offload
+            self.resolution = self.config["resolution"]
+            if enable_cpu_offload:
+                log.info(
+                    "CPU offload requested but not needed: every weight stays in "
+                    "the card's memory (SSD-1B and SDXL in bf16 fit one H100 by design)."
+                )
+            log.info("Initializing %s (%s)", model_name, self.config["description"])
+            log.info("Device: %s, dtype: %s", self.device, str(self.dtype).replace("torch.", ""))
+            with profiling.span("facade.init_weights"):
+                if model_name == "tiny":
+                    self._init_models(
+                        C.TINY_UNET, C.TINY_CONTROLNET, C.TINY_VAE, C.TINY_TEXT_ENCODER,
+                        C.TINY_TEXT_ENCODER_2,
+                        torch.Generator(device=self.device).manual_seed(init_seed),
+                    )
+                    cn_ds = 2 ** (len(C.TINY_CONTROLNET.conditioning_embedding_channels) - 1)
+                    self._control_res = self.resolution // C.TINY_VAE.downscale_factor * cn_ds
+                elif random_weights:
+                    cn_cfg = (C.SDXL_CONTROLNET_FULL if use_full_controlnet
+                              else C.SDXL_CONTROLNET_SMALL)
+                    self._init_models(
+                        self.config["unet_config"], cn_cfg, C.SDXL_VAE, C.SDXL_TEXT_ENCODER,
+                        C.SDXL_TEXT_ENCODER_2, None,
+                    )
+                    self._control_res = self.resolution
+                else:
+                    self._load_checkpoint(
+                        checkpoint_dir or os.path.join("checkpoints", model_name))
+            self.scheduler_config = LCMSchedulerConfig()
+            self._init_runtime()
 
     def _init_runtime(self) -> None:
         """The caches, the CUDA graphs and the data-parallel group: empty."""
@@ -293,7 +376,7 @@ class FastEditor:
         self._schedule_cache: dict = {}
         self._const_cache: dict = {}
         self._graphs = graphs.EditGraphs(self.modules) if self.device.type == "cuda" else None
-        self._stage_events: list = []
+        self._last_times: Optional[StageTimes] = None  # the last edit's, for stage_ms()
         self._group = None
         # the last edit's final latents (on the graphs, the capture's buffer:
         # valid until the next edit, whatever its key)
@@ -504,35 +587,23 @@ class FastEditor:
 
     # ------------------------------------------------------------------ edit
 
-    @contextlib.contextmanager
-    def _timed(self, name: str):
-        """CUDA events around the body, read by :meth:`stage_ms`."""
-        if self.device.type != "cuda":
-            yield
-            return
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        yield
-        end.record()
-        self._stage_events.append((name, start, end))
+    def _stage_times(self, edit: Optional[int] = None) -> StageTimes:
+        return StageTimes(edit, self.device.type == "cuda")
 
     def stage_ms(self) -> dict:
-        """Device ms per stage of the last edit, after waiting for it: CUDA
-        events around prompt encoding (when a prompt was new), prepare, and
-        each of VAE encode, denoise and VAE decode (an eager stage, or its
-        graph's replay).  Empty on the CPU."""
-        ms = {}
-        for name, start, end in self._stage_events:
-            end.synchronize()
-            ms[name] = ms.get(name, 0.0) + start.elapsed_time(end)
-        return ms
+        """Device ms per stage of the last edit: CUDA events around prompt
+        encoding (when a prompt was new), prepare, and each of VAE encode,
+        denoise and VAE decode (an eager stage, or its graph's replay).
+        Waits only where the last edit has not been read back.  Empty on the
+        CPU."""
+        return {} if self._last_times is None else dict(self._last_times.read())
 
     def _on_graphs(self) -> bool:
         """Replay CUDA graphs: on the card, unless the flags ask for the
         eager arm or the NaN checks (a host sync per stage) are on."""
         return self._graphs is not None and flags.use_cuda_graphs() and not nan_checks_enabled()
 
-    def _encode_prompts(self, prompts) -> None:
+    def _encode_prompts(self, prompts, times: Optional[StageTimes] = None) -> None:
         """Encode every novel prompt in one call of the text encoders and
         cache a copy of each row.  The novel prompts, deduplicated, are padded
         to the next power of two with the last of them, as the JAX package
@@ -540,26 +611,32 @@ class FastEditor:
         one replay of the prompt graph of its count
         (``graphs.EditGraphs.encode_prompts``), else it runs eagerly at the
         same count.  An fp32 editor encodes without TF32 here, not only inside
-        an edit: a graph keeps what it was captured under."""
+        an edit: a graph keeps what it was captured under.  ``times`` (the
+        edit's :class:`StageTimes`) times the encoding on the card."""
         novel = list(dict.fromkeys(p for p in prompts if p not in self._prompt_cache))
         if not novel:
             return
+        times = StageTimes() if times is None else times
         batch = novel + [novel[-1]] * (_next_pow2(len(novel)) - len(novel))
-        ids1 = torch.from_numpy(np.stack([self.tokenizer.encode(p) for p in batch])).long()
-        ids2 = torch.from_numpy(np.stack([self.tokenizer_2.encode(p) for p in batch])).long()
-        with true_fp32() if self.dtype == torch.float32 else contextlib.nullcontext():
-            if self._on_graphs():
-                ctx, pooled = self._graphs.encode_prompts(
-                    graphs.prompt_key(len(batch)), ids1, ids2, self._timed)
-            else:
-                with self._timed("encode_prompt"):
-                    ctx, pooled = stages.encode_prompt(
-                        self.modules, ids1.to(self.device), ids2.to(self.device))
-        # copies, enqueued before any later replay overwrites the graph's outputs
-        for i, p in enumerate(novel):
-            self._prompt_cache[p] = (ctx[i : i + 1].clone(), pooled[i : i + 1].clone())
-        while len(self._prompt_cache) > 4096:
-            self._prompt_cache.pop(next(iter(self._prompt_cache)))
+        with profiling.span("facade.encode_prompts", edit=times.edit, new_prompts=len(novel),
+                            padded=len(batch)):
+            with profiling.span("facade.tokenize", edit=times.edit):
+                ids1 = torch.from_numpy(np.stack([self.tokenizer.encode(p) for p in batch])).long()
+                ids2 = torch.from_numpy(
+                    np.stack([self.tokenizer_2.encode(p) for p in batch])).long()
+            with true_fp32() if self.dtype == torch.float32 else contextlib.nullcontext():
+                if self._on_graphs():
+                    ctx, pooled = self._graphs.encode_prompts(
+                        graphs.prompt_key(len(batch)), ids1, ids2, times, edit=times.edit)
+                else:
+                    with times("encode_prompt"):
+                        ctx, pooled = stages.encode_prompt(
+                            self.modules, ids1.to(self.device), ids2.to(self.device))
+            # copies, enqueued before any later replay overwrites the graph's outputs
+            for i, p in enumerate(novel):
+                self._prompt_cache[p] = (ctx[i : i + 1].clone(), pooled[i : i + 1].clone())
+            while len(self._prompt_cache) > 4096:
+                self._prompt_cache.pop(next(iter(self._prompt_cache)))
 
     def _schedule(self, num_inference_steps: int, strength: float):
         """The schedule, its table on the device; at most 64 kept."""
@@ -605,9 +682,10 @@ class FastEditor:
         the tensor to ``edit_batch[_async]`` in place of the array.  Under
         data parallelism each replica's rows go to its device (a
         ``parallel/replicas.Staged``)."""
-        if self._group is not None:
-            return self._group.stage(images)
-        return self._stage_inputs(images)
+        with profiling.span("facade.stage", rows=len(images)):
+            if self._group is not None:
+                return self._group.stage(images)
+            return self._stage_inputs(images)
 
     def _stage_inputs(self, images) -> torch.Tensor:
         img_u8 = np.ascontiguousarray(images, dtype=np.uint8)
@@ -649,64 +727,66 @@ class FastEditor:
     def _run_edit(
         self, images, prompts, negative_prompt, strength, num_inference_steps,
         guidance_scale, controlnet_conditioning_scale, canny_low_threshold,
-        canny_high_threshold, seed, tile_noise: bool,
+        canny_high_threshold, seed, tile_noise: bool, times: Optional[StageTimes] = None,
     ) -> torch.Tensor:
         """Shared single/batch path; returns uint8 [B, r, r, 3] on the
         device (on the card, a graph's output buffer: copy it before the
-        next edit).  An fp32 editor runs it all without TF32."""
+        next edit).  ``times`` (a :class:`StageTimes`) times its stages and
+        carries its edit id.  An fp32 editor runs it all without TF32."""
         with true_fp32() if self.dtype == torch.float32 else contextlib.nullcontext():
             return self._run_edit_body(
                 images, prompts, negative_prompt, strength, num_inference_steps,
                 guidance_scale, controlnet_conditioning_scale, canny_low_threshold,
-                canny_high_threshold, seed, tile_noise)
+                canny_high_threshold, seed, tile_noise, StageTimes() if times is None else times)
 
     def _run_edit_body(
         self, images, prompts, negative_prompt, strength, num_inference_steps,
         guidance_scale, controlnet_conditioning_scale, canny_low_threshold,
-        canny_high_threshold, seed, tile_noise: bool,
+        canny_high_threshold, seed, tile_noise: bool, times: StageTimes,
     ) -> torch.Tensor:
-        self._stage_events = []
-        inputs = self._device_batch(images)
-        b, r = inputs.shape[0], self.resolution
-
         do_cfg = guidance_scale > 1.0
-        self._encode_prompts(list(prompts) + ([negative_prompt] if do_cfg else []))
-        enc = [self._prompt_cache[p] for p in prompts]
-        ctx_c = torch.cat([e[0] for e in enc])
-        pooled_c = torch.cat([e[1] for e in enc])
-        if do_cfg:  # pair-interleaved (u_i, c_i)
-            ctx_u, pooled_u = self._prompt_cache[negative_prompt]
-            context = torch.stack([ctx_u.expand_as(ctx_c), ctx_c], dim=1).reshape(
-                2 * b, *ctx_c.shape[1:]
-            )
-            pooled = torch.stack([pooled_u.expand_as(pooled_c), pooled_c], dim=1).reshape(
-                2 * b, *pooled_c.shape[1:]
-            )
-        else:
-            context, pooled = ctx_c, pooled_c
-        schedule = self._schedule(num_inference_steps, strength)
+        self._encode_prompts(list(prompts) + ([negative_prompt] if do_cfg else []), times)
+        with profiling.span("facade.inputs", edit=times.edit):
+            inputs = self._device_batch(images)
+            b, r = inputs.shape[0], self.resolution
+            enc = [self._prompt_cache[p] for p in prompts]
+            ctx_c = torch.cat([e[0] for e in enc])
+            pooled_c = torch.cat([e[1] for e in enc])
+            if do_cfg:  # pair-interleaved (u_i, c_i)
+                ctx_u, pooled_u = self._prompt_cache[negative_prompt]
+                context = torch.stack([ctx_u.expand_as(ctx_c), ctx_c], dim=1).reshape(
+                    2 * b, *ctx_c.shape[1:]
+                )
+                pooled = torch.stack([pooled_u.expand_as(pooled_c), pooled_c], dim=1).reshape(
+                    2 * b, *pooled_c.shape[1:]
+                )
+            else:
+                context, pooled = ctx_c, pooled_c
+            schedule = self._schedule(num_inference_steps, strength)
 
-        if seed is None:
-            seed = int.from_bytes(os.urandom(4), "little")
-        # At batch 1 the tiled and untiled draws are the same: one graph key.
-        tile_noise = tile_noise and b > 1
-        lat_shape = (1 if tile_noise else b, r // 8, r // 8, 4)
-        eps_enc, noise_init, step_noise = self._noise(seed, lat_shape, schedule.num_steps)
-        guidance, cn_scale = self._const(
-            "scalars", float(guidance_scale), float(controlnet_conditioning_scale))
+            if seed is None:
+                seed = int.from_bytes(os.urandom(4), "little")
+            # At batch 1 the tiled and untiled draws are the same: one graph key.
+            tile_noise = tile_noise and b > 1
+            lat_shape = (1 if tile_noise else b, r // 8, r // 8, 4)
+            eps_enc, noise_init, step_noise = self._noise(seed, lat_shape, schedule.num_steps)
+            guidance, cn_scale = self._const(
+                "scalars", float(guidance_scale), float(controlnet_conditioning_scale))
 
-        low, high = canny.threshold_tensors(canny_low_threshold, canny_high_threshold,
-                                            self.device)
-        inp = graphs.EditInputs(
-            inputs, low, high, eps_enc, noise_init, tuple(step_noise), context, pooled,
-            self._const("time_ids", context.shape[0]), schedule, guidance, cn_scale, do_cfg,
-            self._control_res,
-        )
-        if self._on_graphs():
-            key = graphs.graph_key(b, do_cfg, schedule.num_steps, tile_noise, r)
-            self.last_latents, out = self._graphs.run(key, inp, self._timed)
+            low, high = canny.threshold_tensors(canny_low_threshold, canny_high_threshold,
+                                                self.device)
+            inp = graphs.EditInputs(
+                inputs, low, high, eps_enc, noise_init, tuple(step_noise), context, pooled,
+                self._const("time_ids", context.shape[0]), schedule, guidance, cn_scale, do_cfg,
+                self._control_res,
+            )
+            key = (graphs.graph_key(b, do_cfg, schedule.num_steps, tile_noise, r)
+                   if self._on_graphs() else None)
+        times.rows = b
+        if key is not None:
+            self.last_latents, out = self._graphs.run(key, inp, times, edit=times.edit)
         else:
-            self.last_latents, out = graphs.run_eager(self.modules, inp, self._timed)
+            self.last_latents, out = graphs.run_eager(self.modules, inp, times)
         return out
 
     def edit(
@@ -723,12 +803,13 @@ class FastEditor:
         seed: Optional[int] = None,
     ) -> Image.Image:
         """Edit ``image`` per ``prompt``; returns the edited PIL image."""
+        times = self._stage_times(next(_EDIT_IDS))
         out = self._run_edit(
             [image], [prompt], negative_prompt, strength, num_inference_steps,
             guidance_scale, controlnet_conditioning_scale, canny_low_threshold,
-            canny_high_threshold, seed, tile_noise=False,
+            canny_high_threshold, seed, tile_noise=False, times=times,
         )
-        return PendingEdit(out).result()[0]
+        return self._pending(out, 0, times).result()[0]
 
     def edit_batch(self, images, prompts: list, **kw) -> list:
         """Edit a batch in one pass: a list of PIL images, a pre-resized
@@ -761,7 +842,8 @@ class FastEditor:
                   num_inference_steps=num_inference_steps, guidance_scale=guidance_scale,
                   controlnet_conditioning_scale=controlnet_conditioning_scale,
                   canny_low_threshold=canny_low_threshold,
-                  canny_high_threshold=canny_high_threshold, seed=seed)
+                  canny_high_threshold=canny_high_threshold, seed=seed,
+                  edit=next(_EDIT_IDS))
         if self._group is not None:
             return self._group.edit_batch_async(images, prompts, kw)
         return self._dispatch(images, prompts, kw)
@@ -770,11 +852,18 @@ class FastEditor:
         """This editor's edit of ``images`` (rows ``first_row`` on of a
         batch), not waited for.  Every row takes the same noise stream where
         the caller fixed the seed; ``kw["tile_noise"]`` (False) keeps a
-        seed drawn for the caller (``parallel/replicas.py``) untiled."""
+        seed drawn for the caller (``parallel/replicas.py``) untiled;
+        ``kw["edit"]`` is the call's id (a new one without it)."""
         kw = dict(kw)
         tile_noise = kw.pop("tile_noise", kw["seed"] is not None)
-        return PendingEdit(self._run_edit(images, prompts, **kw, tile_noise=tile_noise),
-                           first_row)
+        edit = kw.pop("edit", None)
+        times = self._stage_times(next(_EDIT_IDS) if edit is None else edit)
+        out = self._run_edit(images, prompts, **kw, tile_noise=tile_noise, times=times)
+        return self._pending(out, first_row, times)
+
+    def _pending(self, out: torch.Tensor, first_row: int, times: StageTimes) -> PendingEdit:
+        self._last_times = times
+        return PendingEdit(out, first_row, times)
 
     # ----------------------------------------------------------------- misc
 

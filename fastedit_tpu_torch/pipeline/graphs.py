@@ -63,6 +63,13 @@ replay: the editor caches copies of their rows.  A capture or replay that
 fails raises; nothing runs the eager path in its place.  :func:`run_eager`
 is the same four stages without graphs: on the CPU, and under
 ``flags.override(cuda_graphs=False)`` or ``plain_versions=True``.
+
+Spans (``utils/profiling.py``), each with the edit's id: ``graphs.lookup``
+(the weights' check and the key's look-up), ``graphs.capture`` per new key
+(room made, ``graphs.warmup`` for the eager run, the capture), then
+``graphs.copy_inputs`` and one ``graphs.replay`` per stage (``stage`` in its
+ids); counters ``graphs.captures`` and ``graphs.evictions`` (keys dropped
+past the cap, for memory, or because a weight changed).
 """
 
 from __future__ import annotations
@@ -77,6 +84,7 @@ import torch
 from fastedit_tpu_torch.ops import flags
 from fastedit_tpu_torch.pipeline import stages
 from fastedit_tpu_torch.sched.lcm import LCMSchedule
+from fastedit_tpu_torch.utils import profiling
 
 MAX_KEYS = 64
 # The share of the card's memory (``torch.cuda.mem_get_info``'s total) that
@@ -228,50 +236,61 @@ class EditGraphs:
         """The keys of the edit's captures (not the prompt graphs')."""
         return [k for k, c in self.captured.items() if isinstance(c, Captured)]
 
-    def _lookup(self, key: tuple, capture):
+    def _lookup(self, key: tuple, capture, edit: Optional[int] = None):
         """``key``'s capture, made by ``capture()`` if new (after room is
         made for it); every capture is dropped first if a weight changed."""
-        version = self._weights_version()
-        if version != self._weights:
-            self.clear()
-            self._weights = version
-        cap = self.captured.get(key)
+        with profiling.span("graphs.lookup", edit=edit):
+            version = self._weights_version()
+            if version != self._weights:
+                if self.captured:
+                    profiling.count("graphs.evictions", len(self.captured))
+                self.clear()
+                self._weights = version
+            cap = self.captured.get(key)
         if cap is None:
-            self._make_room()
-            cap = self.captured[key] = capture()
-            while len(self.captured) > MAX_KEYS:
-                self.captured.popitem(last=False)
+            with profiling.span("graphs.capture", prompt=int(key[0] == "prompt"), edit=edit):
+                self._make_room()
+                cap = self.captured[key] = capture()
+                profiling.count("graphs.captures")
+                while len(self.captured) > MAX_KEYS:
+                    self.captured.popitem(last=False)
+                    profiling.count("graphs.evictions")
         return cap
 
-    def run(self, key: tuple, inp: EditInputs, timed=contextlib.nullcontext):
+    @staticmethod
+    def _replay(cap, timed, edit: Optional[int]) -> None:
+        for name, graph in cap.graphs.items():
+            with profiling.span("graphs.replay", stage=name, edit=edit), timed(name):
+                graph.replay()
+
+    def run(self, key: tuple, inp: EditInputs, timed=contextlib.nullcontext,
+            edit: Optional[int] = None):
         """Replay ``key``'s graphs on ``inp`` (captured first if new);
         returns (final latents, uint8 images), the capture's own output
         buffers, valid until the next replay of any key: captures share one
         pool, so an earlier capture's replay may write where a later one's
-        outputs lie."""
-        cap = self._lookup(key, lambda: self._capture(inp))
-        cap.inputs.copy_(inp)
-        for name, graph in cap.graphs.items():
-            with timed(name):
-                graph.replay()
+        outputs lie.  ``timed(name)`` is entered around each replay."""
+        cap = self._lookup(key, lambda: self._capture(inp), edit)
+        with profiling.span("graphs.copy_inputs", edit=edit):
+            cap.inputs.copy_(inp)
+        self._replay(cap, timed, edit)
         return cap.latents, cap.out
 
     def encode_prompts(self, key: tuple, ids_1: torch.Tensor, ids_2: torch.Tensor,
-                       timed=contextlib.nullcontext):
+                       timed=contextlib.nullcontext, edit: Optional[int] = None):
         """Replay ``key``'s prompt graph (:func:`prompt_key`; captured first
         if new) on host token ids, int64 [padded, 77] each, copied in from
         pinned memory without a sync; returns (context, pooled), the
         capture's own output buffers, valid until the next replay of any key
         (see :meth:`run`)."""
-        cap = self._lookup(key, lambda: self._capture_prompts(ids_1, ids_2))
-        for dst, src in zip(cap.ids, (ids_1, ids_2), strict=True):
-            if dst.shape != src.shape:
-                raise ValueError(f"token ids of shape {tuple(src.shape)} for a buffer of "
-                                 f"{tuple(dst.shape)}")
-            dst.copy_(src.pin_memory(), non_blocking=True)
-        for name, graph in cap.graphs.items():
-            with timed(name):
-                graph.replay()
+        cap = self._lookup(key, lambda: self._capture_prompts(ids_1, ids_2), edit)
+        with profiling.span("graphs.copy_inputs", edit=edit):
+            for dst, src in zip(cap.ids, (ids_1, ids_2), strict=True):
+                if dst.shape != src.shape:
+                    raise ValueError(f"token ids of shape {tuple(src.shape)} for a buffer of "
+                                     f"{tuple(dst.shape)}")
+                dst.copy_(src.pin_memory(), non_blocking=True)
+        self._replay(cap, timed, edit)
         return cap.context, cap.pooled
 
     def _make_room(self) -> None:
@@ -295,6 +314,7 @@ class EditGraphs:
                     f"{total / 2**30:.2f} GiB are in use (budget {MEMORY_BUDGET:.0%}); free "
                     "memory or run eagerly (flags.override(cuda_graphs=False))")
             self.captured.popitem(last=False)
+            profiling.count("graphs.evictions")
             if not self.captured:
                 self.pool = None  # no graph uses the pool: empty_cache may release it
 
@@ -320,12 +340,13 @@ class EditGraphs:
         if self._side is None:
             self._side = torch.cuda.Stream(device=device)
         side = self._side
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            x = None
-            for _, fn in fns:
-                x = fn(x)
-        side.synchronize()
+        with profiling.span("graphs.warmup"):
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                x = None
+                for _, fn in fns:
+                    x = fn(x)
+            side.synchronize()
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved()
         if self.pool is None:

@@ -49,6 +49,21 @@ hang or a leak:
   * the completion queue holds one batch, and the dispatcher waits for room
     before it forms the next: at most one batch is dispatched ahead of the
     one whose images the completer waits for.
+
+And one departure in what ``GET /stats`` reports: the JAX module's
+``latency_ms_mean`` and ``latency_ms_max`` are replaced by summaries of the
+records below.
+
+Where a request's time goes (``utils/profiling.py``; ids ``service``,
+``request``, ``batch``): ``serve.queue_wait`` from ``submit`` to the
+dispatcher taking the request into a batch; then the batch's
+``serve.coalesce`` (from its first request taken to the batch closed),
+``serve.dispatch`` (``edit_batch_async``; with ``edit``, ``rows`` and
+``padded``), ``serve.readback`` (from the hand-off to the completer to the
+images in hand, waiting behind the batch before it included) and
+``serve.deliver`` (settling the futures).  The dispatcher waits in
+``serve.room_wait`` (no room in the completion queue) or ``serve.idle`` (no
+request queued).  :meth:`EditService.stats` summarises the recent ones.
 """
 
 from __future__ import annotations
@@ -59,6 +74,7 @@ import collections
 import concurrent.futures
 import dataclasses
 import io
+import itertools
 import json
 import sys
 import threading
@@ -70,9 +86,11 @@ from typing import Callable, Optional
 from PIL import Image
 
 from fastedit_tpu_torch.ops import flags
+from fastedit_tpu_torch.utils import profiling
 from fastedit_tpu_torch.utils.logging import get_logger
 
 log = get_logger("serve")
+_SERVICE_IDS, _REQUEST_IDS, _BATCH_IDS = itertools.count(1), itertools.count(1), itertools.count(1)
 
 
 class ServiceOverloaded(RuntimeError):
@@ -105,12 +123,29 @@ class _WorkItem:
     image: Optional[Image.Image]
     prompt: str
     params: Optional[EditParams]  # None: ``call`` runs on the dispatcher thread
-    enqueued: float
+    submitted_ns: int  # time.perf_counter_ns() at submit
+    request: int = 0  # the request's id (0: a call)
     call: Optional[Callable] = None
 
 
 def _next_pow2(n: int) -> int:
     return 1 << (n - 1).bit_length()
+
+
+def _summary(values: list) -> dict:
+    """Count, mean, median and 95th percentile (linear between ranks, as
+    ``numpy.percentile``) of ``values``; None where there are none."""
+    v, n = sorted(values), len(values)
+
+    def q(p):
+        x = p * (n - 1)
+        i = int(x)
+        return v[i] + (v[min(i + 1, n - 1)] - v[i]) * (x - i)
+
+    if not n:
+        return {"count": 0, "mean": None, "p50": None, "p95": None}
+    return {"count": n, "mean": round(sum(v) / n, 3), "p50": round(q(0.5), 3),
+            "p95": round(q(0.95), 3)}
 
 
 def _settle(future: Future, result=None, exc: Optional[BaseException] = None) -> None:
@@ -164,13 +199,15 @@ class EditService:
         self.pad_to_pow2 = bool(pad_to_pow2)
         # the constructing thread's kernel flags, which the dispatcher runs under
         self._flags = flags.current()
+        self._id = next(_SERVICE_IDS)  # the ``service`` id of its records
 
         self._q: collections.deque[_WorkItem] = collections.deque()
         self._cv = threading.Condition()
         self._closed = False
-        # Completion queue of (PendingEdit, group).  It holds one batch, and
-        # the dispatcher waits for room before it forms the next: at most one
-        # batch is dispatched ahead of the one the completer waits for.
+        # Completion queue of (PendingEdit, group, batch id, hand-off ns).  It
+        # holds one batch, and the dispatcher waits for room before it forms the
+        # next: at most one batch is dispatched ahead of the one the completer
+        # waits for.
         self._cq: collections.deque = collections.deque()
         self._cq_cv = threading.Condition()
         self._cq_capacity = 1
@@ -186,8 +223,6 @@ class EditService:
             "rejected": 0,
             "batches": 0,
             "batch_size_hist": {},
-            "latency_ms_sum": 0.0,
-            "latency_ms_max": 0.0,
         }
 
         self._dispatcher = threading.Thread(
@@ -207,7 +242,8 @@ class EditService:
         """Enqueue one edit; returns a Future resolving to the PIL image."""
         params = params or EditParams()
         fut: Future = Future()
-        item = _WorkItem(fut, image, str(prompt), params, time.monotonic())
+        item = _WorkItem(fut, image, str(prompt), params, time.perf_counter_ns(),
+                         next(_REQUEST_IDS))
         with self._cv:
             if self._closed:
                 raise RuntimeError("EditService is closed")
@@ -234,15 +270,32 @@ class EditService:
         return self.submit(image, prompt, params).result(timeout=timeout)
 
     def stats(self) -> dict:
+        """Counts, the batch-size histogram, the queue's depth; over the
+        recent requests that the records hold, ``queue_wait_ms`` (a
+        request's), ``dispatch_ms`` and ``readback_ms`` (a batch's) and
+        ``latency_ms`` (a request's, submit to its batch delivered), each
+        ``{count, mean, p50, p95}``; the process's graph captures and
+        evictions."""
         with self._stats_lock:
             s = dict(self._stats)
             s["batch_size_hist"] = dict(s["batch_size_hist"])
         with self._cv:
             s["queue_depth"] = sum(it.call is None for it in self._q)
-        done = s["completed"]
-        s["latency_ms_mean"] = round(s["latency_ms_sum"] / done, 1) if done else None
-        s["latency_ms_max"] = round(s["latency_ms_max"], 1)
-        del s["latency_ms_sum"]
+        mine = [r for r in profiling.records(("serve.queue_wait", "serve.dispatch",
+                                              "serve.readback", "serve.deliver"))
+                if r.ids.get("service") == self._id]
+        ms = {name: [(r.t1_ns - r.t0_ns) / 1e6 for r in mine if r.name == name]
+              for name in ("serve.queue_wait", "serve.dispatch", "serve.readback")}
+        delivered = {r.ids["batch"]: r.t1_ns for r in mine if r.name == "serve.deliver"}
+        s["queue_wait_ms"] = _summary(ms["serve.queue_wait"])
+        s["dispatch_ms"] = _summary(ms["serve.dispatch"])
+        s["readback_ms"] = _summary(ms["serve.readback"])
+        s["latency_ms"] = _summary([(delivered[r.ids["batch"]] - r.t0_ns) / 1e6 for r in mine
+                                    if r.name == "serve.queue_wait"
+                                    and r.ids["batch"] in delivered])
+        counts = profiling.counters()
+        s["graph_captures"] = counts.get("graphs.captures", 0)
+        s["graph_evictions"] = counts.get("graphs.evictions", 0)
         s["model"] = getattr(self.editor, "model_name", None)
         s["max_batch"] = self.max_batch
         return s
@@ -266,7 +319,7 @@ class EditService:
         with self._cv:
             if self._closed:
                 raise RuntimeError("EditService is closed")
-            self._q.append(_WorkItem(fut, None, "", None, time.monotonic(), call=run))
+            self._q.append(_WorkItem(fut, None, "", None, time.perf_counter_ns(), call=run))
             self._cv.notify_all()
         fut.result()
         return time.time() - t0
@@ -308,12 +361,17 @@ class EditService:
 
     # ------------------------------------------------------------ internals
 
-    def _take_matching_locked(self, key, group: list) -> None:
+    def _taken(self, it: _WorkItem, batch: int) -> None:
+        profiling.record("serve.queue_wait", it.submitted_ns, time.perf_counter_ns(),
+                         request=it.request, batch=batch, service=self._id)
+
+    def _take_matching_locked(self, key, group: list, batch: int) -> None:
         """Move same-key items from the queue into ``group`` (order kept)."""
         rest: collections.deque = collections.deque()
         while self._q and len(group) < self.max_batch:
             it = self._q.popleft()
             if it.call is None and it.params == key:
+                self._taken(it, batch)
                 group.append(it)
             else:
                 rest.append(it)
@@ -331,14 +389,21 @@ class EditService:
     def _dispatch(self):
         while True:
             with self._cq_cv:
-                while len(self._cq) >= self._cq_capacity and not self._closed:
-                    self._cq_cv.wait()
+                if len(self._cq) >= self._cq_capacity and not self._closed:
+                    with profiling.span("serve.room_wait", service=self._id):
+                        while len(self._cq) >= self._cq_capacity and not self._closed:
+                            self._cq_cv.wait()
             with self._cv:
-                while not self._q and not self._closed:
-                    self._cv.wait()
+                if not self._q and not self._closed:
+                    with profiling.span("serve.idle", service=self._id):
+                        while not self._q and not self._closed:
+                            self._cv.wait()
                 if not self._q:
                     break  # closed and drained
                 first = self._q.popleft()
+            if first.call is None:
+                batch = next(_BATCH_IDS)
+                self._taken(first, batch)
             if not first.future.set_running_or_notify_cancel():
                 continue  # caller cancelled while queued
             if first.call is not None:
@@ -347,26 +412,27 @@ class EditService:
                 except Exception as e:  # handed to the caller
                     _settle(first.future, exc=e)
                 continue
-            group = [first]
-            deadline = time.monotonic() + self.batch_window_s
-            while len(group) < self.max_batch:
+            with profiling.span("serve.coalesce", batch=batch, service=self._id):
+                group = [first]
+                deadline = time.monotonic() + self.batch_window_s
+                while len(group) < self.max_batch:
+                    with self._cv:
+                        self._take_matching_locked(first.params, group, batch)
+                        if len(group) >= self.max_batch or self._closed:
+                            break
+                        remaining = deadline - time.monotonic()
+                        if remaining <= 0:
+                            break
+                        self._cv.wait(timeout=remaining)
+                live = []
+                for it in group:
+                    if it is first or it.future.set_running_or_notify_cancel():
+                        live.append(it)
                 with self._cv:
-                    self._take_matching_locked(first.params, group)
-                    if len(group) >= self.max_batch or self._closed:
-                        break
-                    remaining = deadline - time.monotonic()
-                    if remaining <= 0:
-                        break
-                    self._cv.wait(timeout=remaining)
-            live = []
-            for it in group:
-                if it is first or it.future.set_running_or_notify_cancel():
-                    live.append(it)
-            with self._cv:
-                self._inflight.update(live)
-            self._run_batch(live)
+                    self._inflight.update(live)
+            self._run_batch(live, batch)
 
-    def _run_batch(self, group: list) -> None:
+    def _run_batch(self, group: list, batch: int) -> None:
         p = group[0].params
         images = [it.image for it in group]
         prompts = [it.prompt for it in group]
@@ -376,48 +442,44 @@ class EditService:
             images = images + [images[-1]] * (padded - n)
             prompts = prompts + [prompts[-1]] * (padded - n)
         try:
-            pending = self.editor.edit_batch_async(
-                images,
-                prompts,
-                negative_prompt=p.negative_prompt,
-                strength=p.strength,
-                num_inference_steps=p.num_inference_steps,
-                guidance_scale=p.guidance_scale,
-                controlnet_conditioning_scale=p.controlnet_conditioning_scale,
-                canny_low_threshold=p.canny_low_threshold,
-                canny_high_threshold=p.canny_high_threshold,
-                seed=p.seed,
-            )
+            with profiling.span("serve.dispatch", batch=batch, rows=n, padded=len(prompts),
+                                service=self._id) as ids:
+                pending = self.editor.edit_batch_async(
+                    images,
+                    prompts,
+                    negative_prompt=p.negative_prompt,
+                    strength=p.strength,
+                    num_inference_steps=p.num_inference_steps,
+                    guidance_scale=p.guidance_scale,
+                    controlnet_conditioning_scale=p.controlnet_conditioning_scale,
+                    canny_low_threshold=p.canny_low_threshold,
+                    canny_high_threshold=p.canny_high_threshold,
+                    seed=p.seed,
+                )
+                ids["edit"] = getattr(pending, "edit", None)
         except Exception as e:  # dispatch failed: fail the whole group
             log.info("batch dispatch failed: %r", e)
-            self._finish(group, exc=e)
+            self._finish(group, batch, exc=e)
             return
         with self._stats_lock:
             self._stats["batches"] += 1
             hist = self._stats["batch_size_hist"]
             hist[str(n)] = hist.get(str(n), 0) + 1
         with self._cq_cv:
-            self._cq.append((pending, group))
+            self._cq.append((pending, group, batch, time.perf_counter_ns()))
             self._cq_cv.notify_all()
 
-    def _finish(self, group: list, results=None, exc: Optional[BaseException] = None) -> None:
+    def _finish(self, group: list, batch: int, results=None,
+                exc: Optional[BaseException] = None) -> None:
         """Resolve ``group``'s futures with ``results`` (one image each) or
         ``exc``, and count them."""
-        now = time.monotonic()
-        with self._stats_lock:
-            if exc is not None:
-                self._stats["failed"] += len(group)
-            else:
-                self._stats["completed"] += len(group)
-                for it in group:
-                    ms = 1000.0 * (now - it.enqueued)
-                    self._stats["latency_ms_sum"] += ms
-                    if ms > self._stats["latency_ms_max"]:
-                        self._stats["latency_ms_max"] = ms
-        with self._cv:
-            self._inflight.difference_update(group)
-        for i, it in enumerate(group):
-            _settle(it.future, None if exc is not None else results[i], exc)
+        with profiling.span("serve.deliver", batch=batch, service=self._id):
+            with self._stats_lock:
+                self._stats["failed" if exc is not None else "completed"] += len(group)
+            with self._cv:
+                self._inflight.difference_update(group)
+            for i, it in enumerate(group):
+                _settle(it.future, None if exc is not None else results[i], exc)
 
     def _complete_loop(self):
         while True:
@@ -428,14 +490,15 @@ class EditService:
                 self._cq_cv.notify_all()
             if item is None:
                 return
-            pending, group = item
+            pending, group, batch, handed_ns = item
             try:
-                results = pending.result()
+                results, exc = pending.result(), None
             except Exception as e:
                 log.info("batch readback failed: %r", e)
-                self._finish(group, exc=e)
-                continue
-            self._finish(group, results)
+                results, exc = None, e
+            profiling.record("serve.readback", handed_ns, time.perf_counter_ns(), batch=batch,
+                             service=self._id)
+            self._finish(group, batch, results, exc)
 
 
 # ------------------------------------------------------------------- HTTP

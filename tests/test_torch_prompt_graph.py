@@ -106,7 +106,7 @@ class _StubGraphs:
         self.mod = mod
         self.calls = []
 
-    def encode_prompts(self, key, ids_1, ids_2, timed):
+    def encode_prompts(self, key, ids_1, ids_2, timed, edit=None):
         self.calls.append((key, torch.backends.cuda.matmul.allow_tf32,
                            torch.backends.cudnn.allow_tf32))
         with timed("encode_prompt"):

@@ -16,7 +16,8 @@ string, 32 threads submitting at once with none of their requests lost, the
 CLI parser against the JAX one, the CLI raising without a card and without
 ``--device cpu``, and the HTTP contract: the same
 requests give the same status codes and JSON keys from the port's server
-and the JAX package's, both on tiny CPU editors.  The repairs use a stub
+and the JAX package's, both on tiny CPU editors (but the /stats timing
+keys, which the port takes from its records).  The repairs use a stub
 editor whose dispatch or readback blocks on demand.
 """
 
@@ -186,6 +187,12 @@ def test_http_healthz_and_stats(http_port):
     assert code == 200 and body["status"] == "ok" and body["model"] == "tiny"
     code, body = _request(http_port, "GET", "/stats")
     assert code == 200 and "batches" in body and "queue_depth" in body
+    for key in ("queue_wait_ms", "dispatch_ms", "readback_ms", "latency_ms"):
+        assert set(body[key]) == {"count", "mean", "p50", "p95"}, key
+    assert body["latency_ms"]["count"] == body["completed"] + body["failed"]
+    assert body["queue_wait_ms"]["count"] >= body["completed"]
+    assert body["graph_captures"] >= 0 and body["graph_evictions"] >= 0
+    assert "latency_ms_mean" not in body and "latency_ms_max" not in body
 
 
 def test_http_edit_roundtrip(http_port, tiny):
@@ -449,9 +456,16 @@ def test_cli_without_device_runs_on_the_card_or_raises(monkeypatch):
         serve.main(["--model", "tiny", "--port", "0"])
 
 
+# /stats keys of the JAX server that the port replaces by summaries of its records
+STATS_REPLACED = ({"latency_ms_mean", "latency_ms_max"},
+                  {"queue_wait_ms", "dispatch_ms", "readback_ms", "latency_ms", "graph_captures",
+                   "graph_evictions"})
+
+
 def test_http_contract_matches_the_jax_server(tiny, tiny_editor_f32):
     """The same requests to the port's server and the JAX package's, each on
-    its tiny CPU editor: the same status codes and the same JSON keys."""
+    its tiny CPU editor: the same status codes and the same JSON keys, but
+    the /stats timing keys the port replaces (``STATS_REPLACED``)."""
     from fastedit_tpu import serve as jax_serve
 
     ok = {"image": _png_b64(_img(6)), "prompt": "a red bicycle", "seed": 4, "format": "png"}
@@ -479,6 +493,11 @@ def test_http_contract_matches_the_jax_server(tiny, tiny_editor_f32):
             got = [_request(port, m, path, body, raw) for m, path, body, raw in requests]
             got.append(_request(full_port, "POST", "/v1/edit", ok))
             answers[name] = [(code, sorted(body)) for code, body in got]
+            if module is not None:  # GET /stats
+                gone, new = STATS_REPLACED
+                assert gone <= set(answers[name][1][1])
+                answers[name][1] = (answers[name][1][0], sorted(set(answers[name][1][1]) - gone
+                                                                  | new))
             codes = [code for code, _ in got]
             assert codes == [200, 200, 404, 404, 200, 200, 400, 400, 400, 400, 503], (name, got)
         finally:
