@@ -8,8 +8,9 @@ Run from the repository root, with no arguments:
 It needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda) and
 ``nvidia-smi``; it imports neither JAX nor the JAX package.  With ``--only
 group_norm`` (or ``conv``, ``fused``, ``up2``, ``down2``, ``attention``,
-``canny``; several may be named) it builds the kernels and runs those rows of
-phase 2 alone, bf16 and fp32, into ``chiprun_out/chip_smoke_only.json``, and
+``canny``, ``layer_norm``; several may be named) it builds the kernels and runs
+those rows of phase 2 alone, bf16 and fp32, into
+``chiprun_out/chip_smoke_only.json``, and
 prints no result line; ``--only tensor_parallel`` runs phase 11's two bf16
 arms there, on a new editor with phase 4's seeded weights.  Phases, in
 order; a failed phase raises and the script exits non-zero:
@@ -34,10 +35,12 @@ order; a failed phase raises and the script exits non-zero:
    GroupNorm and its statistics alone: a one-pass variance on an input with
    |mean| >> std, and where the plan takes clusters the kernel built from
    a copy of ``csrc/group_norm.cu`` whose clusters leave a block out of
-   their merge), which the tolerance must reject; every
-   GroupNorm and statistics call must run one device kernel (the profiler
-   counts them).  The rows of the convs, attention and GroupNorm also carry
-   their plan (tiles, grid, shared memory), and the host's microseconds per
+   their merge; LayerNorm: the same one-pass variance), which the tolerance
+   must reject; every GroupNorm, statistics and LayerNorm call must run one
+   device kernel (the profiler counts them).  LayerNorm's rows add the
+   benchmark sweep's batch of four and the CLIP towers' shapes, and the share
+   of 3.35 TB/s each reaches.  The rows of the convs, attention and GroupNorm
+   also carry their plan (tiles, grid, shared memory), and the host's microseconds per
    launch of the stride-1 conv, the stride-2 conv and attention are printed.
    Then the same in fp32 for each kernel's fp32 instance (``<kernel>_f32``)
    at every distinct shape of the fp32 path (an ``edit``, an ``edit_batch``
@@ -80,12 +83,17 @@ order; a failed phase raises and the script exits non-zero:
    the device kernels of one replayed edit and one replayed batch of two,
    by name (``torch.profiler``), which must come to the inventory's counts
    (the phase-weight fold: none, it runs once per weight).  Prepare (Canny)
-   is the first graph of each key's chain.  Then one new
+   is the first graph of each key's chain.  From here on every call of the
+   prompt encoder must launch the LayerNorm kernel as often as the
+   inventory's prompt sites say, and those launches are taken off the
+   wrappers' counts (``account_prompt_launches``): the launch checks are the
+   edit path's.  Then one new
    prompt's host ms (to the return, and to a sync) and device ms (the
    editor's CUDA events) on the prompt graph and on the eager arm, in turns;
    and one eager kernel prepare, then the dispatch of a replayed
    ``edit_batch_async``, each under ``torch.cuda.set_sync_debug_mode(
-   "error")``, which must raise nothing.
+   "error")``, which must raise nothing.  No LayerNorm of the phase (nor of
+   phase 8) may take the plain version on the card (``layer_norm.plain_on_card``).
 4. Kernels against plain versions end to end, with seeded fan-in-scaled
    weights, in two arms: the default configuration, and the opt-in one
    (``use_cuda_conv=True``: the encoder on the conv, fused resnet and
@@ -1023,6 +1031,92 @@ def compare_group_norm(calls: dict, gen, dtype=None) -> list[dict]:
     return rows
 
 
+def compare_layer_norm(calls: dict, gen, dtype=None) -> list[dict]:
+    """The LayerNorm kernel (``layer_norm``) at the transformer blocks' shapes
+    (an edit's, a batch of two's and a batch of four's: the benchmark's sweep)
+    and at the CLIP text towers' (one call of the prompt encoder on an edit's
+    two prompts; those rows count no calls per edit, their calls per prompt
+    encoding are in ``prompt_calls``), with the share of 3.35 TB/s each
+    reaches (``hbm_pct``).  Two inputs per shape: the |mean| >> std one of
+    the GroupNorm rows, held, with a planted one-pass variance (E[x^2] -
+    E[x]^2) read on it, which must fail; and normal values, held and timed.
+    Each call must run one device kernel.  Library: ``F.layer_norm`` with the
+    affine in x's dtype (the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastedit_tpu_torch.models import configs as C
+    from fastedit_tpu_torch.ops import layer_norm as ln
+    from fastedit_tpu_torch.tools import inventory
+
+    dtype = dtype or torch.bfloat16
+    sfx, isz = _suffix(dtype)
+    f32 = bool(sfx)
+    kernel = "layer_norm" + sfx
+    prompts = inventory.kernel_calls(
+        inventory.prompt_sites(C.SDXL_TEXT_ENCODER, C.SDXL_TEXT_ENCODER_2, 2), dtype)
+    sweep = inventory.kernel_calls(inventory.edit_sites(
+        C.SSD1B_UNET, C.SDXL_CONTROLNET_SMALL, C.SDXL_VAE, RESOLUTION, batch=4, steps=3), dtype)
+    keys = {*keys_of(calls, kernel), *(k for (name, k) in sweep if name == kernel), *(
+        k for (_, k) in prompts)}
+    rows = []
+    for key in sorted(keys):
+        n, s, c = key
+        gamma = torch.randn(c, generator=gen, device="cuda") * 0.5 + 1.0
+        beta = torch.randn(c, generator=gen, device="cuda") * 0.2
+
+        def kern(x):
+            return ln.fused_layer_norm(x, gamma, beta, 1e-5)
+
+        def plain(x):
+            return ln.layer_norm_plain(x, gamma, beta, 1e-5)
+
+        def one_pass(x):
+            xf = x.float()
+            mean = xf.mean(dim=-1, keepdim=True)
+            var = xf.square().mean(dim=-1, keepdim=True) - mean.square()
+            return ((xf - mean) * torch.rsqrt(var + 1e-5) * gamma + beta).to(x.dtype)
+
+        spikes = torch.rand((n, s, c), generator=gen, device="cuda") < GN_SPIKE_RATE
+        offset = (GN_OFFSET + GN_SPIKE * spikes.float()).to(dtype)
+        del spikes
+        out, ref = kern(offset), plain(offset)
+        torch.cuda.synchronize()
+        off_err, _ = hold_close(f"{kernel} {key}, |mean| >> std", out, ref, f32)
+        fault_bad = outside(one_pass(offset), ref, f32)
+        del out, ref
+        if fault_bad == 0:
+            raise AssertionError(f"{kernel} {key}: the tolerance passes a one-pass variance")
+        names = device_kernels(lambda: kern(offset))
+        del offset
+        if len(names) != 1:
+            raise AssertionError(f"{kernel} {key}: {len(names)} device kernels per call "
+                                 f"({names}), expected 1")
+        x = (torch.randn((n, s, c), generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
+        g_dt, b_dt = gamma.to(dtype), beta.to(dtype)
+
+        def library():
+            return F.layer_norm(x, (c,), g_dt, b_dt, 1e-5)
+
+        elems = n * s * c
+        rows.append(hold(
+            calls, kernel, key, lambda: kern(x), lambda: plain(x), library,
+            # sum, deviation, square, sum; deviation, scale, gamma, beta
+            flops=8.0 * elems,
+            # x read once, y written once, gamma and beta (fp32) once
+            nbytes=2.0 * isz * elems + 8.0 * c,
+            extra=dict(offset_max_abs_err=off_err, fault_elements_outside=fault_bad,
+                       device_kernels_per_call=len(names), device_kernel_names=names,
+                       prompt_calls=prompts.get((kernel, key), 0)),
+        ))
+        row = rows[-1]
+        row["hbm_pct"] = 100.0 * row["bytes"] / (1e-3 * row["ms"]) / PEAK_HBM_BYTES_PER_S
+        log(f"  {kernel} {list(key)}: {row['hbm_pct']:.1f}% of "
+            f"{PEAK_HBM_BYTES_PER_S / 1e12:.2f} TB/s")
+        del x
+    return rows
+
+
 def gn_plan_of(x, groups: int) -> dict:
     """The GroupNorm kernels' schedule for this call, as a row records it."""
     from fastedit_tpu_torch.ops.fused_groupnorm import plan_for
@@ -1448,10 +1542,56 @@ def wrapper_launches(names: list) -> dict:
 
     out = {wrapper: count(part) for wrapper, part in WRAPPER_KERNELS.items()}
     for sfx, t in GN_TYPES.items():
+        out["layer_norm" + sfx] = count(f"ln_kernel<{t},")
         out["canny_prepare" + sfx] = count(f"canny_kernel<{t}, 0>")
         out["group_norm" + sfx] = count(f"gn_kernel<{t}, true>")
         out["group_norm_scale_shift" + sfx] = count(f"gn_kernel<{t}, false>")
     return out
+
+
+def account_prompt_launches() -> None:
+    """Wrap ``pipeline/stages.encode_prompt``, which every prompt encoding
+    runs (eagerly, or as a prompt graph's warm-up and capture): each call
+    must launch the LayerNorm kernel as often as ``inventory.prompt_sites``
+    routes to it (none under ``plain_versions``), and those launches are then
+    taken off the wrapper's counts, so that the launch checks of the edit
+    path (the inventory's ``edit_sites``, which hold no prompt) stay exact
+    whatever prompts a phase encodes."""
+    from fastedit_tpu_torch.ops import flags
+    from fastedit_tpu_torch.ops import layer_norm as ln
+    from fastedit_tpu_torch.pipeline import stages
+    from fastedit_tpu_torch.tools import inventory
+
+    real = stages.encode_prompt
+
+    def encode_prompt(mod, ids_1, ids_2):
+        before = (ln.launches, ln.launches_f32)
+        out = real(mod, ids_1, ids_2)
+        got = ln.launches + ln.launches_f32 - sum(before)
+        sites = inventory.prompt_sites(mod.text_encoder.config, mod.text_encoder_2.config,
+                                       ids_1.shape[0])
+        want = 0 if flags.FLAGS.plain_versions else sum(inventory.kernel_calls(sites).values())
+        if got != want:
+            raise AssertionError(f"a prompt encoding of {ids_1.shape[0]} launched the LayerNorm "
+                                 f"kernel {got} times, the inventory {want}")
+        ln.launches, ln.launches_f32 = before
+        return out
+
+    stages.encode_prompt = encode_prompt
+
+
+@contextlib.contextmanager
+def plain_layer_norms_on_card(what: str):
+    """The body must run no LayerNorm on the card outside the kernel's gate
+    (``profiling`` counter ``layer_norm.plain_on_card``)."""
+    from fastedit_tpu_torch.utils import profiling
+
+    before = profiling.counters().get("layer_norm.plain_on_card", 0)
+    yield
+    plain = profiling.counters().get("layer_norm.plain_on_card", 0) - before
+    log(f"{what}: {plain} LayerNorm calls on the card outside the kernel's gate")
+    if plain:
+        raise AssertionError(f"{what}: {plain} LayerNorm calls took the plain version on the card")
 
 
 def check_image(img) -> None:
@@ -1523,7 +1663,7 @@ def main_path(calls: dict):
     if len(edit_captures(editor)) != 2:
         raise AssertionError(f"the profiled replays captured another key: {list(keys)}")
     prompt = prompt_encode_times(editor)
-    if launch_counts() != launches:
+    if launch_counts() != launches:  # the LayerNorm's, inventoried, are taken off
         raise AssertionError("encoding prompts launched a kernel of the port")
     no_sync = prepare_without_a_sync(editor, images)
     return editor, dict(no_sync_prepare=no_sync, 
@@ -3526,6 +3666,8 @@ KERNELS = {  # name: (source, TPU kernel it replaces: file:line of pallas_call)
     # Canny prepare; in the JAX package XLA (canny_jax's stencil and its
     # while_loop hysteresis), no pallas_call
     "canny_prepare": ("fastedit_tpu_torch/csrc/canny.cu", "fastedit_tpu/ops/canny.py:140"),
+    # LayerNorm; in the JAX package plain jnp that XLA fuses, no pallas_call
+    "layer_norm": ("fastedit_tpu_torch/csrc/layer_norm.cu", "fastedit_tpu/models/layers.py:106"),
 }
 # The fp32 instances (the quality mode's path, phase 8), each replacing the same
 # TPU kernel as its bf16 twin: every conv form and both attention kernels run
@@ -3592,7 +3734,7 @@ def kernel_summary(rows: list, main: dict) -> list:
     return out
 
 
-COMPARES = ("conv", "fused", "up2", "down2", "group_norm", "attention", "canny")
+COMPARES = ("conv", "fused", "up2", "down2", "group_norm", "attention", "canny", "layer_norm")
 
 
 def main(argv=None) -> int:
@@ -3666,6 +3808,7 @@ def main(argv=None) -> int:
     log("[2] kernels vs plain versions at the main path's shapes")
     t = time.perf_counter()
     calls = kernel_shapes()
+    account_prompt_launches()
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.only:  # a part of phase 2 alone, for work on one kernel
         rows, phase11 = [], None
@@ -3692,7 +3835,7 @@ def main(argv=None) -> int:
         return 0
     rows = []
     for compare in (compare_conv, compare_fused, compare_up2, compare_down2,
-                    compare_group_norm, compare_attention, compare_canny):
+                    compare_group_norm, compare_attention, compare_canny, compare_layer_norm):
         rows += compare(calls, gen)
         torch.cuda.empty_cache()
     host = host_us_per_launch(calls, gen)
@@ -3701,13 +3844,14 @@ def main(argv=None) -> int:
         f"the bf16 rows took {phase2_s:.1f} s")
     t = time.perf_counter()
     for compare in (compare_conv, compare_fused, compare_up2, compare_down2,
-                    compare_group_norm, compare_attention, compare_canny):
+                    compare_group_norm, compare_attention, compare_canny, compare_layer_norm):
         rows += compare(calls, gen, torch.float32)
         torch.cuda.empty_cache()
     phase2_f32_s = time.perf_counter() - t
 
     log("[3] main path: FastEditor('ssd-1b', random_weights=True) at 1024², on CUDA graphs")
-    editor, main = main_path(calls)
+    with plain_layer_norms_on_card("phase 3, the bf16 main path"):
+        editor, main = main_path(calls)
 
     log("[4] kernels vs plain versions end to end, seeded weights")
     e2e = kernels_vs_plain(editor, calls)
@@ -3746,7 +3890,8 @@ def main(argv=None) -> int:
 
     log("[8] the fp32 path: FastEditor('ssd-1b', random_weights=True, use_full_precision=True) "
         "at 1024², on CUDA graphs; then quality mode")
-    phase8 = f32_path(calls, card)
+    with plain_layer_norms_on_card("phase 8, the fp32 path"):
+        phase8 = f32_path(calls, card)
 
     log("[10] the conformance tool on the card, then its planted fault")
     phase10 = conformance_on_card(card)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from fastedit_tpu_torch import ops
 from fastedit_tpu_torch.ops.groupnorm import group_norm_scale_shift
+from fastedit_tpu_torch.ops.layer_norm import layer_norm
 
 
 def timestep_embedding(
@@ -91,7 +92,8 @@ class GroupNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with fp32 statistics, output cast back to the input dtype."""
+    """Parameter holder over ``ops/layer_norm.layer_norm`` (last dim, fp32 statistics,
+    output cast back to the input dtype)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -100,11 +102,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = (xf - mean).square().mean(dim=-1, keepdim=True)
-        out = (xf - mean) * torch.rsqrt(var + self.eps)
-        return (out * self.weight.float() + self.bias.float()).to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, eps=self.eps)
 
 
 def cast_model(model: nn.Module, device, dtype) -> nn.Module:

@@ -54,6 +54,9 @@ KERNELS = {
                ("group_norm_stats", [_P] * 6 + [_I] * 10 + [ctypes.c_float, _P]),
                ("group_norm", [_P] * 6 + [_I] * 10 + [ctypes.c_float, _I, _P]))},
     },
+    # LayerNorm over the last dim (ops/layer_norm.py): bf16 and fp32 entries
+    "layer_norm": {f"layer_norm_{dtype}": [_P] * 4 + [_I] * 2 + [ctypes.c_float, _P]
+                   for dtype in ("bf16", "f32")},
     # the fp32 (quality mode) kernels, on the tensor cores: 3xTF32 wgmma
     "conv3x3_tf32x3": {
         "conv3x3_tf32x3_geometry": [_I, _I, _I],  # returns bytes or a count

@@ -1,5 +1,5 @@
-"""Every conv, GroupNorm, attention and Canny call of one edit, by stage,
-from the model configs alone, and the kernel each one reaches.
+"""Every conv, GroupNorm, attention, LayerNorm and Canny call of one edit, by
+stage, from the model configs alone, and the kernel each one reaches.
 
 :func:`edit_sites` lists the calls as (stage, op, key) with their counts:
 
@@ -13,6 +13,9 @@ from the model configs alone, and the kernel each one reaches.
 * ``("gn", (N, H, W, C, groups, act))``: any other GroupNorm (``conv_norm_out``,
   the transformers' and the VAE attention's);
 * ``("attn", (B, Sq, Skv, heads, head_dim))``;
+* ``("ln", (N, S, C))``: a LayerNorm over rows of C values, three in each
+  transformer block (:func:`prompt_sites` lists the CLIP text towers', two in
+  each layer and the final one, for one call of the prompt encoder);
 * ``("canny", (B, H, W))``: Canny prepare, once per edit in its own stage
   (``"prepare"``, outside the kernel contexts), on the card one launch of
   the Canny kernel (``ops/canny.prepare``).
@@ -37,17 +40,18 @@ from collections import Counter
 
 import torch
 
-from fastedit_tpu_torch.models.configs import ControlNetConfig, UNetConfig, VAEConfig
+from fastedit_tpu_torch.models.configs import (
+    CLIPTextConfig, ControlNetConfig, UNetConfig, VAEConfig)
 from fastedit_tpu_torch.models.unet import skip_channels
 from fastedit_tpu_torch.ops import canny, conv3x3, conv_fused, flags
 from fastedit_tpu_torch.ops import flash_attention as fa
-from fastedit_tpu_torch.ops import fused_groupnorm
+from fastedit_tpu_torch.ops import fused_groupnorm, layer_norm
 
 TEXT_TOKENS = 77
 TRANSFORMER_GROUPS = 32
 BF16_KERNELS = ("conv3x3", "conv3x3_fused", "conv3x3_up2", "conv3x3_down2", "group_norm",
                 "group_norm_scale_shift", *(f"flash_attention_d{d}" for d in fa.HEAD_DIMS),
-                "canny_prepare")
+                "canny_prepare", "layer_norm")
 F32_SUFFIX = "_f32"
 KERNELS = (*BF16_KERNELS, *(k + F32_SUFFIX for k in BF16_KERNELS))
 
@@ -59,6 +63,7 @@ def _transformer(s, n, hw, ch, heads, depth):
     s[("gn", (n, hw, hw, ch, TRANSFORMER_GROUPS, None))] += 1
     s[("attn", (n, hw * hw, hw * hw, heads, d))] += depth  # self-attention
     s[("attn", (n, hw * hw, TEXT_TOKENS, heads, d))] += depth  # cross-attention
+    s[("ln", (n, hw * hw, ch))] += 3 * depth
 
 
 def unet_sites(cfg: UNetConfig, n: int, lat: int, decoder: bool = True) -> Counter:
@@ -175,6 +180,16 @@ def edit_sites(unet_cfg: UNetConfig, cn_cfg: ControlNetConfig, vae_cfg: VAEConfi
     return s
 
 
+def prompt_sites(te1: CLIPTextConfig, te2: CLIPTextConfig, n: int) -> Counter:
+    """One call of the prompt encoder on ``n`` (padded) prompts, both CLIP
+    text towers: every layer runs (the penultimate state is read before the
+    last), then the final LayerNorm."""
+    s = Counter()
+    for cfg in (te1, te2):
+        s[("prompts", "ln", (n, TEXT_TOKENS, cfg.hidden_size))] += 2 * cfg.num_layers + 1
+    return s
+
+
 def edit_calls(*args, **kwargs):
     """(conv, attention) Counters of every 3x3 stride-1 conv, keyed (N, H,
     W, Cin, Cout) (an upsampler's at its 2x input), and every attention
@@ -217,7 +232,8 @@ def route(op: str, key: tuple) -> list:
     ``group_norm_scale_shift`` (N, H, W, C, groups) of its prologue;
     ``conv3x3_up2`` as the site; ``conv3x3_down2`` as the site;
     ``group_norm`` as a "gn" site; ``flash_attention_d<D>`` as the site;
-    ``canny_prepare`` as a "canny" site (no flag gates it)."""
+    ``canny_prepare`` as a "canny" site and ``layer_norm`` as an "ln" site
+    (no flag gates either)."""
     if op == "conv":
         return _conv(key)
     if op == "resnet":
@@ -251,6 +267,8 @@ def route(op: str, key: tuple) -> list:
         return []
     if op == "canny":
         return [("canny_prepare", key)]
+    if op == "ln":
+        return [("layer_norm", key)] if layer_norm.supports(key[-1]) else []
     raise ValueError(f"unknown op {op!r}")
 
 
@@ -295,7 +313,8 @@ def launch_counts() -> dict:
               "group_norm_scale_shift_f32": fused_groupnorm.scale_shift_launches_f32,
               **{f"flash_attention_d{d}": n for d, n in fa.launches.items()},
               **{f"flash_attention_d{d}_f32": n for d, n in fa.launches_f32.items()},
-              **canny.launches}
+              **canny.launches,
+              "layer_norm": layer_norm.launches, "layer_norm_f32": layer_norm.launches_f32}
     return {k: counts[k] for k in KERNELS}
 
 
@@ -303,6 +322,7 @@ def reset_launch_counts() -> None:
     conv3x3.launches = conv3x3.launches_f32 = 0
     fused_groupnorm.launches = fused_groupnorm.launches_f32 = 0
     fused_groupnorm.scale_shift_launches = fused_groupnorm.scale_shift_launches_f32 = 0
+    layer_norm.launches = layer_norm.launches_f32 = 0
     for counts in (conv_fused.launches, fa.launches, fa.launches_f32, canny.launches):
         for k in counts:
             counts[k] = 0

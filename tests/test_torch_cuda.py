@@ -18,7 +18,11 @@ bias and skip, the upsample conv's five main-path shapes, both down2 paddings,
 Cin 96, all four stride-2 channel tiles and odd-sized inputs; for the GroupNorm kernel and its
 statistics launch alone, a large mean offset, 2560 channels (one pixel per block row), schedules
 for other SM counts (one chunk through the whole ring, more chunks than a warp merges at once),
-the same bits twice and under a CUDA graph's replays; the upsample conv on weights folded once;
+the same bits twice and under a CUDA graph's replays; the LayerNorm kernel at the sweep's, an
+edit's, both CLIP towers' and tiny shapes in bf16 and fp32 (one launch, the same bits twice, a
+large mean, a CUDA graph's replays, its refusals, a strided row view copied for it, the plain
+version outside its gate counted);
+the upsample conv on weights folded once;
 the Canny kernel's entries (prepare, the front and the hysteresis) bit for bit against their
 plain versions and a flood fill, at sizes that are no multiple of their tile, on the stress
 masks of ``tools/conformance.py`` and a 1024² serpentine (with the unions across tile edges
@@ -51,12 +55,14 @@ import pytest
 import torch
 
 from chip_smoke import (ATTN_ABS_OF_RMS, ATTN_REL, CONV_ABS_OF_MAX, CONV_REL, F32_ABS_OF_MAX,
-                        F32_ATTN_ABS_OF_RMS, F32_REL, F64_GATE)
+                        F32_ATTN_ABS_OF_RMS, F32_REL, F64_GATE, GN_OFFSET, GN_SPIKE,
+                        GN_SPIKE_RATE)
 from fastedit_tpu_torch.ops import canny as cn
 from fastedit_tpu_torch.ops import conv3x3 as k
 from fastedit_tpu_torch.ops import conv_fused as cf
 from fastedit_tpu_torch.ops import flash_attention as fa
 from fastedit_tpu_torch.ops import fused_groupnorm as fg
+from fastedit_tpu_torch.ops import layer_norm as ln
 from fastedit_tpu_torch.ops.groupnorm import group_norm_plain, group_norm_scale_shift_plain
 
 pytestmark = pytest.mark.cuda
@@ -719,6 +725,125 @@ def test_canny_prepare_under_graph_replays_and_without_a_sync(gen):
         want = cn.prepare_plain(img, new_lo, new_hi, torch.bfloat16)
         torch.cuda.synchronize()
         assert torch.equal(control, want[0]) and torch.equal(vae_in, want[1]), (low, high)
+
+
+# ------------------------------------------------------------- LayerNorm
+
+
+LN_SHAPES = [(8, 4096, 640), (8, 1024, 1280), (2, 4096, 640), (4, 77, 768), (4, 77, 1280),
+             (3, 5, 32), (1, 9, 136), (5, 2048), (3, 1, 1000)]  # the sweep's, an edit's, both
+# CLIP towers', tiny ones, the widest row (8 warps a row in fp32), a row count no block divides
+
+
+def _ln_inputs(gen, shape, dtype, offset=0.5):
+    x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + offset).to(dtype)
+    gamma = torch.randn(shape[-1], generator=gen, device="cuda") * 0.5 + 1.0
+    beta = torch.randn(shape[-1], generator=gen, device="cuda") * 0.2
+    return x, gamma, beta
+
+
+def _ln_close(out, ref):
+    if out.dtype == torch.float32:
+        return _f32_close(out, ref)
+    _assert_close(out, ref, CONV_REL, CONV_ABS_OF_MAX * float(ref.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", LN_SHAPES, ids=str)
+def test_layer_norm_kernel_matches_plain(gen, shape, dtype):
+    """The kernel against its plain version, one launch a call, and the same
+    bits twice (its sums run in a fixed order)."""
+    x, gamma, beta = _ln_inputs(gen, shape, dtype)
+    before = (ln.launches, ln.launches_f32)
+    out = ln.fused_layer_norm(x, gamma, beta, 1e-5)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == x.shape
+    after = (ln.launches, ln.launches_f32)
+    assert sum(after) == sum(before) + 1 and (after[1] > before[1]) == (dtype == torch.float32)
+    _ln_close(out, ln.layer_norm_plain(x, gamma, beta, 1e-5))
+    assert torch.equal(out, ln.fused_layer_norm(x, gamma, beta, 1e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("c", [640, 1280])
+def test_layer_norm_kernel_keeps_a_large_mean_two_pass(gen, c, dtype):
+    """``chip_smoke.py``'s |mean| >> std input (384, one value in 512 at 386),
+    on which a one-pass variance is noise."""
+    _, gamma, beta = _ln_inputs(gen, (c,), dtype)
+    spikes = torch.rand((2, 256, c), generator=gen, device="cuda") < GN_SPIKE_RATE
+    x = (GN_OFFSET + GN_SPIKE * spikes.float()).to(dtype)
+    _ln_close(ln.fused_layer_norm(x, gamma, beta, 1e-6), ln.layer_norm_plain(x, gamma, beta, 1e-6))
+
+
+def test_layer_norm_kernel_under_graph_replays_equals_eager(gen):
+    """Captured once, replayed on new inputs: the eager call's bits."""
+    x, gamma, beta = _ln_inputs(gen, (2, 1024, 1280), torch.bfloat16)
+    static = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ln.fused_layer_norm(static, gamma, beta)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ln.fused_layer_norm(static, gamma, beta)
+    for _ in range(3):
+        new = torch.randn(static.shape, generator=gen, device="cuda").bfloat16()
+        static.copy_(new)
+        graph.replay()
+        want = ln.fused_layer_norm(new, gamma, beta)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def test_layer_norm_wrapper_raises_outside_its_contract(gen):
+    x, gamma, beta = _ln_inputs(gen, (4, 640), torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ln.fused_layer_norm(x.t().contiguous().t(), gamma, beta)
+    flat = torch.empty(4 * 640 + 1, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        ln.fused_layer_norm(flat[1:].view(4, 640), gamma, beta)
+    with pytest.raises(ValueError, match="rows of 12"):
+        ln.fused_layer_norm(torch.zeros(4, 12, device="cuda", dtype=torch.bfloat16),
+                            torch.ones(12, device="cuda"), torch.zeros(12, device="cuda"))
+    with pytest.raises(ValueError, match="weight and bias"):
+        ln.fused_layer_norm(x, gamma.cpu(), beta)
+    with pytest.raises(ValueError, match="weight and bias"):
+        ln.fused_layer_norm(x, gamma[:320], beta)
+    with pytest.raises(TypeError, match="layer_norm"):
+        ln.fused_layer_norm(x.half(), gamma, beta)
+
+
+def test_layer_norm_takes_a_strided_row_view_through_the_kernel(gen):
+    """The CLIP vision tower normalises its class token, ``x[:, 0]``: the
+    dispatcher copies the strided rows and launches the kernel."""
+    x, gamma, beta = _ln_inputs(gen, (4, 257, 768), torch.bfloat16)
+    tokens = x[:, 0]
+    assert not tokens.is_contiguous()
+    launches = ln.launches
+    out = ln.layer_norm(tokens, gamma, beta)
+    assert ln.launches == launches + 1
+    _ln_close(out, ln.layer_norm_plain(tokens, gamma, beta))
+    flat = torch.empty(2 * 768 + 8, device="cuda", dtype=torch.bfloat16)
+    shifted = flat[1:1 + 2 * 768].view(2, 768)  # contiguous, off a 16-byte boundary
+    shifted.copy_(x[:2, 1])
+    _ln_close(ln.layer_norm(shifted, gamma, beta), ln.layer_norm_plain(shifted, gamma, beta))
+    assert ln.launches == launches + 2
+
+
+def test_layer_norm_outside_the_gate_runs_plain_and_is_counted(gen):
+    from fastedit_tpu_torch.utils import profiling
+
+    before = profiling.counters().get("layer_norm.plain_on_card", 0)
+    launches = ln.launches
+    x = torch.randn(3, 12, device="cuda", dtype=torch.bfloat16)
+    w, b = torch.ones(12, device="cuda"), torch.zeros(12, device="cuda")
+    assert torch.equal(ln.layer_norm(x, w, b), ln.layer_norm_plain(x, w, b))
+    assert profiling.counters()["layer_norm.plain_on_card"] == before + 1
+    x, gamma, beta = _ln_inputs(gen, (2, 77, 768), torch.bfloat16)
+    ln.layer_norm(x, gamma, beta)
+    assert ln.launches == launches + 1
+    assert profiling.counters()["layer_norm.plain_on_card"] == before + 1
 
 
 # ------------------------------------------------------ the editor's graphs

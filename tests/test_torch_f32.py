@@ -48,7 +48,8 @@ from fastedit_tpu_torch.ops import flash_attention as fa
 from fastedit_tpu_torch.ops import fused_groupnorm as fg
 from fastedit_tpu_torch.ops.groupnorm import group_norm_plain
 from fastedit_tpu_torch.tools import inventory
-from test_torch_fused import KERNEL_FUNCS, _count_calls, _jax_stage_overrides, _on_tpu
+from test_torch_fused import (KERNEL_FUNCS, _count_calls, _jax_stage_overrides, _on_tpu,
+                              count_prompt_encodes, tiny_sites)
 from test_torch_pipeline import _img
 
 TOL = dict(rtol=2e-4, atol=2e-4)  # the repo's golden tolerance, fp32
@@ -477,7 +478,7 @@ def test_fp32_routes_every_jax_kernel_call_and_only_the_vmem_refusals_more():
     jax_calls, refused = Counter(), Counter()
     with _on_tpu():
         for (stage, op, key), count in sites.items():
-            if op == "canny":  # the JAX package computes Canny in XLA: no Pallas call
+            if op in ("canny", "ln"):  # the JAX package computes both in XLA: no Pallas call
                 continue
             with tflags.stage(stage), jflags.override(**_jax_stage_overrides(stage)):
                 j4, j2 = Counter(_jax_route(op, key, 4)), Counter(_jax_route(op, key, 2))
@@ -498,7 +499,7 @@ def test_fp32_routes_every_jax_kernel_call_and_only_the_vmem_refusals_more():
         "conv3x3_f32": 144, "conv3x3_fused_f32": 28, "conv3x3_up2_f32": 9,
         "conv3x3_down2_f32": 13, "group_norm_f32": 195, "group_norm_scale_shift_f32": 28,
         "flash_attention_d64_f32": 102, "flash_attention_d512_f32": 2,
-        "canny_prepare_f32": 1}
+        "canny_prepare_f32": 1, "layer_norm_f32": 306}
     bf16 = inventory.launches_by_kernel(inventory.kernel_calls(sites))
     assert all(bf16[name] == f32[name + inventory.F32_SUFFIX] for name in inventory.BF16_KERNELS)
 
@@ -515,13 +516,14 @@ def test_inventory_f32_counts_equal_the_fp32_editors_calls(monkeypatch):
     ted = FastEditor("tiny", device="cpu", use_full_precision=True, init_seed=3)
     assert ted.dtype == F32 and all(p.dtype == F32 for p in ted.modules.unet.parameters())
     calls = _count_calls(monkeypatch, KERNEL_FUNCS)
+    encodes = count_prompt_encodes(monkeypatch)
     ted.edit(_img(3), "a harbor", seed=2)
-    expected = inventory.launches_by_kernel(inventory.kernel_calls(inventory.edit_sites(
-        TC.TINY_UNET, TC.TINY_CONTROLNET, TC.TINY_VAE, 64, batch=1, steps=3,
-        control_res=ted._control_res), dtype=F32))
+    expected = inventory.launches_by_kernel(inventory.kernel_calls(
+        tiny_sites(ted._control_res, encodes), dtype=F32))
     suffix = inventory.F32_SUFFIX
     assert {name[:-len(suffix)]: n for name, n in expected.items() if n} == dict(calls)
     assert calls["conv3x3"] and calls["conv3x3_up2"] and calls["group_norm"]
+    assert encodes == [2] and calls["layer_norm"]
 
 
 def test_the_fp32_editor_runs_without_tf32_and_restores_it():

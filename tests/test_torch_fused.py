@@ -41,6 +41,8 @@ from fastedit_tpu_torch.ops import conv_fused as tcf
 from fastedit_tpu_torch.ops import flags as tflags
 from fastedit_tpu_torch.ops import flash_attention as tfa
 from fastedit_tpu_torch.ops import fused_groupnorm as tgn
+from fastedit_tpu_torch.ops import layer_norm as tln
+from fastedit_tpu_torch.pipeline import stages as tstages
 from fastedit_tpu_torch.tools import from_jax, inventory
 from test_torch_pipeline import _assert_within_1_lsb, _img, carried_editors
 
@@ -414,7 +416,32 @@ KERNEL_FUNCS = {  # the wrappers the dispatchers look up, by inventory name
     "group_norm_scale_shift": (tgn, "group_norm_scale_shift"),
     "flash_attention_d64": (tfa, "flash_attention"),
     "canny_prepare": (tcanny, "prepare"),
+    "layer_norm": (tln, "fused_layer_norm"),
 }
+
+
+def count_prompt_encodes(monkeypatch) -> list:
+    """The padded prompt count of each call of the prompt encoder (the CLIP
+    towers' LayerNorms run once per call), in order."""
+    counts = []
+    real = tstages.encode_prompt
+
+    def rec(mod, ids_1, ids_2):
+        counts.append(ids_1.shape[0])
+        return real(mod, ids_1, ids_2)
+
+    monkeypatch.setattr(tstages, "encode_prompt", rec)
+    return counts
+
+
+def tiny_sites(control_res: int, encodes: list) -> Counter:
+    """The tiny editor's sites of one edit, with the prompt encoder's calls
+    ``encodes`` (:func:`count_prompt_encodes`)."""
+    sites = inventory.edit_sites(TC.TINY_UNET, TC.TINY_CONTROLNET, TC.TINY_VAE, 64, batch=1,
+                                 steps=3, control_res=control_res)
+    for n in encodes:
+        sites += inventory.prompt_sites(TC.TINY_TEXT_ENCODER, TC.TINY_TEXT_ENCODER_2, n)
+    return sites
 
 
 @pytest.mark.parametrize("config", [{}, {"use_fused_resnet": True, "use_cuda_groupnorm": True}],
@@ -424,16 +451,17 @@ def test_inventory_kernel_calls_equal_the_tiny_editors(editors, monkeypatch, con
     to it, in the default configuration and with the opt-in fusions (which
     move the UNet's resnets to the fused conv, their norms to the
     GroupNorm kernel's statistics launch and the other norms to the GroupNorm
-    kernel)."""
+    kernel); the LayerNorms of the prompt encoder's calls, if any, count too."""
     _, ted = editors
     calls = _count_calls(monkeypatch, KERNEL_FUNCS)
+    encodes = count_prompt_encodes(monkeypatch)
     with tflags.override(**config):
         ted.edit(_img(5), "a boat", seed=1)
-        expected = inventory.launches_by_kernel(inventory.kernel_calls(inventory.edit_sites(
-            TC.TINY_UNET, TC.TINY_CONTROLNET, TC.TINY_VAE, 64, batch=1, steps=3,
-            control_res=ted._control_res)))
+        expected = inventory.launches_by_kernel(inventory.kernel_calls(
+            tiny_sites(ted._control_res, encodes)))
     assert {k: v for k, v in expected.items() if v} == dict(calls)
     assert calls["conv3x3"] and calls["conv3x3_up2"] and calls["conv3x3_down2"]
+    assert calls["layer_norm"]
     if config:
         assert (calls["conv3x3_fused"] and calls["group_norm"]
                 and calls["group_norm_scale_shift"])
