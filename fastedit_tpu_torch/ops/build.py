@@ -76,6 +76,8 @@ KERNELS = {
            for name, ptrs in (("canny_prepare", 7), ("canny_front", 6),
                               ("canny_hysteresis", 4))},
     },
+    # a device timestamp for the program's tracing (ops/stamp.py)
+    "stamp": {"device_stamp": [_P, _I, _P]},
     "flash_attention_tf32x3": {
         "flash_d64_tf32x3_geometry": [_I],  # returns a tile size, a count or bytes
         "flash_d512_tf32x3_geometry": [_I],

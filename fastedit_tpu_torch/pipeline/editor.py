@@ -41,7 +41,9 @@ prompts (``facade.tokenize`` inside), ``facade.inputs``, the graphs layer's
 the copy), then on the reading thread ``facade.readback`` with
 ``facade.readback_wait`` and ``facade.to_pil`` inside.  Once read back, the
 CUDA events around each stage give one ``stage.<name>`` record per stage:
-its device ns in ``device_ns``, with ``edit`` and ``rows``.
+its device ns in ``device_ns``, with ``edit`` and ``rows``; on the card the
+denoise stage's stamps (``pipeline/stages.denoise_split``) give two more,
+``stage.denoise.controlnet`` and ``stage.denoise.unet``, with the same ids.
 """
 
 from __future__ import annotations
@@ -155,13 +157,26 @@ class StageTimes:
     """One edit's device time by stage: entered as ``timed(name)`` around
     each stage (prompt encoding, prepare, VAE encode, denoise, VAE decode:
     an eager stage or its graph's replay), it records a pair of CUDA events
-    (nothing off the card); :meth:`read` gives device ms by stage and, the
-    first time, writes the ``stage.<name>`` records."""
+    (nothing off the card); :meth:`keep_marks` copies the denoise stage's
+    stamps out behind it; :meth:`read` gives device ms by stage and, the
+    first time, writes the ``stage.<name>`` records, and from the stamps
+    ``stage.denoise.controlnet`` and ``stage.denoise.unet``."""
 
     def __init__(self, edit: Optional[int] = None, cuda: bool = False):
         self.edit, self.rows, self.cuda = edit, 0, cuda
         self.events: list = []  # (name, start, end)
+        self.marks: Optional[tuple] = None  # (pinned host copy of the stamps, its event)
         self.ms: Optional[dict] = None
+
+    def keep_marks(self, marks: torch.Tensor) -> None:
+        """Copy the denoise stage's stamps (``stages.denoise``'s ``marks``)
+        into pinned memory on the current stream, before a later replay can
+        overwrite them."""
+        host = torch.empty(marks.shape, dtype=marks.dtype, pin_memory=True)
+        host.copy_(marks, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        self.marks = (host, event)
 
     @contextlib.contextmanager
     def __call__(self, name: str):
@@ -188,6 +203,14 @@ class StageTimes:
             for name, v in ms.items():
                 profiling.record("stage." + name, now, now, edit=self.edit, rows=self.rows,
                                  device_ns=round(v * 1e6))
+            if self.marks is not None:
+                host, event = self.marks
+                if wait:
+                    event.synchronize()
+                split = stages.denoise_split(host.tolist())
+                for name, ns in zip(("controlnet", "unet"), split):
+                    profiling.record("stage.denoise." + name, now, now, edit=self.edit,
+                                     rows=self.rows, device_ns=ns)
         return self.ms
 
 

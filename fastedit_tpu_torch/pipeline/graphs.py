@@ -69,13 +69,26 @@ Spans (``utils/profiling.py``), each with the edit's id: ``graphs.lookup``
 (room made, ``graphs.warmup`` for the eager run, the capture), then
 ``graphs.copy_inputs`` and one ``graphs.replay`` per stage (``stage`` in its
 ids); counters ``graphs.captures`` and ``graphs.evictions`` (keys dropped
-past the cap, for memory, or because a weight changed).
+past the cap, for memory, or because a weight changed); at each capture a
+``graphs.kernels`` record per graph: its kernel nodes (``kernels``), with
+``stage`` and the key's ``batch``, ``cfg`` and ``steps`` (a prompt graph's
+``padded``), counted in the graph as its capture ends (:func:`capturing_graph`,
+:func:`kernel_nodes`).
+
+The denoise stage stamps the card's clock at each step's ControlNet start,
+UNet start and UNet end (``stages.denoise``'s ``marks``) into a buffer the
+capture owns (:attr:`Captured.marks`; an eager run on the card makes its
+own).  A replay overwrites it, so after each run the buffer is handed to
+the edit's ``timed`` (its ``keep_marks``), which copies it out on the same
+stream, behind the run and before any later replay.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
+import time
 from collections import OrderedDict
 from typing import Optional
 
@@ -151,11 +164,12 @@ class EditInputs:
             dst.copy_(src)
 
 
-def _stage_fns(mod: stages.PipelineModules, inp: EditInputs, prepared: dict):
+def _stage_fns(mod: stages.PipelineModules, inp: EditInputs, prepared: dict,
+               marks: Optional[torch.Tensor] = None):
     """(name, fn) per stage, in order; each fn takes the previous stage's
     output (prepare's: the VAE input; then the latents) and returns its own.
     Prepare also leaves its outputs in ``prepared``, where denoise reads the
-    control image."""
+    control image; denoise stamps ``marks`` where given."""
     def prepare(_):
         prepared["control"], prepared["vae_in"] = stages.prepare(
             mod, inp.images, inp.canny_low, inp.canny_high, inp.control_res)
@@ -167,9 +181,25 @@ def _stage_fns(mod: stages.PipelineModules, inp: EditInputs, prepared: dict):
         ("denoise", lambda latents: stages.denoise(
             mod, latents, inp.context, inp.pooled, inp.time_ids, prepared["control"],
             inp.schedule, inp.guidance, inp.controlnet_scale, inp.noise_init, inp.step_noise,
-            inp.do_cfg)),
+            inp.do_cfg, marks)),
         ("vae_decode", lambda latents: stages.vae_decode(mod, latents)),
     )
+
+
+def _marks(inp: EditInputs) -> Optional[torch.Tensor]:
+    """A buffer for the denoise stage's stamps on the card; none off it."""
+    if not inp.images.is_cuda:
+        return None
+    return torch.empty(stages.STAMPS_PER_STEP * inp.schedule.num_steps, dtype=torch.int64,
+                       device=inp.images.device)
+
+
+def _keep_marks(timed, marks: Optional[torch.Tensor]) -> None:
+    """Hand a run's stamps to ``timed`` where it keeps them (the editor's
+    ``StageTimes``), to be copied out behind the run."""
+    keep = getattr(timed, "keep_marks", None)
+    if keep is not None and marks is not None:
+        keep(marks)
 
 
 def run_eager(mod: stages.PipelineModules, inp: EditInputs,
@@ -177,11 +207,13 @@ def run_eager(mod: stages.PipelineModules, inp: EditInputs,
     """The four stages op by op; returns (final latents, uint8 images).
     ``timed(name)`` is entered around each stage."""
     x = latents = None
-    for name, fn in _stage_fns(mod, inp, {}):
+    marks = _marks(inp)
+    for name, fn in _stage_fns(mod, inp, {}, marks):
         with timed(name):
             x = fn(x)
         if name == "denoise":
             latents = x
+    _keep_marks(timed, marks)
     return latents, x
 
 
@@ -196,6 +228,8 @@ class Captured:
     pool_bytes: int  # memory the pool reserved for this capture
     # the prepare graph's outputs, "control" and "vae_in" (denoise reads the control)
     prepared: dict = dataclasses.field(default_factory=dict)
+    # the denoise graph's stamps (stages.denoise_split), overwritten by each replay
+    marks: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -274,6 +308,7 @@ class EditGraphs:
         with profiling.span("graphs.copy_inputs", edit=edit):
             cap.inputs.copy_(inp)
         self._replay(cap, timed, edit)
+        _keep_marks(timed, cap.marks)
         return cap.latents, cap.out
 
     def encode_prompts(self, key: tuple, ids_1: torch.Tensor, ids_2: torch.Tensor,
@@ -319,24 +354,28 @@ class EditGraphs:
                 self.pool = None  # no graph uses the pool: empty_cache may release it
 
     def _capture(self, inp: EditInputs) -> Captured:
-        static, prepared = inp.clone(), {}
+        static, prepared, marks = inp.clone(), {}, _marks(inp)
         graphs, outs, pool_bytes = self._capture_chain(
-            static.images.device, _stage_fns(self.mod, static, prepared))
+            static.images.device, _stage_fns(self.mod, static, prepared, marks),
+            dict(batch=inp.images.shape[0], cfg=inp.do_cfg, steps=inp.schedule.num_steps))
         return Captured(static, graphs, outs["denoise"], outs["vae_decode"], pool_bytes,
-                        prepared)
+                        prepared, marks)
 
     def _capture_prompts(self, ids_1: torch.Tensor, ids_2: torch.Tensor) -> PromptCaptured:
         device = self._params[0].device
         ids = (ids_1.to(device), ids_2.to(device))
         graphs, outs, pool_bytes = self._capture_chain(
-            device, (("encode_prompt", lambda _: stages.encode_prompt(self.mod, *ids)),))
+            device, (("encode_prompt", lambda _: stages.encode_prompt(self.mod, *ids)),),
+            dict(padded=ids_1.shape[0]))
         return PromptCaptured(ids, graphs, *outs["encode_prompt"], pool_bytes)
 
-    def _capture_chain(self, device: torch.device, fns) -> tuple[dict, dict, int]:
+    def _capture_chain(self, device: torch.device, fns, key_ids: dict
+                       ) -> tuple[dict, dict, int]:
         """Run ``fns`` ((name, fn) pairs, each fn taking the previous one's
         output) once eagerly on the capture stream, the warm-up, then capture
-        each as a graph on the shared pool; returns (graphs by name, outputs
-        by name, the bytes the pool grew by)."""
+        each as a graph on the shared pool, recording its kernel nodes with
+        ``key_ids``; returns (graphs by name, outputs by name, the bytes the
+        pool grew by)."""
         if self._side is None:
             self._side = torch.cuda.Stream(device=device)
         side = self._side
@@ -358,9 +397,79 @@ class EditGraphs:
             with torch.cuda.graph(graph, pool=self.pool, stream=side,
                                   capture_error_mode="thread_local"):
                 x = fn(x)
+                # counted in the graph being built: with the graph kept past its
+                # capture (CUDAGraph(keep_graph=True)) instead, served requests'
+                # median latency read 5-10% higher on an H100
+                kernels = kernel_nodes(capturing_graph(side.cuda_stream))
+            t = time.perf_counter_ns()
+            profiling.record("graphs.kernels", t, t, stage=name, kernels=kernels, **key_ids)
             graphs[name], outs[name] = graph, x
         torch.cuda.current_stream().wait_stream(side)
         return graphs, outs, torch.cuda.memory_reserved() - reserved
+
+
+# CUgraphNodeType (cuda.h): a kernel, and a child graph whose nodes count too;
+# CU_STREAM_CAPTURE_STATUS_ACTIVE
+_KERNEL_NODE, _CHILD_GRAPH_NODE = 0, 4
+_CAPTURE_ACTIVE = 1
+_libcuda: Optional[ctypes.CDLL] = None
+
+
+def _load_libcuda() -> ctypes.CDLL:
+    global _libcuda
+    if _libcuda is None:
+        lib = ctypes.CDLL("libcuda.so.1")
+        p, size = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)
+        for fn, args in (("cuStreamGetCaptureInfo_v2", [p, ctypes.POINTER(ctypes.c_int), p,
+                                                        ctypes.POINTER(p), p, p]),
+                         ("cuGraphGetNodes", [p, ctypes.POINTER(p), size]),
+                         ("cuGraphNodeGetType", [p, ctypes.POINTER(ctypes.c_int)]),
+                         ("cuGraphChildGraphNodeGetGraph", [p, ctypes.POINTER(p)])):
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = args, ctypes.c_int
+        _libcuda = lib
+    return _libcuda
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUresult {err}")
+
+
+def capturing_graph(stream: int, lib=None) -> int:
+    """The ``cudaGraph_t`` (a handle as an int) that a capture in progress
+    on ``stream`` (a ``cudaStream_t`` as an int) is building, through
+    libcuda's ``cuStreamGetCaptureInfo``; raises where none is."""
+    cu = _load_libcuda() if lib is None else lib
+    status, graph = ctypes.c_int(0), ctypes.c_void_p()
+    _check(cu.cuStreamGetCaptureInfo_v2(stream, ctypes.byref(status), None, ctypes.byref(graph),
+                                        None, None), "cuStreamGetCaptureInfo")
+    if status.value != _CAPTURE_ACTIVE or not graph.value:
+        raise RuntimeError(f"no capture in progress on stream {stream:#x} (status {status.value})")
+    return graph.value
+
+
+def kernel_nodes(graph: int, lib=None) -> int:
+    """The kernel nodes of a ``cudaGraph_t`` (a handle as an int), child
+    graphs' included, through libcuda's ``cuGraphGetNodes`` and
+    ``cuGraphNodeGetType`` (``lib``, or a stand-in with those calls): the
+    launches one replay makes."""
+    cu = _load_libcuda() if lib is None else lib
+    n = ctypes.c_size_t(0)
+    _check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    count = 0
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        _check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value == _KERNEL_NODE:
+            count += 1
+        elif kind.value == _CHILD_GRAPH_NODE:
+            child = ctypes.c_void_p()
+            _check(cu.cuGraphChildGraphNodeGetGraph(node, ctypes.byref(child)),
+                  "cuGraphChildGraphNodeGetGraph")
+            count += kernel_nodes(child.value, cu)
+    return count
 
 
 def _card_memory(device: torch.device) -> tuple[int, int]:

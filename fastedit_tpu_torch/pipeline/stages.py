@@ -28,12 +28,19 @@ Semantics mirrored from the JAX package:
   * with ``utils/profiling.enable_nan_checks`` on (the editor then runs
     eagerly), each stage's output is checked for NaN and infinity
     (``check_finite``: off, a Python test and no device work).
+
+Given a ``marks`` buffer (int64 [:data:`STAMPS_PER_STEP` x run steps] on the
+card), the denoise loop stamps the card's clock (``ops/stamp.py``) at each
+step's ControlNet start, UNet start and UNet end, eagerly and in a capture
+alike; :func:`denoise_split` turns the stamps into the ControlNet's and the
+UNet's device ns over the steps.  Off the card there is no buffer and no
+stamp.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -44,8 +51,12 @@ from fastedit_tpu_torch.models.unet import UNet2DConditionModel
 from fastedit_tpu_torch.models.vae import AutoencoderKL
 from fastedit_tpu_torch.ops import flags
 from fastedit_tpu_torch.ops import canny
+from fastedit_tpu_torch.ops.stamp import stamp
 from fastedit_tpu_torch.sched.lcm import LCMSchedule, add_noise, lcm_step
 from fastedit_tpu_torch.utils.profiling import check_finite
+
+# stamps a denoise step writes: ControlNet start, UNet start, UNet end
+STAMPS_PER_STEP = 3
 
 
 @dataclasses.dataclass
@@ -144,23 +155,32 @@ def denoise(
     noise_init: torch.Tensor,  # fp32, latents' shape (or batch 1)
     step_noise: Sequence[torch.Tensor],  # one fp32 draw per step
     do_cfg: bool,
+    marks: Optional[torch.Tensor] = None,  # int64 [STAMPS_PER_STEP * steps] on the card
 ) -> torch.Tensor:
     """The LCM loop: ControlNet + UNet under CFG, one LCM step per
-    timestep.  Returns the final latents."""
+    timestep.  Returns the final latents.  With ``marks``, each step stamps
+    the card's clock into it (:func:`denoise_split`)."""
     b = latents.shape[0]
     if do_cfg and context.shape[0] != 2 * b:
         raise ValueError("CFG expects a pair-interleaved [2B] context")
     if len(step_noise) != schedule.num_steps:
         raise ValueError(f"need {schedule.num_steps} step noises, got {len(step_noise)}")
+    if marks is not None and marks.numel() != STAMPS_PER_STEP * schedule.num_steps:
+        raise ValueError(f"need {STAMPS_PER_STEP * schedule.num_steps} stamp slots, got "
+                         f"{marks.numel()}")
     with flags.stage("denoise"):
         return _denoise_body(
             mod, latents, context, pooled, time_ids, control_image, schedule,
-            guidance_scale, controlnet_scale, noise_init, step_noise, do_cfg, b,
+            guidance_scale, controlnet_scale, noise_init, step_noise, do_cfg, b, marks,
         )
 
 
 def _denoise_body(mod, latents, context, pooled, time_ids, control_image, schedule,
-                  guidance_scale, controlnet_scale, noise_init, step_noise, do_cfg, b):
+                  guidance_scale, controlnet_scale, noise_init, step_noise, do_cfg, b, marks):
+    def mark(slot):
+        if marks is not None:
+            stamp(marks, slot)
+
     cn = mod.controlnet
     cond_feat = cn.controlnet_cond_embedding(control_image.to(mod.dtype))
     cond_in = cond_feat.repeat_interleave(2, dim=0) if do_cfg else cond_feat
@@ -168,15 +188,18 @@ def _denoise_body(mod, latents, context, pooled, time_ids, control_image, schedu
     for i in range(schedule.num_steps):
         lat_in = lat.repeat_interleave(2, dim=0) if do_cfg else lat
         t_in = schedule.value("timesteps", i).expand(lat_in.shape[0])
+        mark(STAMPS_PER_STEP * i)
         down_res, mid_res = cn(
             lat_in, t_in, context, pooled, time_ids, cond_in, controlnet_scale,
             cond_pre_embedded=True,
         )
+        mark(STAMPS_PER_STEP * i + 1)
         eps = mod.unet(
             lat_in, t_in, context, pooled, time_ids,
             down_block_additional_residuals=down_res,
             mid_block_additional_residual=mid_res,
         )
+        mark(STAMPS_PER_STEP * i + 2)
         if do_cfg:
             e = eps.reshape(b, 2, *eps.shape[1:])
             eps_u, eps_c = e[:, 0], e[:, 1]
@@ -184,6 +207,17 @@ def _denoise_body(mod, latents, context, pooled, time_ids, control_image, schedu
         lat = lcm_step(schedule, i, lat, eps, step_noise[i].expand_as(lat))
         check_finite("denoise", lat, step=i)
     return lat
+
+
+def denoise_split(stamps_ns: Sequence[int]) -> tuple[int, int]:
+    """(ControlNet ns, UNet ns) summed over the steps, from a denoise run's
+    stamps (``marks`` read back: per step its ControlNet start, UNet start
+    and UNet end)."""
+    s = list(stamps_ns)
+    n = STAMPS_PER_STEP
+    controlnet = sum(s[i + 1] - s[i] for i in range(0, len(s), n))
+    unet = sum(s[i + 2] - s[i + 1] for i in range(0, len(s), n))
+    return controlnet, unet
 
 
 def make_sdxl_time_ids(batch: int, size: int, device=None) -> torch.Tensor:

@@ -47,8 +47,8 @@ def test_the_ports_kernels_share_one_header():
     """The three bf16 kernel libraries include ``hopper.cuh`` (GroupNorm for
     its mbarriers and 1-D bulk copies; its fp32 instances live in the same
     library), the two fp32 tensor-core (3xTF32) libraries ``tf32x3.cuh`` and
-    through it ``hopper.cuh``; the Canny and LayerNorm libraries include
-    neither.  Every C function the wrappers call is declared."""
+    through it ``hopper.cuh``; the Canny, LayerNorm and timestamp libraries
+    include neither.  Every C function the wrappers call is declared."""
     by_name = {n: sorted(p.name for p in build.sources(n)) for n in build.KERNELS}
     assert by_name == {
         "conv3x3": ["conv3x3.cu", "hopper.cuh"],
@@ -58,6 +58,7 @@ def test_the_ports_kernels_share_one_header():
         "flash_attention_tf32x3": ["flash_attention_tf32x3.cu", "hopper.cuh", "tf32x3.cuh"],
         "canny": ["canny.cu"],
         "layer_norm": ["layer_norm.cu"],
+        "stamp": ["stamp.cu"],
     }
     for name, symbols in build.KERNELS.items():
         text = (build.CSRC / f"{name}.cu").read_text()

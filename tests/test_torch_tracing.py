@@ -3,8 +3,10 @@ profiling.py``) on the CPU: records nest and carry their ids in a bounded
 ring; under ``torch.profiler`` every span of an edit lies on the profiler's
 timeline at its record's times moved by the offset, and without one no
 ``record_function`` is entered; the serving records split each request's
-time from submit to settle; the graph cache's counters; and
-``FastEditor.stage_ms()`` reading an edit read back without a wait."""
+time from submit to settle; the graph cache's counters;
+``FastEditor.stage_ms()`` reading an edit read back without a wait; a
+graph's kernel nodes counted on a stand-in libcuda; and, on the card, the
+denoise stage's split kept across a pipelined replay."""
 
 import threading
 import time
@@ -215,3 +217,89 @@ def test_stage_ms_makes_no_wait_once_the_edit_was_read_back(tiny):
     tiny._pending(torch.zeros(1, 2, 2, 3, dtype=torch.uint8), 0, times)
     assert tiny.stage_ms() == {"denoise": 2.5} and len(waits) == 1
     assert tiny.stage_ms() == {"denoise": 2.5} and len(waits) == 1
+
+
+class _LibCuda:
+    """The calls of libcuda that count a graph's kernels, over a table of
+    graphs (handle -> [(node type, child graph handle or None)]) and of
+    streams (handle -> (capture status, the graph it captures into))."""
+
+    def __init__(self, graphs, streams=None):
+        self.graphs, self.nodes, self.streams = graphs, {}, streams or {}
+
+    def cuStreamGetCaptureInfo_v2(self, stream, status, id_out, graph, deps, n_deps):
+        status._obj.value, graph._obj.value = self.streams[stream]
+        return 0
+
+    def cuGraphGetNodes(self, graph, nodes, n):
+        items = self.graphs[graph]
+        if nodes is not None:
+            for i, item in enumerate(items):
+                nodes[i] = 1000 * graph + i + 1
+                self.nodes[nodes[i]] = item
+        n._obj.value = len(items)
+        return 0
+
+    def cuGraphNodeGetType(self, node, kind):
+        kind._obj.value = self.nodes[node][0]
+        return 0
+
+    def cuGraphChildGraphNodeGetGraph(self, node, child):
+        child._obj.value = self.nodes[node][1]
+        return 0
+
+
+def test_kernel_nodes_count_kernels_and_child_graphs_kernels():
+    """A graph of 3 kernels, a memset, an event record and a child graph of 2
+    kernels and a memcpy: 5 kernel nodes; an empty graph has none."""
+    kernel, memcpy, memset, child, record = 0, 1, 2, 4, 7
+    lib = _LibCuda({1: [(kernel, None), (memset, None), (kernel, None), (child, 2),
+                       (record, None), (kernel, None)],
+                   2: [(kernel, None), (memcpy, None), (kernel, None)], 3: []})
+    assert graphs.kernel_nodes(1, lib) == 5
+    assert graphs.kernel_nodes(2, lib) == 2
+    assert graphs.kernel_nodes(3, lib) == 0
+
+
+def test_the_capturing_graph_is_the_streams_capture_in_progress():
+    lib = _LibCuda({}, {0x10: (1, 7), 0x20: (0, None)})
+    assert graphs.capturing_graph(0x10, lib) == 7
+    with pytest.raises(RuntimeError, match="no capture"):
+        graphs.capturing_graph(0x20, lib)
+
+
+@pytest.mark.cuda
+def test_the_denoise_split_survives_a_pipelined_replay():
+    """On the card, two chunks of one key, the second dispatched before the
+    first is read back: each chunk's ``stage.denoise.controlnet`` and
+    ``stage.denoise.unet`` records sum to 90-100% of its ``stage.denoise``
+    record (the rest: the conditioning tower, CFG and the LCM steps), and the
+    first chunk's stamps, read after the second launched, all precede the
+    second's: the copy behind each replay kept its own chunk's.  The capture
+    records its graphs' kernel nodes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    editor = FastEditor("ssd-1b", random_weights=True)
+    imgs = np.random.default_rng(5).integers(0, 255, (2, 1024, 1024, 3), dtype=np.uint8)
+    t = time.perf_counter_ns()
+    editor.edit_batch(imgs, ["a first prompt", "a second one"], seed=1)  # captured
+    kernels = {r.ids["stage"]: r.ids for r in profiling.records("graphs.kernels", t)
+               if "batch" in r.ids}
+    assert set(kernels) == set(graphs.STAGES)
+    assert kernels["denoise"]["batch"] == 2 and kernels["denoise"]["cfg"] is True
+    assert kernels["denoise"]["kernels"] > 1000 and kernels["prepare"]["kernels"] >= 1
+    t = time.perf_counter_ns()
+    first = editor.edit_batch_async(imgs, ["a third prompt", "a fourth"], seed=2)
+    second = editor.edit_batch_async(imgs, ["a fifth prompt", "a sixth"], seed=3)
+    assert len(first.result()) == 2 and len(second.result()) == 2
+    got = {}
+    for r in profiling.records(("stage.denoise", "stage.denoise.controlnet",
+                                "stage.denoise.unet"), t):
+        got.setdefault(r.ids["edit"], {})[r.name] = r.ids["device_ns"]
+    for edit in (first.edit, second.edit):
+        ns = got[edit]
+        share = (ns["stage.denoise.controlnet"] + ns["stage.denoise.unet"]) / ns["stage.denoise"]
+        assert 0.9 <= share <= 1.0, (edit, ns)
+    a = first._parts[0].times.marks[0].tolist()
+    b = second._parts[0].times.marks[0].tolist()
+    assert a == sorted(a) and b == sorted(b) and a[-1] < b[0], (a, b)
