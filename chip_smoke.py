@@ -8,8 +8,8 @@ Run from the repository root, with no arguments:
 It needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda) and
 ``nvidia-smi``; it imports neither JAX nor the JAX package.  With ``--only
 group_norm`` (or ``conv``, ``fused``, ``up2``, ``down2``, ``attention``,
-``canny``, ``layer_norm``; several may be named) it builds the kernels and runs
-those rows of phase 2 alone, bf16 and fp32, into
+``canny``, ``layer_norm``, ``cross_attention``; several may be named) it builds
+the kernels and runs those rows of phase 2 alone, bf16 and fp32, into
 ``chiprun_out/chip_smoke_only.json``, and
 prints no result line; ``--only tensor_parallel`` runs phase 11's two bf16
 arms there, on a new editor with phase 4's seeded weights.  Phases, in
@@ -39,8 +39,13 @@ order; a failed phase raises and the script exits non-zero:
    must reject; every GroupNorm, statistics and LayerNorm call must run one
    device kernel (the profiler counts them).  LayerNorm's rows add the
    benchmark sweep's batch of four and the CLIP towers' shapes, and the share
-   of 3.35 TB/s each reaches.  The rows of the convs, attention and GroupNorm
-   also carry their plan (tiles, grid, shared memory), and the host's microseconds per
+   of 3.35 TB/s each reaches.  The cross-attention kernel (bf16 only) at the
+   UNet's cross shapes, an edit's, a batch of two's and the sweep's batch of
+   four, SSD-1B's and SDXL's calls beside each: one device kernel a call, at
+   most 1% of the elements differing from the plain version, the padded keys
+   left unmasked and P rounded before its sum as planted faults, SDPA as the
+   yardstick and the share of 3.35 TB/s.  The rows of the convs, attention and
+   GroupNorm also carry their plan (tiles, grid, shared memory), and the host's microseconds per
    launch of the stride-1 conv, the stride-2 conv and attention are printed.
    Then the same in fp32 for each kernel's fp32 instance (``<kernel>_f32``)
    at every distinct shape of the fp32 path (an ``edit``, an ``edit_batch``
@@ -93,7 +98,8 @@ order; a failed phase raises and the script exits non-zero:
    and one eager kernel prepare, then the dispatch of a replayed
    ``edit_batch_async``, each under ``torch.cuda.set_sync_debug_mode(
    "error")``, which must raise nothing.  No LayerNorm of the phase (nor of
-   phase 8) may take the plain version on the card (``layer_norm.plain_on_card``).
+   phase 8) may take the plain version on the card (``layer_norm.plain_on_card``),
+   nor any attention call of 128 q rows or more (``attention.plain_on_card``).
 4. Kernels against plain versions end to end, with seeded fan-in-scaled
    weights, in two arms: the default configuration, and the opt-in one
    (``use_cuda_conv=True``: the encoder on the conv, fused resnet and
@@ -1248,6 +1254,119 @@ def compare_attention(calls: dict, gen, dtype=None) -> list[dict]:
     return rows
 
 
+# The cross-attention kernel against the plain version: both round P and O to
+# bf16 at the same points, so an element differs only where an fp32 sum lands
+# on a rounding boundary: at most CROSS_DIFFER_SHARE of them (the kernel read
+# 0.027% at [2, 1024, 77, 20, 64]; P rounded before it is normalised, the flash
+# kernels' order, 48%), and each within the attention tolerance's relative
+# term and CROSS_ABS_OF_RMS of the output's RMS (the kernel read 0.0030; the
+# padded keys left in the softmax 0.118, which K2's 2^-3 passes: 77 keys
+# make a flat softmax that three more keys move by a few percent).
+CROSS_DIFFER_SHARE = 0.01
+CROSS_ABS_OF_RMS = 2.0**-5
+
+
+def compare_cross_attention(calls: dict, gen, dtype=None) -> list[dict]:
+    """The cross-attention kernel (``cross_attention``, bf16 only: fp32 keeps
+    the plain version) at the UNet's cross shapes: an edit's and a batch of
+    two's (SSD-1B and SDXL share them), and the benchmark sweep's batch of
+    four (8 rows), with each model's calls per edit and per sweep chunk.
+    Held to the plain version within ``ATTN_REL`` and ``CROSS_ABS_OF_RMS``
+    and at most ``CROSS_DIFFER_SHARE`` of the elements differing; two
+    planted faults must fail: the padded keys left in the softmax (the plain
+    version over K and V padded with zeros to the plan's KV tile), against
+    the tolerance, and P rounded before it is normalised, against the share.
+    One device kernel a call; the share of 3.35 TB/s it reaches
+    (``hbm_pct``, q read and O written once, K and V once); SDPA in bf16 as
+    the yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from fastedit_tpu_torch.models import configs as C
+    from fastedit_tpu_torch.ops import flash_attention as fa
+    from fastedit_tpu_torch.tools import inventory
+    from fastedit_tpu_torch.tools.timing import graph_ms, time_ms
+
+    if dtype == torch.float32:
+        return []
+    kernel = "cross_attention"
+
+    def per_edit(unet, batch):
+        return inventory.kernel_calls(inventory.edit_sites(
+            unet, C.SDXL_CONTROLNET_SMALL, C.SDXL_VAE, RESOLUTION, batch=batch, steps=3))
+
+    models = {"ssd1b": C.SSD1B_UNET, "sdxl": C.SDXL_UNET}
+    counts = {f"calls_{m}_b{b}": per_edit(unet, b)
+              for m, unet in models.items() for b in (1, 2, 4)}
+    keys = sorted({key for c in (*calls.values(), *counts.values()) for (k, key) in c
+                   if k == kernel})
+    rows = []
+    for key in keys:
+        b, sq, skv, h, d = key
+        q = torch.randn((b, sq, h, d), generator=gen, device="cuda").bfloat16()
+        kk = torch.randn((b, skv, h, d), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((b, skv, h, d), generator=gen, device="cuda").bfloat16()
+        pl = fa.plan_cross(b, sq, skv, h, d, torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+        out, ref = fa.cross_attention(q, kk, v), fa.attention_plain(q, kk, v)
+        pad = torch.zeros((b, pl.bkv - skv, h, d), dtype=kk.dtype, device="cuda")
+        unmasked = fa.attention_plain(q, torch.cat([kk, pad], 1), torch.cat([v, pad], 1))
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * d**-0.5
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        del s
+        round_first = (torch.einsum("bhqk,bkhd->bqhd", p.bfloat16().float(), v.float())
+                       / p.sum(-1).transpose(1, 2)[..., None]).bfloat16()
+        del p
+        torch.cuda.synchronize()
+        sound, fault = err_over_rms(out, ref, ATTN_REL), err_over_rms(unmasked, ref, ATTN_REL)
+        share = float((out != ref).float().mean())
+        fault_share = float((round_first != ref).float().mean())
+        log("attention", kernel, list(key), f"err/rms kernel {sound:.6f}, padded keys "
+            f"unmasked {fault:.5f}, limit {CROSS_ABS_OF_RMS}; elements differing {share:.6f}, "
+            f"P rounded first {fault_share:.4f}, limit {CROSS_DIFFER_SHARE}")
+        if fault <= CROSS_ABS_OF_RMS:
+            raise AssertionError(f"{kernel} {key}: the tolerance passes unmasked padded keys")
+        if fault_share <= CROSS_DIFFER_SHARE:
+            raise AssertionError(f"{kernel} {key}: the share passes P rounded before its sum")
+        if share > CROSS_DIFFER_SHARE:
+            raise AssertionError(f"{kernel} {key}: {share} of the elements differ from the "
+                                 f"plain version, more than {CROSS_DIFFER_SHARE}")
+        err, rel = check_close(f"{kernel} {key}", out, ref, ATTN_REL,
+                               CROSS_ABS_OF_RMS * float(ref.float().square().mean().sqrt()))
+        del out, ref, unmasked, round_first
+        names = device_kernels(lambda: fa.cross_attention(q, kk, v))
+        if len(names) != 1 or "flash_d64_kernel_cross<" not in names[0]:
+            raise AssertionError(f"{kernel} {key}: device kernels per call {names}, expected "
+                                 "one flash_d64_kernel_cross")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, kk, v))
+        flops = 4.0 * b * h * sq * skv * d
+        nbytes = 2.0 * b * h * d * (2 * sq + 2 * skv)
+        b_ms, b_by = kernel_bound(kernel, flops, nbytes)
+        rows.append(dict(
+            kernel=kernel, shape=list(key), **call_counts(calls, kernel, key),
+            **{name: c.get((kernel, key), 0) for name, c in counts.items()},
+            max_abs_err=err, max_rel_err=rel, err_over_rms=sound, fault_err_over_rms=fault,
+            differ_share=share, fault_differ_share=fault_share,
+            device_kernels_per_call=len(names), device_kernel_names=names,
+            ms=graph_ms(lambda: fa.cross_attention(q, kk, v)),
+            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+            plain_ms=time_ms(lambda: fa.attention_plain(q, kk, v), 10),
+            eager_ms=time_ms(lambda: fa.cross_attention(q, kk, v), 10),
+            library_eager_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 10),
+            bound_ms=b_ms, bound_by=b_by, flops=flops, bytes=nbytes,
+            plan=dict(bq=pl.bq, bkv=pl.bkv, tiles=pl.tiles, grid=pl.grid,
+                      smem_bytes=pl.smem_bytes),
+        ))
+        row = rows[-1]
+        row["tflops"] = flops / row["ms"] / 1e9
+        row["hbm_pct"] = 100.0 * nbytes / (1e-3 * row["ms"]) / PEAK_HBM_BYTES_PER_S
+        log("attention", kernel, row["shape"], {k: row[k] for k in (
+            "ms", "library_ms", "plain_ms", "eager_ms", "library_eager_ms", "bound_ms",
+            "hbm_pct", "plan")})
+        del q, kk, v
+    return rows
+
+
 # The planted faults of the Canny kernel: copies of csrc/canny.cu built in the
 # background beside the kernels.  The horizontal NMS keeps a pixel on m >= left
 # and m > right (cv2's tie rule flipped); the unions across tile edges taken
@@ -1520,11 +1639,14 @@ def check_launches(what: str, launches: dict, expected: dict) -> None:
 # fp32 convs are conv3x3_tf32x3_kernel, conv3x3_fused_tf32x3_kernel,
 # conv3x3_up2_tf32x3_kernel and conv3x3_down2_tf32x3_kernel (their weight split
 # runs once per weight), the fp32 attention split_qkv_tf32_kernel, then
-# flash_d64_tf32x3_kernel or flash_d512_tf32x3_kernel.
+# flash_d64_tf32x3_kernel or flash_d512_tf32x3_kernel; the self-attention
+# kernel flash_d64_kernel<NWG> and the cross-attention kernel
+# flash_d64_kernel_cross<NWG, BKV> are told apart by what follows the name.
 WRAPPER_KERNELS = {
     "conv3x3": "conv3x3_kernel", "conv3x3_fused": "conv3x3_fused_kernel",
     "conv3x3_up2": "conv3x3_up2_kernel", "conv3x3_down2": "conv3x3_down2_kernel",
-    "flash_attention_d64": "flash_d64_kernel", "flash_attention_d512": "flash_d512_kernel",
+    "flash_attention_d64": "flash_d64_kernel<", "flash_attention_d512": "flash_d512_kernel",
+    "cross_attention": "flash_d64_kernel_cross<",
     "up2_phase_weights": "up2_phase_weights_kernel",
     "conv3x3_f32": "conv3x3_tf32x3_kernel", "conv3x3_fused_f32": "conv3x3_fused_tf32x3_kernel",
     "conv3x3_down2_f32": "conv3x3_down2_tf32x3_kernel",
@@ -1592,6 +1714,22 @@ def plain_layer_norms_on_card(what: str):
     log(f"{what}: {plain} LayerNorm calls on the card outside the kernel's gate")
     if plain:
         raise AssertionError(f"{what}: {plain} LayerNorm calls took the plain version on the card")
+
+
+@contextlib.contextmanager
+def plain_attention_on_card(what: str):
+    """The body must run no attention call of 128 q rows or more on the card
+    outside both kernels' gates (``profiling`` counter
+    ``attention.plain_on_card``): the bf16 main path's cross-attention is the
+    cross-attention kernel's."""
+    from fastedit_tpu_torch.utils import profiling
+
+    before = profiling.counters().get("attention.plain_on_card", 0)
+    yield
+    plain = profiling.counters().get("attention.plain_on_card", 0) - before
+    log(f"{what}: {plain} attention calls on the card outside the kernels' gates")
+    if plain:
+        raise AssertionError(f"{what}: {plain} attention calls took the plain version on the card")
 
 
 def check_image(img) -> None:
@@ -3668,14 +3806,19 @@ KERNELS = {  # name: (source, TPU kernel it replaces: file:line of pallas_call)
     "canny_prepare": ("fastedit_tpu_torch/csrc/canny.cu", "fastedit_tpu/ops/canny.py:140"),
     # LayerNorm; in the JAX package plain jnp that XLA fuses, no pallas_call
     "layer_norm": ("fastedit_tpu_torch/csrc/layer_norm.cu", "fastedit_tpu/models/layers.py:106"),
+    # cross-attention to the text tokens; in the JAX package XLA's attention_xla
+    # (the flash kernels' gate wants 128 keys), no pallas_call
+    "cross_attention": ("fastedit_tpu_torch/csrc/flash_attention.cu",
+                        "fastedit_tpu/ops/attention.py:25"),
 }
 # The fp32 instances (the quality mode's path, phase 8), each replacing the same
 # TPU kernel as its bf16 twin: every conv form and both attention kernels run
-# 3xTF32 on the tensor cores, GroupNorm is its own template at float.
+# 3xTF32 on the tensor cores, GroupNorm is its own template at float.  The
+# cross-attention kernel has none: fp32 cross-attention keeps the plain version.
 F32_KERNELS = {
     f"{name}_f32": (source.replace("conv3x3.cu", "conv3x3_tf32x3.cu")
                     .replace("flash_attention.cu", "flash_attention_tf32x3.cu"), replaces)
-    for name, (source, replaces) in KERNELS.items()}
+    for name, (source, replaces) in KERNELS.items() if name != "cross_attention"}
 # Kernels built on wgmma (SASS HGMMA), by a part of their mangled name: the bf16
 # kernels and the six fp32 ones on 3xTF32.  Every other kernel of every library
 # (the phase-weight fold, the TF32 splits, GroupNorm) must hold no tensor-core
@@ -3734,7 +3877,8 @@ def kernel_summary(rows: list, main: dict) -> list:
     return out
 
 
-COMPARES = ("conv", "fused", "up2", "down2", "group_norm", "attention", "canny", "layer_norm")
+COMPARES = ("conv", "fused", "up2", "down2", "group_norm", "attention", "canny", "layer_norm",
+            "cross_attention")
 
 
 def main(argv=None) -> int:
@@ -3835,7 +3979,8 @@ def main(argv=None) -> int:
         return 0
     rows = []
     for compare in (compare_conv, compare_fused, compare_up2, compare_down2,
-                    compare_group_norm, compare_attention, compare_canny, compare_layer_norm):
+                    compare_group_norm, compare_attention, compare_canny, compare_layer_norm,
+                    compare_cross_attention):
         rows += compare(calls, gen)
         torch.cuda.empty_cache()
     host = host_us_per_launch(calls, gen)
@@ -3844,13 +3989,15 @@ def main(argv=None) -> int:
         f"the bf16 rows took {phase2_s:.1f} s")
     t = time.perf_counter()
     for compare in (compare_conv, compare_fused, compare_up2, compare_down2,
-                    compare_group_norm, compare_attention, compare_canny, compare_layer_norm):
+                    compare_group_norm, compare_attention, compare_canny, compare_layer_norm,
+                    compare_cross_attention):
         rows += compare(calls, gen, torch.float32)
         torch.cuda.empty_cache()
     phase2_f32_s = time.perf_counter() - t
 
     log("[3] main path: FastEditor('ssd-1b', random_weights=True) at 1024², on CUDA graphs")
-    with plain_layer_norms_on_card("phase 3, the bf16 main path"):
+    with plain_layer_norms_on_card("phase 3, the bf16 main path"), \
+            plain_attention_on_card("phase 3, the bf16 main path"):
         editor, main = main_path(calls)
 
     log("[4] kernels vs plain versions end to end, seeded weights")

@@ -62,6 +62,27 @@
 //     a head's K and V in L2 (heads fastest measured the same: the K and V of
 //     a whole call fit the card's L2).
 //
+// D = 64 with every key in one tile, `flash_d64_kernel_cross<NWG, BKV>` (the
+// UNet's cross-attention to the 77 text tokens: 34 calls a forward in SSD-1B,
+// 70 in SDXL).  It replaces no Pallas kernel: the JAX package sends these calls
+// to XLA (`attention_xla`, fastedit_tpu/ops/attention.py), as the flash
+// kernels' gate wants 128 keys or more.  What bounds it on an H100: bytes.  Per
+// q row it reads 128 bytes and writes 128, and does 4 * 77 * 64 FLOPs: ~77
+// FLOPs a byte, a quarter of the ridge point, and one exp per 256 FLOPs as in
+// flash_d64_kernel.  So the design moves q once in and O once out and keeps
+// everything else on the chip: K and V come from L2 (1.6 MB for a whole call
+// at 8 rows), S and P never leave registers, and rings of four Q and four K /
+// V tiles and the TMA store keep loads and stores in flight under the products
+// and the softmax.  The walk's order is the larger lever: heads fastest, the
+// blocks' loads meet whole rows of q at once, 72.7% of 3.35 TB/s at [8, 4096,
+// 10, 64] with L2 cold, against 58-60% for each block on a contiguous range of
+// a head's tiles that loaded K and V once a head (H100 80GB HBM3, 700 W,
+// tools/variants_flash_cross.py).  With all keys in one tile the softmax
+// needs no running max: the max and the sum are exact in one pass, so P is
+// normalised in fp32 before it is rounded to bf16, where the plain version
+// rounds it.  The KV tile is 80 keys for Skv <= 80 (a wgmma of N = 80: 5 of 8
+// parts of the 128-key tile's products and exps), 128 up to 127 keys.
+//
 // D = 512, `flash_d512_kernel` (the VAE mid block's single head over a 128 x
 // 128 latent: two calls per edit, Sq = Skv = 16384), written for Hopper on the
 // same parts (tensor maps read through the strides, mbarrier rings,
@@ -408,6 +429,211 @@ flash_d64_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int j = 0; j < D / 8; ++j) {
           const uint32_t v = pack_bf16(o[4 * j + 2 * half] * l_part[half],
                                        o[4 * j + 2 * half + 1] * l_part[half]);
+          const uint32_t addr = q_half + row * 128 + ((j ^ (row & 7)) << 4) + (lane & 3) * 4;
+          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+        }
+      }
+      fence_async_shared();
+      named_barrier(1 + cw, 128);
+      if (tid == 0) {
+        tma_store_4d(&map_o, q_half, 0, h, q0 + SLICE * cw, b);  // clipped past Sq
+        tma_store_wait_read();
+        mbar_arrive(empty_q(qs));
+      }
+      if (++qs == Q_STAGES) qs = 0, qp ^= 1;
+    }
+    if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+namespace cross {
+constexpr int Q_STAGES = 4, KV_STAGES = 4;
+__host__ __device__ constexpr int kv_bytes(int bkv) { return bkv * d64::D * 2; }
+__host__ __device__ constexpr int smem_bytes(int nwg, int bkv) {
+  return 1024 + Q_STAGES * d64::q_bytes(nwg) + 2 * KV_STAGES * kv_bytes(bkv) +
+         8 * 2 * (Q_STAGES + KV_STAGES);
+}
+}  // namespace cross
+
+// Cross-attention to a short key sequence (the UNet's 77 text tokens), D = 64,
+// every key in one KV tile of BKV = 80 or 128 keys: `flash_d64_kernel_cross`.
+// A tile is 64 NWG q rows of one (batch, head), as in flash_d64_kernel, and
+// the persistent blocks walk the tiles heads fastest, strided by the grid, so
+// that the blocks running together read whole rows of q (a tile reads 128
+// bytes of each of its rows, whose heads lie side by side).  A producer warp
+// keeps a ring of four Q tiles full and loads each tile's K and V (10 KB each
+// at 80 keys, L2-resident; rows past Skv are TMA's zero fill) into a ring of
+// four beside it, unless the tile's head is the previous tile's.  Per tile a
+// consumer warpgroup computes S = Q K^T (m64nBKVk16, fp32), sets the key columns at or
+// past Skv to -inf, takes the row max and the sum of exp(scale (s - max))
+// exactly in one pass, normalises P by that sum in fp32 and rounds it to bf16
+// once (the plain version's order), multiplies O = P V from registers and
+// rounds O once; the store goes through the warpgroup's slice of the Q stage
+// by TMA, so one tile's store and the next tiles' loads overlap the product.
+template <int NWG, int BKV>
+__global__ void __launch_bounds__(d64::threads(NWG), 1)
+flash_d64_kernel_cross(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_o, const WalkArgs p) {
+  using namespace d64;
+  using cross::KV_STAGES;
+  using cross::Q_STAGES;
+  static_assert(BKV % 16 == 0 && BKV <= 128, "one KV tile of whole k steps, one wgmma N");
+  constexpr int BQ = NWG * SLICE, Q_BYTES = q_bytes(NWG), KV_BYTES = cross::kv_bytes(BKV);
+  constexpr int PRODUCER_REGS = NWG == 2 ? 40 : 32, CONSUMER_REGS = NWG == 2 ? 232 : 160;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_smem = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t k_smem = q_smem + Q_STAGES * Q_BYTES;
+  const uint32_t v_smem = k_smem + KV_STAGES * KV_BYTES;
+  const uint32_t bars = v_smem + KV_STAGES * KV_BYTES;
+  auto full_q = [&](int s) { return bars + 8 * s; };
+  auto empty_q = [&](int s) { return bars + 8 * (Q_STAGES + s); };
+  auto full_kv = [&](int s) { return bars + 8 * (2 * Q_STAGES + s); };
+  auto empty_kv = [&](int s) { return bars + 8 * (2 * Q_STAGES + KV_STAGES + s); };
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Q_STAGES; ++s) {
+      mbar_init(full_q(s), 1);     // the producer's expect_tx
+      mbar_init(empty_q(s), NWG);  // the thread of each consumer warpgroup that stores O
+    }
+    for (int s = 0; s < KV_STAGES; ++s) {
+      mbar_init(full_kv(s), 1);
+      mbar_init(empty_kv(s), 4 * NWG);  // lane 0 of every consumer warp, after the stage's tiles
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Tile t -> (batch, head, first q row): the head fastest, then the q tile,
+  // then the batch.  Block i walks tiles i, i + grid, ...
+  auto tile_at = [&](int t, int& bh, int& b, int& h, int& q0) {
+    h = t % p.H;
+    q0 = (t / p.H % p.q_tiles) * BQ;
+    b = t / p.H / p.q_tiles;
+    bh = b * p.H + h;
+  };
+
+  if (warp < 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x != 0) return;
+    // Producer: a tile's K and V where its head is not the previous tile's,
+    // then its Q.
+    int qs = 0, qp = 0, kvs = 0, kvp = 0, held = -1;
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      int bh, b, h, q0;
+      tile_at(t, bh, b, h, q0);
+      if (bh != held) {
+        if (held >= 0 && ++kvs == KV_STAGES) kvs = 0, kvp ^= 1;
+        held = bh;
+        mbar_wait(empty_kv(kvs), kvp ^ 1);
+        mbar_expect_tx(full_kv(kvs), 2 * KV_BYTES);  // keys past Skv are zero-filled and counted
+        tma_load_4d(k_smem + kvs * KV_BYTES, &map_k, full_kv(kvs), 0, h, 0, b);
+        tma_load_4d(v_smem + kvs * KV_BYTES, &map_v, full_kv(kvs), 0, h, 0, b);
+      }
+      mbar_wait(empty_q(qs), qp ^ 1);
+      mbar_expect_tx(full_q(qs), Q_BYTES);  // rows past Sq are zero-filled and counted
+      tma_load_4d(q_smem + qs * Q_BYTES, &map_q, full_q(qs), 0, h, q0, b);
+      if (++qs == Q_STAGES) qs = 0, qp ^= 1;
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    // Warpgroup cw owns q rows 64cw .. 64cw+63 of a tile; thread (w, lane)
+    // holds rows 16w + lane/4 and + 8, key columns 8j + 2(lane%4), + 1 of them
+    // in s[4j .. 4j+3].  Rows past Sq run along on TMA's zeros and their
+    // store is clipped by the tensor map.
+    const int cw = (warp >> 2) - 1, w = warp & 3;
+    const int tid = threadIdx.x & 127;
+    const float scale_log2 = p.scale * LOG2E, neg_inf = __int_as_float(0xff800000);
+    int qs = 0, qp = 0, kvs = 0, kvp = 0, held = -1;
+    float s[BKV / 2];      // S, then P, of this thread's two rows
+    float o[D / 2];
+    uint32_t pa[BKV / 4];  // P in bf16: the A fragments of the BKV / 16 k steps
+
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      int bh, b, h, q0;
+      tile_at(t, bh, b, h, q0);
+      if (bh != held) {
+        if (held >= 0 && ++kvs == KV_STAGES) kvs = 0, kvp ^= 1;
+        held = bh;
+      }
+      const uint32_t q_half = q_smem + qs * Q_BYTES + cw * SLICE_BYTES;
+      mbar_wait(full_q(qs), qp);
+      mbar_wait(full_kv(kvs), kvp);
+
+      // S = Q K^T, fp32.
+      wgmma_fence();
+      {
+        const uint64_t dq = smem_desc(q_half), dk = smem_desc(k_smem + kvs * KV_BYTES);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+
+      // The softmax of each row over its Skv keys, in one pass: the padded
+      // keys to -inf, the exact max and sum, P = exp(scale (s - max)) / sum in
+      // fp32, then rounded to bf16.
+      float mx[2] = {neg_inf, neg_inf};
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (8 * j + 2 * (lane & 3) + (e & 1) >= p.Skv) s[4 * j + e] = neg_inf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+        }
+      }
+      float neg[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        neg[r] = -mx[r] * scale_log2;
+      }
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) {
+        s[i] = ex2(fmaf(s[i], scale_log2, neg[(i >> 1) & 1]));  // exp2(-inf) = 0
+        sum[(i >> 1) & 1] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        sum[r] = 1.f / sum[r];
+      }
+#pragma unroll
+      for (int i = 0; i < BKV / 4; ++i)
+        pa[i] = pack_bf16(s[2 * i] * sum[i & 1], s[2 * i + 1] * sum[i & 1]);
+
+      // O = P V: V's rows are keys, the MN-major B operand; padded keys are
+      // zero in V and in P.
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+      wgmma_fence();
+      {
+        const uint64_t dv = smem_desc(v_smem + kvs * KV_BYTES);
+#pragma unroll
+        for (int kk = 0; kk < BKV / 16; ++kk)
+          wgmma_rs_tb(o, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2], pa[4 * kk + 3],
+                      dv + 128 * kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      const int next = t + gridDim.x;  // K and V stay for the next tile of the same head
+      if (lane == 0 && (next >= p.tiles || next / p.H / p.q_tiles * p.H + next % p.H != bh))
+        mbar_arrive(empty_kv(kvs));
+
+      // O, rounded once, into this warpgroup's slice of the Q stage (S, its
+      // last reader, has retired), then one TMA store.
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = 16 * w + (lane >> 2) + 8 * half;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const uint32_t v = pack_bf16(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
           const uint32_t addr = q_half + row * 128 + ((j ^ (row & 7)) << 4) + (lane & 3) * 4;
           asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
         }
@@ -873,6 +1099,36 @@ int launch_d64(const void* q, const void* k, const void* v, void* out, int B, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// The cross-attention launch: q through (d, head, row, batch) boxes of BQ
+// rows, k and v through boxes of BKV keys (past Skv zero-filled), then `grid`
+// persistent blocks, each walking the tiles strided by the grid.
+template <int NWG, int BKV>
+int launch_cross(const void* q, const void* k, const void* v, void* out, int B, int H, int Sq,
+                 int Skv, long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+                 long long v_sb, long long v_ss, float scale, int grid, cudaStream_t stream) {
+  using namespace d64;
+  constexpr int BQ = NWG * SLICE, SMEM_BYTES = cross::smem_bytes(NWG, BKV);
+  static unsigned long long configured = 0;
+  int err = configure(flash_d64_kernel_cross<NWG, BKV>, SMEM_BYTES, configured);
+  if (err != 0) return err;
+  if (grid < 1 || Sq % SLICE || Skv < 1 || Skv > BKV)
+    return static_cast<int>(cudaErrorInvalidValue);
+  WalkArgs a{};
+  a.H = H, a.Skv = Skv, a.scale = scale;
+  a.q_tiles = (Sq + BQ - 1) / BQ;
+  a.tiles = B * H * a.q_tiles;
+  CUtensorMap map_q, map_k, map_v, map_o;
+  err = encode_bshd(&map_q, q, B, Sq, H, D, q_sb, q_ss, BQ);
+  if (err == 0) err = encode_bshd(&map_k, k, B, Skv, H, D, k_sb, k_ss, BKV);
+  if (err == 0) err = encode_bshd(&map_v, v, B, Skv, H, D, v_sb, v_ss, BKV);
+  if (err == 0) err = encode_bshd(&map_o, out, B, Sq, H, D, (long long)Sq * H * D,
+                                  (long long)H * D, SLICE);
+  if (err != 0) return err;
+  flash_d64_kernel_cross<NWG, BKV>
+      <<<grid, threads(NWG), SMEM_BYTES, stream>>>(map_q, map_k, map_v, map_o, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // What the host-side plan (ops/flash_attention.py `plan`) mirrors, for head
@@ -919,4 +1175,43 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                          grid, s);
   return launch_d64<3>(q, k, v, out, B, H, Sq, Skv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale,
                        grid, s);
+}
+
+// The cross-attention kernel's geometry for q tile bq and KV tile bkv (what
+// ops/flash_attention.py `plan_cross` mirrors): which = 1 the Q ring's stages,
+// 2 the K / V ring's stages, 3 the dynamic shared memory in bytes; -1 where
+// this library has no such instance.
+extern "C" int cross_attention_geometry(int bq, int bkv, int which) {
+  if ((bq != 128 && bq != 192) || (bkv != 80 && bkv != 128)) return -1;
+  switch (which) {
+    case 1: return cross::Q_STAGES;
+    case 2: return cross::KV_STAGES;
+    case 3: return cross::smem_bytes(bq / d64::SLICE, bkv);
+    default: return -1;
+  }
+}
+
+// Cross-attention, all keys in one KV tile: D = 64, 1 <= Skv <= bkv, Sq a
+// multiple of 64 (the dispatcher's gate, ops/flash_attention.py
+// `supports_cross`).  Arguments as flash_attention_bf16's; bq (128 or 192
+// rows) and bkv (80 or 128 keys) pick the instance, grid comes from the plan.
+extern "C" int cross_attention_bf16(const void* q, const void* k, const void* v, void* out,
+                                    int B, int H, int Sq, int Skv, int D, long long q_sb,
+                                    long long q_ss, long long k_sb, long long k_ss,
+                                    long long v_sb, long long v_ss, float scale, int bq,
+                                    int bkv, int grid, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D != 64) return -1;
+  if (cross_attention_geometry(bq, bkv, 1) < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (bq == 128 && bkv == 80)
+    return launch_cross<2, 80>(q, k, v, out, B, H, Sq, Skv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                               scale, grid, s);
+  if (bq == 128)
+    return launch_cross<2, 128>(q, k, v, out, B, H, Sq, Skv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                                scale, grid, s);
+  if (bkv == 80)
+    return launch_cross<3, 80>(q, k, v, out, B, H, Sq, Skv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                               scale, grid, s);
+  return launch_cross<3, 128>(q, k, v, out, B, H, Sq, Skv, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                              scale, grid, s);
 }

@@ -45,6 +45,9 @@ KERNELS = {
         "flash_attention_geometry": [_I, _I, _I],  # returns a tile size or bytes
         "flash_attention_bf16": (
             [_P] * 4 + [_I] * 5 + [_L] * 6 + [ctypes.c_float] + [_I] * 3 + [_P]),
+        "cross_attention_geometry": [_I, _I, _I],  # returns a count or bytes
+        "cross_attention_bf16": (
+            [_P] * 4 + [_I] * 5 + [_L] * 6 + [ctypes.c_float] + [_I] * 3 + [_P]),
     },
     "group_norm": {  # one template over the element type: bf16 and fp32 entries
         "group_norm_slots": [_I, _P],  # cluster, int* out

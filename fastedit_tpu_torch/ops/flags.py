@@ -34,6 +34,9 @@ of the VAE decoder's fused resnet convs, 9 of the UNet's up-block convs with
 TPU's: in fp32 the port sends every call its gates admit to the kernel's
 fp32 instance, the same calls and counts as in bf16 (``tools/inventory.py``;
 ``tests/test_torch_f32.py`` holds the difference to exactly those calls).
+One gate does read the dtype: the cross-attention kernel (the UNet's
+attention to the text tokens, which the JAX package sends to XLA at any item
+size) takes bf16 only; fp32 cross-attention keeps the plain version.
 
 The stage functions enter their context with :func:`stage`.  PyTorch runs
 eagerly, so a flag is read when the op runs, not when a program is traced.

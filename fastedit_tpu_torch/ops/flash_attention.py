@@ -14,6 +14,17 @@ depths, the grid, the shared memory and (``tile_at``) the order of the tiles.
 :func:`attention_tiled_plain` walks the same schedule in plain PyTorch, for
 the tests.
 
+Cross-attention to a short key sequence (the UNet's 77 text tokens), which
+the flash gate leaves out: with bf16 q, k and v, D = 64 and every key in one
+KV tile (:func:`supports_cross`), a call on the card launches
+``flash_d64_kernel_cross`` (:func:`cross_attention`), one pass over q that
+masks the padded keys, normalises P in fp32 before rounding it to bf16, as
+:func:`attention_plain` does, and writes O once; :func:`plan_cross` is its
+schedule (persistent blocks over q tiles walked heads fastest, so that the
+blocks running together read whole rows of q) and
+:func:`attention_cross_tiled_plain` walks it.  It has a launch counter of its
+own (``cross_launches``).  fp32 calls keep the plain version.
+
 fp32 (the quality mode): a CUDA fp32 call launches the 3xTF32 kernels of
 ``csrc/flash_attention_tf32x3.cu`` instead (every product as three TF32
 products on ``wgmma``, after a launch that splits Q, K and V^T into hi and lo
@@ -38,6 +49,8 @@ HEAD_DIMS = (64, 512)
 # Launches of the CUDA kernel since the last reset, by head dim: bf16 and fp32.
 launches = {d: 0 for d in HEAD_DIMS}
 launches_f32 = {d: 0 for d in HEAD_DIMS}
+# Launches of the cross-attention kernel (bf16 only) since the last reset.
+cross_launches = 0
 
 # The kernels' geometry (csrc/flash_attention.cu holds the same constants):
 # head dim -> (KV tile, K ring stages, Q stages); the blocks are persistent.  At D = 64
@@ -110,6 +123,15 @@ def smem_bytes(d: int, bq: Optional[int] = None) -> int:
             + 8 * 2 * (q_stages + stages + PV_GROUPS * v_stages + P_STAGES))
 
 
+def _q_tile(b: int, sq: int, h: int, d: int, sms: int) -> int:
+    """The q tile whose rounds of tiles cost least on ``sms`` SMs: every block
+    walks ceil(tiles / blocks) tiles, each of bq rows at ``ROW_COST[bq]``."""
+    def cost(bq):
+        return -(-(b * h * -(-sq // bq)) // sms) * bq * ROW_COST[bq]
+
+    return min(Q_TILES[d], key=cost)
+
+
 @functools.lru_cache(maxsize=None)
 def plan(b: int, sq: int, skv: int, h: int, d: int, sms: int = H100_SMS) -> AttentionPlan:
     """The kernel's schedule, a pure function of the call's shape (and the
@@ -136,10 +158,7 @@ def plan(b: int, sq: int, skv: int, h: int, d: int, sms: int = H100_SMS) -> Atte
         raise ValueError(f"flash attention plan: q rows {sq} and keys {skv} must be "
                          f"multiples of {SLICE} and {bkv}, batch {b} and heads {h} positive")
 
-    def cost(bq):  # rounds of tiles x rows a tile x what a row costs in it
-        return -(-(b * h * -(-sq // bq)) // sms) * bq * ROW_COST[bq]
-
-    bq = min(Q_TILES[d], key=cost)
+    bq = _q_tile(b, sq, h, d, sms)
     q_tiles = -(-sq // bq)
     tiles = b * h * q_tiles
     return AttentionPlan(
@@ -253,6 +272,84 @@ def plan_f32(b: int, sq: int, skv: int, h: int, d: int, sms: int = H100_SMS) -> 
         scratch_floats=copies + grid * (skv // bkv) * (TF32X3_FRAG_FLOATS + bq), **common)
 
 
+# The cross-attention kernel (csrc/flash_attention.cu ``flash_d64_kernel_cross``,
+# which holds the same constants): every key in one KV tile of 80 keys (up to 80
+# keys: one wgmma of N = 80) or 128 (up to 127), a ring of four Q tiles and one
+# of four K / V tiles (a tile's K and V, unless its head is the previous tile's).
+CROSS_KV_TILES = (80, 128)
+CROSS_Q_STAGES, CROSS_KV_STAGES = 4, 4
+
+
+def smem_bytes_cross(bq: int, bkv: int) -> int:
+    """Dynamic shared memory of the cross-attention kernel: alignment slack,
+    the Q ring, the K and V rings (rows of 128 bytes), and a full and an empty
+    mbarrier per stage of each ring."""
+    return (1024 + CROSS_Q_STAGES * bq * 64 * 2 + 2 * CROSS_KV_STAGES * bkv * 64 * 2
+            + 8 * 2 * (CROSS_Q_STAGES + CROSS_KV_STAGES))
+
+
+@dataclass(frozen=True)
+class CrossPlan:
+    """The schedule of one cross-attention call."""
+
+    bq: int  # q rows per tile
+    bkv: int  # keys of the one KV tile (past Skv: TMA's zeros, masked)
+    q_tiles: int  # q tiles per (batch, head)
+    tiles: int  # all tiles: B * H * q_tiles
+    grid: int  # persistent blocks; block i walks tiles i, i + grid, ...
+    smem_bytes: int
+    heads: int
+
+    def tile_at(self, t):
+        """(batch, head, first q row) of tile ``t``: the head fastest, then
+        the q tile, then the batch (``tile_at`` of ``flash_d64_kernel_cross``),
+        so that consecutive tiles read the same q rows."""
+        qt, bi = t // self.heads % self.q_tiles, t // self.heads // self.q_tiles
+        return bi, t % self.heads, qt * self.bq
+
+    def tiles_of(self, block: int) -> range:
+        """The tiles block ``block`` walks, in order: strided by the grid, so
+        that the blocks running together cover whole rows of q."""
+        return range(block, self.tiles, self.grid)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_cross(b: int, sq: int, skv: int, h: int, d: int, sms: int = H100_SMS) -> CrossPlan:
+    """The cross-attention kernel's schedule, a pure function of the shape
+    (and the SM count): the q tile as :func:`plan` picks it at D = 64 (128 or
+    192 rows, 64 for each consumer warpgroup; a head's last tile may reach past
+    Sq, a multiple of 64), the smallest KV tile that holds every key, one
+    persistent block per SM at most, the tiles walked heads fastest and strided
+    by the grid: a tile reads 128 bytes of each of its q rows, and the blocks
+    running together read whole rows (at [8, 4096, 10, 64] 72.7% of 3.35 TB/s
+    with L2 cold, against 58-60% for contiguous ranges of a head's tiles on an
+    H100, ``tools/variants_flash_cross.py``)."""
+    if d != 64:
+        raise ValueError(f"cross-attention plan: no kernel for head dim {d}")
+    if min(b, h) < 1 or sq < 128 or sq % SLICE or not 1 <= skv <= CROSS_KV_TILES[-1]:
+        raise ValueError(f"cross-attention plan: q rows {sq} must be a multiple of {SLICE} "
+                         f"and at least 128, keys {skv} 1 to {CROSS_KV_TILES[-1]}, batch {b} "
+                         f"and heads {h} positive")
+    bq = _q_tile(b, sq, h, d, sms)
+    bkv = min(t for t in CROSS_KV_TILES if t >= skv)
+    q_tiles = -(-sq // bq)
+    tiles = b * h * q_tiles
+    return CrossPlan(bq=bq, bkv=bkv, q_tiles=q_tiles, tiles=tiles, grid=min(tiles, sms),
+                     smem_bytes=smem_bytes_cross(bq, bkv), heads=h)
+
+
+def supports_cross(q_shape, kv_len: int, dtype: torch.dtype) -> bool:
+    """The cross-attention kernel's gate: bf16, D = 64, every key in one KV
+    tile and fewer than the flash gate's 128 (1 <= Skv < 128), Sq at least 128
+    and a multiple of 64.  It takes the UNet's cross-attention at any batch and
+    head count; the CLIP towers (Sq = 77), fp32 calls and the tiny model keep
+    the plain version."""
+    if len(q_shape) != 4 or dtype != torch.bfloat16:
+        return False
+    sq, d = q_shape[1], q_shape[3]
+    return d == 64 and 1 <= kv_len < 128 and sq >= 128 and sq % SLICE == 0
+
+
 def plan_for(q: torch.Tensor, kv_len: int) -> AttentionPlan:
     """The plan of a call on the card that holds ``q``."""
     b, sq, h, d = q.shape
@@ -322,6 +419,47 @@ def attention_tiled_plain(
     return out
 
 
+def attention_cross_tiled_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
+    unmasked: bool = False, round_first: bool = False,
+) -> torch.Tensor:
+    """The cross-attention kernel's schedule in plain PyTorch, for tests only:
+    per block of :func:`plan_cross` its tiles, in order; per tile the scores
+    against the one KV tile (K and V zero past Skv) in fp32, the padded keys
+    set to -inf, the exact row max and sum of exp2(s scale log2(e) - max scale
+    log2(e)), P times 1 / sum in fp32, rounded to v's dtype, P.V in fp32 and
+    one rounding of O.  It differs from ``attention_plain`` only in the order
+    of the sums and in where exp's argument rounds.  Two planted faults:
+    ``unmasked`` leaves the padded keys in the softmax, ``round_first`` rounds
+    P to bf16 before it is normalised (and divides O by the sum, as the flash
+    kernel's online softmax does)."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    scale = scale if scale is not None else d**-0.5
+    pl = plan_cross(b, sq, skv, h, d)
+    c = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
+    kp = torch.zeros((b, pl.bkv, h, d), dtype=k.dtype, device=k.device)
+    vp = torch.zeros((b, pl.bkv, h, d), dtype=v.dtype, device=v.device)
+    kp[:, :skv], vp[:, :skv] = k, v
+    out = torch.empty_like(q)
+    for block in range(pl.grid):
+        for t in pl.tiles_of(block):
+            bi, hi, q0 = pl.tile_at(t)
+            rows = min(pl.bq, sq - q0)  # a head's last tile may reach past Sq
+            s = q[bi, q0:q0 + rows, hi].float() @ kp[bi, :, hi].float().T
+            if not unmasked:
+                s[:, skv:] = float("-inf")
+            m = s.max(dim=1, keepdim=True).values
+            p = torch.exp2(s * c - m * c)
+            l = p.sum(dim=1, keepdim=True)
+            if round_first:
+                o = (p.to(v.dtype).float() @ vp[bi, :, hi].float()) / l
+            else:
+                o = (p * (1.0 / l)).to(v.dtype).float() @ vp[bi, :, hi].float()
+            out[bi, q0:q0 + rows, hi] = o.to(q.dtype)
+    return out
+
+
 def attention_tiled_plain_f32(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None,
     kv_tiles_skipped: int = 0,
@@ -357,7 +495,7 @@ def attention_tiled_plain_f32(
     return out
 
 
-def _check(q, k, v):
+def _check_layout(q, k, v):
     check_dtypes("flash_attention", q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
@@ -375,6 +513,10 @@ def _check(q, k, v):
             f"flash_attention: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} do not match"
         )
+
+
+def _check(q, k, v):
+    _check_layout(q, k, v)
     if not supports(tuple(q.shape), k.shape[1]):
         raise ValueError(
             f"flash_attention kernel does not take q {tuple(q.shape)}, "
@@ -417,4 +559,39 @@ def flash_attention(
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     (launches_f32 if f32 else launches)[d] += 1
+    return out
+
+
+def cross_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
+) -> torch.Tensor:
+    """Cross-attention with every key in one KV tile, BSHD: q [B,Sq,H,64],
+    k/v [B,Skv,H,64] bf16 -> [B,Sq,H,64] (:func:`supports_cross`).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches
+    ``flash_d64_kernel_cross`` (once) or raises."""
+    global cross_launches
+    d = q.shape[-1]
+    scale = scale if scale is not None else d**-0.5
+    check_dtypes("cross_attention", q, k, v)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, scale)
+    _check_layout(q, k, v)
+    if not supports_cross(tuple(q.shape), k.shape[1], q.dtype):
+        raise ValueError(f"the cross-attention kernel does not take {q.dtype} q "
+                         f"{tuple(q.shape)}, kv length {k.shape[1]}")
+    from fastedit_tpu_torch.ops.build import library
+
+    b, sq, h, _ = q.shape
+    skv = k.shape[1]
+    pl = plan_cross(b, sq, skv, h, d, sm_count_of(q))
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = library("flash_attention").cross_attention_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq, skv, d,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            float(scale), pl.bq, pl.bkv, pl.grid, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cross_attention kernel launch failed: CUDA error {err}")
+    cross_launches += 1
     return out

@@ -22,9 +22,11 @@ stage, from the model configs alone, and the kernel each one reaches.
 
 :func:`kernel_calls` routes each call as the modules dispatch it, under the
 flags of its stage (``flags.stage``), and counts the calls each kernel
-takes, keyed by (kernel, shape).  The gates do not depend on the dtype, so
-an fp32 edit (the quality mode) takes the same calls to each kernel's fp32
-instance, named ``<kernel>_f32`` (``kernel_calls(..., dtype=torch.float32)``).
+takes, keyed by (kernel, shape).  The gates do not depend on the dtype but
+one, so an fp32 edit (the quality mode) takes the same calls to each kernel's
+fp32 instance, named ``<kernel>_f32`` (``kernel_calls(..., dtype=torch.float32)``);
+the exception is ``cross_attention``, bf16 only (:data:`BF16_ONLY`): fp32
+cross-attention takes the plain version.
 ``chip_smoke.py`` uses it for the shapes at which each kernel is held against
 its plain version and for the launch counts the main path must show; the
 tests hold it to the calls an edit makes.  Counts are per edit: the encoder
@@ -51,9 +53,11 @@ TEXT_TOKENS = 77
 TRANSFORMER_GROUPS = 32
 BF16_KERNELS = ("conv3x3", "conv3x3_fused", "conv3x3_up2", "conv3x3_down2", "group_norm",
                 "group_norm_scale_shift", *(f"flash_attention_d{d}" for d in fa.HEAD_DIMS),
-                "canny_prepare", "layer_norm")
+                "canny_prepare", "layer_norm", "cross_attention")
+BF16_ONLY = ("cross_attention",)  # kernels without an fp32 instance
 F32_SUFFIX = "_f32"
-KERNELS = (*BF16_KERNELS, *(k + F32_SUFFIX for k in BF16_KERNELS))
+F32_KERNELS = tuple(k + F32_SUFFIX for k in BF16_KERNELS if k not in BF16_ONLY)
+KERNELS = (*BF16_KERNELS, *F32_KERNELS)
 
 
 def _transformer(s, n, hw, ch, heads, depth):
@@ -225,15 +229,16 @@ def _gn(key, kernel="group_norm"):
     return []
 
 
-def route(op: str, key: tuple) -> list:
-    """The kernel calls one site makes under the current flags, as
+def route(op: str, key: tuple, dtype: torch.dtype = torch.bfloat16) -> list:
+    """The kernel calls one site makes under the current flags, in ``dtype``, as
     (kernel, shape key): ``conv3x3`` (N, H, W, Cin, Cout); ``conv3x3_fused``
     (N, H, W, Cin, Cout, per-batch bias, skip), each after the
     ``group_norm_scale_shift`` (N, H, W, C, groups) of its prologue;
     ``conv3x3_up2`` as the site; ``conv3x3_down2`` as the site;
-    ``group_norm`` as a "gn" site; ``flash_attention_d<D>`` as the site;
-    ``canny_prepare`` as a "canny" site and ``layer_norm`` as an "ln" site
-    (no flag gates either)."""
+    ``group_norm`` as a "gn" site; ``flash_attention_d<D>`` as the site, or
+    in bf16 ``cross_attention`` (every key in one tile: the UNet's
+    cross-attention to the text tokens); ``canny_prepare`` as a "canny" site
+    and ``layer_norm`` as an "ln" site (no flag gates either)."""
     if op == "conv":
         return _conv(key)
     if op == "resnet":
@@ -262,8 +267,11 @@ def route(op: str, key: tuple) -> list:
         return _gn(key)
     if op == "attn":
         b, sq, skv, heads, d = key
-        if flags.use_cuda_attention() and fa.supports((b, sq, heads, d), skv):
-            return [(f"flash_attention_d{d}", key)]
+        if flags.use_cuda_attention():
+            if fa.supports((b, sq, heads, d), skv):
+                return [(f"flash_attention_d{d}", key)]
+            if fa.supports_cross((b, sq, heads, d), skv, dtype):
+                return [("cross_attention", key)]
         return []
     if op == "canny":
         return [("canny_prepare", key)]
@@ -289,7 +297,7 @@ def kernel_calls(sites: Counter, dtype: torch.dtype = torch.bfloat16) -> Counter
     out = Counter()
     for (stage, op, key), c in sites.items():
         with stage_context(stage):
-            for kernel, shape in route(op, key):
+            for kernel, shape in route(op, key, dtype):
                 out[(kernel + suffix, shape)] += c
     return out
 
@@ -314,7 +322,8 @@ def launch_counts() -> dict:
               **{f"flash_attention_d{d}": n for d, n in fa.launches.items()},
               **{f"flash_attention_d{d}_f32": n for d, n in fa.launches_f32.items()},
               **canny.launches,
-              "layer_norm": layer_norm.launches, "layer_norm_f32": layer_norm.launches_f32}
+              "layer_norm": layer_norm.launches, "layer_norm_f32": layer_norm.launches_f32,
+              "cross_attention": fa.cross_launches}
     return {k: counts[k] for k in KERNELS}
 
 
@@ -323,6 +332,7 @@ def reset_launch_counts() -> None:
     fused_groupnorm.launches = fused_groupnorm.launches_f32 = 0
     fused_groupnorm.scale_shift_launches = fused_groupnorm.scale_shift_launches_f32 = 0
     layer_norm.launches = layer_norm.launches_f32 = 0
+    fa.cross_launches = 0
     for counts in (conv_fused.launches, fa.launches, fa.launches_f32, canny.launches):
         for k in counts:
             counts[k] = 0

@@ -131,6 +131,21 @@ def test_the_group_norm_variants_spec_is_in_step():
         assert (kv.apply(source, replacements) != source) == bool(replacements), name
 
 
+def test_the_cross_attention_variants_spec_is_in_step():
+    """``tools/variants_flash_cross.py`` (a deeper Q ring, the exps and the
+    products taken out of the cross-attention kernel) replaces text that is
+    in ``csrc/flash_attention.cu``."""
+    from fastedit_tpu_torch.tools import kernel_variants as kv
+
+    spec: dict = {}
+    path = Path(kv.__file__).with_name("variants_flash_cross.py")
+    exec(compile(path.read_text(), str(path), "exec"), spec)
+    source = (build.CSRC / f"{spec['LIBRARY']}.cu").read_text()
+    assert spec["LIBRARY"] == "flash_attention" and spec["VARIANTS"]["as_built"] == []
+    for name, replacements in spec["VARIANTS"].items():
+        assert (kv.apply(source, replacements) != source) == bool(replacements), name
+
+
 def test_the_fp32_c_functions_take_the_plans_ints():
     """The 3xTF32 conv entries take both weight copies, the channel tile and
     the grid (stride 2: its padding too; the fused conv: the prologue's scale

@@ -21,7 +21,11 @@ for other SM counts (one chunk through the whole ring, more chunks than a warp m
 the same bits twice and under a CUDA graph's replays; the LayerNorm kernel at the sweep's, an
 edit's, both CLIP towers' and tiny shapes in bf16 and fp32 (one launch, the same bits twice, a
 large mean, a CUDA graph's replays, its refusals, a strided row view copied for it, the plain
-version outside its gate counted);
+version outside its gate counted); the cross-attention kernel at the UNet's cross shapes (2, 4
+and 8 rows), through strides, at 1, 80, 81 and 127 keys (both KV tiles), with a scale of its own
+and a head's last q tile partial, at most 1% of its elements differing from the plain version,
+the same bits twice, a CUDA graph's replays, its refusals, and the dispatcher's counter of
+attention left on the plain version on the card;
 the upsample conv on weights folded once;
 the Canny kernel's entries (prepare, the front and the hysteresis) bit for bit against their
 plain versions and a flood fill, at sizes that are no multiple of their tile, on the stress
@@ -54,9 +58,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (ATTN_ABS_OF_RMS, ATTN_REL, CONV_ABS_OF_MAX, CONV_REL, F32_ABS_OF_MAX,
-                        F32_ATTN_ABS_OF_RMS, F32_REL, F64_GATE, GN_OFFSET, GN_SPIKE,
-                        GN_SPIKE_RATE)
+from chip_smoke import (ATTN_ABS_OF_RMS, ATTN_REL, CONV_ABS_OF_MAX, CONV_REL, CROSS_ABS_OF_RMS,
+                        CROSS_DIFFER_SHARE, F32_ABS_OF_MAX, F32_ATTN_ABS_OF_RMS, F32_REL,
+                        F64_GATE, GN_OFFSET, GN_SPIKE, GN_SPIKE_RATE)
 from fastedit_tpu_torch.ops import canny as cn
 from fastedit_tpu_torch.ops import conv3x3 as k
 from fastedit_tpu_torch.ops import conv_fused as cf
@@ -284,6 +288,13 @@ def test_attention_plan_mirrors_the_kernels_geometry(gen):
             assert fa.smem_bytes(d, bq) <= k.SMEM_LIMIT
     assert lib.flash_attention_geometry(96, 128, 1) == -1
     assert lib.flash_attention_geometry(64, 256, 1) == -1
+    for bq in fa.Q_TILES[64]:  # the cross-attention kernel's instances
+        for bkv in fa.CROSS_KV_TILES:
+            assert [lib.cross_attention_geometry(bq, bkv, i) for i in (1, 2, 3)] == \
+                [fa.CROSS_Q_STAGES, fa.CROSS_KV_STAGES, fa.smem_bytes_cross(bq, bkv)]
+            assert fa.smem_bytes_cross(bq, bkv) <= k.SMEM_LIMIT
+    assert lib.cross_attention_geometry(64, 80, 1) == -1
+    assert lib.cross_attention_geometry(128, 96, 1) == -1
     assert lib.flash_attention_geometry(512, 32, 1) == -1  # the 32-row kernel is gone
 
 
@@ -844,6 +855,109 @@ def test_layer_norm_outside_the_gate_runs_plain_and_is_counted(gen):
     ln.layer_norm(x, gamma, beta)
     assert ln.launches == launches + 1
     assert profiling.counters()["layer_norm.plain_on_card"] == before + 1
+
+
+def _cross_inputs(gen, b, sq, skv, h):
+    q = torch.randn((b, sq, h, 64), generator=gen, device="cuda").bfloat16()
+    kv = torch.randn((b, skv, 2, h, 64), generator=gen, device="cuda").bfloat16()
+    return q, kv[:, :, 0], kv[:, :, 1]  # k and v strided views, as from a fused projection
+
+
+def _cross_close(out, ref):
+    rms = float(ref.float().square().mean().sqrt())
+    _assert_close(out, ref, ATTN_REL, CROSS_ABS_OF_RMS * rms)
+    assert float((out != ref).float().mean()) <= CROSS_DIFFER_SHARE
+
+
+@pytest.mark.parametrize("b,sq,skv,h,scale", [
+    (2, 4096, 77, 10, None),  # an edit's outer cross-attention: 640 tiles of 128 rows
+    (2, 1024, 77, 20, None),  # an edit's inner one: 240 tiles of 192 rows, the last partial
+    (4, 4096, 77, 10, None),  # a batch of two
+    (8, 4096, 77, 10, None),  # the sweep's four: 1760 tiles of 192 rows
+    (8, 1024, 77, 20, None),  # 1280 tiles of 128 rows
+    (1, 128, 1, 1, None),  # one key: P is 1
+    (2, 192, 80, 3, 0.3),  # a full 80-key tile, a scale of its own
+    (1, 256, 81, 2, None),  # the 128-key tile
+    (2, 320, 127, 5, None),  # its last key; 320 rows: a partial tile
+])
+def test_cross_attention_kernel_matches_plain(gen, b, sq, skv, h, scale):
+    q, kk, v = _cross_inputs(gen, b, sq, skv, h)
+    before = (fa.cross_launches, dict(fa.launches))
+    out = fa.cross_attention(q, kk, v, scale)
+    torch.cuda.synchronize()
+    assert (fa.cross_launches, fa.launches) == (before[0] + 1, before[1])
+    assert out.is_contiguous() and out.shape == q.shape
+    _cross_close(out, fa.attention_plain(q, kk, v, scale))
+
+
+def test_cross_attention_gives_the_same_bits_twice(gen):
+    q, kk, v = _cross_inputs(gen, 8, 1024, 77, 20)
+    first, second = fa.cross_attention(q, kk, v), fa.cross_attention(q, kk, v)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_cross_attention_under_graph_replays_equals_eager(gen):
+    """Captured once, replayed on new q, k and v: the eager call's bits."""
+    q, kk, v = (t.contiguous() for t in _cross_inputs(gen, 4, 4096, 77, 10))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa.cross_attention(q, kk, v)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.cross_attention(q, kk, v)
+    for _ in range(3):
+        new = [torch.randn(t.shape, generator=gen, device="cuda").bfloat16() for t in (q, kk, v)]
+        for static, n in zip((q, kk, v), new):
+            static.copy_(n)
+        graph.replay()
+        want = fa.cross_attention(*new)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def test_cross_attention_wrapper_raises_outside_its_gate(gen):
+    q, kk, v = _cross_inputs(gen, 2, 256, 77, 2)
+    before = fa.cross_launches
+    with pytest.raises(ValueError):  # fp32: the plain version's
+        fa.cross_attention(q.float(), kk.float(), v.float())
+    with pytest.raises(ValueError):  # 128 keys: the flash kernel's
+        k128 = torch.zeros((2, 128, 2, 64), device="cuda").bfloat16()
+        fa.cross_attention(q, k128, k128)
+    with pytest.raises(ValueError):  # Sq 77: the CLIP towers'
+        fa.cross_attention(q[:, :77], kk, v)
+    with pytest.raises(ValueError):  # D 128
+        q128 = torch.zeros((2, 256, 1, 128), device="cuda").bfloat16()
+        fa.cross_attention(q128, q128[:, :77], q128[:, :77])
+    with pytest.raises(ValueError):  # heads that are not contiguous
+        qh = torch.zeros((2, 2, 256, 64), device="cuda").bfloat16().transpose(1, 2)
+        fa.cross_attention(qh, kk, v)
+    with pytest.raises(TypeError):  # fp16
+        fa.cross_attention(q.half(), kk.half(), v.half())
+    assert fa.cross_launches == before
+
+
+def test_attention_outside_the_kernels_gates_is_counted_on_the_card(gen):
+    """The dispatcher counts a call of 128 q rows or more that takes the
+    plain version on the card (fp32 cross-attention), not one the kernels
+    take nor one of fewer rows (the CLIP towers' 77)."""
+    from fastedit_tpu_torch import ops
+    from fastedit_tpu_torch.utils import profiling
+
+    def plain_count():
+        return profiling.counters().get("attention.plain_on_card", 0)
+
+    q, kk, v = _cross_inputs(gen, 2, 1024, 77, 20)
+    before, launches = plain_count(), fa.cross_launches
+    _cross_close(ops.attention(q, kk, v), fa.attention_plain(q, kk, v))
+    assert (plain_count(), fa.cross_launches) == (before, launches + 1)
+    ops.attention(q[:, :77], q[:, :77], q[:, :77])  # the CLIP towers' self-attention
+    assert plain_count() == before
+    out = ops.attention(q.float(), kk.float(), v.float())
+    assert torch.equal(out, fa.attention_plain(q.float(), kk.float(), v.float()))
+    assert (plain_count(), fa.cross_launches) == (before + 1, launches + 1)
 
 
 # ------------------------------------------------------ the editor's graphs

@@ -90,7 +90,9 @@ CONV_CASES = ([("conv", key[:5], False) for key in _keys("conv3x3_f32")]
 
 def test_the_fp32_routes_reach_every_kernel():
     names = {name for name, _ in CALLS}
-    assert names == {k + inventory.F32_SUFFIX for k in inventory.BF16_KERNELS}
+    assert names == set(inventory.F32_KERNELS)
+    assert names == {k + inventory.F32_SUFFIX for k in inventory.BF16_KERNELS
+                     if k not in inventory.BF16_ONLY}
     assert len(CONV_CASES) >= 40 and {m for m, _, _ in CONV_CASES} == {"conv", "fused", "up2"}
     assert _keys("conv3x3_down2_f32")
 
@@ -472,7 +474,9 @@ def _jax_route(op, key, itemsize):
 def test_fp32_routes_every_jax_kernel_call_and_only_the_vmem_refusals_more():
     """Over the SSD-1B edit at 1024², site by site: the port's fp32 calls
     equal the JAX package's at item size 2 (the port's gates do not depend on
-    the dtype) and at item size 4 everywhere but the VMEM refusals."""
+    the dtype, but the bf16-only cross-attention kernel's, which fp32 calls
+    bypass as the JAX package does) and at item size 4 everywhere but the VMEM
+    refusals."""
     sites = inventory.edit_sites(TC.SSD1B_UNET, TC.SDXL_CONTROLNET_SMALL, TC.SDXL_VAE, 1024,
                                  batch=1, steps=3)
     jax_calls, refused = Counter(), Counter()
@@ -482,7 +486,7 @@ def test_fp32_routes_every_jax_kernel_call_and_only_the_vmem_refusals_more():
                 continue
             with tflags.stage(stage), jflags.override(**_jax_stage_overrides(stage)):
                 j4, j2 = Counter(_jax_route(op, key, 4)), Counter(_jax_route(op, key, 2))
-                port = Counter(c for c in inventory.route(op, key)
+                port = Counter(c for c in inventory.route(op, key, F32)
                                if not c[0].startswith("group_norm"))
             assert port == j2, (stage, op, key)
             if port != j4:
@@ -501,7 +505,11 @@ def test_fp32_routes_every_jax_kernel_call_and_only_the_vmem_refusals_more():
         "flash_attention_d64_f32": 102, "flash_attention_d512_f32": 2,
         "canny_prepare_f32": 1, "layer_norm_f32": 306}
     bf16 = inventory.launches_by_kernel(inventory.kernel_calls(sites))
-    assert all(bf16[name] == f32[name + inventory.F32_SUFFIX] for name in inventory.BF16_KERNELS)
+    assert all(bf16[name] == f32[name + inventory.F32_SUFFIX] for name in inventory.BF16_KERNELS
+               if name not in inventory.BF16_ONLY)
+    # bf16 only: the UNet's cross-attention to the text tokens, which fp32 and JAX leave to
+    # the plain version
+    assert bf16["cross_attention"] == 102 and "cross_attention_f32" not in f32
 
 
 # ------------------------------------------------- the editor and wrappers

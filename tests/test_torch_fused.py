@@ -417,6 +417,7 @@ KERNEL_FUNCS = {  # the wrappers the dispatchers look up, by inventory name
     "flash_attention_d64": (tfa, "flash_attention"),
     "canny_prepare": (tcanny, "prepare"),
     "layer_norm": (tln, "fused_layer_norm"),
+    "cross_attention": (tfa, "cross_attention"),
 }
 
 
