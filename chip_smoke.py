@@ -18,9 +18,9 @@ order; a failed phase raises and the script exits non-zero:
 1. Build the CUDA kernels of ``fastedit_tpu_torch/csrc/`` (one ``nvcc`` per
    source, all started together) and print the card's name and power limit.
 2. Hold every kernel against its plain PyTorch version at every distinct
-   shape the SSD-1B edit path at 1024² gives it, in the default kernel
-   configuration and in the opt-in one (shapes and counts from the model
-   configs, ``tools/inventory.py``), on seeded random bf16 inputs, and time
+   shape the SSD-1B edit path at 1024² gives it under the kernel plan
+   (shapes and counts from the model configs, ``tools/inventory.py``), on
+   seeded random bf16 inputs, and time
    the kernel, the plain version and the nearest PyTorch library call with
    CUDA events: the kernel and the library call from a CUDA graph of 20 calls
    (``ms``, ``library_ms``: the device alone) and eagerly (``eager_ms``: 10
@@ -101,11 +101,7 @@ order; a failed phase raises and the script exits non-zero:
    phase 8) may take the plain version on the card (``layer_norm.plain_on_card``),
    nor any attention call of 128 q rows or more (``attention.plain_on_card``).
 4. Kernels against plain versions end to end, with seeded fan-in-scaled
-   weights, in two arms: the default configuration, and the opt-in one
-   (``use_cuda_conv=True``: the encoder on the conv, fused resnet and
-   asymmetric stride-2 kernels; ``use_cuda_groupnorm=True``: the GroupNorm
-   kernel and its statistics launch, which the default turns on too).  Each
-   arm: one edit on graphs (a new key: warm-up and capture, twice the
+   weights: one edit on graphs (a new key: warm-up and capture, twice the
    inventory's launches), the same edit on the eager arm
    (``flags.override(cuda_graphs=False)``: the inventory's launches), which
    must give the same bits, and one with
@@ -116,7 +112,7 @@ order; a failed phase raises and the script exits non-zero:
    uint8 images, with the seeded weights: batch 1 with CFG, batch 1 without,
    an ``edit_batch`` of two; a second replay of a key on new inputs (image,
    prompt, seed, another schedule of three steps, other scales) against a
-   fresh eager edit of them; a flags override, which must capture a new key.
+   fresh eager edit of them, which must capture no new key.
    One key replayed at the thresholds (100, 200), (50, 150) and (200, 100):
    the control image its prepare graph wrote equals ``canny_np``'s edges at
    each, the edit equals the eager arm's bit for bit, and no key is captured.
@@ -235,9 +231,6 @@ order; a failed phase raises and the script exits non-zero:
    one process), within phase 8's fp32 limits, every launch an ``_f32``
    kernel's.
 
-Last, ``python -m fastedit_tpu_torch.bench --reps 3`` (``bench.main``) on a
-new editor, whose JSON line is printed.
-
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Per-shape kernel figures and the main-path timings are also
 written to ``chiprun_out/chip_smoke.json``.
@@ -254,14 +247,11 @@ import sys
 import time
 from pathlib import Path
 
+from fastedit_tpu_torch.tools.timing import PEAK_BF16_FLOPS, PEAK_HBM_BYTES_PER_S
+
 ROOT = Path(__file__).resolve().parent
 OUT_FILE = ROOT / "chiprun_out" / "chip_smoke.json"
 
-# Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate
-# and HBM3 bandwidth.  A bound is the larger of operations / peak rate and
-# bytes / bandwidth.
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES_PER_S = 3.35e12
 # fp32 outside the tensor cores (FFMAs): the bound of an fp32 kernel that took
 # its products there, beside its 3xTF32 bound
 PEAK_F32_FLOPS = 67e12
@@ -278,9 +268,6 @@ F64_GATE = 8.0
 
 RESOLUTION = 1024
 EDIT_KW = dict(strength=0.8, num_inference_steps=4, guidance_scale=1.5)
-# The opt-in kernel configuration of phase 4 (the path of the encoder's
-# fused and stride-2 kernels; the GroupNorm kernel, on by default, stays on).
-OPT_IN = dict(use_cuda_conv=True, use_cuda_groupnorm=True)
 
 # Kernel vs plain version, per element, in bf16.  Both accumulate in fp32
 # and round once to bf16, so they differ by the final rounding (one bf16
@@ -434,10 +421,9 @@ def err_over_rms(out, ref, rel: float) -> float:
 
 def kernel_shapes():
     """Kernel calls per edit of the SSD-1B edit path at 1024², keyed by
-    (kernel, shape): the default configuration for one ``edit`` and one
-    ``edit_batch`` of two, and the opt-in configuration for one ``edit``."""
+    (kernel, shape): one ``edit`` and one ``edit_batch`` of two in bf16 and
+    in fp32, and one fp32 edit in the quality mode (the full ControlNet)."""
     from fastedit_tpu_torch.models import configs as C
-    from fastedit_tpu_torch.ops import flags
     from fastedit_tpu_torch.tools import inventory
 
     import torch
@@ -445,8 +431,6 @@ def kernel_shapes():
     args = (C.SSD1B_UNET, C.SDXL_CONTROLNET_SMALL, C.SDXL_VAE, RESOLUTION)
     sites = {b: inventory.edit_sites(*args, batch=b, steps=3) for b in (1, 2)}
     calls = {f"default_b{b}": inventory.kernel_calls(sites[b]) for b in (1, 2)}
-    with flags.override(**OPT_IN):
-        calls["optin_b1"] = inventory.kernel_calls(sites[1])
     for b in (1, 2):  # the fp32 path: the same calls, on the fp32 instances
         calls[f"f32_b{b}"] = inventory.kernel_calls(sites[b], dtype=torch.float32)
     quality = inventory.edit_sites(C.SSD1B_UNET, C.SDXL_CONTROLNET_FULL, C.SDXL_VAE, RESOLUTION,
@@ -456,15 +440,14 @@ def kernel_shapes():
 
 
 def call_counts(calls: dict, kernel: str, key) -> dict:
-    """A row's calls per configuration: an edit, a batch of two and (bf16)
-    the opt-in edit or (fp32) the quality-mode edit."""
+    """A row's calls per configuration: an edit, a batch of two and (fp32)
+    the quality-mode edit."""
     if is_f32(kernel):
         return dict(calls_edit=calls["f32_b1"].get((kernel, key), 0),
                     calls_edit_batch2=calls["f32_b2"].get((kernel, key), 0),
                     calls_edit_quality=calls["f32_quality_b1"].get((kernel, key), 0))
     return dict(calls_edit=calls["default_b1"].get((kernel, key), 0),
-                calls_edit_batch2=calls["default_b2"].get((kernel, key), 0),
-                calls_edit_optin=calls["optin_b1"].get((kernel, key), 0))
+                calls_edit_batch2=calls["default_b2"].get((kernel, key), 0))
 
 
 def keys_of(calls: dict, kernel: str) -> list:
@@ -2020,47 +2003,41 @@ def kernels_vs_plain(editor, calls: dict) -> dict:
                 f"{E2E_IMAGE_MEAN_LSB} LSB): {res}"
             )
 
-    arms = {}
-    for arm, override, key in (("default", {}, "default_b1"), ("opt_in", OPT_IN, "optin_b1")):
-        inventory = launches_by_kernel(calls[key])
-        reset_launch_counts()
-        kern = run(**override)  # a new key: eager warm-up, capture, replay
-        launches = launch_counts()
-        check_launches(f"one edit on graphs (a new key), {arm} configuration", launches,
-                       {k: 2 * n for k, n in inventory.items()})
-        reset_launch_counts()
-        eager = run(cuda_graphs=False, **override)
-        check_launches(f"one edit on the eager arm, {arm} configuration", launch_counts(),
-                       inventory)
-        same_bits(f"{arm} configuration", kern, eager)
-        before = launch_counts()
-        plain = run(plain_versions=True, **override)
-        if launch_counts() != before:
-            raise AssertionError("a plain-version edit launched a kernel")
-        res = dict(differ(kern, plain), image_std=float(plain[0].std()),
-                   latent_std=float(plain[1].float().std()), seconds_graphs_first_call=kern[2],
-                   seconds_eager=eager[2], seconds_plain=plain[2],
-                   stage_ms_graphs=kern[3], stage_ms_eager=eager[3], launches=launches)
-        log(f"kernels vs plain end to end, {arm} configuration:", res)
-        within_limits(arm, res)
-        if res["latent_std"] == 0.0:
-            raise AssertionError("seeded-weight edit gave constant latents")
-        arms[arm] = res
-        if arm == "default":
-            before = launch_counts()
-            arms["planted_faults"] = faults = {
-                kind: differ(run(kind, plain_versions=True), plain)
-                for kind in ("attention", "conv")}
-            if launch_counts() != before:
-                raise AssertionError("a plain-version edit launched a kernel")
-            log("planted faults, plain edits against the plain edit:", faults)
-            conv_fault = faults["conv"]
-            if (conv_fault["latent_rel_l2"] <= E2E_LATENT_REL_L2
-                    or conv_fault["image_mean_abs_lsb"] <= E2E_IMAGE_MEAN_LSB):
-                raise AssertionError(
-                    f"the end-to-end tolerance passes a planted conv fault: {conv_fault}")
+    inventory = launches_by_kernel(calls["default_b1"])
+    reset_launch_counts()
+    kern = run()  # a new key: eager warm-up, capture, replay
+    launches = launch_counts()
+    check_launches("one edit on graphs (a new key)", launches,
+                   {k: 2 * n for k, n in inventory.items()})
+    reset_launch_counts()
+    eager = run(cuda_graphs=False)
+    check_launches("one edit on the eager arm", launch_counts(), inventory)
+    same_bits("the kernel plan", kern, eager)
+    before = launch_counts()
+    plain = run(plain_versions=True)
+    if launch_counts() != before:
+        raise AssertionError("a plain-version edit launched a kernel")
+    res = dict(differ(kern, plain), image_std=float(plain[0].std()),
+               latent_std=float(plain[1].float().std()), seconds_graphs_first_call=kern[2],
+               seconds_eager=eager[2], seconds_plain=plain[2],
+               stage_ms_graphs=kern[3], stage_ms_eager=eager[3], launches=launches)
+    log("kernels vs plain end to end:", res)
+    within_limits("the kernel plan", res)
+    if res["latent_std"] == 0.0:
+        raise AssertionError("seeded-weight edit gave constant latents")
+    before = launch_counts()
+    faults = {kind: differ(run(kind, plain_versions=True), plain)
+              for kind in ("attention", "conv")}
+    if launch_counts() != before:
+        raise AssertionError("a plain-version edit launched a kernel")
+    log("planted faults, plain edits against the plain edit:", faults)
+    conv_fault = faults["conv"]
+    if (conv_fault["latent_rel_l2"] <= E2E_LATENT_REL_L2
+            or conv_fault["image_mean_abs_lsb"] <= E2E_IMAGE_MEAN_LSB):
+        raise AssertionError(
+            f"the end-to-end tolerance passes a planted conv fault: {conv_fault}")
     torch.cuda.synchronize()
-    return arms
+    return dict(default=res, planted_faults=faults)
 
 
 # ------------------------------------------------------------------ phase 5
@@ -2099,11 +2076,6 @@ def graphs_vs_eager(editor) -> dict:
          controlnet_conditioning_scale=0.8)
     if n_keys() != keys:
         raise AssertionError("new inputs of a captured key captured another key")
-    with flags.override(use_fused_down2=False):
-        pair("flags override use_fused_down2=False", images[:1], prompts[:1], seed=25,
-             **EDIT_KW)
-    if n_keys() != keys + 1:
-        raise AssertionError("a flags override did not capture a new key")
     out["thresholds"] = thresholds_on_one_key(editor)
     return out
 
@@ -3160,7 +3132,7 @@ def tf32_split_gib(editor) -> float:
 
 def f32_prompt_graph_without_tf32(editor) -> dict:
     """With TF32 on in the process, the fp32 editor's prompt graph, captured
-    here (outside an edit, as ``bench.py`` encodes), equals its text encoders
+    here (outside an edit, as a warm-up encodes), equals its text encoders
     run with TF32 off, which TF32 would move."""
     import numpy as np
     import torch
@@ -4043,13 +4015,6 @@ def main(argv=None) -> int:
     log("[10] the conformance tool on the card, then its planted fault")
     phase10 = conformance_on_card(card)
 
-    log("[bench] python -m fastedit_tpu_torch.bench --reps 3")
-    from fastedit_tpu_torch import bench
-
-    t = time.perf_counter()
-    bench_record = bench.main(["--reps", "3"])
-    bench_s = time.perf_counter() - t
-
     # the fp32 kernels' launches and replayed device kernels are phase 8's main path's
     kernels = kernel_summary(rows, dict(
         launches={**main["launches"], **{k: v for k, v in phase8["launches"].items()
@@ -4063,8 +4028,6 @@ def main(argv=None) -> int:
         shapes=rows, host=host, main_path=main, kernels_vs_plain=e2e,
         graphs_vs_eager=vs_eager, checkpoint_and_metrics=phase6, clis=phase7,
         f32_path=phase8, serving=phase9, conformance=phase10, tensor_parallel=phase11,
-        bench=bench_record,
-        bench_s=bench_s,
         phase2_s=phase2_s, phase2_f32_s=phase2_f32_s, build_s=build_s, hgmma=hgmma,
         seconds_total=time.perf_counter() - t_start,
     ), indent=1, default=str))

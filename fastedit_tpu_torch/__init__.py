@@ -9,7 +9,7 @@ package.
 
 Layer map:
     ops/       dispatchers, CUDA kernel wrappers with their plain versions,
-               GroupNorm, Canny, the kernel flags and the kernel build.
+               GroupNorm, Canny, the kernel plan and flags, and the kernel build.
     models/    nn.Modules with diffusers state-dict names (NHWC activations):
                UNet, ControlNet, VAE, CLIP text and vision towers.
     sched/     LCM scheduler tables and step.
@@ -26,8 +26,6 @@ Layer map:
                dicts; profiling and kernel benches.
     utils/     checkpoint I/O and a safetensors reader and writer, logging,
                image helpers, analytic FLOPs.
-    bench.py   ``python -m fastedit_tpu_torch.bench``: seconds per edit on
-               the card.
     harness.py, run_single_image.py, run_batch.py, evaluate.py,
     run_benchmark.py, plotting/compare_methods.py
                the CLIs (``python -m fastedit_tpu_torch.<name>``) and the

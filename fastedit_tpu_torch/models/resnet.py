@@ -1,13 +1,13 @@
 """ResNet blocks and resampling layers (NHWC) for UNet / ControlNet / VAE.
 
 The conv modules dispatch as the JAX package's do (``models/resnet.py``
-there), on the kernel flags of the stage they run in (``ops/flags.py``):
+there), on the kernel plan of the stage they run in (``ops/flags.py``):
 whole resnet blocks through the fused conv kernel, upsamplers through the
-up2 kernel, downsamplers through the stride-2 kernel, each where its flag
-is on and its gate admits the call, and op by op with the same math
-otherwise.  Convs subclass ``nn.Conv2d`` so their parameters keep
-PyTorch's names and OIHW shapes; their ``forward`` takes and returns NHWC
-tensors.  What the kernels take derived from the weights (the bias in fp32,
+up2 kernel, downsamplers through the stride-2 kernel, each where the plan
+has it and its gate admits the call (``flags.takes``), and op by op with
+the same math otherwise.  Convs subclass ``nn.Conv2d`` so their parameters
+keep PyTorch's names and OIHW shapes; their ``forward`` takes and returns
+NHWC tensors.  What the kernels take derived from the weights (the bias in fp32,
 the up2 kernel's folded phase weights, the fp32 kernels' TF32 hi and lo
 weights: of the weight, or of the upsample conv's phase weights folded in
 fp32) is made once per version of the weights
@@ -54,11 +54,11 @@ def _tf32_split(conv: nn.Conv2d, w: torch.Tensor) -> tuple[torch.Tensor, torch.T
 
 class Conv3x3(nn.Conv2d):
     """3x3 stride-1 SAME conv dispatched through ``ops.conv.conv3x3_same``
-    (the conv kernel for Cin >= 64 where the context turns it on).
+    (the conv kernel for Cin >= 64 where the stage's plan has it).
 
     Optional fused-resnet operands (``ops/conv_fused.conv3x3_fused``; each
-    falls back to the same math op by op where the fused kernel is off or
-    its gate refuses the call):
+    falls back to the same math op by op where the stage's plan lacks the
+    fused kernel or its gate refuses the call):
 
     * ``prenorm``: fp32 ``(scale, shift)`` [B, Cin]; the input is mapped
       through ``silu(x * scale + shift)`` before the taps (GroupNorm + SiLU
@@ -113,7 +113,7 @@ class Conv3x3(nn.Conv2d):
 
         if up2:
             assert prenorm is None and extra_bias is None and skip is None
-            if flags.use_fused_up2() and conv_fused.supports_up2(*shapes):
+            if flags.takes("conv3x3_up2", *shapes):
                 fn = flags.kernel_or_plain(self._up2, conv_fused.conv3x3_up2_plain)
                 return fn(x, w, bias=bias)
             x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
@@ -125,7 +125,7 @@ class Conv3x3(nn.Conv2d):
         bias_eff = bias
         if extra_bias is not None:  # [B, Cout], summed in fp32
             bias_eff = bias[None, :] + extra_bias.float()
-        if flags.use_fused_resnet() and conv_fused.supports_fused(*shapes):
+        if flags.takes("conv3x3_fused", *shapes):
             fn = flags.kernel_or_plain(self._fused, conv_fused.conv3x3_fused_plain)
             return fn(x, w, bias=bias_eff, prenorm=prenorm,
                       skip=None if skip is None else skip.to(dtype).contiguous())
@@ -153,7 +153,7 @@ class Conv1x1(nn.Conv2d):
 class StridedConv3x3(nn.Conv2d):
     """Stride-2 3x3 conv with torch's (1,1) padding, or the VAE encoder's
     asymmetric (0,1) padding: the stride-2 kernel (``conv3x3_down2``) where
-    ``flags.use_fused_down2()`` is on and its gate admits the call,
+    the stage's plan has it and its gate admits the call (``flags.takes``),
     PyTorch's strided conv otherwise."""
 
     def __init__(self, in_channels: int, out_channels: int, asymmetric: bool = False):
@@ -170,7 +170,7 @@ class StridedConv3x3(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.weight.dtype).contiguous()
         w = self.weight.contiguous(memory_format=torch.channels_last)
-        if flags.use_fused_down2() and conv_fused.supports_down2(tuple(x.shape), tuple(w.shape)):
+        if flags.takes("conv3x3_down2", tuple(x.shape), tuple(w.shape)):
             fn = flags.kernel_or_plain(self._down2, conv_fused.conv3x3_down2_plain)
             return fn(x, w, bias=_bias_f32(self), asymmetric=self.asymmetric)
         x = x.permute(0, 3, 1, 2)
@@ -184,9 +184,9 @@ class StridedConv3x3(nn.Conv2d):
 class ResnetBlock2D(nn.Module):
     """GN+SiLU -> conv3x3 -> (+time emb) -> GN+SiLU -> conv3x3 -> +shortcut.
 
-    Where ``flags.use_fused_resnet()`` is on and the fused conv's gate admits
-    both convs, the whole block runs as two fused convs: the GroupNorm
-    statistics are plain reductions over the raw tensors, and the
+    Where the stage's plan has the fused conv and its gate admits both
+    convs (``flags.takes``), the whole block runs as two fused convs: the
+    GroupNorm statistics are plain reductions over the raw tensors, and the
     normalise + SiLU map, the time-embedding bias and the residual add ride
     inside the convs."""
 
@@ -207,9 +207,8 @@ class ResnetBlock2D(nn.Module):
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None):
         t = None if temb is None else self.time_emb_proj(F.silu(temb))
         out_shape = (*x.shape[:-1], self.conv2.out_channels)
-        if (flags.use_fused_resnet()
-                and conv_fused.supports_fused(tuple(x.shape), tuple(self.conv1.weight.shape))
-                and conv_fused.supports_fused(out_shape, tuple(self.conv2.weight.shape))):
+        if (flags.takes("conv3x3_fused", tuple(x.shape), tuple(self.conv1.weight.shape))
+                and flags.takes("conv3x3_fused", out_shape, tuple(self.conv2.weight.shape))):
             shortcut = x if self.conv_shortcut is None else self.conv_shortcut(x)
             h = self.conv1(x, prenorm=self.norm1(x, scale_shift=True), extra_bias=t)
             return self.conv2(h, prenorm=self.norm2(h, scale_shift=True), skip=shortcut)
@@ -235,8 +234,8 @@ class Downsample2D(nn.Module):
 
 
 class Upsample2D(nn.Module):
-    """Nearest x2 then conv3x3: the up2 kernel where the context turns it
-    on, the exact repeat and the plain conv dispatch otherwise."""
+    """Nearest x2 then conv3x3: the up2 kernel where the stage's plan has
+    it, the exact repeat and the plain conv dispatch otherwise."""
 
     def __init__(self, channels: int):
         super().__init__()

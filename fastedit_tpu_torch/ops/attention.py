@@ -9,9 +9,8 @@ package sends it to XLA; fp32 cross-attention, the CLIP towers and the tiny
 model's short sequences take the plain fp32 softmax path on any device, as
 the JAX package sends them to XLA.  A call on the card with 128 q rows or
 more that still takes that path is counted as ``attention.plain_on_card``
-(``utils/profiling``).  ``flags.override(use_cuda_attention=False)`` turns
-both kernels off, and ``flags.override(plain_versions=True)`` selects their
-plain version in their place; both run the same plain function.
+(``utils/profiling``).  ``flags.override(plain_versions=True)`` selects
+their plain version in their place: the same plain function.
 """
 
 from __future__ import annotations
@@ -30,11 +29,10 @@ def attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None
 ) -> torch.Tensor:
     """q [B,Sq,H,D], k/v [B,Skv,H,D] -> [B,Sq,H,D]."""
-    if flags.use_cuda_attention():
-        if fa.supports(tuple(q.shape), k.shape[1]):
-            return flags.kernel_or_plain(fa.flash_attention, attention_plain)(q, k, v, scale=scale)
-        if fa.supports_cross(tuple(q.shape), k.shape[1], q.dtype):
-            return flags.kernel_or_plain(fa.cross_attention, attention_plain)(q, k, v, scale=scale)
+    if flags.takes("flash_attention", tuple(q.shape), k.shape[1]):
+        return flags.kernel_or_plain(fa.flash_attention, attention_plain)(q, k, v, scale=scale)
+    if flags.takes("cross_attention", tuple(q.shape), k.shape[1], q.dtype):
+        return flags.kernel_or_plain(fa.cross_attention, attention_plain)(q, k, v, scale=scale)
     if q.is_cuda and q.shape[1] >= 128:
         profiling.count("attention.plain_on_card")
     return attention_plain(q, k, v, scale=scale)

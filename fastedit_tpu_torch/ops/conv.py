@@ -1,12 +1,12 @@
 """Dispatching 3x3 SAME stride-1 conv (NHWC).
 
-Where the context's conv flag is on (``flags.use_cuda_conv``: the denoise
-loop and the VAE decoder by default), calls inside the kernel's gate
+Where the stage's plan has the conv kernel (``flags.takes``: the denoise
+loop and the VAE decoder), calls inside the kernel's gate
 (``conv3x3.supports``: Cin >= 64) go to the conv3x3 wrapper, which launches
 the CUDA kernel on a card and runs the plain version on the CPU.  Calls
 outside the gate (``conv_in`` with 4 channels, the ControlNet conditioning
-stem) and every call where the flag is off (the VAE encoder by default) run
-PyTorch's conv (cuDNN on the card), as the JAX package sends them to XLA.
+stem) and every call whose stage's plan lacks the kernel (the VAE encoder)
+run PyTorch's conv (cuDNN on the card), as the JAX package sends them to XLA.
 ``flags.override(plain_versions=True)`` selects the kernel's plain version
 in the kernel's place, for comparisons.  In fp32 on the card the kernel takes
 the weight's TF32 hi and lo copies, which the caller's ``split`` gives (the
@@ -34,7 +34,7 @@ def conv3x3_same(
     """NHWC x [B,H,W,Cin] * OIHW weight [Cout,Cin,3,3] + bias (+ SiLU).
     ``split`` gives ``conv_fused.split_tf32(weight)``; it is called only for
     an fp32 call that reaches the kernel on the card."""
-    if flags.use_cuda_conv() and k.supports(tuple(x.shape), tuple(weight.shape)):
+    if flags.takes("conv3x3", tuple(x.shape), tuple(weight.shape)):
         def kernel(x, weight, bias=None, act=None):
             on_tf32x3 = split is not None and x.is_cuda and x.dtype == torch.float32
             return k.conv3x3(x, weight, bias, act, w_split=split() if on_tf32x3 else None)

@@ -1,30 +1,34 @@
-"""Kernel-dispatch flags, resolved per context as in the JAX package.
+"""The kernel plan: which calls go to a hand-written kernel, per stage.
 
 Every hot op has a hand-written CUDA kernel and a plain PyTorch version of
 the same function.  The dispatchers (``ops/conv.py``, ``ops/attention.py``,
-``ops/groupnorm.py`` and the conv modules of ``models/resnet.py``) send a
-call inside a kernel's gate to the kernel's wrapper when the flags below
-turn the kernel on, and to PyTorch's own op (cuDNN's conv, the plain
-GroupNorm) when they turn it off, as the JAX package sends it to XLA.  A
-wrapper launches its kernel for a CUDA tensor or raises; it runs the plain
-version only for a CPU tensor.
+``ops/groupnorm.py``, ``ops/layer_norm.py`` and the conv modules of
+``models/resnet.py``) and ``tools/inventory.route`` ask :func:`takes`
+whether a call goes to a kernel: it does where the plan of the stage it
+runs in has the kernel and the kernel's own gate (its ``supports``) admits
+the call.  Otherwise PyTorch's own op (cuDNN's conv, the plain GroupNorm or
+attention) runs it, as the JAX package sends it to XLA.  A wrapper launches
+its kernel for a CUDA tensor or raises; it runs the plain version only for
+a CPU tensor.
 
-The fields mirror ``fastedit_tpu/ops/flags.py`` (``use_pallas_*`` becomes
-``use_cuda_*``); ``None`` means the context's default, and the defaults
-are the JAX package's values on its accelerator, but one:
+The plan (:data:`PLAN`) is the JAX package's defaults on its accelerator
+(``fastedit_tpu/ops/flags.py``), but one.  The conv rows come from that
+package's TPU measurements:
 
-  * denoise loop (UNet, ControlNet and its conditioning tower): conv
-    kernel on, up2 (K3) on, down2 (K4) on, whole-resnet fusion (K5) off;
-  * VAE decoder: conv kernel on, K5 on, K3 on;
+  * denoise loop (UNet, ControlNet and its conditioning tower): the conv
+    kernel, up2 (K3) and down2 (K4); whole-resnet fusion (K5) off;
+  * VAE decoder: the conv kernel, K5 and K3;
   * VAE encoder and any module run outside a stage: no conv kernel.
-  * flash attention: on.
-  * GroupNorm kernel (K7, and its statistics launch for K5's prologue): on,
-    the port's one departure from the JAX defaults, where it is opt-in.
-    There "off" is one fused XLA program per GroupNorm; eager PyTorch has no
-    such path (off is a dozen eager kernels over fp32 copies), and on an
-    H100 80GB HBM3 at 700 W the SSD-1B edit at 1024² took 138 instead of
-    230 device ms and 0.296 instead of 0.407 s (medians of 7) with the
-    kernel on (``tools/profile_edit.py``, the two arms in turns).
+
+Flash attention, the cross-attention kernel, LayerNorm and Canny run
+wherever their gates admit the call.  So does the GroupNorm kernel (K7, and
+its statistics launch for K5's prologue), the port's one departure from the
+JAX defaults, where it is opt-in, and the one row from the port's own A/B.
+There "off" is one fused XLA program per GroupNorm; eager PyTorch has no
+such path (off is a dozen eager kernels over fp32 copies), and on an H100
+80GB HBM3 at 700 W the SSD-1B edit at 1024² took 138 instead of 230 device
+ms and 0.296 instead of 0.407 s (medians of 7) with the kernel on
+(``tools/profile_edit.py``, the two arms in turns).
 
 The gates do not depend on the dtype, a second departure: the JAX package
 passes the item size to its gates, and at fp32 (the quality mode) its VMEM
@@ -38,8 +42,10 @@ One gate does read the dtype: the cross-attention kernel (the UNet's
 attention to the text tokens, which the JAX package sends to XLA at any item
 size) takes bf16 only; fp32 cross-attention keeps the plain version.
 
-The stage functions enter their context with :func:`stage`.  PyTorch runs
-eagerly, so a flag is read when the op runs, not when a program is traced.
+The stage functions enter their stage with :func:`stage`.  PyTorch runs
+eagerly, so the plan is read when the op runs, not when a program is traced.
+
+Two flags choose the arm an edit runs on, nothing else:
 
 ``plain_versions`` is the counterpart of the JAX package's
 ``pallas_interpret``: with it, every call that would launch a kernel runs
@@ -50,36 +56,32 @@ against the same edit without kernels (``chip_smoke.py``).
 on, the editor replays its pixel path as CUDA graphs on the card
 (``pipeline/graphs.py``), as the JAX package runs it as jitted programs;
 off, it runs the same stages eagerly, op by op (the arm the graphs are held
-against).  A graph is captured under the flags in force and keyed by all
-of them (``graphs.graph_key``).  ``plain_versions`` runs eagerly too, and so
-does a tensor-parallel replica whose group spans several cards or several
-processes (``parallel/tp.py``), whatever this flag says: one capture cannot
-span cards, and a group over processes sums its partials through gloo
-collectives inside the denoise stage, host work that no capture can hold.
+against).  Graphs run only with both flags at their defaults, so a capture
+is keyed by its shapes alone (``graphs.graph_key``).  A tensor-parallel
+replica whose group spans several cards or several processes
+(``parallel/tp.py``) runs eagerly whatever this flag says: one capture
+cannot span cards, and a group over processes sums its partials through
+gloo collectives inside the denoise stage, host work that no capture can
+hold.
 
-The flags are per thread: every thread starts from the defaults below and
-sees only its own :func:`override`s, as the JAX package's flags are read
-at trace time by the one thread that traces.  A replica or a server's
-worker thread can run its own configuration without moving another
-thread's (nor another thread's graph key, which :func:`current` reads).
+The flags and the stage are per thread: every thread starts from the
+defaults below, outside any stage, and sees only its own :func:`override`s,
+as the JAX package's flags are read at trace time by the one thread that
+traces.  A replica or a server's worker thread can run its own arm without
+moving another thread's.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import threading
 from typing import Optional
 
 
 @dataclasses.dataclass
 class KernelFlags:
-    use_cuda_attention: Optional[bool] = None  # None = on
-    use_cuda_groupnorm: Optional[bool] = None  # None = on (the JAX package: off)
-    use_cuda_conv: Optional[bool] = None  # None = the context's default
-    use_fused_resnet: Optional[bool] = None  # None = the context's default
-    use_fused_up2: Optional[bool] = None  # None = the context's default
-    use_fused_down2: Optional[bool] = None  # None = the context's default
     plain_versions: bool = False  # kernels' plain versions in their place
     cuda_graphs: bool = True  # the editor's pixel path as CUDA graphs on the card
 
@@ -94,6 +96,30 @@ class _ThreadFlags(KernelFlags, threading.local):
 
 
 FLAGS = _ThreadFlags()
+_STAGE = threading.local()
+
+# The conv kernels each stage's plan turns on; no conv kernel runs outside a
+# stage.  Every other kernel runs in every stage, where its gate admits the call.
+PLAN = {
+    "encode": frozenset(),
+    "denoise": frozenset({"conv3x3", "conv3x3_up2", "conv3x3_down2"}),
+    "decode": frozenset({"conv3x3", "conv3x3_fused", "conv3x3_up2"}),
+}
+STAGES = tuple(PLAN)
+CONV_KERNELS = ("conv3x3", "conv3x3_fused", "conv3x3_up2", "conv3x3_down2")
+
+# kernel -> (its module under ops/, its gate)
+GATES = {
+    "conv3x3": ("conv3x3", "supports"),
+    "conv3x3_fused": ("conv_fused", "supports_fused"),
+    "conv3x3_up2": ("conv_fused", "supports_up2"),
+    "conv3x3_down2": ("conv_fused", "supports_down2"),
+    "group_norm": ("fused_groupnorm", "supports"),
+    "group_norm_scale_shift": ("fused_groupnorm", "supports"),
+    "flash_attention": ("flash_attention", "supports"),
+    "cross_attention": ("flash_attention", "supports_cross"),
+    "layer_norm": ("layer_norm", "supports"),
+}
 
 
 def current() -> KernelFlags:
@@ -101,16 +127,19 @@ def current() -> KernelFlags:
     return KernelFlags(*dataclasses.astuple(FLAGS))
 
 
-def _or(value: Optional[bool], default: bool) -> bool:
-    return default if value is None else value
+def current_stage() -> Optional[str]:
+    """The stage the calling thread runs in, or None outside one."""
+    return getattr(_STAGE, "name", None)
 
 
-def use_cuda_attention() -> bool:
-    return _or(FLAGS.use_cuda_attention, True)
-
-
-def use_cuda_groupnorm() -> bool:
-    return _or(FLAGS.use_cuda_groupnorm, True)
+def takes(kernel: str, *call) -> bool:
+    """Whether a call goes to ``kernel``: the current stage's plan has it,
+    and its gate admits ``call`` (the gate's arguments: the shapes, and the
+    dtype where the gate reads it)."""
+    if kernel in CONV_KERNELS and kernel not in PLAN.get(current_stage(), ()):
+        return False
+    module, gate = GATES[kernel]
+    return getattr(importlib.import_module(f"fastedit_tpu_torch.ops.{module}"), gate)(*call)
 
 
 def use_cuda_graphs() -> bool:
@@ -125,93 +154,17 @@ def kernel_or_plain(kernel, plain):
     return plain if FLAGS.plain_versions else kernel
 
 
-def use_cuda_conv() -> bool:
-    """The conv kernel in the current context.  Outside a stage (and in
-    the VAE encoder) it is off unless set: the JAX package measured XLA's
-    conv faster there on its accelerator and kept it."""
-    return _or(FLAGS.use_cuda_conv, False)
-
-
-def use_cuda_conv_denoise() -> bool:
-    return _or(FLAGS.use_cuda_conv, True)
-
-
-def use_cuda_conv_decode() -> bool:
-    return _or(FLAGS.use_cuda_conv, True)
-
-
-def use_cuda_conv_encode() -> bool:
-    return _or(FLAGS.use_cuda_conv, False)
-
-
-def use_fused_resnet() -> bool:
-    """Whole-resnet-block fusion (``ops/conv_fused.conv3x3_fused``)."""
-    return _or(FLAGS.use_fused_resnet, use_cuda_conv())
-
-
-def use_fused_up2() -> bool:
-    """Nearest-2x upsample + conv in one kernel (``conv3x3_up2``)."""
-    return _or(FLAGS.use_fused_up2, use_cuda_conv())
-
-
-def use_fused_down2() -> bool:
-    """Stride-2 conv kernel (``conv3x3_down2``)."""
-    return _or(FLAGS.use_fused_down2, use_cuda_conv())
-
-
-def resolve_fused_encode() -> tuple[bool, bool]:
-    """(use_fused_resnet, use_fused_down2) in the VAE encoder; the encode
-    context's conv flag gates both."""
-    on = use_cuda_conv_encode()
-    return _or(FLAGS.use_fused_resnet, on) and on, _or(FLAGS.use_fused_down2, on) and on
-
-
-def resolve_fused_denoise() -> tuple[bool, bool]:
-    """(use_fused_resnet, use_fused_up2) in the denoise loop: resnet fusion
-    off unless set, up2 following the context's conv flag, both gated by
-    it (the fusions live inside the conv kernel)."""
-    on = use_cuda_conv_denoise()
-    return _or(FLAGS.use_fused_resnet, False) and on, _or(FLAGS.use_fused_up2, on) and on
-
-
-def resolve_fused_down2_denoise() -> bool:
-    """conv3x3_down2 for the downsamplers of the denoise loop."""
-    on = use_cuda_conv_denoise()
-    return _or(FLAGS.use_fused_down2, on) and on
-
-
-def resolve_fused_decode() -> tuple[bool, bool]:
-    """(use_fused_resnet, use_fused_up2) in the VAE decoder."""
-    on = use_cuda_conv_decode()
-    return _or(FLAGS.use_fused_resnet, on) and on, _or(FLAGS.use_fused_up2, on) and on
-
-
-STAGES = ("encode", "denoise", "decode")
-
-
-def stage_overrides(name: str) -> dict:
-    """The flag values a stage runs under, as the JAX package's stages set
-    them around their bodies."""
-    if name == "denoise":
-        resnet, up2 = resolve_fused_denoise()
-        return dict(use_cuda_conv=use_cuda_conv_denoise(), use_fused_resnet=resnet,
-                    use_fused_up2=up2, use_fused_down2=resolve_fused_down2_denoise())
-    if name == "decode":
-        resnet, up2 = resolve_fused_decode()
-        return dict(use_cuda_conv=use_cuda_conv_decode(), use_fused_resnet=resnet,
-                    use_fused_up2=up2)
-    if name == "encode":
-        resnet, down2 = resolve_fused_encode()
-        return dict(use_cuda_conv=use_cuda_conv_encode(), use_fused_resnet=resnet,
-                    use_fused_down2=down2)
-    raise ValueError(f"unknown stage {name!r}; one of {STAGES}")
-
-
 @contextlib.contextmanager
 def stage(name: str):
-    """Run the body in stage ``name``'s kernel context."""
-    with override(**stage_overrides(name)):
+    """Run the body in stage ``name``, under its plan."""
+    if name not in PLAN:
+        raise ValueError(f"unknown stage {name!r}; one of {STAGES}")
+    old = current_stage()
+    _STAGE.name = name
+    try:
         yield
+    finally:
+        _STAGE.name = old
 
 
 @contextlib.contextmanager

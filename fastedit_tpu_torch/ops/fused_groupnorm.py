@@ -32,8 +32,8 @@ groupnorm.py`` ``group_norm_scale_shift``).  :func:`plan` is the schedule, a
 pure function of the shape, the blocks the card holds at once, the item size
 and the cluster size; :func:`group_norm_chunked_plain` walks it in plain
 PyTorch (chunk partials, then the cluster's merge, then the batch item's, in
-the kernel's order), for the tests.  Both entries are gated by
-``flags.use_cuda_groupnorm``.
+the kernel's order), for the tests.  The dispatchers reach both entries
+where :func:`supports` admits the call (``flags.takes``).
 
 The kernel is a template over the element type: bf16, and fp32 for the
 quality mode (the ``_f32`` C entries, with launch counters of their own).  A

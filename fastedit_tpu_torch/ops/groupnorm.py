@@ -3,11 +3,11 @@
 Both functions use the two-pass variance, mean((x - mean)^2): the one-pass
 E[x^2] - E[x]^2 form cancels in fp32 when |mean| >> std, which happens in
 the late VAE decoder blocks.  :func:`group_norm` dispatches to the
-GroupNorm kernel (``ops/fused_groupnorm.py``) when ``flags.
-use_cuda_groupnorm()`` is on, as the JAX package's does (on by default in
-the port, opt-in there).
+GroupNorm kernel (``ops/fused_groupnorm.py``) wherever its gate admits the
+call (``flags.takes``), as the JAX package's does where its flag turns the
+kernel on (on in every stage of the port's plan, opt-in there).
 :func:`group_norm_scale_shift`, which feeds the fused resnet conv's
-prologue (XLA in the JAX package), dispatches under the same flag to the
+prologue (XLA in the JAX package), dispatches in the same way to the
 kernel's statistics launch.
 """
 
@@ -30,8 +30,8 @@ def group_norm_plain(
     act: Optional[str] = None,
 ) -> torch.Tensor:
     """x: [..., H, W, C] (NHWC); gamma/beta: [C]; act in {None, 'silu'}.
-    The GroupNorm kernel's plain version, and PyTorch's GroupNorm where the
-    kernel is off."""
+    The GroupNorm kernel's plain version, and PyTorch's GroupNorm outside
+    the kernel's gate."""
     *lead, h, w, c = x.shape
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
@@ -60,7 +60,7 @@ def group_norm(
     from fastedit_tpu_torch.ops import fused_groupnorm as k  # it imports this module
 
     fn = group_norm_plain
-    if flags.use_cuda_groupnorm() and k.supports(tuple(x.shape), num_groups):
+    if flags.takes("group_norm", tuple(x.shape), num_groups):
         fn = flags.kernel_or_plain(k.fused_group_norm, group_norm_plain)
     return fn(x, gamma, beta, num_groups=num_groups, eps=eps, act=act)
 
@@ -77,7 +77,7 @@ def group_norm_scale_shift(
     from fastedit_tpu_torch.ops import fused_groupnorm as k  # it imports this module
 
     fn = group_norm_scale_shift_plain
-    if flags.use_cuda_groupnorm() and k.supports(tuple(x.shape), num_groups):
+    if flags.takes("group_norm_scale_shift", tuple(x.shape), num_groups):
         fn = flags.kernel_or_plain(k.group_norm_scale_shift, group_norm_scale_shift_plain)
     return fn(x, gamma, beta, num_groups=num_groups, eps=eps)
 
@@ -89,8 +89,8 @@ def group_norm_scale_shift_plain(
     num_groups: int = 32,
     eps: float = 1e-5,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The statistics launch's plain version, and the op where the kernel is
-    off: the same two-pass statistics as :func:`group_norm_plain`."""
+    """The statistics launch's plain version, and the op outside the
+    kernel's gate: the same two-pass statistics as :func:`group_norm_plain`."""
     b, h, w, c = x.shape
     g = num_groups
     if c % g:

@@ -14,11 +14,11 @@ and DINO), bf16 and fp32 (the quality mode; the ``_f32`` C entry, with a
 launch counter of its own), and adapts to the row width C it is given.
 
 :func:`layer_norm` is the dispatching entry the models call.  Inside the
-gate (:func:`supports`) it takes :func:`fused_layer_norm`, or the plain
-version under ``flags.override(plain_versions=True)``; outside it the plain
-version, counted as ``layer_norm.plain_on_card`` (``utils/profiling``) when
-x is on the card.  No flag turns the kernel off: the JAX package has none to
-mirror.
+gate (:func:`supports`, asked through ``flags.takes``: every stage's plan
+has the kernel) it takes :func:`fused_layer_norm`, or the plain version
+under ``flags.override(plain_versions=True)``; outside it the plain version,
+counted as ``layer_norm.plain_on_card`` (``utils/profiling``) when x is on
+the card.
 """
 
 from __future__ import annotations
@@ -106,7 +106,7 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     strided or misaligned x inside the gate (the CLIP vision tower's class
     token, ``x[:, 0]``) is copied first, as the kernel takes whole aligned
     rows."""
-    if supports(x.shape[-1], x.dtype):
+    if flags.takes("layer_norm", x.shape[-1], x.dtype):
         if x.is_cuda and (not x.is_contiguous() or x.data_ptr() % 16):
             x = x.clone(memory_format=torch.contiguous_format)
         return flags.kernel_or_plain(fused_layer_norm, layer_norm_plain)(x, weight, bias, eps)

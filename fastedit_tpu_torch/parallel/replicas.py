@@ -27,10 +27,10 @@ draws once per dispatch (``multihost.shared_seed``) and group g takes that
 draw plus g.
 
 Kernel flags are per thread (``ops/flags.py``): each worker runs under the
-calling thread's flags, so the replicas capture and replay the graph key
-the caller would, under tensor parallelism (``model_parallel > 1``,
-``parallel/tp.py``) too.  A replica takes one call at a time, since the
-dispatch waits for every replica's before it returns.
+calling thread's flags, so the replicas run the arm the caller would (CUDA
+graphs or eager, kernels or their plain versions), under tensor parallelism
+(``model_parallel > 1``, ``parallel/tp.py``) too.  A replica takes one call
+at a time, since the dispatch waits for every replica's before it returns.
 """
 
 from __future__ import annotations

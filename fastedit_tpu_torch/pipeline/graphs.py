@@ -10,9 +10,9 @@ per key as a ``torch.cuda.CUDAGraph`` and replayed, one launch per stage,
 back to back:
 
 * the key (:func:`graph_key`) is everything the captured launches depend on:
-  batch, CFG, the number of run steps, noise tiling, resolution, and every
-  kernel flag, since the flags are read in Python while a stage runs and a
-  capture bakes in what they said;
+  batch, CFG, the number of run steps, noise tiling and resolution.  The
+  kernel plan is a constant of each stage (``ops/flags.py``), and graphs run
+  only with both kernel flags at their defaults, so neither is in the key;
 * a capture's static buffers (:class:`EditInputs`) hold what its graphs
   read: the uint8 images, both Canny thresholds, the noise draws, the prompt
   embeddings, time ids, the schedule table and both scales.  A replay first
@@ -94,7 +94,6 @@ from typing import Optional
 
 import torch
 
-from fastedit_tpu_torch.ops import flags
 from fastedit_tpu_torch.pipeline import stages
 from fastedit_tpu_torch.sched.lcm import LCMSchedule
 from fastedit_tpu_torch.utils import profiling
@@ -109,15 +108,13 @@ STAGES = ("prepare", "vae_encode", "denoise", "vae_decode")
 
 def graph_key(batch: int, do_cfg: bool, steps: int, tile_noise: bool,
               resolution: int) -> tuple:
-    """What one capture serves: its shapes and every kernel flag in force
-    in the calling thread."""
-    return (batch, do_cfg, steps, tile_noise, resolution, dataclasses.astuple(flags.current()))
+    """What one capture serves: its shapes."""
+    return (batch, do_cfg, steps, tile_noise, resolution)
 
 
 def prompt_key(padded: int) -> tuple:
-    """What one prompt capture serves: the padded number of prompts and
-    every kernel flag in force in the calling thread."""
-    return ("prompt", padded, dataclasses.astuple(flags.current()))
+    """What one prompt capture serves: the padded number of prompts."""
+    return ("prompt", padded)
 
 
 @dataclasses.dataclass

@@ -21,7 +21,7 @@ Semantics mirrored from the JAX package:
   * initial noise added in fp32; LCM step in fp32;
   * decode ``(clip(x/2 + 0.5) * 255 + 0.5)`` to uint8, one image at a time;
   * each of VAE encode, denoise (the conditioning tower included) and VAE
-    decode runs in its own kernel context (``flags.stage``): by default the
+    decode runs in its own stage of the kernel plan (``flags.stage``): the
     conv kernels with up2 and down2 in the loop, the conv kernels with
     whole-resnet fusion and up2 in the decoder, PyTorch's convs in the
     encoder;

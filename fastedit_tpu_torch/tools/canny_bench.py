@@ -31,8 +31,6 @@ import contextlib
 import json
 import sys
 from pathlib import Path
-
-PEAK_HBM_BYTES_PER_S = 3.35e12
 HERE = Path(__file__).resolve().parents[2]
 PACKAGE = "fastedit_tpu_torch"
 SIZE = 1024
@@ -88,7 +86,7 @@ def main(argv=None) -> int:
         print("canny_bench: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
-    from timing import card_line, graph_ms, time_ms  # this tree's
+    from timing import PEAK_HBM_BYTES_PER_S, card_line, graph_ms, time_ms  # this tree's
 
     sys.path.insert(0, str(HERE))
     import chip_smoke  # this tree's test images

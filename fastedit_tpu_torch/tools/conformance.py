@@ -21,8 +21,8 @@ tolerances:
     only, strong at one end), a zigzag whose every link is through a corner,
     and random candidates at densities 0.1 to 0.6;
   * attention at (1, 256, 2, 64), fp32 in (5e-3): the plain op on the device
-    against the host, then the flash kernel (K2) on the device against the
-    plain op on the host, the routes pinned with ``flags.override``;
+    against the host (``flags.override(plain_versions=True)``), then the
+    flash kernel (K2) on the device against the plain op on the host;
   * GroupNorm + SiLU at (1, 32, 32, 64), 32 groups (5e-3): the GroupNorm
     kernel (K7) on the device against the plain op on the host.
 
@@ -218,16 +218,14 @@ def op_checks(device: torch.device, host: torch.device, inp: dict) -> list:
     def attn(a, b, c):
         return attention(a, b, c)
 
-    with flags.override(use_cuda_attention=False):
+    with flags.override(plain_versions=True):
         plain = _compare("attention (plain op, fp32 in)", device, host, attn, (q, q, q), 5e-3)
         attn_host = _on(host, attn, q, q, q).astype(np.float64)
-    with flags.override(use_cuda_attention=True, plain_versions=False):
-        attn_dev = _on(device, attn, q, q, q).astype(np.float64)
+    attn_dev = _on(device, attn, q, q, q).astype(np.float64)
     flash = Result("flash attention (kernel vs plain)",
                    float(np.max(np.abs(attn_dev - attn_host))), 5e-3)
     sc, bi = np.ones((64,), np.float32), np.zeros((64,), np.float32)
-    with flags.override(use_cuda_groupnorm=True, plain_versions=False):
-        gn_dev = _on(device, lambda t, s, b: group_norm(t, s, b, 32, act="silu"), h, sc, bi)
+    gn_dev = _on(device, lambda t, s, b: group_norm(t, s, b, 32, act="silu"), h, sc, bi)
     gn_host = _on(host, lambda t, s, b: group_norm_plain(t, s, b, 32, act="silu"), h, sc, bi)
     gn = Result("group_norm+silu (kernel vs plain)",
                 float(np.max(np.abs(gn_dev.astype(np.float64) - gn_host))), 5e-3)

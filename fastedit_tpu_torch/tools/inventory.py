@@ -17,16 +17,17 @@ stage, from the model configs alone, and the kernel each one reaches.
   transformer block (:func:`prompt_sites` lists the CLIP text towers', two in
   each layer and the final one, for one call of the prompt encoder);
 * ``("canny", (B, H, W))``: Canny prepare, once per edit in its own stage
-  (``"prepare"``, outside the kernel contexts), on the card one launch of
+  (``"prepare"``, outside the plan's stages), on the card one launch of
   the Canny kernel (``ops/canny.prepare``).
 
-:func:`kernel_calls` routes each call as the modules dispatch it, under the
-flags of its stage (``flags.stage``), and counts the calls each kernel
-takes, keyed by (kernel, shape).  The gates do not depend on the dtype but
-one, so an fp32 edit (the quality mode) takes the same calls to each kernel's
-fp32 instance, named ``<kernel>_f32`` (``kernel_calls(..., dtype=torch.float32)``);
-the exception is ``cross_attention``, bf16 only (:data:`BF16_ONLY`): fp32
-cross-attention takes the plain version.
+:func:`kernel_calls` routes each call as the modules dispatch it, asking
+the kernel plan of its stage (``flags.takes`` inside ``flags.stage``), and
+counts the calls each kernel takes, keyed by (kernel, shape).  The gates do
+not depend on the dtype but one, so an fp32 edit (the quality mode) takes
+the same calls to each kernel's fp32 instance, named ``<kernel>_f32``
+(``kernel_calls(..., dtype=torch.float32)``); the exception is
+``cross_attention``, bf16 only (:data:`BF16_ONLY`): fp32 cross-attention
+takes the plain version.
 ``chip_smoke.py`` uses it for the shapes at which each kernel is held against
 its plain version and for the launch counts the main path must show; the
 tests hold it to the calls an edit makes.  Counts are per edit: the encoder
@@ -215,22 +216,20 @@ def edit_calls(*args, **kwargs):
     return conv, attn
 
 
-def _conv(key):
-    n, h, w, cin, cout = key
-    if flags.use_cuda_conv() and conv3x3.supports((n, h, w, cin), (cout, cin, 3, 3)):
-        return [("conv3x3", key)]
-    return []
+def _conv(kernel, key):
+    """``[(kernel, key)]`` where the plan takes the conv (N, H, W, Cin, Cout)
+    that ``key`` starts with."""
+    n, h, w, cin, cout = key[:5]
+    return [(kernel, key)] if flags.takes(kernel, (n, h, w, cin), (cout, cin, 3, 3)) else []
 
 
 def _gn(key, kernel="group_norm"):
     n, h, w, c, groups = key[:5]
-    if flags.use_cuda_groupnorm() and fused_groupnorm.supports((n, h, w, c), groups):
-        return [(kernel, key)]
-    return []
+    return [(kernel, key)] if flags.takes(kernel, (n, h, w, c), groups) else []
 
 
 def route(op: str, key: tuple, dtype: torch.dtype = torch.bfloat16) -> list:
-    """The kernel calls one site makes under the current flags, in ``dtype``, as
+    """The kernel calls one site makes in the current stage, in ``dtype``, as
     (kernel, shape key): ``conv3x3`` (N, H, W, Cin, Cout); ``conv3x3_fused``
     (N, H, W, Cin, Cout, per-batch bias, skip), each after the
     ``group_norm_scale_shift`` (N, H, W, C, groups) of its prologue;
@@ -238,57 +237,47 @@ def route(op: str, key: tuple, dtype: torch.dtype = torch.bfloat16) -> list:
     ``group_norm`` as a "gn" site; ``flash_attention_d<D>`` as the site, or
     in bf16 ``cross_attention`` (every key in one tile: the UNet's
     cross-attention to the text tokens); ``canny_prepare`` as a "canny" site
-    and ``layer_norm`` as an "ln" site (no flag gates either)."""
+    and ``layer_norm`` as an "ln" site (Canny has no gate)."""
     if op == "conv":
-        return _conv(key)
+        return _conv("conv3x3", key)
     if op == "resnet":
         n, h, w, cin, cout, groups, temb = key
-        if (flags.use_fused_resnet()
-                and conv_fused.supports_fused((n, h, w, cin), (cout, cin, 3, 3))
-                and conv_fused.supports_fused((n, h, w, cout), (cout, cout, 3, 3))):
-            return (_gn((n, h, w, cin, groups), "group_norm_scale_shift")
-                    + [("conv3x3_fused", (n, h, w, cin, cout, temb, False))]
-                    + _gn((n, h, w, cout, groups), "group_norm_scale_shift")
-                    + [("conv3x3_fused", (n, h, w, cout, cout, False, True))])
-        return (_gn((n, h, w, cin, groups, "silu")) + _conv((n, h, w, cin, cout))
-                + _gn((n, h, w, cout, groups, "silu")) + _conv((n, h, w, cout, cout)))
+        conv1 = _conv("conv3x3_fused", (n, h, w, cin, cout, temb, False))
+        conv2 = _conv("conv3x3_fused", (n, h, w, cout, cout, False, True))
+        if conv1 and conv2:
+            return (_gn((n, h, w, cin, groups), "group_norm_scale_shift") + conv1
+                    + _gn((n, h, w, cout, groups), "group_norm_scale_shift") + conv2)
+        return (_gn((n, h, w, cin, groups, "silu")) + _conv("conv3x3", (n, h, w, cin, cout))
+                + _gn((n, h, w, cout, groups, "silu")) + _conv("conv3x3", (n, h, w, cout, cout)))
     if op == "up2":
         n, h, w, cin, cout = key
-        if flags.use_fused_up2() and conv_fused.supports_up2((n, h, w, cin), (cout, cin, 3, 3)):
-            return [("conv3x3_up2", key)]
-        return _conv((n, 2 * h, 2 * w, cin, cout))
+        return _conv("conv3x3_up2", key) or _conv("conv3x3", (n, 2 * h, 2 * w, cin, cout))
     if op == "down2":
-        n, h, w, cin, cout, _ = key
-        if (flags.use_fused_down2()
-                and conv_fused.supports_down2((n, h, w, cin), (cout, cin, 3, 3))):
-            return [("conv3x3_down2", key)]
-        return []
+        return _conv("conv3x3_down2", key)
     if op == "gn":
         return _gn(key)
     if op == "attn":
         b, sq, skv, heads, d = key
-        if flags.use_cuda_attention():
-            if fa.supports((b, sq, heads, d), skv):
-                return [(f"flash_attention_d{d}", key)]
-            if fa.supports_cross((b, sq, heads, d), skv, dtype):
-                return [("cross_attention", key)]
+        if flags.takes("flash_attention", (b, sq, heads, d), skv):
+            return [(f"flash_attention_d{d}", key)]
+        if flags.takes("cross_attention", (b, sq, heads, d), skv, dtype):
+            return [("cross_attention", key)]
         return []
     if op == "canny":
         return [("canny_prepare", key)]
     if op == "ln":
-        return [("layer_norm", key)] if layer_norm.supports(key[-1]) else []
+        return [("layer_norm", key)] if flags.takes("layer_norm", key[-1], dtype) else []
     raise ValueError(f"unknown op {op!r}")
 
 
 def stage_context(stage: str):
-    """The kernel context a site's stage runs in: ``flags.stage`` for the
-    three model stages, none for prepare."""
+    """The stage a site runs in: ``flags.stage`` for the three model
+    stages, none for prepare."""
     return flags.stage(stage) if stage in flags.STAGES else contextlib.nullcontext()
 
 
 def kernel_calls(sites: Counter, dtype: torch.dtype = torch.bfloat16) -> Counter:
-    """(kernel, shape key) -> calls, each site routed under its stage's
-    flags (and whatever the caller has overridden around this call), for an
+    """(kernel, shape key) -> calls, each site routed in its stage, for an
     edit in ``dtype``: the bf16 kernels, or their fp32 instances
     (``<kernel>_f32``)."""
     if dtype not in (torch.bfloat16, torch.float32):

@@ -10,13 +10,12 @@ warm-up edit per arm (which captures the arm's CUDA graphs), times
 ``--edits`` edits per arm on the host clock (and each stage with the
 editor's CUDA events, ``FastEditor.stage_ms``), then runs as many again per
 arm, each under a profiler of its own (CUDA activity only), which sees the
-kernels a graph replays as it sees eager ones.  An arm is a kernel
-configuration: each ``--flags`` gives one, as ``ops/flags.py`` field names
-with values 1, 0 or none (``--flags use_cuda_groupnorm=0 --flags
-use_cuda_groupnorm=1`` is the GroupNorm kernel off against on; ``--flags
-cuda_graphs=0`` is the eager arm, the graphs' launches made one by one from
-the host); without ``--flags`` the one arm is the default configuration,
-graphs on.  The arms take turns, edit by edit, in one process.
+kernels a graph replays as it sees eager ones.  An arm is a setting of
+the two kernel flags (``ops/flags.KernelFlags``): each ``--flags`` gives one,
+with values 1 or 0 (``--flags cuda_graphs=0`` is the eager arm, the graphs'
+launches made one by one from the host; ``--flags plain_versions=1`` runs
+every kernel's plain version); without ``--flags`` the one arm is the
+default, graphs on.  The arms take turns, edit by edit, in one process.
 Per arm it prints seconds per edit and device ms per edit (median, min and
 max over the edits), kernel launches per edit, device ms per stage, the
 device's busy share (median profiled kernel time over median unprofiled wall
@@ -84,15 +83,15 @@ def _device_us(evt) -> float:
 
 
 def parse_flags(spec: str) -> dict:
-    """``"use_cuda_groupnorm=1,use_cuda_conv=none"`` -> flag overrides."""
+    """``"cuda_graphs=0,plain_versions=1"`` -> flag overrides."""
     from fastedit_tpu_torch.ops import flags
 
-    values = {"1": True, "0": False, "true": True, "false": False, "none": None}
+    values = {"1": True, "0": False, "true": True, "false": False}
     out = {}
     for item in filter(None, spec.split(",")):
         name, _, value = item.partition("=")
         if not hasattr(flags.FLAGS, name) or value.lower() not in values:
-            raise SystemExit(f"--flags: {item!r} is not NAME=1|0|none for a field of "
+            raise SystemExit(f"--flags: {item!r} is not NAME=1|0 for a field of "
                              "ops/flags.KernelFlags")
         out[name] = values[value.lower()]
     return out
@@ -185,7 +184,7 @@ def main(argv=None) -> None:
     ap.add_argument("--guidance", type=float, default=1.5,
                     help="guidance scale; 1.0 runs without CFG")
     ap.add_argument("--flags", action="append", default=None,
-                    help="one arm's flag overrides, NAME=1|0|none[,...]; repeat for more arms")
+                    help="one arm's flag overrides, NAME=1|0[,...]; repeat for more arms")
     ap.add_argument("--json", default=None, help="also write the result to this file")
     args = ap.parse_args(argv)
     arms = {spec: parse_flags(spec) for spec in args.flags} if args.flags else None

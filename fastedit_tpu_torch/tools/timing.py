@@ -1,9 +1,16 @@
 """Timing a callable on the card with CUDA events: eagerly, and from a CUDA
-graph, which leaves the host out; the host's own cost per call; and the
-card's name and power limit, which every number is kept beside.  Shared by
-``chip_smoke.py``, ``bench.py`` and the scripts of this directory."""
+graph, which leaves the host out; the host's own cost per call; the card's
+name and power limit, which every number is kept beside; and the card's
+peaks, which bounds are read against.  Shared by ``chip_smoke.py`` and the
+scripts of this directory."""
 
 from __future__ import annotations
+
+# Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core rate
+# and HBM3 bandwidth.  A bound is the larger of operations / peak rate and
+# bytes / bandwidth.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES_PER_S = 3.35e12
 
 REPS = 10
 GRAPH_CALLS = 20

@@ -69,9 +69,10 @@ VARIANTS = {
 }
 # (form, B, H, W, Cin, Cout): the default fp32 edit's stride-1 calls at each of
 # the UNet's three widths, the tower's Cout 96 and the UNet's Cout 4 tail; its
-# three stride-2 calls and the opt-in configuration's VAE encoder call with the
-# most channels; the VAE decoder's fused calls at each of its widths (with the
-# skip) and the UNet's and the VAE's upsample calls at their widest and largest
+# three stride-2 calls and the VAE encoder's stride-2 conv with the most
+# channels (a shape the plan leaves to cuDNN); the VAE decoder's fused calls
+# at each of its widths (with the skip) and the UNet's and the VAE's upsample
+# calls at their widest and largest
 SHAPES = [("conv", 2, 128, 128, 320, 320), ("conv", 2, 64, 64, 640, 640),
           ("conv", 2, 32, 32, 1280, 1280), ("conv", 1, 256, 256, 96, 96),
           ("conv", 2, 128, 128, 320, 4),

@@ -61,14 +61,13 @@ VARIANTS = {
 SHAPES = [(8, 4096, 77, 10), (8, 1024, 77, 20), (2, 4096, 77, 10), (2, 1024, 77, 20)]
 ROUNDS = 2
 SETS = 4
-PEAK_HBM = 3.35e12
 
 
 def run(use):
     import torch
 
     from fastedit_tpu_torch.ops import flash_attention as fa
-    from fastedit_tpu_torch.tools.timing import graph_ms
+    from fastedit_tpu_torch.tools.timing import PEAK_HBM_BYTES_PER_S, graph_ms
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     real_q_tile = fa._q_tile
@@ -96,8 +95,8 @@ def run(use):
                     out = fa.cross_attention(q, k, v).float()
                     share = float((out != ref).float().mean())
                     ms = graph_ms(call)
+                    hbm = 100 * nbytes / (1e-3 * ms) / PEAK_HBM_BYTES_PER_S
                     print(f"{str(shape):20s} {name:18s} bq {bq}  differing {share:.5f}  "
-                          f"{1e3 * ms:.2f} us  {100 * nbytes / (1e-3 * ms) / PEAK_HBM:.1f}% "
-                          "of 3.35 TB/s", flush=True)
+                          f"{1e3 * ms:.2f} us  {hbm:.1f}% of 3.35 TB/s", flush=True)
     fa._q_tile = real_q_tile
     fa.plan_cross.cache_clear()

@@ -1,17 +1,16 @@
-"""The bench's FLOPs, and the editor's graph keys and bounded caches, on the
+"""The analytic FLOPs, and the editor's graph keys and bounded caches, on the
 CPU.
 
 ``fastedit_tpu_torch/utils/flops.py`` is the port's copy of the JAX
 package's: its ``edit_flops`` must give the same number over the port's
 configs (exact: the same float arithmetic in the same order).  The graph
-key and the caches are pure Python: the key changes with every kernel flag,
-and the graph and schedule caches keep at most 64 entries, evicting the
-oldest, as the JAX package's caches do.  The kernel flags are per thread:
-an override in one thread moves neither another thread's flags nor its
-graph key.
+key and the caches are pure Python: the key holds the shapes a capture
+serves, and the graph and schedule caches keep at most 64 entries, evicting
+the oldest, as the JAX package's caches do.  The kernel flags and the stage
+are per thread: an override or a stage in one thread moves no other
+thread's.
 """
 
-import dataclasses
 import threading
 import types
 
@@ -58,58 +57,42 @@ def test_edit_flops_of_a_batch_equal_jax(batch):
     assert port == pytest.approx(batch * one, rel=1e-12)
 
 
-def _other(value):
-    return {None: True, True: False, False: True}[value]
-
-
-@pytest.mark.parametrize("field", [f.name for f in dataclasses.fields(flags.KernelFlags)])
-def test_graph_key_changes_with_every_flag(field):
-    """A capture bakes in the flags it ran under: a graph captured in one
-    configuration must never serve another."""
-    key = graphs.graph_key(1, True, 3, False, 1024)
-    with flags.override(**{field: getattr(flags.FLAGS, field)}):
-        assert graphs.graph_key(1, True, 3, False, 1024) == key
-    with flags.override(**{field: _other(getattr(flags.FLAGS, field))}):
-        assert graphs.graph_key(1, True, 3, False, 1024) != key
-    assert graphs.graph_key(1, True, 3, False, 1024) == key
-
-
 def test_flag_overrides_are_per_thread():
     """A worker's override (``plain_versions``, as a comparison thread would
-    set it) is not seen by the main thread nor by its graph key; a thread
-    started inside the main thread's override sees the defaults."""
-    key = graphs.graph_key(1, True, 3, False, 1024)
+    set it) and its stage are not seen by the main thread; a thread started
+    inside the main thread's override and stage sees the defaults, outside
+    any stage."""
+    x, w = (1, 8, 8, 64), (64, 64, 3, 3)
     entered, release, seen = threading.Event(), threading.Event(), {}
 
     def worker():
-        with flags.override(plain_versions=True, use_cuda_conv=True):
+        with flags.override(plain_versions=True, cuda_graphs=False), flags.stage("decode"):
             seen["inside"] = flags.current()
-            seen["key"] = graphs.graph_key(1, True, 3, False, 1024)
+            seen["conv"] = flags.takes("conv3x3", x, w)
             entered.set()
             release.wait(30)
-        seen["after"] = flags.current()
+        seen["after"] = (flags.current(), flags.current_stage())
 
     t = threading.Thread(target=worker)
     t.start()
     try:
         assert entered.wait(30)
         assert flags.current() == flags.KernelFlags() and flags.use_cuda_graphs()
-        assert graphs.graph_key(1, True, 3, False, 1024) == key
-        with flags.stage("decode"):
-            assert flags.use_cuda_conv()
+        assert flags.current_stage() is None and not flags.takes("conv3x3", x, w)
     finally:
         release.set()
         t.join(30)
     assert not t.is_alive()
-    assert seen["inside"].plain_versions and seen["inside"].use_cuda_conv
-    assert seen["key"] != key and seen["after"] == flags.KernelFlags()
+    assert seen["inside"] == flags.KernelFlags(plain_versions=True, cuda_graphs=False)
+    assert seen["conv"] and seen["after"] == (flags.KernelFlags(), None)
 
-    with flags.override(cuda_graphs=False, use_fused_down2=False):
-        t = threading.Thread(target=lambda: seen.update(fresh=flags.current()))
+    with flags.override(cuda_graphs=False), flags.stage("denoise"):
+        t = threading.Thread(target=lambda: seen.update(
+            fresh=(flags.current(), flags.current_stage())))
         t.start()
         t.join(30)
         assert not flags.use_cuda_graphs()
-    assert not t.is_alive() and seen["fresh"] == flags.KernelFlags()
+    assert not t.is_alive() and seen["fresh"] == (flags.KernelFlags(), None)
     assert flags.FLAGS == flags.KernelFlags()
 
 

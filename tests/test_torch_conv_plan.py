@@ -4,8 +4,8 @@
 ``csrc/conv3x3.cu`` runs for ``conv3x3`` and ``conv3x3_fused``: the tile
 rectangle, the channel tile (the wgmma N), the grid, the shared memory and
 the TMA boxes.  The first half holds the plan at every shape the gate admits
-on the SSD-1B and SDXL edit paths at 1024² (batch 1 and 2, default and
-opt-in configurations) and on the tiny model's.  The second half holds
+on the SSD-1B and SDXL edit paths at 1024² (batch 1 and 2, by the kernel
+plan and with the VAE encoder on the kernels) and on the tiny model's.  The second half holds
 ``conv3x3_tiled_plain``, a plain PyTorch walk of the same schedule (halo
 gathered with zero fill, prologue on in-image elements only, nine shifted
 taps per 64-channel chunk, epilogue), against the port's plain versions and
@@ -30,8 +30,8 @@ from fastedit_tpu.ops import flags as jflags
 from fastedit_tpu_torch.models import configs as TC
 from fastedit_tpu_torch.ops import conv3x3 as k
 from fastedit_tpu_torch.ops import conv_fused as cf
-from fastedit_tpu_torch.ops import flags as tflags
 from fastedit_tpu_torch.tools import inventory
+from test_torch_fused import with_the_encoder_on_the_kernels
 
 TOL = dict(rtol=2e-4, atol=2e-4)  # the repo's golden tolerance, fp32
 # The tiled walk and the plain version differ only in the order of fp32
@@ -41,7 +41,8 @@ ORDER_TOL = dict(rtol=1e-5, atol=1e-5)
 
 def _stride1_shapes():
     """(B, H, W, Cin, Cout) of every conv3x3 / conv3x3_fused call the
-    inventory routes to the kernel."""
+    inventory routes to the kernel, by the plan and with the VAE encoder on
+    the kernels."""
     shapes = set()
     models = [(u, c, TC.SDXL_VAE, 1024, None) for u in (TC.SSD1B_UNET, TC.SDXL_UNET)
               for c in (TC.SDXL_CONTROLNET_SMALL, TC.SDXL_CONTROLNET_FULL)]
@@ -50,9 +51,8 @@ def _stride1_shapes():
         for batch in (1, 2):
             sites = inventory.edit_sites(unet, cn, vae, res, batch=batch, steps=3,
                                          control_res=control_res)
-            for override in ({}, dict(use_cuda_conv=True)):
-                with tflags.override(**override):
-                    calls = inventory.kernel_calls(sites)
+            for routed in (sites, with_the_encoder_on_the_kernels(sites)):
+                calls = inventory.kernel_calls(routed)
                 shapes.update(key[:5] for (kernel, key) in calls
                               if kernel in ("conv3x3", "conv3x3_fused"))
     return sorted(shapes)
@@ -226,15 +226,15 @@ def test_tiled_walk_matches_jax_conv3x3_fused(shape):
 
 def _down2_shapes():
     """(B, H, W, Cin, Cout, asymmetric) of every conv3x3_down2 call the
-    inventory routes to the kernel, default and opt-in configurations."""
+    inventory routes to the kernel, by the plan and with the VAE encoder on
+    the kernels."""
     shapes = set()
     for unet in (TC.SSD1B_UNET, TC.SDXL_UNET):
         for cn in (TC.SDXL_CONTROLNET_SMALL, TC.SDXL_CONTROLNET_FULL):
             for batch in (1, 2):
                 sites = inventory.edit_sites(unet, cn, TC.SDXL_VAE, 1024, batch=batch, steps=3)
-                for override in ({}, dict(use_cuda_conv=True)):
-                    with tflags.override(**override):
-                        calls = inventory.kernel_calls(sites)
+                for routed in (sites, with_the_encoder_on_the_kernels(sites)):
+                    calls = inventory.kernel_calls(routed)
                     shapes.update(key for (kernel, key) in calls if kernel == "conv3x3_down2")
     return sorted(shapes)
 

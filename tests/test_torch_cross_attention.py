@@ -72,8 +72,9 @@ def test_the_gate_takes_every_unet_cross_attention_in_bf16(shape):
     assert not fa.supports((b, sq, h, d), skv)
     assert inventory.route("attn", shape) == [("cross_attention", shape)]
     assert inventory.route("attn", shape, F32) == []
-    with flags.override(use_cuda_attention=False):
-        assert inventory.route("attn", shape) == []
+    for stage in flags.STAGES:
+        with flags.stage(stage):
+            assert inventory.route("attn", shape) == [("cross_attention", shape)]
 
 
 def test_the_cross_shapes_and_their_calls_per_edit():
@@ -275,8 +276,6 @@ def test_dispatch_sends_bf16_cross_attention_to_the_wrapper(monkeypatch):
     assert torch.equal(attention(q, kk, v), fa.attention_plain(q, kk, v))
     assert calls["cross"] == 1
     attention(q.float(), kk.float(), v.float())
-    with flags.override(use_cuda_attention=False):
-        attention(q, kk, v)
     with flags.override(plain_versions=True):
         attention(q, kk, v)
     assert calls["cross"] == 1

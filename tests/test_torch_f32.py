@@ -49,7 +49,8 @@ from fastedit_tpu_torch.ops import fused_groupnorm as fg
 from fastedit_tpu_torch.ops.groupnorm import group_norm_plain
 from fastedit_tpu_torch.tools import inventory
 from test_torch_fused import (KERNEL_FUNCS, _count_calls, _jax_stage_overrides, _on_tpu,
-                              count_prompt_encodes, tiny_sites)
+                              count_prompt_encodes, jax_route, tiny_sites,
+                              with_the_encoder_on_the_kernels)
 from test_torch_pipeline import _img
 
 TOL = dict(rtol=2e-4, atol=2e-4)  # the repo's golden tolerance, fp32
@@ -60,16 +61,15 @@ F32 = torch.float32
 
 def _main_path_calls():
     """(kernel, shape) -> calls over the SSD-1B and SDXL edit paths at
-    1024², batch 1 and 2, both ControlNets, default and opt-in
-    configurations, routed for fp32."""
+    1024², batch 1 and 2, both ControlNets, routed for fp32 by the plan and
+    with the VAE encoder on the kernels."""
     calls = Counter()
     for unet in (TC.SSD1B_UNET, TC.SDXL_UNET):
         for cn in (TC.SDXL_CONTROLNET_SMALL, TC.SDXL_CONTROLNET_FULL):
             for batch in (1, 2):
                 sites = inventory.edit_sites(unet, cn, TC.SDXL_VAE, 1024, batch=batch, steps=3)
-                for override in ({}, dict(use_cuda_conv=True)):
-                    with tflags.override(**override):
-                        calls.update(inventory.kernel_calls(sites, dtype=F32))
+                for routed in (sites, with_the_encoder_on_the_kernels(sites)):
+                    calls.update(inventory.kernel_calls(routed, dtype=F32))
     return calls
 
 
@@ -428,49 +428,6 @@ VMEM_REFUSED = {
 }
 
 
-def _jax_route(op, key, itemsize):
-    """The JAX package's dispatch of one site under its current flags, as
-    (kernel, shape) calls in the inventory's names and keys (GroupNorm left
-    out: its kernel is opt-in there)."""
-    def conv(key):
-        n, h, w, cin, cout = key
-        if jflags.use_pallas_conv() and jconv3x3.supports((n, h, w, cin), (3, 3, cin, cout),
-                                                          itemsize):
-            return [("conv3x3", key)]
-        return []
-
-    if op == "conv":
-        return conv(key)
-    if op == "resnet":
-        n, h, w, cin, cout, _, temb = key
-        if (jflags.use_fused_resnet()
-                and jcf.supports_fused((n, h, w, cin), (3, 3, cin, cout), itemsize)
-                and jcf.supports_fused((n, h, w, cout), (3, 3, cout, cout), itemsize, True)):
-            return [("conv3x3_fused", (n, h, w, cin, cout, temb, False)),
-                    ("conv3x3_fused", (n, h, w, cout, cout, False, True))]
-        return conv((n, h, w, cin, cout)) + conv((n, h, w, cout, cout))
-    if op == "up2":
-        n, h, w, cin, cout = key
-        if jflags.use_fused_up2() and jcf.supports_up2((n, h, w, cin), (3, 3, cin, cout),
-                                                       itemsize):
-            return [("conv3x3_up2", key)]
-        return conv((n, 2 * h, 2 * w, cin, cout))
-    if op == "down2":
-        n, h, w, cin, cout, _ = key
-        if jflags.use_fused_down2() and jcf.supports_down2((n, h, w, cin), (3, 3, cin, cout),
-                                                           itemsize):
-            return [("conv3x3_down2", key)]
-        return []
-    if op == "attn":
-        b, sq, skv, heads, d = key
-        if jflags.use_pallas_attention() and jfa.supports((b, sq, heads, d), skv):
-            # D = 64 stays on the head-packed kernel (K2) at item size 4
-            assert jfa.supports_packed((b, sq, heads, d), skv, itemsize) == (d == 64)
-            return [(f"flash_attention_d{d}", key)]
-        return []
-    return []
-
-
 def test_fp32_routes_every_jax_kernel_call_and_only_the_vmem_refusals_more():
     """Over the SSD-1B edit at 1024², site by site: the port's fp32 calls
     equal the JAX package's at item size 2 (the port's gates do not depend on
@@ -485,7 +442,7 @@ def test_fp32_routes_every_jax_kernel_call_and_only_the_vmem_refusals_more():
             if op in ("canny", "ln"):  # the JAX package computes both in XLA: no Pallas call
                 continue
             with tflags.stage(stage), jflags.override(**_jax_stage_overrides(stage)):
-                j4, j2 = Counter(_jax_route(op, key, 4)), Counter(_jax_route(op, key, 2))
+                j4, j2 = Counter(jax_route(op, key, 4)), Counter(jax_route(op, key, 2))
                 port = Counter(c for c in inventory.route(op, key, F32)
                                if not c[0].startswith("group_norm"))
             assert port == j2, (stage, op, key)

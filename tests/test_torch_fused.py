@@ -1,5 +1,5 @@
-"""The port's fused conv kernels, GroupNorm kernel and per-context kernel
-flags against the JAX package's.
+"""The port's fused conv kernels, GroupNorm kernel and kernel plan against
+the JAX package's.
 
 Inputs come from numpy with a fixed seed and go through both.  The JAX side
 runs its Pallas kernels in interpret mode (``pallas_interpret=True``) and,
@@ -14,8 +14,8 @@ may differ by 1 LSB.  The tiny editor is compared as a whole: the JAX
 tiny editor's interpreted edit takes ~16 s on one CPU core.
 """
 
+import contextlib
 import dataclasses
-import itertools
 from collections import Counter
 from unittest import mock
 
@@ -28,8 +28,10 @@ import torch
 from fastedit_tpu.models import configs as JC
 from fastedit_tpu.models import resnet as jresnet
 from fastedit_tpu.models.vae import AutoencoderKL as JVAE
+from fastedit_tpu.ops import conv3x3 as jconv3x3
 from fastedit_tpu.ops import conv_fused as jcf
 from fastedit_tpu.ops import flags as jflags
+from fastedit_tpu.ops import flash_attention as jfa
 from fastedit_tpu.ops import fused_groupnorm as jgn
 
 from fastedit_tpu_torch.models import configs as TC
@@ -66,11 +68,7 @@ def _cl(w):
     return torch.from_numpy(w).contiguous(memory_format=torch.channels_last)
 
 
-# ------------------------------------------------------------------ flags
-
-
-FIELDS = ("use_cuda_conv", "use_fused_resnet", "use_fused_up2", "use_fused_down2")
-JAX_FIELD = {"use_cuda_conv": "use_pallas_conv"}
+# ------------------------------------------------------------------ plan
 
 
 def _jax_stage_overrides(name):
@@ -89,54 +87,38 @@ def _jax_stage_overrides(name):
                 use_fused_down2=d)
 
 
-@pytest.mark.parametrize("values", list(itertools.product((None, True, False), repeat=4)),
-                         ids=lambda v: "-".join(str(x) for x in v))
-def test_flags_resolve_as_jax_on_its_accelerator(values):
-    setting = dict(zip(FIELDS, values))
-    with _on_tpu(), jflags.override(**{JAX_FIELD.get(k, k): v for k, v in setting.items()}), \
-            tflags.override(**setting):
-        pairs = [
-            (tflags.use_cuda_conv, jflags.use_pallas_conv),
-            (tflags.use_cuda_conv_denoise, jflags.use_pallas_conv_denoise),
-            (tflags.use_cuda_conv_decode, jflags.use_pallas_conv_decode),
-            (tflags.use_cuda_conv_encode, jflags.use_pallas_conv_encode),
-            (tflags.use_fused_resnet, jflags.use_fused_resnet),
-            (tflags.use_fused_up2, jflags.use_fused_up2),
-            (tflags.use_fused_down2, jflags.use_fused_down2),
-            (tflags.resolve_fused_encode, jflags.resolve_fused_encode),
-            (tflags.resolve_fused_denoise, jflags.resolve_fused_denoise),
-            (tflags.resolve_fused_down2_denoise, jflags.resolve_fused_down2_denoise),
-            (tflags.resolve_fused_decode, jflags.resolve_fused_decode),
-        ]
-        for port, ref in pairs:
-            assert port() == ref(), (port.__name__, setting)
-        for stage in tflags.STAGES:
-            port = {JAX_FIELD.get(k, k): v for k, v in tflags.stage_overrides(stage).items()}
-            assert port == _jax_stage_overrides(stage), (stage, setting)
-
-
-@pytest.mark.parametrize("value", [None, True, False])
-def test_groupnorm_and_attention_flags_as_jax(value):
-    """Set, both flags follow the JAX package's.  Unset, the GroupNorm kernel
-    is on in the port, its one stated departure from the JAX defaults
-    (``ops/flags.py``), and off in the JAX package."""
-    with _on_tpu(), jflags.override(use_pallas_groupnorm=value, use_pallas_attention=value), \
-            tflags.override(use_cuda_groupnorm=value, use_cuda_attention=value):
-        if value is None:
-            assert tflags.use_cuda_groupnorm() and not jflags.use_pallas_groupnorm()
-        else:
-            assert tflags.use_cuda_groupnorm() == jflags.use_pallas_groupnorm()
-        assert tflags.use_cuda_attention() == jflags.use_pallas_attention()
+def with_the_encoder_on_the_kernels(sites: Counter) -> Counter:
+    """``sites`` with the VAE encoder's routed as the JAX package routes them
+    with its conv kernel turned on in the encoder (``use_pallas_conv=True``):
+    resnets and convs as in the decoder (the conv and fused resnet kernels),
+    the stride-2 convs as in the denoise loop.  For the shape enumerations,
+    which cover the kernels at those shapes too."""
+    out = Counter()
+    for (stage, op, key), c in sites.items():
+        if stage == "encode":
+            stage = "denoise" if op == "down2" else "decode"
+        out[(stage, op, key)] += c
+    return out
 
 
 def test_stage_scopes_and_restores_the_flags():
+    """A stage sets the thread's plan for its body and restores the one
+    outside it (none: no conv kernel), whatever the body raises; the flags
+    stay as they were."""
+    x, w = (1, 8, 8, 64), (64, 64, 3, 3)
+    conv_kernels = lambda: {k for k in tflags.CONV_KERNELS  # noqa: E731
+                            if tflags.takes(k, x, w)}
+    assert tflags.current_stage() is None and not conv_kernels()
     with tflags.stage("decode"):
-        assert tflags.use_cuda_conv() and tflags.use_fused_resnet() and tflags.use_fused_up2()
+        assert conv_kernels() == {"conv3x3", "conv3x3_fused", "conv3x3_up2"}
+        with tflags.stage("encode"):
+            assert tflags.current_stage() == "encode" and not conv_kernels()
+        assert tflags.current_stage() == "decode"
     with tflags.stage("denoise"):
-        assert tflags.use_fused_down2() and not tflags.use_fused_resnet()
-    with tflags.stage("encode"):
-        assert not (tflags.use_cuda_conv() or tflags.use_fused_resnet()
-                    or tflags.use_fused_down2())
+        assert conv_kernels() == {"conv3x3", "conv3x3_up2", "conv3x3_down2"}
+    with pytest.raises(RuntimeError), tflags.stage("denoise"):
+        raise RuntimeError
+    assert tflags.current_stage() is None and not conv_kernels()
     assert tflags.FLAGS == tflags.KernelFlags()
     with pytest.raises(ValueError):
         with tflags.stage("prepare"):
@@ -300,9 +282,10 @@ def _count_fused(monkeypatch, *names):
 @pytest.mark.parametrize("cin,cout,temb", [(64, 64, 32), (72, 128, None)],
                          ids=["temb", "shortcut"])
 def test_resnet_block_fused_matches_jax(monkeypatch, cin, cout, temb):
-    """The whole-block fused form (two fused convs, the shortcut as skip).
-    The parameter names and shapes are those of the unfused block, so
-    ``tools/from_jax`` carries the JAX weights into it unchanged."""
+    """The whole-block fused form (two fused convs, the shortcut as skip), in
+    the stage whose plan has it (the decoder's).  The parameter names and
+    shapes are those of the unfused block, so ``tools/from_jax`` carries the
+    JAX weights into it unchanged."""
     r = _rng(15)
     x = r.standard_normal((2, 8, 8, cin)).astype(np.float32)
     t = None if temb is None else r.standard_normal((2, temb)).astype(np.float32)
@@ -317,7 +300,7 @@ def test_resnet_block_fused_matches_jax(monkeypatch, cin, cout, temb):
     sd = _state_dict(from_jax._resnet, params, "block")
     block.load_state_dict({k.removeprefix("block."): v for k, v in sd.items()}, strict=True)
     calls = _count_fused(monkeypatch, "conv3x3_fused")
-    with torch.no_grad(), tflags.override(use_cuda_conv=True, use_fused_resnet=True):
+    with torch.no_grad(), tflags.stage("decode"):
         out = block(torch.from_numpy(x), None if t is None else torch.from_numpy(t))
     assert calls["conv3x3_fused"] == 2
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
@@ -325,6 +308,9 @@ def test_resnet_block_fused_matches_jax(monkeypatch, cin, cout, temb):
 
 @pytest.mark.parametrize("kind", ["up", "down", "down_asymmetric"])
 def test_resampling_layers_match_jax(monkeypatch, kind):
+    """Each resampling layer on its kernel, in the denoise loop, whose plan
+    has both (the asymmetric stride-2 form is the VAE encoder's, whose plan
+    has no conv kernel: its gate is the same)."""
     r = _rng(17)
     x = r.standard_normal((2, 8, 8, 64)).astype(np.float32)
     if kind == "up":
@@ -341,7 +327,7 @@ def test_resampling_layers_match_jax(monkeypatch, kind):
         ref = jmod.apply({"params": params}, jnp.asarray(x))
     tmod.load_state_dict(_state_dict(from_jax._conv, params["conv"], "conv"), strict=True)
     calls = _count_fused(monkeypatch, wrapper)
-    with torch.no_grad(), tflags.override(use_cuda_conv=True, **{field: True}):
+    with torch.no_grad(), tflags.stage("denoise"):
         out = tmod(torch.from_numpy(x))
     assert calls[wrapper] == 1
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
@@ -352,9 +338,10 @@ WIDE_VAE = dataclasses.replace(JC.TINY_VAE, block_out_channels=(64, 64, 64, 64),
 
 
 def test_vae_fused_contexts_match_jax(monkeypatch):
-    """The decoder in the decode context (fused resnets, up2) and the
-    encoder in the opt-in encode context (fused resnets, asymmetric down2),
-    each against the JAX VAE under the same contexts."""
+    """The decoder in the decode stage (fused resnets, up2) and the encoder
+    with the JAX package's opt-in encode context as its plan row (fused
+    resnets, asymmetric down2: what trying the encoder on the kernels would
+    run), each against the JAX VAE under the same contexts."""
     r = _rng(19)
     img = r.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
     jvae = JVAE(WIDE_VAE)
@@ -370,8 +357,10 @@ def test_vae_fused_contexts_match_jax(monkeypatch):
     port = AutoencoderKL(TC.VAEConfig(**dataclasses.asdict(WIDE_VAE))).eval()
     port.load_state_dict(from_jax.vae_state_dict(params, WIDE_VAE), strict=True)
     calls = _count_fused(monkeypatch, "conv3x3_fused", "conv3x3_up2", "conv3x3_down2")
+    monkeypatch.setitem(tflags.PLAN, "encode", frozenset({"conv3x3", "conv3x3_fused",
+                                                          "conv3x3_down2"}))
     with torch.no_grad():
-        with tflags.override(use_cuda_conv=True), tflags.stage("encode"):
+        with tflags.stage("encode"):
             tmean, tlogvar = port.encode_moments(torch.from_numpy(img))
         enc_calls = dict(calls)
         with tflags.stage("decode"):
@@ -435,78 +424,175 @@ def count_prompt_encodes(monkeypatch) -> list:
     return counts
 
 
-def tiny_sites(control_res: int, encodes: list) -> Counter:
+def tiny_sites(control_res: int, encodes: list, cfg_guidance: bool = True) -> Counter:
     """The tiny editor's sites of one edit, with the prompt encoder's calls
     ``encodes`` (:func:`count_prompt_encodes`)."""
     sites = inventory.edit_sites(TC.TINY_UNET, TC.TINY_CONTROLNET, TC.TINY_VAE, 64, batch=1,
-                                 steps=3, control_res=control_res)
+                                 steps=3, cfg_guidance=cfg_guidance, control_res=control_res)
     for n in encodes:
         sites += inventory.prompt_sites(TC.TINY_TEXT_ENCODER, TC.TINY_TEXT_ENCODER_2, n)
     return sites
 
 
-@pytest.mark.parametrize("config", [{}, {"use_fused_resnet": True, "use_cuda_groupnorm": True}],
-                         ids=["default", "fused-resnet+groupnorm"])
-def test_inventory_kernel_calls_equal_the_tiny_editors(editors, monkeypatch, config):
+@pytest.mark.parametrize("guidance", [None, 1.0], ids=["default", "guidance-1"])
+def test_inventory_kernel_calls_equal_the_tiny_editors(editors, monkeypatch, guidance):
     """Each kernel wrapper is called as often as the inventory routes calls
-    to it, in the default configuration and with the opt-in fusions (which
-    move the UNet's resnets to the fused conv, their norms to the
-    GroupNorm kernel's statistics launch and the other norms to the GroupNorm
-    kernel); the LayerNorms of the prompt encoder's calls, if any, count too."""
+    to it, at the default guidance (CFG: the denoise loop at batch 2) and at
+    guidance 1.0 (no CFG: batch 1); the LayerNorms of the prompt encoder's
+    calls, if any, count too."""
     _, ted = editors
     calls = _count_calls(monkeypatch, KERNEL_FUNCS)
     encodes = count_prompt_encodes(monkeypatch)
-    with tflags.override(**config):
-        ted.edit(_img(5), "a boat", seed=1)
-        expected = inventory.launches_by_kernel(inventory.kernel_calls(
-            tiny_sites(ted._control_res, encodes)))
+    kw = {} if guidance is None else dict(guidance_scale=guidance)
+    ted.edit(_img(5), "a boat", seed=1, **kw)
+    expected = inventory.launches_by_kernel(inventory.kernel_calls(
+        tiny_sites(ted._control_res, encodes, cfg_guidance=guidance is None)))
     assert {k: v for k, v in expected.items() if v} == dict(calls)
     assert calls["conv3x3"] and calls["conv3x3_up2"] and calls["conv3x3_down2"]
     assert calls["layer_norm"]
-    if config:
-        assert (calls["conv3x3_fused"] and calls["group_norm"]
-                and calls["group_norm_scale_shift"])
 
 
-def _jax_conv_inventory():
-    shapes = set()
-    for ucfg in (TC.SSD1B_UNET, TC.SDXL_UNET):
-        for cn in (TC.SDXL_CONTROLNET_SMALL, TC.SDXL_CONTROLNET_FULL):
-            shapes |= set(inventory.edit_sites(ucfg, cn, TC.SDXL_VAE, 1024))
-    return shapes
+def jax_route(op, key, itemsize):
+    """The JAX package's dispatch of one site under its current flags, as
+    (kernel, shape) calls in the inventory's names and keys (GroupNorm left
+    out: its kernel is opt-in there)."""
+    def conv(key):
+        n, h, w, cin, cout = key
+        if jflags.use_pallas_conv() and jconv3x3.supports((n, h, w, cin), (3, 3, cin, cout),
+                                                          itemsize):
+            return [("conv3x3", key)]
+        return []
+
+    if op == "conv":
+        return conv(key)
+    if op == "resnet":
+        n, h, w, cin, cout, _, temb = key
+        if (jflags.use_fused_resnet()
+                and jcf.supports_fused((n, h, w, cin), (3, 3, cin, cout), itemsize)
+                and jcf.supports_fused((n, h, w, cout), (3, 3, cout, cout), itemsize, True)):
+            return [("conv3x3_fused", (n, h, w, cin, cout, temb, False)),
+                    ("conv3x3_fused", (n, h, w, cout, cout, False, True))]
+        return conv((n, h, w, cin, cout)) + conv((n, h, w, cout, cout))
+    if op == "up2":
+        n, h, w, cin, cout = key
+        if jflags.use_fused_up2() and jcf.supports_up2((n, h, w, cin), (3, 3, cin, cout),
+                                                       itemsize):
+            return [("conv3x3_up2", key)]
+        return conv((n, 2 * h, 2 * w, cin, cout))
+    if op == "down2":
+        n, h, w, cin, cout, _ = key
+        if jflags.use_fused_down2() and jcf.supports_down2((n, h, w, cin), (3, 3, cin, cout),
+                                                           itemsize):
+            return [("conv3x3_down2", key)]
+        return []
+    if op == "attn":
+        b, sq, skv, heads, d = key
+        if jflags.use_pallas_attention() and jfa.supports((b, sq, heads, d), skv):
+            # D = 64 stays on the head-packed kernel (K2) at item size 4
+            assert jfa.supports_packed((b, sq, heads, d), skv, itemsize) == (d == 64)
+            return [(f"flash_attention_d{d}", key)]
+        return []
+    return []
 
 
-def test_gates_match_jax_over_the_inventory():
-    """Over every resnet, up2, down2 and GroupNorm call of the SSD-1B and
-    SDXL edit paths at 1024², the port's gates admit what the JAX package's
-    admit in bf16."""
-    admitted = Counter()
-    for _, op, key in sorted(_jax_conv_inventory(), key=str):
-        if op == "resnet":
-            n, h, w, cin, cout = key[:5]
-            for ci, skip in ((cin, False), (cout, True)):
-                port = tcf.supports_fused((n, h, w, ci), (cout, ci, 3, 3))
-                assert port == jcf.supports_fused((n, h, w, ci), (3, 3, ci, cout), 2, skip), key
-                admitted[op] += port
-            for c in (cin, cout):
-                assert tgn.supports((n, h, w, c), key[5]) == jgn.supports((n, h, w, c), key[5])
-        elif op == "up2":
-            n, h, w, cin, cout = key
-            port = tcf.supports_up2((n, h, w, cin), (cout, cin, 3, 3))
-            assert port == jcf.supports_up2((n, h, w, cin), (3, 3, cin, cout), 2), key
-            admitted[op] += port
-        elif op == "down2":
-            n, h, w, cin, cout, _ = key
-            port = tcf.supports_down2((n, h, w, cin), (cout, cin, 3, 3))
-            assert port == jcf.supports_down2((n, h, w, cin), (3, 3, cin, cout), 2), key
-            admitted[op] += port
-        elif op == "gn":
-            n, h, w, c, g, _ = key
-            port = tgn.supports((n, h, w, c), g)
-            assert port == jgn.supports((n, h, w, c), g), key
-            admitted[op] += port
-    assert admitted["resnet"] >= 20 and admitted["up2"] >= 5
-    assert admitted["down2"] >= 6 and admitted["gn"] >= 6
+def _jax_groupnorm_route(op, key, route):
+    """The GroupNorm calls of one site with the JAX package's GroupNorm kernel
+    on (the port's departure): the statistics of each fused conv's prologue
+    (``route`` is the site's conv calls), or each norm, where the JAX gate
+    admits it."""
+    def gn(kernel, key):
+        n, h, w, c, groups = key[:5]
+        return [(kernel, key)] if jgn.supports((n, h, w, c), groups) else []
+
+    if op == "resnet":
+        n, h, w, cin, cout, groups, _ = key
+        if route and route[0][0] == "conv3x3_fused":
+            return (gn("group_norm_scale_shift", (n, h, w, cin, groups))
+                    + gn("group_norm_scale_shift", (n, h, w, cout, groups)))
+        return (gn("group_norm", (n, h, w, cin, groups, "silu"))
+                + gn("group_norm", (n, h, w, cout, groups, "silu")))
+    return gn("group_norm", key) if op == "gn" else []
+
+
+def _gates_match_jax(op, key):
+    """The port's gates admit what the JAX package's admit in bf16, whatever
+    the site's stage: both convs of a resnet on the fused kernel (the second
+    with its skip), their norms, an upsampler, a stride-2 conv, a norm."""
+    if op == "resnet":
+        n, h, w, cin, cout, groups = key[:6]
+        for ci, skip in ((cin, False), (cout, True)):
+            assert tcf.supports_fused((n, h, w, ci), (cout, ci, 3, 3)) == \
+                jcf.supports_fused((n, h, w, ci), (3, 3, ci, cout), 2, skip)
+            assert tgn.supports((n, h, w, ci), groups) == jgn.supports((n, h, w, ci), groups)
+    elif op == "up2":
+        n, h, w, cin, cout = key
+        assert tcf.supports_up2((n, h, w, cin), (cout, cin, 3, 3)) == \
+            jcf.supports_up2((n, h, w, cin), (3, 3, cin, cout), 2)
+    elif op == "down2":
+        n, h, w, cin, cout, _ = key
+        assert tcf.supports_down2((n, h, w, cin), (cout, cin, 3, 3)) == \
+            jcf.supports_down2((n, h, w, cin), (3, 3, cin, cout), 2)
+    elif op == "gn":
+        n, h, w, c, g, _ = key
+        assert tgn.supports((n, h, w, c), g) == jgn.supports((n, h, w, c), g)
+
+
+def _sites(unet, cn, vae, resolution):
+    return set(inventory.edit_sites(unet, cn, vae, resolution))
+
+
+# Every distinct (stage, op, key) of the SSD-1B and SDXL edits at 1024² (either
+# ControlNet: the same sites), batch 1, and the tiny model's at 64² besides.
+MAIN_SITES = (_sites(TC.SSD1B_UNET, TC.SDXL_CONTROLNET_SMALL, TC.SDXL_VAE, 1024)
+              | _sites(TC.SDXL_UNET, TC.SDXL_CONTROLNET_SMALL, TC.SDXL_VAE, 1024))
+PLAN_SITES = sorted(MAIN_SITES | _sites(TC.TINY_UNET, TC.TINY_CONTROLNET, TC.TINY_VAE, 64),
+                    key=str)
+
+
+@contextlib.contextmanager
+def _without_the_tpu_tile_budget():
+    """The JAX package's conv gates without their TPU tile pickers, whose VMEM
+    budget and tile rows the port's gates do not carry over
+    (``ops/conv3x3.supports``): the tiny model's 2x2 and 4x4 levels, which
+    no picker tiles, are admitted as the port admits them."""
+    tile = lambda *args: (1, 128)  # noqa: E731
+    with mock.patch.object(jconv3x3, "_pick_tiles", tile), \
+            mock.patch.multiple(jcf, _pick_tiles_fused=tile, _pick_tiles_up2=tile,
+                                _pick_tiles_down2=tile):
+        yield
+
+
+@pytest.mark.parametrize("site", PLAN_SITES, ids=lambda s: "-".join((*s[:2], *map(str, s[2]))))
+def test_the_plan_routes_each_site_as_jax_on_its_accelerator(site):
+    """The plan sends each site to the kernels the JAX package's defaults on
+    its accelerator send it to, in bf16, but for the stated departures: the
+    GroupNorm kernel and its statistics launch on, cross-attention to the
+    text tokens on its kernel, and the port's own LayerNorm and Canny
+    kernels; and each of the site's gates admits what the JAX gate admits.
+    On the SSD-1B and SDXL edit paths the JAX gates are read as they are
+    (their TPU tile budget admits every bf16 call there); on the tiny
+    model's other sites, without their tile pickers."""
+    stage, op, key = site
+    budget = (contextlib.nullcontext() if site in MAIN_SITES
+              else _without_the_tpu_tile_budget())
+    with _on_tpu(), budget, contextlib.ExitStack() as ctx:
+        if stage in tflags.STAGES:
+            ctx.enter_context(tflags.stage(stage))
+            ctx.enter_context(jflags.override(**_jax_stage_overrides(stage)))
+        port = inventory.route(op, key)
+        jax_calls = jax_route(op, key, 2)
+        _gates_match_jax(op, key)
+    if op == "attn" and not jax_calls:  # the JAX package: XLA at any item size
+        b, sq, skv, heads, d = key
+        if tfa.supports_cross((b, sq, heads, d), skv, torch.bfloat16):
+            jax_calls = [("cross_attention", key)]
+    elif op == "ln":  # the JAX package: XLA
+        jax_calls = [("layer_norm", key)] if tln.supports(key[-1]) else []
+    elif op == "canny":  # the JAX package: XLA
+        jax_calls = [("canny_prepare", key)]
+    assert [c for c in port if not c[0].startswith("group_norm")] == jax_calls
+    assert [c for c in port if c[0].startswith("group_norm")] == \
+        _jax_groupnorm_route(op, key, jax_calls)
 
 
 @pytest.mark.parametrize("op", ["fused", "up2", "down2", "group_norm"])

@@ -6,8 +6,8 @@ card holds at once, the item size and the cluster size alone, what
 stage of the shared-memory ring, the ring's depth, the chunks, the clusters
 and the route (the chunk held whole by the ring, or in part read again).
 The first part holds the plan at every shape the gate admits on the SSD-1B
-and SDXL edit paths at 1024² (batch 1 and 2, the GroupNorm kernel on,
-default and opt-in conv configurations) and at tiny shapes, at item sizes 2
+and SDXL edit paths at 1024² (batch 1 and 2, by the kernel plan and with
+the VAE encoder on the conv kernels) and at tiny shapes, at item sizes 2
 and 4, for several counts of resident blocks and two cluster sizes.  The
 second part holds ``group_norm_chunked_plain`` and
 ``scale_shift_chunked_plain``, plain PyTorch walks of the schedule (each
@@ -34,9 +34,9 @@ from fastedit_tpu.ops.groupnorm import group_norm_xla
 
 from fastedit_tpu_torch.models import configs as TC
 from fastedit_tpu_torch.ops import fused_groupnorm as fg
-from fastedit_tpu_torch.ops import flags as tflags
 from fastedit_tpu_torch.ops.groupnorm import group_norm_scale_shift
 from fastedit_tpu_torch.tools import inventory
+from test_torch_fused import with_the_encoder_on_the_kernels
 
 TOL = dict(rtol=2e-4, atol=2e-4)  # the repo's golden tolerance, fp32
 # resident blocks: the H100's SMs, what it holds in clusters of 8 and of 16,
@@ -47,15 +47,15 @@ CLUSTERS = (8, 16)
 
 def _inventory_shapes():
     """(B, H*W, C, G) of every GroupNorm and statistics call the inventory
-    routes to the kernels with them on."""
+    routes to the kernels, by the plan and with the VAE encoder on the conv
+    kernels (its resnets' norms on the statistics launch)."""
     shapes = set()
     for unet in (TC.SSD1B_UNET, TC.SDXL_UNET):
         for batch in (1, 2):
             sites = inventory.edit_sites(unet, TC.SDXL_CONTROLNET_SMALL, TC.SDXL_VAE, 1024,
                                          batch=batch, steps=3)
-            for conv in (None, True):
-                with tflags.override(use_cuda_groupnorm=True, use_cuda_conv=conv):
-                    calls = inventory.kernel_calls(sites)
+            for routed in (sites, with_the_encoder_on_the_kernels(sites)):
+                calls = inventory.kernel_calls(routed)
                 for (kernel, key), _ in calls.items():
                     if kernel.startswith("group_norm"):
                         n, h, w, c, g = key[:5]
@@ -229,8 +229,7 @@ def test_scale_shift_matches_jax(monkeypatch, shape, groups, act, offset, spread
         jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta), groups, 1e-6))
     args = (torch.from_numpy(x), torch.from_numpy(gamma), torch.from_numpy(beta), groups, 1e-6)
     walked = fg.scale_shift_chunked_plain(*args, sms=sms, cluster=cluster)
-    with tflags.override(use_cuda_groupnorm=True):  # the dispatcher to the wrapper: plain on CPU
-        dispatched = group_norm_scale_shift(*args)
+    dispatched = group_norm_scale_shift(*args)  # the dispatcher to the wrapper: plain on CPU
     for scale, shift in (walked, dispatched):
         assert scale.dtype == shift.dtype == torch.float32
         np.testing.assert_allclose(scale.numpy(), rs, **TOL)

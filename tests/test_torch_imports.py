@@ -59,7 +59,7 @@ def test_importing_the_port_loads_no_jax():
     assert [m for m in by_torch if _forbidden(m) and m.split(".")[0] != "tqdm"] == []
     loaded = sorted(set(loaded) - set(by_torch))
     assert "fastedit_tpu_torch.pipeline.editor" in loaded and "chip_smoke" in loaded
-    for new in ("fastedit_tpu_torch.bench", "fastedit_tpu_torch.pipeline.graphs",
+    for new in ("fastedit_tpu_torch.pipeline.graphs",
                 "fastedit_tpu_torch.utils.flops", "fastedit_tpu_torch.metrics.calculator",
                 "fastedit_tpu_torch.tools.convert_checkpoint",
                 "fastedit_tpu_torch.utils.safetensors_io", "fastedit_tpu_torch.run_batch",

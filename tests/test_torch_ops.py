@@ -125,23 +125,24 @@ def test_conv_dispatch_outside_gate_matches_jax(cin):
 
 
 def test_conv_override_selects_plain_version():
-    """Outside a stage the conv kernel is off by default (the JAX package's
-    unmeasured-context default) and PyTorch's conv runs; ``use_cuda_conv``
-    turns the kernel's path on, ``plain_versions`` selects the kernel's
+    """Outside a stage the plan takes no conv kernel (the JAX package's
+    unmeasured-context default) and PyTorch's conv runs; in the denoise loop
+    the kernel's path runs, and ``plain_versions`` selects the kernel's
     plain version in its place.  On the CPU all three agree."""
     r = _rng(4)
     x = torch.from_numpy(r.standard_normal((1, 8, 8, 64)).astype(np.float32))
     w = torch.from_numpy(r.standard_normal((64, 64, 3, 3)).astype(np.float32))
-    assert not tflags.use_cuda_conv()
+    shapes = (tuple(x.shape), tuple(w.shape))
+    assert not tflags.takes("conv3x3", *shapes)
     library = tconv.conv3x3_same(x, w)
-    with tflags.override(use_cuda_conv=True):
-        assert tflags.use_cuda_conv()
+    with tflags.stage("denoise"):
+        assert tflags.takes("conv3x3", *shapes)
         kernel = tconv.conv3x3_same(x, w)
         with tflags.override(plain_versions=True):
             assert tflags.kernel_or_plain(tconv3x3.conv3x3, tconv3x3.conv3x3_plain) \
                 is tconv3x3.conv3x3_plain
             plain = tconv.conv3x3_same(x, w)
-    assert not tflags.use_cuda_conv() and not tflags.FLAGS.plain_versions
+    assert not tflags.takes("conv3x3", *shapes) and not tflags.FLAGS.plain_versions
     torch.testing.assert_close(kernel, library, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(plain, kernel)
     with pytest.raises(AttributeError):

@@ -405,7 +405,7 @@ def test_concurrent_submitters_lose_no_request():
 
 def test_the_dispatcher_runs_under_the_constructing_threads_flags():
     stub = _StubEditor()
-    with flags.override(use_cuda_attention=False, use_fused_down2=False):
+    with flags.override(plain_versions=True, cuda_graphs=False):
         svc = EditService(stub, max_batch=1)
         expected = flags.current()
     try:

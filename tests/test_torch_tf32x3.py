@@ -50,6 +50,7 @@ from fastedit_tpu_torch.ops import conv_fused as cf
 from fastedit_tpu_torch.ops import flash_attention as fa
 from fastedit_tpu_torch.ops import tf32x3
 from fastedit_tpu_torch.tools import inventory
+from test_torch_fused import with_the_encoder_on_the_kernels
 
 GATE = 8.0  # chip_smoke.py: a kernel's max |err| vs fp64 within 8x the plain fp32 version's
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -202,18 +203,15 @@ def test_the_split_refuses_what_it_does_not_take():
 
 def _keys(kernel, controlnets=(TC.SDXL_CONTROLNET_SMALL,)):
     """Every shape key the fp32 kernel ``kernel`` takes on the SSD-1B and SDXL
-    edit paths at 1024², batch 1 and 2, default and opt-in configurations,
-    with each ControlNet of ``controlnets``."""
-    from fastedit_tpu_torch.ops import flags as tflags
-
+    edit paths at 1024², batch 1 and 2, by the plan and with the VAE encoder
+    on the kernels, with each ControlNet of ``controlnets``."""
     keys = set()
     for unet in (TC.SSD1B_UNET, TC.SDXL_UNET):
         for cn in controlnets:
             for batch in (1, 2):
                 sites = inventory.edit_sites(unet, cn, TC.SDXL_VAE, 1024, batch=batch, steps=3)
-                for override in ({}, dict(use_cuda_conv=True)):
-                    with tflags.override(**override):
-                        calls = inventory.kernel_calls(sites, dtype=torch.float32)
+                for routed in (sites, with_the_encoder_on_the_kernels(sites)):
+                    calls = inventory.kernel_calls(routed, dtype=torch.float32)
                     keys |= {key for (name, key) in calls if name == kernel}
     return sorted(keys)
 
